@@ -4,7 +4,9 @@ The JAX package's parameters are nested dicts and lists of arrays (what
 ``jax.device_get(model.init(...))`` yields).  Their key paths join with
 dots into the port's parameter names, e.g. ``{"att": [{"q": {"w": ..}}]}``
 -> ``att.0.q.w``.  Arrays keep their shapes and the JAX ``[in, out]``
-weight layout: nothing is transposed.
+weight layout: nothing is transposed.  A gradient tree of the same
+structure (``jax.grad`` of a loss over the parameters) converts the same
+way, so the port's gradients can be compared with JAX's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 
 def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
-    """A JAX parameter pytree -> {dotted name: f32 CPU tensor}."""
+    """A JAX parameter (or gradient) pytree -> {dotted name: f32 CPU
+    tensor}."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     out = {}

@@ -1,4 +1,5 @@
-// Whole-sequence (time-aware) GRU scan, forward only.
+// Whole-sequence (time-aware) GRU scan, forward (the backward is
+// gru_scan_bwd.cu).
 //
 // Replaces: mtamrecommender_tpu/ops/pallas/gru_kernel.py, _gru_scan_kernel
 // (launched by gru_scan, the forward of gru_scan_vjp).  Same cell math:

@@ -1,18 +1,20 @@
-"""Shared model contract: embedding trunk, casting, scoring (twin of
-mtamrecommender_tpu/models/base.py, serving part).
+"""Shared model contract: embedding trunk, casting, losses, scoring
+(twin of mtamrecommender_tpu/models/base.py).
 
 A model is an ``nn.Module`` made by ``ModelDef.init(gen, cfg, meta)``
-and run by ``ModelDef.apply(model, cfg, batch, train=...)``.  Losses
-come with the training slice.
+and run by ``ModelDef.apply(model, cfg, batch, train=...)``.  Training
+takes `compute_loss` (full-catalog softmax cross-entropy plus the L2 of
+the lookups, in f32); serving takes `scores_for_eval`.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from mtamrecommender_tpu_torch.config import ModelConfig
 from mtamrecommender_tpu_torch.ops import embedding as emb_ops
@@ -98,3 +100,78 @@ def scores_for_eval(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
     out = model_def.apply(model_c, cfg, batch_c, train=False)
     return item_logits(model_c.embedding.item_table.float(),
                        out.predict_emb.float(), valid_vocab)
+
+
+# ------------------------------------------------------------ training loss
+
+def l2_of_lookups(embedded: emb_ops.EmbeddedBatch,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """tf.nn.l2_loss over the looked-up item/category/position/user rows:
+    a sum over every position, padding included, zeroed for filler rows
+    by ``valid``."""
+    v_seq = valid[:, None, None]
+    v_row = valid[:, None]
+    return 0.5 * ((embedded.item_emb.square() * v_seq).sum()
+                  + (embedded.cat_emb.square() * v_seq).sum()
+                  + (embedded.pos_emb.square() * v_seq).sum()
+                  + (embedded.user_emb.square() * v_row).sum())
+
+
+def softmax_ce_loss(item_table: torch.Tensor, predict_emb: torch.Tensor,
+                    embedded: emb_ops.EmbeddedBatch, batch: Batch,
+                    cfg: ModelConfig, valid_vocab: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Full-softmax cross-entropy on the target item, averaged over the
+    valid rows, plus the scaled L2 of the lookups."""
+    logits = item_logits(item_table, predict_emb, valid_vocab)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    ce = -log_probs.gather(1, batch.target_id.long()[:, None])[:, 0]
+    n_valid = batch.valid.sum().clamp(min=1.0)
+    ce_mean = (ce * batch.valid).sum() / n_valid
+    l2 = l2_of_lookups(embedded, batch.valid)
+    return {"loss": cfg.regulation_rate * l2 + ce_mean, "ce": ce_mean,
+            "l2": l2}
+
+
+class _TrainApply(nn.Module):
+    """``model_def.apply(model, ..., train=True)`` as a module, so that
+    `functional_call` can run it on cast views of the parameters."""
+
+    def __init__(self, model_def: ModelDef, model: nn.Module,
+                 cfg: ModelConfig):
+        super().__init__()
+        self.model_def, self.model, self.cfg = model_def, model, cfg
+
+    def forward(self, batch: Batch) -> ModelOutput:
+        return self.model_def.apply(self.model, self.cfg, batch, train=True)
+
+
+def compute_loss(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
+                 batch: Batch, valid_vocab: Optional[int] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """{"loss", "ce", "l2"} of one training batch, differentiable with
+    respect to the model's parameters.
+
+    bfloat16 compute runs the model on bf16 views ``p.to(bf16)`` of the
+    f32 master parameters (so gradients flow back through the casts, as
+    through JAX's ``cast_floats``) and on a bf16 batch; the loss is f32:
+    the prediction and the looked-up rows are upcast, the logits use the
+    bf16-rounded item table upcast to f32, and ``valid`` and the targets
+    come from the original batch."""
+    if model_def.output_mode != "plain":
+        raise NotImplementedError(
+            f"output mode {model_def.output_mode!r} is not ported yet "
+            "(ROADMAP.md, Queue 1)")
+    dtype = compute_dtype(cfg)
+    if dtype == torch.float32:
+        out = model_def.apply(model, cfg, batch, train=True)
+        return softmax_ce_loss(model.embedding.item_table, out.predict_emb,
+                               out.embedded, batch, cfg, valid_vocab)
+    cast = {f"model.{name}": p.to(dtype)
+            for name, p in model.named_parameters()}
+    out = functional_call(_TrainApply(model_def, model, cfg), cast,
+                          (cast_floats(batch, dtype),))
+    return softmax_ce_loss(cast["model.embedding.item_table"].float(),
+                           out.predict_emb.float(),
+                           cast_floats(out.embedded, torch.float32), batch,
+                           cfg, valid_vocab)

@@ -59,13 +59,15 @@ def _intent(model: MTAM, cfg: ModelConfig, batch: Batch, embedded):
 
 
 def _readout(model: MTAM, cfg: ModelConfig, batch: Batch, memory,
-             intent) -> torch.Tensor:
-    """Multi-hop single-query attention over the memory."""
+             intent, train: bool) -> torch.Tensor:
+    """Multi-hop single-query attention over the memory: hop-batched in
+    training, hop by hop on the attention kernel in serving."""
     ones = torch.ones_like(batch.seq_len)
     return attention.vanilla_attention_stack(
         model.att, memory, intent[:, None, :], key_len=batch.seq_len,
         query_len=ones, kind="time", num_heads=cfg.num_heads,
-        t_queries=batch.target_time[:, None], t_keys=batch.times)
+        t_queries=batch.target_time[:, None], t_keys=batch.times,
+        train=train)
 
 
 def init_mtam(gen: torch.Generator, cfg: ModelConfig,
@@ -77,10 +79,9 @@ def init_mtam(gen: torch.Generator, cfg: ModelConfig,
 def apply_mtam(model: MTAM, cfg: ModelConfig, batch: Batch, *,
                train: bool) -> base.ModelOutput:
     """T-GRU intent -> time-aware multi-hop attention over the raw
-    behavior embeddings -> layer norm.  MTAM draws no random numbers, so
-    ``train`` changes nothing in the forward."""
-    del train
+    behavior embeddings -> layer norm.  MTAM draws no random numbers;
+    ``train`` picks the readout's route, not its math."""
     e = base.embed(model, batch)
     _, intent = _intent(model, cfg, batch, e)
-    hybrid = _readout(model, cfg, batch, e.behavior_emb, intent)
+    hybrid = _readout(model, cfg, batch, e.behavior_emb, intent, train)
     return base.ModelOutput(layers.layer_norm(model.ln_out, hybrid), e)

@@ -3,12 +3,18 @@ mtamrecommender_tpu/ops/attention.py).
 
 A hop is MTAM's memory reader: relu Q/K/V projections, scores scaled by
 sigmoid(decay gate), key mask, softmax, weighted sum, residual and the
-attention modules' normalize (eps 1e-8).  The middle of every hop is the
-`fused_attention` kernel (ops/kernels/attention_kernel.py) in time mode;
-the projections stay matmuls outside it.  The port follows the JAX
-package's kernel route (`_time_attention_pallas` + `_pallas_tail`) in
-every case, including the scalar gate mode, whose scalar params are
-broadcast to the kernel's [Tq, Tk] gate tiles.
+attention modules' normalize (eps 1e-8).  Two routes, as in the JAX
+package's `vanilla_attention_stack` for Tq=1 stacks:
+
+  * serving (``train=False``): hop by hop, the middle of every hop the
+    `fused_attention` kernel (ops/kernels/attention_kernel.py) in time
+    mode, the projections matmuls outside it -- the JAX kernel route
+    (`_time_attention_pallas` + `_pallas_tail`), including the scalar
+    gate mode, whose scalars are broadcast to the kernel's [Tq, Tk] tiles;
+  * training (``train=True``): the hop-batched readout
+    (`_fused_single_query_readout`) in plain PyTorch.  JAX computes it
+    outside Pallas at every width the port takes, and the kernel above
+    has no backward.
 
 Faithfulness notes kept from the JAX package:
   * the content-time term tanh(Q W_t K^T) uses the RAW queries/keys;
@@ -29,6 +35,8 @@ from mtamrecommender_tpu_torch.ops import layers
 from mtamrecommender_tpu_torch.ops.kernels import attention_kernel
 
 Params = Dict[str, object]
+
+NEG_FILL = -(2.0 ** 32) + 1.0  # the reference's key-mask fill
 
 GATE_PARAMS = ("time_input_w1", "time_input_b1", "time_output_w1",
                "time_output_w2", "time_output_b")
@@ -131,17 +139,79 @@ def time_aware_multihead_attention(p: TimeAttentionBlock,
     return _tail(p, out.to(queries.dtype), queries, query_len)
 
 
+def _stack(blocks, get) -> torch.Tensor:
+    return torch.stack([get(p) for p in blocks])
+
+
+def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
+                         key_len: torch.Tensor, query_len: torch.Tensor, *,
+                         num_heads: int, t_queries: torch.Tensor,
+                         t_keys: torch.Tensor) -> torch.Tensor:
+    """The n Tq=1 time-attention hops with the memory-side work batched
+    across hops (twin of the JAX `_fused_single_query_readout`, time
+    kind).  The K/V projections and the content-time precursor
+    ``enc @ W_t^T`` of all hops are three einsums, the decay part of the
+    gate is precomputed, and only the query chain dec_0 -> dec_1 -> ...
+    runs hop by hop.  enc: [B, Tk, d]; dec: [B, 1, d]; returns [B, d]."""
+    if num_heads != 1:
+        raise NotImplementedError(
+            "multi-head time attention is not ported yet (ROADMAP.md)")
+    n = len(blocks)
+    b_sz, tk, d = enc.shape
+    k_all = torch.relu(torch.einsum("bld,nde->nble", enc,
+                                    _stack(blocks, lambda p: p.k.w))
+                       + _stack(blocks, lambda p: p.k.b)[:, None, None, :])
+    v_all = torch.relu(torch.einsum("bld,nde->nble", enc,
+                                    _stack(blocks, lambda p: p.v.w))
+                       + _stack(blocks, lambda p: p.v.b)[:, None, None, :])
+    tprec = torch.einsum("ble,nde->nbld", enc,
+                         _stack(blocks, lambda p: p.time_input_w))
+    delta = torch.abs(t_queries[:, :, None] - t_keys[:, None, :])  # [B,1,Tk]
+
+    def gate(name):
+        # positional [1, Tk] -> [n, 1, 1, Tk]; scalar [] -> [n, 1, 1, 1]
+        x = _stack(blocks, lambda p: getattr(p, name))
+        return x.reshape((n, 1) + tuple(x.shape[1:])) if x.dim() > 1 \
+            else x.reshape(n, 1, 1, 1)
+
+    decay = torch.tanh(torch.log1p(delta)[None] * gate("time_input_w1")
+                       + gate("time_input_b1"))                   # [n,B,1,Tk]
+    gate_part = gate("time_output_w1") * decay + gate("time_output_b")
+    wo2 = _stack(blocks, lambda p: p.time_output_w2)
+    kmask = layers.sequence_mask(key_len, tk)                      # [B, Tk]
+    # the per-hop query mask: a row with query_len == 0 keeps only its
+    # residual and normalize
+    qz = (query_len > 0).to(dec.dtype)[:, None]                    # [B, 1]
+    cur = dec[:, 0, :]
+    for i, p in enumerate(blocks):
+        q = layers.dense(p.q, cur, torch.relu)
+        scores = torch.einsum("be,ble->bl", q, k_all[i])
+        tqk = torch.tanh(torch.einsum("bd,bld->bl", cur, tprec[i]))
+        scores = scores * torch.sigmoid(gate_part[i][:, 0, :] + wo2[i] * tqk)
+        scores = scores / d ** 0.5
+        scores = torch.where(kmask, scores, torch.full_like(scores, NEG_FILL))
+        weights = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bl,ble->be", weights, v_all[i])
+        cur = layers.normalize(p.ln, out * qz + cur)
+    return cur
+
+
 def vanilla_attention_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
                             key_len: torch.Tensor, query_len: torch.Tensor,
                             *, kind: str, num_heads: int,
-                            t_queries: torch.Tensor, t_keys: torch.Tensor
-                            ) -> torch.Tensor:
-    """Decoder cross-attention hops, one hop after another (the JAX
-    package's per-hop loop, which its serving path takes at L=50);
-    returns [B*Tq, d]."""
+                            t_queries: torch.Tensor, t_keys: torch.Tensor,
+                            train: bool = False) -> torch.Tensor:
+    """Decoder cross-attention hops; returns [B*Tq, d].  ``train=True``
+    with one query takes the hop-batched `single_query_readout` (the
+    JAX package's training route); otherwise the hops run one after
+    another on the fused attention kernel (its serving route at L=50)."""
     if kind != "time":
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported yet (ROADMAP.md)")
+    if train and dec.shape[1] == 1 and len(blocks) > 0:
+        return single_query_readout(blocks, enc, dec, key_len, query_len,
+                                    num_heads=num_heads, t_queries=t_queries,
+                                    t_keys=t_keys)
     for p in blocks:
         dec = time_aware_multihead_attention(
             p, dec, enc, key_len, query_len, t_queries, t_keys,

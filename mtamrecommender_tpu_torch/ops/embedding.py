@@ -2,9 +2,12 @@
 
 Four lookup tables (user/item/category/position, each with +3 vocab
 slack rows) and the fused behavior embedding
-``ReLU(concat(item_emb, cat_emb) @ dense_w) + position_emb``.  The
-lookups are plain row gathers; the JAX package's one-hot/scatter
-backward routing is TPU policy for training and has no counterpart here.
+``ReLU(concat(item_emb, cat_emb) @ dense_w) + position_emb``.  Every
+lookup is `take_dtable` (ops/kernels/embedding_kernel.py): a row gather
+whose table gradient is the `dtable` kernel.  The JAX package routes its
+table backwards by TPU thresholds (a one-hot matmul, XLA's scatter or
+its Pallas dtable kernel); all three compute the same sum, which the
+port always takes through its one kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from mtamrecommender_tpu_torch.ops import initializers as init
+from mtamrecommender_tpu_torch.ops.kernels.embedding_kernel import take_dtable
 from mtamrecommender_tpu_torch.ops.layers import ParamModule
 from mtamrecommender_tpu_torch.types import Batch, DatasetMeta
 
@@ -55,10 +59,10 @@ class BehaviorEmbedding(ParamModule):
 
 
 def behavior_embedding(p: BehaviorEmbedding, batch: Batch) -> EmbeddedBatch:
-    user_emb = p.user_table[batch.user_id.long()]
-    item_emb = p.item_table[batch.items.long()]
-    cat_emb = p.cat_table[batch.cats.long()]
-    pos_emb = p.pos_table[batch.positions.long()]
+    user_emb = take_dtable(p.user_table, batch.user_id)
+    item_emb = take_dtable(p.item_table, batch.items)
+    cat_emb = take_dtable(p.cat_table, batch.cats)
+    pos_emb = take_dtable(p.pos_table, batch.positions)
     concat = torch.cat([item_emb, cat_emb], dim=-1)
     behavior = torch.relu(torch.matmul(concat, p.dense_w)) + pos_emb
     return EmbeddedBatch(user_emb=user_emb, behavior_emb=behavior,

@@ -33,7 +33,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # kernel library name -> its source file; every source includes common.cuh
-SOURCES = {"gru_scan": "gru_scan.cu", "fused_attention": "fused_attention.cu"}
+SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
+           "fused_attention": "fused_attention.cu",
+           "embedding_dtable": "embedding_dtable.cu"}
 _HEADERS = ("common.cuh",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -127,9 +129,11 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 def launch_context(tensors, what: str):
     """Checks every launch shares: all tensors on one CUDA device,
-    contiguous, and not tracked by autograd (the forward kernels return
-    no gradient; their backward kernels come with the training slice).
-    Returns (device index, current stream handle) for the C interface."""
+    contiguous, and not tracked by autograd.  A kernel with a backward
+    runs inside its autograd.Function, where grad mode is off; a kernel
+    called with grad mode on and an operand that requires grad would
+    return a result without a gradient, so it raises.  Returns (device
+    index, current stream handle) for the C interface."""
     device = tensors[0].device
     for t in tensors:
         if t.device != device:
@@ -138,6 +142,7 @@ def launch_context(tensors, what: str):
             raise ValueError(f"{what}: every operand must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what}: the CUDA kernel is forward-only; call it under "
-            "torch.no_grad() (its backward kernel is not ported yet)")
+            f"{what}: the CUDA kernel returns no gradient; call it under "
+            "torch.no_grad() or through its autograd function (gru_scan: "
+            "gru_scan_vjp; fused_attention has no backward kernel yet)")
     return device.index, torch.cuda.current_stream(device).cuda_stream

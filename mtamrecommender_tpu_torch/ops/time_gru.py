@@ -1,8 +1,9 @@
 """GRU and the T-GRU decay cell (twin of mtamrecommender_tpu/ops/time_gru.py).
 
 Every input-dependent projection is hoisted out of the recurrence into
-one large matmul; the recurrence itself is the `gru_scan` kernel
-(ops/kernels/gru_kernel.py), which on CPU tensors runs its plain twin.
+one large matmul; the recurrence itself is `gru_scan_vjp`
+(ops/kernels/gru_kernel.py): the `gru_scan` kernel forward and the
+`gru_scan_bwd` kernel backward, or their plain twins on CPU tensors.
 The port follows the JAX package's Pallas route (`_pallas_scan`): the
 state is carried in f32 and the f32 outputs are cast back to the input
 type.
@@ -77,7 +78,7 @@ def tgru_net(p, inputs: torch.Tensor, time_last: torch.Tensor,
                            device=inputs.device))
     vecs = torch.stack([p.time_history_w1, p.time_kernel_w2, p.time_w12,
                         p.time_b12])
-    out = gru_kernel.gru_scan(
+    out = gru_kernel.gru_scan_vjp(
         "tgru", gate_x, cand_x, xw, score, lengths.to(torch.int32), h0,
         p.w_gate_h, p.w_cand_h, p.b_gate, p.b_cand, vecs)
     return out.to(inputs.dtype)

@@ -11,7 +11,8 @@ as training: pass raw (item, category, unix_seconds) event triples and a
 request time.  The scoring step runs on CUDA unless the caller passes
 ``device="cpu"``, where the kernels' plain twins run instead.
 Restoring from a checkpoint (``from_checkpoint``) and the JSON-lines
-service (``main``) come with the training slice.
+service (``main``) are not ported yet: they wait for the checkpoint
+module (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations

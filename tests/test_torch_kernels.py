@@ -14,6 +14,7 @@ bf16, so they still agree to 1e-5, while the JAX jnp scan, which carries
 the state in bf16, sits ~1e-3 away.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,3 +164,153 @@ def test_cpu_tensors_never_build_a_kernel(monkeypatch):
     tak.fused_attention("time", *[torch.tensor(_att_inputs()[k])
                                   for k in ATT_ORDER])
     assert (tgk.launches, tak.launches) == before
+
+
+# ------------------------------------------------------------ backwards
+#
+# gru_scan_bwd_plain is held against the JAX Pallas backward
+# (gru_kernel.gru_scan_bwd, interpret mode), against jax.vjp through
+# gru_scan_vjp, and against torch autograd through gru_scan_plain (an
+# oracle that shares no code with the twin); f32 at atol 1e-5.  With bf16
+# inputs the twin and the Pallas kernel round the same operands, but a
+# product operand that lands on a rounding boundary may round the other
+# way after a differently ordered f32 sum, so bf16 is held to 1e-3 of
+# each output's largest |value|.
+
+from mtamrecommender_tpu.ops.pallas import embedding_kernel as jek  # noqa: E402
+from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as tek  # noqa: E402
+
+GRAD_NAMES = ("gate_x", "cand_x", "e1", "e2", "h0", "w_gate_h", "w_cand_h",
+              "b_gate", "b_cand", "cell_vecs")
+REL_BWD_BF16 = 1e-3
+
+
+def _cotangent(seed=9):
+    return np.random.RandomState(seed).randn(B, L, U).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["plain", "tseqrec", "tgru"])
+def test_gru_scan_bwd_plain_matches_jax_f32(mode):
+    a = _gru_inputs()
+    g = _cotangent()
+    jargs = _as_jax(a, jnp.float32)
+    outs = jgk.gru_scan(mode, *jargs)
+    want = jgk.gru_scan_bwd(mode, jnp.asarray(g), outs, *jargs)
+    _, vjp = jax.vjp(lambda *x: jgk.gru_scan_vjp(mode, *x[:4], jargs[4],
+                                                 *x[4:]),
+                     *jargs[:4], *jargs[5:])
+    want_vjp = vjp(jnp.asarray(g))
+    targs = _as_torch(a, torch.float32)
+    got = tgk.gru_scan_bwd(mode, torch.tensor(g),
+                           tgk.gru_scan(mode, *targs), *targs)
+    # torch autograd through the forward twin
+    leaves = [t.clone().requires_grad_(True) if i != 4 else t
+              for i, t in enumerate(targs)]
+    out = tgk.gru_scan_plain(mode, *leaves)
+    oracle = torch.autograd.grad(out, leaves[:4] + leaves[5:],
+                                 torch.tensor(g), allow_unused=True)
+    for i, name in enumerate(GRAD_NAMES):
+        assert got[i].dtype == torch.float32, name
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                   atol=ATOL_F32, rtol=0, err_msg=name)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want_vjp[i]),
+                                   atol=ATOL_F32, rtol=0, err_msg=name)
+        o = (torch.zeros_like(got[i]) if oracle[i] is None
+             else oracle[i])
+        np.testing.assert_allclose(got[i].numpy(), o.numpy(),
+                                   atol=ATOL_F32, rtol=0, err_msg=name)
+
+
+def test_gru_scan_bwd_plain_matches_jax_bf16():
+    a = _gru_inputs(seed=5)
+    g = _cotangent(seed=6)
+    jargs = _as_jax(a, jnp.bfloat16)
+    outs = jgk.gru_scan("tgru", *jargs)
+    want = jgk.gru_scan_bwd("tgru", jnp.asarray(g), outs, *jargs)
+    targs = _as_torch(a, torch.bfloat16)
+    got = tgk.gru_scan_bwd("tgru", torch.tensor(g),
+                           tgk.gru_scan("tgru", *targs), *targs)
+    for i, name in enumerate(GRAD_NAMES):
+        w = np.asarray(want[i], np.float32)
+        err = np.abs(got[i].numpy() - w).max()
+        assert err <= REL_BWD_BF16 * np.abs(w).max(), (name, err)
+
+
+def test_gru_scan_vjp_casts_cotangents_to_input_types():
+    a = _gru_inputs()
+    args = [t.requires_grad_(True) if t.is_floating_point() else t
+            for t in _as_torch(a, torch.bfloat16)]
+    out = tgk.gru_scan_vjp("tgru", *args)
+    out.sum().backward()
+    for name, t in zip(GRU_ORDER, args):
+        if name == "lengths":
+            continue
+        assert t.grad is not None and t.grad.dtype == torch.bfloat16, name
+    # dead steps of a row pass nothing back to its inputs
+    assert not args[0].grad[0].any()          # lengths[0] == 0
+
+
+def _dtable_inputs(seed=17, n_rows=6, width=5, vocab=40, d=16):
+    r = np.random.RandomState(seed)
+    ids = r.randint(0, 30, size=(n_rows, width)).astype(np.int32)
+    ids[:, 3:] = 0                      # padding: row 0 heavily duplicated
+    ids[0, :3] = 7                      # another duplicated id
+    table = r.randn(vocab, d).astype(np.float32)   # rows 30..39: padding
+    ct = r.randn(n_rows, width, d).astype(np.float32)
+    return table, ids, ct
+
+
+def test_take_dtable_backward_matches_jax_f32():
+    table, ids, ct = _dtable_inputs()
+    jt, ji = jnp.asarray(table), jnp.asarray(ids)
+    want_kernel = jax.vjp(lambda t: jek.take_dtable(t, ji), jt)[1](
+        jnp.asarray(ct))[0]
+    want_take = jax.vjp(lambda t: jnp.take(t, ji, axis=0), jt)[1](
+        jnp.asarray(ct))[0]
+    tt = torch.tensor(table, requires_grad=True)
+    out = tek.take_dtable(tt, torch.tensor(ids))
+    np.testing.assert_array_equal(out.detach().numpy(), table[ids])
+    out.backward(torch.tensor(ct))
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want_kernel),
+                               atol=ATOL_F32, rtol=0)
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want_take),
+                               atol=ATOL_F32, rtol=0)
+    assert not tt.grad[30:].any()          # padded rows get no gradient
+
+
+def test_dtable_bf16_sums_in_f32_and_rounds_once():
+    _, ids, ct = _dtable_inputs(seed=18)
+    flat = torch.tensor(ids.reshape(-1))
+    ct_bf = torch.tensor(ct.reshape(-1, ct.shape[-1])).to(torch.bfloat16)
+    got = tek.dtable(ct_bf, flat, 40)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jek._dtable_impl(jnp.asarray(ct_bf.float().numpy(),
+                                                   jnp.bfloat16),
+                                       jnp.asarray(flat.numpy()), 40),
+                      np.float32)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_dtable_rejects_bad_ids():
+    ct = torch.ones((4, 8))
+    with pytest.raises(ValueError, match=r"\[0, 5\)"):
+        tek.dtable(ct, torch.tensor([0, 1, 5, 2], dtype=torch.int32), 5)
+    with pytest.raises(ValueError, match=r"\[0, 5\)"):
+        tek.dtable(ct, torch.tensor([0, -1, 2, 2], dtype=torch.int32), 5)
+    with pytest.raises(TypeError, match="int32"):
+        tek.dtable(ct, torch.tensor([0, 1, 2, 2]), 5)
+
+
+def test_cpu_backwards_never_build_a_kernel(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU call reached the CUDA build")
+    monkeypatch.setattr(build, "build", refuse)
+    monkeypatch.setattr(build, "library", refuse)
+    before = (dict(tgk.bwd_launches), dict(tek.launches))
+    args = [t.requires_grad_(True) if t.is_floating_point() else t
+            for t in _as_torch(_gru_inputs(), torch.float32)]
+    tgk.gru_scan_vjp("tgru", *args).sum().backward()
+    table, ids, _ = _dtable_inputs()
+    tt = torch.tensor(table, requires_grad=True)
+    tek.take_dtable(tt, torch.tensor(ids)).sum().backward()
+    assert (tgk.bwd_launches, tek.launches) == before
