@@ -18,6 +18,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      mode at B = 1, 16, 256, and dtable at the step's four table shapes
      with the ids of a gathered training batch (index_add_ timed beside
      it);
+  2c. the self-attention training kernels the same way: the forward's
+     plain_drop and tisas_drop modes (a rate-0.5 mask) and
+     fused_attention_bwd in all five modes, at B = 1, 16, 256 with
+     Tq = Tk = 50 and with Tq = 1, Tk = 1024, and the forward's plain,
+     time and tisas modes at Tq = Tk = 50; two backward launches on the
+     same inputs must give the same bits; timed at B = 256, Tq = Tk = 50
+     (scaled_dot_product_attention forward + backward beside the plain
+     and tisas backward);
   3. the serving slice: Recommender.recommend at full width (MTAM d=128,
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
@@ -30,8 +38,19 @@ Phases, in order; any failure exits non-zero and prints no result:
      CPU in f32 and bf16, five f32 steps against the CPU, launch counts
      per step (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 0 fused_attention),
      and the time per step, examples/s and device idle share in bf16
-     and f32.
-The line before the last is {"kernels": [...]}; the last line is
+     and f32;
+  5. the self-attention slice on the same data and catalog, 3 blocks,
+     1 head: Time_Aware_Self_Attention_Model's step as phase 4 checks
+     MTAM's (3 fused_attention[time] + 3 fused_attention_bwd[time] + 4
+     dtable launches a step); SASrec's and TiSAS's step in f32 and bf16
+     against the CPU with masks drawn on the CPU and injected on both
+     sides (3 [*_drop] forward + 3 backward launches a step), then timed
+     with the card's own generator drawing the masks; and
+     Recommender.recommend for each of the three at B = 16 in bf16
+     against the CPU.
+The line before the last is {"kernels": [...]}, one entry per kernel, mode
+and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
+at Tq=Tk=50 as "@Tq50"); the last line is
 {"ok": true, "device": {...}}.  A full report is written to
 chiprun_out/chip_smoke.json.
 """
@@ -67,7 +86,14 @@ KERNEL_FILES = {
                      "mtamrecommender_tpu/ops/pallas/gru_kernel.py:174"),
     "dtable": ("mtamrecommender_tpu_torch/csrc/embedding_dtable.cu",
                "mtamrecommender_tpu/ops/pallas/embedding_kernel.py:174"),
+    "fused_attention_bwd": (
+        "mtamrecommender_tpu_torch/csrc/fused_attention_bwd.cu",
+        "mtamrecommender_tpu/ops/pallas/attention_kernel.py:325"),
 }
+SERVING_MODES = ("plain", "time", "tisas")   # the forward modes phase 2 holds
+SELF_ATTENTION = {"SASrec": "plain_drop",
+                  "Time_Aware_Self_Attention_Model": "time",
+                  "Ti_Self_Attention_Model": "tisas_drop"}
 # the training step (bench.py's MTAM cell): card vs CPU, per gradient
 # leaf, max |diff| / max |CPU f32 leaf|; in bf16 the CPU's own bf16-vs-f32
 # gap is allowed on top (see PERF.md)
@@ -173,7 +199,10 @@ def att_inputs(torch, gen, dtype, B=256, Tq=1, Tk=50, d=128):
                 ).to(dtype)
     hours = 470_000.0 + torch.rand(B, Tk, generator=gen, device=DEVICE) * 5000
     t_k = hours.sort(dim=1).values.to(dtype)
-    t_q = (hours.max(dim=1, keepdim=True).values + 1.0).to(dtype)
+    # self-attention (Tq = Tk) reads the keys' hours; a readout query sits
+    # an hour after its last key
+    t_q = t_k if Tq == Tk else (hours.max(dim=1, keepdim=True).values
+                                + 1.0).expand(B, Tq).contiguous().to(dtype)
     key_len = torch.randint(1, Tk + 1, (B,), generator=gen, device=DEVICE,
                             dtype=torch.int32)
     key_len[:2] = torch.tensor([0, Tk], dtype=torch.int32)[:B]
@@ -183,15 +212,35 @@ def att_inputs(torch, gen, dtype, B=256, Tq=1, Tk=50, d=128):
             key_len)
 
 
-def att_bound(mode, args, dtype_name):
+def weighted_pairs(args, dm=None):
+    """(query, key) pairs the weighted sum reads: each live key (every
+    key of a row with none live), and of those only the ones a dropout
+    mask keeps.  Returns (all of them, those in rows with a live key)."""
+    import torch
+
+    k, key_len = args[1], args[-1]
+    Tq, Tk = args[0].shape[1], k.shape[1]
+    live = key_len.clamp(0, Tk)
+    span = live.masked_fill(live == 0, Tk)
+    col = torch.arange(Tk, device=k.device)
+    reads = (col[None, None, :] < span[:, None, None]).expand(-1, Tq, -1)
+    if dm is not None:
+        reads = reads & (dm > 0)
+    per_row = reads.sum(dim=(1, 2))
+    return int(per_row.sum().item()), int(per_row[live > 0].sum().item())
+
+
+def att_bound(mode, args, dtype_name, dm=None):
     """Least time: q (and tqw, t_q) read once; for each live key its k
     row (and rawk row, t_k) and its v row read once (all Tk v rows for a
-    row with no live key); the gate params once; the output written;
-    2d FLOPs per product per live key."""
+    row with no live key); the gate params and the dropout mask once;
+    the output written; 2d FLOPs per product per live (query, key) pair,
+    the weighted sum's only for the pairs the mask keeps."""
     q, k, key_len = args[0], args[1], args[-1]
     B, Tq, d = q.shape
     Tk = k.shape[1]
     es = q.element_size()
+    mode = mode.replace("_drop", "")
     live = key_len.clamp(0, Tk)
     n_live = int(live.sum().item())
     n_v = int(live.masked_fill(live == 0, Tk).sum().item())
@@ -201,19 +250,23 @@ def att_bound(mode, args, dtype_name):
                      + (es if timed else 0))
     nbytes = (rows_q + (B * Tq * es if timed else 0) + keys + n_v * d * es
               + (5 * Tq * Tk * es if mode == "time" else 0) + B * 4
+              + (B * Tq * Tk * 4 if dm is not None else 0)
               + B * Tq * d * 4)
-    flops = Tq * (n_live * 2 * d * (2 if mode == "time" else 1)
-                  + n_v * 2 * d)
+    flops = (Tq * n_live * 2 * d * (2 if mode == "time" else 1)
+             + weighted_pairs(args, dm)[0] * 2 * d)
     return _bound(nbytes, flops, dtype_name)
 
 
-def att_library(torch, mode, args):
+def att_library(torch, mode, args, g=None):
     """The one PyTorch call that computes a mode, where there is one:
     scaled_dot_product_attention takes the plain mode's key mask, and the
     tisas mode's interval bias, as an additive mask (built here, outside
     the timed call).  The time mode multiplies the scores by a gate inside
-    the softmax, which no library call takes, so it has none."""
-    if mode == "time":
+    the softmax, and the drop modes apply an injected mask after it,
+    which no library call takes, so they have none.  With the cotangent
+    ``g``: the forward and torch.autograd.grad of q, k and v ("fwd+bwd",
+    since the backward kernel recomputes the forward too)."""
+    if mode not in ("plain", "tisas"):
         return None
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -227,7 +280,14 @@ def att_library(torch, mode, args):
         bias = torch.zeros(q.shape[0], q.shape[1], k.shape[1], device=DEVICE)
     bias = bias.masked_fill(col[None, None, :] >= key_len[:, None, None],
                             -(2.0 ** 32) + 1.0).to(q.dtype)
-    return lambda: sdpa(q, k, v, attn_mask=bias)
+    if g is None:
+        return lambda: sdpa(q, k, v, attn_mask=bias)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    cot = g.to(q.dtype)
+
+    def fwd_bwd():
+        return torch.autograd.grad(sdpa(*leaves, attn_mask=bias), leaves, cot)
+    return fwd_bwd
 
 
 def _bound(nbytes, flops, dtype_name):
@@ -275,14 +335,14 @@ def check_kernels(torch, timer, iters, failures):
                    "plain_ms": timer(lambda: gk.gru_scan_plain(mode, *args),
                                      max(iters // 10, 3)),
                    **gru_bound(mode, args, dname)}
-            entries.setdefault(("gru_scan", mode), {})[dname] = row
+            entries.setdefault(("gru_scan", mode, None), {})[dname] = row
             print(f"gru_scan {mode:8s} {dname:9s} max_abs_err={err:.3e} "
                   f"rel={rel:.3e} ms={row['ms']:.4f} plain_ms="
                   f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                   f"({row['bound_by']}) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(f"gru_scan {mode} {dname}: rel err {rel:.3e}")
-        for mode in ak.MODES:
+        for mode in SERVING_MODES:
             for tk in (50, 1024):
                 err = rel = 0.0
                 ok = True
@@ -305,7 +365,8 @@ def check_kernels(torch, timer, iters, failures):
                     row["library_ms"] = timer(library, iters)
                     row["library_max_abs_err"] = rel_err(library(), want)[0]
                 key = dname if tk == 50 else f"{dname}_tk1024"
-                entries.setdefault(("fused_attention", mode), {})[key] = row
+                entries.setdefault(("fused_attention", mode, "Tq1"),
+                                   {})[key] = row
                 print(f"fused_attention {mode:6s} Tk={tk:<5d}{dname:9s} "
                       f"max_abs_err={err:.3e} rel={rel:.3e} ms="
                       f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -351,19 +412,21 @@ def run_slice(torch, iters, failures):
             if bs > 1:
                 hists[1] = []                  # an empty history
             # --- the main path: counts from 0 around one recommend call
-            for counts in (gk.launches, ak.launches):
+            for counts in (gk.launches, ak.launches, ak.bwd_launches):
                 for m in counts:
                     counts[m] = 0
             recs = rec.recommend(hists, req, k=50)
             torch.cuda.synchronize()
             got = {"gru_scan": dict(gk.launches),
-                   "fused_attention": dict(ak.launches)}
-            for kname, counts in got.items():
-                for m, n in counts.items():
+                   "fused_attention": dict(ak.launches),
+                   "fused_attention_bwd": dict(ak.bwd_launches)}
+            for kname in main_launches:
+                for m, n in got[kname].items():
                     main_launches[kname][m] += n
             want = {"gru_scan": {m: int(m == "tgru") for m in gk.MODES},
                     "fused_attention": {m: 3 * int(m == "time")
-                                        for m in ak.MODES}}
+                                        for m in ak.MODES},
+                    "fused_attention_bwd": {m: 0 for m in ak.MODES}}
             launches_ok = got == want
             shape_ok = len(recs) == bs and all(len(r) == 50 for r in recs) \
                 and all(math.isfinite(s) for r in recs for _, s in r)
@@ -524,7 +587,7 @@ def check_train_kernels(torch, timer, iters, failures, tables):
                        lambda: gk.gru_scan_bwd_plain(mode, g, outs, *args),
                        max(iters // 10, 3)),
                    **gru_bwd_bound(mode, args, dname)}
-            entries.setdefault(("gru_scan_bwd", mode), {})[dname] = row
+            entries.setdefault(("gru_scan_bwd", mode, None), {})[dname] = row
             print(f"gru_scan_bwd {mode:8s} {dname:9s} max_abs_err={err:.3e} "
                   f"rel={rel:.3e} ms={row['ms']:.4f} plain_ms="
                   f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
@@ -563,13 +626,154 @@ def check_train_kernels(torch, timer, iters, failures, tables):
                 failures.append(f"dtable {table} {dname}: rel err {rel:.3e} "
                                 "or not reproducible")
         head = shapes["item_table"]
-        entries.setdefault(("dtable", None), {})[dname] = {
+        entries.setdefault(("dtable", None, None), {})[dname] = {
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")},
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "rel_err": max(r["rel_err"] for r in shapes.values()),
             "tol": KERNEL_TOL[dname],
             "ok": all(r["ok"] for r in shapes.values()), "by_table": shapes}
+    return entries
+
+
+# ------------------------------------------------------------ phase 2c
+
+def att_bwd_bound(mode, args, dm, dtype_name):
+    """Least time for the backward these inputs need: g, q (and tqw, t_q)
+    read once; for each live key its k and v rows (and rawk row, t_k);
+    the gate params, key_len and the mask once; the f32 outputs written
+    once: dq, dk and dv, and in time mode dtqw, drawk and the five gate
+    gradients (the output depends on those inputs in time mode only).
+    2d FLOPs per product per live (query, key) pair:
+    the recomputed QK^T (and tqw.rawk in time mode), dq and dk (and dtqw,
+    drawk in time mode); dv and g V^T only for the pairs the weighted
+    sum reads (`weighted_pairs`: a row with no live key needs only dv,
+    and a dropped pair neither)."""
+    q, k, key_len = args[0], args[1], args[-1]
+    B, Tq, d = q.shape
+    Tk = k.shape[1]
+    es = q.element_size()
+    base = mode.replace("_drop", "")
+    n_live = int(key_len.clamp(0, Tk).sum().item())
+    timed = base != "plain"
+    time_mode = base == "time"
+    nbytes = (B * Tq * d * 4                                  # g
+              + B * Tq * d * es * (2 if time_mode else 1)     # q, tqw
+              + (B * Tq * es if timed else 0)                 # t_q
+              + n_live * (d * es * (3 if time_mode else 2)
+                          + (es if timed else 0))             # k, v, rawk, t_k
+              + (5 * Tq * Tk * es if time_mode else 0) + B * 4
+              + (B * Tq * Tk * 4 if dm is not None else 0)
+              + B * Tq * d * 4 * (2 if time_mode else 1)       # dq, dtqw
+              + B * Tk * d * 4 * (3 if time_mode else 2)       # dk, dv, drawk
+              + (5 * Tq * Tk * 4 if time_mode else 0))         # gate grads
+    products = (2 if time_mode else 1) + 2 + (2 if time_mode else 0)
+    # dv over every read pair; g V^T over the read pairs of live rows
+    reads, live_reads = weighted_pairs(args, dm)
+    flops = 2 * d * (Tq * n_live * products + reads + live_reads)
+    return _bound(nbytes, flops, dtype_name)
+
+
+def check_attention_training(torch, timer, iters, failures):
+    """The self-attention training kernels against their plain twins:
+    the forward's drop modes and its other modes at Tq = Tk = 50, the
+    backward in every mode, at B = 1, 16, 256 and at Tq = 1, Tk = 1024;
+    two backward launches must give the same bits; timed at B = 256."""
+    from mtamrecommender_tpu_torch.ops import layers
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2468)
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for mode in ak.MODES:
+            drop = mode.endswith("_drop")
+            for tq, tk in ((50, 50), (1, 1024)):
+                check_fwd = drop or tq > 1     # phase 2 holds Tq = 1
+                fwd = {"err": 0.0, "rel": 0.0, "ok": True}
+                bwd = {"err": 0.0, "rel": 0.0, "ok": True}
+                same = True
+                for bs in (1, 16, 256):
+                    args = att_inputs(torch, gen, dtype, B=bs, Tq=tq, Tk=tk)
+                    dm = (layers.draw_drop_mask(gen, bs, tq, tk, 0.5, DEVICE)
+                          if drop else None)
+                    if check_fwd:
+                        want = ak.fused_attention_plain(mode, *args, dm)
+                        e, r, o = _agree(ak.fused_attention(mode, *args, dm),
+                                         want, dname)
+                        fwd = {"err": max(fwd["err"], e),
+                               "rel": max(fwd["rel"], r),
+                               "ok": fwd["ok"] and o}
+                    g = torch.randn(args[0].shape, generator=gen,
+                                    device=DEVICE)
+                    got = ak.fused_attention_bwd(mode, g, *args, dm)
+                    again = ak.fused_attention_bwd(mode, g, *args, dm)
+                    want = ak.fused_attention_bwd_plain(mode, g, *args, dm)
+                    # outside time mode dtqw, drawk and the gate
+                    # gradients are None, on the card and in the twin
+                    outputs = 10 if mode == "time" else 3
+                    shaped = all([t is not None for t in outs]
+                                 == [i < outputs for i in range(10)]
+                                 for outs in (got, again, want))
+                    same = same and shaped and all(
+                        torch.equal(a, b)
+                        for a, b in zip(got[:outputs], again[:outputs]))
+                    bwd["ok"] = bwd["ok"] and shaped
+                    for a, b in zip(got[:outputs], want[:outputs]):
+                        e, r, o = _agree(a, b, dname)
+                        bwd = {"err": max(bwd["err"], e),
+                               "rel": max(bwd["rel"], r),
+                               "ok": bwd["ok"] and o}
+                key = dname if tq > 1 else f"{dname}_tq1_tk1024"
+                tag = f"Tq={tq} Tk={tk}"
+                if check_fwd:
+                    row = {"max_abs_err": fwd["err"], "rel_err": fwd["rel"],
+                           "tol": KERNEL_TOL[dname], "ok": fwd["ok"],
+                           "ms": timer(lambda: ak.fused_attention(
+                               mode, *args, dm), iters),
+                           "plain_ms": timer(lambda: ak.fused_attention_plain(
+                               mode, *args, dm), max(iters // 10, 3)),
+                           **att_bound(mode, args, dname, dm)}
+                    library = att_library(torch, mode, args)
+                    if library is not None:
+                        row["library_ms"] = timer(library, iters)
+                    entries.setdefault(("fused_attention", mode, "Tq50"),
+                                       {})[key] = row
+                    print(f"fused_attention {mode:10s} {tag:15s} {dname:9s} "
+                          f"max_abs_err={fwd['err']:.3e} rel={fwd['rel']:.3e} "
+                          f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                          f"bound_ms={row['bound_ms']:.4f} "
+                          f"library_ms={row.get('library_ms')} "
+                          f"{'ok' if fwd['ok'] else 'FAIL'}", flush=True)
+                    if not fwd["ok"]:
+                        failures.append(f"fused_attention {mode} {tag} "
+                                        f"{dname}: rel err {fwd['rel']:.3e}")
+                row = {"max_abs_err": bwd["err"], "rel_err": bwd["rel"],
+                       "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and same,
+                       "same_bits_twice": same,
+                       "ms": timer(lambda: ak.fused_attention_bwd(
+                           mode, g, *args, dm), iters),
+                       "plain_ms": timer(lambda: ak.fused_attention_bwd_plain(
+                           mode, g, *args, dm), max(iters // 10, 3)),
+                       **att_bwd_bound(mode, args, dm, dname)}
+                library = att_library(torch, mode, args, g)
+                if library is not None:
+                    row["library_ms"] = timer(library, iters)
+                    row["library_call"] = ("scaled_dot_product_attention "
+                                           "fwd+bwd")
+                entries.setdefault(("fused_attention_bwd", mode, "Tq50"),
+                                   {})[key] = row
+                print(f"fused_attention_bwd {mode:10s} {tag:15s} {dname:9s} "
+                      f"max_abs_err={bwd['err']:.3e} rel={bwd['rel']:.3e} "
+                      f"same_bits={same} ms={row['ms']:.4f} plain_ms="
+                      f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                      f"({row['bound_by']}) library_ms="
+                      f"{row.get('library_ms')} "
+                      f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+                if not row["ok"]:
+                    failures.append(f"fused_attention_bwd {mode} {tag} "
+                                    f"{dname}: rel err {bwd['rel']:.3e}, "
+                                    f"same bits {same}")
     return entries
 
 
@@ -608,14 +812,18 @@ def make_train_arrays(meta, n, seed=0):
         target_time=(times.max(1) + 1).astype(np.float32), seq_len=seq_len)
 
 
-def train_cfg(dname):
+def train_cfg(dname, name="MTAM"):
+    """The training cell's configuration for model ``name``: d=128, 3
+    hops or blocks, 1 head, the default dropout (0.5: SASrec and TiSAS
+    drop attention weights, MTAM and the time-aware SA model draw
+    nothing)."""
     from mtamrecommender_tpu_torch.config import ExperimentConfig
     return ExperimentConfig().with_overrides(**{
-        "model.experiment_type": "MTAM", "model.num_units": 128,
+        "model.experiment_type": name, "model.num_units": 128,
         "model.num_blocks": 3, "model.vocab_pad_multiple": 128,
         "model.compute_dtype": dname, "model.use_pallas": True,
-        "model.pallas_scope": "gru", "data.max_seq_len": 50,
-        "train.train_batch_size": TRAIN_BATCH})
+        "model.pallas_scope": "gru" if name == "MTAM" else "all",
+        "data.max_seq_len": 50, "train.train_batch_size": TRAIN_BATCH})
 
 
 class TrainSetup:
@@ -659,17 +867,22 @@ class TrainSetup:
             self.ids_in_range[table] = bool(((col >= 0) & (col < v)).all())
 
     def model(self, torch, cfg, device):
-        from mtamrecommender_tpu_torch.models.mtam import init_mtam
-        return init_mtam(torch.Generator().manual_seed(0), cfg.model,
-                         self.meta).to(device)
+        from mtamrecommender_tpu_torch.models.registry import get_model
+        return get_model(cfg.model.experiment_type).init(
+            torch.Generator().manual_seed(0), cfg.model,
+            self.meta).to(device)
 
 
-def _loss_grads(torch, cfg, model, batch, vocab):
+def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None):
+    """One step's loss and gradients; ``drop_masks``, where given, are
+    the forward's masks in block order (its mask source)."""
     from mtamrecommender_tpu_torch.models.base import compute_loss
     from mtamrecommender_tpu_torch.models.registry import get_model
 
     model.zero_grad(set_to_none=True)
-    metrics = compute_loss(get_model("MTAM"), model, cfg.model, batch, vocab)
+    source = None if drop_masks is None else iter(drop_masks)
+    metrics = compute_loss(get_model(cfg.model.experiment_type), model,
+                           cfg.model, batch, vocab, gen=source)
     metrics["loss"].backward()
     return ({k: v.item() for k, v in metrics.items()},
             {n: p.grad.detach().float().cpu()
@@ -678,90 +891,106 @@ def _loss_grads(torch, cfg, model, batch, vocab):
 
 def _counts(gk, ak, ek):
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
-            "fused_attention": dict(ak.launches), "dtable": dict(ek.launches)}
+            "fused_attention": dict(ak.launches),
+            "fused_attention_bwd": dict(ak.bwd_launches),
+            "dtable": dict(ek.launches)}
 
 
 def _reset_counts(gk, ak, ek):
-    for counts in (gk.launches, gk.bwd_launches, ak.launches, ek.launches):
+    for counts in (gk.launches, gk.bwd_launches, ak.launches,
+                   ak.bwd_launches, ek.launches):
         for m in counts:
             counts[m] = 0
 
 
-def _step_counts_ok(counts, steps):
-    want = {"gru_scan": {"plain": 0, "tseqrec": 0, "tgru": steps},
-            "gru_scan_bwd": {"plain": 0, "tseqrec": 0, "tgru": steps},
-            "fused_attention": {"plain": 0, "time": 0, "tisas": 0},
+def _want_counts(steps, gru=None, attention=None, blocks=3):
+    """Launches after ``steps`` training steps: 4 dtable a step; the GRU
+    scan and its backward once a step in mode ``gru``; the attention
+    forward and backward ``blocks`` times a step in mode ``attention``."""
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+    from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
+
+    gru_counts = {m: steps * int(m == gru) for m in gk.MODES}
+    att = {m: steps * blocks * int(m == attention) for m in ak.MODES}
+    return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
+            "fused_attention": att, "fused_attention_bwd": dict(att),
             "dtable": {"dtable": 4 * steps}}
-    return counts == want
 
 
-def run_training(torch, setup, failures):
-    """Phase 4: gradients of one step and a five-step f32 trajectory on
-    the card against the same on the CPU (the plain twins), launch counts
-    per step, then the time per step in bf16 and f32."""
-    from mtamrecommender_tpu_torch.models.registry import get_model
+def _kernel_modules():
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
     from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
-    from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
-                                                         make_superstep)
+    return gk, ak, ek
 
+
+def one_step_check(torch, setup, failures, name, want, drop_masks=None):
+    """One step's loss and every gradient leaf on the card against the
+    CPU (the plain twins), in f32 and bf16, and the step's launches
+    against ``want``.  ``drop_masks``: CPU masks, one per block, injected
+    on both sides."""
+    gk, ak, ek = _kernel_modules()
     vocab = setup.meta.item_vocab
-    report = {"ids_in_range": setup.ids_in_range}
-    if not all(report["ids_in_range"].values()):
-        failures.append(f"training ids out of range: {report['ids_in_range']}")
-
-    # --- one step's loss and gradients, card against CPU
-    cpu32 = None
+    on_card = None if drop_masks is None else [m.to(DEVICE)
+                                                for m in drop_masks]
+    report, cpu32 = {}, None
     for dname in ("float32", "bfloat16"):
-        cfg = train_cfg(dname)
+        cfg = train_cfg(dname, name)
         m_cpu, g_cpu = _loss_grads(torch, cfg, setup.model(torch, cfg, "cpu"),
-                                   setup.batch_cpu, vocab)
+                                   setup.batch_cpu, vocab, drop_masks)
         if dname == "float32":
             cpu32 = g_cpu
         _reset_counts(gk, ak, ek)
         m_gpu, g_gpu = _loss_grads(torch, cfg, setup.model(torch, cfg, DEVICE),
-                                   setup.batch, vocab)
+                                   setup.batch, vocab, on_card)
         torch.cuda.synchronize()
         counts = _counts(gk, ak, ek)
         worst, worst_leaf, ok = 0.0, None, True
         by_leaf = {}
-        for name, g in g_gpu.items():
-            scale = max(cpu32[name].abs().max().item(), 1e-30)
-            diff = (g - g_cpu[name]).abs().max().item()
-            by_leaf[name] = diff / scale
+        for leaf, g in g_gpu.items():
+            scale = max(cpu32[leaf].abs().max().item(), 1e-30)
+            diff = (g - g_cpu[leaf]).abs().max().item()
+            by_leaf[leaf] = diff / scale
             allowed = TRAIN_TOL[dname] * scale
             if dname == "bfloat16":
-                allowed += (g_cpu[name] - cpu32[name]).abs().max().item()
+                allowed += (g_cpu[leaf] - cpu32[leaf]).abs().max().item()
             finite = bool(torch.isfinite(g).all())
             ok = ok and finite and diff <= allowed
             if diff / scale > worst:
-                worst, worst_leaf = diff / scale, name
+                worst, worst_leaf = diff / scale, leaf
         loss_rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
                     for k in m_cpu}
         ok = ok and max(loss_rel.values()) <= TRAIN_TOL[dname] \
-            and _step_counts_ok(counts, 1)
+            and counts == want(1)
         report[f"one_step_{dname}"] = {
             "loss_gpu": m_gpu, "loss_cpu": m_cpu, "loss_rel_err": loss_rel,
             "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
             "grad_rel_err_by_leaf": by_leaf, "launches": counts, "ok": ok}
-        print(f"train one step {dname:9s} loss gpu={m_gpu['loss']:.6f} "
-              f"cpu={m_cpu['loss']:.6f} worst grad rel err={worst:.3e} "
-              f"({worst_leaf}) launches={counts} {'ok' if ok else 'FAIL'}",
-              flush=True)
+        print(f"train {name} one step {dname:9s} loss gpu="
+              f"{m_gpu['loss']:.6f} cpu={m_cpu['loss']:.6f} worst grad rel "
+              f"err={worst:.3e} ({worst_leaf}) launches={counts} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            failures.append(f"training one step {dname}: "
+            failures.append(f"training {name} one step {dname}: "
                             f"{report[f'one_step_{dname}']}")
+    return report
 
-    # --- five f32 steps, card against CPU
-    cfg = train_cfg("float32")
+
+def five_steps_check(torch, setup, failures, name):
+    """Five f32 make_superstep steps on the card against the CPU: each
+    loss and the final parameters."""
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
+                                                         make_superstep)
+
+    cfg = train_cfg("float32", name)
     traj = {}
     for device, data, order in (("cpu", setup.data_cpu, setup.order_cpu),
                                 (DEVICE, setup.data, setup.order)):
         model = setup.model(torch, cfg, device)
         opt = make_optimizer(cfg.train)
-        run = make_superstep(get_model("MTAM"), cfg, opt, vocab, TRAIN_BATCH,
-                             device=device)
+        run = make_superstep(get_model(name), cfg, opt, setup.meta.item_vocab,
+                             TRAIN_BATCH, device=device)
         _, stacked = run(model, opt.init(model), data, order, 0, 5)
         traj[device] = (stacked["loss"].cpu(),
                         {n: p.detach().cpu()
@@ -772,24 +1001,36 @@ def run_training(torch, setup, failures):
                     for n, p in traj["cpu"][1].items())
     ok = loss_err <= TRAJ_LOSS_RTOL and param_err <= TRAJ_PARAM_ATOL \
         and bool(torch.isfinite(traj[DEVICE][0]).all())
-    report["five_steps_float32"] = {
-        "losses_gpu": traj[DEVICE][0].tolist(),
-        "losses_cpu": traj["cpu"][0].tolist(), "loss_rel_err": loss_err,
-        "param_max_abs_err": param_err, "ok": ok}
-    print(f"train five f32 steps losses={traj[DEVICE][0].tolist()} "
+    report = {"losses_gpu": traj[DEVICE][0].tolist(),
+              "losses_cpu": traj["cpu"][0].tolist(),
+              "loss_rel_err": loss_err, "param_max_abs_err": param_err,
+              "ok": ok}
+    print(f"train {name} five f32 steps losses={traj[DEVICE][0].tolist()} "
           f"loss rel err={loss_err:.3e} param max abs err={param_err:.3e} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        failures.append(f"training trajectory: {report['five_steps_float32']}")
+        failures.append(f"training {name} trajectory: {report}")
+    return report
 
-    # --- the main path: K steps per dtype, timed
-    main_launches = {}
+
+def timed_steps(torch, setup, failures, name, want, main_launches):
+    """The main path: 20 make_superstep steps per dtype after 3 warm-up
+    steps, the launch counts from 0 around them (added to
+    ``main_launches``), CUDA events around them, then the profiler's
+    device time over 3 more steps.  Masks, where the model drops, come
+    from the step's own generator on the card."""
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
+                                                         make_superstep)
+    gk, ak, ek = _kernel_modules()
+    report = {}
     steps, warm = 20, 3      # per dtype; the order holds 48 steps
     for dname in ("bfloat16", "float32"):
-        cfg = train_cfg(dname)
+        cfg = train_cfg(dname, name)
         model = setup.model(torch, cfg, DEVICE)
         opt = make_optimizer(cfg.train)
-        run = make_superstep(get_model("MTAM"), cfg, opt, vocab, TRAIN_BATCH)
+        run = make_superstep(get_model(name), cfg, opt, setup.meta.item_vocab,
+                             TRAIN_BATCH)
         state, _ = run(model, opt.init(model), setup.data, setup.order, 0,
                        warm)
         torch.cuda.synchronize()
@@ -803,18 +1044,13 @@ def run_training(torch, setup, failures):
         end.synchronize()
         counts = _counts(gk, ak, ek)
         ms = start.elapsed_time(end) / steps
-        for kname, by_mode in counts.items():
-            for mode, n in by_mode.items():
-                mode = None if kname == "dtable" else mode
-                per = main_launches.setdefault(kname, {})
-                per[mode] = per.get(mode, 0) + n
+        _add_launches(main_launches, counts)
         busy = _device_busy(torch, lambda: run(
             model, state, setup.data, setup.order, warm + steps, 3))
         busy_ms = (None if busy["device_busy_ms"] is None
                    else busy["device_busy_ms"] / 3)
         losses = stacked["loss"].cpu()
-        ok = _step_counts_ok(counts, steps) and bool(
-            torch.isfinite(losses).all())
+        ok = counts == want(steps) and bool(torch.isfinite(losses).all())
         report[f"timed_{dname}"] = {
             "steps": steps, "ms_per_step": ms,
             "examples_per_s": TRAIN_BATCH / ms * 1e3,
@@ -823,30 +1059,148 @@ def run_training(torch, setup, failures):
             "top_kernels": busy["top_kernels"][:5], "launches": counts,
             "losses": losses.tolist(), "ok": ok}
         r = report[f"timed_{dname}"]
-        print(f"train {dname:9s} B={TRAIN_BATCH} ms/step={ms:.3f} "
+        print(f"train {name} {dname:9s} B={TRAIN_BATCH} ms/step={ms:.3f} "
               f"examples/s={r['examples_per_s']:.1f} device busy ms/step="
               f"{busy_ms} idle_share={r['idle_share']} launches/{steps} "
               f"steps={counts} {'ok' if ok else 'FAIL'}", flush=True)
-        for name, kms in busy["top_kernels"][:5]:
-            print(f"    {kms / 3:9.4f} ms/step  {name[:90]}", flush=True)
+        for kname, kms in busy["top_kernels"][:5]:
+            print(f"    {kms / 3:9.4f} ms/step  {kname[:90]}", flush=True)
         if not ok:
-            failures.append(f"training timed {dname}: launches {counts}")
+            failures.append(f"training {name} timed {dname}: launches "
+                            f"{counts}")
+    return report
+
+
+def _add_launches(main_launches, counts):
+    for kname, by_mode in counts.items():
+        for mode, n in by_mode.items():
+            mode = None if kname == "dtable" else mode
+            per = main_launches.setdefault(kname, {})
+            per[mode] = per.get(mode, 0) + n
+
+
+def run_training(torch, setup, failures):
+    """Phase 4: MTAM's step, one step and five f32 steps against the CPU,
+    then timed in bf16 and f32."""
+    report = {"ids_in_range": setup.ids_in_range}
+    if not all(report["ids_in_range"].values()):
+        failures.append(f"training ids out of range: {report['ids_in_range']}")
+    want = lambda steps: _want_counts(steps, gru="tgru")  # noqa: E731
+    report.update(one_step_check(torch, setup, failures, "MTAM", want))
+    report["five_steps_float32"] = five_steps_check(torch, setup, failures,
+                                                    "MTAM")
+    main_launches = {}
+    report.update(timed_steps(torch, setup, failures, "MTAM", want,
+                              main_launches))
     return report, main_launches
+
+
+# ------------------------------------------------------------ phase 5
+
+def run_self_attention(torch, setup, failures):
+    """Phase 5: the three self-attention models on phase 4's data.
+    Time_Aware_SA as phase 4 checks MTAM; SASrec and TiSAS one step in
+    f32 and bf16 with masks drawn on the CPU and injected on both sides,
+    then timed with the card's generator; Recommender.recommend for each
+    at B = 16 in bf16 against the CPU."""
+    from mtamrecommender_tpu_torch.ops import layers
+
+    report, main_launches = {}, {}
+    L = setup.meta.max_seq_len
+    for name, mode in SELF_ATTENTION.items():
+        want = lambda steps, m=mode: _want_counts(steps, attention=m)  # noqa: E731
+        masks = None
+        if mode.endswith("_drop"):
+            cpu_gen = torch.Generator().manual_seed(99)
+            masks = [layers.draw_drop_mask(cpu_gen, TRAIN_BATCH, L, L, 0.5,
+                                           "cpu") for _ in range(3)]
+        rep = one_step_check(torch, setup, failures, name, want, masks)
+        if masks is None:
+            rep["five_steps_float32"] = five_steps_check(torch, setup,
+                                                         failures, name)
+        rep.update(timed_steps(torch, setup, failures, name, want,
+                               main_launches))
+        report[name] = rep
+    serving, serve_launches = serve_self_attention(torch, setup, failures)
+    report["serving"] = serving
+    _add_launches(main_launches, serve_launches)
+    return report, main_launches
+
+
+def serve_self_attention(torch, setup, failures):
+    """Recommender.recommend for each self-attention model at B = 16 in
+    bf16 (the serving config), launch counts around the call (3 forward
+    launches of the model's mode, no backward), then its scores against
+    the same Recommender on the CPU."""
+    from mtamrecommender_tpu_torch.models.base import scores_for_eval
+    from mtamrecommender_tpu_torch.serve import Recommender
+    gk, ak, ek = _kernel_modules()
+
+    meta, rows = setup.meta, {}
+    total = {}
+    hists, req = make_histories(np.random.RandomState(16), 16,
+                                meta.item_count, meta.category_count,
+                                meta.max_seq_len)
+    hists[1] = []                                 # an empty history
+    for name, mode in SELF_ATTENTION.items():
+        cfg = train_cfg("bfloat16", name)
+        model = setup.model(torch, cfg, "cpu")
+        rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
+        rec = Recommender(cfg, meta, model, device=DEVICE)
+        _reset_counts(gk, ak, ek)
+        recs = rec.recommend(hists, req, k=50)
+        torch.cuda.synchronize()
+        counts = _counts(gk, ak, ek)
+        _add_launches(total, counts)
+        base = mode.replace("_drop", "")
+        want = _want_counts(0)
+        want["fused_attention"][base] = 3
+        batch = rec.batch_from_histories(hists, req)
+        with torch.no_grad():
+            s_gpu = scores_for_eval(rec.model_def, rec._model_c, cfg.model,
+                                    batch, meta.item_vocab).cpu()
+            s_cpu = scores_for_eval(rec_cpu.model_def, rec_cpu._model_c,
+                                    cfg.model,
+                                    rec_cpu.batch_from_histories(hists, req),
+                                    meta.item_vocab)
+        # the catalog's columns only: the table is padded to 128 rows, and
+        # the padded columns' -2^32+1 would swamp the largest |score|
+        vocab = meta.item_vocab
+        err, rel = rel_err(s_gpu[:, :vocab], s_cpu[:, :vocab])
+        ok = (counts == want and rel <= SLICE_TOL["bfloat16"]
+              and bool(torch.isfinite(s_gpu).all())
+              and all(len(r) == 50 for r in recs))
+        rows[name] = {"launches": counts, "max_abs_score_err": err,
+                      "rel_score_err": rel, "tol": SLICE_TOL["bfloat16"],
+                      "ok": ok}
+        print(f"serve {name} bf16 B=16 launches={counts['fused_attention']} "
+              f"max_abs_score_err={err:.3e} rel={rel:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"serving {name}: {rows[name]}")
+    return rows, total
 
 
 # ------------------------------------------------------------ report
 
-def kernels_line(entries, main_launches):
+def kernels_line(entries, launches_by_shape):
+    """One entry per kernel, mode and main-path shape: the attention
+    kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
+    Tq=Tk=50 (the self-attention blocks, ``@Tq50``), each with the ms,
+    bound and launches of that shape (``launches_by_shape[shape]``; the
+    kernels without a shape count every path's launches under None)."""
     out = []
-    for (kname, mode), by_dtype in entries.items():
+    for (kname, mode, shape), by_dtype in entries.items():
         # serving and training both compute in bf16; dtable's head row is
-        # the item table, the largest of its four shapes
+        # the item table, the largest of its four shapes; the other
+        # shapes each entry was checked at (Tk=1024) are in by_dtype
         head = by_dtype["bfloat16"]
+        name = f"{kname}[{mode}]" if mode else kname
         out.append({
-            "name": f"{kname}[{mode}]" if mode else kname, "route": "cuda",
+            "name": f"{name}@{shape}" if shape else name, "route": "cuda",
             "source": KERNEL_FILES[kname][0],
             "replaces": KERNEL_FILES[kname][1],
-            "launches": main_launches[kname][mode],
+            "launches": launches_by_shape[shape].get(kname, {}).get(mode, 0),
             "max_abs_err": max(r["max_abs_err"] for r in by_dtype.values()),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -854,8 +1208,10 @@ def kernels_line(entries, main_launches):
             # time gate sits between QK^T and the softmax, and the GRU
             # cell's reset gate multiplies h before its product (cuDNN's
             # after) and the time gate scales the candidate (forward and
-            # backward alike); dtable's is index_add_
+            # backward alike); dtable's is index_add_; the plain and tisas
+            # backward's is scaled_dot_product_attention fwd+bwd
             "library_ms": head.get("library_ms"),
+            "library_call": head.get("library_call"),
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
         })
@@ -900,6 +1256,11 @@ def main() -> int:
     entries.update(check_train_kernels(torch, timer, 100, failures,
                                        setup.tables))
 
+    # phase 2c: the self-attention training kernels
+    for key, by_dtype in check_attention_training(torch, timer, 100,
+                                                  failures).items():
+        entries.setdefault(key, {}).update(by_dtype)
+
     # phase 3: the serving slice
     slice_rows, serve_launches = run_slice(torch, 20, failures)
     for kname, mode in (("gru_scan", "tgru"), ("fused_attention", "time")):
@@ -915,13 +1276,30 @@ def main() -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "training path")
 
-    # launches on the two main paths together
-    main_launches = {k: dict(v) for k, v in serve_launches.items()}
-    for kname, by_mode in train_launches.items():
-        per = main_launches.setdefault(kname, {})
-        for mode, n in by_mode.items():
-            per[mode] = per.get(mode, 0) + n
-    report = kernels_line(entries, main_launches)
+    # phase 5: the self-attention slice
+    self_attention, sa_launches = run_self_attention(torch, setup, failures)
+    for kname, mode in (("fused_attention", "time"),
+                        ("fused_attention_bwd", "time"),
+                        ("fused_attention", "plain_drop"),
+                        ("fused_attention_bwd", "plain_drop"),
+                        ("fused_attention", "tisas_drop"),
+                        ("fused_attention_bwd", "tisas_drop"),
+                        ("fused_attention", "plain"),
+                        ("fused_attention", "tisas"), ("dtable", None)):
+        if sa_launches[kname][mode] == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "self-attention paths")
+
+    # launches on the main paths: MTAM's (phases 3 and 4) run the
+    # attention kernels at Tq=1, the self-attention models' (phase 5) at
+    # Tq=Tk=50
+    mtam_launches = {k: dict(v) for k, v in serve_launches.items()}
+    _add_launches(mtam_launches, train_launches)
+    main_launches = copy.deepcopy(mtam_launches)
+    _add_launches(main_launches, sa_launches)
+    report = kernels_line(entries, {None: main_launches,
+                                    "Tq1": mtam_launches,
+                                    "Tq50": sa_launches})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, **report,
@@ -929,13 +1307,20 @@ def main() -> int:
                    "launches_serving": serve_launches,
                    "launches_training": {k: {str(m): n for m, n in v.items()}
                                          for k, v in train_launches.items()},
+                   "self_attention": self_attention,
+                   "launches_self_attention": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in sa_launches.items()},
                    "failures": failures}, f, indent=1, default=str)
     if failures:
         for msg in failures:
             print(f"FAIL {msg}", file=sys.stderr)
         return 1
     print(smi, flush=True)
-    print(json.dumps(report), flush=True)
+    # the printed line leaves each dtype's detail to the JSON report
+    print(json.dumps({"kernels": [
+        {k: v for k, v in entry.items() if k != "by_dtype"}
+        for entry in report["kernels"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,18 +5,23 @@ held against; the two share no code.  The layout mirrors the JAX
 package module for module, so each port module sits where its
 counterpart does.
 
-Ported so far, for MTAM:
-  * serving (`serve.Recommender.recommend`): collate -> embed -> T-GRU
-    intent scan -> time-gated attention hops -> layer norm ->
+Ported so far:
+  * MTAM serving (`serve.Recommender.recommend`): collate -> embed ->
+    T-GRU intent scan -> time-gated attention hops -> layer norm ->
     full-catalog logits -> top-k;
-  * training (`train.trainer.make_train_step` / `make_superstep` over a
-    `data.device_data` dataset): gather -> embed -> T-GRU -> hop-batched
-    readout -> layer norm -> f32 softmax CE + L2 -> backward -> clipped
-    Adam.
-Their TPU kernels (the GRU scan and its backward, the time-gated
-attention, the embedding-table backward) are hand-written CUDA C++ for
-sm_90a under `csrc/`, built with nvcc at first use and bound with
-ctypes (`ops/kernels/`).  On a CUDA tensor a wrapper launches its kernel
+  * MTAM training (`train.trainer.make_train_step` / `make_superstep`
+    over a `data.device_data` dataset): gather -> embed -> T-GRU ->
+    hop-batched readout -> layer norm -> f32 softmax CE + L2 ->
+    backward -> clipped Adam;
+  * the self-attention models SASrec, Time_Aware_Self_Attention_Model
+    and Ti_Self_Attention_Model, training and serving through the same
+    entry points: embed -> self-attention blocks (plain, time-gated or
+    log-interval-biased, with attention-weight dropout in training) ->
+    gather -> layer norm.
+Their TPU kernels (the GRU scan and its backward, the fused attention
+and its backward, the embedding-table backward) are hand-written CUDA
+C++ for sm_90a under `csrc/`, built with nvcc at first use and bound
+with ctypes (`ops/kernels/`).  On a CUDA tensor a wrapper launches its kernel
 or raises; on a CPU tensor it runs the plain PyTorch twin of the kernel.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,10 +1,11 @@
 // Fused attention middle: scores -> time gate / interval bias -> key mask
-// -> softmax -> weighted sum of values, forward only, single tile.
+// -> softmax -> (dropout) -> weighted sum of values, forward, single tile.
 //
 // Replaces: mtamrecommender_tpu/ops/pallas/attention_kernel.py, _attn_kernel
 // (launched by _fused_attention_fwd, the forward of fused_attention), in
-// its modes plain, time and tisas (the '*_drop' training modes are not
-// ported yet).  Per (batch row b, query row i), with d = q's last dim:
+// all five of its modes: plain, time, tisas, plain_drop and tisas_drop.
+// The backward is fused_attention_bwd.cu.  Per (batch row b, query row i),
+// with d = q's last dim:
 //   s_c   = q_i . k_c
 //   time:  logdt = log1p|t_q[i] - t_k[c]|
 //          gate  = wo1[i,c]*tanh(logdt*w1[i,c] + b1[i,c])
@@ -13,6 +14,8 @@
 //   tisas: s_c   = (s_c + logdt) / sqrt(d)
 //   plain: s_c   = s_c / sqrt(d)
 //   s_c = -2^32+1 for c >= key_len[b]; w = softmax(s); out_i = sum_c w_c v_c
+//   *_drop: w_c *= dm[b,i,c] (a pre-drawn f32 mask, 0 or 1/keep) in f32
+//          after the softmax, as in the plain / tisas modes otherwise.
 // Products take the operand type (f32 or bf16) and sum in f32; the weights
 // are rounded to v's type before the weighted sum, as the Pallas kernel
 // does; the output is f32.  A row whose keys are all masked gets a uniform
@@ -36,13 +39,16 @@
 
 namespace {
 
-enum { ATT_PLAIN = 0, ATT_TIME = 1, ATT_TISAS = 2 };
+// the Python wrapper's MODES order
+enum { ATT_PLAIN = 0, ATT_TIME = 1, ATT_TISAS = 2, ATT_PLAIN_DROP = 3,
+       ATT_TISAS_DROP = 4 };
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 4;  // keys a warp scores at once
 constexpr float kNegFill = -4294967295.0f;  // -(2^32) + 1
 
-template <typename T, int MODE>
+// MODE is the base mode (plain, time or tisas); DROP applies dm.
+template <typename T, int MODE, bool DROP>
 __global__ void __launch_bounds__(kThreads) fused_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ t_q, const T* __restrict__ t_k,
@@ -50,7 +56,8 @@ __global__ void __launch_bounds__(kThreads) fused_attention_kernel(
     const T* __restrict__ w1, const T* __restrict__ b1,
     const T* __restrict__ wo1, const T* __restrict__ wo2,
     const T* __restrict__ bo, const int* __restrict__ key_len,
-    float* __restrict__ out, int Tq, int Tk, int D, float scale) {
+    const float* __restrict__ dm, float* __restrict__ out, int Tq, int Tk,
+    int D, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;          // [D]
   float* s_tqw = s_q + D;     // [D]
@@ -132,8 +139,11 @@ __global__ void __launch_bounds__(kThreads) fused_attention_kernel(
     sum += e;
   }
   const float denom = port::block_sum<kThreads>(sum, s_red);
-  for (int c = tid; c < Tk; c += kThreads)
-    s_p[c] = port::round_to<T>(s_p[c] / denom);
+  for (int c = tid; c < Tk; c += kThreads) {
+    float w = s_p[c] / denom;
+    if (DROP) w *= dm[(size_t)row * Tk + c];
+    s_p[c] = port::round_to<T>(w);
+  }
   __syncthreads();
 
   // with a live key the masked weights are exactly 0, so only live keys
@@ -149,22 +159,22 @@ __global__ void __launch_bounds__(kThreads) fused_attention_kernel(
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* t_q, const void* t_k, const void* tqw,
                    const void* rawk, const void* w1, const void* b1,
                    const void* wo1, const void* wo2, const void* bo,
-                   const int* key_len, float* out, int B, int Tq, int Tk,
-                   int D, float scale, cudaStream_t stream) {
+                   const int* key_len, const float* dm, float* out, int B,
+                   int Tq, int Tk, int D, float scale, cudaStream_t stream) {
   const size_t smem = (2 * (size_t)D + Tk) * sizeof(float);
-  fused_attention_kernel<T, MODE><<<B * Tq, kThreads, smem, stream>>>(
+  fused_attention_kernel<T, MODE, DROP><<<B * Tq, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(t_q),
       static_cast<const T*>(t_k), static_cast<const T*>(tqw),
       static_cast<const T*>(rawk), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(wo1),
-      static_cast<const T*>(wo2), static_cast<const T*>(bo), key_len, out, Tq,
-      Tk, D, scale);
+      static_cast<const T*>(wo2), static_cast<const T*>(bo), key_len, dm, out,
+      Tq, Tk, D, scale);
   return cudaGetLastError();
 }
 
@@ -173,50 +183,49 @@ cudaError_t launch_mode(int mode, const void* q, const void* k, const void* v,
                         const void* t_q, const void* t_k, const void* tqw,
                         const void* rawk, const void* w1, const void* b1,
                         const void* wo1, const void* wo2, const void* bo,
-                        const int* key_len, float* out, int B, int Tq, int Tk,
-                        int D, float scale, cudaStream_t stream) {
+                        const int* key_len, const float* dm, float* out, int B,
+                        int Tq, int Tk, int D, float scale,
+                        cudaStream_t stream) {
+#define PORT_ATT_LAUNCH(BASE, DROP)                                          \
+  launch<T, BASE, DROP>(q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, \
+                        key_len, dm, out, B, Tq, Tk, D, scale, stream)
   switch (mode) {
-    case ATT_PLAIN:
-      return launch<T, ATT_PLAIN>(q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1,
-                                  wo2, bo, key_len, out, B, Tq, Tk, D, scale,
-                                  stream);
-    case ATT_TIME:
-      return launch<T, ATT_TIME>(q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1,
-                                 wo2, bo, key_len, out, B, Tq, Tk, D, scale,
-                                 stream);
-    case ATT_TISAS:
-      return launch<T, ATT_TISAS>(q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1,
-                                  wo2, bo, key_len, out, B, Tq, Tk, D, scale,
-                                  stream);
-    default:
-      return cudaErrorInvalidValue;
+    case ATT_PLAIN: return PORT_ATT_LAUNCH(ATT_PLAIN, false);
+    case ATT_TIME: return PORT_ATT_LAUNCH(ATT_TIME, false);
+    case ATT_TISAS: return PORT_ATT_LAUNCH(ATT_TISAS, false);
+    case ATT_PLAIN_DROP: return PORT_ATT_LAUNCH(ATT_PLAIN, true);
+    case ATT_TISAS_DROP: return PORT_ATT_LAUNCH(ATT_TISAS, true);
+    default: return cudaErrorInvalidValue;
   }
+#undef PORT_ATT_LAUNCH
 }
 
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays:
 // q/tqw [B,Tq,D], k/v/rawk [B,Tk,D], t_q [B,Tq], t_k [B,Tk],
-// w1/b1/wo1/wo2/bo [Tq,Tk], key_len [B] int32, out [B,Tq,D] f32.
-// The floating inputs are all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1);
-// operands a mode does not read may be any valid pointer.
+// w1/b1/wo1/wo2/bo [Tq,Tk], key_len [B] int32, dm [B,Tq,Tk] f32 (read by
+// the '*_drop' modes only), out [B,Tq,D] f32.
+// The floating inputs but dm are all f32 (is_bf16 = 0) or all bf16
+// (is_bf16 = 1); operands a mode does not read may be any pointer.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fused_attention_launch(
     int mode, int is_bf16, const void* q, const void* k, const void* v,
     const void* t_q, const void* t_k, const void* tqw, const void* rawk,
     const void* w1, const void* b1, const void* wo1, const void* wo2,
-    const void* bo, const void* key_len, void* out, int B, int Tq, int Tk,
-    int D, float scale, int device, void* stream) {
+    const void* bo, const void* key_len, const void* dm, void* out, int B,
+    int Tq, int Tk, int D, float scale, int device, void* stream) {
   if (B <= 0 || Tq <= 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int* kl = static_cast<const int*>(key_len);
+  const float* m = static_cast<const float*>(dm);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_mode<__nv_bfloat16>(mode, q, k, v, t_q, t_k, tqw, rawk, w1,
-                                      b1, wo1, wo2, bo, kl, o, B, Tq, Tk, D,
-                                      scale, s);
+                                      b1, wo1, wo2, bo, kl, m, o, B, Tq, Tk,
+                                      D, scale, s);
   return launch_mode<float>(mode, q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1,
-                            wo2, bo, kl, o, B, Tq, Tk, D, scale, s);
+                            wo2, bo, kl, m, o, B, Tq, Tk, D, scale, s);
 }

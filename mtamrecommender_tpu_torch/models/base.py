@@ -2,9 +2,12 @@
 (twin of mtamrecommender_tpu/models/base.py).
 
 A model is an ``nn.Module`` made by ``ModelDef.init(gen, cfg, meta)``
-and run by ``ModelDef.apply(model, cfg, batch, train=...)``.  Training
-takes `compute_loss` (full-catalog softmax cross-entropy plus the L2 of
-the lookups, in f32); serving takes `scores_for_eval`.
+and run by ``ModelDef.apply(model, cfg, batch, train=..., gen=...)``:
+``gen`` is where a training forward's dropout masks come from, a
+generator or an iterator of masks drawn elsewhere, one per dropping
+block (`ops.layers.draw_drop_mask`).  Training takes `compute_loss`
+(full-catalog softmax cross-entropy plus the L2 of the lookups, in f32);
+serving takes `scores_for_eval`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from torch.func import functional_call
 
 from mtamrecommender_tpu_torch.config import ModelConfig
 from mtamrecommender_tpu_torch.ops import embedding as emb_ops
+from mtamrecommender_tpu_torch.ops.layers import MaskSource
 from mtamrecommender_tpu_torch.types import Batch
 
 NEG_FILL = -(2.0 ** 32) + 1.0  # the reference's mask fill
@@ -31,7 +35,8 @@ class ModelOutput(NamedTuple):
 class ModelDef(NamedTuple):
     name: str
     init: Callable[..., nn.Module]       # (gen, cfg, meta) -> model
-    apply: Callable[..., ModelOutput]    # (model, cfg, batch, *, train)
+    apply: Callable[..., ModelOutput]    # (model, cfg, batch, *, train,
+                                         #  gen=None)
     output_mode: str = "plain"           # plain | concat | bpr
 
 
@@ -142,15 +147,19 @@ class _TrainApply(nn.Module):
         super().__init__()
         self.model_def, self.model, self.cfg = model_def, model, cfg
 
-    def forward(self, batch: Batch) -> ModelOutput:
-        return self.model_def.apply(self.model, self.cfg, batch, train=True)
+    def forward(self, batch: Batch, gen=None) -> ModelOutput:
+        return self.model_def.apply(self.model, self.cfg, batch, train=True,
+                                    gen=gen)
 
 
 def compute_loss(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
-                 batch: Batch, valid_vocab: Optional[int] = None
+                 batch: Batch, valid_vocab: Optional[int] = None,
+                 gen: Optional[MaskSource] = None
                  ) -> Dict[str, torch.Tensor]:
     """{"loss", "ce", "l2"} of one training batch, differentiable with
-    respect to the model's parameters.
+    respect to the model's parameters.  The forward's dropout masks come
+    from ``gen`` (none without it, as in the JAX package without an
+    rng).
 
     bfloat16 compute runs the model on bf16 views ``p.to(bf16)`` of the
     f32 master parameters (so gradients flow back through the casts, as
@@ -164,13 +173,13 @@ def compute_loss(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
             "(ROADMAP.md, Queue 1)")
     dtype = compute_dtype(cfg)
     if dtype == torch.float32:
-        out = model_def.apply(model, cfg, batch, train=True)
+        out = model_def.apply(model, cfg, batch, train=True, gen=gen)
         return softmax_ce_loss(model.embedding.item_table, out.predict_emb,
                                out.embedded, batch, cfg, valid_vocab)
     cast = {f"model.{name}": p.to(dtype)
             for name, p in model.named_parameters()}
     out = functional_call(_TrainApply(model_def, model, cfg), cast,
-                          (cast_floats(batch, dtype),))
+                          (cast_floats(batch, dtype), gen))
     return softmax_ce_loss(cast["model.embedding.item_table"].float(),
                            out.predict_emb.float(),
                            cast_floats(out.embedded, torch.float32), batch,

@@ -77,10 +77,11 @@ def init_mtam(gen: torch.Generator, cfg: ModelConfig,
 
 
 def apply_mtam(model: MTAM, cfg: ModelConfig, batch: Batch, *,
-               train: bool) -> base.ModelOutput:
+               train: bool, gen=None) -> base.ModelOutput:
     """T-GRU intent -> time-aware multi-hop attention over the raw
-    behavior embeddings -> layer norm.  MTAM draws no random numbers;
-    ``train`` picks the readout's route, not its math."""
+    behavior embeddings -> layer norm.  MTAM draws no random numbers, so
+    it ignores ``gen``; ``train`` picks the readout's route, not its
+    math."""
     e = base.embed(model, batch)
     _, intent = _intent(model, cfg, batch, e)
     hybrid = _readout(model, cfg, batch, e.behavior_emb, intent, train)

@@ -1,31 +1,37 @@
-"""MTAM's time-aware attention readout (twin of the time kind in
-mtamrecommender_tpu/ops/attention.py).
+"""Attention modules (twin of mtamrecommender_tpu/ops/attention.py).
 
-A hop is MTAM's memory reader: relu Q/K/V projections, scores scaled by
-sigmoid(decay gate), key mask, softmax, weighted sum, residual and the
-attention modules' normalize (eps 1e-8).  Two routes, as in the JAX
-package's `vanilla_attention_stack` for Tq=1 stacks:
+Plain multi-head attention (SASrec), MTAM's time-gated attention and the
+TiSAS log-interval bias, one head each.  Every variant takes the JAX
+package's kernel route: relu Q/K/V projections as matmuls, the middle
+(scores -> gate or bias -> key mask -> softmax -> dropout -> weighted
+sum) in the `fused_attention` kernel (ops/kernels/attention_kernel.py)
+through `fused_attention_vjp`, whose backward is the
+`fused_attention_bwd` kernel, then `_tail`: query mask, residual and the
+attention modules' normalize (eps 1e-8).
 
-  * serving (``train=False``): hop by hop, the middle of every hop the
-    `fused_attention` kernel (ops/kernels/attention_kernel.py) in time
-    mode, the projections matmuls outside it -- the JAX kernel route
-    (`_time_attention_pallas` + `_pallas_tail`), including the scalar
-    gate mode, whose scalars are broadcast to the kernel's [Tq, Tk] tiles;
-  * training (``train=True``): the hop-batched readout
-    (`_fused_single_query_readout`) in plain PyTorch.  JAX computes it
-    outside Pallas at every width the port takes, and the kernel above
-    has no backward.
+  * `self_attention_stack` (Tq = Tk = L) trains and serves the three
+    self-attention models.  Plain and TiSAS attention drop attention
+    weights in training through the kernel's '*_drop' modes with one
+    mask per block, taken from ``gen`` (`layers.draw_drop_mask`); the
+    time kind never drops.
+  * `vanilla_attention_stack` runs MTAM's Tq=1 readout: hop by hop on the
+    kernel when serving, and in training the hop-batched readout
+    (`single_query_readout`, plain PyTorch), which JAX too computes
+    outside Pallas at every width the port takes.
 
 Faithfulness notes kept from the JAX package:
   * the content-time term tanh(Q W_t K^T) uses the RAW queries/keys;
   * masked keys are filled with -2^32+1;
   * the decay-gate params are position-indexed [Tq, Tk] ('positional')
-    or scalars ('scalar').
+    or scalars ('scalar'), which are broadcast to the kernel's tiles;
+  * the JAX package keeps train-time dropout on its jnp path below 256
+    keys (`DROPOUT_KERNEL_MIN_KEYS`), a TPU measurement; the port always
+    takes the kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -75,17 +81,17 @@ def init_attention_stack(gen: torch.Generator, num_blocks: int,
                          num_units: int, *, kind: str = "time",
                          t_q_len: int = 0, t_k_len: int = 0,
                          gate_mode: str = "positional") -> List[Params]:
-    if kind != "time":
-        raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet; the port has the "
-            "'time' kind (ROADMAP.md, Queue 1)")
-    return [init_time_mha_block(gen, num_units, t_q_len, t_k_len, gate_mode)
-            for _ in range(num_blocks)]
+    if kind in ("plain", "tisas"):
+        return [init_mha_block(gen, num_units) for _ in range(num_blocks)]
+    if kind == "time":
+        return [init_time_mha_block(gen, num_units, t_q_len, t_k_len,
+                                    gate_mode) for _ in range(num_blocks)]
+    raise ValueError(f"unknown attention kind {kind!r}")
 
 
-class TimeAttentionBlock(nn.Module):
-    """One hop's parameters: Dense ``q``, ``k``, ``v``; LayerNorm ``ln``;
-    ``time_input_w`` [d, d] and the five decay-gate params."""
+class MHABlock(nn.Module):
+    """One block's parameters: Dense ``q``, ``k``, ``v``; LayerNorm
+    ``ln``."""
 
     def __init__(self, params: Params):
         super().__init__()
@@ -93,6 +99,14 @@ class TimeAttentionBlock(nn.Module):
         self.k = layers.Dense(params["k"])
         self.v = layers.Dense(params["v"])
         self.ln = layers.LayerNorm(params["ln"])
+
+
+class TimeAttentionBlock(MHABlock):
+    """An `MHABlock` with ``time_input_w`` [d, d] and the five decay-gate
+    params."""
+
+    def __init__(self, params: Params):
+        super().__init__(params)
         for name in ("time_input_w",) + GATE_PARAMS:
             self.register_parameter(name, nn.Parameter(params[name]))
 
@@ -104,12 +118,88 @@ def _gate_tile(x: torch.Tensor, t_q_len: int, t_k_len: int) -> torch.Tensor:
     return x
 
 
-def _tail(p: TimeAttentionBlock, out: torch.Tensor, queries: torch.Tensor,
+def _tail(p: MHABlock, out: torch.Tensor, queries: torch.Tensor,
           query_len: torch.Tensor) -> torch.Tensor:
     """Query-mask -> residual -> normalize (eps 1e-8)."""
     qmask = layers.sequence_mask(query_len, queries.shape[1]
                                  ).to(out.dtype)[:, :, None]
     return layers.normalize(p.ln, out * qmask + queries)
+
+
+def _one_head(num_heads: int) -> None:
+    if num_heads != 1:
+        raise NotImplementedError(
+            "the fused attention kernel takes one head; multi-head "
+            "attention is not ported yet (ROADMAP.md)")
+
+
+def _project(p: MHABlock, queries: torch.Tensor, keys: torch.Tensor):
+    """relu Q/K/V projections."""
+    return (layers.dense(p.q, queries, torch.relu),
+            layers.dense(p.k, keys, torch.relu),
+            layers.dense(p.v, keys, torch.relu))
+
+
+def _drop_mask(queries, keys, dropout_rate: float, train: bool,
+               gen: Optional[layers.MaskSource]) -> Optional[torch.Tensor]:
+    """The mask a dropping call applies: the next from ``gen`` in
+    training at a positive rate; None (no dropout) otherwise, as in the
+    JAX package without an rng."""
+    if not train or dropout_rate <= 0.0 or gen is None:
+        return None
+    return layers.draw_drop_mask(gen, queries.shape[0], queries.shape[1],
+                                 keys.shape[1], dropout_rate, queries.device)
+
+
+def _untimed_attention(kind: str, p: MHABlock, queries, keys, key_len,
+                       query_len, t_queries, t_keys, dm) -> torch.Tensor:
+    """Plain or TiSAS attention on the kernel route (`_plain_attention_
+    pallas` / `_tisas_attention_pallas`): the modes that read no gate
+    take zeros for it, plain mode zeros for the hour stamps too."""
+    q, k, v = _project(p, queries, keys)
+    b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
+    if kind == "plain":
+        t_queries = q.new_zeros((b, tq))
+        t_keys = q.new_zeros((b, tk))
+    zg = q.new_zeros((tq, tk))
+    mode = kind if dm is None else f"{kind}_drop"
+    out = attention_kernel.fused_attention_vjp(
+        mode, q, k, v, t_queries.contiguous(), t_keys.contiguous(),
+        torch.zeros_like(q), torch.zeros_like(k), zg, zg, zg, zg, zg,
+        key_len.to(torch.int32), dm)
+    return _tail(p, out.to(queries.dtype), queries, query_len)
+
+
+def multihead_attention(p: MHABlock, queries: torch.Tensor,
+                        keys: torch.Tensor, key_len: torch.Tensor,
+                        query_len: torch.Tensor, *, num_heads: int = 1,
+                        dropout_rate: float = 0.0, train: bool = True,
+                        gen: Optional[layers.MaskSource] = None
+                        ) -> torch.Tensor:
+    """Plain MHA (multihead_attention.py:71-193) with attention-weight
+    dropout in training: one f32 [B, Tq, Tk] mask (0 or 1/keep) drawn
+    from ``gen``, or the next of the masks it yields.  Returns
+    [B, Tq, d] in the queries' type."""
+    _one_head(num_heads)
+    dm = _drop_mask(queries, keys, dropout_rate, train, gen)
+    return _untimed_attention("plain", p, queries, keys, key_len, query_len,
+                              None, None, dm)
+
+
+def tisas_multihead_attention(p: MHABlock, queries: torch.Tensor,
+                              keys: torch.Tensor, key_len: torch.Tensor,
+                              query_len: torch.Tensor,
+                              t_queries: torch.Tensor, t_keys: torch.Tensor,
+                              *, num_heads: int = 1,
+                              dropout_rate: float = 0.0, train: bool = True,
+                              gen: Optional[layers.MaskSource] = None
+                              ) -> torch.Tensor:
+    """TiSAS: scores += log(|dt|+1) (time_aware_attention.py:73-214),
+    with dropout as `multihead_attention`."""
+    _one_head(num_heads)
+    dm = _drop_mask(queries, keys, dropout_rate, train, gen)
+    return _untimed_attention("tisas", p, queries, keys, key_len, query_len,
+                              t_queries, t_keys, dm)
 
 
 def time_aware_multihead_attention(p: TimeAttentionBlock,
@@ -119,24 +209,53 @@ def time_aware_multihead_attention(p: TimeAttentionBlock,
                                    t_queries: torch.Tensor,
                                    t_keys: torch.Tensor, *,
                                    num_heads: int = 1) -> torch.Tensor:
-    """MTAM's memory reader.  queries: [B, Tq, d]; keys: [B, Tk, d];
+    """MTAM's time-gated attention.  queries: [B, Tq, d]; keys: [B, Tk, d];
     t_queries: [B, Tq] hours; t_keys: [B, Tk] hours.  Returns [B, Tq, d]
-    in the queries' type.  The reference leaves dropout off here."""
-    if num_heads != 1:
-        raise NotImplementedError(
-            "the fused attention kernel takes one head; multi-head time "
-            "attention is not ported yet")
-    q = layers.dense(p.q, queries, torch.relu)
-    k = layers.dense(p.k, keys, torch.relu)
-    v = layers.dense(p.v, keys, torch.relu)
+    in the queries' type, differentiable through the backward kernel.
+    The reference leaves dropout off here.  Scalar gates are broadcast
+    to the kernel's [Tq, Tk] tiles, and autograd sums their gradients
+    back (JAX keeps scalar gates on its jnp path, with the same math)."""
+    _one_head(num_heads)
+    q, k, v = _project(p, queries, keys)
     tqw = torch.matmul(queries, p.time_input_w)
     t_q_len, t_k_len = queries.shape[1], keys.shape[1]
     gates = [_gate_tile(getattr(p, name), t_q_len, t_k_len)
              for name in GATE_PARAMS]
-    out = attention_kernel.fused_attention(
+    out = attention_kernel.fused_attention_vjp(
         "time", q, k, v, t_queries.contiguous(), t_keys.contiguous(), tqw,
         keys.contiguous(), *gates, key_len.to(torch.int32))
     return _tail(p, out.to(queries.dtype), queries, query_len)
+
+
+def self_attention_stack(blocks, enc: torch.Tensor, key_len: torch.Tensor,
+                         query_len: torch.Tensor, *, kind: str,
+                         num_heads: int, dropout_rate: float, train: bool,
+                         gen: Optional[layers.MaskSource] = None,
+                         t_queries: Optional[torch.Tensor] = None,
+                         t_keys: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Attention.self_attention / Time_Aware_Attention.{self,Tiself}_
+    attention: the blocks one after another with enc as queries and keys
+    (no feed-forward: the reference's is commented out).  In training the
+    plain and tisas kinds drop weights with one mask per block, in block
+    order, from ``gen``."""
+    for p in blocks:
+        if kind == "plain":
+            enc = multihead_attention(
+                p, enc, enc, key_len, query_len, num_heads=num_heads,
+                dropout_rate=dropout_rate, train=train, gen=gen)
+        elif kind == "time":
+            enc = time_aware_multihead_attention(
+                p, enc, enc, key_len, query_len, t_queries, t_keys,
+                num_heads=num_heads)
+        elif kind == "tisas":
+            enc = tisas_multihead_attention(
+                p, enc, enc, key_len, query_len, t_queries, t_keys,
+                num_heads=num_heads, dropout_rate=dropout_rate, train=train,
+                gen=gen)
+        else:
+            raise ValueError(f"unknown attention kind {kind!r}")
+    return enc
 
 
 def _stack(blocks, get) -> torch.Tensor:
@@ -153,9 +272,7 @@ def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
     ``enc @ W_t^T`` of all hops are three einsums, the decay part of the
     gate is precomputed, and only the query chain dec_0 -> dec_1 -> ...
     runs hop by hop.  enc: [B, Tk, d]; dec: [B, 1, d]; returns [B, d]."""
-    if num_heads != 1:
-        raise NotImplementedError(
-            "multi-head time attention is not ported yet (ROADMAP.md)")
+    _one_head(num_heads)
     n = len(blocks)
     b_sz, tk, d = enc.shape
     k_all = torch.relu(torch.einsum("bld,nde->nble", enc,

@@ -1,8 +1,11 @@
-"""Fused attention middle (single tile): CUDA kernel and plain twin.
+"""Fused attention middle (single tile): CUDA kernels and plain twins.
 
-Counterpart of mtamrecommender_tpu/ops/pallas/attention_kernel.py
-(`fused_attention`, forward, single-tile path).  The kernel is
-csrc/fused_attention.cu.  Per batch row and query row:
+Counterpart of mtamrecommender_tpu/ops/pallas/attention_kernel.py: the
+forward `fused_attention` (csrc/fused_attention.cu, the Pallas
+`_attn_kernel`), its backward `fused_attention_bwd`
+(csrc/fused_attention_bwd.cu, the Pallas `_attn_bwd_kernel`) and
+`fused_attention_vjp`, the autograd function that joins them as JAX's
+custom_vjp does.  Per batch row and query row:
 
     scores   = Q K^T
     time_qk  = tanh((Q_raw W_t) K_raw^T)            [time mode]
@@ -11,11 +14,14 @@ csrc/fused_attention.cu.  Per batch row and query row:
     scores   = scores * sigmoid(gate) / sqrt(d)     [time mode]
     scores   = (scores + log1p|t_q - t_k|)/sqrt(d)  [tisas mode]
     scores   = scores / sqrt(d)                     [plain mode]
-    key mask (-2^32+1) -> softmax -> out = W V
+    key mask (-2^32+1) -> softmax -> (x dm) -> out = W V
 
-Products sum in f32; the softmax weights are rounded to v's type before
-``@ v``; the output is f32 [B, Tq, d].  A row with ``key_len == 0`` gets a
-uniform softmax over its Tk keys.
+The '*_drop' modes (plain_drop, tisas_drop) multiply the softmax weights
+by a pre-drawn dropout mask ``dm`` [B, Tq, Tk] f32 (values 0 or
+1/keep) before ``@ V``.  Products sum in f32; the weights are rounded to
+v's type before ``@ v``; the output is f32 [B, Tq, d].  A row with
+``key_len == 0`` gets a uniform softmax over its Tk keys, and no score
+gradient, as in the unpadded jnp reference.
 """
 
 from __future__ import annotations
@@ -26,17 +32,24 @@ import torch
 
 from mtamrecommender_tpu_torch.ops.kernels import build
 
-MODES = ("plain", "time", "tisas")
+MODES = ("plain", "time", "tisas", "plain_drop", "tisas_drop")
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_FILL = -(2.0 ** 32) + 1.0
 SINGLE_TILE_KEYS = 1024   # longer memories need the blockwise kernel
+BWD_SMEM_BYTES = 48 * 1024   # the backward's per-(row, query) scratch
 
-# kernel launches per mode (the plain twin is not counted)
+# kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}
+bwd_launches = {mode: 0 for mode in MODES}
+
+
+def base_mode(mode: str) -> str:
+    """'plain_drop' -> 'plain', 'tisas_drop' -> 'tisas', else the mode."""
+    return mode[:-len("_drop")] if mode.endswith("_drop") else mode
 
 
 def _check(mode, q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo,
-           key_len) -> None:
+           key_len, dm) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown fused_attention mode {mode!r}; "
                          f"known: {MODES}")
@@ -63,16 +76,27 @@ def _check(mode, q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo,
         raise TypeError("fused_attention: floating operands must all be "
                         "float32 or all bfloat16, got "
                         f"{sorted({str(t.dtype) for t in floats})}")
+    if mode.endswith("_drop"):
+        if dm is None or tuple(dm.shape) != (b, tq, tk) \
+                or dm.dtype != torch.float32:
+            raise ValueError(
+                f"fused_attention {mode}: dm must be a float32 {(b, tq, tk)} "
+                "mask, got "
+                f"{None if dm is None else (dm.dtype, tuple(dm.shape))}")
+    elif dm is not None:
+        raise ValueError(f"fused_attention {mode}: only the '*_drop' modes "
+                         "take a dropout mask")
 
 
 def fused_attention(mode: str, q, k, v, t_q, t_k, tqw, rawk,
-                    w1, b1, wo1, wo2, bo, key_len) -> torch.Tensor:
+                    w1, b1, wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
     """q, tqw: [B,Tq,d]; k, v, rawk: [B,Tk,d]; t_q: [B,Tq]; t_k: [B,Tk];
-    gate params w1, b1, wo1, wo2, bo: [Tq,Tk]; key_len: [B] int32.
-    Modes that do not read an operand still take it at its shape.
-    Returns f32 [B,Tq,d].  CPU tensors run `fused_attention_plain`; CUDA
-    tensors launch the kernel (Tk <= SINGLE_TILE_KEYS)."""
-    args = (q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, key_len)
+    gate params w1, b1, wo1, wo2, bo: [Tq,Tk]; key_len: [B] int32; dm:
+    the '*_drop' modes' f32 [B,Tq,Tk] mask (None otherwise).  Modes that
+    do not read an operand still take it at its shape.  Returns f32
+    [B,Tq,d].  CPU tensors run `fused_attention_plain`; CUDA tensors
+    launch the kernel (Tk <= SINGLE_TILE_KEYS)."""
+    args = (q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, key_len, dm)
     _check(mode, *args)
     if q.device.type == "cpu":
         return fused_attention_plain(mode, *args)
@@ -81,22 +105,27 @@ def fused_attention(mode: str, q, k, v, t_q, t_k, tqw, rawk,
     return _launch(mode, *args)
 
 
-def _launch(mode, *args) -> torch.Tensor:
-    q, k = args[0], args[1]
-    device, stream = build.launch_context(args, "fused_attention")
-    b, tq, d = q.shape
-    tk = k.shape[1]
+def _single_tile(what, tk) -> None:
     if not 1 <= tk <= SINGLE_TILE_KEYS:
         raise ValueError(
-            f"fused_attention: the single-tile kernel takes 1 <= Tk <= "
+            f"{what}: the single-tile kernel takes 1 <= Tk <= "
             f"{SINGLE_TILE_KEYS}, got Tk={tk} (the blockwise kernel for "
             "longer memories is not ported yet)")
+
+
+def _launch(mode, *args) -> torch.Tensor:
+    q, k, dm = args[0], args[1], args[-1]
+    tensors = args[:-1] if dm is None else args
+    device, stream = build.launch_context(tensors, "fused_attention")
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    _single_tile("fused_attention", tk)
     lib = _library()
     out = torch.empty((b, tq, d), dtype=torch.float32, device=q.device)
     status = lib.fused_attention_launch(
         MODES.index(mode), int(q.dtype == torch.bfloat16),
-        *(t.data_ptr() for t in args), out.data_ptr(), b, tq, tk, d,
-        1.0 / d ** 0.5, device, stream)
+        *(None if t is None else t.data_ptr() for t in args),
+        out.data_ptr(), b, tq, tk, d, 1.0 / d ** 0.5, device, stream)
     build.check(lib, status, "fused_attention")
     launches[mode] += 1
     return out
@@ -107,35 +136,211 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_attention_launch.argtypes = (
-            [ci, ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            [ci, ci] + [vp] * 15 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.fused_attention_launch.restype = ci
         lib._port_typed = True
     return lib
 
 
+def _scores(mode, q, k, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo):
+    """The f32 scores before the key mask, and the time mode's
+    intermediates (s0 = QK^T, logdt, time_qk, decay, sigmoid(gate))."""
+    base = base_mode(mode)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s0 = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    parts = {"s0": s0}
+    if base in ("time", "tisas"):
+        parts["logdt"] = torch.log1p(torch.abs(t_q.float()[:, :, None]
+                                               - t_k.float()[:, None, :]))
+    if base == "time":
+        parts["time_qk"] = torch.tanh(torch.einsum(
+            "bqd,bkd->bqk", tqw.float(), rawk.float()))
+        parts["decay"] = torch.tanh(parts["logdt"] * w1.float() + b1.float())
+        parts["sig"] = torch.sigmoid(wo1.float() * parts["decay"]
+                                     + wo2.float() * parts["time_qk"]
+                                     + bo.float())
+        return s0 * parts["sig"] * scale, parts
+    if base == "tisas":
+        return (s0 + parts["logdt"]) * scale, parts
+    return s0 * scale, parts
+
+
+def _live(key_len, tk, device) -> torch.Tensor:
+    col = torch.arange(tk, device=device)
+    return col[None, None, :] < key_len[:, None, None]
+
+
 def fused_attention_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk,
-                          w1, b1, wo1, wo2, bo, key_len) -> torch.Tensor:
+                          w1, b1, wo1, wo2, bo, key_len, dm=None
+                          ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel (the math of the JAX package's
     `_reference_middle`, with the kernel's operand rounding)."""
-    d = q.shape[-1]
-    scale = 1.0 / d ** 0.5
-    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
-    if mode in ("time", "tisas"):
-        logdt = torch.log1p(torch.abs(t_q.float()[:, :, None]
-                                      - t_k.float()[:, None, :]))
-    if mode == "time":
-        time_qk = torch.tanh(torch.einsum("bqd,bkd->bqk", tqw.float(),
-                                          rawk.float()))
-        decay = torch.tanh(logdt * w1.float() + b1.float())
-        gate = wo1.float() * decay + wo2.float() * time_qk + bo.float()
-        scores = scores * torch.sigmoid(gate) * scale
-    elif mode == "tisas":
-        scores = (scores + logdt) * scale
-    else:
-        scores = scores * scale
-    col = torch.arange(scores.shape[2], device=scores.device)
-    live = col[None, None, :] < key_len[:, None, None]
+    scores, _ = _scores(mode, q, k, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo)
+    live = _live(key_len, k.shape[1], q.device)
     scores = torch.where(live, scores, torch.full_like(scores, NEG_FILL))
     weights = torch.softmax(scores, dim=-1)
+    if dm is not None:
+        weights = weights * dm
     return torch.einsum("bqk,bkd->bqd", weights.to(v.dtype).float(),
                         v.float())
+
+
+# ------------------------------------------------------------- backward
+
+def fused_attention_bwd(mode: str, g, q, k, v, t_q, t_k, tqw, rawk,
+                        w1, b1, wo1, wo2, bo, key_len, dm=None):
+    """Backward of `fused_attention`: g is the f32 cotangent [B,Tq,d] of
+    its output; the other arguments are its inputs.  Returns the f32
+    cotangents (dq, dk, dv, dtqw, drawk, dw1, db1, dwo1, dwo2, dbo); the
+    five gate cotangents are summed over the batch.  Outside time mode
+    the output does not depend on tqw, rawk or the gate params, and all
+    but dq, dk and dv are None (nothing is computed or written for
+    them).  The scores, gate and softmax are recomputed from the inputs.
+    CPU tensors run `fused_attention_bwd_plain`; CUDA tensors launch the
+    kernel."""
+    args = (q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, key_len, dm)
+    _check(mode, *args)
+    if tuple(g.shape) != tuple(q.shape) or g.dtype != torch.float32:
+        raise ValueError(f"fused_attention_bwd: g must be f32 "
+                         f"{tuple(q.shape)}, got {g.dtype} {tuple(g.shape)}")
+    if q.device.type == "cpu":
+        return fused_attention_bwd_plain(mode, g, *args)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    return _launch_bwd(mode, g, *args)
+
+
+def _launch_bwd(mode, g, *args):
+    q, k, dm = args[0], args[1], args[-1]
+    tensors = (g,) + (args[:-1] if dm is None else args)
+    device, stream = build.launch_context(tensors, "fused_attention_bwd")
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    _single_tile("fused_attention_bwd", tk)
+    lib = _bwd_library()
+    if lib.fused_attention_bwd_smem_bytes(tk, d) > BWD_SMEM_BYTES:
+        raise ValueError(
+            f"fused_attention_bwd: the kernel keeps (7*Tk + 3*d) f32 in "
+            f"{BWD_SMEM_BYTES} bytes of shared memory; got Tk={tk}, d={d}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    grads = (torch.empty((b, tq, d), **f32),     # dq
+             torch.empty((b, tk, d), **f32),     # dk
+             torch.empty((b, tk, d), **f32))     # dv
+    if base_mode(mode) == "time":
+        grads += (torch.empty((b, tq, d), **f32),     # dtqw
+                  torch.empty((b, tk, d), **f32),     # drawk
+                  *(torch.empty((tq, tk), **f32) for _ in range(5)))
+    else:
+        grads += (None,) * 7
+    mode_id = MODES.index(mode)
+    ws = torch.empty((lib.fused_attention_bwd_workspace_floats(
+        mode_id, b, tq, tk),), **f32)
+    status = lib.fused_attention_bwd_launch(
+        mode_id, int(q.dtype == torch.bfloat16), g.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in args),
+        *(None if t is None else t.data_ptr() for t in grads),
+        ws.data_ptr(), b, tq, tk, d, 1.0 / d ** 0.5, device, stream)
+    build.check(lib, status, "fused_attention_bwd")
+    bwd_launches[mode] += 1
+    return grads
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_bwd")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_bwd_launch.argtypes = (
+            [ci, ci] + [vp] * 26 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.fused_attention_bwd_launch.restype = ci
+        lib.fused_attention_bwd_smem_bytes.argtypes = [ci, ci]
+        lib.fused_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_attention_bwd_workspace_floats.argtypes = [ci, ci, ci, ci]
+        lib.fused_attention_bwd_workspace_floats.restype = ctypes.c_longlong
+        lib._port_typed = True
+    return lib
+
+
+def fused_attention_bwd_plain(mode: str, g, q, k, v, t_q, t_k, tqw, rawk,
+                              w1, b1, wo1, wo2, bo, key_len, dm=None):
+    """Plain PyTorch twin of the backward kernel: `_attn_bwd_kernel`'s
+    math with its operand rounding (each product operand rounded to the
+    input type, f32 sums), the score gradient zeroed at masked keys (the
+    jnp reference's ``where``; the Pallas kernel relies on zero weights
+    there, which a row with ``key_len == 0`` does not have).  Returns
+    None where the kernel does: dtqw, drawk and the gate cotangents
+    outside time mode."""
+    dt = q.dtype
+    op = lambda x: x.to(dt).float()  # noqa: E731  (a product operand)
+    base = base_mode(mode)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    scores, parts = _scores(mode, q, k, t_q, t_k, tqw, rawk, w1, b1, wo1,
+                            wo2, bo)
+    live = _live(key_len, k.shape[1], q.device)
+    scores = torch.where(live, scores, torch.full_like(scores, NEG_FILL))
+    weights = torch.softmax(scores, dim=-1)
+    dropped = weights if dm is None else weights * dm
+    gr = op(g)
+    dv = torch.einsum("bqk,bqd->bkd", op(dropped), gr)
+    dwei = torch.einsum("bqd,bkd->bqk", gr, v.float())
+    if dm is not None:
+        dwei = dwei * dm
+    ds = weights * (dwei - (dwei * weights).sum(dim=-1, keepdim=True))
+    ds = torch.where(live, ds, torch.zeros_like(ds))
+    if base == "time":
+        sig, decay, tqk = parts["sig"], parts["decay"], parts["time_qk"]
+        ds0 = ds * sig * scale
+        dgate = ds * parts["s0"] * scale * sig * (1.0 - sig)
+        dpre_dec = dgate * wo1.float() * (1.0 - decay * decay)
+        dpre_tqk = dgate * wo2.float() * (1.0 - tqk * tqk)
+        gate_grads = [(dpre_dec * parts["logdt"]).sum(0), dpre_dec.sum(0),
+                      (dgate * decay).sum(0), (dgate * tqk).sum(0),
+                      dgate.sum(0)]
+        dtqw = torch.einsum("bqk,bkd->bqd", op(dpre_tqk), rawk.float())
+        drawk = torch.einsum("bqk,bqd->bkd", op(dpre_tqk), tqw.float())
+    else:
+        ds0 = ds * scale
+        gate_grads = [None] * 5
+        dtqw = drawk = None
+    dq = torch.einsum("bqk,bkd->bqd", op(ds0), k.float())
+    dk = torch.einsum("bqk,bqd->bkd", op(ds0), q.float())
+    return (dq, dk, dv, dtqw, drawk, *gate_grads)
+
+
+# the positions, among fused_attention's tensor arguments, of q, k, v,
+# tqw, rawk and the five gate params: the order of the backward's outputs
+_DIFFERENTIABLE = (0, 1, 2, 5, 6, 7, 8, 9, 10, 11)
+
+
+class FusedAttentionFunction(torch.autograd.Function):
+    """`fused_attention` with `fused_attention_bwd` as its backward (the
+    JAX package's custom_vjp: `_fa_fwd` saves the inputs, not the
+    [Tq, Tk] weights, which the backward recomputes; `_fa_bwd` casts each
+    cotangent back to its input's type).  t_q, t_k, key_len and dm get
+    no gradient, nor do tqw, rawk and the gate params outside time mode
+    (the output does not depend on them there)."""
+
+    @staticmethod
+    def forward(ctx, mode, *args):
+        out = fused_attention(mode, *args)
+        ctx.mode = mode
+        ctx.save_for_backward(*args)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        outs = fused_attention_bwd(ctx.mode, g.float().contiguous(), *args)
+        grads = [None] * len(args)
+        for i, d in zip(_DIFFERENTIABLE, outs):
+            if d is not None and ctx.needs_input_grad[1 + i]:
+                grads[i] = d.to(args[i].dtype)
+        return (None, *grads)
+
+
+def fused_attention_vjp(mode: str, q, k, v, t_q, t_k, tqw, rawk,
+                        w1, b1, wo1, wo2, bo, key_len, dm=None
+                        ) -> torch.Tensor:
+    """Differentiable `fused_attention` (same arguments and result)."""
+    return FusedAttentionFunction.apply(mode, q, k, v, t_q, t_k, tqw, rawk,
+                                        w1, b1, wo1, wo2, bo, key_len, dm)

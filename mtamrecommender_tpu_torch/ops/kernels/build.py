@@ -35,6 +35,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # kernel library name -> its source file; every source includes common.cuh
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
+           "fused_attention_bwd": "fused_attention_bwd.cu",
            "embedding_dtable": "embedding_dtable.cu"}
 _HEADERS = ("common.cuh",)
 
@@ -144,5 +145,5 @@ def launch_context(tensors, what: str):
         raise RuntimeError(
             f"{what}: the CUDA kernel returns no gradient; call it under "
             "torch.no_grad() or through its autograd function (gru_scan: "
-            "gru_scan_vjp; fused_attention has no backward kernel yet)")
+            "gru_scan_vjp; fused_attention: fused_attention_vjp)")
     return device.index, torch.cuda.current_stream(device).cuda_stream

@@ -6,7 +6,7 @@ Weights keep the JAX package's ``[in, out]`` layout, so ``dense`` is
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional, Union
 
 import torch
 from torch import nn
@@ -78,6 +78,33 @@ def normalize(p: nn.Module, x: torch.Tensor,
     var = torch.square(x - mean).mean(dim=-1, keepdim=True)
     normed = (x - mean) / torch.sqrt(var + epsilon)
     return p.gamma * normed + p.beta
+
+
+# ---- dropout ----
+
+# Where a training forward's dropout masks come from: a torch.Generator to
+# draw them from, or an iterator of masks drawn elsewhere
+MaskSource = Union[torch.Generator, Iterator[torch.Tensor]]
+
+
+def draw_drop_mask(gen: MaskSource, b: int, tq: int, tk: int, rate: float,
+                   device) -> torch.Tensor:
+    """A pre-scaled attention-weight dropout mask, f32 [B, Tq, Tk] with
+    values 0 or 1/(1-rate): tf.layers.dropout's inverted dropout applied
+    to ones (the JAX package's `_draw_drop_mask`), each element kept with
+    probability 1-rate.  ``gen`` is a generator on ``device`` to draw
+    from, or an iterator whose next mask is returned: torch cannot draw
+    JAX's threefry bits, so that is how a mask drawn elsewhere (by JAX, or
+    on another device) takes the place of a draw."""
+    if not isinstance(gen, torch.Generator):
+        mask = next(gen)
+        if tuple(mask.shape) != (b, tq, tk) or mask.dtype != torch.float32:
+            raise ValueError(f"drop mask: want float32 {(b, tq, tk)}, got "
+                             f"{mask.dtype} {tuple(mask.shape)}")
+        return mask
+    keep = 1.0 - rate
+    kept = torch.rand((b, tq, tk), generator=gen, device=device) < keep
+    return kept.float() / keep
 
 
 # ---- sequence utilities ----

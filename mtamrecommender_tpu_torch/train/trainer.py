@@ -11,10 +11,13 @@ mtamrecommender_tpu/train/trainer.py).
   * `make_superstep`: K such steps over batches gathered from a
     device-resident dataset, the per-step metrics stacked.
 
-MTAM draws no random numbers in training (no dropout on its time
-readout or its GRU), so the steps carry no rng chain.  The other
-optimizers, ``flatten_optimizer`` and ``pack_small_leaves`` are not
-ported yet (ROADMAP.md, Queue 1).
+A step's dropout masks (SASrec and TiSAS; MTAM and the time-aware
+self-attention model draw nothing) come from one `torch.Generator` on
+the step's device, seeded from ``cfg.train.seed``; every step draws
+from where the last one stopped, so a run is reproducible on one
+device.  Its stream is not JAX's: the masks cannot match JAX's threefry
+draws.  The other optimizers, ``flatten_optimizer`` and
+``pack_small_leaves`` are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -135,14 +138,16 @@ def make_train_step(model_def: ModelDef, cfg: ExperimentConfig,
     """``step(model, opt_state, batch) -> (opt_state, metrics)``: loss,
     gradients, the clipped update applied to the model's parameters in
     place.  Runs on CUDA unless ``device="cpu"``; the model and the batch
-    must be on that device."""
+    must be on that device.  Dropout masks are drawn from a generator on
+    the device seeded from ``cfg.train.seed``."""
     device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(cfg.train.seed)
 
     def train_step(model: nn.Module, opt_state: AdamState, batch: Batch):
         _check_device(device, model, batch)
         model.zero_grad(set_to_none=True)
         metrics = compute_loss(model_def, model, cfg.model, batch,
-                               valid_vocab)
+                               valid_vocab, gen=gen)
         metrics["loss"].backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in model.named_parameters()}

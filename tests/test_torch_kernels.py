@@ -306,11 +306,243 @@ def test_cpu_backwards_never_build_a_kernel(monkeypatch):
         raise AssertionError("a CPU call reached the CUDA build")
     monkeypatch.setattr(build, "build", refuse)
     monkeypatch.setattr(build, "library", refuse)
-    before = (dict(tgk.bwd_launches), dict(tek.launches))
+    before = (dict(tgk.bwd_launches), dict(tek.launches),
+              dict(tak.launches), dict(tak.bwd_launches))
     args = [t.requires_grad_(True) if t.is_floating_point() else t
             for t in _as_torch(_gru_inputs(), torch.float32)]
     tgk.gru_scan_vjp("tgru", *args).sum().backward()
     table, ids, _ = _dtable_inputs()
     tt = torch.tensor(table, requires_grad=True)
     tek.take_dtable(tt, torch.tensor(ids)).sum().backward()
-    assert (tgk.bwd_launches, tek.launches) == before
+    a = _self_att_inputs()
+    for mode in tak.MODES:
+        targs = _torch_att(a, torch.float32, grad=True)
+        dm = torch.tensor(a["dm"]) if mode.endswith("_drop") else None
+        tak.fused_attention_vjp(mode, *targs, dm).sum().backward()
+    assert (tgk.bwd_launches, tek.launches, tak.launches,
+            tak.bwd_launches) == before
+
+
+# ------------------------------------------------- attention at Tq > 1
+#
+# Self-attention shapes (Tq = Tk = L), as the three self-attention models
+# run the kernel.  The twins are held against the JAX Pallas kernels
+# (interpret mode) and against the jnp reference `_reference_middle`
+# (through jax.vjp for the backward), f32 at 1e-5 of each output's
+# largest |value|.  The Pallas kernels pad Tk to 128 before they mask, so
+# rows with key_len == 0 are held against the reference only (and the
+# Pallas backward, whose gate cotangents sum over all rows, gets inputs
+# without such a row).  bf16: the twin and the Pallas backward round the
+# same product operands (g, the dropped weights, ds0, dpre_tqk) to bf16,
+# but an operand on a rounding boundary may round the other way after a
+# differently ordered f32 sum, so bf16 is held to 1e-3 of each output's
+# largest |value|, as the GRU backward is (measured: <= 3e-7).
+
+TL = 8                                   # Tq = Tk
+ATT_GRAD_NAMES = ("dq", "dk", "dv", "dtqw", "drawk", "dw1", "db1", "dwo1",
+                  "dwo2", "dbo")
+ATT_DIFF = (0, 1, 2, 5, 6, 7, 8, 9, 10, 11)   # the differentiable inputs
+TIME_ONLY = ATT_GRAD_NAMES[3:]   # None outside time mode
+REL_ATT_BWD_BF16 = 1e-3
+
+
+def _self_att_inputs(seed=8, key_len=(0, 1, TL, 5, TL, 3, 7, 2)):
+    r = np.random.RandomState(seed)
+    f = lambda *s, scale=1.0: (r.randn(*s) * scale).astype(np.float32)  # noqa: E731
+    t = np.sort(r.rand(B, TL).astype(np.float32) * 500, axis=1)
+    keep = 0.5
+    return {
+        "q": np.maximum(f(B, TL, D), 0), "k": np.maximum(f(B, TL, D), 0),
+        "v": np.maximum(f(B, TL, D), 0), "t_q": t, "t_k": t,
+        "tqw": f(B, TL, D, scale=0.3), "rawk": f(B, TL, D),
+        "w1": f(TL, TL, scale=0.3), "b1": f(TL, TL, scale=0.3),
+        "wo1": f(TL, TL, scale=0.3), "wo2": f(TL, TL, scale=0.3),
+        "bo": f(TL, TL, scale=0.3),
+        "key_len": np.array(key_len, np.int32),
+        "dm": (r.rand(B, TL, TL) < keep).astype(np.float32) / keep,
+        "g": f(B, TL, D),
+    }
+
+
+def _torch_att(a, dtype, grad=False):
+    out = []
+    for i, name in enumerate(ATT_ORDER):
+        t = torch.tensor(a[name])
+        if name != "key_len":
+            t = t.to(dtype)
+            if grad and i in ATT_DIFF:
+                t.requires_grad_(True)
+        out.append(t)
+    return out
+
+
+def _jax_att(a, dtype):
+    return [jnp.asarray(a[n]) if n == "key_len" else jnp.asarray(a[n], dtype)
+            for n in ATT_ORDER]
+
+
+def _jax_dm(a, mode):
+    return jnp.asarray(a["dm"]) if mode.endswith("_drop") else jak.dm_dummy()
+
+
+def _assert_bwd_output(mode, name, got, want, rel):
+    """One backward output: outside time mode the time-only ones are None
+    (the JAX cotangent is all zeros there), the others within ``rel`` of
+    the largest |want|."""
+    if name in TIME_ONLY and mode != "time":
+        assert got is None, name
+        assert not np.asarray(want, np.float32).any(), name
+        return
+    assert got.dtype == torch.float32, name
+    _assert_rel(got.numpy(), want, rel, name)
+
+
+def _assert_rel(got, want, rel, what, rows=None):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    scale = max(np.abs(want).max(), 1e-30)
+    assert np.abs(got - want).max() <= rel * scale, \
+        (what, np.abs(got - want).max(), scale)
+
+
+@pytest.mark.parametrize("mode", ["plain_drop", "tisas_drop"])
+def test_fused_attention_plain_drop_modes_match_jax_f32(mode):
+    a = _self_att_inputs()
+    jargs = _jax_att(a, jnp.float32)
+    dm = jnp.asarray(a["dm"])
+    want_ref = np.asarray(jak._reference_middle(mode, *jargs, dm=dm))
+    want_kernel = np.asarray(jak.fused_attention(mode, *jargs, dm))
+    got = tak.fused_attention(mode, *_torch_att(a, torch.float32),
+                              torch.tensor(a["dm"]))
+    assert got.dtype == torch.float32 and got.shape == (B, TL, D)
+    np.testing.assert_allclose(got.numpy(), want_ref, atol=ATOL_F32, rtol=0)
+    live = a["key_len"] > 0
+    np.testing.assert_allclose(got.numpy()[live], want_kernel[live],
+                               atol=ATOL_F32, rtol=0)
+    # a dropped weight takes no part, a kept one counts twice (keep 0.5)
+    base = tak.fused_attention(mode[:-5], *_torch_att(a, torch.float32))
+    assert not torch.allclose(got, base)
+
+
+@pytest.mark.parametrize("mode", ["plain", "time", "tisas"])
+def test_fused_attention_plain_matches_jax_at_tq_gt_1(mode):
+    """The forward modes at the self-attention shape Tq = Tk."""
+    a = _self_att_inputs()
+    jargs = _jax_att(a, jnp.float32)
+    want_ref = np.asarray(jak._reference_middle(mode, *jargs))
+    want_kernel = np.asarray(jak.fused_attention(mode, *jargs,
+                                                 jak.dm_dummy()))
+    got = tak.fused_attention(mode, *_torch_att(a, torch.float32)).numpy()
+    np.testing.assert_allclose(got, want_ref, atol=ATOL_F32, rtol=0)
+    live = a["key_len"] > 0
+    np.testing.assert_allclose(got[live], want_kernel[live], atol=ATOL_F32,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["plain", "time", "tisas", "plain_drop",
+                                  "tisas_drop"])
+def test_fused_attention_bwd_plain_matches_jax_f32(mode):
+    # every row: jax.vjp of the jnp reference
+    a = _self_att_inputs()
+    jargs = _jax_att(a, jnp.float32)
+    dm = jnp.asarray(a["dm"]) if mode.endswith("_drop") else None
+    diff = [jargs[i] for i in ATT_DIFF]
+
+    def ref(*x):
+        full = list(jargs)
+        for i, xi in zip(ATT_DIFF, x):
+            full[i] = xi
+        return jak._reference_middle(mode, *full, dm=dm)
+
+    _, vjp = jax.vjp(ref, *diff)
+    want_ref = vjp(jnp.asarray(a["g"]))
+    tdm = torch.tensor(a["dm"]) if dm is not None else None
+    got = tak.fused_attention_bwd(mode, torch.tensor(a["g"]),
+                                  *_torch_att(a, torch.float32), tdm)
+    for name, x, w in zip(ATT_GRAD_NAMES, got, want_ref):
+        _assert_bwd_output(mode, name, x, w, ATOL_F32)
+    # live rows only: jax.vjp of the Pallas kernel (its backward kernel)
+    a = _self_att_inputs(key_len=(4, 1, TL, 5, TL, 3, 7, 2))
+    jargs = _jax_att(a, jnp.float32)
+    _, vjp = jax.vjp(
+        lambda *x: jak.fused_attention(
+            mode, *x[:3], jargs[3], jargs[4], *x[3:], jargs[12],
+            _jax_dm(a, mode)),
+        *[jargs[i] for i in ATT_DIFF])
+    want_kernel = vjp(jnp.asarray(a["g"]))
+    got = tak.fused_attention_bwd(mode, torch.tensor(a["g"]),
+                                  *_torch_att(a, torch.float32), tdm)
+    for name, x, w in zip(ATT_GRAD_NAMES, got, want_kernel):
+        _assert_bwd_output(mode, name, x, w, ATOL_F32)
+
+
+@pytest.mark.parametrize("mode", ["plain", "time", "tisas", "plain_drop",
+                                  "tisas_drop"])
+def test_fused_attention_bwd_plain_matches_pallas_bf16(mode):
+    a = _self_att_inputs(seed=9, key_len=(4, 1, TL, 5, TL, 3, 7, 2))
+    jargs = _jax_att(a, jnp.bfloat16)
+    want = jak._fused_attention_bwd(mode, jnp.asarray(a["g"]), *jargs,
+                                    _jax_dm(a, mode))
+    tdm = torch.tensor(a["dm"]) if mode.endswith("_drop") else None
+    got = tak.fused_attention_bwd(mode, torch.tensor(a["g"]),
+                                  *_torch_att(a, torch.bfloat16), tdm)
+    for name, x, w in zip(ATT_GRAD_NAMES, got, want):
+        _assert_bwd_output(mode, name, x, w, REL_ATT_BWD_BF16)
+
+
+def test_fused_attention_bwd_dead_query_rows_add_nothing():
+    """Query rows past query_len get a zero cotangent from the tail; such
+    a row passes nothing to dk, dv, drawk or the gate params, whatever
+    its q and tqw hold, and gets dq = dtqw = 0."""
+    a = _self_att_inputs()
+    g = a["g"].copy()
+    dead = np.arange(TL)[None, :] >= a["key_len"][:, None]
+    g[dead] = 0.0
+    args = _torch_att(a, torch.float32)
+    base = tak.fused_attention_bwd("time", torch.tensor(g), *args)
+    moved = [t.clone() for t in args]
+    r = np.random.RandomState(0)
+    for i in (0, 5):                                  # q and tqw
+        noise = torch.tensor(r.randn(*moved[i].shape).astype(np.float32))
+        moved[i][torch.tensor(dead)] += noise[torch.tensor(dead)]
+    other = tak.fused_attention_bwd("time", torch.tensor(g), *moved)
+    for name, x, y in zip(ATT_GRAD_NAMES, base, other):
+        if name in ("dq", "dtqw"):
+            assert not x[torch.tensor(dead)].any(), name
+            assert not y[torch.tensor(dead)].any(), name
+        else:
+            assert torch.equal(x, y), name
+
+
+def test_fused_attention_vjp_casts_cotangents_to_input_types():
+    a = _self_att_inputs()
+    args = _torch_att(a, torch.bfloat16, grad=True)
+    tak.fused_attention_vjp("time", *args).float().sum().backward()
+    for i, (name, t) in enumerate(zip(ATT_ORDER, args)):
+        if i in ATT_DIFF:
+            assert t.grad is not None and t.grad.dtype == torch.bfloat16, name
+        else:
+            assert t.grad is None, name        # t_q, t_k, key_len
+    # outside time mode only q, k and v get a gradient: the output does
+    # not depend on tqw, rawk or the gate params there
+    dm = torch.tensor(a["dm"], requires_grad=True)
+    args = _torch_att(a, torch.float32, grad=True)
+    tak.fused_attention_vjp("plain_drop", *args, dm).sum().backward()
+    assert dm.grad is None
+    for i, (name, t) in enumerate(zip(ATT_ORDER, args)):
+        assert (t.grad is not None) == (i in (0, 1, 2)), name
+
+
+def test_attention_wrappers_check_the_mask():
+    args = _torch_att(_self_att_inputs(), torch.float32)
+    with pytest.raises(ValueError, match="dm"):
+        tak.fused_attention("plain_drop", *args)
+    dm = torch.ones((B, TL, TL))
+    with pytest.raises(ValueError, match="only the"):
+        tak.fused_attention("plain", *args, dm)
+    with pytest.raises(ValueError, match="dm"):
+        tak.fused_attention("tisas_drop", *args, dm.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="g must be"):
+        tak.fused_attention_bwd("time", torch.ones((B, TL, D + 1)), *args)
