@@ -26,6 +26,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      same inputs must give the same bits; timed at B = 256, Tq = Tk = 50
      (scaled_dot_product_attention forward + backward beside the plain
      and tisas backward);
+  2d. the long-history kernels the same way: fused_readout and
+     fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 in f32 and
+     bf16 (scalar and positional gate rows, ragged key lengths, one row
+     with no live key, one masked query) and at the slice's B=64, L=512
+     with every key live, where two backward launches must give the same
+     bits and both are timed; gru_scan and gru_scan_bwd at B=64, L=512;
+     dtable on phase 6's four tables with the ids of its first batch;
   3. the serving slice: Recommender.recommend at full width (MTAM d=128,
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
@@ -35,7 +42,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      hops, 4832 users, 3706 items, 18 categories, tables padded to 128
      rows, adam clipped to 1.0) on 4096 rows made from seed 0 and held
      on the card: one step's loss and every gradient leaf against the
-     CPU in f32 and bf16, five f32 steps against the CPU, launch counts
+     CPU in f32 and bf16, five f32 steps against the CPU (the losses of
+     the card's own run; the parameters after each step taken from the
+     CPU's parameters and Adam state before it), launch counts
      per step (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 0 fused_attention),
      and the time per step, examples/s and device idle share in bf16
      and f32;
@@ -47,12 +56,23 @@ Phases, in order; any failure exits non-zero and prints no result:
      sides (3 [*_drop] forward + 3 backward launches a step), then timed
      with the card's own generator drawing the masks; and
      Recommender.recommend for each of the three at B = 16 in bf16
-     against the CPU.
+     against the CPU;
+  6. MTAM over long histories (benchmarks/long_history_bench.py's run:
+     d=128, 3 hops, 1 head, the scalar gate, tables padded to 128 rows,
+     adam clipped to 1.0, L=512, B=64, 100 users, 2000 items, 18
+     categories) on 2048 rows of its Markov-walk data made from seed 0:
+     one step's loss and every gradient leaf against the CPU in f32 and
+     bf16, five f32 steps against the CPU as in phase 4, the step timed
+     in bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1
+     fused_readout, 1 fused_readout_bwd, 0 fused_attention launches a
+     step), and
+     Recommender.recommend at L=512 for B = 1, 16, 64 in bf16 and f32
+     against the CPU (1 gru_scan + 1 fused_readout a call).
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
-at Tq=Tk=50 as "@Tq50"); the last line is
-{"ok": true, "device": {...}}.  A full report is written to
-chiprun_out/chip_smoke.json.
+at Tq=Tk=50 as "@Tq50"; the readout, GRU and dtable kernels at B=64,
+L=512 as "@L512"); the last line is {"ok": true, "device": {...}}.  A full report
+is written to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -89,6 +109,11 @@ KERNEL_FILES = {
     "fused_attention_bwd": (
         "mtamrecommender_tpu_torch/csrc/fused_attention_bwd.cu",
         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:325"),
+    "fused_readout": ("mtamrecommender_tpu_torch/csrc/fused_readout.cu",
+                      "mtamrecommender_tpu/ops/pallas/readout_kernel.py:115"),
+    "fused_readout_bwd": (
+        "mtamrecommender_tpu_torch/csrc/fused_readout_bwd.cu",
+        "mtamrecommender_tpu/ops/pallas/readout_kernel.py:138"),
 }
 SERVING_MODES = ("plain", "time", "tisas")   # the forward modes phase 2 holds
 SELF_ATTENTION = {"SASrec": "plain_drop",
@@ -99,7 +124,9 @@ SELF_ATTENTION = {"SASrec": "plain_drop",
 # gap is allowed on top (see PERF.md)
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TRAJ_LOSS_RTOL = 1e-4        # five f32 steps: each loss, relative
-TRAJ_PARAM_ATOL = 2e-4       # five f32 steps: final parameters (lr 1e-3)
+# five f32 steps, each from the CPU's parameters and Adam state: the
+# parameters after it (lr 1e-3), per leaf
+TRAJ_PARAM_ATOL = 2e-4
 TRAIN_BATCH, TRAIN_ROWS = 256, 4096
 
 
@@ -381,52 +408,45 @@ def check_kernels(torch, timer, iters, failures):
 
 # ------------------------------------------------------------ phase 3
 
-def run_slice(torch, iters, failures):
+SERVING_META = (6040, 3706, 18, 50)      # the ml-1m catalog, L=50
+
+
+def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag):
+    """Recommender.recommend for MTAM at full width (d=128, 3 hops, 1 head,
+    k=50; ``overrides`` on the config) for each request batch size in
+    ``batches``, in bf16 and f32 compute: the launches of one call,
+    counted from 0, against ``want``; the scores against the same
+    Recommender on the CPU (the plain twins) over the catalog's columns;
+    the time per request batch.  Returns (rows, the calls' launches)."""
     from mtamrecommender_tpu_torch.config import ExperimentConfig
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
     from mtamrecommender_tpu_torch.models.mtam import init_mtam
-    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
-    from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
     from mtamrecommender_tpu_torch.serve import Recommender
-    from mtamrecommender_tpu_torch.types import DatasetMeta
 
-    meta = DatasetMeta(user_count=6040, item_count=3706, category_count=18,
-                       max_seq_len=50)
-    rows = []
-    main_launches = {"gru_scan": {m: 0 for m in gk.MODES},
-                     "fused_attention": {m: 0 for m in ak.MODES}}
+    rows, launches = [], {}
+    vocab = meta.item_vocab
     for dname in ("bfloat16", "float32"):
         cfg = ExperimentConfig().with_overrides(**{
             "model.experiment_type": "MTAM", "model.num_units": 128,
             "model.num_blocks": 3, "model.num_heads": 1,
             "model.dropout": 0.0, "model.use_pallas": True,
             "model.pallas_scope": "all", "model.compute_dtype": dname,
-            "data.max_seq_len": 50})
+            "data.max_seq_len": meta.max_seq_len, **overrides})
         model = init_mtam(torch.Generator().manual_seed(0), cfg.model, meta)
         rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
         rec = Recommender(cfg, meta, model, device=DEVICE)
-        for bs in (1, 16, 256):
+        for bs in batches:
             hists, req = make_histories(np.random.RandomState(bs), bs,
                                         meta.item_count, meta.category_count,
                                         meta.max_seq_len)
             if bs > 1:
                 hists[1] = []                  # an empty history
             # --- the main path: counts from 0 around one recommend call
-            for counts in (gk.launches, ak.launches, ak.bwd_launches):
-                for m in counts:
-                    counts[m] = 0
+            _reset_counts()
             recs = rec.recommend(hists, req, k=50)
             torch.cuda.synchronize()
-            got = {"gru_scan": dict(gk.launches),
-                   "fused_attention": dict(ak.launches),
-                   "fused_attention_bwd": dict(ak.bwd_launches)}
-            for kname in main_launches:
-                for m, n in got[kname].items():
-                    main_launches[kname][m] += n
-            want = {"gru_scan": {m: int(m == "tgru") for m in gk.MODES},
-                    "fused_attention": {m: 3 * int(m == "time")
-                                        for m in ak.MODES},
-                    "fused_attention_bwd": {m: 0 for m in ak.MODES}}
+            got = _counts()
+            _add_launches(launches, got)
             launches_ok = got == want
             shape_ok = len(recs) == bs and all(len(r) == 50 for r in recs) \
                 and all(math.isfinite(s) for r in recs for _, s in r)
@@ -435,13 +455,13 @@ def run_slice(torch, iters, failures):
             batch_cpu = rec_cpu.batch_from_histories(hists, req)
             with torch.no_grad():
                 s_gpu = scores_for_eval(rec.model_def, rec._model_c, cfg.model,
-                                        batch, meta.item_vocab).cpu()
+                                        batch, vocab).cpu()
                 s_cpu = scores_for_eval(rec_cpu.model_def, rec_cpu._model_c,
-                                        cfg.model, batch_cpu,
-                                        meta.item_vocab)
+                                        cfg.model, batch_cpu, vocab)
             finite = bool(torch.isfinite(s_gpu).all())
-            err, rel = rel_err(s_gpu, s_cpu)
-            tol_abs = SLICE_TOL[dname] * s_cpu.abs().max().item()
+            # a padded table's columns past the catalog hold -2^32+1
+            err, rel = rel_err(s_gpu[:, :vocab], s_cpu[:, :vocab])
+            tol_abs = SLICE_TOL[dname] * s_cpu[:, :vocab].abs().max().item()
             top_gpu = torch.topk(s_gpu, 50, dim=1).indices
             kth_cpu = torch.topk(s_cpu, 50, dim=1).values[:, -1:]
             # an id only the card ranks in the top 50 must score within the
@@ -453,11 +473,12 @@ def run_slice(torch, iters, failures):
             # --- time per request batch
             recommend_ms = _host_ms(torch, lambda: rec.recommend(
                 hists, req, k=50), iters)
-            fetch = min(50 + meta.max_seq_len, meta.item_vocab)
+            fetch = min(50 + meta.max_seq_len, vocab)
             score_ms = _event_ms(torch, lambda: rec._score_impl(batch, fetch),
                                  iters)
             busy = _device_busy(torch, lambda: rec._score_impl(batch, fetch))
             row = {"compute_dtype": dname, "batch": bs, "k": 50,
+                   "seq_len": meta.max_seq_len,
                    "launches_per_call": got, "launches_ok": launches_ok,
                    "max_abs_score_err": err, "rel_score_err": rel,
                    "tol": SLICE_TOL[dname], "topk_ok": topk_ok,
@@ -467,7 +488,10 @@ def run_slice(torch, iters, failures):
                                           / score_ms),
                    "ok": ok}
             rows.append(row)
-            print(f"slice {dname:9s} B={bs:<4d} launches={got} "
+            fired = {k: {m: n for m, n in v.items() if n}
+                     for k, v in got.items()}
+            print(f"{tag} {dname:9s} B={bs:<4d} L={meta.max_seq_len} "
+                  f"launches={ {k: v for k, v in fired.items() if v} } "
                   f"max_abs_score_err={err:.3e} rel={rel:.3e} "
                   f"topk_ok={topk_ok} recommend_ms={recommend_ms:.3f} "
                   f"score_topk_ms={score_ms:.3f} device_busy_ms="
@@ -476,8 +500,20 @@ def run_slice(torch, iters, failures):
             for name, ms in busy["top_kernels"]:
                 print(f"    {ms:9.4f} ms  {name[:90]}", flush=True)
             if not ok:
-                failures.append(f"slice {dname} B={bs}: {row}")
-    return rows, main_launches
+                failures.append(f"{tag} {dname} B={bs}: {row}")
+    return rows, launches
+
+
+def run_slice(torch, iters, failures):
+    """Phase 3: MTAM serving at L=50 (1 gru_scan + 3 fused_attention[time]
+    launches a call, no fused_readout)."""
+    from mtamrecommender_tpu_torch.types import DatasetMeta
+
+    want = _want_counts(0)
+    want["gru_scan"]["tgru"] = 1
+    want["fused_attention"]["time"] = 3
+    return serve_mtam(torch, iters, failures, DatasetMeta(*SERVING_META), {},
+                      (1, 16, 256), want, "slice")
 
 
 def _host_ms(torch, fn, iters):
@@ -557,7 +593,6 @@ def check_train_kernels(torch, timer, iters, failures, tables):
     gru_scan_bwd in each mode at B = 1, 16, 256, and dtable at the step's
     four table shapes with ids from a gathered batch (``tables``: name ->
     (ids, vocab)); timed at B = 256."""
-    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
 
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
@@ -595,45 +630,56 @@ def check_train_kernels(torch, timer, iters, failures, tables):
             if not ok:
                 failures.append(f"gru_scan_bwd {mode} {dname}: rel err "
                                 f"{rel:.3e}")
-        shapes = {}
-        for table, (ids, vocab) in tables.items():
-            ct = torch.randn((ids.shape[0], 128), generator=gen,
-                             device=DEVICE).to(dtype)
-            got = ek.dtable(ct, ids, vocab)
-            want = ek.dtable_plain(ct, ids, vocab)
-            err, rel, ok = _agree(got, want, dname)
-            again = ek.dtable(ct, ids, vocab)
-            ok = ok and bool(torch.equal(got, again))   # same bits each run
-            ids64 = ids.long()
-            shapes[table] = {
-                "n": int(ids.shape[0]), "vocab": vocab,
-                "max_abs_err": err, "rel_err": rel, "ok": ok,
-                "ms": timer(lambda: ek.dtable(ct, ids, vocab), iters),
-                "plain_ms": timer(lambda: ek.dtable_plain(ct, ids, vocab),
-                                  iters),
-                "library_ms": timer(lambda: torch.zeros(
-                    (vocab, 128), dtype=dtype, device=DEVICE).index_add_(
-                        0, ids64, ct), iters),
-                **dtable_bound(ct, ids, vocab)}
-            r = shapes[table]
-            print(f"dtable {table:11s} n={r['n']:<6d} V={vocab:<5d} "
-                  f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                  f"index_add_ms={r['library_ms']:.4f} bound_ms="
-                  f"{r['bound_ms']:.4f} ({r['bound_by']}) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                failures.append(f"dtable {table} {dname}: rel err {rel:.3e} "
-                                "or not reproducible")
-        head = shapes["item_table"]
-        entries.setdefault(("dtable", None, None), {})[dname] = {
-            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+        entries.setdefault(("dtable", None, None), {})[dname] = check_dtable(
+            torch, timer, iters, failures, gen, dtype, tables, "L=50")
+    return entries
+
+
+def check_dtable(torch, timer, iters, failures, gen, dtype, tables, tag):
+    """dtable against its plain twin (and index_add_ timed beside it) on
+    each of a step's four tables with its ids (``tables``: name -> (ids,
+    padded vocab)) and a random cotangent; two launches must give the
+    same bits.  Returns the entry row, headed by the item table."""
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    dname = str(dtype).replace("torch.", "")
+    shapes = {}
+    for table, (ids, vocab) in tables.items():
+        ct = torch.randn((ids.shape[0], 128), generator=gen,
+                         device=DEVICE).to(dtype)
+        got = ek.dtable(ct, ids, vocab)
+        want = ek.dtable_plain(ct, ids, vocab)
+        err, rel, ok = _agree(got, want, dname)
+        again = ek.dtable(ct, ids, vocab)
+        ok = ok and bool(torch.equal(got, again))   # same bits each run
+        ids64 = ids.long()
+        shapes[table] = {
+            "n": int(ids.shape[0]), "vocab": vocab,
+            "max_abs_err": err, "rel_err": rel, "ok": ok,
+            "ms": timer(lambda: ek.dtable(ct, ids, vocab), iters),
+            "plain_ms": timer(lambda: ek.dtable_plain(ct, ids, vocab),
+                              iters),
+            "library_ms": timer(lambda: torch.zeros(
+                (vocab, 128), dtype=dtype, device=DEVICE).index_add_(
+                    0, ids64, ct), iters),
+            **dtable_bound(ct, ids, vocab)}
+        r = shapes[table]
+        print(f"dtable {tag} {table:11s} n={r['n']:<6d} V={vocab:<5d} "
+              f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"index_add_ms={r['library_ms']:.4f} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"dtable {tag} {table} {dname}: rel err "
+                            f"{rel:.3e} or not reproducible")
+    head = shapes["item_table"]
+    return {**{k: head[k] for k in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")},
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "rel_err": max(r["rel_err"] for r in shapes.values()),
             "tol": KERNEL_TOL[dname],
             "ok": all(r["ok"] for r in shapes.values()), "by_table": shapes}
-    return entries
 
 
 # ------------------------------------------------------------ phase 2c
@@ -777,6 +823,220 @@ def check_attention_training(torch, timer, iters, failures):
     return entries
 
 
+# ------------------------------------------------------------ phase 2d
+
+READOUT_BATCHES, READOUT_KEYS = (1, 16, 64), (256, 512, 1024)
+
+
+def readout_inputs(torch, gen, dtype, B, L, d=128, n=3, gate="scalar",
+                   full=False):
+    """The fused readout's operands: memory and query as the long-history
+    slice gives them (relu-free embeddings and a GRU state), logdt from
+    sorted hour stamps, stacked per-hop weights at glorot scale, and gate
+    rows (constant along L for scalar gates).  Unless ``full``: ragged
+    key lengths (the first row full, the third empty from B = 16 on) and
+    the second row's query masked."""
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=DEVICE) * scale
+                ).to(dtype)
+    hours = 470_000.0 + torch.rand(B, L, generator=gen, device=DEVICE) * 5000
+    t_k = hours.sort(dim=1).values
+    logdt = torch.log1p((t_k[:, -1:] + 1.0 - t_k).abs()).contiguous()
+    key_len = torch.full((B,), L, dtype=torch.int32, device=DEVICE)
+    qmask = torch.ones(B, device=DEVICE)
+    if not full:
+        key_len = torch.randint(1, L + 1, (B,), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+        key_len[0] = L
+        if B >= 16:
+            key_len[2] = 0
+        if B > 1:
+            qmask[1] = 0.0
+
+    def gate_row():
+        if gate == "scalar":
+            return (torch.randn(n, 1, generator=gen, device=DEVICE) * 0.3
+                    ).expand(n, L).contiguous()
+        return torch.randn(n, L, generator=gen, device=DEVICE) * 0.3
+
+    w = d ** -0.5
+    return (rand(B, L, d), rand(B, d), logdt, key_len, qmask,
+            rand(n, d, d, scale=w), rand(n, d, scale=0.1),
+            rand(n, d, d, scale=w), rand(n, d, scale=0.1),
+            rand(n, d, d, scale=w), rand(n, d, scale=0.1),
+            rand(n, d, d, scale=0.3 * w),
+            *(gate_row() for _ in range(5)),
+            (1.0 + rand(n, d, scale=0.1).float()).to(dtype),
+            rand(n, d, scale=0.1))
+
+
+def _readout_keys(args):
+    """(live keys, reached keys) summed over the rows: a row's scores
+    need its live keys' K, its weighted sum the V of the keys its
+    weights reach (all L where none is live)."""
+    mem, key_len = args[0], args[3]
+    L = mem.shape[1]
+    live = key_len.clamp(0, L)
+    return (int(live.sum().item()),
+            int(live.masked_fill(live == 0, L).sum().item()))
+
+
+def _readout_in_bytes(args, n_span):
+    mem = args[0]
+    B, L, d = mem.shape
+    n = args[5].shape[0]
+    es = mem.element_size()
+    return (n_span * d * es + B * d * es + B * L * 4 + B * 8
+            + (4 * n * d * d + 5 * n * d) * es + 5 * n * L * 4)
+
+
+def readout_bound(args, dtype_name):
+    """Least time for the forward these inputs need: the memory rows the
+    weights reach, the query, logdt, key_len and qmask, the weights,
+    biases, LN params and gate rows read once, the f32 output written;
+    per hop 2d^2 FLOPs per live key (K) and per reached key (V), 4d^2 per
+    row (q, u), 2d per live key twice (q.K, u.mem) and per reached key
+    once (the weighted sum)."""
+    mem = args[0]
+    B, L, d = mem.shape
+    n = args[5].shape[0]
+    n_live, n_span = _readout_keys(args)
+    flops = n * (2 * d * d * (n_live + n_span) + 4 * B * d * d
+                 + 2 * d * (2 * n_live + n_span))
+    return _bound(_readout_in_bytes(args, n_span) + B * d * 4, flops,
+                  dtype_name)
+
+
+def readout_bwd_bound(args, dtype_name):
+    """Least time for the backward these inputs need: g and the forward's
+    inputs read once, the 16 f32 cotangents written once; per hop the
+    forward's K and V again (its intermediates are not inputs), dmem's
+    two products and dWk's and dWv's (2d^2 FLOPs each per live key for K,
+    per reached key for V), 12d^2 per row (q, u and their four transposed
+    products), and 2d per live key four times (q.K, u.mem, du, dq) and
+    per reached key twice (o, do.V)."""
+    mem = args[0]
+    B, L, d = mem.shape
+    n = args[5].shape[0]
+    n_live, n_span = _readout_keys(args)
+    flops = n * (6 * d * d * (n_live + n_span) + 12 * B * d * d
+                 + 2 * d * (4 * n_live + 2 * n_span))
+    out = (B * L * d + B * d + 4 * n * d * d + 5 * n * d + 5 * n * L) * 4
+    return _bound(_readout_in_bytes(args, n_span) + B * d * 4 + out, flops,
+                  dtype_name)
+
+
+def check_readout_kernels(torch, timer, iters, failures, tables):
+    """The long-history kernels against their plain twins: fused_readout
+    and fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 (scalar
+    gates at L = 512, positional at the others; ragged keys, one masked
+    query), and on the slice's own shape (B=64, L=512, every key live,
+    scalar gates), where two backward launches must give the same bits
+    and both are timed; gru_scan and gru_scan_bwd at B=64, L=512; dtable
+    on the slice's four tables with the ids of its first batch
+    (``tables``, as check_train_kernels takes them)."""
+    from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
+    from mtamrecommender_tpu_torch.ops.kernels import readout_kernel as rk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1357)
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        fwd = {"err": 0.0, "rel": 0.0, "ok": True}
+        bwd = {"err": 0.0, "rel": 0.0, "ok": True}
+        same = True
+        cases = [(bs, L, "scalar" if L == LONG_L else "positional", False)
+                 for L in READOUT_KEYS for bs in READOUT_BATCHES]
+        for bs, L, gate, full in cases + [(LONG_BATCH, LONG_L, "scalar",
+                                           True)]:
+            args = readout_inputs(torch, gen, dtype, bs, L, gate=gate,
+                                  full=full)
+            e, r, o = _agree(rk.fused_readout(*args),
+                             rk.fused_readout_plain(*args), dname)
+            fwd = {"err": max(fwd["err"], e), "rel": max(fwd["rel"], r),
+                   "ok": fwd["ok"] and o}
+            g = torch.randn((bs, 128), generator=gen, device=DEVICE)
+            got = rk.fused_readout_bwd(g, *args)
+            again = rk.fused_readout_bwd(g, *args)
+            want = rk.fused_readout_bwd_plain(g, *args)
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+            for a, b in zip(got, want):
+                e, r, o = _agree(a, b, dname)
+                bwd = {"err": max(bwd["err"], e), "rel": max(bwd["rel"], r),
+                       "ok": bwd["ok"] and o}
+            print(f"fused_readout(+bwd) B={bs:<3d} L={L:<5d} {gate:10s}"
+                  f" {dname:9s} fwd rel={fwd['rel']:.3e} bwd rel="
+                  f"{bwd['rel']:.3e} same_bits={same}", flush=True)
+        # args and g are the slice's shape now
+        rows = {
+            "fused_readout": {
+                "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
+                "tol": KERNEL_TOL[dname], "ok": fwd["ok"],
+                "ms": timer(lambda: rk.fused_readout(*args), iters),
+                "plain_ms": timer(lambda: rk.fused_readout_plain(*args),
+                                  max(iters // 10, 3)),
+                **readout_bound(args, dname)},
+            "fused_readout_bwd": {
+                "max_abs_err": bwd["err"], "rel_err": bwd["rel"],
+                "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and same,
+                "same_bits_twice": same,
+                "ms": timer(lambda: rk.fused_readout_bwd(g, *args), iters),
+                "plain_ms": timer(lambda: rk.fused_readout_bwd_plain(
+                    g, *args), max(iters // 10, 3)),
+                **readout_bwd_bound(args, dname)}}
+        for kname, row in rows.items():
+            entries.setdefault((kname, None, "L512"), {})[dname] = row
+            print(f"{kname} B=64 L=512 {dname:9s} max_abs_err="
+                  f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
+                  f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms="
+                  f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                  f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+            if not row["ok"]:
+                failures.append(f"{kname} {dname}: rel err {row['rel_err']:.3e}"
+                                f", same bits {same}")
+        # the T-GRU scan and its backward at the slice's length
+        args = gru_inputs(torch, gen, "tgru", dtype, B=LONG_BATCH, L=LONG_L)
+        args[4].fill_(LONG_L)                # every row full, as the slice's
+        with torch.no_grad():
+            outs = gk.gru_scan("tgru", *args)
+        g = torch.randn(outs.shape, generator=gen, device=DEVICE)
+        checks = {
+            "gru_scan": (outs, gk.gru_scan_plain("tgru", *args),
+                         lambda: gk.gru_scan("tgru", *args),
+                         lambda: gk.gru_scan_plain("tgru", *args),
+                         gru_bound("tgru", args, dname)),
+            "gru_scan_bwd": (gk.gru_scan_bwd("tgru", g, outs, *args),
+                             gk.gru_scan_bwd_plain("tgru", g, outs, *args),
+                             lambda: gk.gru_scan_bwd("tgru", g, outs, *args),
+                             lambda: gk.gru_scan_bwd_plain("tgru", g, outs,
+                                                           *args),
+                             gru_bwd_bound("tgru", args, dname))}
+        for kname, (got, want, run, plain, bound) in checks.items():
+            pairs = zip(got, want) if isinstance(got, tuple) \
+                else [(got, want)]
+            err = rel = 0.0
+            ok = True
+            for a, b in pairs:
+                e, r, o = _agree(a, b, dname)
+                err, rel, ok = max(err, e), max(rel, r), ok and o
+            row = {"max_abs_err": err, "rel_err": rel,
+                   "tol": KERNEL_TOL[dname], "ok": ok,
+                   "ms": timer(run, max(iters // 10, 3)),
+                   "plain_ms": timer(plain, 3), **bound}
+            entries.setdefault((kname, "tgru", "L512"), {})[dname] = row
+            print(f"{kname} tgru B=64 L=512 {dname:9s} max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} ms={row['ms']:.4f} plain_ms="
+                  f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"{kname} tgru L=512 {dname}: rel err "
+                                f"{rel:.3e}")
+        entries.setdefault(("dtable", None, "L512"), {})[dname] = \
+            check_dtable(torch, timer, iters, failures, gen, dtype, tables,
+                         "L=512")
+    return entries
+
+
 # ------------------------------------------------------------ phase 4
 
 def make_train_arrays(meta, n, seed=0):
@@ -826,15 +1086,42 @@ def train_cfg(dname, name="MTAM"):
         "data.max_seq_len": 50, "train.train_batch_size": TRAIN_BATCH})
 
 
+def step_tables(setup):
+    """The step's four lookups: table -> (the first batch's flat int32
+    ids, padded vocab); and, per table, whether every id of the dataset
+    lies in [0, vocab), checked on the card (the dtable kernel does not
+    check)."""
+    from mtamrecommender_tpu_torch.ops.embedding import pad_vocab
+
+    m = setup.meta
+    tables, in_range = {}, {}
+    for table, field, vocab in (
+            ("user_table", "user_id", m.user_vocab),
+            ("item_table", "items", m.item_vocab),
+            ("cat_table", "cats", m.category_vocab),
+            ("pos_table", "positions", m.position_vocab)):
+        v = pad_vocab(vocab, 128)
+        ids = getattr(setup.batch, field).reshape(-1).contiguous()
+        tables[table] = (ids, v)
+        col = getattr(setup.data, field)
+        in_range[table] = bool(((col >= 0) & (col < v)).all())
+    return tables, in_range
+
+
 class TrainSetup:
     """The training cell: bench.py's MTAM configuration, 4096 rows from
     make_train_arrays on the card and on the CPU, one epoch order."""
+
+    batch_size = TRAIN_BATCH
+
+    @staticmethod
+    def cfg(dname, name="MTAM"):
+        return train_cfg(dname, name)
 
     def __init__(self, torch):
         from mtamrecommender_tpu_torch.data.device_data import (epoch_order,
                                                                  gather_batch,
                                                                  to_device)
-        from mtamrecommender_tpu_torch.ops.embedding import pad_vocab
         from mtamrecommender_tpu_torch.types import DatasetMeta
 
         self.meta = DatasetMeta(user_count=4832, item_count=3706,
@@ -850,21 +1137,7 @@ class TrainSetup:
         self.batch = gather_batch(self.data, self.order, 0, TRAIN_BATCH)
         self.batch_cpu = gather_batch(self.data_cpu, self.order_cpu, 0,
                                       TRAIN_BATCH)
-        # the step's four lookups: table -> (the first batch's flat int32
-        # ids, padded vocab); every id of the dataset is checked on the
-        # card to lie in [0, vocab), which the dtable kernel does not do
-        m = self.meta
-        self.tables, self.ids_in_range = {}, {}
-        for table, field, vocab in (
-                ("user_table", "user_id", m.user_vocab),
-                ("item_table", "items", m.item_vocab),
-                ("cat_table", "cats", m.category_vocab),
-                ("pos_table", "positions", m.position_vocab)):
-            v = pad_vocab(vocab, 128)
-            ids = getattr(self.batch, field).reshape(-1).contiguous()
-            self.tables[table] = (ids, v)
-            col = getattr(self.data, field)
-            self.ids_in_range[table] = bool(((col >= 0) & (col < v)).all())
+        self.tables, self.ids_in_range = step_tables(self)
 
     def model(self, torch, cfg, device):
         from mtamrecommender_tpu_torch.models.registry import get_model
@@ -889,24 +1162,32 @@ def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None):
              for n, p in model.named_parameters()})
 
 
-def _counts(gk, ak, ek):
+def _counts():
+    """Every wrapper's launches since the last `_reset_counts`, by kernel
+    and mode (the kernels without modes under their own name)."""
+    gk, ak, ek, rk = _kernel_modules()
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
-            "dtable": dict(ek.launches)}
+            "dtable": dict(ek.launches),
+            "fused_readout": {"fused_readout": rk.launches},
+            "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches}}
 
 
-def _reset_counts(gk, ak, ek):
+def _reset_counts():
+    gk, ak, ek, rk = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
                    ak.bwd_launches, ek.launches):
         for m in counts:
             counts[m] = 0
+    rk.launches = rk.bwd_launches = 0
 
 
-def _want_counts(steps, gru=None, attention=None, blocks=3):
+def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False):
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
-    forward and backward ``blocks`` times a step in mode ``attention``."""
+    forward and backward ``blocks`` times a step in mode ``attention``;
+    the fused readout and its backward once a step with ``readout``."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
 
@@ -914,14 +1195,17 @@ def _want_counts(steps, gru=None, attention=None, blocks=3):
     att = {m: steps * blocks * int(m == attention) for m in ak.MODES}
     return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
             "fused_attention": att, "fused_attention_bwd": dict(att),
-            "dtable": {"dtable": 4 * steps}}
+            "dtable": {"dtable": 4 * steps},
+            "fused_readout": {"fused_readout": steps * int(readout)},
+            "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)}}
 
 
 def _kernel_modules():
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
     from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
-    return gk, ak, ek
+    from mtamrecommender_tpu_torch.ops.kernels import readout_kernel as rk
+    return gk, ak, ek, rk
 
 
 def one_step_check(torch, setup, failures, name, want, drop_masks=None):
@@ -929,22 +1213,21 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None):
     CPU (the plain twins), in f32 and bf16, and the step's launches
     against ``want``.  ``drop_masks``: CPU masks, one per block, injected
     on both sides."""
-    gk, ak, ek = _kernel_modules()
     vocab = setup.meta.item_vocab
     on_card = None if drop_masks is None else [m.to(DEVICE)
                                                 for m in drop_masks]
     report, cpu32 = {}, None
     for dname in ("float32", "bfloat16"):
-        cfg = train_cfg(dname, name)
+        cfg = setup.cfg(dname, name)
         m_cpu, g_cpu = _loss_grads(torch, cfg, setup.model(torch, cfg, "cpu"),
                                    setup.batch_cpu, vocab, drop_masks)
         if dname == "float32":
             cpu32 = g_cpu
-        _reset_counts(gk, ak, ek)
+        _reset_counts()
         m_gpu, g_gpu = _loss_grads(torch, cfg, setup.model(torch, cfg, DEVICE),
                                    setup.batch, vocab, on_card)
         torch.cuda.synchronize()
-        counts = _counts(gk, ak, ek)
+        counts = _counts()
         worst, worst_leaf, ok = 0.0, None, True
         by_leaf = {}
         for leaf, g in g_gpu.items():
@@ -966,7 +1249,8 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None):
             "loss_gpu": m_gpu, "loss_cpu": m_cpu, "loss_rel_err": loss_rel,
             "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
             "grad_rel_err_by_leaf": by_leaf, "launches": counts, "ok": ok}
-        print(f"train {name} one step {dname:9s} loss gpu="
+        print(f"train {name} L={setup.meta.max_seq_len} one step {dname:9s} "
+              f"loss gpu="
               f"{m_gpu['loss']:.6f} cpu={m_cpu['loss']:.6f} worst grad rel "
               f"err={worst:.3e} ({worst_leaf}) launches={counts} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -977,36 +1261,73 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None):
 
 
 def five_steps_check(torch, setup, failures, name):
-    """Five f32 make_superstep steps on the card against the CPU: each
-    loss and the final parameters."""
+    """Five f32 make_superstep steps on the card against the CPU, which
+    takes them one at a time.  The card runs the five on its own: each
+    loss within TRAJ_LOSS_RTOL of the CPU's.  Then it takes each step
+    again from the CPU's parameters and Adam state before that step:
+    every parameter leaf after it within TRAJ_PARAM_ATOL of the CPU's.
+    The free run's parameter gap is reported, not held (PERF.md, PR 4)."""
     from mtamrecommender_tpu_torch.models.registry import get_model
-    from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
+    from mtamrecommender_tpu_torch.train.trainer import (AdamState,
+                                                         make_optimizer,
                                                          make_superstep)
 
-    cfg = train_cfg("float32", name)
-    traj = {}
-    for device, data, order in (("cpu", setup.data_cpu, setup.order_cpu),
-                                (DEVICE, setup.data, setup.order)):
-        model = setup.model(torch, cfg, device)
-        opt = make_optimizer(cfg.train)
-        run = make_superstep(get_model(name), cfg, opt, setup.meta.item_vocab,
-                             TRAIN_BATCH, device=device)
-        _, stacked = run(model, opt.init(model), data, order, 0, 5)
-        traj[device] = (stacked["loss"].cpu(),
-                        {n: p.detach().cpu()
-                         for n, p in model.named_parameters()})
-    loss_err = ((traj[DEVICE][0] - traj["cpu"][0]).abs()
-                / traj["cpu"][0].abs()).max().item()
-    param_err = max((traj[DEVICE][1][n] - p).abs().max().item()
-                    for n, p in traj["cpu"][1].items())
-    ok = loss_err <= TRAJ_LOSS_RTOL and param_err <= TRAJ_PARAM_ATOL \
-        and bool(torch.isfinite(traj[DEVICE][0]).all())
-    report = {"losses_gpu": traj[DEVICE][0].tolist(),
-              "losses_cpu": traj["cpu"][0].tolist(),
-              "loss_rel_err": loss_err, "param_max_abs_err": param_err,
-              "ok": ok}
-    print(f"train {name} five f32 steps losses={traj[DEVICE][0].tolist()} "
-          f"loss rel err={loss_err:.3e} param max abs err={param_err:.3e} "
+    cfg = setup.cfg("float32", name)
+    opt = make_optimizer(cfg.train)
+
+    def run_on(device):
+        return make_superstep(get_model(name), cfg, opt, setup.meta.item_vocab,
+                              setup.batch_size, device=device)
+
+    def params(model):
+        return {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+
+    # the CPU: parameters before each step and after the last; the
+    # update replaces the Adam state's tensors, so each state stays
+    model, run = setup.model(torch, cfg, "cpu"), run_on("cpu")
+    state, snaps, states, losses_cpu = opt.init(model), [], [], []
+    for k in range(5):
+        snaps.append(params(model))
+        states.append(state)
+        state, stacked = run(model, state, setup.data_cpu, setup.order_cpu,
+                             k, 1)
+        losses_cpu.append(stacked["loss"][0].item())
+    snaps.append(params(model))
+    losses_cpu = torch.tensor(losses_cpu)
+
+    model, run = setup.model(torch, cfg, DEVICE), run_on(DEVICE)
+    _, stacked = run(model, opt.init(model), setup.data, setup.order, 0, 5)
+    losses = stacked["loss"].cpu()
+    loss_err = ((losses - losses_cpu).abs() / losses_cpu.abs()).max().item()
+    free = {n: (p - snaps[5][n]).abs().max().item()
+            for n, p in params(model).items()}
+    free_worst = max(free, key=free.get)
+    gap, worst = 0.0, None
+    for k in range(5):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(snaps[k][n])
+        st = states[k]
+        run(model, AdamState(st.count,
+                             {n: t.to(DEVICE) for n, t in st.mu.items()},
+                             {n: t.to(DEVICE) for n, t in st.nu.items()}),
+            setup.data, setup.order, k, 1)
+        for n, p in params(model).items():
+            g = (p - snaps[k + 1][n]).abs().max().item()
+            if worst is None or g > gap:
+                gap, worst = g, (n, k)
+    ok = loss_err <= TRAJ_LOSS_RTOL and gap <= TRAJ_PARAM_ATOL \
+        and bool(torch.isfinite(losses).all())
+    report = {"losses_gpu": losses.tolist(), "losses_cpu": losses_cpu.tolist(),
+              "loss_rel_err": loss_err, "param_max_abs_err": gap,
+              "worst_leaf": worst[0], "worst_step": worst[1],
+              "free_run_param_max_abs_err": free[free_worst],
+              "free_run_worst_leaf": free_worst, "ok": ok}
+    print(f"train {name} L={setup.meta.max_seq_len} five f32 steps "
+          f"losses={losses.tolist()} loss rel err={loss_err:.3e} param max "
+          f"abs err from the CPU's state={gap:.3e} ({worst[0]}, step "
+          f"{worst[1]}); free run {free[free_worst]:.3e} ({free_worst}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         failures.append(f"training {name} trajectory: {report}")
@@ -1022,19 +1343,18 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
     from mtamrecommender_tpu_torch.models.registry import get_model
     from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
                                                          make_superstep)
-    gk, ak, ek = _kernel_modules()
     report = {}
     steps, warm = 20, 3      # per dtype; the order holds 48 steps
     for dname in ("bfloat16", "float32"):
-        cfg = train_cfg(dname, name)
+        cfg = setup.cfg(dname, name)
         model = setup.model(torch, cfg, DEVICE)
         opt = make_optimizer(cfg.train)
         run = make_superstep(get_model(name), cfg, opt, setup.meta.item_vocab,
-                             TRAIN_BATCH)
+                             setup.batch_size)
         state, _ = run(model, opt.init(model), setup.data, setup.order, 0,
                        warm)
         torch.cuda.synchronize()
-        _reset_counts(gk, ak, ek)
+        _reset_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1042,7 +1362,7 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
                              steps)
         end.record()
         end.synchronize()
-        counts = _counts(gk, ak, ek)
+        counts = _counts()
         ms = start.elapsed_time(end) / steps
         _add_launches(main_launches, counts)
         busy = _device_busy(torch, lambda: run(
@@ -1053,13 +1373,14 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
         ok = counts == want(steps) and bool(torch.isfinite(losses).all())
         report[f"timed_{dname}"] = {
             "steps": steps, "ms_per_step": ms,
-            "examples_per_s": TRAIN_BATCH / ms * 1e3,
+            "examples_per_s": setup.batch_size / ms * 1e3,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": None if busy_ms is None else 1 - busy_ms / ms,
             "top_kernels": busy["top_kernels"][:5], "launches": counts,
             "losses": losses.tolist(), "ok": ok}
         r = report[f"timed_{dname}"]
-        print(f"train {name} {dname:9s} B={TRAIN_BATCH} ms/step={ms:.3f} "
+        print(f"train {name} {dname:9s} B={setup.batch_size} L="
+              f"{setup.meta.max_seq_len} ms/step={ms:.3f} "
               f"examples/s={r['examples_per_s']:.1f} device busy ms/step="
               f"{busy_ms} idle_share={r['idle_share']} launches/{steps} "
               f"steps={counts} {'ok' if ok else 'FAIL'}", flush=True)
@@ -1071,10 +1392,13 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
     return report
 
 
+UNMODED = ("dtable", "fused_readout", "fused_readout_bwd")
+
+
 def _add_launches(main_launches, counts):
     for kname, by_mode in counts.items():
         for mode, n in by_mode.items():
-            mode = None if kname == "dtable" else mode
+            mode = None if kname in UNMODED else mode
             per = main_launches.setdefault(kname, {})
             per[mode] = per.get(mode, 0) + n
 
@@ -1134,7 +1458,6 @@ def serve_self_attention(torch, setup, failures):
     the same Recommender on the CPU."""
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
     from mtamrecommender_tpu_torch.serve import Recommender
-    gk, ak, ek = _kernel_modules()
 
     meta, rows = setup.meta, {}
     total = {}
@@ -1147,10 +1470,10 @@ def serve_self_attention(torch, setup, failures):
         model = setup.model(torch, cfg, "cpu")
         rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
         rec = Recommender(cfg, meta, model, device=DEVICE)
-        _reset_counts(gk, ak, ek)
+        _reset_counts()
         recs = rec.recommend(hists, req, k=50)
         torch.cuda.synchronize()
-        counts = _counts(gk, ak, ek)
+        counts = _counts()
         _add_launches(total, counts)
         base = mode.replace("_drop", "")
         want = _want_counts(0)
@@ -1181,14 +1504,139 @@ def serve_self_attention(torch, setup, failures):
     return rows, total
 
 
+# ------------------------------------------------------------ phase 6
+
+LONG_BATCH, LONG_ROWS, LONG_L = 64, 2048, 512
+LONG_META = (100, 2000, 18, LONG_L)          # users, items, categories, L
+
+
+def markov_long_arrays(n_rows, L, items, cats, seed=0):
+    """A numpy copy of benchmarks/long_history_bench.markov_long_batchset
+    (same draws, same order): every row a full history of L-1 events of a
+    sparse random walk over the items (each item has 3 successors), hour
+    gaps set by the item, then the mask slot; the target is the walk's
+    next step."""
+    rng = np.random.RandomState(seed)
+    succ = rng.randint(1, items + 1, size=(items + 1, 3))
+    gaps = rng.randint(1, 48, size=items + 1).astype(np.float32)
+    item_cat = rng.randint(1, cats + 1, size=items + 2).astype(np.int32)
+    seq = np.zeros((n_rows, L), np.int32)
+    times = np.zeros((n_rows, L), np.float32)
+    target = np.zeros((n_rows,), np.int32)
+    seq_len = np.full((n_rows,), L, np.int32)
+    for r in range(n_rows):
+        cur = rng.randint(1, items + 1)
+        t = float(rng.randint(0, 1000))
+        for i in range(L - 1):
+            seq[r, i] = cur
+            times[r, i] = t
+            cur = succ[cur, rng.randint(3)]
+            t += gaps[seq[r, i]]
+        target[r] = cur
+        seq[r, L - 1] = items + 1                   # mask token
+        times[r, L - 1] = t
+    cats_arr = item_cat[seq]
+    cats_arr[:, L - 1] = cats + 1
+    tl = np.zeros_like(times)
+    tl[:, 1:] = times[:, 1:] - times[:, :-1]
+    tn = times[:, -1:] - times
+    pos = np.tile(np.arange(L, dtype=np.int32), (n_rows, 1))
+    return dict(user_id=rng.randint(1, 100, n_rows).astype(np.int32),
+                items=seq, cats=cats_arr, times=times, time_last=tl,
+                time_now=tn, positions=pos, target_id=target,
+                target_cat=item_cat[target],
+                target_time=times[:, -1].astype(np.float32), seq_len=seq_len)
+
+
+LONG_OVERRIDES = {"model.time_gate_mode": "scalar",
+                  "model.vocab_pad_multiple": 128}
+
+
+def long_cfg(dname, name="MTAM"):
+    """The long-history cell (benchmarks/long_history_bench.py:113-125):
+    MTAM, d=128, 3 hops, 1 head, the scalar decay gate, tables padded to
+    128 rows, adam (lr 1e-3) clipped to 1.0, L=512, B=64."""
+    from mtamrecommender_tpu_torch.config import ExperimentConfig
+    return ExperimentConfig().with_overrides(**{
+        "model.experiment_type": name, "model.num_units": 128,
+        "model.num_blocks": 3, "model.num_heads": 1,
+        "model.compute_dtype": dname, "model.use_pallas": True,
+        "data.max_seq_len": LONG_L, "train.train_batch_size": LONG_BATCH,
+        **LONG_OVERRIDES})
+
+
+class LongSetup:
+    """The long-history cell: 2048 rows of markov_long_arrays (seed 0) on
+    the card and on the CPU, three epoch orders."""
+
+    batch_size = LONG_BATCH
+    model = TrainSetup.model
+
+    @staticmethod
+    def cfg(dname, name="MTAM"):
+        return long_cfg(dname, name)
+
+    def __init__(self, torch):
+        from mtamrecommender_tpu_torch.data.device_data import (epoch_order,
+                                                                 gather_batch,
+                                                                 to_device)
+        from mtamrecommender_tpu_torch.types import DatasetMeta
+
+        self.meta = DatasetMeta(*LONG_META)
+        arrays = markov_long_arrays(LONG_ROWS, LONG_L, self.meta.item_count,
+                                    self.meta.category_count, seed=0)
+        self.data = to_device(arrays)               # CUDA: the default
+        self.data_cpu = to_device(arrays, device="cpu")
+        epochs = [epoch_order(LONG_ROWS, LONG_BATCH,
+                              np.random.RandomState(e))[0] for e in range(3)]
+        order = np.concatenate(epochs)
+        self.order = torch.tensor(order, device=DEVICE)
+        self.order_cpu = torch.tensor(order)
+        self.batch = gather_batch(self.data, self.order, 0, LONG_BATCH)
+        self.batch_cpu = gather_batch(self.data_cpu, self.order_cpu, 0,
+                                      LONG_BATCH)
+        self.tables, self.ids_in_range = step_tables(self)
+
+
+def run_long_history(torch, setup, failures):
+    """Phase 6: MTAM over long histories.  One step's loss and every
+    gradient leaf, and five f32 steps, against the CPU; the step timed in
+    bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1 fused_readout,
+    1 fused_readout_bwd and no fused_attention launch a step); then
+    Recommender.recommend at B = 1, 16, 64 against the CPU (1 gru_scan +
+    1 fused_readout a call)."""
+    report = {"ids_in_range": setup.ids_in_range}
+    if not all(report["ids_in_range"].values()):
+        failures.append("long-history ids out of range: "
+                        f"{report['ids_in_range']}")
+    want = lambda steps: _want_counts(  # noqa: E731
+        steps, gru="tgru", readout=True)
+    report.update(one_step_check(torch, setup, failures, "MTAM", want))
+    report["five_steps_float32"] = five_steps_check(torch, setup, failures,
+                                                    "MTAM")
+    launches = {}
+    report.update(timed_steps(torch, setup, failures, "MTAM", want,
+                              launches))
+    want_call = _want_counts(0)
+    want_call["gru_scan"]["tgru"] = 1
+    want_call["fused_readout"]["fused_readout"] = 1
+    report["serving"], serve_launches = serve_mtam(
+        torch, 10, failures, setup.meta, LONG_OVERRIDES,
+        (1, 16, LONG_BATCH), want_call, "long-history serve")
+    _add_launches(launches, serve_launches)
+    return report, launches
+
+
 # ------------------------------------------------------------ report
 
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
-    Tq=Tk=50 (the self-attention blocks, ``@Tq50``), each with the ms,
-    bound and launches of that shape (``launches_by_shape[shape]``; the
-    kernels without a shape count every path's launches under None)."""
+    Tq=Tk=50 (the self-attention blocks, ``@Tq50``), the readout, GRU
+    and dtable kernels at MTAM's long-history shape (B=64, L=512,
+    ``@L512``), each with the ms, bound and launches of that shape
+    (``launches_by_shape[shape]``; the entries without a shape count the
+    L=50 paths' launches under None)."""
     out = []
     for (kname, mode, shape), by_dtype in entries.items():
         # serving and training both compute in bf16; dtable's head row is
@@ -1208,8 +1656,10 @@ def kernels_line(entries, launches_by_shape):
             # time gate sits between QK^T and the softmax, and the GRU
             # cell's reset gate multiplies h before its product (cuDNN's
             # after) and the time gate scales the candidate (forward and
-            # backward alike); dtable's is index_add_; the plain and tisas
-            # backward's is scaled_dot_product_attention fwd+bwd
+            # backward alike), and no call runs several attention hops
+            # with their projections (the fused readout); dtable's is
+            # index_add_; the plain and tisas backward's is
+            # scaled_dot_product_attention fwd+bwd
             "library_ms": head.get("library_ms"),
             "library_call": head.get("library_call"),
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
@@ -1261,6 +1711,11 @@ def main() -> int:
                                                   failures).items():
         entries.setdefault(key, {}).update(by_dtype)
 
+    # phase 2d: the long-history kernels, dtable at the long cell's ids
+    long_setup = LongSetup(torch)
+    entries.update(check_readout_kernels(torch, timer, 100, failures,
+                                         long_setup.tables))
+
     # phase 3: the serving slice
     slice_rows, serve_launches = run_slice(torch, 20, failures)
     for kname, mode in (("gru_scan", "tgru"), ("fused_attention", "time")):
@@ -1290,16 +1745,27 @@ def main() -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "self-attention paths")
 
-    # launches on the main paths: MTAM's (phases 3 and 4) run the
+    # phase 6: MTAM over long histories
+    long_history, long_launches = run_long_history(torch, long_setup,
+                                                   failures)
+    for kname, mode in (("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
+                        ("dtable", None), ("fused_readout", None),
+                        ("fused_readout_bwd", None)):
+        if long_launches[kname][mode] == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "long-history path")
+
+    # launches on the main paths: MTAM's at L=50 (phases 3 and 4) run the
     # attention kernels at Tq=1, the self-attention models' (phase 5) at
-    # Tq=Tk=50
+    # Tq=Tk=50; MTAM's at L=512 (phase 6) the readout and GRU kernels
     mtam_launches = {k: dict(v) for k, v in serve_launches.items()}
     _add_launches(mtam_launches, train_launches)
     main_launches = copy.deepcopy(mtam_launches)
     _add_launches(main_launches, sa_launches)
     report = kernels_line(entries, {None: main_launches,
                                     "Tq1": mtam_launches,
-                                    "Tq50": sa_launches})
+                                    "Tq50": sa_launches,
+                                    "L512": long_launches})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, **report,
@@ -1311,6 +1777,10 @@ def main() -> int:
                    "launches_self_attention": {
                        k: {str(m): n for m, n in v.items()}
                        for k, v in sa_launches.items()},
+                   "long_history": long_history,
+                   "launches_long_history": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in long_launches.items()},
                    "failures": failures}, f, indent=1, default=str)
     if failures:
         for msg in failures:

@@ -17,9 +17,13 @@ Ported so far:
     and Ti_Self_Attention_Model, training and serving through the same
     entry points: embed -> self-attention blocks (plain, time-gated or
     log-interval-biased, with attention-weight dropout in training) ->
-    gather -> layer norm.
+    gather -> layer norm;
+  * MTAM over long histories (256 <= L <= 1024), training and serving:
+    the whole multi-hop readout, projections included, in one fused
+    readout kernel per direction.
 Their TPU kernels (the GRU scan and its backward, the fused attention
-and its backward, the embedding-table backward) are hand-written CUDA
+and its backward, the embedding-table backward, the fused multi-hop
+readout and its backward) are hand-written CUDA
 C++ for sm_90a under `csrc/`, built with nvcc at first use and bound
 with ctypes (`ops/kernels/`).  On a CUDA tensor a wrapper launches its kernel
 or raises; on a CPU tensor it runs the plain PyTorch twin of the kernel.

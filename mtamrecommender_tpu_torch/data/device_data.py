@@ -17,8 +17,7 @@ from typing import Mapping, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from mtamrecommender_tpu_torch.serve import resolve_device
-from mtamrecommender_tpu_torch.types import Batch
+from mtamrecommender_tpu_torch.types import Batch, resolve_device
 
 
 class DeviceDataset(NamedTuple):

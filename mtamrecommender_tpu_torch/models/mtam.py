@@ -60,8 +60,11 @@ def _intent(model: MTAM, cfg: ModelConfig, batch: Batch, embedded):
 
 def _readout(model: MTAM, cfg: ModelConfig, batch: Batch, memory,
              intent, train: bool) -> torch.Tensor:
-    """Multi-hop single-query attention over the memory: hop-batched in
-    training, hop by hop on the attention kernel in serving."""
+    """Multi-hop single-query attention over the memory.  The route
+    depends on the memory's length: over 256 to 1024 keys the whole
+    readout is one fused readout kernel call per direction, in training
+    and serving; below, hop-batched in training and hop by hop on the
+    attention kernel in serving (`attention.vanilla_attention_stack`)."""
     ones = torch.ones_like(batch.seq_len)
     return attention.vanilla_attention_stack(
         model.att, memory, intent[:, None, :], key_len=batch.seq_len,
@@ -80,8 +83,8 @@ def apply_mtam(model: MTAM, cfg: ModelConfig, batch: Batch, *,
                train: bool, gen=None) -> base.ModelOutput:
     """T-GRU intent -> time-aware multi-hop attention over the raw
     behavior embeddings -> layer norm.  MTAM draws no random numbers, so
-    it ignores ``gen``; ``train`` picks the readout's route, not its
-    math."""
+    it ignores ``gen``; ``train`` and the history's length pick the
+    readout's route, not its math."""
     e = base.embed(model, batch)
     _, intent = _intent(model, cfg, batch, e)
     hybrid = _readout(model, cfg, batch, e.behavior_emb, intent, train)

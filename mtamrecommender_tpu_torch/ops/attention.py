@@ -14,10 +14,14 @@ attention modules' normalize (eps 1e-8).
     weights in training through the kernel's '*_drop' modes with one
     mask per block, taken from ``gen`` (`layers.draw_drop_mask`); the
     time kind never drops.
-  * `vanilla_attention_stack` runs MTAM's Tq=1 readout: hop by hop on the
-    kernel when serving, and in training the hop-batched readout
+  * `vanilla_attention_stack` runs MTAM's Tq=1 readout.  Over 256 to
+    1024 keys (`READOUT_KERNEL_MIN_KEYS`, `readout_kernel.MAX_KEYS`) all
+    hops, projections included, take the `fused_readout` kernel
+    (`fused_readout_stack`), in training and serving, as in the JAX
+    package.  Below that, hop by hop on the attention kernel when
+    serving, and in training the hop-batched readout
     (`single_query_readout`, plain PyTorch), which JAX too computes
-    outside Pallas at every width the port takes.
+    outside Pallas there.
 
 Faithfulness notes kept from the JAX package:
   * the content-time term tanh(Q W_t K^T) uses the RAW queries/keys;
@@ -38,11 +42,17 @@ from torch import nn
 
 from mtamrecommender_tpu_torch.ops import initializers as init
 from mtamrecommender_tpu_torch.ops import layers
-from mtamrecommender_tpu_torch.ops.kernels import attention_kernel
+from mtamrecommender_tpu_torch.ops.kernels import (attention_kernel,
+                                                   readout_kernel)
 
 Params = Dict[str, object]
 
 NEG_FILL = -(2.0 ** 32) + 1.0  # the reference's key-mask fill
+
+# The shortest memory whose Tq=1 readout takes the fused readout kernel,
+# as in the JAX package: the threshold picks which TPU kernel a shape
+# runs, and the port keeps the JAX path at every shape.
+READOUT_KERNEL_MIN_KEYS = 256
 
 GATE_PARAMS = ("time_input_w1", "time_input_b1", "time_output_w1",
                "time_output_w2", "time_output_b")
@@ -313,18 +323,60 @@ def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
     return cur
 
 
+def fused_readout_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
+                        key_len: torch.Tensor, query_len: torch.Tensor, *,
+                        t_queries: torch.Tensor, t_keys: torch.Tensor
+                        ) -> torch.Tensor:
+    """All n Tq=1 time-attention hops, projections included, in one
+    `fused_readout` call per direction (twin of the JAX
+    `_fused_readout_pallas`).  The per-hop params are stacked, and each
+    gate param becomes an f32 [n, Tk] row here, outside the autograd
+    function: a scalar is broadcast (autograd sums its cotangent back), a
+    positional [1, Tk] is reshaped.  enc: [B, Tk, d]; dec: [B, 1, d];
+    returns [B, d] in dec's type."""
+    n, tk = len(blocks), enc.shape[1]
+
+    def gate_row(name):
+        x = _stack(blocks, lambda p: getattr(p, name)).float()
+        if x.dim() == 1:                      # scalar gates, stacked: [n]
+            return x[:, None].expand(n, tk).contiguous()
+        return x.reshape(n, tk)               # positional [n, 1, Tk]
+
+    logdt = torch.log1p(torch.abs(t_queries[:, 0:1] - t_keys)).float()
+    out = readout_kernel.fused_readout_vjp(
+        enc.contiguous(), dec[:, 0, :].contiguous(), logdt.contiguous(),
+        key_len.to(torch.int32), (query_len > 0).float(),
+        _stack(blocks, lambda p: p.q.w), _stack(blocks, lambda p: p.q.b),
+        _stack(blocks, lambda p: p.k.w), _stack(blocks, lambda p: p.k.b),
+        _stack(blocks, lambda p: p.v.w), _stack(blocks, lambda p: p.v.b),
+        _stack(blocks, lambda p: p.time_input_w),
+        *(gate_row(name) for name in GATE_PARAMS),
+        _stack(blocks, lambda p: p.ln.gamma),
+        _stack(blocks, lambda p: p.ln.beta))
+    return out.to(dec.dtype)
+
+
 def vanilla_attention_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
                             key_len: torch.Tensor, query_len: torch.Tensor,
                             *, kind: str, num_heads: int,
                             t_queries: torch.Tensor, t_keys: torch.Tensor,
                             train: bool = False) -> torch.Tensor:
-    """Decoder cross-attention hops; returns [B*Tq, d].  ``train=True``
-    with one query takes the hop-batched `single_query_readout` (the
-    JAX package's training route); otherwise the hops run one after
-    another on the fused attention kernel (its serving route at L=50)."""
+    """Decoder cross-attention hops; returns [B*Tq, d].  One query over
+    `READOUT_KERNEL_MIN_KEYS` to `readout_kernel.MAX_KEYS` keys takes
+    `fused_readout_stack`, in training and serving alike.  Otherwise
+    ``train=True`` with one query takes the hop-batched
+    `single_query_readout` (the JAX package's training route there), and
+    the rest runs hop by hop on the fused attention kernel (its serving
+    route at L=50)."""
     if kind != "time":
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported yet (ROADMAP.md)")
+    if (dec.shape[1] == 1 and len(blocks) > 0
+            and READOUT_KERNEL_MIN_KEYS <= enc.shape[1]
+            <= readout_kernel.MAX_KEYS):
+        _one_head(num_heads)
+        return fused_readout_stack(blocks, enc, dec, key_len, query_len,
+                                   t_queries=t_queries, t_keys=t_keys)
     if train and dec.shape[1] == 1 and len(blocks) > 0:
         return single_query_readout(blocks, enc, dec, key_len, query_len,
                                     num_heads=num_heads, t_queries=t_queries,

@@ -33,11 +33,14 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # kernel library name -> its source file; every source includes common.cuh
+# (the readout's two include readout_hop.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
-           "embedding_dtable": "embedding_dtable.cu"}
-_HEADERS = ("common.cuh",)
+           "embedding_dtable": "embedding_dtable.cu",
+           "fused_readout": "fused_readout.cu",
+           "fused_readout_bwd": "fused_readout_bwd.cu"}
+_HEADERS = ("common.cuh", "readout_hop.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -145,5 +148,6 @@ def launch_context(tensors, what: str):
         raise RuntimeError(
             f"{what}: the CUDA kernel returns no gradient; call it under "
             "torch.no_grad() or through its autograd function (gru_scan: "
-            "gru_scan_vjp; fused_attention: fused_attention_vjp)")
+            "gru_scan_vjp; fused_attention: fused_attention_vjp; "
+            "fused_readout: fused_readout_vjp)")
     return device.index, torch.cuda.current_stream(device).cuda_stream

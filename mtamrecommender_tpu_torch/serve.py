@@ -28,17 +28,8 @@ from mtamrecommender_tpu_torch.config import ExperimentConfig
 from mtamrecommender_tpu_torch.models import base
 from mtamrecommender_tpu_torch.models.base import ModelDef, scores_for_eval
 from mtamrecommender_tpu_torch.models.registry import get_model
-from mtamrecommender_tpu_torch.types import Batch, DatasetMeta, batch_from_numpy
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA; a CUDA device without a GPU raises."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port runs on the GPU unless "
-            "the caller passes device='cpu'")
-    return device
+from mtamrecommender_tpu_torch.types import (Batch, DatasetMeta,
+                                             batch_from_numpy, resolve_device)
 
 
 class Recommender:

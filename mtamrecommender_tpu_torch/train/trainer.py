@@ -32,8 +32,7 @@ from mtamrecommender_tpu_torch.config import ExperimentConfig, TrainConfig
 from mtamrecommender_tpu_torch.data.device_data import (DeviceDataset,
                                                          gather_batch)
 from mtamrecommender_tpu_torch.models.base import ModelDef, compute_loss
-from mtamrecommender_tpu_torch.serve import resolve_device
-from mtamrecommender_tpu_torch.types import Batch
+from mtamrecommender_tpu_torch.types import Batch, resolve_device
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 

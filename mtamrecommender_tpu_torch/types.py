@@ -63,8 +63,20 @@ _INT_FIELDS = ("user_id", "items", "cats", "positions", "target_id",
                "target_cat", "seq_len")
 
 
-def batch_from_numpy(arrays: dict, device="cpu") -> Batch:
-    """numpy arrays keyed by field name -> a Batch on ``device``."""
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; a CUDA device without a GPU raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU unless "
+            "the caller passes device='cpu'")
+    return device
+
+
+def batch_from_numpy(arrays: dict, device=None) -> Batch:
+    """numpy arrays keyed by field name -> a Batch on ``device``: CUDA
+    unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     return Batch(**{
         name: torch.tensor(arrays[name],
                            dtype=(torch.int32 if name in _INT_FIELDS

@@ -94,7 +94,7 @@ def _models(name, cfg):
 
 def _to_torch_batch(jb):
     return ttypes.batch_from_numpy({f: np.asarray(getattr(jb, f))
-                                    for f in jb._fields})
+                                    for f in jb._fields}, device="cpu")
 
 
 def _batches(seed=5, valid=None):

@@ -77,7 +77,7 @@ def _batches():
     jb = jb._replace(times=jb.times + 470_000.0,
                      target_time=jb.target_time + 470_000.0)
     return jb, ttypes.batch_from_numpy(
-        {f: np.asarray(getattr(jb, f)) for f in jb._fields})
+        {f: np.asarray(getattr(jb, f)) for f in jb._fields}, device="cpu")
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

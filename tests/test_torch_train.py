@@ -84,7 +84,7 @@ def _models(cfg):
 
 def _to_torch_batch(jb):
     return ttypes.batch_from_numpy({f: np.asarray(getattr(jb, f))
-                                    for f in jb._fields})
+                                    for f in jb._fields}, device="cpu")
 
 
 def _batches(seed=5, valid=None):
@@ -370,6 +370,18 @@ def test_training_entry_points_run_on_cuda_by_default(monkeypatch):
     step = ttrainer.make_train_step(get_model("MTAM"), cfg, opt, 63,
                                     device="cpu")
     assert callable(step)
+
+
+def test_batch_from_numpy_runs_on_cuda_by_default(monkeypatch):
+    jb, _ = _batches()
+    arrays = {f: np.asarray(getattr(jb, f)) for f in jb._fields}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttypes.batch_from_numpy(arrays)
+    batch = ttypes.batch_from_numpy(arrays, device="cpu")
+    assert batch.items.device.type == "cpu"
+    assert batch.items.dtype == torch.int32
+    assert batch.times.dtype == torch.float32
 
 
 def test_unported_training_options_raise():
