@@ -67,12 +67,40 @@ Phases, in order; any failure exits non-zero and prints no result:
      fused_readout, 1 fused_readout_bwd, 0 fused_attention launches a
      step), and
      Recommender.recommend at L=512 for B = 1, 16, 64 in bf16 and f32
-     against the CPU (1 gru_scan + 1 fused_readout a call).
+     against the CPU (1 gru_scan + 1 fused_readout a call);
+  2e. (run after 2d) past 1024 keys: fused_attention_blockwise in each
+     mode against its twin in f32 and bf16 at Tq = 1 (B = 1, 16, 64 x
+     Tk = 1025, 2048, 4096) and Tq = Tk = 2048 (B = 1, 16, 64), ragged
+     key lengths (a row with no live key, a full row, one ending inside
+     the first 512-key block), timed at B = 64, Tk = 2048, every key live
+     (Tq = Tk and Tq = 1) beside scaled_dot_product_attention for plain
+     and tisas;
+     gather and scatter_add against their twins at the L=2048 cell's
+     131,072 ids a table and at phase 4's ids, the same bits twice,
+     timed beside index_select and index_add_;
+  7. past 1024 keys at the slice's configuration (phase 6's cell at
+     L=2048, 256 rows of its data): Recommender.recommend for MTAM,
+     SASrec, TiSAS and Time_Aware_SA at B = 1, 16, 64 in bf16 and f32
+     (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a call; the
+     others 3 fused_attention_blockwise[<mode>]), scores against the CPU
+     at B = 2 (the CPU's time at L=2048 sets that size);
+     Time_Aware_SA's step: one step against the CPU at B = 2 (in bf16
+     the scalar gates' gradients reported, not held), timed at
+     B = 64 in bf16 and f32 with its peak memory (3 blockwise[time] + 3
+     dense_bwd[time] + 4 dtable a step, no fused_attention_bwd);
+     SASrec's and TiSAS's at dropout 0.5 (CPU masks injected; 3
+     dense_fwd a step and no attention kernel), timed in bf16; and
+     behavior_embedding(gather=embedding_kernel.gather) forward and
+     backward on the cell's first batch against take_dtable (4 gather +
+     4 scatter_add launches).
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the readout, GRU and dtable kernels at B=64,
-L=512 as "@L512"); the last line is {"ok": true, "device": {...}}.  A full report
-is written to chiprun_out/chip_smoke.json.
+L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048 and the
+gather / scatter-add pair at L=2048 as "@L2048", the blockwise time mode
+at MTAM's Tq=1 hops as "@L2048Tq1"); the last line is {"ok": true,
+"device": {...}}.  A full report is written to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -114,6 +142,13 @@ KERNEL_FILES = {
     "fused_readout_bwd": (
         "mtamrecommender_tpu_torch/csrc/fused_readout_bwd.cu",
         "mtamrecommender_tpu/ops/pallas/readout_kernel.py:138"),
+    "fused_attention_blockwise": (
+        "mtamrecommender_tpu_torch/csrc/fused_attention_blockwise.cu",
+        "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
+    "gather": ("mtamrecommender_tpu_torch/csrc/embedding_gather.cu",
+               "mtamrecommender_tpu/ops/pallas/embedding_kernel.py:33"),
+    "scatter_add": ("mtamrecommender_tpu_torch/csrc/embedding_gather.cu",
+                    "mtamrecommender_tpu/ops/pallas/embedding_kernel.py:74"),
 }
 SERVING_MODES = ("plain", "time", "tisas")   # the forward modes phase 2 holds
 SELF_ATTENTION = {"SASrec": "plain_drop",
@@ -1086,14 +1121,15 @@ def train_cfg(dname, name="MTAM"):
         "data.max_seq_len": 50, "train.train_batch_size": TRAIN_BATCH})
 
 
-def step_tables(setup):
-    """The step's four lookups: table -> (the first batch's flat int32
-    ids, padded vocab); and, per table, whether every id of the dataset
-    lies in [0, vocab), checked on the card (the dtable kernel does not
-    check)."""
+def step_tables(setup, batch=None):
+    """The step's four lookups: table -> (the flat int32 ids of ``batch``,
+    the setup's first batch by default, and the padded vocab); and, per
+    table, whether every id of the dataset lies in [0, vocab), checked on
+    the card (the dtable kernel does not check)."""
     from mtamrecommender_tpu_torch.ops.embedding import pad_vocab
 
     m = setup.meta
+    batch = setup.batch if batch is None else batch
     tables, in_range = {}, {}
     for table, field, vocab in (
             ("user_table", "user_id", m.user_vocab),
@@ -1101,7 +1137,7 @@ def step_tables(setup):
             ("cat_table", "cats", m.category_vocab),
             ("pos_table", "positions", m.position_vocab)):
         v = pad_vocab(vocab, 128)
-        ids = getattr(setup.batch, field).reshape(-1).contiguous()
+        ids = getattr(batch, field).reshape(-1).contiguous()
         tables[table] = (ids, v)
         col = getattr(setup.data, field)
         in_range[table] = bool(((col >= 0) & (col < v)).all())
@@ -1164,12 +1200,18 @@ def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None):
 
 def _counts():
     """Every wrapper's launches since the last `_reset_counts`, by kernel
-    and mode (the kernels without modes under their own name)."""
+    and mode (the kernels without modes under their own name); and the
+    calls of the attention's dense route (`dense_fwd`, `dense_bwd`: plain
+    PyTorch, no kernel)."""
     gk, ak, ek, rk = _kernel_modules()
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
+            "fused_attention_blockwise": dict(ak.blockwise_launches),
+            "dense_fwd": dict(ak.dense_fwd), "dense_bwd": dict(ak.dense_bwd),
             "dtable": dict(ek.launches),
+            "gather": {"gather": ek.gather_launches["gather"]},
+            "scatter_add": {"scatter_add": ek.gather_launches["scatter_add"]},
             "fused_readout": {"fused_readout": rk.launches},
             "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches}}
 
@@ -1177,25 +1219,35 @@ def _counts():
 def _reset_counts():
     gk, ak, ek, rk = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
-                   ak.bwd_launches, ek.launches):
+                   ak.bwd_launches, ak.blockwise_launches, ak.dense_fwd,
+                   ak.dense_bwd, ek.launches, ek.gather_launches):
         for m in counts:
             counts[m] = 0
     rk.launches = rk.bwd_launches = 0
 
 
-def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False):
+def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
+                 blockwise=None, dense_fwd=None, dense_bwd=None):
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
     forward and backward ``blocks`` times a step in mode ``attention``;
-    the fused readout and its backward once a step with ``readout``."""
+    the fused readout and its backward once a step with ``readout``; the
+    blockwise forward and the dense route's forward and backward
+    ``blocks`` times a step in the modes given."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
 
     gru_counts = {m: steps * int(m == gru) for m in gk.MODES}
     att = {m: steps * blocks * int(m == attention) for m in ak.MODES}
+    per = lambda modes, mode: {m: steps * blocks * int(m == mode)  # noqa: E731
+                               for m in modes}
     return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
             "fused_attention": att, "fused_attention_bwd": dict(att),
+            "fused_attention_blockwise": per(ak.BLOCKWISE_MODES, blockwise),
+            "dense_fwd": per(ak.MODES, dense_fwd),
+            "dense_bwd": per(ak.MODES, dense_bwd),
             "dtable": {"dtable": 4 * steps},
+            "gather": {"gather": 0}, "scatter_add": {"scatter_add": 0},
             "fused_readout": {"fused_readout": steps * int(readout)},
             "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)}}
 
@@ -1208,11 +1260,15 @@ def _kernel_modules():
     return gk, ak, ek, rk
 
 
-def one_step_check(torch, setup, failures, name, want, drop_masks=None):
+def one_step_check(torch, setup, failures, name, want, drop_masks=None,
+                   hold_bf16_scalars=True):
     """One step's loss and every gradient leaf on the card against the
     CPU (the plain twins), in f32 and bf16, and the step's launches
     against ``want``.  ``drop_masks``: CPU masks, one per block, injected
-    on both sides."""
+    on both sides.  Without ``hold_bf16_scalars`` the bf16 gradients of
+    scalar leaves (the scalar decay gates) are reported, not held: at
+    L=2048 each is a sum of B*L*L terms that cancel, which bf16 rounding
+    leaves noise on either device (PERF.md, PR 5); f32 holds them."""
     vocab = setup.meta.item_vocab
     on_card = None if drop_masks is None else [m.to(DEVICE)
                                                 for m in drop_masks]
@@ -1229,7 +1285,7 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None):
         torch.cuda.synchronize()
         counts = _counts()
         worst, worst_leaf, ok = 0.0, None, True
-        by_leaf = {}
+        by_leaf, reported_only = {}, []
         for leaf, g in g_gpu.items():
             scale = max(cpu32[leaf].abs().max().item(), 1e-30)
             diff = (g - g_cpu[leaf]).abs().max().item()
@@ -1238,6 +1294,10 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None):
             if dname == "bfloat16":
                 allowed += (g_cpu[leaf] - cpu32[leaf]).abs().max().item()
             finite = bool(torch.isfinite(g).all())
+            if dname == "bfloat16" and g.dim() == 0 and not hold_bf16_scalars:
+                reported_only.append(leaf)
+                ok = ok and finite
+                continue
             ok = ok and finite and diff <= allowed
             if diff / scale > worst:
                 worst, worst_leaf = diff / scale, leaf
@@ -1248,7 +1308,12 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None):
         report[f"one_step_{dname}"] = {
             "loss_gpu": m_gpu, "loss_cpu": m_cpu, "loss_rel_err": loss_rel,
             "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
-            "grad_rel_err_by_leaf": by_leaf, "launches": counts, "ok": ok}
+            "grad_rel_err_by_leaf": by_leaf, "reported_only": reported_only,
+            "cpu_bf16_vs_f32_by_leaf": (
+                {leaf: (g_cpu[leaf] - cpu32[leaf]).abs().max().item()
+                 / max(cpu32[leaf].abs().max().item(), 1e-30)
+                 for leaf in reported_only}),
+            "launches": counts, "ok": ok}
         print(f"train {name} L={setup.meta.max_seq_len} one step {dname:9s} "
               f"loss gpu="
               f"{m_gpu['loss']:.6f} cpu={m_cpu['loss']:.6f} worst grad rel "
@@ -1334,18 +1399,19 @@ def five_steps_check(torch, setup, failures, name):
     return report
 
 
-def timed_steps(torch, setup, failures, name, want, main_launches):
-    """The main path: 20 make_superstep steps per dtype after 3 warm-up
-    steps, the launch counts from 0 around them (added to
-    ``main_launches``), CUDA events around them, then the profiler's
-    device time over 3 more steps.  Masks, where the model drops, come
-    from the step's own generator on the card."""
+def timed_steps(torch, setup, failures, name, want, main_launches,
+                steps=20, warm=3, dtypes=("bfloat16", "float32")):
+    """The main path: ``steps`` make_superstep steps per dtype after
+    ``warm`` warm-up steps, the launch counts from 0 around them (added
+    to ``main_launches``), CUDA events around them, the peak memory they
+    allocate, then the profiler's device time over 3 more steps.  Masks,
+    where the model drops, come from the step's own generator on the
+    card.  The setup's order must hold warm + steps + 3 steps."""
     from mtamrecommender_tpu_torch.models.registry import get_model
     from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
                                                          make_superstep)
     report = {}
-    steps, warm = 20, 3      # per dtype; the order holds 48 steps
-    for dname in ("bfloat16", "float32"):
+    for dname in dtypes:
         cfg = setup.cfg(dname, name)
         model = setup.model(torch, cfg, DEVICE)
         opt = make_optimizer(cfg.train)
@@ -1355,6 +1421,7 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
                        warm)
         torch.cuda.synchronize()
         _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1363,6 +1430,7 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
         end.record()
         end.synchronize()
         counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
         ms = start.elapsed_time(end) / steps
         _add_launches(main_launches, counts)
         busy = _device_busy(torch, lambda: run(
@@ -1376,13 +1444,15 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
             "examples_per_s": setup.batch_size / ms * 1e3,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": None if busy_ms is None else 1 - busy_ms / ms,
+            "peak_memory_bytes": peak,
             "top_kernels": busy["top_kernels"][:5], "launches": counts,
             "losses": losses.tolist(), "ok": ok}
         r = report[f"timed_{dname}"]
         print(f"train {name} {dname:9s} B={setup.batch_size} L="
               f"{setup.meta.max_seq_len} ms/step={ms:.3f} "
               f"examples/s={r['examples_per_s']:.1f} device busy ms/step="
-              f"{busy_ms} idle_share={r['idle_share']} launches/{steps} "
+              f"{busy_ms} idle_share={r['idle_share']} peak_mem_GiB="
+              f"{peak / 2 ** 30:.3f} launches/{steps} "
               f"steps={counts} {'ok' if ok else 'FAIL'}", flush=True)
         for kname, kms in busy["top_kernels"][:5]:
             print(f"    {kms / 3:9.4f} ms/step  {kname[:90]}", flush=True)
@@ -1392,7 +1462,8 @@ def timed_steps(torch, setup, failures, name, want, main_launches):
     return report
 
 
-UNMODED = ("dtable", "fused_readout", "fused_readout_bwd")
+UNMODED = ("dtable", "gather", "scatter_add", "fused_readout",
+           "fused_readout_bwd")
 
 
 def _add_launches(main_launches, counts):
@@ -1552,16 +1623,18 @@ LONG_OVERRIDES = {"model.time_gate_mode": "scalar",
                   "model.vocab_pad_multiple": 128}
 
 
-def long_cfg(dname, name="MTAM"):
+def long_cfg(dname, name="MTAM", L=LONG_L):
     """The long-history cell (benchmarks/long_history_bench.py:113-125):
-    MTAM, d=128, 3 hops, 1 head, the scalar decay gate, tables padded to
-    128 rows, adam (lr 1e-3) clipped to 1.0, L=512, B=64."""
+    MTAM (or ``name``), d=128, 3 hops or blocks, 1 head, the scalar decay
+    gate, tables padded to 128 rows, adam (lr 1e-3) clipped to 1.0, the
+    default dropout (0.5: SASrec and TiSAS drop attention weights),
+    L=512 (or ``L``), B=64."""
     from mtamrecommender_tpu_torch.config import ExperimentConfig
     return ExperimentConfig().with_overrides(**{
         "model.experiment_type": name, "model.num_units": 128,
         "model.num_blocks": 3, "model.num_heads": 1,
         "model.compute_dtype": dname, "model.use_pallas": True,
-        "data.max_seq_len": LONG_L, "train.train_batch_size": LONG_BATCH,
+        "data.max_seq_len": L, "train.train_batch_size": LONG_BATCH,
         **LONG_OVERRIDES})
 
 
@@ -1627,6 +1700,405 @@ def run_long_history(torch, setup, failures):
     return report, launches
 
 
+# ------------------------------------------------------------ phase 2e
+
+XL_L = 2048                  # the slice past 1024 keys
+XL_BLOCKWISE_CASES = ([(bs, 1, tk) for tk in (1025, 2048, 4096)
+                       for bs in (1, 16, 64)]
+                      + [(bs, XL_L, XL_L) for bs in (1, 16, 64)])
+
+
+def xl_att_inputs(torch, gen, dtype, B, Tq, Tk):
+    """`att_inputs` with, from B = 3 on, a third row whose live keys end
+    inside the first 512-key block (rows 0 and 1: no live key, all)."""
+    args = att_inputs(torch, gen, dtype, B=B, Tq=Tq, Tk=Tk)
+    if B > 2:
+        args[-1][2] = min(300, Tk)
+    return args
+
+
+def check_blockwise(torch, timer, iters, failures):
+    """fused_attention_blockwise in each mode against its plain twin, f32
+    and bf16, at Tq = 1 (B = 1, 16, 64 x Tk = 1025, 2048, 4096) and Tq =
+    Tk = 2048 (B = 1, 16, 64), ragged key lengths; timed at B = 64, Tk =
+    2048 with every key live for Tq = Tk (the self-attention blocks) and
+    Tq = 1 (MTAM's hops), with scaled_dot_product_attention beside the
+    plain and tisas modes."""
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8642)
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for mode in ak.BLOCKWISE_MODES:
+            err = rel = 0.0
+            ok = True
+            for bs, tq, tk in XL_BLOCKWISE_CASES:
+                args = xl_att_inputs(torch, gen, dtype, bs, tq, tk)
+                e, r, o = _agree(ak.fused_attention_blockwise(mode, *args),
+                                 ak.fused_attention_blockwise_plain(mode,
+                                                                    *args),
+                                 dname)
+                err, rel, ok = max(err, e), max(rel, r), ok and o
+                del args
+            print(f"fused_attention_blockwise {mode:6s} {dname:9s} "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"fused_attention_blockwise {mode} {dname}: "
+                                f"rel err {rel:.3e}")
+            rows = {}
+            for tq in (XL_L, 1):
+                # every key live, as in the cell's training rows
+                args = att_inputs(torch, gen, dtype, B=XL_BATCH, Tq=tq,
+                                  Tk=XL_L)
+                args[-1].fill_(XL_L)
+                row = {"max_abs_err": err, "rel_err": rel,
+                       "tol": KERNEL_TOL[dname], "ok": ok, "Tq": tq,
+                       "ms": timer(lambda: ak.fused_attention_blockwise(
+                           mode, *args), iters),
+                       "plain_ms": timer(
+                           lambda: ak.fused_attention_blockwise_plain(
+                               mode, *args), 3, warmup=1),
+                       **att_bound(mode, args, dname)}
+                library = att_library(torch, mode, args)
+                if library is not None:
+                    row["library_ms"] = timer(library, iters)
+                    row["library_call"] = "scaled_dot_product_attention"
+                    del library
+                rows[tq] = row
+                print(f"fused_attention_blockwise {mode:6s} B={XL_BATCH} "
+                      f"Tq={tq:<5d}Tk={XL_L} {dname:9s} ms={row['ms']:.4f} "
+                      f"plain_ms={row['plain_ms']:.4f} bound_ms="
+                      f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                      f"library_ms={row.get('library_ms')}", flush=True)
+                del args
+            entries.setdefault(("fused_attention_blockwise", mode, "L2048"),
+                               {})[dname] = rows[XL_L]
+            if mode == "time":       # MTAM's hops: their own main path
+                entries.setdefault(("fused_attention_blockwise", mode,
+                                    "L2048Tq1"), {})[dname] = rows[1]
+            else:
+                entries[("fused_attention_blockwise", mode, "L2048")][
+                    f"{dname}_tq1"] = rows[1]
+    return entries
+
+
+def gather_bound(table, ids):
+    """The table rows the ids name read once, the ids read once, the
+    output written once; no arithmetic."""
+    d = table.shape[1]
+    es = table.element_size()
+    rows = int(ids.unique().numel())
+    n = ids.shape[0]
+    return _bound(rows * d * es + 4 * n + n * d * es, 0, "float32")
+
+
+def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag):
+    """gather_rows and scatter_add against their plain twins on each of a
+    step's four tables with its ids (``tables``: name -> (ids, padded
+    vocab)), a random table and cotangent; two launches of each must give
+    the same bits; index_select and index_add_ timed beside them.
+    Returns the two entry rows, each headed by the item table."""
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    dname = str(dtype).replace("torch.", "")
+    shapes = {"gather": {}, "scatter_add": {}}
+    for table, (ids, vocab) in tables.items():
+        tab = torch.randn((vocab, 128), generator=gen, device=DEVICE).to(dtype)
+        ct = torch.randn((ids.shape[0], 128), generator=gen,
+                         device=DEVICE).to(dtype)
+        ids64 = ids.long()
+        for kname, run, plain, library, bound in (
+                ("gather", lambda: ek.gather_rows(tab, ids),
+                 lambda: ek.gather_plain(tab, ids),
+                 lambda: torch.index_select(tab, 0, ids64),
+                 gather_bound(tab, ids)),
+                ("scatter_add", lambda: ek.scatter_add(ct, ids, vocab),
+                 lambda: ek.scatter_add_plain(ct, ids, vocab),
+                 lambda: torch.zeros((vocab, 128), dtype=dtype,
+                                     device=DEVICE).index_add_(0, ids64, ct),
+                 dtable_bound(ct, ids, vocab))):
+            got, again, want = run(), run(), plain()
+            err, rel, ok = _agree(got, want, dname)
+            same = bool(torch.equal(got, again))
+            ok = ok and same
+            r = shapes[kname][table] = {
+                "n": int(ids.shape[0]), "vocab": vocab, "max_abs_err": err,
+                "rel_err": rel, "same_bits_twice": same, "ok": ok,
+                "ms": timer(run, iters),
+                "plain_ms": timer(plain, 2, warmup=1),
+                "library_ms": timer(library, iters), **bound}
+            print(f"{kname} {tag} {table:11s} n={r['n']:<6d} V={vocab:<5d} "
+                  f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} same_bits="
+                  f"{same} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f} bound_ms="
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"{kname} {tag} {table} {dname}: rel err "
+                                f"{rel:.3e}, same bits {same}")
+    out = {}
+    for kname, by_table in shapes.items():
+        head = by_table["item_table"]
+        out[kname] = {
+            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            "library_call": ("index_select" if kname == "gather"
+                             else "index_add_"),
+            "max_abs_err": max(r["max_abs_err"] for r in by_table.values()),
+            "rel_err": max(r["rel_err"] for r in by_table.values()),
+            "tol": KERNEL_TOL[dname],
+            "ok": all(r["ok"] for r in by_table.values()),
+            "by_table": by_table}
+    return out
+
+
+def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
+    """Phase 2e: the blockwise attention kernel, and the gather /
+    scatter-add pair at the L=2048 cell's ids and at phase 4's."""
+    entries = check_blockwise(torch, timer, 10, failures)
+    gen = torch.Generator(device=DEVICE).manual_seed(9753)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for tables, tag in ((xl_tables, "L=2048"), (l50_tables, "L=50")):
+            rows = check_gather(torch, timer, iters, failures, gen, dtype,
+                                tables, tag)
+            key = dname if tag == "L=2048" else f"{dname}_L50"
+            for kname, row in rows.items():
+                entries.setdefault((kname, None, "L2048"), {})[key] = row
+    return entries
+
+
+# ------------------------------------------------------------ phase 7
+
+XL_BATCH, XL_ROWS, XL_SMALL = 64, 256, 2
+XL_META = (100, 2000, 18, XL_L)              # users, items, categories, L
+# the four models and the blockwise mode each serves with
+XL_MODELS = {"MTAM": "time", "SASrec": "plain",
+             "Ti_Self_Attention_Model": "tisas",
+             "Time_Aware_Self_Attention_Model": "time"}
+
+
+class XLSetup:
+    """The slice past 1024 keys: the long-history cell
+    (benchmarks/long_history_bench.py's run) at L=2048, 256 rows of its
+    Markov-walk data (seed 0; the bench's 2048 rows cut to 256: the walk
+    is built by a Python loop, ~4 M steps at 2048 rows) on the card and on
+    the CPU, three epoch orders.  ``batch`` and ``batch_cpu`` are the
+    first XL_SMALL rows, the size the CPU comparisons can afford at this
+    length; ``tables`` hold the first full batch's ids."""
+
+    batch_size = XL_BATCH
+    model = TrainSetup.model
+
+    @staticmethod
+    def cfg(dname, name="MTAM"):
+        return long_cfg(dname, name, L=XL_L)
+
+    def __init__(self, torch):
+        from mtamrecommender_tpu_torch.data.device_data import (epoch_order,
+                                                                 gather_batch,
+                                                                 to_device)
+        from mtamrecommender_tpu_torch.types import DatasetMeta
+
+        self.meta = DatasetMeta(*XL_META)
+        arrays = markov_long_arrays(XL_ROWS, XL_L, self.meta.item_count,
+                                    self.meta.category_count, seed=0)
+        self.data = to_device(arrays)               # CUDA: the default
+        self.data_cpu = to_device(arrays, device="cpu")
+        epochs = [epoch_order(XL_ROWS, XL_BATCH,
+                              np.random.RandomState(e))[0] for e in range(3)]
+        order = np.concatenate(epochs)
+        self.order = torch.tensor(order, device=DEVICE)
+        self.order_cpu = torch.tensor(order)
+        self.full = gather_batch(self.data, self.order, 0, XL_BATCH)
+        self.tables, self.ids_in_range = step_tables(self, self.full)
+        self.batch = gather_batch(self.data, self.order, 0, XL_SMALL)
+        self.batch_cpu = gather_batch(self.data_cpu, self.order_cpu, 0,
+                                      XL_SMALL)
+
+
+def serve_xl(torch, failures, setup, name, want, main_launches):
+    """Recommender.recommend for ``name`` at L=2048 for B = 1, 16, 64 in
+    bf16 and f32: the launches of one call, counted from 0, against
+    ``want`` (added to ``main_launches``), and the time per request
+    batch; the scores against the same Recommender on the CPU at B =
+    XL_SMALL (the CPU's time at this length sets that size)."""
+    from mtamrecommender_tpu_torch.models.base import scores_for_eval
+    from mtamrecommender_tpu_torch.serve import Recommender
+
+    meta, vocab, rows = setup.meta, setup.meta.item_vocab, []
+    hists2, req2 = make_histories(np.random.RandomState(XL_SMALL), XL_SMALL,
+                                  meta.item_count, meta.category_count,
+                                  meta.max_seq_len)
+    for dname in ("bfloat16", "float32"):
+        cfg = setup.cfg(dname, name)
+        model = setup.model(torch, cfg, "cpu")
+        rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
+        rec = Recommender(cfg, meta, model, device=DEVICE)
+        with torch.no_grad():
+            s_gpu = scores_for_eval(rec.model_def, rec._model_c, cfg.model,
+                                    rec.batch_from_histories(hists2, req2),
+                                    vocab).cpu()
+            s_cpu = scores_for_eval(rec_cpu.model_def, rec_cpu._model_c,
+                                    cfg.model,
+                                    rec_cpu.batch_from_histories(hists2,
+                                                                 req2),
+                                    vocab)
+        err, rel = rel_err(s_gpu[:, :vocab], s_cpu[:, :vocab])
+        tol_abs = SLICE_TOL[dname] * s_cpu[:, :vocab].abs().max().item()
+        picked = torch.gather(s_cpu, 1, torch.topk(s_gpu, 50, dim=1).indices)
+        topk_ok = bool((picked >= torch.topk(s_cpu, 50, dim=1).values[:, -1:]
+                        - tol_abs).all())
+        scores_ok = (bool(torch.isfinite(s_gpu).all()) and topk_ok
+                     and rel <= SLICE_TOL[dname])
+        print(f"serve {name} L={XL_L} {dname:9s} B={XL_SMALL} against the "
+              f"CPU: max_abs_score_err={err:.3e} rel={rel:.3e} "
+              f"topk_ok={topk_ok} {'ok' if scores_ok else 'FAIL'}",
+              flush=True)
+        if not scores_ok:
+            failures.append(f"serve {name} L={XL_L} {dname}: rel score err "
+                            f"{rel:.3e}, top-k {topk_ok}")
+        for bs in (1, 16, XL_BATCH):
+            hists, req = make_histories(np.random.RandomState(bs), bs,
+                                        meta.item_count, meta.category_count,
+                                        meta.max_seq_len)
+            if bs > 1:
+                hists[1] = []                  # an empty history
+            _reset_counts()
+            recs = rec.recommend(hists, req, k=50)
+            torch.cuda.synchronize()
+            got = _counts()
+            _add_launches(main_launches, got)
+            ok = (got == want and len(recs) == bs
+                  and all(len(r) == 50 for r in recs)
+                  and all(math.isfinite(s) for r in recs for _, s in r))
+            batch = rec.batch_from_histories(hists, req)
+            fetch = min(50 + meta.max_seq_len, vocab)
+            recommend_ms = _host_ms(torch, lambda: rec.recommend(
+                hists, req, k=50), 3)
+            score_ms = _event_ms(torch, lambda: rec._score_impl(batch, fetch),
+                                 3)
+            busy = _device_busy(torch, lambda: rec._score_impl(batch, fetch))
+            row = {"model": name, "compute_dtype": dname, "batch": bs,
+                   "k": 50, "seq_len": XL_L, "launches_per_call": got,
+                   "launches_ok": got == want,
+                   "max_abs_score_err_b2": err, "rel_score_err_b2": rel,
+                   "tol": SLICE_TOL[dname], "topk_ok_b2": topk_ok,
+                   "recommend_ms": recommend_ms, "score_topk_ms": score_ms,
+                   **busy, "idle_share": (None if busy["device_busy_ms"] is None
+                                          else 1 - busy["device_busy_ms"]
+                                          / score_ms),
+                   "ok": ok and scores_ok}
+            rows.append(row)
+            fired = {k: {m: n for m, n in v.items() if n}
+                     for k, v in got.items()}
+            print(f"serve {name} L={XL_L} {dname:9s} B={bs:<3d} launches="
+                  f"{ {k: v for k, v in fired.items() if v} } recommend_ms="
+                  f"{recommend_ms:.3f} score_topk_ms={score_ms:.3f} "
+                  f"device_busy_ms={busy['device_busy_ms']} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            for kname, kms in busy["top_kernels"][:4]:
+                print(f"    {kms:9.4f} ms  {kname[:90]}", flush=True)
+            if not ok:
+                failures.append(f"serve {name} L={XL_L} {dname} B={bs}: "
+                                f"launches {got}")
+    return rows
+
+
+def check_gather_seam(torch, setup, failures, main_launches):
+    """behavior_embedding(gather=embedding_kernel.gather) forward and
+    backward on the cell's first batch (B=64, f32) against its default
+    lookup, take_dtable, on the card: the same rows, and each table's
+    gradient (rounded after every add there, summed in f32 here) within
+    KERNEL_TOL; 4 gather + 4 scatter_add launches and no dtable."""
+    from mtamrecommender_tpu_torch.ops.embedding import behavior_embedding
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    model = setup.model(torch, setup.cfg("float32"), DEVICE)
+    w = torch.randn((XL_BATCH, XL_L, 128), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(5))
+    outs, grads = [], []
+    for gather in (None, ek.gather):
+        emb = copy.deepcopy(model.embedding)
+        _reset_counts()
+        e = behavior_embedding(emb, setup.full, gather=gather)
+        ((e.behavior_emb * w).sum()
+         + sum(x.square().sum() for x in (e.user_emb, e.item_emb,
+                                          e.cat_emb))).backward()
+        torch.cuda.synchronize()
+        counts = _counts()
+        outs.append(e)
+        grads.append({n: p.grad for n, p in emb.named_parameters()})
+    _add_launches(main_launches, counts)
+    same_rows = all(torch.equal(a, b) for a, b in zip(*outs))
+    rel = {n: rel_err(grads[1][n], g)[1] for n, g in grads[0].items()}
+    launches_ok = (counts["gather"]["gather"] == 4
+                   and counts["scatter_add"]["scatter_add"] == 4
+                   and counts["dtable"]["dtable"] == 0)
+    ok = same_rows and launches_ok and max(rel.values()) <= \
+        KERNEL_TOL["float32"]
+    print(f"behavior_embedding(gather=) B={XL_BATCH} L={XL_L} f32 same rows="
+          f"{same_rows} grad rel err {rel} launches gather="
+          f"{counts['gather']} scatter_add={counts['scatter_add']} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"behavior_embedding(gather=): same rows {same_rows}"
+                        f", grad rel err {rel}, launches {counts}")
+    return {"same_rows": same_rows, "grad_rel_err": rel,
+            "launches": counts, "ok": ok}
+
+
+def run_xl_history(torch, setup, failures):
+    """Phase 7: past 1024 keys, at L=2048.  Recommender.recommend for the
+    four models (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a
+    call; each self-attention model 3 fused_attention_blockwise[<mode>]);
+    Time_Aware_SA's step (one step against the CPU at B = XL_SMALL; timed
+    at B = 64 in bf16 and f32: 3 blockwise[time] + 3 dense_bwd[time] + 4
+    dtable a step); SASrec's and TiSAS's at dropout 0.5 (CPU masks
+    injected; 3 dense_fwd a step, no attention kernel; timed in bf16);
+    the gather seam.  Returns (report, launches by main-path shape:
+    "L2048Tq1" MTAM's hops, "L2048" the self-attention blocks and the
+    lookups)."""
+    from mtamrecommender_tpu_torch.ops import layers
+
+    report = {"ids_in_range": setup.ids_in_range, "serving": {},
+              "training": {}}
+    if not all(setup.ids_in_range.values()):
+        failures.append(f"L={XL_L} ids out of range: {setup.ids_in_range}")
+    hops, blocks = {}, {}
+    for name, mode in XL_MODELS.items():
+        want = _want_counts(0)
+        want["fused_attention_blockwise"][mode] = 3
+        if name == "MTAM":
+            want["gru_scan"]["tgru"] = 1
+        report["serving"][name] = serve_xl(
+            torch, failures, setup, name, want,
+            hops if name == "MTAM" else blocks)
+    name = "Time_Aware_Self_Attention_Model"
+    want = lambda steps: _want_counts(  # noqa: E731
+        steps, blockwise="time", dense_bwd="time")
+    rep = one_step_check(torch, setup, failures, name, want,
+                         hold_bf16_scalars=False)
+    rep.update(timed_steps(torch, setup, failures, name, want, blocks,
+                           steps=5, warm=2))
+    report["training"][name] = rep
+    for name, mode in (("SASrec", "plain_drop"),
+                       ("Ti_Self_Attention_Model", "tisas_drop")):
+        want = lambda steps, m=mode: _want_counts(  # noqa: E731
+            steps, dense_fwd=m)
+        cpu_gen = torch.Generator().manual_seed(99)
+        masks = [layers.draw_drop_mask(cpu_gen, XL_SMALL, XL_L, XL_L, 0.5,
+                                       "cpu") for _ in range(3)]
+        rep = one_step_check(torch, setup, failures, name, want, masks)
+        rep.update(timed_steps(torch, setup, failures, name, want, blocks,
+                               steps=5, warm=2, dtypes=("bfloat16",)))
+        report["training"][name] = rep
+    report["gather_seam"] = check_gather_seam(torch, setup, failures, blocks)
+    return report, {"L2048Tq1": hops, "L2048": blocks}
+
+
 # ------------------------------------------------------------ report
 
 def kernels_line(entries, launches_by_shape):
@@ -1634,9 +2106,12 @@ def kernels_line(entries, launches_by_shape):
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
     Tq=Tk=50 (the self-attention blocks, ``@Tq50``), the readout, GRU
     and dtable kernels at MTAM's long-history shape (B=64, L=512,
-    ``@L512``), each with the ms, bound and launches of that shape
-    (``launches_by_shape[shape]``; the entries without a shape count the
-    L=50 paths' launches under None)."""
+    ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``)
+    and, in time mode, at MTAM's Tq=1 hops (``@L2048Tq1``), the gather /
+    scatter-add pair at the L=2048 cell's ids (``@L2048``), each with the
+    ms, bound and launches of that shape (``launches_by_shape[shape]``;
+    the entries without a shape count the L=50 paths' launches under
+    None)."""
     out = []
     for (kname, mode, shape), by_dtype in entries.items():
         # serving and training both compute in bf16; dtable's head row is
@@ -1657,9 +2132,10 @@ def kernels_line(entries, launches_by_shape):
             # cell's reset gate multiplies h before its product (cuDNN's
             # after) and the time gate scales the candidate (forward and
             # backward alike), and no call runs several attention hops
-            # with their projections (the fused readout); dtable's is
-            # index_add_; the plain and tisas backward's is
-            # scaled_dot_product_attention fwd+bwd
+            # with their projections (the fused readout); dtable's and
+            # scatter_add's is index_add_, gather's index_select; the
+            # plain and tisas backward's is scaled_dot_product_attention
+            # fwd+bwd
             "library_ms": head.get("library_ms"),
             "library_call": head.get("library_call"),
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
@@ -1716,6 +2192,11 @@ def main() -> int:
     entries.update(check_readout_kernels(torch, timer, 100, failures,
                                          long_setup.tables))
 
+    # phase 2e: past 1024 keys, the gather / scatter-add pair
+    xl_setup = XLSetup(torch)
+    entries.update(check_xl_kernels(torch, timer, 100, failures,
+                                    xl_setup.tables, setup.tables))
+
     # phase 3: the serving slice
     slice_rows, serve_launches = run_slice(torch, 20, failures)
     for kname, mode in (("gru_scan", "tgru"), ("fused_attention", "time")):
@@ -1755,6 +2236,20 @@ def main() -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "long-history path")
 
+    # phase 7: past 1024 keys, L=2048
+    xl_history, xl_launches = run_xl_history(torch, xl_setup, failures)
+    for shape, kname, mode in (
+            ("L2048Tq1", "gru_scan", "tgru"),
+            ("L2048Tq1", "fused_attention_blockwise", "time"),
+            ("L2048", "fused_attention_blockwise", "time"),
+            ("L2048", "fused_attention_blockwise", "plain"),
+            ("L2048", "fused_attention_blockwise", "tisas"),
+            ("L2048", "dtable", None), ("L2048", "gather", None),
+            ("L2048", "scatter_add", None)):
+        if xl_launches[shape].get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            f"L=2048 path ({shape})")
+
     # launches on the main paths: MTAM's at L=50 (phases 3 and 4) run the
     # attention kernels at Tq=1, the self-attention models' (phase 5) at
     # Tq=Tk=50; MTAM's at L=512 (phase 6) the readout and GRU kernels
@@ -1765,7 +2260,7 @@ def main() -> int:
     report = kernels_line(entries, {None: main_launches,
                                     "Tq1": mtam_launches,
                                     "Tq50": sa_launches,
-                                    "L512": long_launches})
+                                    "L512": long_launches, **xl_launches})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, **report,
@@ -1781,6 +2276,11 @@ def main() -> int:
                    "launches_long_history": {
                        k: {str(m): n for m, n in v.items()}
                        for k, v in long_launches.items()},
+                   "xl_history": xl_history,
+                   "launches_xl_history": {
+                       shape: {k: {str(m): n for m, n in v.items()}
+                               for k, v in by_kernel.items()}
+                       for shape, by_kernel in xl_launches.items()},
                    "failures": failures}, f, indent=1, default=str)
     if failures:
         for msg in failures:

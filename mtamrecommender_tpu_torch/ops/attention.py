@@ -4,10 +4,15 @@ Plain multi-head attention (SASrec), MTAM's time-gated attention and the
 TiSAS log-interval bias, one head each.  Every variant takes the JAX
 package's kernel route: relu Q/K/V projections as matmuls, the middle
 (scores -> gate or bias -> key mask -> softmax -> dropout -> weighted
-sum) in the `fused_attention` kernel (ops/kernels/attention_kernel.py)
-through `fused_attention_vjp`, whose backward is the
-`fused_attention_bwd` kernel, then `_tail`: query mask, residual and the
-attention modules' normalize (eps 1e-8).
+sum) through `fused_attention_vjp` (ops/kernels/attention_kernel.py),
+then `_tail`: query mask, residual and the attention modules' normalize
+(eps 1e-8).  The middle routes by key count (`_middle`), as JAX's does:
+up to 1024 keys the single-tile `fused_attention` kernel, whose backward
+is the `fused_attention_bwd` kernel; above, up to 32768 keys and without
+dropout, the blockwise kernel, whose backward is JAX's recompute through
+autograd of `reference_middle`; a drop mask above 1024 keys, or more
+than 32768 keys, takes the dense route (`dense_attention`, plain PyTorch,
+JAX's jnp path there).
 
   * `self_attention_stack` (Tq = Tk = L) trains and serves the three
     self-attention models.  Plain and TiSAS attention drop attention
@@ -18,10 +23,10 @@ attention modules' normalize (eps 1e-8).
     1024 keys (`READOUT_KERNEL_MIN_KEYS`, `readout_kernel.MAX_KEYS`) all
     hops, projections included, take the `fused_readout` kernel
     (`fused_readout_stack`), in training and serving, as in the JAX
-    package.  Below that, hop by hop on the attention kernel when
-    serving, and in training the hop-batched readout
-    (`single_query_readout`, plain PyTorch), which JAX too computes
-    outside Pallas there.
+    package.  Below and above that, hop by hop on the attention kernel
+    (single-tile or blockwise) when serving, and in training the
+    hop-batched readout (`single_query_readout`, plain PyTorch), which
+    JAX too computes outside Pallas there.
 
 Faithfulness notes kept from the JAX package:
   * the content-time term tanh(Q W_t K^T) uses the RAW queries/keys;
@@ -29,8 +34,9 @@ Faithfulness notes kept from the JAX package:
   * the decay-gate params are position-indexed [Tq, Tk] ('positional')
     or scalars ('scalar'), which are broadcast to the kernel's tiles;
   * the JAX package keeps train-time dropout on its jnp path below 256
-    keys (`DROPOUT_KERNEL_MIN_KEYS`), a TPU measurement; the port always
-    takes the kernel.
+    keys (`DROPOUT_KERNEL_MIN_KEYS`), a TPU measurement; the port takes
+    the kernel there, up to 1024 keys, where JAX's dropout kernel stops
+    (`attention_kernel.dropout_supported`).
 """
 
 from __future__ import annotations
@@ -173,11 +179,23 @@ def _untimed_attention(kind: str, p: MHABlock, queries, keys, key_len,
         t_keys = q.new_zeros((b, tk))
     zg = q.new_zeros((tq, tk))
     mode = kind if dm is None else f"{kind}_drop"
-    out = attention_kernel.fused_attention_vjp(
-        mode, q, k, v, t_queries.contiguous(), t_keys.contiguous(),
-        torch.zeros_like(q), torch.zeros_like(k), zg, zg, zg, zg, zg,
-        key_len.to(torch.int32), dm)
+    out = _middle(mode, q, k, v, t_queries.contiguous(), t_keys.contiguous(),
+                  torch.zeros_like(q), torch.zeros_like(k), zg, zg, zg, zg, zg,
+                  key_len.to(torch.int32), dm)
     return _tail(p, out.to(queries.dtype), queries, query_len)
+
+
+def _middle(mode: str, *args) -> torch.Tensor:
+    """The attention middle by `attention_kernel.route`: the kernels
+    through `fused_attention_vjp` (single tile up to 1024 keys, blockwise
+    above), or `dense_attention` where they do not reach (a drop mask
+    above 1024 keys, or more than `attention_kernel.MAX_KEYS`), as the JAX
+    package takes its jnp path there.  ``args``: those of
+    `fused_attention`, the drop mask (or None) last."""
+    if attention_kernel.route(args[1].shape[1], args[-1] is not None) \
+            == "dense":
+        return attention_kernel.dense_attention(mode, *args)
+    return attention_kernel.fused_attention_vjp(mode, *args)
 
 
 def multihead_attention(p: MHABlock, queries: torch.Tensor,
@@ -229,11 +247,12 @@ def time_aware_multihead_attention(p: TimeAttentionBlock,
     q, k, v = _project(p, queries, keys)
     tqw = torch.matmul(queries, p.time_input_w)
     t_q_len, t_k_len = queries.shape[1], keys.shape[1]
-    gates = [_gate_tile(getattr(p, name), t_q_len, t_k_len)
-             for name in GATE_PARAMS]
-    out = attention_kernel.fused_attention_vjp(
-        "time", q, k, v, t_queries.contiguous(), t_keys.contiguous(), tqw,
-        keys.contiguous(), *gates, key_len.to(torch.int32))
+    gates = [getattr(p, name) for name in GATE_PARAMS]
+    if attention_kernel.route(t_k_len, False) != "dense":
+        gates = [_gate_tile(g, t_q_len, t_k_len) for g in gates]
+    out = _middle("time", q, k, v, t_queries.contiguous(),
+                  t_keys.contiguous(), tqw, keys.contiguous(), *gates,
+                  key_len.to(torch.int32), None)
     return _tail(p, out.to(queries.dtype), queries, query_len)
 
 

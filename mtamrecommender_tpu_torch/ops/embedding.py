@@ -2,9 +2,12 @@
 
 Four lookup tables (user/item/category/position, each with +3 vocab
 slack rows) and the fused behavior embedding
-``ReLU(concat(item_emb, cat_emb) @ dense_w) + position_emb``.  Every
-lookup is `take_dtable` (ops/kernels/embedding_kernel.py): a row gather
-whose table gradient is the `dtable` kernel.  The JAX package routes its
+``ReLU(concat(item_emb, cat_emb) @ dense_w) + position_emb``.  By default
+every lookup is `take_dtable` (ops/kernels/embedding_kernel.py): a row
+gather whose table gradient is the `dtable` kernel; ``gather=`` swaps in
+another lookup, as in the JAX package: `embedding_kernel.gather` takes
+the gather kernel, with the scatter-add kernel as its backward.  The JAX
+package routes its
 table backwards by TPU thresholds (a one-hot matmul, XLA's scatter or
 its Pallas dtable kernel); all three compute the same sum, which the
 port always takes through its one kernel.
@@ -12,7 +15,7 @@ port always takes through its one kernel.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -58,11 +61,16 @@ class BehaviorEmbedding(ParamModule):
     ``pos_table`` [vocab, d] and ``dense_w`` [2d, d]."""
 
 
-def behavior_embedding(p: BehaviorEmbedding, batch: Batch) -> EmbeddedBatch:
-    user_emb = take_dtable(p.user_table, batch.user_id)
-    item_emb = take_dtable(p.item_table, batch.items)
-    cat_emb = take_dtable(p.cat_table, batch.cats)
-    pos_emb = take_dtable(p.pos_table, batch.positions)
+def behavior_embedding(p: BehaviorEmbedding, batch: Batch,
+                       gather: Optional[Callable] = None) -> EmbeddedBatch:
+    """The four lookups through ``gather(table, ids)`` (`take_dtable` by
+    default) and the fused behavior embedding."""
+    if gather is None:
+        gather = take_dtable
+    user_emb = gather(p.user_table, batch.user_id)
+    item_emb = gather(p.item_table, batch.items)
+    cat_emb = gather(p.cat_table, batch.cats)
+    pos_emb = gather(p.pos_table, batch.positions)
     concat = torch.cat([item_emb, cat_emb], dim=-1)
     behavior = torch.relu(torch.matmul(concat, p.dense_w)) + pos_emb
     return EmbeddedBatch(user_emb=user_emb, behavior_emb=behavior,

@@ -1,11 +1,18 @@
-"""Fused attention middle (single tile): CUDA kernels and plain twins.
+"""Fused attention middle: CUDA kernels and plain twins.
 
 Counterpart of mtamrecommender_tpu/ops/pallas/attention_kernel.py: the
-forward `fused_attention` (csrc/fused_attention.cu, the Pallas
-`_attn_kernel`), its backward `fused_attention_bwd`
-(csrc/fused_attention_bwd.cu, the Pallas `_attn_bwd_kernel`) and
+forward `fused_attention`, its backward `fused_attention_bwd` and
 `fused_attention_vjp`, the autograd function that joins them as JAX's
-custom_vjp does.  Per batch row and query row:
+custom_vjp does.  The forward routes by key count as `_fused_attention_fwd`
+does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel
+(csrc/fused_attention.cu, the Pallas `_attn_kernel`), above that, up to
+MAX_KEYS and without a dropout mask, the blockwise kernel
+(csrc/fused_attention_blockwise.cu, the Pallas `_attn_kernel_blockwise`:
+an online softmax over KEY_BLOCK-key blocks).  The backward is the
+single-tile kernel (csrc/fused_attention_bwd.cu, the Pallas
+`_attn_bwd_kernel`) up to SINGLE_TILE_KEYS keys and, above, autograd of
+`reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  Per batch
+row and query row:
 
     scores   = Q K^T
     time_qk  = tanh((Q_raw W_t) K_raw^T)            [time mode]
@@ -19,7 +26,9 @@ custom_vjp does.  Per batch row and query row:
 The '*_drop' modes (plain_drop, tisas_drop) multiply the softmax weights
 by a pre-drawn dropout mask ``dm`` [B, Tq, Tk] f32 (values 0 or
 1/keep) before ``@ V``.  Products sum in f32; the weights are rounded to
-v's type before ``@ v``; the output is f32 [B, Tq, d].  A row with
+v's type before ``@ v`` (the blockwise route rounds each block's
+unnormalised exp(s - m) instead, and divides the f32 sum at the end, as
+its Pallas kernel does); the output is f32 [B, Tq, d].  A row with
 ``key_len == 0`` gets a uniform softmax over its Tk keys, and no score
 gradient, as in the unpadded jnp reference.
 """
@@ -35,17 +44,48 @@ from mtamrecommender_tpu_torch.ops.kernels import build
 MODES = ("plain", "time", "tisas", "plain_drop", "tisas_drop")
 DTYPES = (torch.float32, torch.bfloat16)
 NEG_FILL = -(2.0 ** 32) + 1.0
-SINGLE_TILE_KEYS = 1024   # longer memories need the blockwise kernel
+SINGLE_TILE_KEYS = 1024   # <= this: the single-tile kernels
+KEY_BLOCK = 512           # > that: online-softmax blocks of this many keys
+MAX_KEYS = 32768          # the blockwise kernel's cap; longer: the dense route
+BLOCKWISE_MODES = ("plain", "time", "tisas")
+BLOCKWISE_MAX_D = 256     # the blockwise kernel holds outputs in registers
 BWD_SMEM_BYTES = 48 * 1024   # the backward's per-(row, query) scratch
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}
 bwd_launches = {mode: 0 for mode in MODES}
+blockwise_launches = {mode: 0 for mode in BLOCKWISE_MODES}
+# calls of the dense route (`dense_attention`, plain PyTorch on every
+# device, as JAX's jnp route): forwards past the kernels' reach, and the
+# backward's recompute above SINGLE_TILE_KEYS keys
+dense_fwd = {mode: 0 for mode in MODES}
+dense_bwd = {mode: 0 for mode in MODES}
 
 
 def base_mode(mode: str) -> str:
     """'plain_drop' -> 'plain', 'tisas_drop' -> 'tisas', else the mode."""
     return mode[:-len("_drop")] if mode.endswith("_drop") else mode
+
+
+def supported(tk: int, num_heads: int) -> bool:
+    """Whether a call takes a kernel at all (JAX `supported`)."""
+    return num_heads == 1 and tk <= MAX_KEYS
+
+
+def dropout_supported(tk: int) -> bool:
+    """Attention-weight dropout rides the single-tile kernel only (JAX
+    `dropout_supported`)."""
+    return tk <= SINGLE_TILE_KEYS
+
+
+def route(tk: int, drop: bool) -> str:
+    """The forward's route for Tk keys: 'single_tile', 'blockwise', or
+    'dense' (a drop mask past SINGLE_TILE_KEYS, or more than MAX_KEYS
+    keys), where the kernels do not reach and the caller takes
+    `dense_attention`."""
+    if not supported(tk, 1) or (drop and not dropout_supported(tk)):
+        return "dense"
+    return "single_tile" if tk <= SINGLE_TILE_KEYS else "blockwise"
 
 
 def _check(mode, q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo,
@@ -94,10 +134,25 @@ def fused_attention(mode: str, q, k, v, t_q, t_k, tqw, rawk,
     gate params w1, b1, wo1, wo2, bo: [Tq,Tk]; key_len: [B] int32; dm:
     the '*_drop' modes' f32 [B,Tq,Tk] mask (None otherwise).  Modes that
     do not read an operand still take it at its shape.  Returns f32
-    [B,Tq,d].  CPU tensors run `fused_attention_plain`; CUDA tensors
-    launch the kernel (Tk <= SINGLE_TILE_KEYS)."""
+    [B,Tq,d].  By `route`: up to SINGLE_TILE_KEYS keys CPU tensors run
+    `fused_attention_plain` and CUDA tensors launch the single-tile
+    kernel; above, the blockwise kernel (`fused_attention_blockwise`, its
+    twin `fused_attention_blockwise_plain` on the CPU).  A drop mask above
+    SINGLE_TILE_KEYS keys, or more than MAX_KEYS keys, raises: the caller
+    takes `dense_attention` there, as JAX takes its jnp path."""
     args = (q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, key_len, dm)
     _check(mode, *args)
+    tk = k.shape[1]
+    taken = route(tk, dm is not None)
+    if taken == "dense":
+        raise ValueError(
+            f"fused_attention {mode}: no kernel takes Tk={tk}"
+            + (" with a dropout mask" if dm is not None else "")
+            + f" (the single-tile kernels take Tk <= {SINGLE_TILE_KEYS}, the "
+            f"blockwise kernel no mask and Tk <= {MAX_KEYS}); use "
+            "dense_attention")
+    if taken == "blockwise":
+        return fused_attention_blockwise(mode, *args[:-1])
     if q.device.type == "cpu":
         return fused_attention_plain(mode, *args)
     if q.device.type != "cuda":
@@ -109,8 +164,7 @@ def _single_tile(what, tk) -> None:
     if not 1 <= tk <= SINGLE_TILE_KEYS:
         raise ValueError(
             f"{what}: the single-tile kernel takes 1 <= Tk <= "
-            f"{SINGLE_TILE_KEYS}, got Tk={tk} (the blockwise kernel for "
-            "longer memories is not ported yet)")
+            f"{SINGLE_TILE_KEYS}, got Tk={tk}")
 
 
 def _launch(mode, *args) -> torch.Tensor:
@@ -183,6 +237,136 @@ def fused_attention_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk,
         weights = weights * dm
     return torch.einsum("bqk,bkd->bqd", weights.to(v.dtype).float(),
                         v.float())
+
+
+# ------------------------------------------------------------ blockwise
+
+def fused_attention_blockwise(mode: str, q, k, v, t_q, t_k, tqw, rawk,
+                              w1, b1, wo1, wo2, bo, key_len) -> torch.Tensor:
+    """The forward above SINGLE_TILE_KEYS keys (`fused_attention` routes
+    there): modes plain, time and tisas, the arguments of
+    `fused_attention` without a mask.  Returns f32 [B,Tq,d].  CPU tensors
+    run `fused_attention_blockwise_plain`; CUDA tensors launch the
+    blockwise kernel (1 <= Tk <= MAX_KEYS, d <= BLOCKWISE_MAX_D)."""
+    if mode not in BLOCKWISE_MODES:
+        raise ValueError(f"fused_attention_blockwise: mode {mode!r} is not "
+                         f"one of {BLOCKWISE_MODES}")
+    args = (q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, key_len)
+    _check(mode, *args, None)
+    if q.device.type == "cpu":
+        return fused_attention_blockwise_plain(mode, *args)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_blockwise: no kernel for device "
+                         f"{q.device}")
+    return _launch_blockwise(mode, *args)
+
+
+def _launch_blockwise(mode, *args) -> torch.Tensor:
+    q, k = args[0], args[1]
+    device, stream = build.launch_context(args, "fused_attention_blockwise")
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    if not 1 <= tk <= MAX_KEYS or not 1 <= d <= BLOCKWISE_MAX_D:
+        raise ValueError(
+            f"fused_attention_blockwise: the kernel takes 1 <= Tk <= "
+            f"{MAX_KEYS} and 1 <= d <= {BLOCKWISE_MAX_D}, got Tk={tk}, d={d}")
+    lib = _blockwise_library()
+    out = torch.empty((b, tq, d), dtype=torch.float32, device=q.device)
+    status = lib.fused_attention_blockwise_launch(
+        BLOCKWISE_MODES.index(mode), int(q.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in args), out.data_ptr(), b, tq, tk, d,
+        1.0 / d ** 0.5, device, stream)
+    build.check(lib, status, "fused_attention_blockwise")
+    blockwise_launches[mode] += 1
+    return out
+
+
+def _blockwise_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_blockwise")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_blockwise_launch.argtypes = (
+            [ci, ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.fused_attention_blockwise_launch.restype = ci
+        lib._port_typed = True
+    return lib
+
+
+def fused_attention_blockwise_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk,
+                                    w1, b1, wo1, wo2, bo, key_len
+                                    ) -> torch.Tensor:
+    """Plain PyTorch twin of the blockwise kernel, block by block as the
+    Pallas `_attn_kernel_blockwise` computes: f32 scores per KEY_BLOCK
+    keys, m = max(m, block max), p = exp(s - m), l = l*alpha + sum(p)
+    from the unrounded p, acc = acc*alpha + round(p) @ v in f32 with p
+    rounded to v's type; the result is acc / l.  The last block stops at
+    Tk (Pallas pads it with masked keys, which add nothing except in a row
+    with no live key: see `fused_attention`)."""
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((b, tq, 1), -float("inf"), **f32)
+    l = torch.zeros((b, tq, 1), **f32)
+    acc = torch.zeros((b, tq, d), **f32)
+    for c0 in range(0, tk, KEY_BLOCK):
+        cols = slice(c0, min(c0 + KEY_BLOCK, tk))
+        scores, _ = _scores(mode, q, k[:, cols], t_q, t_k[:, cols], tqw,
+                            rawk[:, cols], w1[:, cols], b1[:, cols],
+                            wo1[:, cols], wo2[:, cols], bo[:, cols])
+        col = torch.arange(cols.start, cols.stop, device=q.device)
+        scores = scores.masked_fill(
+            col[None, None, :] >= key_len[:, None, None], NEG_FILL)
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bqk,bkd->bqd",
+                                         p.to(v.dtype).float(),
+                                         v[:, cols].float())
+        m = m_new
+    return acc / l
+
+
+def reference_middle(mode: str, q, k, v, t_q, t_k, tqw, rawk,
+                     w1, b1, wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
+    """The JAX package's `_reference_middle` in plain PyTorch, in f32:
+    the whole [B, Tq, Tk] scores, gate and softmax at once.  The gate
+    params may be [Tq, Tk] tiles or scalars (they broadcast).  Returns
+    f32 [B, Tq, d]; differentiable."""
+    base = base_mode(mode)
+    f = lambda x: x.float()  # noqa: E731
+    d = q.shape[-1]
+    scores = torch.einsum("bqd,bkd->bqk", f(q), f(k))
+    if base in ("time", "tisas"):
+        logdt = torch.log1p(torch.abs(f(t_q)[:, :, None]
+                                      - f(t_k)[:, None, :]))
+    if base == "time":
+        time_qk = torch.tanh(torch.einsum("bqd,bkd->bqk", f(tqw), f(rawk)))
+        decay = torch.tanh(logdt * f(w1) + f(b1))
+        gate = f(wo1) * decay + f(wo2) * time_qk + f(bo)
+        scores = scores * torch.sigmoid(gate) / d ** 0.5
+    elif base == "tisas":
+        scores = (scores + logdt) / d ** 0.5
+    else:
+        scores = scores / d ** 0.5
+    col = torch.arange(scores.shape[2], device=q.device)
+    scores = scores.masked_fill(col[None, None, :] >= key_len[:, None, None],
+                                NEG_FILL)
+    weights = torch.softmax(scores, dim=-1)
+    if dm is not None:
+        weights = weights * dm
+    return torch.einsum("bqk,bkd->bqd", weights, f(v))
+
+
+def dense_attention(mode: str, q, k, v, t_q, t_k, tqw, rawk,
+                    w1, b1, wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
+    """The dense route (JAX's jnp path where no kernel reaches:
+    attention-weight dropout above SINGLE_TILE_KEYS keys, or more than
+    MAX_KEYS keys): `reference_middle` under autograd, on any device,
+    counted in ``dense_fwd[mode]``."""
+    dense_fwd[mode] += 1
+    return reference_middle(mode, q, k, v, t_q, t_k, tqw, rawk,
+                            w1, b1, wo1, wo2, bo, key_len, dm)
 
 
 # ------------------------------------------------------------- backward
@@ -313,7 +497,8 @@ _DIFFERENTIABLE = (0, 1, 2, 5, 6, 7, 8, 9, 10, 11)
 
 
 class FusedAttentionFunction(torch.autograd.Function):
-    """`fused_attention` with `fused_attention_bwd` as its backward (the
+    """`fused_attention` with `fused_attention_bwd` as its backward, and
+    above SINGLE_TILE_KEYS keys `_dense_vjp` (the
     JAX package's custom_vjp: `_fa_fwd` saves the inputs, not the
     [Tq, Tk] weights, which the backward recomputes; `_fa_bwd` casts each
     cotangent back to its input's type).  t_q, t_k, key_len and dm get
@@ -330,12 +515,37 @@ class FusedAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
+        if args[1].shape[1] > SINGLE_TILE_KEYS:
+            return (None, *_dense_vjp(ctx.mode, g, args,
+                                      ctx.needs_input_grad[1:]))
         outs = fused_attention_bwd(ctx.mode, g.float().contiguous(), *args)
         grads = [None] * len(args)
         for i, d in zip(_DIFFERENTIABLE, outs):
             if d is not None and ctx.needs_input_grad[1 + i]:
                 grads[i] = d.to(args[i].dtype)
         return (None, *grads)
+
+
+def _dense_vjp(mode, g, args, needs):
+    """The backward above SINGLE_TILE_KEYS keys: the JAX `_fa_bwd`'s
+    recompute, autograd of `reference_middle` (plain PyTorch on the
+    card, as JAX computes it outside Pallas), counted in
+    ``dense_bwd[mode]``.  Returns a gradient per argument of the forward
+    (None where none is needed or the output does not depend on it),
+    each in its input's type."""
+    dense_bwd[mode] += 1
+    wanted = [i for i in _DIFFERENTIABLE if needs[i]]
+    with torch.enable_grad():
+        inputs = list(args)
+        for i in wanted:
+            inputs[i] = args[i].detach().requires_grad_(True)
+        out = reference_middle(mode, *inputs)
+        got = torch.autograd.grad(out, [inputs[i] for i in wanted], g.float(),
+                                  allow_unused=True)
+    grads = [None] * len(args)
+    for i, d in zip(wanted, got):
+        grads[i] = None if d is None else d.to(args[i].dtype)
+    return grads
 
 
 def fused_attention_vjp(mode: str, q, k, v, t_q, t_k, tqw, rawk,

@@ -37,7 +37,9 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
+           "fused_attention_blockwise": "fused_attention_blockwise.cu",
            "embedding_dtable": "embedding_dtable.cu",
+           "embedding_gather": "embedding_gather.cu",
            "fused_readout": "fused_readout.cu",
            "fused_readout_bwd": "fused_readout_bwd.cu"}
 _HEADERS = ("common.cuh", "readout_hop.cuh")
@@ -149,5 +151,6 @@ def launch_context(tensors, what: str):
             f"{what}: the CUDA kernel returns no gradient; call it under "
             "torch.no_grad() or through its autograd function (gru_scan: "
             "gru_scan_vjp; fused_attention: fused_attention_vjp; "
-            "fused_readout: fused_readout_vjp)")
+            "fused_readout: fused_readout_vjp; gather: embedding_kernel."
+            "gather)")
     return device.index, torch.cuda.current_stream(device).cuda_stream

@@ -1,14 +1,24 @@
-"""Embedding-table backward: CUDA kernel and plain twin.
+"""Embedding lookups and their table backwards: CUDA kernels and plain
+twins.
 
-Counterpart of mtamrecommender_tpu/ops/pallas/embedding_kernel.py
-(`take_dtable` and its backward kernel `_dtable_kernel`).  The kernel is
-csrc/embedding_dtable.cu:
+Counterpart of mtamrecommender_tpu/ops/pallas/embedding_kernel.py, whose
+three kernels the port has:
 
-    dtable[v, :] = sum_n [ids[n] == v] * ct[n, :]
-
-summed in f32 in a fixed order (no float atomics) and written once in
-ct's type.  `take_dtable` is the lookup whose backward it is: a row
-gather forward (JAX's is `jnp.take`, no kernel), `dtable` backward.
+  * `dtable` (csrc/embedding_dtable.cu, the Pallas `_dtable_kernel`):
+        dtable[v, :] = sum_n [ids[n] == v] * ct[n, :]
+    summed in f32 in a fixed order (no float atomics) and written once in
+    ct's type.  `take_dtable` is the lookup whose backward it is: a row
+    gather forward (JAX's is `jnp.take`, no kernel), `dtable` backward.
+    Every lookup of `ops/embedding.behavior_embedding` takes it by
+    default.
+  * `gather_rows` (csrc/embedding_gather.cu, the Pallas `_gather_kernel`):
+    out[i, :] = table[ids[i], :].
+  * `scatter_add` (csrc/embedding_gather.cu, the Pallas `_scatter_kernel`):
+    the sequential scatter-add, each row's cotangents added in ascending
+    position order and rounded to their type after every add.
+    `gather` is the lookup whose backward it is, as JAX's custom_vjp
+    `gather`; `behavior_embedding(gather=embedding_kernel.gather)` takes
+    it.
 """
 
 from __future__ import annotations
@@ -22,8 +32,20 @@ from mtamrecommender_tpu_torch.ops.kernels import build
 DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_WIDTHS = (32, 64, 128, 256)   # d the kernel takes
 
-# kernel launches (the plain twin is not counted)
+# kernel launches (the plain twins are not counted)
 launches = {"dtable": 0}
+gather_launches = {"gather": 0, "scatter_add": 0}
+
+
+def _check_ids(what, ids, vocab) -> None:
+    """On the CPU: raise on an id outside [0, vocab).  On the card the
+    kernels do not read ids back to the host (that would stall the step):
+    there an id outside the table matches no row (gather writes zeros for
+    it), and chip_smoke.py checks on the card that a step's ids are in
+    range."""
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= vocab):
+        raise ValueError(f"{what}: ids must lie in [0, {vocab}), got "
+                         f"[{int(ids.min())}, {int(ids.max())}]")
 
 
 def _check(ct, ids, vocab) -> None:
@@ -48,9 +70,7 @@ def dtable(ct: torch.Tensor, ids: torch.Tensor, vocab: int) -> torch.Tensor:
     that the training step's ids are in range."""
     _check(ct, ids, vocab)
     if ct.device.type == "cpu":
-        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= vocab):
-            raise ValueError(f"dtable: ids must lie in [0, {vocab}), got "
-                             f"[{int(ids.min())}, {int(ids.max())}]")
+        _check_ids("dtable", ids, vocab)
         return dtable_plain(ct, ids, vocab)
     if ct.device.type != "cuda":
         raise ValueError(f"dtable: no kernel for device {ct.device}")
@@ -117,3 +137,146 @@ def take_dtable(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """table[ids] for ids of any shape; the table's gradient comes from
     the `dtable` kernel (its plain twin on the CPU)."""
     return TakeDtable.apply(table, ids)
+
+
+# ------------------------------------------------------- gather / scatter
+
+def _check_rows(what, x, ids) -> None:
+    if x.dim() != 2 or ids.dim() != 1:
+        raise ValueError(f"{what}: want a [rows, d] tensor and [n] ids, got "
+                         f"{tuple(x.shape)} and {tuple(ids.shape)}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{what}: want float32 or bfloat16, got {x.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"{what}: ids must be int32, got {ids.dtype}")
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table: [V, d] f32 or bf16; ids: [n] int32 -> table[ids], [n, d] in
+    the table's type.  CPU tensors run `gather_plain` after a range check;
+    CUDA tensors launch the gather kernel."""
+    _check_rows("gather", table, ids)
+    if table.device.type == "cpu":
+        _check_ids("gather", ids, table.shape[0])
+        return gather_plain(table, ids)
+    if table.device.type != "cuda":
+        raise ValueError(f"gather: no kernel for device {table.device}")
+    device, stream = build.launch_context((table, ids), "gather")
+    lib = _gather_library()
+    n, (vocab, d) = ids.shape[0], table.shape
+    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    status = lib.gather_launch(table.data_ptr(), ids.data_ptr(),
+                               out.data_ptr(), n, vocab,
+                               d * table.element_size(), device, stream)
+    build.check(lib, status, "gather")
+    gather_launches["gather"] += 1
+    return out
+
+
+def scatter_add(grad: torch.Tensor, ids: torch.Tensor,
+                vocab: int) -> torch.Tensor:
+    """grad: [n, d] f32 or bf16; ids: [n] int32 -> [vocab, d] in grad's
+    type: zeros, then for i = 0, 1, ..., n-1 in order out[ids[i]] +=
+    grad[i], rounded to grad's type after every add (the Pallas
+    `_scatter_kernel`'s sequential semantics).  CPU tensors run
+    `scatter_add_plain` after a range check; CUDA tensors launch the
+    kernel (d in KERNEL_WIDTHS)."""
+    _check_rows("scatter_add", grad, ids)
+    if ids.shape[0] != grad.shape[0] or vocab < 0:
+        raise ValueError(f"scatter_add: want [n] ids for the n rows of grad "
+                         f"and vocab >= 0, got {tuple(ids.shape)}, "
+                         f"{tuple(grad.shape)} and {vocab}")
+    if grad.device.type == "cpu":
+        _check_ids("scatter_add", ids, vocab)
+        return scatter_add_plain(grad, ids, vocab)
+    if grad.device.type != "cuda":
+        raise ValueError(f"scatter_add: no kernel for device {grad.device}")
+    device, stream = build.launch_context((grad, ids), "scatter_add")
+    n, d = grad.shape
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(f"scatter_add: the kernel takes d in "
+                         f"{KERNEL_WIDTHS}, got d={d}")
+    lib = _gather_library()
+    out = torch.empty((vocab, d), dtype=grad.dtype, device=grad.device)
+    ws = torch.empty((lib.scatter_workspace_ints(n, vocab),),
+                     dtype=torch.int32, device=grad.device)
+    status = lib.scatter_add_launch(int(grad.dtype == torch.bfloat16),
+                                    grad.data_ptr(), ids.data_ptr(),
+                                    out.data_ptr(), ws.data_ptr(), n, vocab,
+                                    d, device, stream)
+    build.check(lib, status, "scatter_add")
+    gather_launches["scatter_add"] += 1
+    return out
+
+
+def _gather_library() -> ctypes.CDLL:
+    lib = build.library("embedding_gather")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gather_launch.argtypes = [vp, vp, vp, ci, ci, ctypes.c_longlong,
+                                      ci, vp]
+        lib.gather_launch.restype = ci
+        lib.scatter_add_launch.argtypes = [ci] + [vp] * 4 + [ci] * 4 + [vp]
+        lib.scatter_add_launch.restype = ci
+        lib.scatter_workspace_ints.argtypes = [ci, ci]
+        lib.scatter_workspace_ints.restype = ctypes.c_longlong
+        lib._port_typed = True
+    return lib
+
+
+def gather_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the gather kernel: table[ids]."""
+    return table[ids.long()]
+
+
+def scatter_add_plain(grad: torch.Tensor, ids: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+    """Plain PyTorch twin of the scatter-add kernel: one vectorised step
+    per occurrence rank.  Step r adds the r-th occurrence (in position
+    order) of every id to its row and rounds to grad's type, so each row
+    sees its cotangents in ascending position order, rounded after every
+    add, with no Python loop over ids."""
+    n, d = grad.shape
+    out = torch.zeros((vocab, d), dtype=grad.dtype, device=grad.device)
+    if n == 0:
+        return out
+    ids = ids.long()
+    order = torch.sort(ids, stable=True).indices      # by id, then position
+    pos = torch.arange(n, device=grad.device)
+    first = torch.ones(n, dtype=torch.bool, device=grad.device)
+    first[1:] = ids[order][1:] != ids[order][:-1]
+    run_start = torch.cummax(torch.where(first, pos, 0), dim=0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - run_start
+    by_rank = torch.sort(rank, stable=True).indices
+    for sel in torch.split(by_rank, torch.bincount(rank).tolist()):
+        rows = ids[sel]                                # each id at most once
+        out[rows] = (out[rows].float() + grad[sel].float()).to(grad.dtype)
+    return out
+
+
+class GatherFunction(torch.autograd.Function):
+    """`gather_rows` whose table gradient is `scatter_add` (JAX's custom_vjp
+    `gather`, `embedding_kernel.py:122-142`)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        flat = ids.reshape(-1).to(torch.int32).contiguous()
+        ctx.save_for_backward(flat)
+        ctx.vocab = table.shape[0]
+        return gather_rows(table.contiguous(), flat).reshape(
+            *ids.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        d = g.shape[-1]
+        return scatter_add(g.reshape(-1, d).contiguous(), flat,
+                           ctx.vocab), None
+
+
+def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids] for ids of any shape, through the gather kernel, with
+    the scatter-add kernel as the table's gradient (plain twins on the
+    CPU)."""
+    return GatherFunction.apply(table, ids)
