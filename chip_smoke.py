@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero and prints no result:
   2b. the training step's kernels the same way: gru_scan_bwd in each
      mode at B = 1, 16, 256, and dtable at the step's four table shapes
      with the ids of a gathered training batch (index_add_ timed beside
-     it);
+     it; in f32, row 0 of each table, the padding id's, against an f64
+     index_add_ of the same cotangents, for the kernel and for the CPU's
+     f32 index_add_, also with every padded position's cotangent one
+     vector, as the step's L2 term gives them);
   2c. the self-attention training kernels the same way: the forward's
      plain_drop and tisas_drop modes (a rate-0.5 mask) and
      fused_attention_bwd in all five modes, at B = 1, 16, 256 with
@@ -33,6 +36,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      with every key live, where two backward launches must give the same
      bits and both are timed; gru_scan and gru_scan_bwd at B=64, L=512;
      dtable on phase 6's four tables with the ids of its first batch;
+  2f. the chain readout's kernels the same way: readout_chain and
+     readout_chain_bwd at B = 1, 16, 256 x L = 50, 255 (d=128, 3 hops)
+     and at B=16, L=50 with d = 16 and 64, in f32 and bf16 (positional
+     and scalar wo2 rows, ragged key lengths, one row with no live key
+     and no score gradient, one masked query), two backward launches
+     bit-equal; both timed at phase 4's shape (B=256, L=50, every key
+     live);
   3. the serving slice: Recommender.recommend at full width (MTAM d=128,
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
@@ -45,9 +55,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      CPU in f32 and bf16, five f32 steps against the CPU (the losses of
      the card's own run; the parameters after each step taken from the
      CPU's parameters and Adam state before it), launch counts
-     per step (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 0 fused_attention),
-     and the time per step, examples/s and device idle share in bf16
-     and f32;
+     per step (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1 readout_chain, 1
+     readout_chain_bwd, 0 fused_attention), and the time per step,
+     examples/s and device idle share in bf16 and f32, with the same
+     run's readout alone at the step's shape, forward + backward, timed
+     both ways (single_query_readout under autograd, readout_chain_stack),
+     and the step itself both ways, in turns;
   5. the self-attention slice on the same data and catalog, 3 blocks,
      1 head: Time_Aware_Self_Attention_Model's step as phase 4 checks
      MTAM's (3 fused_attention[time] + 3 fused_attention_bwd[time] + 4
@@ -84,10 +97,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a call; the
      others 3 fused_attention_blockwise[<mode>]), scores against the CPU
      at B = 2 (the CPU's time at L=2048 sets that size);
-     Time_Aware_SA's step: one step against the CPU at B = 2 (in bf16
-     the scalar gates' gradients reported, not held), timed at
-     B = 64 in bf16 and f32 with its peak memory (3 blockwise[time] + 3
-     dense_bwd[time] + 4 dtable a step, no fused_attention_bwd);
+     Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
+     (in bf16 the scalar gates' gradients reported, not held), timed at
+     B = 64 in bf16 and f32 with its peak memory (Time_Aware_SA: 3
+     blockwise[time] + 3 dense_bwd[time] + 4 dtable a step, no
+     fused_attention_bwd; MTAM: 1 gru_scan + 1 gru_scan_bwd + 4 dtable,
+     its readout in plain PyTorch, no attention, readout or chain kernel);
      SASrec's and TiSAS's at dropout 0.5 (CPU masks injected; 3
      dense_fwd a step and no attention kernel), timed in bf16; and
      behavior_embedding(gather=embedding_kernel.gather) forward and
@@ -95,7 +110,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      4 scatter_add launches).
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
-at Tq=Tk=50 as "@Tq50"; the readout, GRU and dtable kernels at B=64,
+at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
+as "@L50"; the readout, GRU and dtable kernels at B=64,
 L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048 and the
 gather / scatter-add pair at L=2048 as "@L2048", the blockwise time mode
 at MTAM's Tq=1 hops as "@L2048Tq1"); the last line is {"ok": true,
@@ -149,6 +165,12 @@ KERNEL_FILES = {
                "mtamrecommender_tpu/ops/pallas/embedding_kernel.py:33"),
     "scatter_add": ("mtamrecommender_tpu_torch/csrc/embedding_gather.cu",
                     "mtamrecommender_tpu/ops/pallas/embedding_kernel.py:74"),
+    "readout_chain": (
+        "mtamrecommender_tpu_torch/csrc/readout_chain.cu",
+        "mtamrecommender_tpu/ops/pallas/readout_chain_kernel.py:103"),
+    "readout_chain_bwd": (
+        "mtamrecommender_tpu_torch/csrc/readout_chain_bwd.cu",
+        "mtamrecommender_tpu/ops/pallas/readout_chain_kernel.py:131"),
 }
 SERVING_MODES = ("plain", "time", "tisas")   # the forward modes phase 2 holds
 SELF_ATTENTION = {"SASrec": "plain_drop",
@@ -670,6 +692,33 @@ def check_train_kernels(torch, timer, iters, failures, tables):
     return entries
 
 
+def dtable_row0(torch, ct, ids, vocab, got):
+    """Row 0 of an f32 table gradient (the padding id's, the hottest row)
+    against an f64 index_add_ of the same cotangents on the card: the
+    kernel's error (``got``, its output) and the CPU's f32 index_add_'s,
+    each as max |diff| over row 0 and over row 0's largest |value|.  Then
+    the same with every cotangent at id 0 one vector, as the step's L2
+    term gives the padded positions (each the same 2 * lambda * row)."""
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    ids64 = ids.long()
+    out = {"n_ids": int((ids == 0).sum().item())}
+    same = ct.clone()
+    same[ids == 0] = ct[0]
+    for tag, c, kernel in (("random", ct, got),
+                           ("one_vector", same, ek.dtable(same, ids, vocab))):
+        ref = torch.zeros((vocab, c.shape[1]), dtype=torch.float64,
+                          device=DEVICE).index_add_(0, ids64, c.double())[0]
+        cpu = torch.zeros((vocab, c.shape[1])).index_add_(
+            0, ids64.cpu(), c.cpu())[0].double().to(DEVICE)
+        scale = max(ref.abs().max().item(), 1e-300)
+        for who, row in (("kernel", kernel[0].double()), ("cpu_f32", cpu)):
+            err = (row - ref).abs().max().item()
+            out[f"{tag}_{who}_abs_err"] = err
+            out[f"{tag}_{who}_rel_err"] = err / scale
+    return out
+
+
 def check_dtable(torch, timer, iters, failures, gen, dtype, tables, tag):
     """dtable against its plain twin (and index_add_ timed beside it) on
     each of a step's four tables with its ids (``tables``: name -> (ids,
@@ -699,12 +748,17 @@ def check_dtable(torch, timer, iters, failures, gen, dtype, tables, tag):
                     0, ids64, ct), iters),
             **dtable_bound(ct, ids, vocab)}
         r = shapes[table]
+        if dtype == torch.float32:
+            r["row0_f64"] = dtable_row0(torch, ct, ids, vocab, got)
         print(f"dtable {tag} {table:11s} n={r['n']:<6d} V={vocab:<5d} "
               f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"index_add_ms={r['library_ms']:.4f} bound_ms="
               f"{r['bound_ms']:.4f} ({r['bound_by']}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
+        if "row0_f64" in r:
+            print(f"    row 0 (padding id, {r['row0_f64']['n_ids']} ids) vs "
+                  f"f64: {r['row0_f64']}", flush=True)
         if not ok:
             failures.append(f"dtable {tag} {table} {dname}: rel err "
                             f"{rel:.3e} or not reproducible")
@@ -905,12 +959,10 @@ def readout_inputs(torch, gen, dtype, B, L, d=128, n=3, gate="scalar",
             rand(n, d, scale=0.1))
 
 
-def _readout_keys(args):
+def _readout_keys(key_len, L):
     """(live keys, reached keys) summed over the rows: a row's scores
     need its live keys' K, its weighted sum the V of the keys its
     weights reach (all L where none is live)."""
-    mem, key_len = args[0], args[3]
-    L = mem.shape[1]
     live = key_len.clamp(0, L)
     return (int(live.sum().item()),
             int(live.masked_fill(live == 0, L).sum().item()))
@@ -935,7 +987,7 @@ def readout_bound(args, dtype_name):
     mem = args[0]
     B, L, d = mem.shape
     n = args[5].shape[0]
-    n_live, n_span = _readout_keys(args)
+    n_live, n_span = _readout_keys(args[3], L)
     flops = n * (2 * d * d * (n_live + n_span) + 4 * B * d * d
                  + 2 * d * (2 * n_live + n_span))
     return _bound(_readout_in_bytes(args, n_span) + B * d * 4, flops,
@@ -953,7 +1005,7 @@ def readout_bwd_bound(args, dtype_name):
     mem = args[0]
     B, L, d = mem.shape
     n = args[5].shape[0]
-    n_live, n_span = _readout_keys(args)
+    n_live, n_span = _readout_keys(args[3], L)
     flops = n * (6 * d * d * (n_live + n_span) + 12 * B * d * d
                  + 2 * d * (4 * n_live + 2 * n_span))
     out = (B * L * d + B * d + 4 * n * d * d + 5 * n * d + 5 * n * L) * 4
@@ -1203,7 +1255,7 @@ def _counts():
     and mode (the kernels without modes under their own name); and the
     calls of the attention's dense route (`dense_fwd`, `dense_bwd`: plain
     PyTorch, no kernel)."""
-    gk, ak, ek, rk = _kernel_modules()
+    gk, ak, ek, rk, rc = _kernel_modules()
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
@@ -1213,27 +1265,32 @@ def _counts():
             "gather": {"gather": ek.gather_launches["gather"]},
             "scatter_add": {"scatter_add": ek.gather_launches["scatter_add"]},
             "fused_readout": {"fused_readout": rk.launches},
-            "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches}}
+            "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches},
+            "readout_chain": {"readout_chain": rc.launches},
+            "readout_chain_bwd": {"readout_chain_bwd": rc.bwd_launches}}
 
 
 def _reset_counts():
-    gk, ak, ek, rk = _kernel_modules()
+    gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
                    ak.bwd_launches, ak.blockwise_launches, ak.dense_fwd,
                    ak.dense_bwd, ek.launches, ek.gather_launches):
         for m in counts:
             counts[m] = 0
     rk.launches = rk.bwd_launches = 0
+    rc.launches = rc.bwd_launches = 0
 
 
 def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
-                 blockwise=None, dense_fwd=None, dense_bwd=None):
+                 blockwise=None, dense_fwd=None, dense_bwd=None,
+                 chain=False):
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
     forward and backward ``blocks`` times a step in mode ``attention``;
-    the fused readout and its backward once a step with ``readout``; the
-    blockwise forward and the dense route's forward and backward
-    ``blocks`` times a step in the modes given."""
+    the fused readout and its backward once a step with ``readout``, the
+    chain readout's pair with ``chain``; the blockwise forward and the
+    dense route's forward and backward ``blocks`` times a step in the
+    modes given."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
 
@@ -1249,15 +1306,18 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             "dtable": {"dtable": 4 * steps},
             "gather": {"gather": 0}, "scatter_add": {"scatter_add": 0},
             "fused_readout": {"fused_readout": steps * int(readout)},
-            "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)}}
+            "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)},
+            "readout_chain": {"readout_chain": steps * int(chain)},
+            "readout_chain_bwd": {"readout_chain_bwd": steps * int(chain)}}
 
 
 def _kernel_modules():
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
     from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
+    from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
     from mtamrecommender_tpu_torch.ops.kernels import readout_kernel as rk
-    return gk, ak, ek, rk
+    return gk, ak, ek, rk, rc
 
 
 def one_step_check(torch, setup, failures, name, want, drop_masks=None,
@@ -1463,7 +1523,7 @@ def timed_steps(torch, setup, failures, name, want, main_launches,
 
 
 UNMODED = ("dtable", "gather", "scatter_add", "fused_readout",
-           "fused_readout_bwd")
+           "fused_readout_bwd", "readout_chain", "readout_chain_bwd")
 
 
 def _add_launches(main_launches, counts):
@@ -1474,19 +1534,152 @@ def _add_launches(main_launches, counts):
             per[mode] = per.get(mode, 0) + n
 
 
+def readout_alone(torch, setup, failures, iters=20):
+    """MTAM's training readout alone at the step's shape (B=256, L=50,
+    d=128, 3 hops; the step's key lengths and hour stamps, a random
+    memory, query and output cotangent), forward + backward through
+    torch.autograd.grad of the memory, the query and every hop
+    parameter, both ways: `single_query_readout` (plain PyTorch under
+    autograd) and `readout_chain_stack` (the chain kernel pair), each
+    timed by CUDA events and the host clock with the device's busy time
+    from the profiler.  In f32 the two ways' outputs and gradients must
+    agree within TRAIN_TOL of each one's largest |value|."""
+    from mtamrecommender_tpu_torch.ops import attention as att
+
+    b = setup.batch
+    gen = torch.Generator(device=DEVICE).manual_seed(8080)
+    report = {}
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        blocks = copy.deepcopy(setup.model(torch, setup.cfg(dname), DEVICE
+                                           ).att).to(dtype)
+        enc = torch.randn((TRAIN_BATCH, 50, 128), generator=gen,
+                          device=DEVICE).to(dtype).requires_grad_(True)
+        dec = torch.randn((TRAIN_BATCH, 1, 128), generator=gen,
+                          device=DEVICE).to(dtype).requires_grad_(True)
+        g = torch.randn((TRAIN_BATCH, 128), generator=gen,
+                        device=DEVICE).to(dtype)
+        leaves = [enc, dec, *blocks.parameters()]
+        kw = dict(num_heads=1, t_queries=b.target_time[:, None].to(dtype),
+                  t_keys=b.times.to(dtype))
+        ones = torch.ones_like(b.seq_len)
+        rows, results = {}, {}
+        for name, stack in (("single_query_readout", att.single_query_readout),
+                            ("readout_chain_stack", att.readout_chain_stack)):
+            def run(stack=stack):
+                out = stack(blocks, enc, dec, b.seq_len, ones, **kw)
+                return out, torch.autograd.grad(out, leaves, g)
+
+            results[name] = run()
+            busy = _device_busy(torch, run)
+            ms = _event_ms(torch, run, iters)
+            rows[name] = {"event_ms": ms,
+                          "host_ms": _host_ms(torch, run, iters),
+                          "device_busy_ms": busy["device_busy_ms"],
+                          "idle_share": (None if busy["device_busy_ms"] is None
+                                         else 1 - busy["device_busy_ms"] / ms),
+                          "top_kernels": busy["top_kernels"][:5]}
+        (out_a, grads_a), (out_b, grads_b) = results.values()
+        rel = max(rel_err(x, y)[1] for x, y in zip((out_b, *grads_b),
+                                                   (out_a, *grads_a)))
+        ok = dname == "bfloat16" or rel <= TRAIN_TOL[dname]
+        report[dname] = {**rows, "max_rel_err_chain_vs_plain": rel, "ok": ok}
+        for name, r in rows.items():
+            print(f"readout alone fwd+bwd {name:21s} {dname:9s} B="
+                  f"{TRAIN_BATCH} L=50 event_ms={r['event_ms']:.3f} host_ms="
+                  f"{r['host_ms']:.3f} device_busy_ms={r['device_busy_ms']} "
+                  f"idle_share={r['idle_share']}", flush=True)
+        print(f"readout alone {dname:9s} chain vs plain max rel err {rel:.3e}"
+              f" {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"readout alone {dname}: chain vs plain rel err "
+                            f"{rel:.3e}")
+    return report
+
+
+def step_both_ways(torch, setup, steps=8):
+    """The step before and after the chain route, in one run: the same
+    model and data, the readout through `single_query_readout` (the
+    route before the chain pair; `readout_chain_kernel.supported` made
+    to refuse) and through the chain pair, in turns (before, after,
+    after, before; ``steps`` make_superstep steps each, CUDA events),
+    then each way's device busy time over 2 steps from the profiler.
+    These launches lie outside the main path's counts."""
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
+    from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
+                                                         make_superstep)
+    supported = rc.supported
+    report = {}
+    for dname in ("bfloat16", "float32"):
+        cfg = setup.cfg(dname)
+        model = setup.model(torch, cfg, DEVICE)
+        opt = make_optimizer(cfg.train)
+        run = make_superstep(get_model("MTAM"), cfg, opt,
+                             setup.meta.item_vocab, setup.batch_size)
+        state, _ = run(model, opt.init(model), setup.data, setup.order, 0, 3)
+        start, ms = 3, {"single_query_readout": [], "readout_chain_stack": []}
+        busy = {}
+
+        def on(way, fn):
+            rc.supported = supported if way == "readout_chain_stack" \
+                else (lambda *_a: False)
+            try:
+                return fn()
+            finally:
+                rc.supported = supported
+
+        for way in ("single_query_readout", "readout_chain_stack",
+                    "readout_chain_stack", "single_query_readout"):
+            def timed(k=start):
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                run(model, state, setup.data, setup.order, k, steps)
+                t1.record()
+                t1.synchronize()
+                return t0.elapsed_time(t1) / steps
+            ms[way].append(on(way, timed))
+            start += steps
+        for way in ms:
+            b = on(way, lambda k=start: _device_busy(torch, lambda: run(
+                model, state, setup.data, setup.order, k, 2)))
+            start += 4
+            busy[way] = (None if b["device_busy_ms"] is None
+                         else b["device_busy_ms"] / 2)
+        report[dname] = {
+            way: {"ms_per_step_runs": runs,
+                  "ms_per_step": sum(runs) / len(runs),
+                  "device_busy_ms_per_step": busy[way],
+                  "idle_share": (None if busy[way] is None else
+                                 1 - busy[way] / (sum(runs) / len(runs)))}
+            for way, runs in ms.items()}
+        for way, r in report[dname].items():
+            print(f"train MTAM step by way {way:21s} {dname:9s} B="
+                  f"{setup.batch_size} L=50 ms/step runs="
+                  f"{[round(x, 3) for x in r['ms_per_step_runs']]} "
+                  f"device busy ms/step={r['device_busy_ms_per_step']} "
+                  f"idle_share={r['idle_share']}", flush=True)
+    return report
+
+
 def run_training(torch, setup, failures):
-    """Phase 4: MTAM's step, one step and five f32 steps against the CPU,
-    then timed in bf16 and f32."""
+    """Phase 4: MTAM's step (its readout through the chain pair), one
+    step and five f32 steps against the CPU, then timed in bf16 and f32;
+    the readout alone and the step, each both ways."""
     report = {"ids_in_range": setup.ids_in_range}
     if not all(report["ids_in_range"].values()):
         failures.append(f"training ids out of range: {report['ids_in_range']}")
-    want = lambda steps: _want_counts(steps, gru="tgru")  # noqa: E731
+    want = lambda steps: _want_counts(steps, gru="tgru", chain=True)  # noqa: E731
     report.update(one_step_check(torch, setup, failures, "MTAM", want))
     report["five_steps_float32"] = five_steps_check(torch, setup, failures,
                                                     "MTAM")
     main_launches = {}
     report.update(timed_steps(torch, setup, failures, "MTAM", want,
                               main_launches))
+    report["readout_alone"] = readout_alone(torch, setup, failures)
+    report["step_both_ways"] = step_both_ways(torch, setup)
     return report, main_launches
 
 
@@ -1870,6 +2063,162 @@ def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
     return entries
 
 
+# ------------------------------------------------------------ phase 2f
+
+CHAIN_CASES = ([(bs, L, 128) for L in (50, 255) for bs in (1, 16, 256)]
+               + [(16, 50, 16), (16, 50, 64)])
+
+
+def chain_inputs(torch, gen, dtype, B, L, d=128, n=3, gate="positional",
+                 full=False):
+    """The chain readout's operands as MTAM's training step gives them:
+    relu'd K and V, the content-time precursor and the decay half of the
+    gate at the projections' scale, per-hop weights at glorot scale, wo2
+    rows (constant along L for a scalar gate).  Unless ``full``: ragged
+    key lengths (the first row full, the third with no live key from
+    B = 16 on) and the second row's query masked."""
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=DEVICE) * scale
+                ).to(dtype)
+    key_len = torch.full((B,), L, dtype=torch.int32, device=DEVICE)
+    qz = torch.ones(B, device=DEVICE)
+    if not full:
+        key_len = torch.randint(1, L + 1, (B,), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+        key_len[0] = L
+        if B >= 16:
+            key_len[2] = 0
+        if B > 1:
+            qz[1] = 0.0
+    if gate == "scalar":
+        wo2 = (torch.randn(n, 1, generator=gen, device=DEVICE) * 0.3
+               ).expand(n, L).contiguous().to(dtype)
+    else:
+        wo2 = rand(n, L, scale=0.3)
+    return (rand(B, 1, d), key_len, qz, rand(n, B, L, d, scale=0.5).relu(),
+            rand(n, B, L, d, scale=0.5).relu(), rand(n, B, L, d, scale=0.3),
+            rand(n, B, L, scale=0.5), wo2, rand(n, d, d, scale=d ** -0.5),
+            rand(n, d, scale=0.1), (1.0 + rand(n, d, scale=0.1).float()
+                                    ).to(dtype), rand(n, d, scale=0.1))
+
+
+def chain_bound(args, dtype_name):
+    """Least time for the forward these inputs need: dec, key_len and qz
+    read once; per hop the K and tprec rows and gate_part of the live
+    keys and the V rows the weights reach; wo2 and the hop params once;
+    out and the f32 hop-input chain written once.  Per hop 2d^2 FLOPs per
+    row (q) and 2d per live key twice (q.K, cur.tprec) and per reached
+    key once (the weighted sum)."""
+    k = args[3]
+    n, B, L, d = k.shape
+    es = k.element_size()
+    n_live, n_span = _readout_keys(args[1], L)
+    nbytes = (B * d * es + B * 8
+              + n * ((2 * n_live + n_span) * d * es + n_live * es)
+              + n * (L + d * d + 3 * d) * es + B * d * es + n * B * d * 4)
+    flops = n * (2 * B * d * d + 2 * d * (2 * n_live + n_span))
+    return _bound(nbytes, flops, dtype_name)
+
+
+def chain_bwd_bound(args, dtype_name):
+    """Least time for the backward these inputs need: g, key_len, qz and
+    the f32 hop-input chain read once, and the forward's reads (live
+    keys' K, tprec and gate_part, reached keys' V, wo2, the hop params);
+    every cotangent written once (ddec, dk, dv, dt, dgp in the inputs'
+    type over all L keys, the f32 parameter sums).  Per hop 6d^2 FLOPs
+    per row (the recomputed q, dq_pre Wq^T, cur_c^T dq_pre), the
+    forward's 2d per live key twice and per reached key once again, and
+    the backward's 2d per live key for dw, dcur's tprec sum and dq, d
+    each for dk and dt, d per reached key for dv."""
+    k = args[3]
+    n, B, L, d = k.shape
+    es = k.element_size()
+    n_live, n_span = _readout_keys(args[1], L)
+    nbytes = (B * d * es + B * 8 + n * B * d * 4
+              + n * ((2 * n_live + n_span) * d * es + n_live * es)
+              + n * (L + d * d + 3 * d) * es
+              + B * d * es + n * B * L * (3 * d + 1) * es
+              + n * (L + d * d + 3 * d) * 4)
+    flops = n * (6 * B * d * d + 2 * d * (2 * n_live + n_span)
+                 + 2 * d * 3 * n_live + 2 * d * n_live + d * n_span)
+    return _bound(nbytes, flops, dtype_name)
+
+
+def check_chain_kernels(torch, timer, iters, failures):
+    """Phase 2f: readout_chain and readout_chain_bwd against their plain
+    twins at CHAIN_CASES in f32 and bf16 (positional wo2 rows at L=50,
+    scalar at L=255 and the narrow widths; ragged keys, one row with no
+    live key, one masked query): the forward's output and hop-input
+    chain, the backward's ten cotangents from the kernel's chain, every
+    score-side cotangent of a row with no live key exactly 0, two
+    backward launches bit-equal; timed at phase 4's shape (B=256, L=50,
+    d=128, every key live) with the twins beside them."""
+    from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(97531)
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        fwd = {"err": 0.0, "rel": 0.0, "ok": True}
+        bwd = {"err": 0.0, "rel": 0.0, "ok": True}
+        same = True
+        cases = [(bs, L, d, False) for bs, L, d in CHAIN_CASES]
+        for bs, L, d, full in cases + [(TRAIN_BATCH, 50, 128, True)]:
+            gate = "positional" if L == 50 and d == 128 else "scalar"
+            args = chain_inputs(torch, gen, dtype, bs, L, d, gate=gate,
+                                full=full)
+            out, curs = rc.readout_chain(*args)
+            want_out, want_curs = rc.readout_chain_plain(*args)
+            for a, b in ((out, want_out), (curs, want_curs)):
+                e, r, o = _agree(a, b, dname)
+                fwd = {"err": max(fwd["err"], e), "rel": max(fwd["rel"], r),
+                       "ok": fwd["ok"] and o}
+            g = torch.randn((bs, d), generator=gen, device=DEVICE).to(dtype)
+            got = rc.readout_chain_bwd(g, *args[1:], curs)
+            again = rc.readout_chain_bwd(g, *args[1:], curs)
+            want = rc.readout_chain_bwd_plain(g, *args[1:], curs)
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+            dead = torch.nonzero(args[1] == 0).flatten()
+            for i, (a, b) in enumerate(zip(got, want)):
+                # dk, dt, dgp: no score gradient in a row with no live key
+                e, r, o = _agree(a, b, dname, (slice(None), dead)
+                                 if i in (1, 3, 4) and dead.numel() else None)
+                bwd = {"err": max(bwd["err"], e), "rel": max(bwd["rel"], r),
+                       "ok": bwd["ok"] and o}
+            print(f"readout_chain(+bwd) B={bs:<3d} L={L:<3d} d={d:<3d} "
+                  f"{gate:10s} {dname:9s} fwd rel={fwd['rel']:.3e} bwd rel="
+                  f"{bwd['rel']:.3e} same_bits={same}", flush=True)
+        # args, g and curs are phase 4's shape now, every key live
+        rows = {
+            "readout_chain": {
+                "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
+                "tol": KERNEL_TOL[dname], "ok": fwd["ok"],
+                "ms": timer(lambda: rc.readout_chain(*args), iters),
+                "plain_ms": timer(lambda: rc.readout_chain_plain(*args),
+                                  max(iters // 10, 3)),
+                **chain_bound(args, dname)},
+            "readout_chain_bwd": {
+                "max_abs_err": bwd["err"], "rel_err": bwd["rel"],
+                "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and same,
+                "same_bits_twice": same,
+                "ms": timer(lambda: rc.readout_chain_bwd(g, *args[1:], curs),
+                            iters),
+                "plain_ms": timer(lambda: rc.readout_chain_bwd_plain(
+                    g, *args[1:], curs), max(iters // 10, 3)),
+                **chain_bwd_bound(args, dname)}}
+        for kname, row in rows.items():
+            entries.setdefault((kname, None, "L50"), {})[dname] = row
+            print(f"{kname} B={TRAIN_BATCH} L=50 {dname:9s} max_abs_err="
+                  f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
+                  f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms="
+                  f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                  f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+            if not row["ok"]:
+                failures.append(f"{kname} {dname}: rel err "
+                                f"{row['rel_err']:.3e}, same bits {same}")
+    return entries
+
+
 # ------------------------------------------------------------ phase 7
 
 XL_BATCH, XL_ROWS, XL_SMALL = 64, 256, 2
@@ -2056,11 +2405,12 @@ def run_xl_history(torch, setup, failures):
     call; each self-attention model 3 fused_attention_blockwise[<mode>]);
     Time_Aware_SA's step (one step against the CPU at B = XL_SMALL; timed
     at B = 64 in bf16 and f32: 3 blockwise[time] + 3 dense_bwd[time] + 4
+    dtable a step); MTAM's the same way (1 gru_scan + 1 gru_scan_bwd + 4
     dtable a step); SASrec's and TiSAS's at dropout 0.5 (CPU masks
     injected; 3 dense_fwd a step, no attention kernel; timed in bf16);
     the gather seam.  Returns (report, launches by main-path shape:
-    "L2048Tq1" MTAM's hops, "L2048" the self-attention blocks and the
-    lookups)."""
+    "L2048Tq1" MTAM's serving and training, "L2048" the self-attention
+    blocks and the lookups)."""
     from mtamrecommender_tpu_torch.ops import layers
 
     report = {"ids_in_range": setup.ids_in_range, "serving": {},
@@ -2084,6 +2434,14 @@ def run_xl_history(torch, setup, failures):
     rep.update(timed_steps(torch, setup, failures, name, want, blocks,
                            steps=5, warm=2))
     report["training"][name] = rep
+    # MTAM: the readout in plain PyTorch (single_query_readout), the GRU
+    # scan and its backward over 2048 steps
+    want = lambda steps: _want_counts(steps, gru="tgru")  # noqa: E731
+    rep = one_step_check(torch, setup, failures, "MTAM", want,
+                         hold_bf16_scalars=False)
+    rep.update(timed_steps(torch, setup, failures, "MTAM", want, hops,
+                           steps=5, warm=2))
+    report["training"]["MTAM"] = rep
     for name, mode in (("SASrec", "plain_drop"),
                        ("Ti_Self_Attention_Model", "tisas_drop")):
         want = lambda steps, m=mode: _want_counts(  # noqa: E731
@@ -2104,7 +2462,8 @@ def run_xl_history(torch, setup, failures):
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
-    Tq=Tk=50 (the self-attention blocks, ``@Tq50``), the readout, GRU
+    Tq=Tk=50 (the self-attention blocks, ``@Tq50``), the chain readout's
+    pair at MTAM's L=50 step (B=256, ``@L50``), the readout, GRU
     and dtable kernels at MTAM's long-history shape (B=64, L=512,
     ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``)
     and, in time mode, at MTAM's Tq=1 hops (``@L2048Tq1``), the gather /
@@ -2132,7 +2491,8 @@ def kernels_line(entries, launches_by_shape):
             # cell's reset gate multiplies h before its product (cuDNN's
             # after) and the time gate scales the candidate (forward and
             # backward alike), and no call runs several attention hops
-            # with their projections (the fused readout); dtable's and
+            # with their projections (the fused readout) or without them
+            # (the chain readout); dtable's and
             # scatter_add's is index_add_, gather's index_select; the
             # plain and tisas backward's is scaled_dot_product_attention
             # fwd+bwd
@@ -2197,6 +2557,9 @@ def main() -> int:
     entries.update(check_xl_kernels(torch, timer, 100, failures,
                                     xl_setup.tables, setup.tables))
 
+    # phase 2f: the chain readout's pair, MTAM's training readout at L=50
+    entries.update(check_chain_kernels(torch, timer, 100, failures))
+
     # phase 3: the serving slice
     slice_rows, serve_launches = run_slice(torch, 20, failures)
     for kname, mode in (("gru_scan", "tgru"), ("fused_attention", "time")):
@@ -2207,7 +2570,8 @@ def main() -> int:
     # phase 4: the training slice
     training, train_launches = run_training(torch, setup, failures)
     for kname, mode in (("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
-                        ("dtable", None)):
+                        ("dtable", None), ("readout_chain", None),
+                        ("readout_chain_bwd", None)):
         if train_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "training path")
@@ -2240,6 +2604,7 @@ def main() -> int:
     xl_history, xl_launches = run_xl_history(torch, xl_setup, failures)
     for shape, kname, mode in (
             ("L2048Tq1", "gru_scan", "tgru"),
+            ("L2048Tq1", "gru_scan_bwd", "tgru"),
             ("L2048Tq1", "fused_attention_blockwise", "time"),
             ("L2048", "fused_attention_blockwise", "time"),
             ("L2048", "fused_attention_blockwise", "plain"),
@@ -2251,8 +2616,9 @@ def main() -> int:
                             f"L=2048 path ({shape})")
 
     # launches on the main paths: MTAM's at L=50 (phases 3 and 4) run the
-    # attention kernels at Tq=1, the self-attention models' (phase 5) at
-    # Tq=Tk=50; MTAM's at L=512 (phase 6) the readout and GRU kernels
+    # attention kernels at Tq=1 and the chain pair (phase 4's step), the
+    # self-attention models' (phase 5) at Tq=Tk=50; MTAM's at L=512
+    # (phase 6) the readout and GRU kernels
     mtam_launches = {k: dict(v) for k, v in serve_launches.items()}
     _add_launches(mtam_launches, train_launches)
     main_launches = copy.deepcopy(mtam_launches)
@@ -2260,6 +2626,7 @@ def main() -> int:
     report = kernels_line(entries, {None: main_launches,
                                     "Tq1": mtam_launches,
                                     "Tq50": sa_launches,
+                                    "L50": train_launches,
                                     "L512": long_launches, **xl_launches})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -401,37 +401,6 @@ __global__ void __launch_bounds__(256) readout_bwd_wgrad_kernel(
     }
 }
 
-// out[i*X + x] = sum_{r < rows} src[i*si + r*sr + x], or with src2 (an
-// outer product, x = k*D + e) sum_r src[i*si + r*sr + k] src2[... + e].
-struct Job {
-  const float* src;
-  const float* src2;
-  float* out;
-  long long si, sr;
-  int I, rows, X, D;
-};
-struct Jobs {
-  Job job[kMaxJobs];
-};
-
-__global__ void readout_bwd_reduce_kernel(Jobs jobs) {
-  const Job j = jobs.job[blockIdx.y];
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)j.I * j.X) return;
-  const int i = (int)(idx / j.X), x = (int)(idx % j.X);
-  const float* s = j.src + i * j.si;
-  float acc = 0.f;
-  if (j.src2 == nullptr) {
-    for (int r = 0; r < j.rows; ++r) acc += s[r * j.sr + x];
-  } else {
-    const float* s2 = j.src2 + i * j.si;
-    const int k = x / j.D, e = x % j.D;
-    for (int r = 0; r < j.rows; ++r)
-      acc = fmaf(s[r * j.sr + k], s2[r * j.sr + e], acc);
-  }
-  j.out[idx] = acc;
-}
-
 struct Outs {
   float *dmem, *ddec, *dwq, *dbq, *dwk, *dbk, *dwv, *dbv, *dwt;
   float* gates[5];   // dw1, db1, dwo1, dwo2, dbo
@@ -464,7 +433,7 @@ cudaError_t run(const Params& p, const float* g, const Outs& o, void* ws,
         static_cast<const T*>(p.mem), p.key_len, kv, part, B, L, D, n, G);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  Jobs jobs;
+  readout::Jobs<kMaxJobs> jobs;
   int nj = 0;
   const long long nBD = (long long)n * B * D, BD = (long long)B * D;
   auto sum_vec = [&](int slot, float* out) {
@@ -489,14 +458,7 @@ cudaError_t run(const Params& p, const float* g, const Outs& o, void* ws,
   // dWk, dWv: the row groups' partials, rows = G (0 when B = 0)
   jobs.job[nj++] = {part, nullptr, o.dwk, 0, 2 * nDD, 1, G, (int)nDD, D};
   jobs.job[nj++] = {part + nDD, nullptr, o.dwv, 0, 2 * nDD, 1, G, (int)nDD, D};
-  long long most = 0;
-  for (int k = 0; k < nj; ++k) {
-    const long long e = (long long)jobs.job[k].I * jobs.job[k].X;
-    most = e > most ? e : most;
-  }
-  readout_bwd_reduce_kernel<<<dim3((unsigned)((most + 255) / 256), nj), 256,
-                              0, stream>>>(jobs);
-  return cudaGetLastError();
+  return readout::batch_sums(jobs, nj, stream);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // One hop of MTAM's fused multi-hop readout, for one batch row per block:
 // the pieces fused_readout.cu (forward) and fused_readout_bwd.cu (backward)
-// share.  Per hop i, with dec the hop's f32 input query [D]:
+// share; the chain readout (readout_chain.cu, readout_chain_bwd.cu) takes
+// its constants, softmax and the backwards' batch sums.  Per hop i, with dec the hop's f32 input query [D]:
 //   q    = relu(dec_c Wq_i + bq_i)              dec_c = dec rounded to T
 //   K    = relu(mem Wk_i + bk_i), V = relu(mem Wv_i + bv_i), rounded to T
 //   u    = dec_c Wt_i                           (f32, not rounded)
@@ -262,6 +263,54 @@ __device__ void hop_forward(const Params& p, int i, int b, const HopSmem& sm,
     sm.dec[tid] = dx * inv * port::to_float(ptr<T>(p.lng)[i * D + tid]) +
                   port::to_float(ptr<T>(p.lnb)[i * D + tid]);
   __syncthreads();
+}
+
+// The backward kernels' batch sums, one thread per output element, each
+// over the rows in order (no atomics: the same inputs give the same
+// bits): out[i*X + x] = sum_{r < rows} src[i*si + r*sr + x], or with src2
+// (an outer product, x = k*D + e) sum_r src[i*si + r*sr + k] src2[... + e].
+struct Job {
+  const float* src;
+  const float* src2;
+  float* out;
+  long long si, sr;
+  int I, rows, X, D;
+};
+template <int N>
+struct Jobs {
+  Job job[N];
+};
+
+template <int N>
+__global__ void batch_sum_kernel(Jobs<N> jobs) {
+  const Job j = jobs.job[blockIdx.y];
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)j.I * j.X) return;
+  const int i = (int)(idx / j.X), x = (int)(idx % j.X);
+  const float* s = j.src + i * j.si;
+  float acc = 0.f;
+  if (j.src2 == nullptr) {
+    for (int r = 0; r < j.rows; ++r) acc += s[r * j.sr + x];
+  } else {
+    const float* s2 = j.src2 + i * j.si;
+    const int k = x / j.D, e = x % j.D;
+    for (int r = 0; r < j.rows; ++r)
+      acc = fmaf(s[r * j.sr + k], s2[r * j.sr + e], acc);
+  }
+  j.out[idx] = acc;
+}
+
+// Launches the first nj jobs (one grid row each); returns its cudaError_t.
+template <int N>
+cudaError_t batch_sums(const Jobs<N>& jobs, int nj, cudaStream_t stream) {
+  long long most = 0;
+  for (int k = 0; k < nj; ++k) {
+    const long long e = (long long)jobs.job[k].I * jobs.job[k].X;
+    most = e > most ? e : most;
+  }
+  batch_sum_kernel<N><<<dim3((unsigned)((most + 255) / 256), nj), 256, 0,
+                        stream>>>(jobs);
+  return cudaGetLastError();
 }
 
 }  // namespace readout

@@ -61,10 +61,13 @@ def _intent(model: MTAM, cfg: ModelConfig, batch: Batch, embedded):
 def _readout(model: MTAM, cfg: ModelConfig, batch: Batch, memory,
              intent, train: bool) -> torch.Tensor:
     """Multi-hop single-query attention over the memory.  The route
-    depends on the memory's length: over 256 to 1024 keys the whole
-    readout is one fused readout kernel call per direction, in training
-    and serving; below, hop-batched in training and hop by hop on the
-    attention kernel in serving (`attention.vanilla_attention_stack`)."""
+    depends on the memory's length (`attention.vanilla_attention_stack`):
+    over 256 to 1024 keys the whole readout is one fused readout kernel
+    call per direction, in training and serving; below 256 keys training
+    batches the projections across hops and runs the query chain in one
+    readout_chain kernel call per direction, past 1024 keys in plain
+    PyTorch; outside 256 to 1024 keys serving runs hop by hop on the
+    attention kernel."""
     ones = torch.ones_like(batch.seq_len)
     return attention.vanilla_attention_stack(
         model.att, memory, intent[:, None, :], key_len=batch.seq_len,

@@ -23,10 +23,13 @@ JAX's jnp path there).
     1024 keys (`READOUT_KERNEL_MIN_KEYS`, `readout_kernel.MAX_KEYS`) all
     hops, projections included, take the `fused_readout` kernel
     (`fused_readout_stack`), in training and serving, as in the JAX
-    package.  Below and above that, hop by hop on the attention kernel
-    (single-tile or blockwise) when serving, and in training the
-    hop-batched readout (`single_query_readout`, plain PyTorch), which
-    JAX too computes outside Pallas there.
+    package.  Below and above that, serving runs hop by hop on the
+    attention kernel (single-tile or blockwise).  Training batches the
+    memory-side projections across hops (`_readout_precompute`); below
+    256 keys the query chain takes the `readout_chain` kernel pair
+    (`readout_chain_stack`, JAX's chain kernel route, which JAX keeps
+    opt-in on the strength of a TPU measurement), past 1024 keys it runs
+    in plain PyTorch (`single_query_readout`), as JAX's jnp path.
 
 Faithfulness notes kept from the JAX package:
   * the content-time term tanh(Q W_t K^T) uses the RAW queries/keys;
@@ -49,6 +52,7 @@ from torch import nn
 from mtamrecommender_tpu_torch.ops import initializers as init
 from mtamrecommender_tpu_torch.ops import layers
 from mtamrecommender_tpu_torch.ops.kernels import (attention_kernel,
+                                                   readout_chain_kernel,
                                                    readout_kernel)
 
 Params = Dict[str, object]
@@ -291,19 +295,17 @@ def _stack(blocks, get) -> torch.Tensor:
     return torch.stack([get(p) for p in blocks])
 
 
-def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
-                         key_len: torch.Tensor, query_len: torch.Tensor, *,
-                         num_heads: int, t_queries: torch.Tensor,
-                         t_keys: torch.Tensor) -> torch.Tensor:
-    """The n Tq=1 time-attention hops with the memory-side work batched
-    across hops (twin of the JAX `_fused_single_query_readout`, time
-    kind).  The K/V projections and the content-time precursor
-    ``enc @ W_t^T`` of all hops are three einsums, the decay part of the
-    gate is precomputed, and only the query chain dec_0 -> dec_1 -> ...
-    runs hop by hop.  enc: [B, Tk, d]; dec: [B, 1, d]; returns [B, d]."""
-    _one_head(num_heads)
-    n = len(blocks)
-    b_sz, tk, d = enc.shape
+def _readout_precompute(blocks, enc: torch.Tensor, t_queries: torch.Tensor,
+                        t_keys: torch.Tensor):
+    """The memory-side work of the n Tq=1 time hops, batched across hops
+    (the JAX `_fused_single_query_readout`'s precompute): the K/V
+    projections and the content-time precursor ``enc @ W_t^T`` of all
+    hops as three einsums, the decay part of the gate, and the ``wo2``
+    gates as [n, Tk] rows (a scalar broadcast: autograd sums its
+    cotangent back; a positional [1, Tk] reshaped).  enc: [B, Tk, d].
+    Returns k_all, v_all, tprec [n, B, Tk, d], gate_part [n, B, Tk] and
+    the wo2 rows."""
+    n, tk = len(blocks), enc.shape[1]
     k_all = torch.relu(torch.einsum("bld,nde->nble", enc,
                                     _stack(blocks, lambda p: p.k.w))
                        + _stack(blocks, lambda p: p.k.b)[:, None, None, :])
@@ -324,6 +326,23 @@ def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
                        + gate("time_input_b1"))                   # [n,B,1,Tk]
     gate_part = gate("time_output_w1") * decay + gate("time_output_b")
     wo2 = _stack(blocks, lambda p: p.time_output_w2)
+    wo2 = wo2.reshape(n, tk) if wo2.dim() > 1 \
+        else wo2[:, None].expand(n, tk)
+    return k_all, v_all, tprec, gate_part[:, :, 0, :], wo2
+
+
+def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
+                         key_len: torch.Tensor, query_len: torch.Tensor, *,
+                         num_heads: int, t_queries: torch.Tensor,
+                         t_keys: torch.Tensor) -> torch.Tensor:
+    """The n Tq=1 time-attention hops in plain PyTorch (twin of the JAX
+    `_fused_single_query_readout`, time kind): `_readout_precompute`,
+    then only the query chain dec_0 -> dec_1 -> ... hop by hop, under
+    autograd.  enc: [B, Tk, d]; dec: [B, 1, d]; returns [B, d]."""
+    _one_head(num_heads)
+    d, tk = enc.shape[2], enc.shape[1]
+    k_all, v_all, tprec, gate_part, wo2 = _readout_precompute(
+        blocks, enc, t_queries, t_keys)
     kmask = layers.sequence_mask(key_len, tk)                      # [B, Tk]
     # the per-hop query mask: a row with query_len == 0 keeps only its
     # residual and normalize
@@ -333,13 +352,36 @@ def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
         q = layers.dense(p.q, cur, torch.relu)
         scores = torch.einsum("be,ble->bl", q, k_all[i])
         tqk = torch.tanh(torch.einsum("bd,bld->bl", cur, tprec[i]))
-        scores = scores * torch.sigmoid(gate_part[i][:, 0, :] + wo2[i] * tqk)
+        scores = scores * torch.sigmoid(gate_part[i] + wo2[i] * tqk)
         scores = scores / d ** 0.5
         scores = torch.where(kmask, scores, torch.full_like(scores, NEG_FILL))
         weights = torch.softmax(scores, dim=-1)
         out = torch.einsum("bl,ble->be", weights, v_all[i])
         cur = layers.normalize(p.ln, out * qz + cur)
     return cur
+
+
+def readout_chain_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
+                        key_len: torch.Tensor, query_len: torch.Tensor, *,
+                        num_heads: int, t_queries: torch.Tensor,
+                        t_keys: torch.Tensor) -> torch.Tensor:
+    """The n Tq=1 time-attention hops as `_readout_precompute` and the
+    query chain in one `readout_chain` call per direction (the JAX
+    `_fused_single_query_readout` with its chain kernel): the cotangents
+    of k_all, v_all, tprec and gate_part leave the chain's backward and
+    autograd carries them through the precompute.  enc: [B, Tk, d]; dec:
+    [B, 1, d]; returns [B, d] in dec's type."""
+    _one_head(num_heads)
+    k_all, v_all, tprec, gate_part, wo2 = _readout_precompute(
+        blocks, enc, t_queries, t_keys)
+    out = readout_chain_kernel.readout_chain_vjp(
+        dec.contiguous(), key_len.to(torch.int32).contiguous(),
+        (query_len > 0).float(), k_all.contiguous(), v_all.contiguous(),
+        tprec.contiguous(), gate_part.contiguous(), wo2.contiguous(),
+        _stack(blocks, lambda p: p.q.w), _stack(blocks, lambda p: p.q.b),
+        _stack(blocks, lambda p: p.ln.gamma),
+        _stack(blocks, lambda p: p.ln.beta))
+    return out.to(dec.dtype)
 
 
 def fused_readout_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
@@ -383,10 +425,11 @@ def vanilla_attention_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
     """Decoder cross-attention hops; returns [B*Tq, d].  One query over
     `READOUT_KERNEL_MIN_KEYS` to `readout_kernel.MAX_KEYS` keys takes
     `fused_readout_stack`, in training and serving alike.  Otherwise
-    ``train=True`` with one query takes the hop-batched
-    `single_query_readout` (the JAX package's training route there), and
-    the rest runs hop by hop on the fused attention kernel (its serving
-    route at L=50)."""
+    ``train=True`` with one query takes `readout_chain_stack` where
+    `readout_chain_kernel.supported` (below 256 keys: the JAX package's
+    chain kernel route) and `single_query_readout` past 1024 keys, both
+    hop-batched; serving runs hop by hop on the fused attention kernel
+    (its route at L=50, the blockwise kernel past 1024 keys)."""
     if kind != "time":
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported yet (ROADMAP.md)")
@@ -397,9 +440,11 @@ def vanilla_attention_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
         return fused_readout_stack(blocks, enc, dec, key_len, query_len,
                                    t_queries=t_queries, t_keys=t_keys)
     if train and dec.shape[1] == 1 and len(blocks) > 0:
-        return single_query_readout(blocks, enc, dec, key_len, query_len,
-                                    num_heads=num_heads, t_queries=t_queries,
-                                    t_keys=t_keys)
+        readout = (readout_chain_stack if readout_chain_kernel.supported(
+            enc.shape[1], enc.shape[2], num_heads) else single_query_readout)
+        return readout(blocks, enc, dec, key_len, query_len,
+                       num_heads=num_heads, t_queries=t_queries,
+                       t_keys=t_keys)
     for p in blocks:
         dec = time_aware_multihead_attention(
             p, dec, enc, key_len, query_len, t_queries, t_keys,

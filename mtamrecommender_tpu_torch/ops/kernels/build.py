@@ -33,7 +33,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # kernel library name -> its source file; every source includes common.cuh
-# (the readout's two include readout_hop.cuh)
+# (the readouts' four include readout_hop.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
@@ -41,7 +41,9 @@ SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "embedding_dtable": "embedding_dtable.cu",
            "embedding_gather": "embedding_gather.cu",
            "fused_readout": "fused_readout.cu",
-           "fused_readout_bwd": "fused_readout_bwd.cu"}
+           "fused_readout_bwd": "fused_readout_bwd.cu",
+           "readout_chain": "readout_chain.cu",
+           "readout_chain_bwd": "readout_chain_bwd.cu"}
 _HEADERS = ("common.cuh", "readout_hop.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -151,6 +153,6 @@ def launch_context(tensors, what: str):
             f"{what}: the CUDA kernel returns no gradient; call it under "
             "torch.no_grad() or through its autograd function (gru_scan: "
             "gru_scan_vjp; fused_attention: fused_attention_vjp; "
-            "fused_readout: fused_readout_vjp; gather: embedding_kernel."
-            "gather)")
+            "fused_readout: fused_readout_vjp; readout_chain: "
+            "readout_chain_vjp; gather: embedding_kernel.gather)")
     return device.index, torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,347 @@
+"""Sequential-chain Tq=1 readout: CUDA kernels and plain twins.
+
+Counterpart of mtamrecommender_tpu/ops/pallas/readout_chain_kernel.py:
+MTAM's n time-attention hops over inputs computed outside the kernel, the
+hop-batched projections k_all, v_all, tprec [n, B, L, d] and the decay
+half of the gate gate_part [n, B, L].  Only the sequential query chain
+runs inside, per row and hop i (cur: the hop's f32 input query):
+
+    q    = relu(cur_c @ Wq_i + bq_i)          cur_c: cur rounded to k's type
+    s0   = q . K_i,l        tqk = tanh(cur . tprec_i,l)     (f32 sums)
+    gate = gate_part_i,l + wo2_i,l * tqk
+    s    = s0 * sigmoid(gate) / sqrt(d), key-masked with -2^32+1
+    cur  = LN_i(softmax(s) @ V_i * qz + cur)    normalize(), eps 1e-8
+
+The forward `readout_chain` (csrc/readout_chain.cu, the Pallas
+`_chain_fwd_kernel`) returns the last hop's output in dec's type and the
+hop-input chain ``curs`` [n, B, d] f32, which its backward
+`readout_chain_bwd` (csrc/readout_chain_bwd.cu, `_chain_bwd_kernel`)
+replays hop by hop in reverse.  The cotangents of k_all, v_all, tprec and
+gate_part leave as plain outputs, so autograd carries them through the
+hop-batched einsums, as XLA's AD does in the JAX package.
+`readout_chain_vjp` joins the two as JAX's custom_vjp does.
+
+Like the Pallas kernel, the chain does not pad L: a row with
+``key_len == 0`` gets a uniform softmax over its L keys, as in the jnp
+reference.  Its backward follows the jnp reference too (no score
+gradient at masked keys); the Pallas backward, whose softmax transpose
+assumes zero weights there, gives such a row a score gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mtamrecommender_tpu_torch.ops.kernels import build
+
+DTYPES = (torch.float32, torch.bfloat16)
+NEG_FILL = -(2.0 ** 32) + 1.0
+LN_EPS = 1e-8
+MAX_KEYS = 256    # the short-memory regime, as in the JAX package
+MAX_D = 128       # the kernels' widest d (every d up to it)
+
+# the operands, in the order the functions take them
+_OPERANDS = ("dec", "klen", "qz", "k_all", "v_all", "tprec", "gate_part",
+             "wo2", "wq", "bq", "lng", "lnb")
+_GRADS = ("ddec", "dk", "dv", "dt", "dgp", "dwo2", "dwq", "dbq", "dlng",
+          "dlnb")
+
+# kernel launches (the plain twins are not counted)
+launches = 0
+bwd_launches = 0
+
+
+def supported(tk_len: int, d: int, num_heads: int) -> bool:
+    """Whether a Tq=1 time readout over ``tk_len`` keys of width ``d``
+    takes the chain: one head and at most MAX_KEYS keys (JAX's
+    `supported`), d at most MAX_D."""
+    return num_heads == 1 and 1 <= tk_len <= MAX_KEYS and 1 <= d <= MAX_D
+
+
+def _check(args) -> None:
+    """Shapes and types of `readout_chain`'s operands (dec None: the
+    backward's, which has none)."""
+    got = {name: t for name, t in zip(_OPERANDS, args) if t is not None}
+    k = got["k_all"]
+    if k.dim() != 4:
+        raise ValueError(f"readout_chain: k_all must be [n,B,L,d], got "
+                         f"{tuple(k.shape)}")
+    n, b, tk, d = k.shape
+    want = {"dec": (b, 1, d), "klen": (b,), "qz": (b,), "v_all": (n, b, tk, d),
+            "tprec": (n, b, tk, d), "gate_part": (n, b, tk), "wo2": (n, tk),
+            "wq": (n, d, d), "bq": (n, d), "lng": (n, d), "lnb": (n, d)}
+    for name, shape in want.items():
+        if name in got and tuple(got[name].shape) != shape:
+            raise ValueError(f"readout_chain: {name} must be {shape}, got "
+                             f"{tuple(got[name].shape)}")
+    if got["klen"].dtype != torch.int32:
+        raise TypeError(f"readout_chain: klen must be int32, got "
+                        f"{got['klen'].dtype}")
+    if got["qz"].dtype != torch.float32:
+        raise TypeError(f"readout_chain: qz must be float32, got "
+                        f"{got['qz'].dtype}")
+    typed = [t for name, t in got.items() if name not in ("klen", "qz")]
+    if k.dtype not in DTYPES or any(t.dtype != k.dtype for t in typed):
+        raise TypeError("readout_chain: dec, k_all, v_all, tprec, gate_part, "
+                        "wo2 and the hop params must all be float32 or all "
+                        "bfloat16, got "
+                        f"{sorted({str(t.dtype) for t in typed})}")
+
+
+def _kernel_shape(what: str, k_all) -> None:
+    n, _, tk, d = k_all.shape
+    if not (1 <= tk <= MAX_KEYS and 1 <= d <= MAX_D and n >= 1):
+        raise ValueError(
+            f"{what}: the kernel takes 1 <= L <= {MAX_KEYS} keys, d <= "
+            f"{MAX_D} and n >= 1 hops (one head), got L={tk}, d={d}, n={n}")
+
+
+def readout_chain(dec, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
+                  bq, lng, lnb):
+    """dec [B,1,d]; klen [B] int32 (live keys); qz [B] f32 (1 or 0: a 0
+    row keeps only its residual and normalize each hop); k_all, v_all,
+    tprec [n,B,L,d]; gate_part [n,B,L]; wo2 [n,L]; wq [n,d,d]; bq, lng,
+    lnb [n,d], all in one type.  Returns (out [B,d] in dec's type, curs
+    [n,B,d] f32, each hop's input).  CPU tensors run `readout_chain_plain`;
+    CUDA tensors launch the kernel."""
+    args = (dec, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq, bq, lng,
+            lnb)
+    _check(args)
+    if k_all.device.type == "cpu":
+        return readout_chain_plain(*args)
+    if k_all.device.type != "cuda":
+        raise ValueError(f"readout_chain: no kernel for device "
+                         f"{k_all.device}")
+    return _launch(args)
+
+
+def _launch(args):
+    global launches
+    k_all = args[3]
+    device, stream = build.launch_context(args, "readout_chain")
+    _kernel_shape("readout_chain", k_all)
+    n, b, tk, d = k_all.shape
+    lib = _library()
+    out = torch.empty((b, d), dtype=k_all.dtype, device=k_all.device)
+    curs = torch.empty((n, b, d), dtype=torch.float32, device=k_all.device)
+    status = lib.readout_chain_launch(
+        int(k_all.dtype == torch.bfloat16), *(t.data_ptr() for t in args),
+        out.data_ptr(), curs.data_ptr(), b, tk, d, n, 1.0 / d ** 0.5,
+        device, stream)
+    build.check(lib, status, "readout_chain")
+    launches += 1
+    return out, curs
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.library("readout_chain")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.readout_chain_launch.argtypes = (
+            [ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.readout_chain_launch.restype = ci
+        lib._port_typed = True
+    return lib
+
+
+def _hop_plain(cur, k, v, t, gp, wo2, wq, bq, lng, lnb, live, qz, scale):
+    """One hop of `_hop_fwd` for every row: cur [B,d] f32 -> (the next
+    cur, what the backward reads)."""
+    cur_c = cur.to(k.dtype).float()
+    q = torch.relu(cur_c @ wq.float() + bq.float())
+    s0 = torch.einsum("bd,bld->bl", q, k.float())
+    tqk = torch.tanh(torch.einsum("bd,bld->bl", cur, t.float()))
+    sig = torch.sigmoid(gp.float() + wo2.float() * tqk)
+    s = torch.where(live, s0 * sig * scale, torch.full_like(s0, NEG_FILL))
+    w = torch.softmax(s, dim=-1)
+    x = torch.einsum("bl,bld->bd", w, v.float()) * qz + cur
+    mu = x.mean(dim=-1, keepdim=True)
+    inv = 1.0 / torch.sqrt(torch.square(x - mu).mean(dim=-1, keepdim=True)
+                           + LN_EPS)
+    xh = (x - mu) * inv
+    saved = dict(cur_c=cur_c, q=q, s0=s0, tqk=tqk, sig=sig, w=w, xh=xh,
+                 inv=inv)
+    return xh * lng.float() + lnb.float(), saved
+
+
+def _row_terms(klen, qz, k_all):
+    tk = k_all.shape[2]
+    live = torch.arange(tk, device=k_all.device)[None, :] < klen[:, None]
+    return live, qz.float()[:, None], 1.0 / k_all.shape[3] ** 0.5
+
+
+def readout_chain_plain(dec, klen, qz, k_all, v_all, tprec, gate_part, wo2,
+                        wq, bq, lng, lnb):
+    """Plain PyTorch twin of the forward kernel: `_hop_fwd`'s math with
+    its rounding (cur rounded to the input type for the cur @ Wq product
+    only; k, v, tprec and gate_part widened to f32; f32 sums)."""
+    live, qzf, scale = _row_terms(klen, qz, k_all)
+    cur = dec[:, 0, :].float()
+    curs = []
+    for i in range(k_all.shape[0]):
+        curs.append(cur)
+        cur, _ = _hop_plain(cur, k_all[i], v_all[i], tprec[i], gate_part[i],
+                            wo2[i], wq[i], bq[i], lng[i], lnb[i], live, qzf,
+                            scale)
+    return cur.to(dec.dtype), torch.stack(curs)
+
+
+# ------------------------------------------------------------- backward
+
+def readout_chain_bwd(g, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
+                      bq, lng, lnb, curs):
+    """Backward of `readout_chain`: g [B,d] the cotangent of its output,
+    in its type; the forward's inputs after dec; ``curs`` its hop-input
+    chain.  Returns (ddec [B,d] in g's type, dk, dv, dt [n,B,L,d] and dgp
+    [n,B,L] in their inputs' type, and the f32 batch sums dwo2 [n,L], dwq
+    [n,d,d], dbq, dlng, dlnb [n,d]).  CPU tensors run
+    `readout_chain_bwd_plain`; CUDA tensors launch the kernel."""
+    args = (klen, qz, k_all, v_all, tprec, gate_part, wo2, wq, bq, lng, lnb)
+    n, b, _, d = k_all.shape
+    _check((None,) + args)
+    if tuple(g.shape) != (b, d) or g.dtype != k_all.dtype:
+        raise ValueError(f"readout_chain_bwd: g must be {k_all.dtype} "
+                         f"{(b, d)}, got {g.dtype} {tuple(g.shape)}")
+    if tuple(curs.shape) != (n, b, d) or curs.dtype != torch.float32:
+        raise ValueError(f"readout_chain_bwd: curs must be float32 "
+                         f"{(n, b, d)}, got {curs.dtype} "
+                         f"{tuple(curs.shape)}")
+    if k_all.device.type == "cpu":
+        return readout_chain_bwd_plain(g, *args, curs)
+    if k_all.device.type != "cuda":
+        raise ValueError(f"readout_chain_bwd: no kernel for device "
+                         f"{k_all.device}")
+    return _launch_bwd(g, args, curs)
+
+
+def _launch_bwd(g, args, curs):
+    global bwd_launches
+    k_all = args[2]
+    device, stream = build.launch_context((g,) + args + (curs,),
+                                          "readout_chain_bwd")
+    _kernel_shape("readout_chain_bwd", k_all)
+    n, b, tk, d = k_all.shape
+    lib = _bwd_library()
+    typed = dict(dtype=k_all.dtype, device=k_all.device)
+    f32 = dict(dtype=torch.float32, device=k_all.device)
+    grads = (torch.empty((b, d), **typed),
+             *(torch.empty((n, b, tk, d), **typed) for _ in range(3)),
+             torch.empty((n, b, tk), **typed), torch.empty((n, tk), **f32),
+             torch.empty((n, d, d), **f32),
+             *(torch.empty((n, d), **f32) for _ in range(3)))
+    ws = torch.empty((lib.readout_chain_bwd_workspace_bytes(b, tk, d, n),),
+                     dtype=torch.uint8, device=k_all.device)
+    status = lib.readout_chain_bwd_launch(
+        int(k_all.dtype == torch.bfloat16), g.data_ptr(),
+        *(t.data_ptr() for t in args), curs.data_ptr(),
+        *(t.data_ptr() for t in grads), ws.data_ptr(), b, tk, d, n,
+        1.0 / d ** 0.5, device, stream)
+    build.check(lib, status, "readout_chain_bwd")
+    bwd_launches += 1
+    return grads
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.library("readout_chain_bwd")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.readout_chain_bwd_launch.argtypes = (
+            [ci] + [vp] * 24 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.readout_chain_bwd_launch.restype = ci
+        lib.readout_chain_bwd_workspace_bytes.argtypes = [ci] * 4
+        lib.readout_chain_bwd_workspace_bytes.restype = ctypes.c_longlong
+        lib._port_typed = True
+    return lib
+
+
+def readout_chain_bwd_plain(g, klen, qz, k_all, v_all, tprec, gate_part, wo2,
+                            wq, bq, lng, lnb, curs):
+    """Plain PyTorch twin of the backward kernel: `_chain_bwd_kernel`'s
+    algebra, each hop recomputed from ``curs``, with its rounding (dq_pre
+    rounded to the input type before dcur += dq_pre Wq^T, dwq += cur_c^T
+    dq_pre and dbq; the per-row cotangents cast to their inputs' types),
+    the score gradient zeroed at masked keys (the jnp reference's
+    ``where``)."""
+    live, qzf, scale = _row_terms(klen, qz, k_all)
+    n = k_all.shape[0]
+    dt_ = k_all.dtype
+    dk, dv, dt = (torch.empty_like(x) for x in (k_all, v_all, tprec))
+    dgp = torch.empty_like(gate_part)
+    f32 = dict(dtype=torch.float32, device=k_all.device)
+    dwo2 = torch.zeros(wo2.shape, **f32)
+    dwq = torch.zeros(wq.shape, **f32)
+    dbq, dlng, dlnb = (torch.zeros(bq.shape, **f32) for _ in range(3))
+    dcur = g.float()
+    for i in range(n - 1, -1, -1):
+        cur = curs[i]
+        _, h = _hop_plain(cur, k_all[i], v_all[i], tprec[i], gate_part[i],
+                          wo2[i], wq[i], bq[i], lng[i], lnb[i], live, qzf,
+                          scale)
+        g_i = dcur
+        # layer-norm backward (normalize(): (x-mu)*inv*gamma + beta)
+        dlng[i] = (g_i * h["xh"]).sum(0)
+        dlnb[i] = g_i.sum(0)
+        dxh = g_i * lng[i].float()
+        dx = (dxh - dxh.mean(-1, keepdim=True)
+              - h["xh"] * (dxh * h["xh"]).mean(-1, keepdim=True)) * h["inv"]
+        do = dx * qzf
+        dcur = dx                                   # the residual branch
+        # o = sum_l w_l V_l and the softmax transpose, 0 at masked keys
+        w = h["w"]
+        dw = torch.einsum("bd,bld->bl", do, v_all[i].float())
+        dv[i] = (w[:, :, None] * do[:, None, :]).to(dt_)
+        ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+        ds = torch.where(live, ds, torch.zeros_like(ds))
+        sig, tqk = h["sig"], h["tqk"]
+        dgate = ds * h["s0"] * scale * sig * (1.0 - sig)
+        ds0 = ds * sig * scale
+        dgp[i] = dgate.to(dt_)
+        dwo2[i] = (dgate * tqk).sum(0)
+        dpre = dgate * wo2[i].float() * (1.0 - tqk * tqk)
+        dt[i] = (dpre[:, :, None] * cur[:, None, :]).to(dt_)
+        dcur = dcur + torch.einsum("bl,bld->bd", dpre, tprec[i].float())
+        # s0 = q . K and q = relu(cur_c Wq + bq)
+        dq = torch.einsum("bl,bld->bd", ds0, k_all[i].float())
+        dk[i] = (ds0[:, :, None] * h["q"][:, None, :]).to(dt_)
+        dq_pre = torch.where(h["q"] > 0, dq, torch.zeros_like(dq)
+                             ).to(dt_).float()
+        dcur = dcur + dq_pre @ wq[i].float().T
+        dwq[i] = h["cur_c"].T @ dq_pre
+        dbq[i] = dq_pre.sum(0)
+    return (dcur.to(g.dtype), dk, dv, dt, dgp, dwo2, dwq, dbq, dlng, dlnb)
+
+
+class ReadoutChainFunction(torch.autograd.Function):
+    """`readout_chain` with `readout_chain_bwd` as its backward (the JAX
+    package's custom_vjp: `_rc_fwd` saves the inputs and ``curs``,
+    `_rc_bwd` returns ddec in dec's type, no cotangent for klen and qz,
+    and the parameter sums cast to the parameters' types)."""
+
+    @staticmethod
+    def forward(ctx, dec, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
+                bq, lng, lnb):
+        out, curs = readout_chain(dec, klen, qz, k_all, v_all, tprec,
+                                  gate_part, wo2, wq, bq, lng, lnb)
+        ctx.save_for_backward(klen, qz, k_all, v_all, tprec, gate_part, wo2,
+                              wq, bq, lng, lnb, curs)
+        ctx.dec_shape = dec.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        args, curs = saved[:-1], saved[-1]
+        grads = readout_chain_bwd(g.to(args[2].dtype).contiguous(), *args,
+                                  curs)
+        ddec, per_row, params = grads[0], grads[1:5], grads[5:]
+        return (ddec.reshape(ctx.dec_shape), None, None, *per_row,
+                *(d.to(p.dtype) for d, p in zip(params, args[6:])))
+
+
+def readout_chain_vjp(dec, klen, qz, k_all, v_all, tprec, gate_part, wo2,
+                      wq, bq, lng, lnb) -> torch.Tensor:
+    """Differentiable `readout_chain`: the output [B,d] in dec's type."""
+    return ReadoutChainFunction.apply(dec, klen, qz, k_all, v_all, tprec,
+                                      gate_part, wo2, wq, bq, lng, lnb)

@@ -157,8 +157,10 @@ def test_key_len_zero_row_follows_the_jnp_reference():
 @pytest.mark.parametrize("tk", [255, 256, 1024, 1025])
 def test_readout_route_by_length(monkeypatch, tk, train):
     """256 <= Tk <= 1024 takes the fused readout in training and serving;
-    outside, training takes the hop-batched readout and serving the
-    per-hop attention kernel, as the JAX package routes."""
+    outside, serving takes the per-hop attention kernel, and training
+    the chain kernel's route below 256 keys and the plain hop-batched
+    readout past 1024 (tests/test_torch_readout_chain_paths.py holds the
+    chain's route against JAX)."""
     gen = torch.Generator().manual_seed(1)
     att = [tatt.TimeAttentionBlock(p) for p in tatt.init_attention_stack(
         gen, HOPS, D, kind="time", t_q_len=1, t_k_len=tk, gate_mode="scalar")]
@@ -170,8 +172,8 @@ def test_readout_route_by_length(monkeypatch, tk, train):
             return fn(*a, **k)
         monkeypatch.setattr(tatt, name, wrapped)
 
-    for name in ("fused_readout_stack", "single_query_readout",
-                 "time_aware_multihead_attention"):
+    for name in ("fused_readout_stack", "readout_chain_stack",
+                 "single_query_readout", "time_aware_multihead_attention"):
         spy(name, getattr(tatt, name))
     enc, dec, key_len, qlen, t_q, t_keys, _ = _readout_inputs(
         tk, [tk, 9, 1, tk - 3], seed=tk)
@@ -182,7 +184,7 @@ def test_readout_route_by_length(monkeypatch, tk, train):
     if 256 <= tk <= 1024:
         want = ["fused_readout_stack"]
     elif train:
-        want = ["single_query_readout"]
+        want = ["readout_chain_stack" if tk < 256 else "single_query_readout"]
     else:
         want = ["time_aware_multihead_attention"] * HOPS
     assert taken == want
