@@ -83,24 +83,30 @@ Phases, in order; any failure exits non-zero and prints no result:
      against the CPU (1 gru_scan + 1 fused_readout a call);
   2e. (run after 2d) past 1024 keys: fused_attention_blockwise in each
      mode against its twin in f32 and bf16 at Tq = 1 (B = 1, 16, 64 x
-     Tk = 1025, 2048, 4096) and Tq = Tk = 2048 (B = 1, 16, 64), ragged
+     Tk = 1025, 2048, 4096), Tq = Tk = 2048 (B = 1, 16, 64), ragged
      key lengths (a row with no live key, a full row, one ending inside
-     the first 512-key block), timed at B = 64, Tk = 2048, every key live
-     (Tq = Tk and Tq = 1) beside scaled_dot_product_attention for plain
-     and tisas;
+     the first 512-key block) and two ragged tiles (B=3, Tq=Tk=1100,
+     key lengths 0, 1100, 1037; B=2, Tq=Tk=4096, 4096 and 2600); bf16 at
+     Tq = Tk takes the tensor-core design (the same bits twice; the SIMT
+     design forced and checked beside it); timed at B = 64, Tk = 2048,
+     every key live (Tq = Tk: in bf16 both designs; Tq = 1) beside
+     scaled_dot_product_attention for plain and tisas;
      gather and scatter_add against their twins at the L=2048 cell's
      131,072 ids a table and at phase 4's ids, the same bits twice,
      timed beside index_select and index_add_;
   7. past 1024 keys at the slice's configuration (phase 6's cell at
      L=2048, 256 rows of its data): Recommender.recommend for MTAM,
      SASrec, TiSAS and Time_Aware_SA at B = 1, 16, 64 in bf16 and f32
-     (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a call; the
-     others 3 fused_attention_blockwise[<mode>]), scores against the CPU
+     (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a call, the
+     SIMT design at Tq = 1; the others 3 a call in their mode, the
+     tensor-core design (fused_attention_blockwise_mma) in bf16, the
+     SIMT design in f32), scores against the CPU
      at B = 2 (the CPU's time at L=2048 sets that size);
      Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
      (in bf16 the scalar gates' gradients reported, not held), timed at
      B = 64 in bf16 and f32 with its peak memory (Time_Aware_SA: 3
-     blockwise[time] + 3 dense_bwd[time] + 4 dtable a step, no
+     blockwise[time] (mma in bf16) + 3 dense_bwd[time] + 4 dtable a
+     step, no
      fused_attention_bwd; MTAM: 1 gru_scan + 1 gru_scan_bwd + 4 dtable,
      its readout in plain PyTorch, no attention, readout or chain kernel);
      SASrec's and TiSAS's at dropout 0.5 (CPU masks injected; 3
@@ -113,7 +119,9 @@ and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
 as "@L50"; the readout, GRU and dtable kernels at B=64,
 L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048 and the
-gather / scatter-add pair at L=2048 as "@L2048", the blockwise time mode
+gather / scatter-add pair at L=2048 as "@L2048", the blockwise kernel's
+tensor-core design as "fused_attention_blockwise_mma[<mode>]@L2048" with
+the SIMT design's time beside it ("simt_ms"), the blockwise time mode
 at MTAM's Tq=1 hops as "@L2048Tq1"); the last line is {"ok": true,
 "device": {...}}.  A full report is written to
 chiprun_out/chip_smoke.json.
@@ -159,6 +167,10 @@ KERNEL_FILES = {
         "mtamrecommender_tpu_torch/csrc/fused_readout_bwd.cu",
         "mtamrecommender_tpu/ops/pallas/readout_kernel.py:138"),
     "fused_attention_blockwise": (
+        "mtamrecommender_tpu_torch/csrc/fused_attention_blockwise.cu",
+        "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
+    # the same kernel's tensor-core design (bf16, Tq > 1)
+    "fused_attention_blockwise_mma": (
         "mtamrecommender_tpu_torch/csrc/fused_attention_blockwise.cu",
         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
     "gather": ("mtamrecommender_tpu_torch/csrc/embedding_gather.cu",
@@ -1260,6 +1272,7 @@ def _counts():
             "fused_attention": dict(ak.launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
             "fused_attention_blockwise": dict(ak.blockwise_launches),
+            "fused_attention_blockwise_mma": dict(ak.blockwise_mma_launches),
             "dense_fwd": dict(ak.dense_fwd), "dense_bwd": dict(ak.dense_bwd),
             "dtable": dict(ek.launches),
             "gather": {"gather": ek.gather_launches["gather"]},
@@ -1273,8 +1286,9 @@ def _counts():
 def _reset_counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
-                   ak.bwd_launches, ak.blockwise_launches, ak.dense_fwd,
-                   ak.dense_bwd, ek.launches, ek.gather_launches):
+                   ak.bwd_launches, ak.blockwise_launches,
+                   ak.blockwise_mma_launches, ak.dense_fwd, ak.dense_bwd,
+                   ek.launches, ek.gather_launches):
         for m in counts:
             counts[m] = 0
     rk.launches = rk.bwd_launches = 0
@@ -1282,15 +1296,14 @@ def _reset_counts():
 
 
 def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
-                 blockwise=None, dense_fwd=None, dense_bwd=None,
-                 chain=False):
+                 dense_fwd=None, dense_bwd=None, chain=False):
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
     forward and backward ``blocks`` times a step in mode ``attention``;
     the fused readout and its backward once a step with ``readout``, the
-    chain readout's pair with ``chain``; the blockwise forward and the
-    dense route's forward and backward ``blocks`` times a step in the
-    modes given."""
+    chain readout's pair with ``chain``; the dense route's forward and
+    backward ``blocks`` times a step in the modes given; no blockwise
+    launch (the callers that expect one add it)."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
 
@@ -1300,7 +1313,9 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
                                for m in modes}
     return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
             "fused_attention": att, "fused_attention_bwd": dict(att),
-            "fused_attention_blockwise": per(ak.BLOCKWISE_MODES, blockwise),
+            "fused_attention_blockwise": dict.fromkeys(ak.BLOCKWISE_MODES, 0),
+            "fused_attention_blockwise_mma": dict.fromkeys(
+                ak.BLOCKWISE_MODES, 0),
             "dense_fwd": per(ak.MODES, dense_fwd),
             "dense_bwd": per(ak.MODES, dense_bwd),
             "dtable": {"dtable": 4 * steps},
@@ -1364,7 +1379,7 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
         loss_rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
                     for k in m_cpu}
         ok = ok and max(loss_rel.values()) <= TRAIN_TOL[dname] \
-            and counts == want(1)
+            and counts == want(1, dname)
         report[f"one_step_{dname}"] = {
             "loss_gpu": m_gpu, "loss_cpu": m_cpu, "loss_rel_err": loss_rel,
             "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
@@ -1498,7 +1513,8 @@ def timed_steps(torch, setup, failures, name, want, main_launches,
         busy_ms = (None if busy["device_busy_ms"] is None
                    else busy["device_busy_ms"] / 3)
         losses = stacked["loss"].cpu()
-        ok = counts == want(steps) and bool(torch.isfinite(losses).all())
+        ok = counts == want(steps, dname) and bool(
+            torch.isfinite(losses).all())
         report[f"timed_{dname}"] = {
             "steps": steps, "ms_per_step": ms,
             "examples_per_s": setup.batch_size / ms * 1e3,
@@ -1671,7 +1687,8 @@ def run_training(torch, setup, failures):
     report = {"ids_in_range": setup.ids_in_range}
     if not all(report["ids_in_range"].values()):
         failures.append(f"training ids out of range: {report['ids_in_range']}")
-    want = lambda steps: _want_counts(steps, gru="tgru", chain=True)  # noqa: E731
+    want = lambda steps, dname: _want_counts(  # noqa: E731
+        steps, gru="tgru", chain=True)
     report.update(one_step_check(torch, setup, failures, "MTAM", want))
     report["five_steps_float32"] = five_steps_check(torch, setup, failures,
                                                     "MTAM")
@@ -1696,7 +1713,8 @@ def run_self_attention(torch, setup, failures):
     report, main_launches = {}, {}
     L = setup.meta.max_seq_len
     for name, mode in SELF_ATTENTION.items():
-        want = lambda steps, m=mode: _want_counts(steps, attention=m)  # noqa: E731
+        want = lambda steps, dname, m=mode: _want_counts(  # noqa: E731
+            steps, attention=m)
         masks = None
         if mode.endswith("_drop"):
             cpu_gen = torch.Generator().manual_seed(99)
@@ -1875,7 +1893,7 @@ def run_long_history(torch, setup, failures):
     if not all(report["ids_in_range"].values()):
         failures.append("long-history ids out of range: "
                         f"{report['ids_in_range']}")
-    want = lambda steps: _want_counts(  # noqa: E731
+    want = lambda steps, dname: _want_counts(  # noqa: E731
         steps, gru="tgru", readout=True)
     report.update(one_step_check(torch, setup, failures, "MTAM", want))
     report["five_steps_float32"] = five_steps_check(torch, setup, failures,
@@ -1899,6 +1917,8 @@ XL_L = 2048                  # the slice past 1024 keys
 XL_BLOCKWISE_CASES = ([(bs, 1, tk) for tk in (1025, 2048, 4096)
                        for bs in (1, 16, 64)]
                       + [(bs, XL_L, XL_L) for bs in (1, 16, 64)])
+# ragged 64-query tiles and 512-key blocks: (B, Tq = Tk, key lengths)
+MMA_RAGGED_CASES = ((3, 1100, (0, 1100, 1037)), (2, 4096, (4096, 2600)))
 
 
 def xl_att_inputs(torch, gen, dtype, B, Tq, Tk):
@@ -1912,48 +1932,80 @@ def xl_att_inputs(torch, gen, dtype, B, Tq, Tk):
 
 def check_blockwise(torch, timer, iters, failures):
     """fused_attention_blockwise in each mode against its plain twin, f32
-    and bf16, at Tq = 1 (B = 1, 16, 64 x Tk = 1025, 2048, 4096) and Tq =
-    Tk = 2048 (B = 1, 16, 64), ragged key lengths; timed at B = 64, Tk =
-    2048 with every key live for Tq = Tk (the self-attention blocks) and
-    Tq = 1 (MTAM's hops), with scaled_dot_product_attention beside the
-    plain and tisas modes."""
+    and bf16, at Tq = 1 (B = 1, 16, 64 x Tk = 1025, 2048, 4096), Tq = Tk
+    = 2048 (B = 1, 16, 64), ragged key lengths, and at the ragged tiles
+    of MMA_RAGGED_CASES.  bf16 at Tq = Tk takes the tensor-core design:
+    there each case runs twice (the same bits), and the SIMT design,
+    forced, is held against the twin beside it.  Timed at B = 64, Tk =
+    2048 with every key live for Tq = Tk (the self-attention blocks; in
+    bf16 the mma design and the SIMT design, forced) and Tq = 1 (MTAM's
+    hops), with scaled_dot_product_attention beside the plain and tisas
+    modes."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
 
     gen = torch.Generator(device=DEVICE).manual_seed(8642)
     entries = {}
+    cases = ([(bs, tq, tk, None) for bs, tq, tk in XL_BLOCKWISE_CASES]
+             + [(bs, tk, tk, lens) for bs, tk, lens in MMA_RAGGED_CASES])
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for mode in ak.BLOCKWISE_MODES:
-            err = rel = 0.0
-            ok = True
-            for bs, tq, tk in XL_BLOCKWISE_CASES:
+            # per design: max |diff|, max rel, within the tolerance
+            agree = {"simt": [0.0, 0.0, True], "mma": [0.0, 0.0, True]}
+            same = True
+            for bs, tq, tk, lens in cases:
                 args = xl_att_inputs(torch, gen, dtype, bs, tq, tk)
-                e, r, o = _agree(ak.fused_attention_blockwise(mode, *args),
-                                 ak.fused_attention_blockwise_plain(mode,
-                                                                    *args),
-                                 dname)
-                err, rel, ok = max(err, e), max(rel, r), ok and o
-                del args
-            print(f"fused_attention_blockwise {mode:6s} {dname:9s} "
-                  f"max_abs_err={err:.3e} rel={rel:.3e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                failures.append(f"fused_attention_blockwise {mode} {dname}: "
-                                f"rel err {rel:.3e}")
+                if lens is not None:
+                    args[-1].copy_(torch.tensor(lens, dtype=torch.int32))
+                design = ak.blockwise_design(dtype, tq, args[0].shape[-1])
+                got = ak.fused_attention_blockwise(mode, *args)
+                runs = [(design, got)]
+                if design == "mma":
+                    same = same and bool(torch.equal(
+                        got, ak.fused_attention_blockwise(mode, *args)))
+                    runs.append(("simt", ak._launch_blockwise(
+                        mode, *args, _design="simt")))
+                want = ak.fused_attention_blockwise_plain(mode, *args)
+                for name, out in runs:
+                    e, r, o = _agree(out, want, dname)
+                    a = agree[name]
+                    a[0], a[1], a[2] = max(a[0], e), max(a[1], r), a[2] and o
+                del args, got, runs, want
+            for name, (err, rel, ok) in agree.items():
+                if name == "mma" and dtype != torch.bfloat16:
+                    continue
+                tail = f" same_bits={same}" if name == "mma" else ""
+                print(f"fused_attention_blockwise {mode:6s} {dname:9s} "
+                      f"{name:4s} max_abs_err={err:.3e} rel={rel:.3e}{tail} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failures.append(f"fused_attention_blockwise {mode} "
+                                    f"{dname} {name}: rel err {rel:.3e}")
+            if not same:
+                failures.append(f"fused_attention_blockwise {mode} {dname} "
+                                "mma: two launches gave different bits")
             rows = {}
             for tq in (XL_L, 1):
                 # every key live, as in the cell's training rows
                 args = att_inputs(torch, gen, dtype, B=XL_BATCH, Tq=tq,
                                   Tk=XL_L)
                 args[-1].fill_(XL_L)
+                design = ak.blockwise_design(dtype, tq, args[0].shape[-1])
+                err, rel, ok = agree[design]
                 row = {"max_abs_err": err, "rel_err": rel,
                        "tol": KERNEL_TOL[dname], "ok": ok, "Tq": tq,
+                       "design": design,
                        "ms": timer(lambda: ak.fused_attention_blockwise(
                            mode, *args), iters),
                        "plain_ms": timer(
                            lambda: ak.fused_attention_blockwise_plain(
                                mode, *args), 3, warmup=1),
                        **att_bound(mode, args, dname)}
+                if design == "mma":
+                    row["same_bits_twice"] = same
+                    row["ok"] = ok and same
+                    row["simt_ms"] = timer(lambda: ak._launch_blockwise(
+                        mode, *args, _design="simt"), iters)
                 library = att_library(torch, mode, args)
                 if library is not None:
                     row["library_ms"] = timer(library, iters)
@@ -1961,13 +2013,25 @@ def check_blockwise(torch, timer, iters, failures):
                     del library
                 rows[tq] = row
                 print(f"fused_attention_blockwise {mode:6s} B={XL_BATCH} "
-                      f"Tq={tq:<5d}Tk={XL_L} {dname:9s} ms={row['ms']:.4f} "
+                      f"Tq={tq:<5d}Tk={XL_L} {dname:9s} {design:4s} ms="
+                      f"{row['ms']:.4f} simt_ms={row.get('simt_ms')} "
                       f"plain_ms={row['plain_ms']:.4f} bound_ms="
                       f"{row['bound_ms']:.4f} ({row['bound_by']}) "
                       f"library_ms={row.get('library_ms')}", flush=True)
                 del args
+            full = rows[XL_L]
+            if full["design"] == "mma":
+                # the SIMT design's row: its own agreement and forced time
+                err, rel, ok = agree["simt"]
+                simt = {k: v for k, v in full.items()
+                        if k not in ("simt_ms", "same_bits_twice")}
+                simt.update(max_abs_err=err, rel_err=rel, ok=ok,
+                            design="simt", ms=full["simt_ms"])
+                entries[("fused_attention_blockwise_mma", mode,
+                         "L2048")] = {dname: full}
+                full = simt
             entries.setdefault(("fused_attention_blockwise", mode, "L2048"),
-                               {})[dname] = rows[XL_L]
+                               {})[dname] = full
             if mode == "time":       # MTAM's hops: their own main path
                 entries.setdefault(("fused_attention_blockwise", mode,
                                     "L2048Tq1"), {})[dname] = rows[1]
@@ -2229,6 +2293,14 @@ XL_MODELS = {"MTAM": "time", "SASrec": "plain",
              "Time_Aware_Self_Attention_Model": "time"}
 
 
+def _blockwise_count(dname, tq):
+    """The counter a blockwise launch at L=2048 adds to: bf16 self-
+    attention (Tq = Tk) takes the tensor-core design, f32 and MTAM's hops
+    (Tq = 1) the SIMT design."""
+    return ("fused_attention_blockwise_mma"
+            if dname == "bfloat16" and tq > 1 else "fused_attention_blockwise")
+
+
 class XLSetup:
     """The slice past 1024 keys: the long-history cell
     (benchmarks/long_history_bench.py's run) at L=2048, 256 rows of its
@@ -2271,7 +2343,8 @@ class XLSetup:
 def serve_xl(torch, failures, setup, name, want, main_launches):
     """Recommender.recommend for ``name`` at L=2048 for B = 1, 16, 64 in
     bf16 and f32: the launches of one call, counted from 0, against
-    ``want`` (added to ``main_launches``), and the time per request
+    ``want(dtype name)`` (added to ``main_launches``), and the time per
+    request
     batch; the scores against the same Recommender on the CPU at B =
     XL_SMALL (the CPU's time at this length sets that size)."""
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
@@ -2320,7 +2393,7 @@ def serve_xl(torch, failures, setup, name, want, main_launches):
             torch.cuda.synchronize()
             got = _counts()
             _add_launches(main_launches, got)
-            ok = (got == want and len(recs) == bs
+            ok = (got == want(dname) and len(recs) == bs
                   and all(len(r) == 50 for r in recs)
                   and all(math.isfinite(s) for r in recs for _, s in r))
             batch = rec.batch_from_histories(hists, req)
@@ -2332,7 +2405,7 @@ def serve_xl(torch, failures, setup, name, want, main_launches):
             busy = _device_busy(torch, lambda: rec._score_impl(batch, fetch))
             row = {"model": name, "compute_dtype": dname, "batch": bs,
                    "k": 50, "seq_len": XL_L, "launches_per_call": got,
-                   "launches_ok": got == want,
+                   "launches_ok": got == want(dname),
                    "max_abs_score_err_b2": err, "rel_score_err_b2": rel,
                    "tol": SLICE_TOL[dname], "topk_ok_b2": topk_ok,
                    "recommend_ms": recommend_ms, "score_topk_ms": score_ms,
@@ -2402,7 +2475,9 @@ def check_gather_seam(torch, setup, failures, main_launches):
 def run_xl_history(torch, setup, failures):
     """Phase 7: past 1024 keys, at L=2048.  Recommender.recommend for the
     four models (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a
-    call; each self-attention model 3 fused_attention_blockwise[<mode>]);
+    call; each self-attention model 3 blockwise launches in its mode, the
+    tensor-core design in bf16 and the SIMT design in f32, as
+    `_blockwise_count` names them);
     Time_Aware_SA's step (one step against the CPU at B = XL_SMALL; timed
     at B = 64 in bf16 and f32: 3 blockwise[time] + 3 dense_bwd[time] + 4
     dtable a step); MTAM's the same way (1 gru_scan + 1 gru_scan_bwd + 4
@@ -2419,16 +2494,24 @@ def run_xl_history(torch, setup, failures):
         failures.append(f"L={XL_L} ids out of range: {setup.ids_in_range}")
     hops, blocks = {}, {}
     for name, mode in XL_MODELS.items():
-        want = _want_counts(0)
-        want["fused_attention_blockwise"][mode] = 3
-        if name == "MTAM":
-            want["gru_scan"]["tgru"] = 1
+        def want(dname, name=name, mode=mode):
+            # MTAM's hops: Tq = 1, the SIMT design in both dtypes
+            tq = 1 if name == "MTAM" else XL_L
+            counts = _want_counts(0)
+            counts[_blockwise_count(dname, tq)][mode] = 3
+            if name == "MTAM":
+                counts["gru_scan"]["tgru"] = 1
+            return counts
         report["serving"][name] = serve_xl(
             torch, failures, setup, name, want,
             hops if name == "MTAM" else blocks)
     name = "Time_Aware_Self_Attention_Model"
-    want = lambda steps: _want_counts(  # noqa: E731
-        steps, blockwise="time", dense_bwd="time")
+
+    def want(steps, dname):
+        counts = _want_counts(steps, dense_bwd="time")
+        counts[_blockwise_count(dname, XL_L)]["time"] = 3 * steps
+        return counts
+
     rep = one_step_check(torch, setup, failures, name, want,
                          hold_bf16_scalars=False)
     rep.update(timed_steps(torch, setup, failures, name, want, blocks,
@@ -2436,7 +2519,7 @@ def run_xl_history(torch, setup, failures):
     report["training"][name] = rep
     # MTAM: the readout in plain PyTorch (single_query_readout), the GRU
     # scan and its backward over 2048 steps
-    want = lambda steps: _want_counts(steps, gru="tgru")  # noqa: E731
+    want = lambda steps, dname: _want_counts(steps, gru="tgru")  # noqa: E731
     rep = one_step_check(torch, setup, failures, "MTAM", want,
                          hold_bf16_scalars=False)
     rep.update(timed_steps(torch, setup, failures, "MTAM", want, hops,
@@ -2444,7 +2527,7 @@ def run_xl_history(torch, setup, failures):
     report["training"]["MTAM"] = rep
     for name, mode in (("SASrec", "plain_drop"),
                        ("Ti_Self_Attention_Model", "tisas_drop")):
-        want = lambda steps, m=mode: _want_counts(  # noqa: E731
+        want = lambda steps, dname, m=mode: _want_counts(  # noqa: E731
             steps, dense_fwd=m)
         cpu_gen = torch.Generator().manual_seed(99)
         masks = [layers.draw_drop_mask(cpu_gen, XL_SMALL, XL_L, XL_L, 0.5,
@@ -2465,8 +2548,10 @@ def kernels_line(entries, launches_by_shape):
     Tq=Tk=50 (the self-attention blocks, ``@Tq50``), the chain readout's
     pair at MTAM's L=50 step (B=256, ``@L50``), the readout, GRU
     and dtable kernels at MTAM's long-history shape (B=64, L=512,
-    ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``)
-    and, in time mode, at MTAM's Tq=1 hops (``@L2048Tq1``), the gather /
+    ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``:
+    the SIMT design, and the tensor-core design as
+    ``fused_attention_blockwise_mma``, in bf16 only) and, in time mode, at
+    MTAM's Tq=1 hops (``@L2048Tq1``), the gather /
     scatter-add pair at the L=2048 cell's ids (``@L2048``), each with the
     ms, bound and launches of that shape (``launches_by_shape[shape]``;
     the entries without a shape count the L=50 paths' launches under
@@ -2498,6 +2583,9 @@ def kernels_line(entries, launches_by_shape):
             # fwd+bwd
             "library_ms": head.get("library_ms"),
             "library_call": head.get("library_call"),
+            # the tensor-core design's rows: the SIMT design's time on
+            # the same inputs in the same run
+            **({"simt_ms": head["simt_ms"]} if "simt_ms" in head else {}),
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
         })
@@ -2609,6 +2697,9 @@ def main() -> int:
             ("L2048", "fused_attention_blockwise", "time"),
             ("L2048", "fused_attention_blockwise", "plain"),
             ("L2048", "fused_attention_blockwise", "tisas"),
+            ("L2048", "fused_attention_blockwise_mma", "time"),
+            ("L2048", "fused_attention_blockwise_mma", "plain"),
+            ("L2048", "fused_attention_blockwise_mma", "tisas"),
             ("L2048", "dtable", None), ("L2048", "gather", None),
             ("L2048", "scatter_add", None)):
         if xl_launches[shape].get(kname, {}).get(mode, 0) == 0:

@@ -39,6 +39,41 @@
 // across the whole walk.  No float atomics: every sum has a fixed order.
 // Not yet: tensor cores (wgmma), TMA, and split-key decoding at Tq = 1,
 // where B = 64 rows fill only 64 of the 132 SMs.
+//
+// The tensor-core design (`blockwise_mma_kernel`, the wrapper's
+// `blockwise_design` == "mma": bf16, Tq > 1, d in {16, 32, ..., 128}) is
+// FlashAttention-2's structure held to the rounding above.  The kernel
+// above stays for f32 and for Tq = 1.
+// - One block of 4 warps per (64 queries, batch row), 16 query rows a
+//   warp; the batch index runs fastest in the grid, so the blocks that
+//   read one query tile's five gate tiles (time mode) run together and
+//   find them in L2.
+// - q (and tqw) pass once through shared memory into mma A fragments
+//   (ldmatrix).  k (and rawk) and v rows are staged 64 keys at a time by
+//   cp.async into two stages, each row padded by 16 bytes, so the eight
+//   row addresses of an ldmatrix / ldmatrix.trans fall in distinct banks.
+// - mma.sync m16n8k16 bf16 x bf16 -> f32 computes S = q k^T (time mode:
+//   and tqw rawk^T) and O += P v; P is p rounded to bf16 in registers,
+//   S's accumulator layout reused as the A fragment (no shared memory).
+//   bf16 products summed in f32: the Pallas dot_general's arithmetic, up
+//   to the order of the sum.
+// - The score epilogue runs in the accumulator layout, where each thread
+//   knows its (query, key): its t_k and gate values, two adjacent keys a
+//   load, are loaded before the chunk's products so the loads overlap them.
+// - The max moves once per 512-key block: each block's scores are
+//   computed twice, pass 1 for the row max, pass 2 for p, l and P v.  A
+//   warp's 16 x 512 f32 scores (128 KB a block) do not fit beside time
+//   mode's staging (k, rawk, v: 102 KB at d = 128) with two blocks an SM;
+//   the second pass costs one more q k^T (the cheap part) and, in time
+//   mode, the gate's loads and transcendentals again.  Keeping the scores
+//   at one block an SM was slower on the H100 (PERF.md).
+// - l sums the unrounded p, O the rounded p, each in a fixed order (a
+//   thread's columns, then its quad): no atomics, the same bits twice.
+// What bounds it: operations, at B = 64, Tq = Tk = 2048, d = 128 ~0.14
+// ms (plain, tisas) and ~0.21 ms (time) at the bf16 tensor-core rate.
+// The score epilogue's accurate functions, computed twice, weigh more:
+// tisas adds a log1p per (query, key), time a log1p, two tanh and a
+// sigmoid (PERF.md).  Later: wgmma, TMA and warp specialisation.
 
 #include "common.cuh"
 
@@ -293,6 +328,408 @@ cudaError_t launch_mode(int mode, const void* const* p, float* out, int B,
   }
 }
 
+// ------------------------------------------------------ tensor-core design
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaQ = 16 * kMmaWarps;    // queries a block
+constexpr int kMmaSub = 64;              // keys a staged sub-tile
+constexpr int kMmaMaxD = 128;
+static_assert(kMmaQ == kMmaSub, "q and tqw are staged in sub-tile arrays");
+
+// a staged row: d values and 8 of padding (16 bytes)
+__host__ __device__ constexpr int mma_stride(int D) { return D + 8; }
+
+size_t mma_smem_bytes(int mode, int D) {
+  const int arrays = mode == BW_TIME ? 3 : 2;    // k, v (and rawk)
+  return (size_t)2 * arrays * kMmaSub * mma_stride(D) * sizeof(bf16);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b: a 16x16 (row), b 16x8 (col), bf16; c 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// row[c] and row[c + 1] (c even) of a row of n values: one 4-byte load
+// where rows and pointer allow (`pairs`), else two; a column past the
+// row reads some value of it (its scores are masked)
+__device__ __forceinline__ __nv_bfloat162 load_pair(const bf16* row, int c,
+                                                    int n, bool pairs) {
+  if (pairs)
+    return *reinterpret_cast<const __nv_bfloat162*>(row + min(c, n - 2));
+  __nv_bfloat162 r;
+  r.x = row[min(c, n - 1)];
+  r.y = row[min(c + 1, n - 1)];
+  return r;
+}
+__device__ __forceinline__ float pair_at(__nv_bfloat162 v, int odd) {
+  return __bfloat162float(odd ? v.y : v.x);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t.  A: a0 (row
+// g, cols 2t, 2t+1), a1 (row g+8), a2 (row g, cols 2t+8, 2t+9), a3 (row
+// g+8, cols 2t+8, 2t+9).  B: b0 (rows 2t, 2t+1, col g), b1 (rows 2t+8,
+// 2t+9).  C: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
+template <int MODE, int NK>
+__global__ void __launch_bounds__(kMmaThreads) blockwise_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ t_q,
+    const bf16* __restrict__ t_k, const bf16* __restrict__ tqw,
+    const bf16* __restrict__ rawk, const bf16* __restrict__ w1,
+    const bf16* __restrict__ b1, const bf16* __restrict__ wo1,
+    const bf16* __restrict__ wo2, const bf16* __restrict__ bo,
+    const int* __restrict__ key_len, float* __restrict__ out, int B, int Tq,
+    int Tk, float scale, bool pairs) {
+  constexpr int D = 16 * NK, S = mma_stride(D), TILE = kMmaSub * S;
+  constexpr int CH = D / 8;                  // 16-byte chunks a row
+  constexpr bool TIME = MODE == BW_TIME;
+  constexpr int ARRAYS = TIME ? 3 : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+
+  const int b = blockIdx.x % B;
+  const int q0 = (int)(blockIdx.x / B) * kMmaQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row_q = (size_t)b * Tq, row_k = (size_t)b * Tk;
+
+  // ---- q (and tqw) rows into A fragments, through shared memory
+  for (int i = tid; i < kMmaQ * CH; i += kMmaThreads) {
+    const int r = i / CH, ch = i % CH;
+    const bool ok = q0 + r < Tq;
+    const size_t src = (row_q + (ok ? q0 + r : 0)) * D + ch * 8;
+    cp_async16(sm + r * S + ch * 8, q + src, ok);
+    if constexpr (TIME) cp_async16(sm + TILE + r * S + ch * 8, tqw + src, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned qa[NK][4], ta[TIME ? NK : 1][4];
+  {
+    const bf16* a = sm + (warp * 16 + (lane & 15)) * S + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      ldsm_x4(qa[kk], a + kk * 16);
+      if constexpr (TIME) ldsm_x4(ta[kk], a + TILE + kk * 16);
+    }
+  }
+  __syncthreads();
+
+  // this thread's two query rows: h = 0 (row g) and h = 1 (row g + 8)
+  int qi[2];
+  float tq_row[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + warp * 16 + g + 8 * h;
+    if (MODE != BW_PLAIN && qi[h] < Tq)
+      tq_row[h] = port::to_float(t_q[row_q + qi[h]]);
+  }
+  // keys with a computed score, and the keys the weights reach (all Tk
+  // when none is live: uniform weights, as the kernel above)
+  const int live = max(0, min(key_len[b], Tk));
+  const int key_end = live > 0 ? live : Tk;
+
+  // The walk: for each 512-key block before key_end, pass 1 over the
+  // sub-tiles holding a live key, then pass 2 over those before key_end.
+  auto pass_tiles = [&](int c0, int pass) {
+    const int n = min(kKeyBlock, Tk - c0);
+    const int upto = min(n, (pass == 1 ? live : key_end) - c0);
+    return upto > 0 ? (upto + kMmaSub - 1) / kMmaSub : 0;
+  };
+  struct Cursor { int c0, pass, sub; };
+  auto first_of = [&](int c0) {
+    return Cursor{c0, pass_tiles(c0, 1) > 0 ? 1 : 2, 0};
+  };
+  auto advance = [&](Cursor c) {
+    if (++c.sub < pass_tiles(c.c0, c.pass)) return c;
+    if (c.pass == 1) return Cursor{c.c0, 2, 0};
+    return first_of(c.c0 + kKeyBlock);
+  };
+  // a block's max starts at the masked keys' score if it has any
+  auto max_init = [&](int c0) {
+    return c0 + min(kKeyBlock, Tk - c0) > live ? kNegFill : -INFINITY;
+  };
+  auto load = [&](int stage, Cursor c) {
+    bf16* sk = sm + stage * ARRAYS * TILE;
+    bf16* sv = sk + TILE;
+    const int base = c.c0 + c.sub * kMmaSub;
+    for (int i = tid; i < kMmaSub * CH; i += kMmaThreads) {
+      const int r = i / CH, ch = i % CH, key = base + r;
+      const bool kok = key < live;
+      const size_t src = (row_k + (kok ? key : 0)) * D + ch * 8;
+      cp_async16(sk + r * S + ch * 8, k + src, kok);
+      if constexpr (TIME)
+        cp_async16(sv + TILE + r * S + ch * 8, rawk + src, kok);
+      if (c.pass == 2) {
+        const bool vok = key < key_end;
+        cp_async16(sv + r * S + ch * 8,
+                   v + (row_k + (vok ? key : 0)) * D + ch * 8, vok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[2 * NK][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NK; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float bmax[2], bsum[2] = {0.f, 0.f};
+  bmax[0] = bmax[1] = max_init(0);
+
+  Cursor cur = first_of(0);
+  int stage = 0;
+  load(stage, cur);
+  while (true) {
+    const Cursor nxt = advance(cur);
+    const bool more = nxt.c0 < key_end;
+    if (more) {
+      load(stage ^ 1, nxt);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (cur.pass == 2 && cur.sub == 0) {
+      // the block's max: m_new, alpha, and O and l rescaled
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float bm = bmax[h];
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+        const float m_new = fmaxf(m_run[h], bm);
+        const float alpha = expf(m_run[h] - m_new);
+        l_run[h] *= alpha;
+#pragma unroll
+        for (int n = 0; n < 2 * NK; ++n) {
+          o[n][2 * h] *= alpha;
+          o[n][2 * h + 1] *= alpha;
+        }
+        m_run[h] = m_new;
+        bsum[h] = 0.f;
+      }
+    }
+
+    const bf16* sk = sm + stage * ARRAYS * TILE;
+    const bf16* sv = sk + TILE;
+    const bf16* sr = sv + TILE;
+    const int base = cur.c0 + cur.sub * kMmaSub;
+    const int limit = cur.pass == 1 ? live : key_end;
+#pragma unroll
+    for (int j = 0; j < kMmaSub / 16; ++j) {
+      if (base + 16 * j >= limit) break;     // the same for the whole block
+      // the epilogue's operands at this thread's columns (c, c + 1) of
+      // each n-tile, loaded before the products to overlap them
+      const int cb = base + 16 * j + 2 * t;
+      __nv_bfloat162 tk2[2], gt[2][2][5];    // [n], [h][n][w1 b1 wo1 wo2 bo]
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        if constexpr (MODE != BW_PLAIN)
+          tk2[n] = load_pair(t_k + row_k, cb + 8 * n, Tk, pairs);
+        if constexpr (TIME) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t gr = (size_t)min(qi[h], Tq - 1) * Tk;
+            gt[h][n][0] = load_pair(w1 + gr, cb + 8 * n, Tk, pairs);
+            gt[h][n][1] = load_pair(b1 + gr, cb + 8 * n, Tk, pairs);
+            gt[h][n][2] = load_pair(wo1 + gr, cb + 8 * n, Tk, pairs);
+            gt[h][n][3] = load_pair(wo2 + gr, cb + 8 * n, Tk, pairs);
+            gt[h][n][4] = load_pair(bo + gr, cb + 8 * n, Tk, pairs);
+          }
+        }
+      }
+      // S (and tqw rawk^T) for 16 keys: two 8-key n-tiles
+      float s[2][4], tt[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = tt[n][e] = 0.f;
+      {
+        const int kr = 16 * j + (lane >> 4) * 8 + (lane & 7);
+        const int kc = ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          unsigned kb[4];
+          ldsm_x4(kb, sk + kr * S + kk * 16 + kc);
+          mma_bf16(s[0], qa[kk], kb[0], kb[1]);
+          mma_bf16(s[1], qa[kk], kb[2], kb[3]);
+          if constexpr (TIME) {
+            unsigned rb[4];
+            ldsm_x4(rb, sr + kr * S + kk * 16 + kc);
+            mma_bf16(tt[0], ta[kk], rb[0], rb[1]);
+            mma_bf16(tt[1], ta[kk], rb[2], rb[3]);
+          }
+        }
+      }
+      // the score epilogue, in the accumulator layout
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, odd = e & 1;
+          const int c = cb + 8 * n + odd;
+          // computed for every element (masked ones read zero-filled
+          // rows and clamped operands), then masked by a select: no
+          // branch, so the eight elements' chains interleave
+          const float dot = s[n][e];
+          float sc;
+          if constexpr (MODE == BW_PLAIN) {
+            sc = dot * scale;
+          } else {
+            const float logdt =
+                log1pf(fabsf(tq_row[h] - pair_at(tk2[n], odd)));
+            if constexpr (TIME) {
+              const __nv_bfloat162* w = gt[h][n];
+              const float decay = tanhf(logdt * pair_at(w[0], odd) +
+                                        pair_at(w[1], odd));
+              const float gate = pair_at(w[2], odd) * decay +
+                                 pair_at(w[3], odd) * tanhf(tt[n][e]) +
+                                 pair_at(w[4], odd);
+              sc = dot * port::sigmoid(gate) * scale;
+            } else {
+              sc = (dot + logdt) * scale;
+            }
+          }
+          sc = c < live && qi[h] < Tq ? sc : kNegFill;
+          if (cur.pass == 1) {
+            if (c < Tk) bmax[h] = fmaxf(bmax[h], sc);
+          } else {
+            const float p = c < key_end ? expf(sc - m_run[h]) : 0.f;
+            bsum[h] += p;
+            s[n][e] = p;
+          }
+        }
+      }
+      if (cur.pass == 2) {
+        // O += round(p) v: p's accumulator layout is P's A fragment
+        const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                                pack_bf16(s[0][2], s[0][3]),
+                                pack_bf16(s[1][0], s[1][1]),
+                                pack_bf16(s[1][2], s[1][3])};
+        const int vr = 16 * j + ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int vc = (lane >> 4) * 8;
+#pragma unroll
+        for (int dp = 0; dp < NK; ++dp) {
+          unsigned vb[4];
+          ldsm_x4_trans(vb, sv + vr * S + dp * 16 + vc);
+          mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+
+    if (cur.pass == 2 && nxt.c0 != cur.c0) {
+      // the block's end: l = l * alpha + sum(p); the next block's max
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float bs = bsum[h];
+        bs += __shfl_xor_sync(0xffffffffu, bs, 1);
+        bs += __shfl_xor_sync(0xffffffffu, bs, 2);
+        l_run[h] += bs;
+        bmax[h] = more ? max_init(nxt.c0) : -INFINITY;
+      }
+    }
+    __syncthreads();                           // this stage free again
+    if (!more) break;
+    cur = nxt;
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qi[h] >= Tq) continue;
+    float* dst = out + (row_q + qi[h]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 2 * NK; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * h] / l_run[h], o[n][2 * h + 1] / l_run[h]);
+  }
+}
+
+template <int MODE, int NK>
+cudaError_t launch_mma(const void* const* p, float* out, int B, int Tq,
+                       int Tk, float scale, cudaStream_t stream) {
+  auto kernel = blockwise_mma_kernel<MODE, NK>;
+  const size_t smem = mma_smem_bytes(MODE, 16 * NK);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = (long long)B * ((Tq + kMmaQ - 1) / kMmaQ);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto t = [p](int i) { return static_cast<const bf16*>(p[i]); };
+  // t_k and the gate tiles read two columns at once where their rows
+  // start 4-byte aligned
+  bool pairs = Tk % 2 == 0;
+  for (int i = 4; i <= 11; ++i)
+    if (i != 5 && i != 6) pairs = pairs && (size_t)p[i] % 4 == 0;
+  kernel<<<(unsigned)grid, kMmaThreads, smem, stream>>>(
+      t(0), t(1), t(2), t(3), t(4), t(5), t(6), t(7), t(8), t(9), t(10),
+      t(11), static_cast<const int*>(p[12]), out, B, Tq, Tk, scale, pairs);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_mma_d(const void* const* p, float* out, int B, int Tq,
+                         int Tk, int D, float scale, cudaStream_t stream) {
+  switch (D / 16) {
+    case 1: return launch_mma<MODE, 1>(p, out, B, Tq, Tk, scale, stream);
+    case 2: return launch_mma<MODE, 2>(p, out, B, Tq, Tk, scale, stream);
+    case 3: return launch_mma<MODE, 3>(p, out, B, Tq, Tk, scale, stream);
+    case 4: return launch_mma<MODE, 4>(p, out, B, Tq, Tk, scale, stream);
+    case 5: return launch_mma<MODE, 5>(p, out, B, Tq, Tk, scale, stream);
+    case 6: return launch_mma<MODE, 6>(p, out, B, Tq, Tk, scale, stream);
+    case 7: return launch_mma<MODE, 7>(p, out, B, Tq, Tk, scale, stream);
+    case 8: return launch_mma<MODE, 8>(p, out, B, Tq, Tk, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays:
@@ -318,4 +755,35 @@ extern "C" int fused_attention_blockwise_launch(
   if (is_bf16)
     return launch_mode<__nv_bfloat16>(mode, p, o, B, Tq, Tk, D, scale, s);
   return launch_mode<float>(mode, p, o, B, Tq, Tk, D, scale, s);
+}
+
+// The tensor-core design: the arguments of fused_attention_blockwise_launch,
+// all floating inputs bf16, 2 <= Tq, d a multiple of 16 up to 128, and q,
+// k, v, tqw and rawk 16-byte aligned (staged by cp.async).  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int fused_attention_blockwise_mma_launch(
+    int mode, const void* q, const void* k, const void* v, const void* t_q,
+    const void* t_k, const void* tqw, const void* rawk, const void* w1,
+    const void* b1, const void* wo1, const void* wo2, const void* bo,
+    const void* key_len, void* out, int B, int Tq, int Tk, int D, float scale,
+    int device, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (Tq < 2 || Tk <= 0 || D <= 0 || D % 16 != 0 || D > kMmaMaxD)
+    return cudaErrorInvalidValue;
+  const void* staged[5] = {q, k, v, tqw, rawk};
+  for (const void* ptr : staged)
+    if (reinterpret_cast<size_t>(ptr) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const void* p[13] = {q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo,
+                       key_len};
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case BW_PLAIN: return launch_mma_d<BW_PLAIN>(p, o, B, Tq, Tk, D, scale, s);
+    case BW_TIME: return launch_mma_d<BW_TIME>(p, o, B, Tq, Tk, D, scale, s);
+    case BW_TISAS: return launch_mma_d<BW_TISAS>(p, o, B, Tq, Tk, D, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

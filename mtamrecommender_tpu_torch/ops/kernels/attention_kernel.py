@@ -8,7 +8,8 @@ does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel
 (csrc/fused_attention.cu, the Pallas `_attn_kernel`), above that, up to
 MAX_KEYS and without a dropout mask, the blockwise kernel
 (csrc/fused_attention_blockwise.cu, the Pallas `_attn_kernel_blockwise`:
-an online softmax over KEY_BLOCK-key blocks).  The backward is the
+an online softmax over KEY_BLOCK-key blocks; tensor-core tiles for bf16
+with Tq > 1, f32 FMA otherwise, by `blockwise_design`).  The backward is the
 single-tile kernel (csrc/fused_attention_bwd.cu, the Pallas
 `_attn_bwd_kernel`) up to SINGLE_TILE_KEYS keys and, above, autograd of
 `reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  Per batch
@@ -49,12 +50,16 @@ KEY_BLOCK = 512           # > that: online-softmax blocks of this many keys
 MAX_KEYS = 32768          # the blockwise kernel's cap; longer: the dense route
 BLOCKWISE_MODES = ("plain", "time", "tisas")
 BLOCKWISE_MAX_D = 256     # the blockwise kernel holds outputs in registers
+BLOCKWISE_DESIGNS = ("mma", "simt")   # by `blockwise_design`
+MMA_MAX_D = 128           # the tensor-core design's d: 16, 32, ..., 128
 BWD_SMEM_BYTES = 48 * 1024   # the backward's per-(row, query) scratch
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}
 bwd_launches = {mode: 0 for mode in MODES}
+# the blockwise kernel's two designs: SIMT (f32, Tq = 1) and tensor cores
 blockwise_launches = {mode: 0 for mode in BLOCKWISE_MODES}
+blockwise_mma_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 # calls of the dense route (`dense_attention`, plain PyTorch on every
 # device, as JAX's jnp route): forwards past the kernels' reach, and the
 # backward's recompute above SINGLE_TILE_KEYS keys
@@ -137,7 +142,8 @@ def fused_attention(mode: str, q, k, v, t_q, t_k, tqw, rawk,
     [B,Tq,d].  By `route`: up to SINGLE_TILE_KEYS keys CPU tensors run
     `fused_attention_plain` and CUDA tensors launch the single-tile
     kernel; above, the blockwise kernel (`fused_attention_blockwise`, its
-    twin `fused_attention_blockwise_plain` on the CPU).  A drop mask above
+    twin `fused_attention_blockwise_plain` on the CPU; on CUDA the design
+    `blockwise_design` picks).  A drop mask above
     SINGLE_TILE_KEYS keys, or more than MAX_KEYS keys, raises: the caller
     takes `dense_attention` there, as JAX takes its jnp path."""
     args = (q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, key_len, dm)
@@ -247,7 +253,8 @@ def fused_attention_blockwise(mode: str, q, k, v, t_q, t_k, tqw, rawk,
     there): modes plain, time and tisas, the arguments of
     `fused_attention` without a mask.  Returns f32 [B,Tq,d].  CPU tensors
     run `fused_attention_blockwise_plain`; CUDA tensors launch the
-    blockwise kernel (1 <= Tk <= MAX_KEYS, d <= BLOCKWISE_MAX_D)."""
+    blockwise kernel (1 <= Tk <= MAX_KEYS, d <= BLOCKWISE_MAX_D) in the
+    design `blockwise_design` picks."""
     if mode not in BLOCKWISE_MODES:
         raise ValueError(f"fused_attention_blockwise: mode {mode!r} is not "
                          f"one of {BLOCKWISE_MODES}")
@@ -261,21 +268,55 @@ def fused_attention_blockwise(mode: str, q, k, v, t_q, t_k, tqw, rawk,
     return _launch_blockwise(mode, *args)
 
 
-def _launch_blockwise(mode, *args) -> torch.Tensor:
+def blockwise_design(dtype: torch.dtype, tq: int, d: int) -> str:
+    """The blockwise kernel's design for a shape: "mma" (tensor cores,
+    mma.sync tiles of 64 queries) for bf16 with Tq > 1 and d a multiple of
+    16 up to MMA_MAX_D; "simt" (f32 FMA from shared memory) otherwise: f32,
+    whose 1e-4 agreement TF32 tensor cores cannot give, and Tq = 1, where
+    a 64-query tile would hold one live row."""
+    if dtype == torch.bfloat16 and tq > 1 and d % 16 == 0 \
+            and 16 <= d <= MMA_MAX_D:
+        return "mma"
+    return "simt"
+
+
+def _launch_blockwise(mode, *args, _design=None) -> torch.Tensor:
+    """Launch the blockwise kernel in the design `blockwise_design` picks.
+    ``_design`` forces one (chip_smoke.py times the SIMT design on the
+    shapes that take the mma design); "mma" only where it is picked.  A
+    design that fails to build or launch raises: there is no fallback."""
     q, k = args[0], args[1]
-    device, stream = build.launch_context(args, "fused_attention_blockwise")
     b, tq, d = q.shape
     tk = k.shape[1]
+    picked = blockwise_design(q.dtype, tq, d)
+    design = picked if _design is None else _design
+    if design not in BLOCKWISE_DESIGNS or (design == "mma"
+                                           and picked != "mma"):
+        raise ValueError(
+            f"fused_attention_blockwise: design {design!r} does not take "
+            f"{q.dtype} with Tq={tq}, d={d} (blockwise_design: {picked!r})")
+    device, stream = build.launch_context(args, "fused_attention_blockwise")
     if not 1 <= tk <= MAX_KEYS or not 1 <= d <= BLOCKWISE_MAX_D:
         raise ValueError(
             f"fused_attention_blockwise: the kernel takes 1 <= Tk <= "
             f"{MAX_KEYS} and 1 <= d <= {BLOCKWISE_MAX_D}, got Tk={tk}, d={d}")
     lib = _blockwise_library()
     out = torch.empty((b, tq, d), dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in args]
+    if design == "mma":
+        # q, k, v, tqw and rawk are staged 16 bytes at a time
+        if any(ptrs[i] % 16 for i in (0, 1, 2, 5, 6)):
+            raise ValueError("fused_attention_blockwise: the mma design "
+                             "takes q, k, v, tqw and rawk 16-byte aligned")
+        status = lib.fused_attention_blockwise_mma_launch(
+            BLOCKWISE_MODES.index(mode), *ptrs, out.data_ptr(), b, tq, tk, d,
+            1.0 / d ** 0.5, device, stream)
+        build.check(lib, status, "fused_attention_blockwise (mma)")
+        blockwise_mma_launches[mode] += 1
+        return out
     status = lib.fused_attention_blockwise_launch(
         BLOCKWISE_MODES.index(mode), int(q.dtype == torch.bfloat16),
-        *(t.data_ptr() for t in args), out.data_ptr(), b, tq, tk, d,
-        1.0 / d ** 0.5, device, stream)
+        *ptrs, out.data_ptr(), b, tq, tk, d, 1.0 / d ** 0.5, device, stream)
     build.check(lib, status, "fused_attention_blockwise")
     blockwise_launches[mode] += 1
     return out
@@ -288,6 +329,9 @@ def _blockwise_library() -> ctypes.CDLL:
         lib.fused_attention_blockwise_launch.argtypes = (
             [ci, ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.fused_attention_blockwise_launch.restype = ci
+        lib.fused_attention_blockwise_mma_launch.argtypes = (
+            [ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.fused_attention_blockwise_mma_launch.restype = ci
         lib._port_typed = True
     return lib
 
