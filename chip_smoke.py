@@ -86,11 +86,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      Tk = 1025, 2048, 4096), Tq = Tk = 2048 (B = 1, 16, 64), ragged
      key lengths (a row with no live key, a full row, one ending inside
      the first 512-key block) and two ragged tiles (B=3, Tq=Tk=1100,
-     key lengths 0, 1100, 1037; B=2, Tq=Tk=4096, 4096 and 2600); bf16 at
-     Tq = Tk takes the tensor-core design (the same bits twice; the SIMT
-     design forced and checked beside it); timed at B = 64, Tk = 2048,
-     every key live (Tq = Tk: in bf16 both designs; Tq = 1) beside
-     scaled_dot_product_attention for plain and tisas;
+     key lengths 0, 1100, 1037; B=2, Tq=Tk=4096, 4096 and 2600); at Tq =
+     Tk bf16 takes the tensor-core design and f32 the register-tiled
+     design (each: the same bits twice; the SIMT design forced and checked
+     beside it); timed at B = 64, Tk = 2048, every key live (Tq = Tk: the
+     tiled design and the SIMT design, forced, in both dtypes; Tq = 1)
+     beside scaled_dot_product_attention for plain and tisas;
      gather and scatter_add against their twins at the L=2048 cell's
      131,072 ids a table and at phase 4's ids, the same bits twice,
      timed beside index_select and index_add_;
@@ -100,13 +101,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a call, the
      SIMT design at Tq = 1; the others 3 a call in their mode, the
      tensor-core design (fused_attention_blockwise_mma) in bf16, the
-     SIMT design in f32), scores against the CPU
+     register-tiled design (fused_attention_blockwise_regtile) in f32),
+     scores against the CPU
      at B = 2 (the CPU's time at L=2048 sets that size);
      Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
      (in bf16 the scalar gates' gradients reported, not held), timed at
      B = 64 in bf16 and f32 with its peak memory (Time_Aware_SA: 3
-     blockwise[time] (mma in bf16) + 3 dense_bwd[time] + 4 dtable a
-     step, no
+     blockwise[time] (mma in bf16, regtile in f32) + 3 dense_bwd[time] +
+     4 dtable a step, no
      fused_attention_bwd; MTAM: 1 gru_scan + 1 gru_scan_bwd + 4 dtable,
      its readout in plain PyTorch, no attention, readout or chain kernel);
      SASrec's and TiSAS's at dropout 0.5 (CPU masks injected; 3
@@ -120,9 +122,11 @@ at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
 as "@L50"; the readout, GRU and dtable kernels at B=64,
 L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048 and the
 gather / scatter-add pair at L=2048 as "@L2048", the blockwise kernel's
-tensor-core design as "fused_attention_blockwise_mma[<mode>]@L2048" with
-the SIMT design's time beside it ("simt_ms"), the blockwise time mode
-at MTAM's Tq=1 hops as "@L2048Tq1"); the last line is {"ok": true,
+tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
+and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
+the SIMT design's time on the same inputs beside it ("simt_ms"), the
+blockwise time mode at MTAM's Tq=1 hops as "@L2048Tq1"); the last line
+is {"ok": true,
 "device": {...}}.  A full report is written to
 chiprun_out/chip_smoke.json.
 """
@@ -171,6 +175,10 @@ KERNEL_FILES = {
         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
     # the same kernel's tensor-core design (bf16, Tq > 1)
     "fused_attention_blockwise_mma": (
+        "mtamrecommender_tpu_torch/csrc/fused_attention_blockwise.cu",
+        "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
+    # and its register-tiled design (f32, Tq > 1)
+    "fused_attention_blockwise_regtile": (
         "mtamrecommender_tpu_torch/csrc/fused_attention_blockwise.cu",
         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
     "gather": ("mtamrecommender_tpu_torch/csrc/embedding_gather.cu",
@@ -1273,6 +1281,8 @@ def _counts():
             "fused_attention_bwd": dict(ak.bwd_launches),
             "fused_attention_blockwise": dict(ak.blockwise_launches),
             "fused_attention_blockwise_mma": dict(ak.blockwise_mma_launches),
+            "fused_attention_blockwise_regtile": dict(
+                ak.blockwise_regtile_launches),
             "dense_fwd": dict(ak.dense_fwd), "dense_bwd": dict(ak.dense_bwd),
             "dtable": dict(ek.launches),
             "gather": {"gather": ek.gather_launches["gather"]},
@@ -1287,7 +1297,8 @@ def _reset_counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
                    ak.bwd_launches, ak.blockwise_launches,
-                   ak.blockwise_mma_launches, ak.dense_fwd, ak.dense_bwd,
+                   ak.blockwise_mma_launches, ak.blockwise_regtile_launches,
+                   ak.dense_fwd, ak.dense_bwd,
                    ek.launches, ek.gather_launches):
         for m in counts:
             counts[m] = 0
@@ -1315,6 +1326,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             "fused_attention": att, "fused_attention_bwd": dict(att),
             "fused_attention_blockwise": dict.fromkeys(ak.BLOCKWISE_MODES, 0),
             "fused_attention_blockwise_mma": dict.fromkeys(
+                ak.BLOCKWISE_MODES, 0),
+            "fused_attention_blockwise_regtile": dict.fromkeys(
                 ak.BLOCKWISE_MODES, 0),
             "dense_fwd": per(ak.MODES, dense_fwd),
             "dense_bwd": per(ak.MODES, dense_bwd),
@@ -1918,7 +1931,7 @@ XL_BLOCKWISE_CASES = ([(bs, 1, tk) for tk in (1025, 2048, 4096)
                        for bs in (1, 16, 64)]
                       + [(bs, XL_L, XL_L) for bs in (1, 16, 64)])
 # ragged 64-query tiles and 512-key blocks: (B, Tq = Tk, key lengths)
-MMA_RAGGED_CASES = ((3, 1100, (0, 1100, 1037)), (2, 4096, (4096, 2600)))
+TILED_RAGGED_CASES = ((3, 1100, (0, 1100, 1037)), (2, 4096, (4096, 2600)))
 
 
 def xl_att_inputs(torch, gen, dtype, B, Tq, Tk):
@@ -1934,25 +1947,26 @@ def check_blockwise(torch, timer, iters, failures):
     """fused_attention_blockwise in each mode against its plain twin, f32
     and bf16, at Tq = 1 (B = 1, 16, 64 x Tk = 1025, 2048, 4096), Tq = Tk
     = 2048 (B = 1, 16, 64), ragged key lengths, and at the ragged tiles
-    of MMA_RAGGED_CASES.  bf16 at Tq = Tk takes the tensor-core design:
-    there each case runs twice (the same bits), and the SIMT design,
-    forced, is held against the twin beside it.  Timed at B = 64, Tk =
-    2048 with every key live for Tq = Tk (the self-attention blocks; in
-    bf16 the mma design and the SIMT design, forced) and Tq = 1 (MTAM's
-    hops), with scaled_dot_product_attention beside the plain and tisas
-    modes."""
+    of TILED_RAGGED_CASES.  At Tq = Tk bf16 takes the tensor-core design
+    and f32 the register-tiled design: there each case runs twice (the
+    same bits), and the SIMT design, forced, is held against the twin
+    beside it.  Timed at B = 64, Tk = 2048 with every key live for Tq =
+    Tk (the self-attention blocks: the tiled design and the SIMT design,
+    forced) and Tq = 1 (MTAM's hops), with scaled_dot_product_attention
+    beside the plain and tisas modes."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
 
     gen = torch.Generator(device=DEVICE).manual_seed(8642)
     entries = {}
     cases = ([(bs, tq, tk, None) for bs, tq, tk in XL_BLOCKWISE_CASES]
-             + [(bs, tk, tk, lens) for bs, tk, lens in MMA_RAGGED_CASES])
+             + [(bs, tk, tk, lens) for bs, tk, lens in TILED_RAGGED_CASES])
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for mode in ak.BLOCKWISE_MODES:
             # per design: max |diff|, max rel, within the tolerance
-            agree = {"simt": [0.0, 0.0, True], "mma": [0.0, 0.0, True]}
-            same = True
+            agree = {name: [0.0, 0.0, True]
+                     for name in ak.BLOCKWISE_DESIGNS}
+            same, tiled = True, None   # tiled: this dtype's Tq > 1 design
             for bs, tq, tk, lens in cases:
                 args = xl_att_inputs(torch, gen, dtype, bs, tq, tk)
                 if lens is not None:
@@ -1960,7 +1974,8 @@ def check_blockwise(torch, timer, iters, failures):
                 design = ak.blockwise_design(dtype, tq, args[0].shape[-1])
                 got = ak.fused_attention_blockwise(mode, *args)
                 runs = [(design, got)]
-                if design == "mma":
+                if design != "simt":
+                    tiled = design
                     same = same and bool(torch.equal(
                         got, ak.fused_attention_blockwise(mode, *args)))
                     runs.append(("simt", ak._launch_blockwise(
@@ -1972,18 +1987,18 @@ def check_blockwise(torch, timer, iters, failures):
                     a[0], a[1], a[2] = max(a[0], e), max(a[1], r), a[2] and o
                 del args, got, runs, want
             for name, (err, rel, ok) in agree.items():
-                if name == "mma" and dtype != torch.bfloat16:
+                if name not in ("simt", tiled):
                     continue
-                tail = f" same_bits={same}" if name == "mma" else ""
+                tail = f" same_bits={same}" if name == tiled else ""
                 print(f"fused_attention_blockwise {mode:6s} {dname:9s} "
-                      f"{name:4s} max_abs_err={err:.3e} rel={rel:.3e}{tail} "
+                      f"{name:7s} max_abs_err={err:.3e} rel={rel:.3e}{tail} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     failures.append(f"fused_attention_blockwise {mode} "
                                     f"{dname} {name}: rel err {rel:.3e}")
             if not same:
                 failures.append(f"fused_attention_blockwise {mode} {dname} "
-                                "mma: two launches gave different bits")
+                                f"{tiled}: two launches gave different bits")
             rows = {}
             for tq in (XL_L, 1):
                 # every key live, as in the cell's training rows
@@ -2001,7 +2016,7 @@ def check_blockwise(torch, timer, iters, failures):
                            lambda: ak.fused_attention_blockwise_plain(
                                mode, *args), 3, warmup=1),
                        **att_bound(mode, args, dname)}
-                if design == "mma":
+                if design != "simt":
                     row["same_bits_twice"] = same
                     row["ok"] = ok and same
                     row["simt_ms"] = timer(lambda: ak._launch_blockwise(
@@ -2013,22 +2028,22 @@ def check_blockwise(torch, timer, iters, failures):
                     del library
                 rows[tq] = row
                 print(f"fused_attention_blockwise {mode:6s} B={XL_BATCH} "
-                      f"Tq={tq:<5d}Tk={XL_L} {dname:9s} {design:4s} ms="
+                      f"Tq={tq:<5d}Tk={XL_L} {dname:9s} {design:7s} ms="
                       f"{row['ms']:.4f} simt_ms={row.get('simt_ms')} "
                       f"plain_ms={row['plain_ms']:.4f} bound_ms="
                       f"{row['bound_ms']:.4f} ({row['bound_by']}) "
                       f"library_ms={row.get('library_ms')}", flush=True)
                 del args
             full = rows[XL_L]
-            if full["design"] == "mma":
+            if full["design"] != "simt":
                 # the SIMT design's row: its own agreement and forced time
                 err, rel, ok = agree["simt"]
                 simt = {k: v for k, v in full.items()
                         if k not in ("simt_ms", "same_bits_twice")}
                 simt.update(max_abs_err=err, rel_err=rel, ok=ok,
                             design="simt", ms=full["simt_ms"])
-                entries[("fused_attention_blockwise_mma", mode,
-                         "L2048")] = {dname: full}
+                entries[(f"fused_attention_blockwise_{full['design']}",
+                         mode, "L2048")] = {dname: full}
                 full = simt
             entries.setdefault(("fused_attention_blockwise", mode, "L2048"),
                                {})[dname] = full
@@ -2294,11 +2309,13 @@ XL_MODELS = {"MTAM": "time", "SASrec": "plain",
 
 
 def _blockwise_count(dname, tq):
-    """The counter a blockwise launch at L=2048 adds to: bf16 self-
-    attention (Tq = Tk) takes the tensor-core design, f32 and MTAM's hops
-    (Tq = 1) the SIMT design."""
-    return ("fused_attention_blockwise_mma"
-            if dname == "bfloat16" and tq > 1 else "fused_attention_blockwise")
+    """The counter a blockwise launch at L=2048 adds to: self-attention
+    (Tq = Tk) takes the tensor-core design in bf16 and the register-tiled
+    design in f32, MTAM's hops (Tq = 1) the SIMT design."""
+    if tq == 1:
+        return "fused_attention_blockwise"
+    return ("fused_attention_blockwise_mma" if dname == "bfloat16"
+            else "fused_attention_blockwise_regtile")
 
 
 class XLSetup:
@@ -2476,7 +2493,7 @@ def run_xl_history(torch, setup, failures):
     """Phase 7: past 1024 keys, at L=2048.  Recommender.recommend for the
     four models (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a
     call; each self-attention model 3 blockwise launches in its mode, the
-    tensor-core design in bf16 and the SIMT design in f32, as
+    tensor-core design in bf16 and the register-tiled design in f32, as
     `_blockwise_count` names them);
     Time_Aware_SA's step (one step against the CPU at B = XL_SMALL; timed
     at B = 64 in bf16 and f32: 3 blockwise[time] + 3 dense_bwd[time] + 4
@@ -2549,8 +2566,9 @@ def kernels_line(entries, launches_by_shape):
     pair at MTAM's L=50 step (B=256, ``@L50``), the readout, GRU
     and dtable kernels at MTAM's long-history shape (B=64, L=512,
     ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``:
-    the SIMT design, and the tensor-core design as
-    ``fused_attention_blockwise_mma``, in bf16 only) and, in time mode, at
+    the SIMT design, forced, and the tiled designs as
+    ``fused_attention_blockwise_mma`` in bf16 and
+    ``fused_attention_blockwise_regtile`` in f32) and, in time mode, at
     MTAM's Tq=1 hops (``@L2048Tq1``), the gather /
     scatter-add pair at the L=2048 cell's ids (``@L2048``), each with the
     ms, bound and launches of that shape (``launches_by_shape[shape]``;
@@ -2558,10 +2576,11 @@ def kernels_line(entries, launches_by_shape):
     None)."""
     out = []
     for (kname, mode, shape), by_dtype in entries.items():
-        # serving and training both compute in bf16; dtable's head row is
-        # the item table, the largest of its four shapes; the other
-        # shapes each entry was checked at (Tk=1024) are in by_dtype
-        head = by_dtype["bfloat16"]
+        # serving and training both compute in bf16 (the f32-only
+        # register-tiled design's head is f32); dtable's head row is the
+        # item table, the largest of its four shapes; the other shapes
+        # each entry was checked at (Tk=1024) are in by_dtype
+        head = by_dtype.get("bfloat16", by_dtype.get("float32"))
         name = f"{kname}[{mode}]" if mode else kname
         out.append({
             "name": f"{name}@{shape}" if shape else name, "route": "cuda",
@@ -2583,8 +2602,8 @@ def kernels_line(entries, launches_by_shape):
             # fwd+bwd
             "library_ms": head.get("library_ms"),
             "library_call": head.get("library_call"),
-            # the tensor-core design's rows: the SIMT design's time on
-            # the same inputs in the same run
+            # the tiled designs' rows: the SIMT design's time on the
+            # same inputs in the same run
             **({"simt_ms": head["simt_ms"]} if "simt_ms" in head else {}),
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
@@ -2694,9 +2713,9 @@ def main() -> int:
             ("L2048Tq1", "gru_scan", "tgru"),
             ("L2048Tq1", "gru_scan_bwd", "tgru"),
             ("L2048Tq1", "fused_attention_blockwise", "time"),
-            ("L2048", "fused_attention_blockwise", "time"),
-            ("L2048", "fused_attention_blockwise", "plain"),
-            ("L2048", "fused_attention_blockwise", "tisas"),
+            ("L2048", "fused_attention_blockwise_regtile", "time"),
+            ("L2048", "fused_attention_blockwise_regtile", "plain"),
+            ("L2048", "fused_attention_blockwise_regtile", "tisas"),
             ("L2048", "fused_attention_blockwise_mma", "time"),
             ("L2048", "fused_attention_blockwise_mma", "plain"),
             ("L2048", "fused_attention_blockwise_mma", "tisas"),

@@ -43,7 +43,7 @@
 // The tensor-core design (`blockwise_mma_kernel`, the wrapper's
 // `blockwise_design` == "mma": bf16, Tq > 1, d in {16, 32, ..., 128}) is
 // FlashAttention-2's structure held to the rounding above.  The kernel
-// above stays for f32 and for Tq = 1.
+// above stays for Tq = 1 (and any shape the two tiled designs refuse).
 // - One block of 4 warps per (64 queries, batch row), 16 query rows a
 //   warp; the batch index runs fastest in the grid, so the blocks that
 //   read one query tile's five gate tiles (time mode) run together and
@@ -74,6 +74,44 @@
 // The score epilogue's accurate functions, computed twice, weigh more:
 // tisas adds a log1p per (query, key), time a log1p, two tanh and a
 // sigmoid (PERF.md).  Later: wgmma, TMA and warp specialisation.
+//
+// The register-tiled design (`blockwise_regtile_kernel`, the wrapper's
+// `blockwise_design` == "regtile": f32, Tq > 1, d in {16, 32, ..., 128})
+// replaces the same Pallas body for f32 self-attention.  What bounds it:
+// operations, at B = 64, Tq = Tk = 2048, d = 128, 2.05 ms (plain, tisas:
+// two products of 2d FLOPs a pair) and 3.08 ms (time: three) at the f32
+// FMA rate of 67 TFLOP/s; tensor cores do not serve, since TF32 keeps a
+// 10-bit mantissa and f32 is held to 1e-4.  So the design is SGEMM's: FMA
+// from registers, each shared-memory load feeding several of them.
+// - One block per (64 queries, batch row), the batch index fastest in the
+//   grid, as the mma design.  Thread (g, t) = (tid / 16, tid % 16) owns
+//   QPT queries, keys t + 16 j (j < 4) of each 64-key tile, and output
+//   columns in the 16-byte chunks t and t + 16: QPT = 8 (128 threads, 8 x
+//   4 scores, 8 x 8 outputs) in plain and tisas, QPT = 4 (256 threads) in
+//   time mode, whose third product and gate need the registers.
+// - q (and tqw) are staged once, k (and rawk) and v a 64-key tile at a
+//   time, all by cp.async: q, k, tqw and rawk chunk-major ([d/4][64 rows]
+//   of 16-byte chunks), so a warp's 16 keys of one chunk are 256
+//   contiguous bytes and its two query groups' rows a broadcast; v
+//   row-major.  A chunk step of S = q k^T is QPT + 4 loads for 16 QPT
+//   FMAs, a key step of O += P v QPT / 4 + 2 loads for 8 QPT.
+// - The max moves once per 64-key tile: a half-warp holds a query group's
+//   64 scores, so the tile max and the sum of p are four xor shuffles, and
+//   m, l and O's rescale stay in registers.  In f32 p is not rounded, so
+//   this differs from the Pallas kernel's 512-key blocks by float rounding
+//   only (tests/test_torch_blockwise_design.py holds the twin at 64-key
+//   blocks to Pallas).  The gate and its transcendental functions are
+//   computed once per (query, key); their operands are all loaded between
+//   the products and their first use.  p passes through one [64 queries]
+//   [64 keys] shared tile.
+// - Shared memory at d = 128: q, k, v 32 KB each and p 16 KB, so plain and
+//   tisas run two blocks an SM; time adds tqw and rawk (64 KB) and runs
+//   one.  The next tile's k loads during P v, its v during the next scores.
+// - Edges as above: a tile wholly at or past key_len is not visited, keys
+//   past key_len score -2^32+1, keys past Tk get p = 0, query rows past Tq
+//   load zeros and are not written, a row with no live key takes its Tk
+//   keys at weight 1/Tk.  l and O sum in a fixed order: the same bits
+//   twice.  Variants measured: PERF.md.
 
 #include "common.cuh"
 
@@ -730,6 +768,319 @@ cudaError_t launch_mma_d(const void* const* p, float* out, int B, int Tq,
   }
 }
 
+// ------------------------------------------------- register-tiled f32 design
+
+constexpr int kRtQ = 64;       // queries a block
+constexpr int kRtKeys = 64;    // keys a staged tile: 16 lanes x 4
+constexpr int kRtMaxD = 128;
+static_assert(kRtQ == kRtKeys, "q and k tiles share one layout");
+
+// queries a thread: 8 in plain and tisas (128 threads, two blocks an SM),
+// 4 in time mode (256 threads, one block an SM: its staging takes 176 KB)
+__host__ __device__ constexpr int rt_qpt(int mode) {
+  return mode == BW_TIME ? 4 : 8;
+}
+__host__ __device__ constexpr int rt_threads(int mode) {
+  return 16 * kRtQ / rt_qpt(mode);
+}
+
+size_t rt_smem_bytes(int mode, int D) {
+  const int tiles = mode == BW_TIME ? 5 : 3;  // q, k, v (and tqw, rawk)
+  return ((size_t)tiles * kRtKeys * (D / 4) + (size_t)kRtKeys * (kRtQ / 4))
+         * sizeof(float4);
+}
+
+__device__ __forceinline__ void fma4(float& acc, const float4& a,
+                                     const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+}
+
+// Thread (g, t) = (tid / 16, tid % 16) owns queries QPT g .. QPT g + QPT-1
+// of the tile, keys t, t+16, t+32, t+48 of each key tile, and output
+// chunks (4 columns each) t and t+16.  A half-warp holds one query group's
+// 64 keys, so the row max and sum are four xor shuffles.
+template <int MODE, int NK>
+__global__ void __launch_bounds__(rt_threads(MODE), MODE == BW_TIME ? 1 : 2)
+    blockwise_regtile_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ t_q,
+        const float* __restrict__ t_k, const float* __restrict__ tqw,
+        const float* __restrict__ rawk, const float* __restrict__ w1,
+        const float* __restrict__ b1, const float* __restrict__ wo1,
+        const float* __restrict__ wo2, const float* __restrict__ bo,
+        const int* __restrict__ key_len, float* __restrict__ out, int B,
+        int Tq, int Tk, float scale) {
+  constexpr int D = 16 * NK, NCH = D / 4;
+  constexpr int U = (NCH + 15) / 16;          // output chunks a thread
+  constexpr int QPT = rt_qpt(MODE), H = QPT / 4, NT = rt_threads(MODE);
+  constexpr bool TIME = MODE == BW_TIME;
+  extern __shared__ __align__(16) float4 sm4[];
+  // q, k, tqw and rawk chunk-major ([NCH][64 rows] of 16-byte chunks), v
+  // row-major, p as [16 groups of 4 queries][64 keys]
+  float4* sq = sm4;
+  float4* sk = sq + NCH * kRtQ;
+  float4* sv = sk + NCH * kRtKeys;
+  float4* sp = sv + kRtKeys * NCH;
+  float4* st = sp + kRtKeys * (kRtQ / 4);     // tqw, time mode
+  float4* sr = st + NCH * kRtQ;               // rawk, time mode
+  // the chunk-major tiles' loads: a warp takes 8 rows x 4 chunks, 64
+  // contiguous bytes of each row, and writes them to 8 distinct banks
+  auto row_of = [](int i) { return (i >> 3) / NCH * 8 + (i & 7); };
+  auto chunk_of = [](int i) { return (i >> 3) % NCH; };
+
+  const int b = blockIdx.x % B;
+  const int q0 = (int)(blockIdx.x / B) * kRtQ;
+  const int tid = threadIdx.x, g = tid >> 4, t = tid & 15;
+  const size_t row_q = (size_t)b * Tq, row_k = (size_t)b * Tk;
+  // keys with a computed score, and the keys the weights reach (all Tk
+  // when none is live: uniform weights, as the designs above)
+  const int live = max(0, min(key_len[b], Tk));
+  const int key_end = live > 0 ? live : Tk;
+
+  for (int i = tid; i < kRtQ * NCH; i += NT) {
+    const int r = row_of(i), ch = chunk_of(i);
+    const bool ok = q0 + r < Tq;
+    const size_t src = (row_q + (ok ? q0 + r : 0)) * D + 4 * ch;
+    cp_async16(sq + ch * kRtQ + r, q + src, ok);
+    if constexpr (TIME) cp_async16(st + ch * kRtQ + r, tqw + src, ok);
+  }
+  cp_async_commit();
+  auto load_k = [&](int c0) {
+    for (int i = tid; i < kRtKeys * NCH; i += NT) {
+      const int r = row_of(i), ch = chunk_of(i), key = c0 + r;
+      const bool ok = key < live;
+      const size_t src = (row_k + (ok ? key : 0)) * D + 4 * ch;
+      cp_async16(sk + ch * kRtKeys + r, k + src, ok);
+      if constexpr (TIME) cp_async16(sr + ch * kRtKeys + r, rawk + src, ok);
+    }
+    cp_async_commit();
+  };
+  auto load_v = [&](int c0) {
+    for (int i = tid; i < kRtKeys * NCH; i += NT) {
+      const int r = i / NCH, ch = i % NCH, key = c0 + r;
+      const bool ok = key < key_end;
+      cp_async16(sv + r * NCH + ch,
+                 v + (row_k + (ok ? key : 0)) * D + 4 * ch, ok);
+    }
+    cp_async_commit();
+  };
+
+  int qi[QPT];
+  float tq_row[QPT];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    qi[i] = q0 + QPT * g + i;
+    tq_row[i] = MODE == BW_PLAIN ? 0.f : t_q[row_q + min(qi[i], Tq - 1)];
+  }
+  float o[QPT][U][4];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][u][e] = 0.f;
+  float m_run[QPT], l_run[QPT];
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) m_run[i] = -INFINITY, l_run[i] = 0.f;
+
+  // The walk: k (and rawk) of tile n + 1 load during P v of tile n, its v
+  // during the scores of tile n + 1.
+  load_k(0);
+  load_v(0);
+  for (int c0 = 0; c0 < key_end; c0 += kRtKeys) {
+    const bool more = c0 + kRtKeys < key_end;
+    cp_async_wait<1>();                       // q and this tile's k in
+    __syncthreads();
+    // S = q k^T (time mode: and tqw rawk^T), QPT x 4 a thread, each sum
+    // over d in order
+    float s[QPT][4], tt[TIME ? QPT : 1][4];
+#pragma unroll
+    for (int i = 0; i < QPT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = 0.f;
+        if constexpr (TIME) tt[i][j] = 0.f;
+      }
+#pragma unroll 4
+    for (int ch = 0; ch < NCH; ++ch) {
+      float4 kv[4], rv[TIME ? 4 : 1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kv[j] = sk[ch * kRtKeys + t + 16 * j];
+        if constexpr (TIME) rv[j] = sr[ch * kRtKeys + t + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < QPT; ++i) {
+        const float4 qv = sq[ch * kRtQ + QPT * g + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) fma4(s[i][j], qv, kv[j]);
+        if constexpr (TIME) {
+          const float4 tv = st[ch * kRtQ + QPT * g + i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) fma4(tt[i][j], tv, rv[j]);
+        }
+      }
+    }
+    // the epilogue's operands, all loaded before the first is used
+    float tkv[4], gt[TIME ? QPT : 1][4][5];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cc = min(c0 + t + 16 * j, Tk - 1);
+      tkv[j] = MODE == BW_PLAIN ? 0.f : t_k[row_k + cc];
+      if constexpr (TIME) {
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) {
+          const size_t gi = (size_t)min(qi[i], Tq - 1) * Tk + cc;
+          gt[i][j][0] = w1[gi];
+          gt[i][j][1] = b1[gi];
+          gt[i][j][2] = wo1[gi];
+          gt[i][j][3] = wo2[gi];
+          gt[i][j][4] = bo[gi];
+        }
+      }
+    }
+    // the scores, the tile's max, p, and the running m, l and O
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      float bm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + t + 16 * j;
+        float sc;
+        if constexpr (MODE == BW_PLAIN) {
+          sc = s[i][j] * scale;
+        } else {
+          const float logdt = log1pf(fabsf(tq_row[i] - tkv[j]));
+          if constexpr (TIME) {
+            const float* w = gt[i][j];
+            const float decay = tanhf(logdt * w[0] + w[1]);
+            const float gate = w[2] * decay + w[3] * tanhf(tt[i][j]) + w[4];
+            sc = s[i][j] * port::sigmoid(gate) * scale;
+          } else {
+            sc = (s[i][j] + logdt) * scale;
+          }
+        }
+        sc = c < live && qi[i] < Tq ? sc : kNegFill;
+        s[i][j] = sc;
+        if (c < key_end) bm = fmaxf(bm, sc);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, off));
+      const float m_new = fmaxf(m_run[i], bm);
+      const float alpha = expf(m_run[i] - m_new);
+      m_run[i] = m_new;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = c0 + t + 16 * j < key_end ? expf(s[i][j] - m_new)
+                                                  : 0.f;
+        s[i][j] = p;
+        ps += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l_run[i] = l_run[i] * alpha + ps;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][u][e] *= alpha;
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sp[(H * g + h) * kRtKeys + t + 16 * j] =
+            make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j],
+                        s[4 * h + 3][j]);
+    cp_async_wait<0>();                       // this tile's v in
+    __syncthreads();                          // p visible; k free
+    if (more) load_k(c0 + kRtKeys);
+    // O += p v, each column's sum over the keys in order
+#pragma unroll 4
+    for (int c = 0; c < kRtKeys; ++c) {
+      float pr[QPT];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float4 pv = sp[(H * g + h) * kRtKeys + c];
+        pr[4 * h] = pv.x, pr[4 * h + 1] = pv.y;
+        pr[4 * h + 2] = pv.z, pr[4 * h + 3] = pv.w;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (NCH % 16 != 0 && t + 16 * u >= NCH) continue;
+        const float4 vv = sv[c * NCH + t + 16 * u];
+#pragma unroll
+        for (int i = 0; i < QPT; ++i) {
+          o[i][u][0] = fmaf(pr[i], vv.x, o[i][u][0]);
+          o[i][u][1] = fmaf(pr[i], vv.y, o[i][u][1]);
+          o[i][u][2] = fmaf(pr[i], vv.z, o[i][u][2]);
+          o[i][u][3] = fmaf(pr[i], vv.w, o[i][u][3]);
+        }
+      }
+    }
+    __syncthreads();                          // v and p free
+    if (more) load_v(c0 + kRtKeys);
+  }
+
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    if (qi[i] >= Tq) continue;
+    float4* dst = reinterpret_cast<float4*>(out + (row_q + qi[i]) * D);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (NCH % 16 != 0 && t + 16 * u >= NCH) continue;
+      dst[t + 16 * u] = make_float4(o[i][u][0] / l_run[i],
+                                    o[i][u][1] / l_run[i],
+                                    o[i][u][2] / l_run[i],
+                                    o[i][u][3] / l_run[i]);
+    }
+  }
+}
+
+template <int MODE, int NK>
+cudaError_t launch_regtile(const void* const* p, float* out, int B, int Tq,
+                           int Tk, float scale, cudaStream_t stream) {
+  auto kernel = blockwise_regtile_kernel<MODE, NK>;
+  const size_t smem = rt_smem_bytes(MODE, 16 * NK);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // plain and tisas fit two blocks an SM only with the largest carveout
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const long long grid = (long long)B * ((Tq + kRtQ - 1) / kRtQ);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto t = [p](int i) { return static_cast<const float*>(p[i]); };
+  kernel<<<(unsigned)grid, rt_threads(MODE), smem, stream>>>(
+      t(0), t(1), t(2), t(3), t(4), t(5), t(6), t(7), t(8), t(9), t(10),
+      t(11), static_cast<const int*>(p[12]), out, B, Tq, Tk, scale);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_regtile_d(const void* const* p, float* out, int B, int Tq,
+                             int Tk, int D, float scale,
+                             cudaStream_t stream) {
+  switch (D / 16) {
+    case 1: return launch_regtile<MODE, 1>(p, out, B, Tq, Tk, scale, stream);
+    case 2: return launch_regtile<MODE, 2>(p, out, B, Tq, Tk, scale, stream);
+    case 3: return launch_regtile<MODE, 3>(p, out, B, Tq, Tk, scale, stream);
+    case 4: return launch_regtile<MODE, 4>(p, out, B, Tq, Tk, scale, stream);
+    case 5: return launch_regtile<MODE, 5>(p, out, B, Tq, Tk, scale, stream);
+    case 6: return launch_regtile<MODE, 6>(p, out, B, Tq, Tk, scale, stream);
+    case 7: return launch_regtile<MODE, 7>(p, out, B, Tq, Tk, scale, stream);
+    case 8: return launch_regtile<MODE, 8>(p, out, B, Tq, Tk, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays:
@@ -784,6 +1135,41 @@ extern "C" int fused_attention_blockwise_mma_launch(
     case BW_PLAIN: return launch_mma_d<BW_PLAIN>(p, o, B, Tq, Tk, D, scale, s);
     case BW_TIME: return launch_mma_d<BW_TIME>(p, o, B, Tq, Tk, D, scale, s);
     case BW_TISAS: return launch_mma_d<BW_TISAS>(p, o, B, Tq, Tk, D, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The register-tiled design: the arguments of
+// fused_attention_blockwise_launch, all floating inputs f32, 2 <= Tq, d a
+// multiple of 16 up to 128, and q, k, v, tqw and rawk 16-byte aligned
+// (staged by cp.async).  Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int fused_attention_blockwise_regtile_launch(
+    int mode, const void* q, const void* k, const void* v, const void* t_q,
+    const void* t_k, const void* tqw, const void* rawk, const void* w1,
+    const void* b1, const void* wo1, const void* wo2, const void* bo,
+    const void* key_len, void* out, int B, int Tq, int Tk, int D, float scale,
+    int device, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (Tq < 2 || Tk <= 0 || D <= 0 || D % 16 != 0 || D > kRtMaxD)
+    return cudaErrorInvalidValue;
+  const void* staged[5] = {q, k, v, tqw, rawk};
+  for (const void* ptr : staged)
+    if (reinterpret_cast<size_t>(ptr) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const void* p[13] = {q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo,
+                       key_len};
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case BW_PLAIN:
+      return launch_regtile_d<BW_PLAIN>(p, o, B, Tq, Tk, D, scale, s);
+    case BW_TIME:
+      return launch_regtile_d<BW_TIME>(p, o, B, Tq, Tk, D, scale, s);
+    case BW_TISAS:
+      return launch_regtile_d<BW_TISAS>(p, o, B, Tq, Tk, D, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

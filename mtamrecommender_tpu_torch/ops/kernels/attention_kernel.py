@@ -8,8 +8,9 @@ does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel
 (csrc/fused_attention.cu, the Pallas `_attn_kernel`), above that, up to
 MAX_KEYS and without a dropout mask, the blockwise kernel
 (csrc/fused_attention_blockwise.cu, the Pallas `_attn_kernel_blockwise`:
-an online softmax over KEY_BLOCK-key blocks; tensor-core tiles for bf16
-with Tq > 1, f32 FMA otherwise, by `blockwise_design`).  The backward is the
+an online softmax over KEY_BLOCK-key blocks; for Tq > 1 tensor-core tiles
+in bf16 and register-tiled FMA in f32, at Tq = 1 FMA from shared memory,
+by `blockwise_design`).  The backward is the
 single-tile kernel (csrc/fused_attention_bwd.cu, the Pallas
 `_attn_bwd_kernel`) up to SINGLE_TILE_KEYS keys and, above, autograd of
 `reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  Per batch
@@ -50,16 +51,18 @@ KEY_BLOCK = 512           # > that: online-softmax blocks of this many keys
 MAX_KEYS = 32768          # the blockwise kernel's cap; longer: the dense route
 BLOCKWISE_MODES = ("plain", "time", "tisas")
 BLOCKWISE_MAX_D = 256     # the blockwise kernel holds outputs in registers
-BLOCKWISE_DESIGNS = ("mma", "simt")   # by `blockwise_design`
-MMA_MAX_D = 128           # the tensor-core design's d: 16, 32, ..., 128
+BLOCKWISE_DESIGNS = ("mma", "regtile", "simt")   # by `blockwise_design`
+TILED_MAX_D = 128         # the tiled designs' d: 16, 32, ..., 128
 BWD_SMEM_BYTES = 48 * 1024   # the backward's per-(row, query) scratch
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}
 bwd_launches = {mode: 0 for mode in MODES}
-# the blockwise kernel's two designs: SIMT (f32, Tq = 1) and tensor cores
+# the blockwise kernel's three designs: SIMT (Tq = 1), tensor cores (bf16,
+# Tq > 1) and register tiles (f32, Tq > 1)
 blockwise_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 blockwise_mma_launches = {mode: 0 for mode in BLOCKWISE_MODES}
+blockwise_regtile_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 # calls of the dense route (`dense_attention`, plain PyTorch on every
 # device, as JAX's jnp route): forwards past the kernels' reach, and the
 # backward's recompute above SINGLE_TILE_KEYS keys
@@ -269,29 +272,29 @@ def fused_attention_blockwise(mode: str, q, k, v, t_q, t_k, tqw, rawk,
 
 
 def blockwise_design(dtype: torch.dtype, tq: int, d: int) -> str:
-    """The blockwise kernel's design for a shape: "mma" (tensor cores,
-    mma.sync tiles of 64 queries) for bf16 with Tq > 1 and d a multiple of
-    16 up to MMA_MAX_D; "simt" (f32 FMA from shared memory) otherwise: f32,
-    whose 1e-4 agreement TF32 tensor cores cannot give, and Tq = 1, where
-    a 64-query tile would hold one live row."""
-    if dtype == torch.bfloat16 and tq > 1 and d % 16 == 0 \
-            and 16 <= d <= MMA_MAX_D:
-        return "mma"
+    """The blockwise kernel's design for a shape.  With Tq > 1 and d a
+    multiple of 16 up to TILED_MAX_D, tiles of 64 queries: "mma" (tensor
+    cores, mma.sync) for bf16, "regtile" (f32 FMA from registers, 8 or 4
+    queries x 4 keys a thread) for f32, whose 1e-4 agreement TF32 tensor
+    cores cannot give.  "simt" (FMA from shared memory) otherwise: Tq = 1, where
+    a 64-query tile would hold one live row, and any other d."""
+    if tq > 1 and d % 16 == 0 and 16 <= d <= TILED_MAX_D:
+        return "mma" if dtype == torch.bfloat16 else "regtile"
     return "simt"
 
 
 def _launch_blockwise(mode, *args, _design=None) -> torch.Tensor:
     """Launch the blockwise kernel in the design `blockwise_design` picks.
     ``_design`` forces one (chip_smoke.py times the SIMT design on the
-    shapes that take the mma design); "mma" only where it is picked.  A
-    design that fails to build or launch raises: there is no fallback."""
+    shapes that take a tiled design); "mma" and "regtile" only where they
+    are picked.  A design that fails to build or launch raises: there is
+    no fallback."""
     q, k = args[0], args[1]
     b, tq, d = q.shape
     tk = k.shape[1]
     picked = blockwise_design(q.dtype, tq, d)
     design = picked if _design is None else _design
-    if design not in BLOCKWISE_DESIGNS or (design == "mma"
-                                           and picked != "mma"):
+    if design not in (picked, "simt"):
         raise ValueError(
             f"fused_attention_blockwise: design {design!r} does not take "
             f"{q.dtype} with Tq={tq}, d={d} (blockwise_design: {picked!r})")
@@ -303,16 +306,20 @@ def _launch_blockwise(mode, *args, _design=None) -> torch.Tensor:
     lib = _blockwise_library()
     out = torch.empty((b, tq, d), dtype=torch.float32, device=q.device)
     ptrs = [t.data_ptr() for t in args]
-    if design == "mma":
+    if design != "simt":
         # q, k, v, tqw and rawk are staged 16 bytes at a time
         if any(ptrs[i] % 16 for i in (0, 1, 2, 5, 6)):
-            raise ValueError("fused_attention_blockwise: the mma design "
-                             "takes q, k, v, tqw and rawk 16-byte aligned")
-        status = lib.fused_attention_blockwise_mma_launch(
-            BLOCKWISE_MODES.index(mode), *ptrs, out.data_ptr(), b, tq, tk, d,
-            1.0 / d ** 0.5, device, stream)
-        build.check(lib, status, "fused_attention_blockwise (mma)")
-        blockwise_mma_launches[mode] += 1
+            raise ValueError(f"fused_attention_blockwise: the {design} "
+                             "design takes q, k, v, tqw and rawk 16-byte "
+                             "aligned")
+        launch, counts = ((lib.fused_attention_blockwise_mma_launch,
+                           blockwise_mma_launches) if design == "mma" else
+                          (lib.fused_attention_blockwise_regtile_launch,
+                           blockwise_regtile_launches))
+        status = launch(BLOCKWISE_MODES.index(mode), *ptrs, out.data_ptr(),
+                        b, tq, tk, d, 1.0 / d ** 0.5, device, stream)
+        build.check(lib, status, f"fused_attention_blockwise ({design})")
+        counts[mode] += 1
         return out
     status = lib.fused_attention_blockwise_launch(
         BLOCKWISE_MODES.index(mode), int(q.dtype == torch.bfloat16),
@@ -329,31 +336,36 @@ def _blockwise_library() -> ctypes.CDLL:
         lib.fused_attention_blockwise_launch.argtypes = (
             [ci, ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.fused_attention_blockwise_launch.restype = ci
-        lib.fused_attention_blockwise_mma_launch.argtypes = (
-            [ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
-        lib.fused_attention_blockwise_mma_launch.restype = ci
+        for tiled in (lib.fused_attention_blockwise_mma_launch,
+                      lib.fused_attention_blockwise_regtile_launch):
+            tiled.argtypes = (
+                [ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            tiled.restype = ci
         lib._port_typed = True
     return lib
 
 
 def fused_attention_blockwise_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk,
-                                    w1, b1, wo1, wo2, bo, key_len
+                                    w1, b1, wo1, wo2, bo, key_len,
+                                    key_block: int = KEY_BLOCK
                                     ) -> torch.Tensor:
     """Plain PyTorch twin of the blockwise kernel, block by block as the
-    Pallas `_attn_kernel_blockwise` computes: f32 scores per KEY_BLOCK
+    Pallas `_attn_kernel_blockwise` computes: f32 scores per ``key_block``
     keys, m = max(m, block max), p = exp(s - m), l = l*alpha + sum(p)
     from the unrounded p, acc = acc*alpha + round(p) @ v in f32 with p
     rounded to v's type; the result is acc / l.  The last block stops at
     Tk (Pallas pads it with masked keys, which add nothing except in a row
-    with no live key: see `fused_attention`)."""
+    with no live key: see `fused_attention`).  ``key_block`` (KEY_BLOCK,
+    Pallas's, by default) only moves float rounding in f32, where p is not
+    rounded: the register-tiled design moves the max every 64 keys."""
     b, tq, d = q.shape
     tk = k.shape[1]
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.full((b, tq, 1), -float("inf"), **f32)
     l = torch.zeros((b, tq, 1), **f32)
     acc = torch.zeros((b, tq, d), **f32)
-    for c0 in range(0, tk, KEY_BLOCK):
-        cols = slice(c0, min(c0 + KEY_BLOCK, tk))
+    for c0 in range(0, tk, key_block):
+        cols = slice(c0, min(c0 + key_block, tk))
         scores, _ = _scores(mode, q, k[:, cols], t_q, t_k[:, cols], tqw,
                             rawk[:, cols], w1[:, cols], b1[:, cols],
                             wo1[:, cols], wo2[:, cols], bo[:, cols])
