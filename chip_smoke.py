@@ -16,11 +16,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      function, that call's time;
   2b. the training step's kernels the same way: gru_scan_bwd in each
      mode at B = 1, 16, 256, and dtable at the step's four table shapes
-     with the ids of a gathered training batch (index_add_ timed beside
-     it; in f32, row 0 of each table, the padding id's, against an f64
-     index_add_ of the same cotangents, for the kernel and for the CPU's
-     f32 index_add_, also with every padded position's cotangent one
-     vector, as the step's L2 term gives them);
+     with the ids of a gathered training batch, the same bits twice
+     (torch.zeros + index_add_ timed beside it: each one's event-timed
+     ms, its device time per call from the profiler, the flush left out,
+     and its host time per call, which tell the host's launch cost from
+     device work; in f32, row 0 of each table, the padding id's, against
+     an f64 index_add_ of the same cotangents, for the kernel and for
+     the CPU's f32 index_add_, also with every padded position's
+     cotangent one vector, as the step's L2 term gives them);
   2c. the self-attention training kernels the same way: the forward's
      plain_drop and tisas_drop modes (a rate-0.5 mask) and
      fused_attention_bwd in all five modes, at B = 1, 16, 256 with
@@ -35,7 +38,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      with no live key, one masked query) and at the slice's B=64, L=512
      with every key live, where two backward launches must give the same
      bits and both are timed; gru_scan and gru_scan_bwd at B=64, L=512;
-     dtable on phase 6's four tables with the ids of its first batch;
+     dtable on phase 6's four tables with the ids of its first batch, as
+     in phase 2b;
   2f. the chain readout's kernels the same way: readout_chain and
      readout_chain_bwd at B = 1, 16, 256 x L = 50, 255 (d=128, 3 hops)
      and at B=16, L=50 with d = 16 and 64, in f32 and bf16 (positional
@@ -92,9 +96,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      beside it); timed at B = 64, Tk = 2048, every key live (Tq = Tk: the
      tiled design and the SIMT design, forced, in both dtypes; Tq = 1)
      beside scaled_dot_product_attention for plain and tisas;
-     gather and scatter_add against their twins at the L=2048 cell's
-     131,072 ids a table and at phase 4's ids, the same bits twice,
-     timed beside index_select and index_add_;
+     dtable at the L=2048 cell's 131,072 ids a table (the user table's
+     64), as in phase 2b; gather and scatter_add against their twins at
+     those ids and at phase 4's ids, the same bits twice, timed beside
+     index_select and index_add_;
   7. past 1024 keys at the slice's configuration (phase 6's cell at
      L=2048, 256 rows of its data): Recommender.recommend for MTAM,
      SASrec, TiSAS and Time_Aware_SA at B = 1, 16, 64 in bf16 and f32
@@ -120,8 +125,9 @@ The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
 as "@L50"; the readout, GRU and dtable kernels at B=64,
-L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048 and the
-gather / scatter-add pair at L=2048 as "@L2048", the blockwise kernel's
+L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048 and
+dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
+entries also carry "device_ms" and "library_device_ms"), the blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
 the SIMT design's time on the same inputs beside it ("simt_ms"), the
@@ -255,6 +261,47 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+    def device(self, fn, iters=20, warmup=3):
+        """Device time per call from torch.profiler: the kernels ``fn``
+        launches, each call after the same L2 flush as __call__, the
+        flush's own kernel (the uint8 fill) left out; None where the
+        profiler sees no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(2):   # the profiler now and then records nothing
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            total = sum(
+                getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and "FillFunctor<unsigned char>" not in e.key
+                and not e.key.startswith("Activity Buffer"))
+            if total > 0:
+                return total / 1e3 / iters
+        return None
+
+    def host(self, fn, iters=200, warmup=3):
+        """Host time per call, ms: ``iters`` calls issued back to back
+        with no synchronisation inside the loop (the card keeps up)."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return seconds / iters * 1e3
 
 
 def rel_err(got, want):
@@ -743,7 +790,13 @@ def check_dtable(torch, timer, iters, failures, gen, dtype, tables, tag):
     """dtable against its plain twin (and index_add_ timed beside it) on
     each of a step's four tables with its ids (``tables``: name -> (ids,
     padded vocab)) and a random cotangent; two launches must give the
-    same bits.  Returns the entry row, headed by the item table."""
+    same bits.  Each table's row has the event-timed ms of the kernel and
+    of index_add_ (torch.zeros + index_add_, ``library_ms``), their
+    device time from the profiler (``device_ms``, ``library_device_ms``:
+    kernel time per call, the flush left out) and their host time per
+    call (``host_ms``, ``library_host_ms``), which tell the host's launch
+    cost from the device's work.  Returns the entry row, headed by the
+    item table."""
     from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
 
     dname = str(dtype).replace("torch.", "")
@@ -757,15 +810,22 @@ def check_dtable(torch, timer, iters, failures, gen, dtype, tables, tag):
         again = ek.dtable(ct, ids, vocab)
         ok = ok and bool(torch.equal(got, again))   # same bits each run
         ids64 = ids.long()
+        run = lambda: ek.dtable(ct, ids, vocab)  # noqa: E731
+        library = lambda: torch.zeros(  # noqa: E731
+            (vocab, 128), dtype=dtype, device=DEVICE).index_add_(
+                0, ids64, ct)
         shapes[table] = {
             "n": int(ids.shape[0]), "vocab": vocab,
+            "chunk": ek.dtable_plan(*ct.shape, vocab)[0],
             "max_abs_err": err, "rel_err": rel, "ok": ok,
-            "ms": timer(lambda: ek.dtable(ct, ids, vocab), iters),
+            "ms": timer(run, iters),
             "plain_ms": timer(lambda: ek.dtable_plain(ct, ids, vocab),
                               iters),
-            "library_ms": timer(lambda: torch.zeros(
-                (vocab, 128), dtype=dtype, device=DEVICE).index_add_(
-                    0, ids64, ct), iters),
+            "library_ms": timer(library, iters),
+            "device_ms": timer.device(run),
+            "library_device_ms": timer.device(library),
+            "host_ms": timer.host(run),
+            "library_host_ms": timer.host(library),
             **dtable_bound(ct, ids, vocab)}
         r = shapes[table]
         if dtype == torch.float32:
@@ -773,7 +833,10 @@ def check_dtable(torch, timer, iters, failures, gen, dtype, tables, tag):
         print(f"dtable {tag} {table:11s} n={r['n']:<6d} V={vocab:<5d} "
               f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"index_add_ms={r['library_ms']:.4f} bound_ms="
+              f"index_add_ms={r['library_ms']:.4f} device_ms="
+              f"{r['device_ms']} index_add_device_ms="
+              f"{r['library_device_ms']} host_ms={r['host_ms']:.4f} "
+              f"index_add_host_ms={r['library_host_ms']:.4f} bound_ms="
               f"{r['bound_ms']:.4f} ({r['bound_by']}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if "row0_f64" in r:
@@ -784,7 +847,9 @@ def check_dtable(torch, timer, iters, failures, gen, dtype, tables, tag):
                             f"{rel:.3e} or not reproducible")
     head = shapes["item_table"]
     return {**{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "device_ms", "library_device_ms",
                                     "bound_ms", "bound_by")},
+            "library_call": "index_add_",
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "rel_err": max(r["rel_err"] for r in shapes.values()),
             "tol": KERNEL_TOL[dname],
@@ -2127,12 +2192,16 @@ def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag):
 
 
 def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
-    """Phase 2e: the blockwise attention kernel, and the gather /
-    scatter-add pair at the L=2048 cell's ids and at phase 4's."""
+    """Phase 2e: the blockwise attention kernel, dtable at the L=2048
+    cell's ids, and the gather / scatter-add pair at those ids and at
+    phase 4's."""
     entries = check_blockwise(torch, timer, 10, failures)
     gen = torch.Generator(device=DEVICE).manual_seed(9753)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
+        entries.setdefault(("dtable", None, "L2048"), {})[dname] = \
+            check_dtable(torch, timer, iters, failures, gen, dtype,
+                         xl_tables, "L=2048")
         for tables, tag in ((xl_tables, "L=2048"), (l50_tables, "L=50")):
             rows = check_gather(torch, timer, iters, failures, gen, dtype,
                                 tables, tag)
@@ -2569,7 +2638,7 @@ def kernels_line(entries, launches_by_shape):
     the SIMT design, forced, and the tiled designs as
     ``fused_attention_blockwise_mma`` in bf16 and
     ``fused_attention_blockwise_regtile`` in f32) and, in time mode, at
-    MTAM's Tq=1 hops (``@L2048Tq1``), the gather /
+    MTAM's Tq=1 hops (``@L2048Tq1``), dtable and the gather /
     scatter-add pair at the L=2048 cell's ids (``@L2048``), each with the
     ms, bound and launches of that shape (``launches_by_shape[shape]``;
     the entries without a shape count the L=50 paths' launches under
@@ -2603,8 +2672,10 @@ def kernels_line(entries, launches_by_shape):
             "library_ms": head.get("library_ms"),
             "library_call": head.get("library_call"),
             # the tiled designs' rows: the SIMT design's time on the
-            # same inputs in the same run
-            **({"simt_ms": head["simt_ms"]} if "simt_ms" in head else {}),
+            # same inputs in the same run; dtable's: the profiler's device
+            # time per call of the kernel and of index_add_
+            **{k: head[k] for k in ("simt_ms", "device_ms",
+                                    "library_device_ms") if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
         })

@@ -155,4 +155,6 @@ def launch_context(tensors, what: str):
             "gru_scan_vjp; fused_attention: fused_attention_vjp; "
             "fused_readout: fused_readout_vjp; readout_chain: "
             "readout_chain_vjp; gather: embedding_kernel.gather)")
-    return device.index, torch.cuda.current_stream(device).cuda_stream
+    # the current stream's handle (what torch.cuda.current_stream(device)
+    # .cuda_stream gives, without building a Stream object each launch)
+    return device.index, torch._C._cuda_getCurrentRawStream(device.index)

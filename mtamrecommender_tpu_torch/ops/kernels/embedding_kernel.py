@@ -7,7 +7,11 @@ three kernels the port has:
   * `dtable` (csrc/embedding_dtable.cu, the Pallas `_dtable_kernel`):
         dtable[v, :] = sum_n [ids[n] == v] * ct[n, :]
     summed in f32 in a fixed order (no float atomics) and written once in
-    ct's type.  `take_dtable` is the lookup whose backward it is: a row
+    ct's type: a first pass sorts each chunk of ids and sums each id's
+    rows, a second writes each table row from the chunks' partials in
+    chunk order; up to SMALL_N ids one pass sums each row's ids directly
+    (`dtable_plan` picks the chunk and sizes the workspace).
+    `take_dtable` is the lookup whose backward it is: a row
     gather forward (JAX's is `jnp.take`, no kernel), `dtable` backward.
     Every lookup of `ops/embedding.behavior_embedding` takes it by
     default.
@@ -24,6 +28,7 @@ three kernels the port has:
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,6 +36,13 @@ from mtamrecommender_tpu_torch.ops.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_WIDTHS = (32, 64, 128, 256)   # d the kernel takes
+# dtable's plan: up to SMALL_N ids one pass; past it a first pass of one
+# block a chunk of ids: the small chunk while that needs at most
+# WAVE_BLOCKS blocks (one wave on the H100's 132 SMs), else the large one
+SMALL_N = 256
+CHUNKS = (256, 1024)
+WAVE_BLOCKS = 128
+MAX_VOCAB = (1 << 22) - 1    # the sort key: id << log2(1024) | position
 
 # kernel launches (the plain twins are not counted)
 launches = {"dtable": 0}
@@ -69,40 +81,77 @@ def dtable(ct: torch.Tensor, ids: torch.Tensor, vocab: int) -> torch.Tensor:
     [0, vocab) matches no row there, and chip_smoke.py checks on the card
     that the training step's ids are in range."""
     _check(ct, ids, vocab)
-    if ct.device.type == "cpu":
+    where = ct.device
+    if where.type == "cpu":
         _check_ids("dtable", ids, vocab)
         return dtable_plain(ct, ids, vocab)
-    if ct.device.type != "cuda":
-        raise ValueError(f"dtable: no kernel for device {ct.device}")
-    return _launch(ct, ids, vocab)
+    if where.type != "cuda":
+        raise ValueError(f"dtable: no kernel for device {where}")
+    return _launch(ct, ids, vocab, where)
 
 
-def _launch(ct, ids, vocab) -> torch.Tensor:
+def dtable_plan(n: int, d: int, vocab: int) -> Tuple[int, int]:
+    """(chunk, workspace bytes) of one `dtable` call on n ids.  Chunk 0:
+    one pass, no workspace (n <= SMALL_N).  Else the first pass takes the
+    ids ``chunk`` at a time, and the workspace holds up to n f32 partial
+    rows of width d, n ids and one count a chunk.  Raises for a vocab
+    above MAX_VOCAB (the sort key holds the id in 22 bits)."""
+    if vocab > MAX_VOCAB:
+        raise ValueError(f"dtable: the kernel takes vocab <= {MAX_VOCAB} "
+                         f"(the id and its position share a 32-bit sort "
+                         f"key), got {vocab}")
+    if n <= SMALL_N:
+        return 0, 0
+    chunk = next((c for c in CHUNKS if -(-n // c) <= WAVE_BLOCKS),
+                 CHUNKS[-1])
+    return chunk, 4 * (n * d + n + -(-n // chunk))
+
+
+def _launch(ct, ids, vocab, where) -> torch.Tensor:
     device, stream = build.launch_context((ct, ids), "dtable")
     n, d = ct.shape
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"dtable: the kernel takes d in {KERNEL_WIDTHS}, "
                          f"got d={d}")
+    chunk, ws_bytes = dtable_plan(n, d, vocab)
     lib = _library()
-    out = torch.empty((vocab, d), dtype=ct.dtype, device=ct.device)
-    ws = torch.empty((lib.dtable_workspace_floats(n, vocab, d),),
-                     dtype=torch.float32, device=ct.device)
-    status = lib.dtable_launch(int(ct.dtype == torch.bfloat16), ct.data_ptr(),
-                               ids.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                               n, vocab, d, device, stream)
+    ct_ptr = ct.data_ptr()
+    if ct_ptr % 16:                 # the kernel loads 16-byte words
+        ct = ct.clone()
+        ct_ptr = ct.data_ptr()
+    out = ct.new_empty((vocab, d))
+    ws_ptr = (_workspace(ws_bytes, device, stream, where).data_ptr()
+              if ws_bytes else None)
+    status = lib.dtable_launch(int(ct.dtype == torch.bfloat16), ct_ptr,
+                               ids.data_ptr(), out.data_ptr(), ws_ptr,
+                               n, vocab, d, chunk, device, stream)
     build.check(lib, status, "dtable")
     launches["dtable"] += 1
     return out
+
+
+# dtable's scratch, one buffer per (device, stream), kept between calls
+# and grown to the largest call: kernels on one stream run in order, so a
+# call never writes scratch an earlier call still reads, and a call is
+# spared an allocation (host time is most of a small call's time)
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(nbytes: int, device: int, stream: int,
+               where: torch.device) -> torch.Tensor:
+    ws = _workspaces.get((device, stream))
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.empty((nbytes,), dtype=torch.uint8, device=where)
+        _workspaces[(device, stream)] = ws
+    return ws
 
 
 def _library() -> ctypes.CDLL:
     lib = build.library("embedding_dtable")
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.dtable_launch.argtypes = [ci] + [vp] * 4 + [ci, ci, ci, ci, vp]
+        lib.dtable_launch.argtypes = [ci] + [vp] * 4 + [ci] * 5 + [vp]
         lib.dtable_launch.restype = ci
-        lib.dtable_workspace_floats.argtypes = [ci, ci, ci]
-        lib.dtable_workspace_floats.restype = ctypes.c_longlong
         lib._port_typed = True
     return lib
 

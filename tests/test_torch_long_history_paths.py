@@ -15,7 +15,13 @@ does; MTAM's loss and gradients (its readout in plain PyTorch, as JAX's).
 
 Tolerances: f32 scores and losses within 1e-5 of the largest |value|,
 gradient leaves within 1e-4 of each leaf's largest |value| (MTAM's 1e-5,
-as tests/test_torch_train.py holds it).
+as tests/test_torch_train.py holds it).  In bf16 compute (Time_Aware_SA,
+and SASrec / TiSAS at dropout 0.5) the loss and each gradient leaf are
+held as chip_smoke.py holds the card's bf16 step against the CPU: within
+TRAIN_TOL_BF16 (5e-2) of the leaf's largest f32 |value| plus JAX's own
+bf16-vs-f32 gap on that leaf.  Past 1024 keys the port's dense backward
+and dropout route compute in f32 where JAX computes in bf16; these cases
+measure that gap.
 """
 
 import jax
@@ -43,6 +49,7 @@ torch.set_num_threads(2)
 L, D, BLOCKS, B = 1100, 16, 2, 2
 SEQ_LENS = [L, 300]
 REL_F32, REL_GRAD = 1e-5, 1e-4
+TRAIN_TOL_BF16 = 5e-2     # chip_smoke.py's TRAIN_TOL["bfloat16"]
 
 
 def _cfg(name, gate="positional", **kw):
@@ -239,12 +246,61 @@ def _loss_and_grads(name, cfg, params, model, rng=None, masks=None,
         assert _rel(p.grad.numpy(), jgrads[leaf].numpy()) <= rel_grad, leaf
 
 
+def _bf16_loss_and_grads(name, cfg, rng=None, masks=None):
+    """One bf16 step of the port against JAX's bf16 step on the same
+    parameters and batch: the loss and every gradient leaf within
+    TRAIN_TOL_BF16 of JAX's f32 value's largest |value| plus JAX's own
+    bf16-vs-f32 gap.  Returns {leaf: (port gap, JAX's own gap), "loss":
+    ...}, each over the largest f32 |value|."""
+    jmeta, tmeta = _meta()
+    jb, tb = _batches()
+    cfg16 = cfg.with_overrides(**{"model.compute_dtype": "bfloat16"})
+    params, model = _models(name, cfg16)
+    want = {}
+    for key, c in (("f32", cfg), ("bf16", cfg16)):
+        def loss_fn(p, c=c):
+            m = jbase.compute_loss(jget_model(name), p, c.model, jb, True,
+                                   rng, jmeta.item_vocab)
+            return m["loss"], m
+        (_, m), g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+        want[key] = (float(m["loss"]),
+                     params_from_jax(jax.device_get(g)))
+    got = tbase.compute_loss(get_model(name), model, cfg16.model, tb,
+                             tmeta.item_vocab,
+                             gen=None if masks is None else iter(masks))
+    got["loss"].backward()
+    (l32, g32), (l16, g16) = want["f32"], want["bf16"]
+    gaps = {"loss": (abs(got["loss"].item() - l16) / abs(l32),
+                     abs(l16 - l32) / abs(l32))}
+    for leaf, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), leaf
+        scale = max(np.abs(g32[leaf].numpy()).max(), 1e-30)
+        gaps[leaf] = (np.abs(p.grad.numpy() - g16[leaf].numpy()).max() / scale,
+                      np.abs(g16[leaf].numpy() - g32[leaf].numpy()).max()
+                      / scale)
+    for leaf, (gap, own) in gaps.items():
+        assert gap <= TRAIN_TOL_BF16 + own, (leaf, gap, own)
+    return gaps
+
+
 def test_time_aware_sa_loss_and_grads_match_jax(twins_count):
     name = "Time_Aware_Self_Attention_Model"
     cfg = _cfg(name)
     params, model = _models(name, cfg)
     before = _counts()
     _loss_and_grads(name, cfg, params, model, rng=jax.random.PRNGKey(1))
+    assert _delta(before, _counts()) == {
+        "single": {}, "bwd": {}, "blockwise": {"time": BLOCKS},
+        "dense_fwd": {}, "dense_bwd": {"time": BLOCKS}}
+
+
+def test_time_aware_sa_bf16_loss_and_grads_match_jax(twins_count):
+    """bf16 compute at 1100 keys: the blockwise forward (JAX: Pallas in
+    bf16) and the dense backward (JAX: jax.vjp of the jnp reference on
+    bf16 operands; the port's autograd of `reference_middle`)."""
+    name = "Time_Aware_Self_Attention_Model"
+    before = _counts()
+    _bf16_loss_and_grads(name, _cfg(name), rng=jax.random.PRNGKey(1))
     assert _delta(before, _counts()) == {
         "single": {}, "bwd": {}, "blockwise": {"time": BLOCKS},
         "dense_fwd": {}, "dense_bwd": {"time": BLOCKS}}
@@ -283,6 +339,28 @@ def test_dropout_training_matches_jax_with_its_masks(twins_count, name):
         for i in range(BLOCKS)]
     before = _counts()
     _loss_and_grads(name, cfg, params, model, rng=rng, masks=masks)
+    drop = "plain_drop" if name == "SASrec" else "tisas_drop"
+    assert _delta(before, _counts()) == {
+        "single": {}, "bwd": {}, "blockwise": {},
+        "dense_fwd": {drop: BLOCKS}, "dense_bwd": {}}
+
+
+def _jax_masks(rng):
+    apply_rng = jax.random.split(rng)[0]
+    shape = jnp.zeros((B, L, 1))
+    return [torch.tensor(np.asarray(jatt._draw_drop_mask(
+        jax.random.fold_in(apply_rng, i), shape, shape, 0.5, True)))
+        for i in range(BLOCKS)]
+
+
+@pytest.mark.parametrize("name", ["SASrec", "Ti_Self_Attention_Model"])
+def test_dropout_training_bf16_matches_jax_with_its_masks(twins_count, name):
+    """bf16 compute at dropout 0.5 and 1100 keys: JAX's jnp dropout path
+    in bf16, the port's dense route with JAX's masks."""
+    rng = jax.random.PRNGKey(7)
+    before = _counts()
+    _bf16_loss_and_grads(name, _cfg(name, **{"model.dropout": 0.5}),
+                         rng=rng, masks=_jax_masks(rng))
     drop = "plain_drop" if name == "SASrec" else "tisas_drop"
     assert _delta(before, _counts()) == {
         "single": {}, "bwd": {}, "blockwise": {},
