@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      could take (bound) and, where one PyTorch call computes the same
      function, that call's time;
   2b. the training step's kernels the same way: gru_scan_bwd in each
-     mode at B = 1, 16, 256, and dtable at the step's four table shapes
+     mode at B = 1, 16, 256 (ragged lengths, a row of length 0), the
+     same bits twice, with the earlier four-product design forced and held
+     beside it and timed on the same inputs in turns (default, four,
+     four, default), and the profiler's split of the default design's
+     device time among its kernels; dtable at the step's four table shapes
      with the ids of a gathered training batch, the same bits twice
      (torch.zeros + index_add_ timed beside it: each one's event-timed
      ms, its device time per call from the profiler, the flush left out,
@@ -37,7 +41,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      bf16 (scalar and positional gate rows, ragged key lengths, one row
      with no live key, one masked query) and at the slice's B=64, L=512
      with every key live, where two backward launches must give the same
-     bits and both are timed; gru_scan and gru_scan_bwd at B=64, L=512;
+     bits and both are timed; gru_scan and gru_scan_bwd at B=64, L=512
+     (the backward as in phase 2b);
      dtable on phase 6's four tables with the ids of its first batch, as
      in phase 2b;
   2f. the chain readout's kernels the same way: readout_chain and
@@ -82,10 +87,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      bf16, five f32 steps against the CPU as in phase 4, the step timed
      in bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1
      fused_readout, 1 fused_readout_bwd, 0 fused_attention launches a
-     step), and
+     step), then timed in turns with gru_scan_bwd forced to the earlier
+     four-product design (default, four, four, default), and
      Recommender.recommend at L=512 for B = 1, 16, 64 in bf16 and f32
      against the CPU (1 gru_scan + 1 fused_readout a call);
-  2e. (run after 2d) past 1024 keys: fused_attention_blockwise in each
+  2e. (run after 2d) past 1024 keys: gru_scan and gru_scan_bwd (tgru)
+     at B=64, L=2048, every row full, as in phase 2d (each twin run once
+     to check and twice to time); fused_attention_blockwise in each
      mode against its twin in f32 and bf16 at Tq = 1 (B = 1, 16, 64 x
      Tk = 1025, 2048, 4096), Tq = Tk = 2048 (B = 1, 16, 64), ragged
      key lengths (a row with no live key, a full row, one ending inside
@@ -111,7 +119,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      at B = 2 (the CPU's time at L=2048 sets that size);
      Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
      (in bf16 the scalar gates' gradients reported, not held), timed at
-     B = 64 in bf16 and f32 with its peak memory (Time_Aware_SA: 3
+     B = 64 in bf16 and f32 with its peak memory, MTAM's also in turns
+     with gru_scan_bwd forced to the earlier four-product design (default,
+     four, four, default; Time_Aware_SA: 3
      blockwise[time] (mma in bf16, regtile in f32) + 3 dense_bwd[time] +
      4 dtable a step, no
      fused_attention_bwd; MTAM: 1 gru_scan + 1 gru_scan_bwd + 4 dtable,
@@ -125,9 +135,12 @@ The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
 as "@L50"; the readout, GRU and dtable kernels at B=64,
-L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048 and
+L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048, the GRU
+kernels at B=64, L=2048 and
 dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
-entries also carry "device_ms" and "library_device_ms"), the blockwise kernel's
+entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
+"four_product_ms", the four-product design on the same inputs, and "passes_ms",
+the default design's device time by kernel), the blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
 the SIMT design's time on the same inputs beside it ("simt_ms"), the
@@ -143,6 +156,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -288,6 +302,33 @@ class Timer:
             if total > 0:
                 return total / 1e3 / iters
         return None
+
+    def passes(self, fn, iters=5, warmup=2):
+        """Device time per call of each kernel ``fn`` launches, by kernel
+        function name, from torch.profiler (each call after the L2 flush,
+        the flush's own kernel left out); {} where the profiler sees no
+        device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            total = getattr(e, "self_device_time_total", 0)
+            if (not str(getattr(e, "device_type", "")).endswith("CUDA")
+                    or total <= 0 or "FillFunctor<unsigned char>" in e.key):
+                continue
+            found = re.search(r"::(\w+)[<(]", e.key)
+            name = found.group(1) if found else e.key[:60]
+            split[name] = split.get(name, 0.0) + total / 1e3 / iters
+        return split
 
     def host(self, fn, iters=200, warmup=3):
         """Host time per call, ms: ``iters`` calls issued back to back
@@ -712,6 +753,42 @@ def dtable_bound(ct, ids, vocab):
     return _bound(nbytes, n * d, "float32")
 
 
+def check_gru_bwd(torch, gk, mode, g, outs, args, dname):
+    """gru_scan_bwd on the card against its twin: the default design
+    (two launches, the same bits twice) and the four-product design
+    forced, all ten outputs within KERNEL_TOL of the twin.  Returns
+    (max |diff|, max rel, ok, same bits twice, the forced design's max
+    rel)."""
+    want = gk.gru_scan_bwd_plain(mode, g, outs, *args)
+    got = gk.gru_scan_bwd(mode, g, outs, *args)
+    again = gk.gru_scan_bwd(mode, g, outs, *args)
+    four = gk._launch_bwd(mode, g, outs, *args, _design="four_product")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    err = rel = four_rel = 0.0
+    ok = same
+    for a, f, w in zip(got, four, want):
+        e, r, o = _agree(a, w, dname)
+        _, fr, fo = _agree(f, w, dname)
+        err, rel, four_rel = max(err, e), max(rel, r), max(four_rel, fr)
+        ok = ok and o and fo
+    return err, rel, ok, same, four_rel
+
+
+def time_gru_bwd(timer, gk, mode, g, outs, args, iters):
+    """The default design and the four-product design on the same
+    inputs, in turns (default, four, four, default), and the profiler's
+    split of the default design's device time among its kernels."""
+    run = lambda: gk.gru_scan_bwd(mode, g, outs, *args)  # noqa: E731
+    four = lambda: gk._launch_bwd(  # noqa: E731
+        mode, g, outs, *args, _design="four_product")
+    a, b1, b2, a2 = (timer(run, iters), timer(four, iters),
+                     timer(four, iters), timer(run, iters))
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "four_product_ms": (b1 + b2) / 2,
+            "four_product_ms_repeats": [b1, b2],
+            "passes_ms": timer.passes(run)}
+
+
 def check_train_kernels(torch, timer, iters, failures, tables):
     """The training step's two new kernels against their plain twins:
     gru_scan_bwd in each mode at B = 1, 16, 256, and dtable at the step's
@@ -724,8 +801,8 @@ def check_train_kernels(torch, timer, iters, failures, tables):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for mode in gk.MODES:
-            err = rel = 0.0
-            ok = True
+            err = rel = four_rel = 0.0
+            ok = same = True
             for bs in (1, 16, 256):
                 args = gru_inputs(torch, gen, mode, dtype, B=bs)
                 if bs == 1:
@@ -733,27 +810,31 @@ def check_train_kernels(torch, timer, iters, failures, tables):
                 with torch.no_grad():
                     outs = gk.gru_scan(mode, *args)
                 g = torch.randn(outs.shape, generator=gen, device=DEVICE)
-                got = gk.gru_scan_bwd(mode, g, outs, *args)
-                want = gk.gru_scan_bwd_plain(mode, g, outs, *args)
-                for a, b in zip(got, want):
-                    e, r, o = _agree(a, b, dname)
-                    err, rel, ok = max(err, e), max(rel, r), ok and o
+                e, r, o, sm, fr = check_gru_bwd(torch, gk, mode, g, outs,
+                                                args, dname)
+                err, rel, four_rel = max(err, e), max(rel, r), max(four_rel,
+                                                                   fr)
+                ok, same = ok and o, same and sm
             row = {"max_abs_err": err, "rel_err": rel,
+                   "four_product_rel_err": four_rel, "same_bits_twice": same,
                    "tol": KERNEL_TOL[dname], "ok": ok,
-                   "ms": timer(lambda: gk.gru_scan_bwd(mode, g, outs, *args),
-                               iters),
+                   **time_gru_bwd(timer, gk, mode, g, outs, args, iters),
                    "plain_ms": timer(
                        lambda: gk.gru_scan_bwd_plain(mode, g, outs, *args),
                        max(iters // 10, 3)),
                    **gru_bwd_bound(mode, args, dname)}
             entries.setdefault(("gru_scan_bwd", mode, None), {})[dname] = row
             print(f"gru_scan_bwd {mode:8s} {dname:9s} max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} ms={row['ms']:.4f} plain_ms="
+                  f"rel={rel:.3e} (four_product {four_rel:.3e}) same_bits="
+                  f"{same} ms={row['ms']:.4f} four_product_ms="
+                  f"{row['four_product_ms']:.4f} plain_ms="
                   f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-                  f"({row['bound_by']}) {'ok' if ok else 'FAIL'}", flush=True)
+                  f"({row['bound_by']}) passes={row['passes_ms']} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(f"gru_scan_bwd {mode} {dname}: rel err "
-                                f"{rel:.3e}")
+                                f"{rel:.3e}, four_product {four_rel:.3e}, "
+                                f"same bits {same}")
         entries.setdefault(("dtable", None, None), {})[dname] = check_dtable(
             torch, timer, iters, failures, gen, dtype, tables, "L=50")
     return entries
@@ -1098,6 +1179,60 @@ def readout_bwd_bound(args, dtype_name):
                   dtype_name)
 
 
+def check_gru_long(torch, timer, gen, dtype, L, iters, plain_iters,
+                   failures):
+    """gru_scan and gru_scan_bwd (tgru) at B=64 and length L, every row
+    full: each against its twin once (the backward's two designs as
+    check_gru_bwd holds them), the kernels timed over ``iters`` calls (the
+    backward's two designs in turns) and the twins over ``plain_iters``
+    calls after the checking call (0: not timed)."""
+    from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
+
+    dname = str(dtype).replace("torch.", "")
+    args = gru_inputs(torch, gen, "tgru", dtype, B=LONG_BATCH, L=L)
+    args[4].fill_(L)
+    with torch.no_grad():
+        outs = gk.gru_scan("tgru", *args)
+    g = torch.randn(outs.shape, generator=gen, device=DEVICE)
+    t0 = time.perf_counter()
+    err, rel, ok = _agree(outs, gk.gru_scan_plain("tgru", *args), dname)
+    fwd_check_s = time.perf_counter() - t0
+    plain = lambda fn: (timer(fn, plain_iters, warmup=0)  # noqa: E731
+                        if plain_iters else "not timed")
+    rows = {"gru_scan": {
+        "max_abs_err": err, "rel_err": rel, "tol": KERNEL_TOL[dname],
+        "ok": ok, "ms": timer(lambda: gk.gru_scan("tgru", *args), iters),
+        "plain_ms": plain(lambda: gk.gru_scan_plain("tgru", *args)),
+        "plain_check_s": fwd_check_s, **gru_bound("tgru", args, dname)}}
+    t0 = time.perf_counter()
+    err, rel, ok, same, four_rel = check_gru_bwd(torch, gk, "tgru", g, outs,
+                                                 args, dname)
+    rows["gru_scan_bwd"] = {
+        "max_abs_err": err, "rel_err": rel,
+        "four_product_rel_err": four_rel, "same_bits_twice": same,
+        "tol": KERNEL_TOL[dname], "ok": ok,
+        **time_gru_bwd(timer, gk, "tgru", g, outs, args, iters),
+        "plain_ms": plain(lambda: gk.gru_scan_bwd_plain("tgru", g, outs,
+                                                        *args)),
+        "plain_check_s": time.perf_counter() - t0,
+        **gru_bwd_bound("tgru", args, dname)}
+    for kname, row in rows.items():
+        plain_ms = row["plain_ms"]
+        print(f"{kname} tgru B=64 L={L} {dname:9s} max_abs_err="
+              f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
+              f"{row['ms']:.4f} ({row['ms'] / L * 1e3:.3f} us a step) "
+              f"four_product_ms={row.get('four_product_ms')} plain_ms="
+              f"{plain_ms} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}) passes={row.get('passes_ms')} "
+              f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+        if not row["ok"]:
+            failures.append(f"{kname} tgru L={L} {dname}: rel err "
+                            f"{row['rel_err']:.3e}, four_product "
+                            f"{row.get('four_product_rel_err')}, same bits "
+                            f"{row.get('same_bits_twice')}")
+    return rows
+
+
 def check_readout_kernels(torch, timer, iters, failures, tables):
     """The long-history kernels against their plain twins: fused_readout
     and fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 (scalar
@@ -1167,42 +1302,10 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
                 failures.append(f"{kname} {dname}: rel err {row['rel_err']:.3e}"
                                 f", same bits {same}")
         # the T-GRU scan and its backward at the slice's length
-        args = gru_inputs(torch, gen, "tgru", dtype, B=LONG_BATCH, L=LONG_L)
-        args[4].fill_(LONG_L)                # every row full, as the slice's
-        with torch.no_grad():
-            outs = gk.gru_scan("tgru", *args)
-        g = torch.randn(outs.shape, generator=gen, device=DEVICE)
-        checks = {
-            "gru_scan": (outs, gk.gru_scan_plain("tgru", *args),
-                         lambda: gk.gru_scan("tgru", *args),
-                         lambda: gk.gru_scan_plain("tgru", *args),
-                         gru_bound("tgru", args, dname)),
-            "gru_scan_bwd": (gk.gru_scan_bwd("tgru", g, outs, *args),
-                             gk.gru_scan_bwd_plain("tgru", g, outs, *args),
-                             lambda: gk.gru_scan_bwd("tgru", g, outs, *args),
-                             lambda: gk.gru_scan_bwd_plain("tgru", g, outs,
-                                                           *args),
-                             gru_bwd_bound("tgru", args, dname))}
-        for kname, (got, want, run, plain, bound) in checks.items():
-            pairs = zip(got, want) if isinstance(got, tuple) \
-                else [(got, want)]
-            err = rel = 0.0
-            ok = True
-            for a, b in pairs:
-                e, r, o = _agree(a, b, dname)
-                err, rel, ok = max(err, e), max(rel, r), ok and o
-            row = {"max_abs_err": err, "rel_err": rel,
-                   "tol": KERNEL_TOL[dname], "ok": ok,
-                   "ms": timer(run, max(iters // 10, 3)),
-                   "plain_ms": timer(plain, 3), **bound}
+        for kname, row in check_gru_long(torch, timer, gen, dtype, LONG_L,
+                                         max(iters // 10, 3), 3,
+                                         failures).items():
             entries.setdefault((kname, "tgru", "L512"), {})[dname] = row
-            print(f"{kname} tgru B=64 L=512 {dname:9s} max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} ms={row['ms']:.4f} plain_ms="
-                  f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-                  f"({row['bound_by']}) {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                failures.append(f"{kname} tgru L=512 {dname}: rel err "
-                                f"{rel:.3e}")
         entries.setdefault(("dtable", None, "L512"), {})[dname] = \
             check_dtable(torch, timer, iters, failures, gen, dtype, tables,
                          "L=512")
@@ -1616,6 +1719,31 @@ def timed_steps(torch, setup, failures, name, want, main_launches,
     return report
 
 
+def steps_in_turns(torch, setup, failures, name, want, **kw):
+    """After the main path's timed steps (the default design), the same
+    timed steps with gru_scan_bwd forced to the four-product design
+    twice, then the default design once more, on the same data: turns of
+    default, four, four, default, so that the host's drift shows.  The
+    forced design is this script's comparison; the main path never forces
+    it.  These runs' launches are not added to the main path's."""
+    import functools
+
+    from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
+
+    launch = gk._launch_bwd
+    runs = {"four_product": [], "default_again": []}
+    for design in ("four_product", "four_product", "default_again"):
+        if design == "four_product":
+            gk._launch_bwd = functools.partial(launch, _design=design)
+        print(f"train {name}: gru_scan_bwd {design}", flush=True)
+        try:
+            runs[design].append(timed_steps(torch, setup, failures, name,
+                                            want, {}, **kw))
+        finally:
+            gk._launch_bwd = launch
+    return {"steps_in_turns": runs}
+
+
 UNMODED = ("dtable", "gather", "scatter_add", "fused_readout",
            "fused_readout_bwd", "readout_chain", "readout_chain_bwd")
 
@@ -1979,6 +2107,7 @@ def run_long_history(torch, setup, failures):
     launches = {}
     report.update(timed_steps(torch, setup, failures, "MTAM", want,
                               launches))
+    report.update(steps_in_turns(torch, setup, failures, "MTAM", want))
     want_call = _want_counts(0)
     want_call["gru_scan"]["tgru"] = 1
     want_call["fused_readout"]["fused_readout"] = 1
@@ -2192,13 +2321,18 @@ def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag):
 
 
 def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
-    """Phase 2e: the blockwise attention kernel, dtable at the L=2048
-    cell's ids, and the gather / scatter-add pair at those ids and at
-    phase 4's."""
+    """Phase 2e: the blockwise attention kernel, the T-GRU pair at B=64,
+    L=2048, dtable at the L=2048 cell's ids, and the gather / scatter-add
+    pair at those ids and at phase 4's."""
     entries = check_blockwise(torch, timer, 10, failures)
     gen = torch.Generator(device=DEVICE).manual_seed(9753)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
+        # the T-GRU pair over MTAM's 2048 steps (phase 7's shape); each
+        # twin checked once and timed twice more
+        for kname, row in check_gru_long(torch, timer, gen, dtype, XL_L, 10,
+                                         2, failures).items():
+            entries.setdefault((kname, "tgru", "L2048"), {})[dname] = row
         entries.setdefault(("dtable", None, "L2048"), {})[dname] = \
             check_dtable(torch, timer, iters, failures, gen, dtype,
                          xl_tables, "L=2048")
@@ -2610,6 +2744,8 @@ def run_xl_history(torch, setup, failures):
                          hold_bf16_scalars=False)
     rep.update(timed_steps(torch, setup, failures, "MTAM", want, hops,
                            steps=5, warm=2))
+    rep.update(steps_in_turns(torch, setup, failures, "MTAM", want,
+                              steps=5, warm=2))
     report["training"]["MTAM"] = rep
     for name, mode in (("SASrec", "plain_drop"),
                        ("Ti_Self_Attention_Model", "tisas_drop")):
@@ -2674,8 +2810,12 @@ def kernels_line(entries, launches_by_shape):
             # the tiled designs' rows: the SIMT design's time on the
             # same inputs in the same run; dtable's: the profiler's device
             # time per call of the kernel and of index_add_
+            # gru_scan_bwd's: the four-product design's time on the same
+            # inputs in the same run, and the default design's device time
+            # by kernel
             **{k: head[k] for k in ("simt_ms", "device_ms",
-                                    "library_device_ms") if k in head},
+                                    "library_device_ms", "four_product_ms",
+                                    "passes_ms") if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
         })
@@ -2804,11 +2944,17 @@ def main() -> int:
     _add_launches(mtam_launches, train_launches)
     main_launches = copy.deepcopy(mtam_launches)
     _add_launches(main_launches, sa_launches)
+    # the GRU pair's @L2048 entries count MTAM's launches at L=2048
+    # (phase 7's serving and training, under "L2048Tq1")
+    l2048 = {**xl_launches["L2048"],
+             **{k: xl_launches["L2048Tq1"].get(k, {})
+                for k in ("gru_scan", "gru_scan_bwd")}}
     report = kernels_line(entries, {None: main_launches,
                                     "Tq1": mtam_launches,
                                     "Tq50": sa_launches,
                                     "L50": train_launches,
-                                    "L512": long_launches, **xl_launches})
+                                    "L512": long_launches, **xl_launches,
+                                    "L2048": l2048})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s, **report,

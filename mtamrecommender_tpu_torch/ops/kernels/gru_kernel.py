@@ -26,6 +26,10 @@ from mtamrecommender_tpu_torch.ops.kernels import build
 MODES = ("plain", "tseqrec", "tgru")
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232_448   # dynamic shared memory a block may opt into
+# the backward's designs: the default first; "four_product", the earlier,
+# launched only when forced (see `_launch_bwd`)
+BWD_DESIGNS = ("two_product", "four_product")
+BWD_MAX_U = 128            # the two-product chain runs 4u threads a block
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}
@@ -175,17 +179,34 @@ def gru_scan_bwd(mode: str, g, outs, gate_x, cand_x, e1, e2, lengths, h0,
     return _launch_bwd(mode, g, outs, *args)
 
 
-def _launch_bwd(mode, g, outs, *args):
+def _launch_bwd(mode, g, outs, *args, _design=BWD_DESIGNS[0]):
+    """Launch the backward in the two-product design (a recompute pass
+    over every (b, t) row, then the reverse chain with two products a
+    step).  ``_design="four_product"`` forces the earlier design, four
+    dependent products a step (chip_smoke.py holds and times it beside the
+    default); the main path never passes it.  A failed launch raises:
+    there is no fallback."""
+    if _design not in BWD_DESIGNS:
+        raise ValueError(f"gru_scan_bwd: design {_design!r} is not one of "
+                         f"{BWD_DESIGNS}")
+    design = BWD_DESIGNS.index(_design)
+    # the kernel copies g, outs, e1, e2, w_gate_h and w_cand_h in 16-byte
+    # pieces: a view that starts off that alignment is copied first
+    g, outs = _aligned16(g), _aligned16(outs)
+    args = tuple(_aligned16(t) if i in (2, 3, 6, 7) else t
+                 for i, t in enumerate(args))
     gate_x = args[0]
     device, stream = build.launch_context((g, outs) + args, "gru_scan_bwd")
     b, seq, u2 = gate_x.shape
     u = u2 // 2
+    is_bf16 = int(gate_x.dtype == torch.bfloat16)
     lib = _bwd_library()
-    if u % 32 or not 32 <= u <= 512 \
-            or lib.gru_scan_bwd_smem_bytes(u) > MAX_SMEM_BYTES:
+    if u % 32 or not 32 <= u <= BWD_MAX_U \
+            or lib.gru_scan_bwd_smem_bytes(u, is_bf16, design) \
+            > MAX_SMEM_BYTES:
         raise ValueError(
-            "gru_scan_bwd: the kernel takes u a multiple of 32 in [32, 512] "
-            f"whose padded f32 weights fit in shared memory; got u={u}")
+            f"gru_scan_bwd: the kernel takes u a multiple of 32 in [32, "
+            f"{BWD_MAX_U}] whose weights fit in shared memory; got u={u}")
     f32 = dict(dtype=torch.float32, device=gate_x.device)
     grads = (torch.empty((b, seq, 2 * u), **f32),        # dgx
              torch.empty((b, seq, u), **f32),            # dcx
@@ -197,97 +218,119 @@ def _launch_bwd(mode, g, outs, *args):
              torch.empty((2 * u,), **f32),               # db_g
              torch.empty((u,), **f32),                   # db_c
              torch.empty((4, u), **f32))                 # dvecs
-    ws = torch.empty((lib.gru_scan_bwd_workspace_floats(b, seq, u, device),),
-                     **f32)
+    ws = torch.empty((lib.gru_scan_bwd_workspace_floats(b, seq, u, device,
+                                                        design),), **f32)
     status = lib.gru_scan_bwd_launch(
-        MODES.index(mode), int(gate_x.dtype == torch.bfloat16),
-        g.data_ptr(), outs.data_ptr(), *(t.data_ptr() for t in args),
-        *(t.data_ptr() for t in grads), ws.data_ptr(), b, seq, u, device,
-        stream)
+        MODES.index(mode), is_bf16, design, g.data_ptr(), outs.data_ptr(),
+        *(t.data_ptr() for t in args), *(t.data_ptr() for t in grads),
+        ws.data_ptr(), b, seq, u, device, stream)
     build.check(lib, status, "gru_scan_bwd")
     bwd_launches[mode] += 1
     return grads
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _bwd_library() -> ctypes.CDLL:
     lib = build.library("gru_scan_bwd")
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gru_scan_bwd_launch.argtypes = ([ci, ci] + [vp] * 24
+        lib.gru_scan_bwd_launch.argtypes = ([ci, ci, ci] + [vp] * 24
                                             + [ci, ci, ci, ci, vp])
         lib.gru_scan_bwd_launch.restype = ci
-        lib.gru_scan_bwd_smem_bytes.argtypes = [ci]
+        lib.gru_scan_bwd_smem_bytes.argtypes = [ci, ci, ci]
         lib.gru_scan_bwd_smem_bytes.restype = ctypes.c_longlong
-        lib.gru_scan_bwd_workspace_floats.argtypes = [ci, ci, ci, ci]
+        lib.gru_scan_bwd_workspace_floats.argtypes = [ci, ci, ci, ci, ci]
         lib.gru_scan_bwd_workspace_floats.restype = ctypes.c_longlong
         lib._port_typed = True
     return lib
 
 
+def gru_recompute_plain(gate_x, cand_x, h_prev, w_gate_h, w_cand_h, b_gate,
+                        b_cand):
+    """Every step's gates and candidate at once from the saved states
+    (the kernel's recompute pass): h_prev [B, L, u] f32 is h0 then the
+    outputs shifted by one step.  Returns (r, u, c, r * h_prev), f32
+    [B, L, u] each, with the product operands rounded to the input
+    type."""
+    dt = gate_x.dtype
+    u = cand_x.shape[-1]
+    op = lambda x: x.to(dt).float()  # noqa: E731  (a product operand)
+    gates = torch.sigmoid(gate_x.float() + op(h_prev) @ w_gate_h.float()
+                          + b_gate.float())
+    r, ug = gates[..., :u], gates[..., u:]
+    rh = r * h_prev
+    cand = torch.tanh(cand_x.float() + op(rh) @ w_cand_h.float()
+                      + b_cand.float())
+    return r, ug, cand, rh
+
+
 def gru_scan_bwd_plain(mode: str, g, outs, gate_x, cand_x, e1, e2, lengths,
                        h0, w_gate_h, w_cand_h, b_gate, b_cand, cell_vecs):
-    """Plain PyTorch twin of the backward kernel: `_gru_scan_bwd_kernel`
-    step for step in reverse time, recomputing the gates from the saved
-    outputs, with the product operands rounded to the input type."""
+    """Plain PyTorch twin of the backward kernel, in its three passes:
+    every step's gates and candidate in one batched product from the
+    saved outputs (`gru_recompute_plain`), the reverse loop with the
+    cell-mode head and the two transposed products, then dW_gh and dW_ch
+    as batched products of the rounded operands.  It computes what
+    `_gru_scan_bwd_kernel` computes step by step."""
     dt = gate_x.dtype
     u = cand_x.shape[-1]
     op = lambda x: x.to(dt).float()  # noqa: E731  (a product operand)
     wgh, wch = w_gate_h.float(), w_cand_h.float()
-    bg, bc, vec = b_gate.float(), b_cand.float(), cell_vecs.float()
+    vec = cell_vecs.float()
     outs, g = outs.float(), g.float()
+    h_prev = torch.cat([h0.float()[:, None], outs[:, :-1]], dim=1)
+    r_all, u_all, c_all, rh_all = gru_recompute_plain(
+        gate_x, cand_x, h_prev, w_gate_h, w_cand_h, b_gate, b_cand)
     f32 = dict(dtype=torch.float32, device=gate_x.device)
     dgx = torch.zeros(gate_x.shape, **f32)
     dcx, de1, de2 = (torch.zeros(cand_x.shape, **f32) for _ in range(3))
-    dwgh, dwch = torch.zeros_like(wgh), torch.zeros_like(wch)
-    dbg, dbc, dvec = (torch.zeros_like(bg), torch.zeros_like(bc),
-                      torch.zeros_like(vec))
+    dvec = torch.zeros_like(vec)
     dh = torch.zeros_like(outs[:, 0])
     for t in reversed(range(gate_x.shape[1])):
-        h_prev = h0.float() if t == 0 else outs[:, t - 1]
-        gates = torch.sigmoid(gate_x[:, t].float() + op(h_prev) @ wgh + bg)
-        r, ug = gates[:, :u], gates[:, u:]
-        rh = r * h_prev
-        cand = torch.tanh(cand_x[:, t].float() + op(rh) @ wch + bc)
+        hp, r, ug, cand = h_prev[:, t], r_all[:, t], u_all[:, t], c_all[:, t]
         alive = (t < lengths)[:, None]
         d_new = torch.where(alive, g[:, t] + dh, torch.zeros_like(dh))
         if mode == "plain":
-            du = d_new * (h_prev - cand)
+            du = d_new * (hp - cand)
             dh_next = d_new * ug
             dc = d_new * (1.0 - ug)
         elif mode == "tseqrec":
             e1t, e2t = e1[:, t].float(), e2[:, t].float()
-            du = d_new * (h_prev * e1t - cand * e2t)
+            du = d_new * (hp * e1t - cand * e2t)
             dh_next = d_new * ug * e1t
             dc = d_new * (1.0 - ug) * e2t
-            de1[:, t] = d_new * ug * h_prev
+            de1[:, t] = d_new * ug * hp
             de2[:, t] = d_new * (1.0 - ug) * cand
         else:
             e1t, e2t = e1[:, t].float(), e2[:, t].float()
-            pre = e1t + h_prev * vec[0]
+            pre = e1t + hp * vec[0]
             w = torch.relu(pre)
             ts = torch.sigmoid(vec[1] * w + vec[2] * e2t + vec[3])
-            du = d_new * (h_prev - cand * ts)
+            du = d_new * (hp - cand * ts)
             dc = d_new * (1.0 - ug) * ts
             dz = d_new * (1.0 - ug) * cand * ts * (1.0 - ts)
             dwm = dz * vec[1] * (pre > 0.0).float()
             de1[:, t] = dwm
             de2[:, t] = dz * vec[2]
             dh_next = d_new * ug + dwm * vec[0]
-            dvec += torch.stack([(dwm * h_prev).sum(0), (dz * w).sum(0),
+            dvec += torch.stack([(dwm * hp).sum(0), (dz * w).sum(0),
                                  (dz * e2t).sum(0), dz.sum(0)])
         dac = dc * (1.0 - cand * cand)
         dcx[:, t] = dac
-        dbc += dac.sum(0)
         d_rh = op(dac) @ wch.T
-        dwch += op(rh).T @ op(dac)
         dh_next = dh_next + d_rh * r
-        dgates = torch.cat([d_rh * h_prev, du], dim=1) * gates * (1.0 - gates)
+        gates = torch.cat([r, ug], dim=1)
+        dgates = torch.cat([d_rh * hp, du], dim=1) * gates * (1.0 - gates)
         dgx[:, t] = dgates
-        dbg += dgates.sum(0)
         dh_next = dh_next + op(dgates) @ wgh.T
-        dwgh += op(h_prev).T @ op(dgates)
         dh = torch.where(alive, dh_next, dh)
-    return dgx, dcx, de1, de2, dh, dwgh, dwch, dbg, dbc, dvec
+    dwgh = op(h_prev).flatten(0, 1).T @ op(dgx).flatten(0, 1)
+    dwch = op(rh_all).flatten(0, 1).T @ op(dcx).flatten(0, 1)
+    return (dgx, dcx, de1, de2, dh, dwgh, dwch, dgx.sum((0, 1)),
+            dcx.sum((0, 1)), dvec)
 
 
 class GruScanFunction(torch.autograd.Function):

@@ -221,19 +221,59 @@ def test_gru_scan_bwd_plain_matches_jax_f32(mode):
                                    atol=ATOL_F32, rtol=0, err_msg=name)
 
 
-def test_gru_scan_bwd_plain_matches_jax_bf16():
+@pytest.mark.parametrize("mode", ["plain", "tseqrec", "tgru"])
+def test_gru_scan_bwd_plain_matches_jax_bf16(mode):
     a = _gru_inputs(seed=5)
     g = _cotangent(seed=6)
     jargs = _as_jax(a, jnp.bfloat16)
-    outs = jgk.gru_scan("tgru", *jargs)
-    want = jgk.gru_scan_bwd("tgru", jnp.asarray(g), outs, *jargs)
+    outs = jgk.gru_scan(mode, *jargs)
+    want = jgk.gru_scan_bwd(mode, jnp.asarray(g), outs, *jargs)
     targs = _as_torch(a, torch.bfloat16)
-    got = tgk.gru_scan_bwd("tgru", torch.tensor(g),
-                           tgk.gru_scan("tgru", *targs), *targs)
+    got = tgk.gru_scan_bwd(mode, torch.tensor(g),
+                           tgk.gru_scan(mode, *targs), *targs)
     for i, name in enumerate(GRAD_NAMES):
         w = np.asarray(want[i], np.float32)
         err = np.abs(got[i].numpy() - w).max()
         assert err <= REL_BWD_BF16 * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("mode", ["plain", "tseqrec", "tgru"])
+def test_gru_recompute_plain_reproduces_jax_forward(mode):
+    # the backward's recompute pass: every step's gates and candidate from
+    # h0 and the JAX kernel's saved outputs give back those outputs
+    a = _gru_inputs(seed=11)
+    outs = np.asarray(jgk.gru_scan(mode, *_as_jax(a, jnp.float32)))
+    t = dict(zip(GRU_ORDER, _as_torch(a, torch.float32)))
+    h_prev = torch.cat([t["h0"][:, None], torch.tensor(outs[:, :-1])], 1)
+    r, ug, cand, rh = tgk.gru_recompute_plain(
+        t["gate_x"], t["cand_x"], h_prev, t["w_gate_h"], t["w_cand_h"],
+        t["b_gate"], t["b_cand"])
+    np.testing.assert_allclose(rh.numpy(), (r * h_prev).numpy(), rtol=0,
+                               atol=0)
+    vec = t["cell_vecs"]
+    if mode == "plain":
+        new_h = ug * h_prev + (1 - ug) * cand
+    elif mode == "tseqrec":
+        new_h = ug * h_prev * t["e1"] + (1 - ug) * cand * t["e2"]
+    else:
+        weight = torch.relu(t["e1"] + h_prev * vec[0])
+        ts = torch.sigmoid(vec[1] * weight + vec[2] * t["e2"] + vec[3])
+        new_h = ug * h_prev + (1 - ug) * cand * ts
+    alive = (torch.arange(L)[None, :] < t["lengths"][:, None]).numpy()
+    np.testing.assert_allclose(new_h.numpy()[alive], outs[alive],
+                               atol=ATOL_F32, rtol=0)
+
+
+def test_gru_scan_bwd_design_is_checked_before_any_launch(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("an unknown design reached the CUDA build")
+    monkeypatch.setattr(build, "library", refuse)
+    targs = _as_torch(_gru_inputs(), torch.float32)
+    outs = tgk.gru_scan("tgru", *targs)
+    with pytest.raises(ValueError, match="design"):
+        tgk._launch_bwd("tgru", torch.tensor(_cotangent()), outs, *targs,
+                        _design="simt")
+    assert tgk.BWD_DESIGNS[0] == "two_product"   # the default
 
 
 def test_gru_scan_vjp_casts_cotangents_to_input_types():
