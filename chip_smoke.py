@@ -7,13 +7,18 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. card and build: the nvidia-smi name and power limit, then every
-     kernel built from csrc/ (one nvcc per source, all at once);
+     kernel built from csrc/ (one nvcc per source, all at once), and the
+     registers and spill bytes ptxas gives gru_scan_kernel's
+     instantiations (those at u=128 printed);
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
      B=256, the kernel's time, the twin's time, the least time the card
      could take (bound) and, where one PyTorch call computes the same
-     function, that call's time;
+     function, that call's time; gru_scan in each mode in its default
+     "sliced" design, the same bits twice, with the earlier "unit_column"
+     design forced and held beside it and timed on the same inputs in
+     turns (default, unit_column, unit_column, default);
   2b. the training step's kernels the same way: gru_scan_bwd in each
      mode at B = 1, 16, 256 (ragged lengths, a row of length 0), the
      same bits twice, with the earlier four-product design forced and held
@@ -42,7 +47,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      with no live key, one masked query) and at the slice's B=64, L=512
      with every key live, where two backward launches must give the same
      bits and both are timed; gru_scan and gru_scan_bwd at B=64, L=512
-     (the backward as in phase 2b);
+     (the forward as in phase 2, the backward as in phase 2b);
      dtable on phase 6's four tables with the ids of its first batch, as
      in phase 2b;
   2f. the chain readout's kernels the same way: readout_chain and
@@ -88,7 +93,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      in bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1
      fused_readout, 1 fused_readout_bwd, 0 fused_attention launches a
      step), then timed in turns with gru_scan_bwd forced to the earlier
-     four-product design (default, four, four, default), and
+     four-product design (default, four, four, default) and then with
+     gru_scan forced to the unit_column design (default, unit_column,
+     unit_column, default), and
      Recommender.recommend at L=512 for B = 1, 16, 64 in bf16 and f32
      against the CPU (1 gru_scan + 1 fused_readout a call);
   2e. (run after 2d) past 1024 keys: gru_scan and gru_scan_bwd (tgru)
@@ -116,12 +123,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      tensor-core design (fused_attention_blockwise_mma) in bf16, the
      register-tiled design (fused_attention_blockwise_regtile) in f32),
      scores against the CPU
-     at B = 2 (the CPU's time at L=2048 sets that size);
+     at B = 2 (the CPU's time at L=2048 sets that size); MTAM's scoring
+     call at B = 64 timed in turns with gru_scan forced to the unit_column
+     design (default, unit_column, unit_column, default);
      Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
      (in bf16 the scalar gates' gradients reported, not held), timed at
      B = 64 in bf16 and f32 with its peak memory, MTAM's also in turns
      with gru_scan_bwd forced to the earlier four-product design (default,
-     four, four, default; Time_Aware_SA: 3
+     four, four, default) and with gru_scan forced to the unit_column
+     design (Time_Aware_SA: 3
      blockwise[time] (mma in bf16, regtile in f32) + 3 dense_bwd[time] +
      4 dtable a step, no
      fused_attention_bwd; MTAM: 1 gru_scan + 1 gru_scan_bwd + 4 dtable,
@@ -140,7 +150,8 @@ kernels at B=64, L=2048 and
 dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
 entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
 "four_product_ms", the four-product design on the same inputs, and "passes_ms",
-the default design's device time by kernel), the blockwise kernel's
+the default design's device time by kernel, gru_scan's "unit_column_ms",
+the unit_column design on the same inputs), the blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
 the SIMT design's time on the same inputs beside it ("simt_ms"), the
@@ -152,6 +163,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -345,6 +357,34 @@ class Timer:
         return seconds / iters * 1e3
 
 
+def ptxas_counts(log, kernel):
+    """(instantiation, registers, spill store bytes, spill load bytes)
+    for each instantiation of ``kernel`` in an nvcc -Xptxas -v log, its
+    template arguments read from the mangled name (``f`` is float,
+    ``13__nv_bfloat16`` bf16, then the integer arguments)."""
+    rows, name, spill = [], None, None
+    for ln in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", ln)
+        if found:
+            name, spill = found.group(1), None
+            continue
+        if name is None or f"{len(kernel)}{kernel}I" not in name:
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        if found:
+            spill = (int(found.group(1)), int(found.group(2)))
+        found = re.search(r"Used (\d+) registers", ln)
+        if found:
+            args = name.split(f"{len(kernel)}{kernel}I", 1)[1]
+            dtype = "bf16" if args.startswith("13__nv_bfloat16") else "f32"
+            ints = re.findall(r"Li(\d+)E", args.split("EEv", 1)[0])
+            rows.append((f"{kernel}<{', '.join([dtype] + ints)}>",
+                         int(found.group(1)), *(spill or (None, None))))
+            name = None
+    return rows
+
+
 def rel_err(got, want):
     diff = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
@@ -383,6 +423,37 @@ def gru_bound(mode, args, dtype_name):
               + 7 * u * es + B * L * u * 4)
     flops = steps * 2 * u * 3 * u
     return _bound(nbytes, flops, dtype_name)
+
+
+def check_gru_fwd(torch, gk, mode, args, dname):
+    """gru_scan on the card against its twin: the default design (two
+    launches, the same bits twice) and the earlier unit_column design forced,
+    each within KERNEL_TOL, every output past a row's length exactly 0.
+    Returns (max |diff|, max rel, ok, same bits twice, the forced design's
+    max rel)."""
+    want = gk.gru_scan_plain(mode, *args)
+    got = gk.gru_scan(mode, *args)
+    again = gk.gru_scan(mode, *args)
+    column = gk._launch(mode, *args, _design="unit_column")
+    dead = torch.arange(args[0].shape[1], device=DEVICE)[None, :] \
+        >= args[4][:, None]
+    err, rel, ok = _agree(got, want, dname, dead)
+    _, column_rel, column_ok = _agree(column, want, dname, dead)
+    same = torch.equal(got, again)
+    return err, rel, ok and column_ok and same, same, column_rel
+
+
+def time_gru_fwd(timer, gk, mode, args, iters):
+    """The default design and the unit_column design on the same inputs,
+    in turns (default, unit_column, unit_column, default)."""
+    run = lambda: gk.gru_scan(mode, *args)  # noqa: E731
+    column = lambda: gk._launch(  # noqa: E731
+        mode, *args, _design="unit_column")
+    a, b1, b2, a2 = (timer(run, iters), timer(column, iters),
+                     timer(column, iters), timer(run, iters))
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "unit_column_ms": (b1 + b2) / 2,
+            "unit_column_ms_repeats": [b1, b2]}
 
 
 def att_inputs(torch, gen, dtype, B=256, Tq=1, Tk=50, d=128):
@@ -511,29 +582,32 @@ def check_kernels(torch, timer, iters, failures):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for mode in gk.MODES:
-            err = rel = 0.0
-            ok = True
+            err = rel = column_rel = 0.0
+            ok = same = True
             for bs in (1, 16, 256):
                 args = gru_inputs(torch, gen, mode, dtype, B=bs)
-                got = gk.gru_scan(mode, *args)
-                want = gk.gru_scan_plain(mode, *args)
-                dead = torch.arange(args[0].shape[1], device=DEVICE)[None, :] \
-                    >= args[4][:, None]
-                e, r, o = _agree(got, want, dname, dead)
-                err, rel, ok = max(err, e), max(rel, r), ok and o
+                e, r, o, sm, cr = check_gru_fwd(torch, gk, mode, args, dname)
+                err, rel, column_rel = (max(err, e), max(rel, r),
+                                        max(column_rel, cr))
+                ok, same = ok and o, same and sm
             row = {"max_abs_err": err, "rel_err": rel,
-                   "tol": KERNEL_TOL[dname], "ok": ok,
-                   "ms": timer(lambda: gk.gru_scan(mode, *args), iters),
+                   "unit_column_rel_err": column_rel,
+                   "same_bits_twice": same, "tol": KERNEL_TOL[dname],
+                   "ok": ok, **time_gru_fwd(timer, gk, mode, args, iters),
                    "plain_ms": timer(lambda: gk.gru_scan_plain(mode, *args),
                                      max(iters // 10, 3)),
                    **gru_bound(mode, args, dname)}
             entries.setdefault(("gru_scan", mode, None), {})[dname] = row
             print(f"gru_scan {mode:8s} {dname:9s} max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} ms={row['ms']:.4f} plain_ms="
+                  f"rel={rel:.3e} (unit_column {column_rel:.3e}) same_bits="
+                  f"{same} ms={row['ms']:.4f} unit_column_ms="
+                  f"{row['unit_column_ms']:.4f} plain_ms="
                   f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                   f"({row['bound_by']}) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                failures.append(f"gru_scan {mode} {dname}: rel err {rel:.3e}")
+                failures.append(f"gru_scan {mode} {dname}: rel err {rel:.3e}, "
+                                f"unit_column {column_rel:.3e}, same bits "
+                                f"{same}")
         for mode in SERVING_MODES:
             for tk in (50, 1024):
                 err = rel = 0.0
@@ -1182,10 +1256,10 @@ def readout_bwd_bound(args, dtype_name):
 def check_gru_long(torch, timer, gen, dtype, L, iters, plain_iters,
                    failures):
     """gru_scan and gru_scan_bwd (tgru) at B=64 and length L, every row
-    full: each against its twin once (the backward's two designs as
-    check_gru_bwd holds them), the kernels timed over ``iters`` calls (the
-    backward's two designs in turns) and the twins over ``plain_iters``
-    calls after the checking call (0: not timed)."""
+    full: each against its twin once (each kernel's two designs as
+    check_gru_fwd and check_gru_bwd hold them), the kernels timed over
+    ``iters`` calls (each kernel's two designs in turns) and the twins over
+    ``plain_iters`` calls after the checking call (0: not timed)."""
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
 
     dname = str(dtype).replace("torch.", "")
@@ -1195,13 +1269,16 @@ def check_gru_long(torch, timer, gen, dtype, L, iters, plain_iters,
         outs = gk.gru_scan("tgru", *args)
     g = torch.randn(outs.shape, generator=gen, device=DEVICE)
     t0 = time.perf_counter()
-    err, rel, ok = _agree(outs, gk.gru_scan_plain("tgru", *args), dname)
+    err, rel, ok, same, column_rel = check_gru_fwd(torch, gk, "tgru", args,
+                                                   dname)
     fwd_check_s = time.perf_counter() - t0
     plain = lambda fn: (timer(fn, plain_iters, warmup=0)  # noqa: E731
                         if plain_iters else "not timed")
     rows = {"gru_scan": {
-        "max_abs_err": err, "rel_err": rel, "tol": KERNEL_TOL[dname],
-        "ok": ok, "ms": timer(lambda: gk.gru_scan("tgru", *args), iters),
+        "max_abs_err": err, "rel_err": rel,
+        "unit_column_rel_err": column_rel, "same_bits_twice": same,
+        "tol": KERNEL_TOL[dname], "ok": ok,
+        **time_gru_fwd(timer, gk, "tgru", args, iters),
         "plain_ms": plain(lambda: gk.gru_scan_plain("tgru", *args)),
         "plain_check_s": fwd_check_s, **gru_bound("tgru", args, dname)}}
     t0 = time.perf_counter()
@@ -1221,13 +1298,15 @@ def check_gru_long(torch, timer, gen, dtype, L, iters, plain_iters,
         print(f"{kname} tgru B=64 L={L} {dname:9s} max_abs_err="
               f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
               f"{row['ms']:.4f} ({row['ms'] / L * 1e3:.3f} us a step) "
+              f"unit_column_ms={row.get('unit_column_ms')} "
               f"four_product_ms={row.get('four_product_ms')} plain_ms="
               f"{plain_ms} bound_ms={row['bound_ms']:.4f} "
               f"({row['bound_by']}) passes={row.get('passes_ms')} "
               f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
         if not row["ok"]:
             failures.append(f"{kname} tgru L={L} {dname}: rel err "
-                            f"{row['rel_err']:.3e}, four_product "
+                            f"{row['rel_err']:.3e}, unit_column "
+                            f"{row.get('unit_column_rel_err')}, four_product "
                             f"{row.get('four_product_rel_err')}, same bits "
                             f"{row.get('same_bits_twice')}")
     return rows
@@ -1719,29 +1798,47 @@ def timed_steps(torch, setup, failures, name, want, main_launches,
     return report
 
 
-def steps_in_turns(torch, setup, failures, name, want, **kw):
-    """After the main path's timed steps (the default design), the same
-    timed steps with gru_scan_bwd forced to the four-product design
-    twice, then the default design once more, on the same data: turns of
-    default, four, four, default, so that the host's drift shows.  The
-    forced design is this script's comparison; the main path never forces
-    it.  These runs' launches are not added to the main path's."""
+# a GRU kernel's earlier design, forced for comparison: the report key,
+# the launch function of gru_kernel that takes ``_design``, and the design
+EARLIER_GRU = {"gru_scan_bwd": ("steps_in_turns", "_launch_bwd",
+                                "four_product"),
+               "gru_scan": ("fwd_steps_in_turns", "_launch", "unit_column")}
+
+
+@contextlib.contextmanager
+def forced_design(kernel):
+    """Within the block, every launch of ``kernel`` (a key of
+    EARLIER_GRU) takes its earlier design; the main path never does."""
     import functools
 
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
 
-    launch = gk._launch_bwd
-    runs = {"four_product": [], "default_again": []}
-    for design in ("four_product", "four_product", "default_again"):
-        if design == "four_product":
-            gk._launch_bwd = functools.partial(launch, _design=design)
-        print(f"train {name}: gru_scan_bwd {design}", flush=True)
-        try:
-            runs[design].append(timed_steps(torch, setup, failures, name,
-                                            want, {}, **kw))
-        finally:
-            gk._launch_bwd = launch
-    return {"steps_in_turns": runs}
+    _, attr, design = EARLIER_GRU[kernel]
+    launch = getattr(gk, attr)
+    setattr(gk, attr, functools.partial(launch, _design=design))
+    try:
+        yield
+    finally:
+        setattr(gk, attr, launch)
+
+
+def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
+                   **kw):
+    """After the main path's timed steps (the default designs), the same
+    timed steps with ``kernel`` forced to its earlier design (EARLIER_GRU)
+    twice, then the default design once more, on the same data: turns of
+    default, earlier, earlier, default, so that the host's drift shows.
+    The forced design is this script's comparison; the main path never
+    forces it.  These runs' launches are not added to the main path's."""
+    key, _, design = EARLIER_GRU[kernel]
+    runs = {design: [], "default_again": []}
+    for turn in (design, design, "default_again"):
+        print(f"train {name}: {kernel} {turn}", flush=True)
+        with (forced_design(kernel) if turn == design
+              else contextlib.nullcontext()):
+            runs[turn].append(timed_steps(torch, setup, failures, name, want,
+                                          {}, **kw))
+    return {key: runs}
 
 
 UNMODED = ("dtable", "gather", "scatter_add", "fused_readout",
@@ -2108,6 +2205,8 @@ def run_long_history(torch, setup, failures):
     report.update(timed_steps(torch, setup, failures, "MTAM", want,
                               launches))
     report.update(steps_in_turns(torch, setup, failures, "MTAM", want))
+    report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
+                                 kernel="gru_scan"))
     want_call = _want_counts(0)
     want_call["gru_scan"]["tgru"] = 1
     want_call["fused_readout"]["fused_readout"] = 1
@@ -2649,6 +2748,44 @@ def serve_xl(torch, failures, setup, name, want, main_launches):
     return rows
 
 
+def score_in_turns(torch, setup, name="MTAM"):
+    """``name``'s scoring call at L=2048 and B=XL_BATCH (serve_xl's
+    largest request batch, an empty history in it) in bf16 and f32, timed
+    in turns with gru_scan forced to the unit_column design (default,
+    unit_column, unit_column, default): CUDA events over 5 calls and the
+    profiler's device time of one.  Not a main-path run: its launches are
+    not counted."""
+    from mtamrecommender_tpu_torch.serve import Recommender
+
+    meta = setup.meta
+    hists, req = make_histories(np.random.RandomState(XL_BATCH), XL_BATCH,
+                                meta.item_count, meta.category_count,
+                                meta.max_seq_len)
+    hists[1] = []
+    fetch = min(50 + meta.max_seq_len, meta.item_vocab)
+    rows = {}
+    for dname in ("bfloat16", "float32"):
+        cfg = setup.cfg(dname, name)
+        rec = Recommender(cfg, meta, setup.model(torch, cfg, DEVICE),
+                          device=DEVICE)
+        batch = rec.batch_from_histories(hists, req)
+        score = lambda: rec._score_impl(batch, fetch)  # noqa: E731
+        rows[dname] = []
+        for turn in ("default", "unit_column", "unit_column", "default"):
+            with (forced_design("gru_scan") if turn == "unit_column"
+                  else contextlib.nullcontext()):
+                ms = _event_ms(torch, score, 5)
+                busy = _device_busy(torch, score)["device_busy_ms"]
+            rows[dname].append({"gru_scan": turn, "score_topk_ms": ms,
+                                "device_busy_ms": busy})
+        print(f"serve {name} L={XL_L} {dname:9s} B={XL_BATCH} in turns "
+              f"(gru_scan default, unit_column, unit_column, default): "
+              f"score_topk_ms={[r['score_topk_ms'] for r in rows[dname]]} "
+              f"device_busy_ms={[r['device_busy_ms'] for r in rows[dname]]}",
+              flush=True)
+    return rows
+
+
 def check_gather_seam(torch, setup, failures, main_launches):
     """behavior_embedding(gather=embedding_kernel.gather) forward and
     backward on the cell's first batch (B=64, f32) against its default
@@ -2725,6 +2862,7 @@ def run_xl_history(torch, setup, failures):
         report["serving"][name] = serve_xl(
             torch, failures, setup, name, want,
             hops if name == "MTAM" else blocks)
+    report["mtam_serving_in_turns"] = score_in_turns(torch, setup)
     name = "Time_Aware_Self_Attention_Model"
 
     def want(steps, dname):
@@ -2746,6 +2884,8 @@ def run_xl_history(torch, setup, failures):
                            steps=5, warm=2))
     rep.update(steps_in_turns(torch, setup, failures, "MTAM", want,
                               steps=5, warm=2))
+    rep.update(steps_in_turns(torch, setup, failures, "MTAM", want,
+                              kernel="gru_scan", steps=5, warm=2))
     report["training"]["MTAM"] = rep
     for name, mode in (("SASrec", "plain_drop"),
                        ("Ti_Self_Attention_Model", "tisas_drop")):
@@ -2812,10 +2952,12 @@ def kernels_line(entries, launches_by_shape):
             # time per call of the kernel and of index_add_
             # gru_scan_bwd's: the four-product design's time on the same
             # inputs in the same run, and the default design's device time
-            # by kernel
+            # by kernel; gru_scan's: the unit_column design's time on the
+            # same inputs in the same run
             **{k: head[k] for k in ("simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
-                                    "passes_ms") if k in head},
+                                    "passes_ms", "unit_column_ms")
+               if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
         })
@@ -2850,6 +2992,18 @@ def main() -> int:
         for ln in ptxas:
             print(f"  {ln}", flush=True)
     print(f"build wall {build_s:.1f} s", flush=True)
+    # gru_scan_kernel's instantiations <type, mode, rows a block, u>
+    log = built["gru_scan"]["log"]
+    if log == "already built":
+        log = build.library_path("gru_scan").with_suffix(".log").read_text()
+    gru_ptxas = ptxas_counts(log, "gru_scan_kernel")
+    print(f"ptxas gru_scan_kernel: {len(gru_ptxas)} instantiations, most "
+          f"spill store bytes {max((r[2] for r in gru_ptxas), default=None)}"
+          "; at u=128:", flush=True)
+    for inst, regs, spill_st, spill_ld in gru_ptxas:
+        if inst.endswith(", 128>"):
+            print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+                  f"stores, {spill_ld} bytes spill loads", flush=True)
 
     # phase 2: kernels against their plain twins
     timer = Timer(torch)
@@ -2957,7 +3111,8 @@ def main() -> int:
                                     "L2048": l2048})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"nvidia_smi": smi, "build_s": build_s, **report,
+        json.dump({"nvidia_smi": smi, "build_s": build_s,
+                   "gru_scan_kernel_ptxas": gru_ptxas, **report,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,
                    "launches_training": {k: {str(m): n for m, n in v.items()}

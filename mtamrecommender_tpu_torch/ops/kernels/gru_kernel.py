@@ -26,6 +26,12 @@ from mtamrecommender_tpu_torch.ops.kernels import build
 MODES = ("plain", "tseqrec", "tgru")
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232_448   # dynamic shared memory a block may opt into
+# the forward's designs: "sliced" (4u threads, each product's k in four
+# slices) for u a multiple of 32 up to FWD_SLICED_MAX_U, the default;
+# "unit_column" (the earlier, u threads) for the wider widths, and forced
+# for comparison only (see `_launch`)
+FWD_DESIGNS = ("sliced", "unit_column")
+FWD_SLICED_MAX_U = 128
 # the backward's designs: the default first; "four_product", the earlier,
 # launched only when forced (see `_launch_bwd`)
 BWD_DESIGNS = ("two_product", "four_product")
@@ -81,23 +87,47 @@ def gru_scan(mode: str, gate_x, cand_x, e1, e2, lengths, h0,
     return _launch(mode, *args)
 
 
+def fwd_design(u: int) -> str:
+    """The forward's design for width u, decided before the launch:
+    "sliced" for u a multiple of 32 up to FWD_SLICED_MAX_U (every preset),
+    "unit_column" for the wider widths the kernel takes (u up to 160 in
+    bf16, whose weights fit in shared memory)."""
+    return ("sliced" if u % 32 == 0 and 32 <= u <= FWD_SLICED_MAX_U
+            else "unit_column")
+
+
 def _launch(mode, gate_x, cand_x, e1, e2, lengths, h0, w_gate_h, w_cand_h,
-            b_gate, b_cand, cell_vecs) -> torch.Tensor:
-    args = (gate_x, cand_x, e1, e2, lengths, h0, w_gate_h, w_cand_h,
-            b_gate, b_cand, cell_vecs)
-    device, stream = build.launch_context(args, "gru_scan")
+            b_gate, b_cand, cell_vecs, _design=None) -> torch.Tensor:
+    """Launch the forward in the design `fwd_design` picks for its width.
+    ``_design="unit_column"`` forces the earlier design (chip_smoke.py
+    holds and times it beside the default); the main path never passes
+    it.  A failed launch raises: there is no fallback."""
+    if _design is not None and _design not in FWD_DESIGNS:
+        raise ValueError(f"gru_scan: design {_design!r} is not one of "
+                         f"{FWD_DESIGNS}")
     b, seq, u2 = gate_x.shape
     u = u2 // 2
+    design = fwd_design(u) if _design is None else _design
+    if design == "sliced" and fwd_design(u) != "sliced":
+        raise ValueError(f"gru_scan: the sliced design takes u a multiple "
+                         f"of 32 up to {FWD_SLICED_MAX_U}; got u={u}")
+    # the sliced design copies gx, cx, e1 and e2 in 16-byte pieces: a view
+    # that starts off that alignment is copied first
+    args = (_aligned16(gate_x), _aligned16(cand_x), _aligned16(e1),
+            _aligned16(e2), lengths, h0, w_gate_h, w_cand_h, b_gate, b_cand,
+            cell_vecs)
+    device, stream = build.launch_context(args, "gru_scan")
     is_bf16 = int(gate_x.dtype == torch.bfloat16)
     lib = _library()
+    code = FWD_DESIGNS.index(design)
     if u % 32 or not 32 <= u <= 512 \
-            or lib.gru_scan_smem_bytes(u, is_bf16) > MAX_SMEM_BYTES:
+            or lib.gru_scan_smem_bytes(u, is_bf16, code) > MAX_SMEM_BYTES:
         raise ValueError(
             f"gru_scan: the kernel takes u a multiple of 32 in [32, 512] "
             f"whose weights fit in shared memory; got u={u} in {gate_x.dtype}")
     out = torch.empty((b, seq, u), dtype=torch.float32, device=gate_x.device)
     status = lib.gru_scan_launch(
-        MODES.index(mode), is_bf16, *(t.data_ptr() for t in args),
+        MODES.index(mode), is_bf16, code, *(t.data_ptr() for t in args),
         out.data_ptr(), b, seq, u, device, stream)
     build.check(lib, status, "gru_scan")
     launches[mode] += 1
@@ -108,10 +138,10 @@ def _library() -> ctypes.CDLL:
     lib = build.library("gru_scan")
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gru_scan_launch.argtypes = [ci, ci] + [vp] * 12 + [ci, ci, ci,
-                                                             ci, vp]
+        lib.gru_scan_launch.argtypes = [ci, ci, ci] + [vp] * 12 + [ci, ci,
+                                                                 ci, ci, vp]
         lib.gru_scan_launch.restype = ci
-        lib.gru_scan_smem_bytes.argtypes = [ci, ci]
+        lib.gru_scan_smem_bytes.argtypes = [ci, ci, ci]
         lib.gru_scan_smem_bytes.restype = ctypes.c_longlong
         lib._port_typed = True
     return lib
