@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. card and build: the nvidia-smi name and power limit, then every
      kernel built from csrc/ (one nvcc per source, all at once), and the
      registers and spill bytes ptxas gives gru_scan_kernel's
-     instantiations (those at u=128 printed);
+     instantiations (those at u=128 printed) and the four kernels of
+     fused_readout_bwd's "gemm" design;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
@@ -45,8 +46,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 in f32 and
      bf16 (scalar and positional gate rows, ragged key lengths, one row
      with no live key, one masked query) and at the slice's B=64, L=512
-     with every key live, where two backward launches must give the same
-     bits and both are timed; gru_scan and gru_scan_bwd at B=64, L=512
+     with every key live; the backward in its default "gemm" design and
+     with the earlier "rows" design forced, each the same bits twice,
+     timed on the slice's shape in turns (gemm, rows, rows, gemm) with
+     the profiler's split of the gemm design's five launches; gru_scan
+     and gru_scan_bwd at B=64, L=512
      (the forward as in phase 2, the backward as in phase 2b);
      dtable on phase 6's four tables with the ids of its first batch, as
      in phase 2b;
@@ -92,10 +96,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      bf16, five f32 steps against the CPU as in phase 4, the step timed
      in bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1
      fused_readout, 1 fused_readout_bwd, 0 fused_attention launches a
-     step), then timed in turns with gru_scan_bwd forced to the earlier
-     four-product design (default, four, four, default) and then with
+     step), then timed in turns of 10 steps with gru_scan_bwd forced to
+     the earlier four-product design (default, four, four, default), then with
      gru_scan forced to the unit_column design (default, unit_column,
-     unit_column, default), and
+     unit_column, default) and then with fused_readout_bwd forced to the
+     rows design (default, rows, rows, default), and
      Recommender.recommend at L=512 for B = 1, 16, 64 in bf16 and f32
      against the CPU (1 gru_scan + 1 fused_readout a call);
   2e. (run after 2d) past 1024 keys: gru_scan and gru_scan_bwd (tgru)
@@ -151,7 +156,9 @@ dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
 entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
 "four_product_ms", the four-product design on the same inputs, and "passes_ms",
 the default design's device time by kernel, gru_scan's "unit_column_ms",
-the unit_column design on the same inputs), the blockwise kernel's
+the unit_column design on the same inputs, fused_readout_bwd's
+"rows_ms", the rows design on the same inputs, and "passes_ms"), the
+blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
 the SIMT design's time on the same inputs beside it ("simt_ms"), the
@@ -1155,6 +1162,11 @@ def check_attention_training(torch, timer, iters, failures):
 # ------------------------------------------------------------ phase 2d
 
 READOUT_BATCHES, READOUT_KEYS = (1, 16, 64), (256, 512, 1024)
+# the kernels of fused_readout_bwd's "gemm" design, in launch order (the
+# fifth launch is the reduce kernel both designs share)
+READOUT_BWD_GEMM_KERNELS = ("readout_bwd_proj_kernel",
+                            "readout_bwd_chain_kernel",
+                            "readout_bwd_dmem_kernel", "readout_bwd_dw_kernel")
 
 
 def readout_inputs(torch, gen, dtype, B, L, d=128, n=3, gate="scalar",
@@ -1253,6 +1265,43 @@ def readout_bwd_bound(args, dtype_name):
                   dtype_name)
 
 
+def check_readout_bwd(torch, rk, g, args, dname):
+    """fused_readout_bwd on the card against its twin: the default "gemm"
+    design (two launches through the entry point, the same bits twice)
+    and the earlier "rows" design forced (two launches, the same bits
+    twice), all 16 outputs of each within KERNEL_TOL of the twin.
+    Returns (max |diff|, max rel, ok, same bits twice (gemm, rows), the
+    forced design's max rel)."""
+    want = rk.fused_readout_bwd_plain(g, *args)
+    got = rk.fused_readout_bwd(g, *args)
+    again = rk.fused_readout_bwd(g, *args)
+    rows = rk._launch_bwd(g, args, _design="rows")
+    rows_again = rk._launch_bwd(g, args, _design="rows")
+    same = (all(torch.equal(a, b) for a, b in zip(got, again)),
+            all(torch.equal(a, b) for a, b in zip(rows, rows_again)))
+    err = rel = rows_rel = 0.0
+    ok = all(same)
+    for a, r, w in zip(got, rows, want):
+        e, x, o = _agree(a, w, dname)
+        _, rx, ro = _agree(r, w, dname)
+        err, rel, rows_rel = max(err, e), max(rel, x), max(rows_rel, rx)
+        ok = ok and o and ro
+    return err, rel, ok, same, rows_rel
+
+
+def time_readout_bwd(timer, rk, g, args, iters):
+    """The default design and the rows design on the same inputs, in
+    turns (gemm, rows, rows, gemm), and the profiler's split of the
+    default design's device time among its five launches."""
+    run = lambda: rk.fused_readout_bwd(g, *args)  # noqa: E731
+    rows = lambda: rk._launch_bwd(g, args, _design="rows")  # noqa: E731
+    a, b1, b2, a2 = (timer(run, iters), timer(rows, iters),
+                     timer(rows, iters), timer(run, iters))
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "rows_ms": (b1 + b2) / 2, "rows_ms_repeats": [b1, b2],
+            "passes_ms": timer.passes(run)}
+
+
 def check_gru_long(torch, timer, gen, dtype, L, iters, plain_iters,
                    failures):
     """gru_scan and gru_scan_bwd (tgru) at B=64 and length L, every row
@@ -1317,9 +1366,10 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
     and fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 (scalar
     gates at L = 512, positional at the others; ragged keys, one masked
     query), and on the slice's own shape (B=64, L=512, every key live,
-    scalar gates), where two backward launches must give the same bits
-    and both are timed; gru_scan and gru_scan_bwd at B=64, L=512; dtable
-    on the slice's four tables with the ids of its first batch
+    scalar gates); the backward in each case in its "gemm" design and
+    with the "rows" design forced (check_readout_bwd), both timed on the
+    slice's shape in turns; gru_scan and gru_scan_bwd at B=64, L=512;
+    dtable on the slice's four tables with the ids of its first batch
     (``tables``, as check_train_kernels takes them)."""
     from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
     from mtamrecommender_tpu_torch.ops.kernels import readout_kernel as rk
@@ -1329,8 +1379,8 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         fwd = {"err": 0.0, "rel": 0.0, "ok": True}
-        bwd = {"err": 0.0, "rel": 0.0, "ok": True}
-        same = True
+        bwd = {"err": 0.0, "rel": 0.0, "ok": True, "rows_rel": 0.0}
+        same = [True, True]           # the same bits twice: gemm, rows
         cases = [(bs, L, "scalar" if L == LONG_L else "positional", False)
                  for L in READOUT_KEYS for bs in READOUT_BATCHES]
         for bs, L, gate, full in cases + [(LONG_BATCH, LONG_L, "scalar",
@@ -1342,17 +1392,16 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
             fwd = {"err": max(fwd["err"], e), "rel": max(fwd["rel"], r),
                    "ok": fwd["ok"] and o}
             g = torch.randn((bs, 128), generator=gen, device=DEVICE)
-            got = rk.fused_readout_bwd(g, *args)
-            again = rk.fused_readout_bwd(g, *args)
-            want = rk.fused_readout_bwd_plain(g, *args)
-            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
-            for a, b in zip(got, want):
-                e, r, o = _agree(a, b, dname)
-                bwd = {"err": max(bwd["err"], e), "rel": max(bwd["rel"], r),
-                       "ok": bwd["ok"] and o}
+            e, r, o, twice, rows_rel = check_readout_bwd(torch, rk, g, args,
+                                                         dname)
+            same = [same[0] and twice[0], same[1] and twice[1]]
+            bwd = {"err": max(bwd["err"], e), "rel": max(bwd["rel"], r),
+                   "ok": bwd["ok"] and o,
+                   "rows_rel": max(bwd["rows_rel"], rows_rel)}
             print(f"fused_readout(+bwd) B={bs:<3d} L={L:<5d} {gate:10s}"
                   f" {dname:9s} fwd rel={fwd['rel']:.3e} bwd rel="
-                  f"{bwd['rel']:.3e} same_bits={same}", flush=True)
+                  f"{r:.3e} (rows {rows_rel:.3e}) same_bits gemm/rows="
+                  f"{twice[0]}/{twice[1]}", flush=True)
         # args and g are the slice's shape now
         rows = {
             "fused_readout": {
@@ -1364,9 +1413,10 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
                 **readout_bound(args, dname)},
             "fused_readout_bwd": {
                 "max_abs_err": bwd["err"], "rel_err": bwd["rel"],
-                "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and same,
-                "same_bits_twice": same,
-                "ms": timer(lambda: rk.fused_readout_bwd(g, *args), iters),
+                "rows_rel_err": bwd["rows_rel"],
+                "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and all(same),
+                "same_bits_twice": same[0], "rows_same_bits_twice": same[1],
+                **time_readout_bwd(timer, rk, g, args, iters),
                 "plain_ms": timer(lambda: rk.fused_readout_bwd_plain(
                     g, *args), max(iters // 10, 3)),
                 **readout_bwd_bound(args, dname)}}
@@ -1374,8 +1424,9 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
             entries.setdefault((kname, None, "L512"), {})[dname] = row
             print(f"{kname} B=64 L=512 {dname:9s} max_abs_err="
                   f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
-                  f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms="
-                  f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                  f"{row['ms']:.4f} rows_ms={row.get('rows_ms')} plain_ms="
+                  f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']}) passes={row.get('passes_ms')} "
                   f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
             if not row["ok"]:
                 failures.append(f"{kname} {dname}: rel err {row['rel_err']:.3e}"
@@ -1798,46 +1849,53 @@ def timed_steps(torch, setup, failures, name, want, main_launches,
     return report
 
 
-# a GRU kernel's earlier design, forced for comparison: the report key,
-# the launch function of gru_kernel that takes ``_design``, and the design
-EARLIER_GRU = {"gru_scan_bwd": ("steps_in_turns", "_launch_bwd",
-                                "four_product"),
-               "gru_scan": ("fwd_steps_in_turns", "_launch", "unit_column")}
+# a kernel's earlier design, forced for comparison: the report key, the
+# module of ops/kernels and its launch function that takes ``_design``,
+# and the design
+EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
+                            "four_product"),
+           "gru_scan": ("fwd_steps_in_turns", "gru_kernel", "_launch",
+                        "unit_column"),
+           "fused_readout_bwd": ("readout_bwd_steps_in_turns",
+                                 "readout_kernel", "_launch_bwd", "rows")}
 
 
 @contextlib.contextmanager
 def forced_design(kernel):
-    """Within the block, every launch of ``kernel`` (a key of
-    EARLIER_GRU) takes its earlier design; the main path never does."""
+    """Within the block, every launch of ``kernel`` (a key of EARLIER)
+    takes its earlier design; the main path never does."""
     import functools
+    import importlib
 
-    from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
-
-    _, attr, design = EARLIER_GRU[kernel]
-    launch = getattr(gk, attr)
-    setattr(gk, attr, functools.partial(launch, _design=design))
+    _, module, attr, design = EARLIER[kernel]
+    mod = importlib.import_module(
+        f"mtamrecommender_tpu_torch.ops.kernels.{module}")
+    launch = getattr(mod, attr)
+    setattr(mod, attr, functools.partial(launch, _design=design))
     try:
         yield
     finally:
-        setattr(gk, attr, launch)
+        setattr(mod, attr, launch)
 
 
 def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
                    **kw):
     """After the main path's timed steps (the default designs), the same
-    timed steps with ``kernel`` forced to its earlier design (EARLIER_GRU)
+    timed steps with ``kernel`` forced to its earlier design (EARLIER)
     twice, then the default design once more, on the same data: turns of
     default, earlier, earlier, default, so that the host's drift shows.
     The forced design is this script's comparison; the main path never
     forces it.  These runs' launches are not added to the main path's."""
-    key, _, design = EARLIER_GRU[kernel]
+    key, _, _, design = EARLIER[kernel]
     runs = {design: [], "default_again": []}
+    t0 = time.perf_counter()
     for turn in (design, design, "default_again"):
         print(f"train {name}: {kernel} {turn}", flush=True)
         with (forced_design(kernel) if turn == design
               else contextlib.nullcontext()):
             runs[turn].append(timed_steps(torch, setup, failures, name, want,
                                           {}, **kw))
+    runs["seconds"] = time.perf_counter() - t0
     return {key: runs}
 
 
@@ -2189,9 +2247,10 @@ def run_long_history(torch, setup, failures):
     """Phase 6: MTAM over long histories.  One step's loss and every
     gradient leaf, and five f32 steps, against the CPU; the step timed in
     bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1 fused_readout,
-    1 fused_readout_bwd and no fused_attention launch a step); then
-    Recommender.recommend at B = 1, 16, 64 against the CPU (1 gru_scan +
-    1 fused_readout a call)."""
+    1 fused_readout_bwd and no fused_attention launch a step), then in
+    turns with gru_scan_bwd, gru_scan and fused_readout_bwd each forced to
+    its earlier design; then Recommender.recommend at B = 1, 16, 64
+    against the CPU (1 gru_scan + 1 fused_readout a call)."""
     report = {"ids_in_range": setup.ids_in_range}
     if not all(report["ids_in_range"].values()):
         failures.append("long-history ids out of range: "
@@ -2204,9 +2263,11 @@ def run_long_history(torch, setup, failures):
     launches = {}
     report.update(timed_steps(torch, setup, failures, "MTAM", want,
                               launches))
-    report.update(steps_in_turns(torch, setup, failures, "MTAM", want))
-    report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
-                                 kernel="gru_scan"))
+    # each design forced in turns, 10 steps a turn (the main path's timed
+    # run above takes 20)
+    for kernel in ("gru_scan_bwd", "gru_scan", "fused_readout_bwd"):
+        report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
+                                     kernel=kernel, steps=10))
     want_call = _want_counts(0)
     want_call["gru_scan"]["tgru"] = 1
     want_call["fused_readout"]["fused_readout"] = 1
@@ -2953,10 +3014,12 @@ def kernels_line(entries, launches_by_shape):
             # gru_scan_bwd's: the four-product design's time on the same
             # inputs in the same run, and the default design's device time
             # by kernel; gru_scan's: the unit_column design's time on the
-            # same inputs in the same run
+            # same inputs in the same run; fused_readout_bwd's: the rows
+            # design's time on the same inputs in the same run, and the
+            # gemm design's device time by kernel
             **{k: head[k] for k in ("simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
-                                    "passes_ms", "unit_column_ms")
+                                    "passes_ms", "unit_column_ms", "rows_ms")
                if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
@@ -2976,6 +3039,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     failures = []
+    # wall seconds of each phase (the script has a time limit to keep)
+    phase_s = {}
+    lap_t = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        phase_s[phase] = now - lap_t[0]
+        lap_t[0] = now
 
     # phase 1: card and build
     smi = nvidia_smi_line()
@@ -3004,33 +3075,52 @@ def main() -> int:
         if inst.endswith(", 128>"):
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
+    # fused_readout_bwd's "gemm" design: its four kernels' instantiations
+    # <type(, d)>
+    log = built["fused_readout_bwd"]["log"]
+    if log == "already built":
+        log = build.library_path("fused_readout_bwd").with_suffix(
+            ".log").read_text()
+    readout_ptxas = [row for kname in READOUT_BWD_GEMM_KERNELS
+                     for row in ptxas_counts(log, kname)]
+    print("ptxas fused_readout_bwd, gemm design:", flush=True)
+    for inst, regs, spill_st, spill_ld in readout_ptxas:
+        print(f"  {inst}: {regs} registers, {spill_st} bytes spill stores, "
+              f"{spill_ld} bytes spill loads", flush=True)
+    lap("1")
 
     # phase 2: kernels against their plain twins
     timer = Timer(torch)
     entries = check_kernels(torch, timer, 100, failures)
+    lap("2")
 
     # phase 2b: the training step's kernels, at its shapes and ids
     setup = TrainSetup(torch)
     entries.update(check_train_kernels(torch, timer, 100, failures,
                                        setup.tables))
+    lap("2b")
 
     # phase 2c: the self-attention training kernels
     for key, by_dtype in check_attention_training(torch, timer, 100,
                                                   failures).items():
         entries.setdefault(key, {}).update(by_dtype)
+    lap("2c")
 
     # phase 2d: the long-history kernels, dtable at the long cell's ids
     long_setup = LongSetup(torch)
     entries.update(check_readout_kernels(torch, timer, 100, failures,
                                          long_setup.tables))
+    lap("2d")
 
     # phase 2e: past 1024 keys, the gather / scatter-add pair
     xl_setup = XLSetup(torch)
     entries.update(check_xl_kernels(torch, timer, 100, failures,
                                     xl_setup.tables, setup.tables))
+    lap("2e")
 
     # phase 2f: the chain readout's pair, MTAM's training readout at L=50
     entries.update(check_chain_kernels(torch, timer, 100, failures))
+    lap("2f")
 
     # phase 3: the serving slice
     slice_rows, serve_launches = run_slice(torch, 20, failures)
@@ -3038,6 +3128,7 @@ def main() -> int:
         if serve_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "serving path")
+    lap("3")
 
     # phase 4: the training slice
     training, train_launches = run_training(torch, setup, failures)
@@ -3047,6 +3138,7 @@ def main() -> int:
         if train_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "training path")
+    lap("4")
 
     # phase 5: the self-attention slice
     self_attention, sa_launches = run_self_attention(torch, setup, failures)
@@ -3061,6 +3153,7 @@ def main() -> int:
         if sa_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "self-attention paths")
+    lap("5")
 
     # phase 6: MTAM over long histories
     long_history, long_launches = run_long_history(torch, long_setup,
@@ -3071,6 +3164,7 @@ def main() -> int:
         if long_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "long-history path")
+    lap("6")
 
     # phase 7: past 1024 keys, L=2048
     xl_history, xl_launches = run_xl_history(torch, xl_setup, failures)
@@ -3089,6 +3183,8 @@ def main() -> int:
         if xl_launches[shape].get(kname, {}).get(mode, 0) == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             f"L=2048 path ({shape})")
+    lap("7")
+    print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
     # launches on the main paths: MTAM's at L=50 (phases 3 and 4) run the
     # attention kernels at Tq=1 and the chain pair (phase 4's step), the
@@ -3112,7 +3208,9 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s,
-                   "gru_scan_kernel_ptxas": gru_ptxas, **report,
+                   "gru_scan_kernel_ptxas": gru_ptxas,
+                   "fused_readout_bwd_gemm_ptxas": readout_ptxas,
+                   "phase_s": phase_s, **report,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,
                    "launches_training": {k: {str(m): n for m, n in v.items()}

@@ -25,11 +25,37 @@
 // where x_c is x rounded to the input type T, as the Pallas kernel's
 // .astype(in_dtype) before each product; every product sums in f32.
 //
-// What bounds it: operations, as the forward's (about three times its
-// FLOPs: the replay's projections, dmem's two products, dWk's and dWv's).
+// What bounds it: operations.  Per hop the K and V projections, dmem's
+// two products and dWk's and dWv's are 12 L D^2 FLOPs a row: at B=64,
+// L=512, D=128 and 3 hops, 19.3 GFLOP against some 10 MB of operands.
 //
-// Design (three kernels, no float atomics, so the same inputs give the
-// same bits):
+// Two designs, chosen by the caller; neither uses float atomics, so the
+// same inputs give the same bits.
+//
+// "gemm" (the default).  K_i = relu(mem Wk_i + bk_i) and V_i do not
+// depend on the hop's query, and the cotangents dk_pre and dv_pre feed
+// nothing on the chain from hop to hop (hop i-1's cotangent needs only
+// the residual, du Wt^T and dq_pre Wq^T).  So only O(L D) vector work is
+// left to run row by row, and every [L,D] x [D,D] product becomes one
+// matrix product over all B*L keys on every SM (tile_gemm.cuh: tensor
+// cores in bf16, register-tiled FMA in f32).  Five launches:
+//  1. proj: KV = relu(mem [B*L, D] @ [Wk_0 .. Wk_n-1, Wv_0 .. Wv_n-1] +
+//     bias), M = B*L, N = 2nD, K = D, rounded to T into the workspace
+//     [2, n, B, L, D].
+//  2. chain: one block of 256 threads a row.  It replays the hops' query
+//     chain from K and V (q, u, the scores q.K_l and u.mem_l, gate,
+//     softmax, o, LN), keeping each hop's per-key terms in an f32 cache,
+//     then runs the reverse sweep up to ddec_in and overwrites K and V
+//     with dk_pre and dv_pre rounded to T, zero past the live keys (dk)
+//     and past the reached keys (dv), so the products below need no key
+//     mask.  dpre_tqk [n, B, L] and u [n, B, D] go to f32 workspaces.
+//  3. dmem: dmem [B*L, D] = sum over the 2n planes of dpre_j @ W_j^T (K =
+//     2nD, plane by plane) + sum_i dpre_tqk_i u_i in the epilogue.
+//  4. dw: dW_j = mem^T @ dpre_j for the 2n planes, the B*L keys split in
+//     groups that fill the card; each group's partial is written.
+//  5. reduce: every batch sum, as below.
+//
+// "rows" (the first design, kept for comparison):
 //  1. rows: one block of 256 threads per batch row.  It replays the
 //     forward hops (readout_hop.cuh), keeping each hop's input query in
 //     shared memory and writing each hop's rounded K and V to a workspace
@@ -49,7 +75,10 @@
 //     of outer products, the biases, the gate rows, the LN params) summed
 //     over the rows in order, one thread per output element.
 
+#include <type_traits>
+
 #include "readout_hop.cuh"
+#include "tile_gemm.cuh"
 
 namespace {
 
@@ -67,21 +96,48 @@ constexpr int kMaxJobs = 16;   // batch sums of the reduce kernel (14 used)
 // dq_pre, rounded du, then f32 dq_pre, dbk and dbv partials, g xh, g
 enum { V_DECR = 0, V_DQR, V_DUR, V_DQ, V_DBK, V_DBV, V_LNG, V_LNB, kVecs };
 
+// the designs, in the order of the C interface's `design`
+enum { DESIGN_GEMM = 0, DESIGN_ROWS, kDesigns };
+// the gemm design's per-key f32 cache of the forward replay [kCache, n,
+// B, L]: q . K_l, tqk, decay, sigmoid(gate), the softmax weight
+enum { C_S0 = 0, C_TQK, C_DCY, C_SIG, C_W, kCache };
+// blocks that fill the card: two on each of the H100's 132 SMs
+constexpr int kFillBlocks = 264;
+
 size_t align_up(size_t x) { return (x + 255) & ~(size_t)255; }
 
 int groups(int B) { return B < kGroups ? B : kGroups; }
 
+int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// key groups of the gemm design's dw product (0 when there is no key):
+// enough blocks to fill the card, each group at least 4 slabs of keys
+int gemm_groups(long long M, int D, int n) {
+  if (M <= 0) return 0;
+  const int blocks = 2 * n * cdiv(D, tile::kBM) * cdiv(D, tile::kBN);
+  const int fill = cdiv(kFillBlocks, blocks);
+  const int most = cdiv(M, 4 * tile::kBK);
+  return fill < most ? fill : most;
+}
+
 struct WsLayout {
-  size_t kv, vec, gate, part, total;   // byte offsets
+  size_t kv, vec, gate, part, cache, dpt, u, total;   // byte offsets
+  int G;                                              // groups of part
 };
 
-WsLayout layout(int B, int L, int D, int n, size_t t_size) {
+WsLayout layout(int B, int L, int D, int n, size_t t_size, int design) {
+  const size_t nBL = (size_t)n * B * L, nBD = (size_t)n * B * D;
+  const bool gemm = design == DESIGN_GEMM;
   WsLayout w;
+  w.G = gemm ? gemm_groups((long long)B * L, D, n) : groups(B);
   w.kv = 0;
-  w.vec = align_up(2 * (size_t)n * B * L * D * t_size);
-  w.gate = w.vec + align_up((size_t)kVecs * n * B * D * sizeof(float));
-  w.part = w.gate + align_up(5 * (size_t)n * B * L * sizeof(float));
-  w.total = w.part + align_up((size_t)groups(B) * 2 * n * D * D * sizeof(float));
+  w.vec = align_up(2 * nBL * D * t_size);
+  w.gate = w.vec + align_up((size_t)kVecs * nBD * sizeof(float));
+  w.part = w.gate + align_up(5 * nBL * sizeof(float));
+  w.cache = w.part + align_up((size_t)w.G * 2 * n * D * D * sizeof(float));
+  w.dpt = w.cache + (gemm ? align_up(kCache * nBL * sizeof(float)) : 0);
+  w.u = w.dpt + (gemm ? align_up(nBL * sizeof(float)) : 0);
+  w.total = w.u + (gemm ? align_up(nBD * sizeof(float)) : 0);
   return w;
 }
 
@@ -401,38 +457,590 @@ __global__ void __launch_bounds__(256) readout_bwd_wgrad_kernel(
     }
 }
 
+// ------------------------------------------------------------ design "gemm"
+
+size_t chain_smem_floats(int L, int D, int n) {
+  return 4 * (size_t)L + (5 * (size_t)n + 6) * D;
+}
+
+__device__ __forceinline__ float2 load2(const float* x) {
+  return *reinterpret_cast<const float2*>(x);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
+}
+__device__ __forceinline__ void store2(float* x, float a, float b) {
+  *reinterpret_cast<float2*>(x) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* x, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(x) = __floats2bfloat162_rn(a, b);
+}
+
+// The chain kernel's vector work, the width D a template argument so
+// that every loop over a row's columns unrolls.  Column sums: thread t
+// takes the column pair 2 (t % (D/2)), +1 and every kGroups-th key from
+// t / (D/2); the groups' partials are added in group order.  Loads come in
+// batches of several keys before the arithmetic that uses them.
+template <int D>
+struct Cols {
+  static constexpr int kHalf = D / 2, kGroups = kThreads / kHalf;
+  static_assert(kThreads % kHalf == 0 && kGroups * D == 2 * kThreads,
+                "column pairs tile the block");
+};
+
+// out[s] = column threadIdx.x's total of the pair partials v[s] (for
+// threadIdx.x < D); scratch holds 2 NS kThreads floats
+template <int D, int NS>
+__device__ __forceinline__ void combine_pairs(const float2 (&v)[NS],
+                                              float* scratch,
+                                              float (&out)[NS]) {
+  const int pr = threadIdx.x % Cols<D>::kHalf;
+  const int grp = threadIdx.x / Cols<D>::kHalf;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    scratch[s * 2 * kThreads + grp * D + 2 * pr] = v[s].x;
+    scratch[s * 2 * kThreads + grp * D + 2 * pr + 1] = v[s].y;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    out[s] = 0.f;
+    if (threadIdx.x < D)
+      for (int g = 0; g < Cols<D>::kGroups; ++g)
+        out[s] += scratch[s * 2 * kThreads + g * D + threadIdx.x];
+  }
+  __syncthreads();
+}
+
+// out[s] = sum_{c < nk} coef_s[c] X_s[c, e] for e = threadIdx.x < D and
+// s < NS (coef_1, X_1 only when NS = 2); X_s [nk, D] row-major in global
+// memory.  scratch: 2 NS kThreads floats.
+template <int D, int NS, typename T>
+__device__ __forceinline__ void weighted_sums(const float* coef0,
+                                              const T* X0, const float* coef1,
+                                              const T* X1, int nk,
+                                              float* scratch,
+                                              float (&out)[NS]) {
+  constexpr int U = 8, G = Cols<D>::kGroups;
+  const float* coef[2] = {coef0, coef1};
+  const T* X[2] = {X0, X1};
+  const int e = 2 * (threadIdx.x % Cols<D>::kHalf);
+  float2 acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = make_float2(0.f, 0.f);
+  for (int c = threadIdx.x / Cols<D>::kHalf; c < nk; c += U * G) {
+    float2 v[NS][U];
+    float w[NS][U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int cu = c + u * G;
+      const bool ok = cu < nk;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        v[s][u] = ok ? load2(X[s] + (size_t)cu * D + e)
+                     : make_float2(0.f, 0.f);
+        w[s][u] = ok ? coef[s][cu] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        acc[s].x = fmaf(w[s][u], v[s][u].x, acc[s].x);
+        acc[s].y = fmaf(w[s][u], v[s][u].y, acc[s].y);
+      }
+  }
+  combine_pairs<D, NS>(acc, scratch, out);
+}
+
+// For every row c < nk, f(c, x_0 . R_0[c], x_1 . R_1[c]) (R_1 only when
+// NX = 2): a warp takes eight rows at a time, each lane the column pairs
+// 2 lane + 64 p, and lane r of the warp calls f for its row r.  x_j f32
+// [D] in shared memory, R_j [nk, D] row-major in global memory.
+template <int D, int NX, typename T, class F>
+__device__ __forceinline__ void row_dots(const float* x0, const T* R0,
+                                         const float* x1, const T* R1, int nk,
+                                         F f) {
+  constexpr int KR = 8, P = (D + 63) / 64;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* xs[2] = {x0, x1};
+  const T* rs[2] = {R0, R1};
+  float2 xv[NX][P];
+#pragma unroll
+  for (int j = 0; j < NX; ++j)
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const int e = 2 * lane + 64 * q;
+      xv[j][q] = e < D ? *reinterpret_cast<const float2*>(xs[j] + e)
+                       : make_float2(0.f, 0.f);
+    }
+  for (int c0 = warp; c0 < nk; c0 += KR * kWarps) {
+    float2 v[KR][NX][P];
+#pragma unroll
+    for (int r = 0; r < KR; ++r)
+#pragma unroll
+      for (int j = 0; j < NX; ++j)
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const int c = c0 + r * kWarps, e = 2 * lane + 64 * q;
+          v[r][j][q] = c < nk && e < D ? load2(rs[j] + (size_t)c * D + e)
+                                       : make_float2(0.f, 0.f);
+        }
+    float acc[KR][NX];
+#pragma unroll
+    for (int r = 0; r < KR; ++r)
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float a = 0.f;
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          a = fmaf(xv[j][q].x, v[r][j][q].x, a);
+          a = fmaf(xv[j][q].y, v[r][j][q].y, a);
+        }
+        acc[r][j] = port::warp_sum(a);
+      }
+#pragma unroll
+    for (int r = 0; r < KR; ++r) {
+      const int c = c0 + r * kWarps;
+      if (lane == r && c < nk) f(c, acc[r][0], acc[r][NX - 1]);
+    }
+  }
+}
+
+// relu's gradients written over its outputs, for every key c < L:
+//   K[c, e] = round_T(v), v = c < live && K[c, e] > 0 ? ds0[c] q[e] : 0
+//   V[c, e] = round_T(v), v = c < span && V[c, e] > 0 ? w[c] dov[e] : 0
+// out = the columns' sums of v (dbk, dbv) for threadIdx.x < D.
+template <int D, typename T>
+__device__ __forceinline__ void relu_grads(T* K, int live, const float* ds0,
+                                           const float* q, T* V, int span,
+                                           const float* w, const float* dov,
+                                           int L, float* scratch,
+                                           float (&out)[2]) {
+  constexpr int U = 4, G = Cols<D>::kGroups;
+  const int e = 2 * (threadIdx.x % Cols<D>::kHalf);
+  const float q0 = q[e], q1 = q[e + 1], d0 = dov[e], d1 = dov[e + 1];
+  float2 sum[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+  for (int c = threadIdx.x / Cols<D>::kHalf; c < L; c += U * G) {
+    float2 kk[U], vv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int cu = c + u * G;
+      kk[u] = cu < live ? load2(K + (size_t)cu * D + e)
+                        : make_float2(0.f, 0.f);
+      vv[u] = cu < span ? load2(V + (size_t)cu * D + e)
+                        : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int cu = c + u * G;
+      if (cu >= L) break;
+      const float rk = cu < live ? ds0[cu] : 0.f;
+      const float rv = cu < span ? w[cu] : 0.f;
+      const float k0 = kk[u].x > 0.f ? rk * q0 : 0.f;
+      const float k1 = kk[u].y > 0.f ? rk * q1 : 0.f;
+      const float v0 = vv[u].x > 0.f ? rv * d0 : 0.f;
+      const float v1 = vv[u].y > 0.f ? rv * d1 : 0.f;
+      sum[0].x += k0;
+      sum[0].y += k1;
+      sum[1].x += v0;
+      sum[1].y += v1;
+      store2(K + (size_t)cu * D + e, port::round_to<T>(k0),
+             port::round_to<T>(k1));
+      store2(V + (size_t)cu * D + e, port::round_to<T>(v0),
+             port::round_to<T>(v1));
+    }
+  }
+  combine_pairs<D, 2>(sum, scratch, out);
+}
+
+// mean and 1/sqrt(var + eps) of x over the first D threads
+__device__ __forceinline__ float2 ln_stats(float x, float* red, int D) {
+  const float mean = port::block_sum<kThreads>(x, red) / D;
+  const float xm = threadIdx.x < D ? x - mean : 0.f;
+  const float var = port::block_sum<kThreads>(xm * xm, red) / D;
+  return make_float2(mean, 1.f / sqrtf(var + readout::kLnEps));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) readout_bwd_chain_kernel(
+    Params p, const float* __restrict__ g_in, T* __restrict__ kv,
+    float* __restrict__ vec, float* __restrict__ gate_ws,
+    float* __restrict__ cache, float* __restrict__ dpt_ws,
+    float* __restrict__ u_ws, float* __restrict__ ddec) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kWarps];
+  __shared__ float scratch[4 * kThreads];
+  const int L = p.L, n = p.n, B = p.B, b = blockIdx.x;
+  const int tid = threadIdx.x;
+  float* s_w = smem;               // [L] scores, then softmax weights
+  float* s_dw = s_w + L;           // [L] do . V_l
+  float* s_ds0 = s_dw + L;
+  float* s_dpt = s_ds0 + L;        // dpre_tqk
+  float* s_dec = s_dpt + L;        // [n, D] each hop's input query
+  float* s_decr = s_dec + n * D;   // [n, D] ... rounded to T
+  float* s_q = s_decr + n * D;     // [n, D]
+  float* s_u = s_q + n * D;        // [n, D]
+  float* s_o = s_u + n * D;        // [n, D] sum_l w_l V_l
+  float* s_g = s_o + n * D;        // cotangent of the hop's output
+  float* s_do = s_g + D;
+  float* s_dur = s_do + D;
+  float* s_dqr = s_dur + D;
+  float* s_at = s_dqr + D;         // du_c Wt^T
+  float* s_aq = s_at + D;          // dq_pre_c Wq^T
+
+  const int live = readout::live_keys(p, b);
+  const int span = readout::span_keys(live, L);
+  const T* mem = readout::ptr<T>(p.mem) + (size_t)b * L * D;
+  const size_t M = (size_t)B * L;
+  auto kbuf = [&](int i) { return kv + ((size_t)i * M + (size_t)b * L) * D; };
+  auto vbuf = [&](int i) {
+    return kv + ((size_t)(n + i) * M + (size_t)b * L) * D;
+  };
+  auto vslot = [&](int slot, int i) {
+    return vec + (((size_t)slot * n + i) * B + b) * D;
+  };
+  auto cslot = [&](int slot, int i) {
+    return cache + (((size_t)slot * n + i) * B + b) * L;
+  };
+  const size_t gplane = (size_t)n * B * L;
+  const float qz = p.qmask[b];
+
+  // ---- forward replay of the query chain (K and V from the workspace)
+  readout::load_f32(s_dec, readout::ptr<T>(p.dec) + (size_t)b * D, D);
+  __syncthreads();
+  for (int i = 0; i < n; ++i) {
+    const float* dec = s_dec + i * D;
+    HopSmem sm;                    // this hop's slots, for query_side
+    sm.dec = s_dec + i * D;
+    sm.decr = s_decr + i * D;
+    sm.q = s_q + i * D;
+    sm.u = s_u + i * D;
+    readout::query_side<T>(p, i, sm);
+    float* c_s0 = cslot(C_S0, i);
+    float* c_tqk = cslot(C_TQK, i);
+    float* c_dcy = cslot(C_DCY, i);
+    float* c_sig = cslot(C_SIG, i);
+    float* c_w = cslot(C_W, i);
+    // q . K_l and u . mem_l of the live keys (into s_ds0, s_dw for now),
+    // then their gate terms and scores
+    row_dots<D, 2>(s_q + i * D, static_cast<const T*>(kbuf(i)), s_u + i * D,
+                   mem, live, [&](int c, float a, float t) {
+                     s_ds0[c] = a;
+                     s_dw[c] = t;
+                   });
+    __syncthreads();
+    for (int c = tid; c < L; c += kThreads) {
+      if (c < live) {
+        const float a = s_ds0[c];
+        const readout::GateTerms gt = readout::gate_terms(p, i, b, c, s_dw[c]);
+        c_s0[c] = a;
+        c_tqk[c] = gt.tqk;
+        c_dcy[c] = gt.decay;
+        c_sig[c] = gt.sig;
+        s_w[c] = a * gt.sig * p.scale;
+      } else {
+        s_w[c] = readout::kNegFill;
+        c_s0[c] = c_tqk[c] = c_dcy[c] = c_sig[c] = 0.f;
+      }
+    }
+    __syncthreads();
+    readout::softmax_inplace(s_w, L, red);
+    for (int c = tid; c < L; c += kThreads) c_w[c] = s_w[c];
+    float o[1];
+    weighted_sums<D, 1>(s_w, static_cast<const T*>(vbuf(i)), s_w,
+                        static_cast<const T*>(vbuf(i)), span, scratch, o);
+    if (tid < D) s_o[i * D + tid] = o[0];
+    if (i + 1 < n) {   // residual + normalize: the next hop's query
+      const float x = tid < D ? o[0] * qz + dec[tid] : 0.f;
+      const float2 st = ln_stats(x, red, D);
+      if (tid < D)
+        s_dec[(i + 1) * D + tid] =
+            (x - st.x) * st.y *
+                port::to_float(readout::ptr<T>(p.lng)[i * D + tid]) +
+            port::to_float(readout::ptr<T>(p.lnb)[i * D + tid]);
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < D; e += kThreads) s_g[e] = g_in[(size_t)b * D + e];
+
+  // ---- reverse sweep up to ddec_in
+  for (int i = n - 1; i >= 0; --i) {
+    T* K = kbuf(i);
+    T* V = vbuf(i);
+    const float* dec = s_dec + i * D;
+    const float* q = s_q + i * D;
+    const float* c_w = cslot(C_W, i);
+    const float* c_s0 = cslot(C_S0, i);
+    const float* c_tqk = cslot(C_TQK, i);
+    const float* c_dcy = cslot(C_DCY, i);
+    const float* c_sig = cslot(C_SIG, i);
+    for (int c = tid; c < L; c += kThreads) s_w[c] = c_w[c];
+    __syncthreads();
+
+    // the LN backward (thread e: column e)
+    const float x = tid < D ? s_o[i * D + tid] * qz + dec[tid] : 0.f;
+    const float2 st = ln_stats(x, red, D);
+    const float xh = tid < D ? (x - st.x) * st.y : 0.f;
+    const float g = tid < D ? s_g[tid] : 0.f;
+    const float gamma =
+        tid < D ? port::to_float(readout::ptr<T>(p.lng)[i * D + tid]) : 0.f;
+    if (tid < D) {
+      vslot(V_LNG, i)[tid] = g * xh;
+      vslot(V_LNB, i)[tid] = g;
+    }
+    const float dxh = g * gamma;
+    const float m1 = port::block_sum<kThreads>(dxh, red) / D;
+    const float m2 = port::block_sum<kThreads>(dxh * xh, red) / D;
+    const float dx = (dxh - m1 - xh * m2) * st.y;
+    float dd = dx;                 // the residual branch of ddec_in
+    if (tid < D) s_do[tid] = dx * qz;
+    __syncthreads();
+
+    // weighted-sum and softmax backward
+    row_dots<D, 1>(s_do, static_cast<const T*>(V), s_do,
+                   static_cast<const T*>(V), span,
+                   [&](int c, float a, float) { s_dw[c] = a; });
+    __syncthreads();
+    float part = 0.f;
+    for (int c = tid; c < span; c += kThreads) part += s_dw[c] * s_w[c];
+    const float dsum = port::block_sum<kThreads>(part, red);
+    for (int c = tid; c < L; c += kThreads) {
+      const float ds = c < live ? s_w[c] * (s_dw[c] - dsum) : 0.f;
+      const float sig = c_sig[c], dcy = c_dcy[c], tqk = c_tqk[c];
+      const float dgate = ds * c_s0[c] * p.scale * sig * (1.f - sig);
+      const size_t gi = (size_t)i * L + c;
+      const float dpre_dec = dgate * p.wo1[gi] * (1.f - dcy * dcy);
+      float* gw = gate_ws + ((size_t)i * B + b) * L + c;
+      gw[0] = dpre_dec * p.logdt[(size_t)b * L + c];
+      gw[gplane] = dpre_dec;
+      gw[2 * gplane] = dgate * dcy;
+      gw[3 * gplane] = dgate * tqk;
+      gw[4 * gplane] = dgate;
+      s_ds0[c] = ds * sig * p.scale;
+      const float dpt = dgate * p.wo2[gi] * (1.f - tqk * tqk);
+      s_dpt[c] = dpt;
+      dpt_ws[((size_t)i * B + b) * L + c] = dpt;
+    }
+    __syncthreads();
+
+    // du and dq (masked keys carry 0), then the query side of ddec_in
+    float dudq[2];
+    weighted_sums<D, 2>(s_dpt, mem, s_ds0, static_cast<const T*>(K), live,
+                        scratch, dudq);
+    if (tid < D) {
+      const float dq_pre = q[tid] > 0.f ? dudq[1] : 0.f;
+      s_dqr[tid] = port::round_to<T>(dq_pre);
+      s_dur[tid] = port::round_to<T>(dudq[0]);
+      vslot(V_DECR, i)[tid] = s_decr[i * D + tid];
+      vslot(V_DQR, i)[tid] = s_dqr[tid];
+      vslot(V_DUR, i)[tid] = s_dur[tid];
+      vslot(V_DQ, i)[tid] = dq_pre;
+      u_ws[((size_t)i * B + b) * D + tid] = s_u[i * D + tid];
+    }
+    __syncthreads();
+    const size_t wo = (size_t)i * D * D;
+    row_dots<D, 2>(s_dur, readout::ptr<T>(p.wt) + wo, s_dqr,
+                   readout::ptr<T>(p.wq) + wo, D,
+                   [&](int e, float at, float aq) {
+                     s_at[e] = at;
+                     s_aq[e] = aq;
+                   });
+    __syncthreads();
+    if (tid < D) {
+      dd += s_at[tid];
+      dd += s_aq[tid];
+    }
+
+    // dk_pre over the live keys, dv_pre over the reached ones, in place
+    float dbias[2];
+    relu_grads<D>(K, live, s_ds0, q, V, span, s_w, s_do, L, scratch, dbias);
+    if (tid < D) {
+      vslot(V_DBK, i)[tid] = dbias[0];
+      vslot(V_DBV, i)[tid] = dbias[1];
+      s_g[tid] = dd;
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < D; e += kThreads) ddec[(size_t)b * D + e] = s_g[e];
+}
+
+template <typename T, int D>
+cudaError_t launch_chain(const Params& p, const float* g, T* kv, float* vec,
+                         float* gate, float* cache, float* dpt, float* u,
+                         float* ddec, cudaStream_t stream) {
+  const size_t smem = chain_smem_floats(p.L, D, p.n) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      readout_bwd_chain_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  readout_bwd_chain_kernel<T, D><<<p.B, kThreads, smem, stream>>>(
+      p, g, kv, vec, gate, cache, dpt, u, ddec);
+  return cudaGetLastError();
+}
+
+// The three products of the design, as tile_gemm.cuh's problems.  Rows
+// past M and columns past N read zeros and are not written.
+
+// proj: KV[j, m, e] = round_T(relu(mem[m] . W_j[:, e] + bias_j[e])), j < n
+// from Wk / bk, else from Wv / bv
+template <typename T>
+struct ProjGemm {
+  using Elem = T;
+  static constexpr bool A_KMAJOR = false, B_KMAJOR = true;
+  const T *mem, *wk, *wv, *bk, *bv;
+  T* kv;
+  int M, D, n;
+  __device__ int m0() const { return blockIdx.x * tile::kBM; }
+  __device__ int n0() const { return blockIdx.y * tile::kBN; }
+  __device__ int slabs() const { return D / tile::kBK; }
+  __device__ int k0(int s) const { return s * tile::kBK; }
+  __device__ const T* a_at(int m, int k, bool& ok) const {
+    ok = m < M;
+    return mem + (size_t)(ok ? m : 0) * D + k;
+  }
+  __device__ const T* b_at(int k, int c, bool& ok) const {
+    ok = c < 2 * n * D;
+    const int j = ok ? c / D : 0, e = c % D;
+    const T* w = j < n ? wk + (size_t)j * D * D : wv + (size_t)(j - n) * D * D;
+    return w + (size_t)k * D + e;
+  }
+  __device__ void epi(int m, int c, float v0, float v1) const {
+    if (m >= M || c >= 2 * n * D) return;
+    const int j = c / D, e = c % D;
+    const T* bias = j < n ? bk + j * D : bv + (j - n) * D;
+    store2(kv + ((size_t)j * M + m) * D + e,
+           port::round_to<T>(fmaxf(v0 + port::to_float(bias[e]), 0.f)),
+           port::round_to<T>(fmaxf(v1 + port::to_float(bias[e + 1]), 0.f)));
+  }
+};
+
+// dmem[m, c] = sum_j dpre_j[m] . W_j[c, :] (the 2n planes in order) +
+// sum_i dpre_tqk_i[m] u_i[row of m, c]
+template <typename T>
+struct DmemGemm {
+  using Elem = T;
+  static constexpr bool A_KMAJOR = false, B_KMAJOR = false;
+  const T *kv, *wk, *wv;
+  const float *dpt, *u;
+  float* dmem;
+  int M, L, D, n, B;
+  __device__ int m0() const { return blockIdx.x * tile::kBM; }
+  __device__ int n0() const { return blockIdx.y * tile::kBN; }
+  __device__ int slabs() const { return 2 * n * D / tile::kBK; }
+  __device__ int k0(int s) const { return s * tile::kBK; }
+  __device__ const T* a_at(int m, int k, bool& ok) const {
+    ok = m < M;
+    return kv + ((size_t)(k / D) * M + (ok ? m : 0)) * D + k % D;
+  }
+  __device__ const T* b_at(int k, int c, bool& ok) const {
+    ok = c < D;
+    const int j = k / D;
+    const T* w = j < n ? wk + (size_t)j * D * D : wv + (size_t)(j - n) * D * D;
+    return w + (size_t)(ok ? c : 0) * D + k % D;
+  }
+  __device__ void epi(int m, int c, float v0, float v1) const {
+    if (m >= M || c >= D) return;
+    const int b = m / L;
+    for (int i = 0; i < n; ++i) {
+      const float d = dpt[(size_t)i * M + m];
+      const float* ui = u + ((size_t)i * B + b) * D + c;
+      v0 = fmaf(d, ui[0], v0);
+      v1 = fmaf(d, ui[1], v1);
+    }
+    store2(dmem + (size_t)m * D + c, v0, v1);
+  }
+};
+
+// dw: part[g, j, k, e] = sum over the keys m of group g of mem[m, k]
+// dpre_j[m, e]; block (tile, j, g)
+template <typename T>
+struct DwGemm {
+  using Elem = T;
+  static constexpr bool A_KMAJOR = true, B_KMAJOR = true;
+  const T *mem, *kv;
+  float* part;
+  int M, D, n, G;
+  __device__ int tiles() const { return (D + tile::kBN - 1) / tile::kBN; }
+  __device__ int lo() const { return (int)((long long)blockIdx.z * M / G); }
+  __device__ int hi() const {
+    return (int)((long long)(blockIdx.z + 1) * M / G);
+  }
+  __device__ int m0() const { return (blockIdx.x / tiles()) * tile::kBM; }
+  __device__ int n0() const { return (blockIdx.x % tiles()) * tile::kBN; }
+  __device__ int slabs() const {
+    return (hi() - lo() + tile::kBK - 1) / tile::kBK;
+  }
+  __device__ int k0(int s) const { return lo() + s * tile::kBK; }
+  __device__ const T* a_at(int k, int key, bool& ok) const {
+    ok = key < hi() && k < D;
+    return mem + (size_t)(ok ? key : lo()) * D + (ok ? k : 0);
+  }
+  __device__ const T* b_at(int key, int e, bool& ok) const {
+    ok = key < hi() && e < D;
+    return kv + ((size_t)blockIdx.y * M + (ok ? key : lo())) * D +
+           (ok ? e : 0);
+  }
+  __device__ void epi(int k, int e, float v0, float v1) const {
+    if (k >= D || e >= D) return;
+    store2(part + (((size_t)blockIdx.z * 2 * n + blockIdx.y) * D + k) * D + e,
+           v0, v1);
+  }
+};
+
+// blocks an SM of the products: two in bf16; one in f32, whose 8 x 8
+// register tile and staged slab take more than the 128 registers two
+// blocks would leave a thread
+template <typename T>
+constexpr int kProductBlocks = sizeof(T) == 4 ? 1 : 2;
+
+template <class P>
+__device__ __forceinline__ void tile_product(const P& p) {
+  if constexpr (std::is_same<typename P::Elem, float>::value)
+    tile::fma_gemm(p);
+  else
+    tile::mma_gemm(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(tile::kThreads, kProductBlocks<T>)
+    readout_bwd_proj_kernel(const ProjGemm<T> p) {
+  tile_product(p);
+}
+template <typename T>
+__global__ void __launch_bounds__(tile::kThreads, kProductBlocks<T>)
+    readout_bwd_dmem_kernel(const DmemGemm<T> p) {
+  tile_product(p);
+}
+template <typename T>
+__global__ void __launch_bounds__(tile::kThreads, kProductBlocks<T>)
+    readout_bwd_dw_kernel(const DwGemm<T> p) {
+  tile_product(p);
+}
+
+template <typename T, class P>
+cudaError_t launch_product(void (*kernel)(const P), dim3 grid, const P& prob,
+                           cudaStream_t stream) {
+  const size_t smem = sizeof(T) == 4 ? tile::fma_smem_bytes()
+                                     : tile::mma_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, tile::kThreads, smem, stream>>>(prob);
+  return cudaGetLastError();
+}
+
 struct Outs {
   float *dmem, *ddec, *dwq, *dbq, *dwk, *dbk, *dwv, *dbv, *dwt;
   float* gates[5];   // dw1, db1, dwo1, dwo2, dbo
   float *dlng, *dlnb;
 };
 
-template <typename T>
-cudaError_t run(const Params& p, const float* g, const Outs& o, void* ws,
-                cudaStream_t stream) {
-  const int B = p.B, L = p.L, D = p.D, n = p.n, G = groups(B);
-  const WsLayout w = layout(B, L, D, n, sizeof(T));
-  char* base = static_cast<char*>(ws);
-  T* kv = reinterpret_cast<T*>(base + w.kv);
-  float* vec = reinterpret_cast<float*>(base + w.vec);
-  float* gate = reinterpret_cast<float*>(base + w.gate);
-  float* part = reinterpret_cast<float*>(base + w.part);
-  cudaError_t err;
-  if (B > 0) {
-    const size_t smem = rows_smem_floats(L, D, n) * sizeof(float);
-    err = cudaFuncSetAttribute(readout_bwd_rows_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    readout_bwd_rows_kernel<T><<<B, kThreads, smem, stream>>>(
-        p, g, kv, vec, gate, o.dmem, o.ddec);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int tiles = (D + kTile - 1) / kTile;
-    readout_bwd_wgrad_kernel<T><<<dim3(tiles * tiles, 2 * n, G), 256, 0,
-                                  stream>>>(
-        static_cast<const T*>(p.mem), p.key_len, kv, part, B, L, D, n, G);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+// the batch sums both designs end with: part holds G groups' dWk and dWv
+cudaError_t reduce(const Params& p, const Outs& o, const float* vec,
+                   const float* gate, const float* part, int G,
+                   cudaStream_t stream) {
+  const int B = p.B, L = p.L, D = p.D, n = p.n;
   readout::Jobs<kMaxJobs> jobs;
   int nj = 0;
   const long long nBD = (long long)n * B * D, BD = (long long)B * D;
@@ -455,33 +1063,126 @@ cudaError_t run(const Params& p, const float* g, const Outs& o, void* ws,
     jobs.job[nj++] = {gate + s * nBL, nullptr, o.gates[s], (long long)B * L,
                       L, n, B, L, D};
   const long long nDD = (long long)n * D * D;
-  // dWk, dWv: the row groups' partials, rows = G (0 when B = 0)
+  // dWk, dWv: the groups' partials (none when B = 0)
   jobs.job[nj++] = {part, nullptr, o.dwk, 0, 2 * nDD, 1, G, (int)nDD, D};
   jobs.job[nj++] = {part + nDD, nullptr, o.dwv, 0, 2 * nDD, 1, G, (int)nDD, D};
   return readout::batch_sums(jobs, nj, stream);
 }
 
+template <typename T>
+cudaError_t run_rows(const Params& p, const float* g, const Outs& o, void* ws,
+                     cudaStream_t stream) {
+  const int B = p.B, L = p.L, D = p.D, n = p.n;
+  const WsLayout w = layout(B, L, D, n, sizeof(T), DESIGN_ROWS);
+  char* base = static_cast<char*>(ws);
+  T* kv = reinterpret_cast<T*>(base + w.kv);
+  float* vec = reinterpret_cast<float*>(base + w.vec);
+  float* gate = reinterpret_cast<float*>(base + w.gate);
+  float* part = reinterpret_cast<float*>(base + w.part);
+  cudaError_t err;
+  if (B > 0) {
+    const size_t smem = rows_smem_floats(L, D, n) * sizeof(float);
+    err = cudaFuncSetAttribute(readout_bwd_rows_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    readout_bwd_rows_kernel<T><<<B, kThreads, smem, stream>>>(
+        p, g, kv, vec, gate, o.dmem, o.ddec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int tiles = (D + kTile - 1) / kTile;
+    readout_bwd_wgrad_kernel<T><<<dim3(tiles * tiles, 2 * n, w.G), 256, 0,
+                                  stream>>>(
+        static_cast<const T*>(p.mem), p.key_len, kv, part, B, L, D, n, w.G);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return reduce(p, o, vec, gate, part, w.G, stream);
+}
+
+template <typename T>
+cudaError_t run_gemm(const Params& p, const float* g, const Outs& o, void* ws,
+                     cudaStream_t stream) {
+  const int B = p.B, L = p.L, D = p.D, n = p.n, M = B * L;
+  const WsLayout w = layout(B, L, D, n, sizeof(T), DESIGN_GEMM);
+  char* base = static_cast<char*>(ws);
+  T* kv = reinterpret_cast<T*>(base + w.kv);
+  float* vec = reinterpret_cast<float*>(base + w.vec);
+  float* gate = reinterpret_cast<float*>(base + w.gate);
+  float* part = reinterpret_cast<float*>(base + w.part);
+  float* cache = reinterpret_cast<float*>(base + w.cache);
+  float* dpt = reinterpret_cast<float*>(base + w.dpt);
+  float* u = reinterpret_cast<float*>(base + w.u);
+  const T* mem = static_cast<const T*>(p.mem);
+  const T* wk = static_cast<const T*>(p.wk);
+  const T* wv = static_cast<const T*>(p.wv);
+  cudaError_t err;
+  if (B > 0) {
+    const int mt = cdiv(M, tile::kBM);
+    err = launch_product<T>(
+        readout_bwd_proj_kernel<T>, dim3(mt, cdiv(2 * n * D, tile::kBN)),
+        ProjGemm<T>{mem, wk, wv, static_cast<const T*>(p.bk),
+                    static_cast<const T*>(p.bv), kv, M, D, n},
+        stream);
+    if (err != cudaSuccess) return err;
+    switch (D) {
+      case 32:
+        err = launch_chain<T, 32>(p, g, kv, vec, gate, cache, dpt, u, o.ddec,
+                                  stream);
+        break;
+      case 64:
+        err = launch_chain<T, 64>(p, g, kv, vec, gate, cache, dpt, u, o.ddec,
+                                  stream);
+        break;
+      case 128:
+        err = launch_chain<T, 128>(p, g, kv, vec, gate, cache, dpt, u, o.ddec,
+                                   stream);
+        break;
+      default:
+        err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return err;
+    err = launch_product<T>(
+        readout_bwd_dmem_kernel<T>, dim3(mt, cdiv(D, tile::kBN)),
+        DmemGemm<T>{kv, wk, wv, dpt, u, o.dmem, M, L, D, n, B}, stream);
+    if (err != cudaSuccess) return err;
+    const int tiles = cdiv(D, tile::kBM) * cdiv(D, tile::kBN);
+    err = launch_product<T>(readout_bwd_dw_kernel<T>,
+                            dim3(tiles, 2 * n, w.G),
+                            DwGemm<T>{mem, kv, part, M, D, n, w.G}, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return reduce(p, o, vec, gate, part, w.G, stream);
+}
+
 }  // namespace
 
-// Dynamic shared memory of the rows kernel, in bytes.
-extern "C" long long fused_readout_bwd_smem_bytes(int L, int D, int n) {
-  return (long long)rows_smem_floats(L, D, n) * (long long)sizeof(float);
+// The most dynamic shared memory one of the design's kernels takes, in
+// bytes (design: 0 "gemm", 1 "rows"; -1 for another value).
+extern "C" long long fused_readout_bwd_smem_bytes(int L, int D, int n,
+                                                  int design) {
+  if (design == DESIGN_ROWS)
+    return (long long)(rows_smem_floats(L, D, n) * sizeof(float));
+  if (design != DESIGN_GEMM) return -1;
+  const size_t chain = chain_smem_floats(L, D, n) * sizeof(float);
+  const size_t most = tile::fma_smem_bytes() > tile::mma_smem_bytes()
+                          ? tile::fma_smem_bytes() : tile::mma_smem_bytes();
+  return (long long)(chain > most ? chain : most);
 }
 
 // Workspace bytes the launch needs.
 extern "C" long long fused_readout_bwd_workspace_bytes(int B, int L, int D,
-                                                       int n, int is_bf16) {
-  return (long long)layout(B, L, D, n, is_bf16 ? 2 : 4).total;
+                                                       int n, int is_bf16,
+                                                       int design) {
+  return (long long)layout(B, L, D, n, is_bf16 ? 2 : 4, design).total;
 }
 
 // All pointers are device pointers to contiguous arrays.  g [B,D] f32; the
 // forward's inputs as in fused_readout_launch; the f32 outputs dmem
 // [B,L,D], ddec [B,D], dwq/dwk/dwv/dwt [n,D,D], dbq/dbk/dbv/dlng/dlnb
 // [n,D], dw1/db1/dwo1/dwo2/dbo [n,L]; ws the workspace of
-// fused_readout_bwd_workspace_bytes.  Returns the first cudaError_t of the
-// launches (0 on success).
+// fused_readout_bwd_workspace_bytes; design 0 "gemm", 1 "rows".  Returns
+// the first cudaError_t of the launches (0 on success).
 extern "C" int fused_readout_bwd_launch(
-    int is_bf16, const void* g, const void* mem, const void* dec,
+    int is_bf16, int design, const void* g, const void* mem, const void* dec,
     const void* logdt, const void* key_len, const void* qmask, const void* wq,
     const void* bq, const void* wk, const void* bk, const void* wv,
     const void* bv, const void* wt, const void* w1, const void* b1,
@@ -490,7 +1191,9 @@ extern "C" int fused_readout_bwd_launch(
     void* dbk, void* dwv, void* dbv, void* dwt, void* dw1, void* db1,
     void* dwo1, void* dwo2, void* dbo, void* dlng, void* dlnb, void* ws,
     int B, int L, int D, int n, float scale, int device, void* stream) {
-  if (B < 0 || L <= 0 || n <= 0 || D <= 0 || D > readout::kMaxD || D % 32)
+  if (B < 0 || L <= 0 || n <= 0 || D <= 0 || D > readout::kMaxD || D % 32 ||
+      design < 0 || design >= kDesigns ||
+      (design == DESIGN_GEMM && D != 32 && D != 64 && D != 128))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -527,6 +1230,9 @@ extern "C" int fused_readout_bwd_launch(
   o.dlnb = static_cast<float*>(dlnb);
   const float* gp = static_cast<const float*>(g);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? run<__nv_bfloat16>(p, gp, o, ws, s)
-                 : run<float>(p, gp, o, ws, s);
+  if (design == DESIGN_ROWS)
+    return is_bf16 ? run_rows<__nv_bfloat16>(p, gp, o, ws, s)
+                   : run_rows<float>(p, gp, o, ws, s);
+  return is_bf16 ? run_gemm<__nv_bfloat16>(p, gp, o, ws, s)
+                 : run_gemm<float>(p, gp, o, ws, s);
 }

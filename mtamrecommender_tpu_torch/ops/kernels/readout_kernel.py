@@ -6,7 +6,11 @@ hop and its projections, in one call per direction.  The forward
 `fused_readout` (csrc/fused_readout.cu, the Pallas `_readout_kernel`),
 its backward `fused_readout_bwd` (csrc/fused_readout_bwd.cu, the Pallas
 `_readout_bwd_kernel`) and `fused_readout_vjp`, the autograd function
-that joins them as JAX's custom_vjp does.  Per row and hop i:
+that joins them as JAX's custom_vjp does.  The backward has two designs
+(`BWD_DESIGNS`): "gemm", the default, moves every [L,d] x [d,d] product
+to three matrix products over all B*L keys around a per-row kernel that
+runs only the hops' vector chain; "rows", the first, does it all a row a
+block.  Per row and hop i:
 
     q    = relu(dec_c @ Wq_i + bq_i)            dec_c: dec rounded to mem's type
     K    = relu(mem @ Wk_i + bk_i), V = relu(mem @ Wv_i + bv_i)   (rounded)
@@ -35,6 +39,11 @@ LN_EPS = 1e-8
 MAX_KEYS = 1024          # the kernels' longest memory, as in the JAX package
 WIDTHS = (32, 64, 128)   # the kernels' d
 MAX_SMEM_BYTES = 227 * 1024
+# the backward's designs, the default first (the C interface's `design`
+# is the index): "gemm" (the K/V projections, dmem's products and dWk /
+# dWv as block-tiled products over all B*L keys, tensor cores in bf16)
+# and "rows", the earlier one-block-a-row design, kept for comparison
+BWD_DESIGNS = ("gemm", "rows")
 
 # the operands after mem and dec, in the order the functions take them
 _OPERANDS = ("mem", "dec", "logdt", "key_len", "qmask", "wq", "bq", "wk",
@@ -207,15 +216,27 @@ def fused_readout_bwd(g, mem, dec, logdt, key_len, qmask, wq, bq, wk, bk,
     return _launch_bwd(g, args)
 
 
-def _launch_bwd(g, args):
+def _launch_bwd(g, args, _design=BWD_DESIGNS[0]):
+    """Launch the backward in the "gemm" design.  ``_design="rows"``
+    forces the earlier design (chip_smoke.py holds and times it beside
+    the default); the main path never passes it.  A failed launch
+    raises: there is no fallback."""
     global bwd_launches
+    if _design not in BWD_DESIGNS:
+        raise ValueError(f"fused_readout_bwd: design {_design!r} is not one "
+                         f"of {BWD_DESIGNS}")
+    design = BWD_DESIGNS.index(_design)
+    # the gemm design copies mem, Wk and Wv in 16-byte pieces: a view that
+    # starts off that alignment is copied first
+    args = tuple(t.clone() if i in (0, 7, 9) and t.data_ptr() % 16 else t
+                 for i, t in enumerate(args))
     mem = args[0]
     device, stream = build.launch_context((g,) + args, "fused_readout_bwd")
     _kernel_shape("fused_readout_bwd", mem)
     b, tk, d = mem.shape
     n = args[5].shape[0]
     lib = _bwd_library()
-    if lib.fused_readout_bwd_smem_bytes(tk, d, n) > MAX_SMEM_BYTES:
+    if lib.fused_readout_bwd_smem_bytes(tk, d, n, design) > MAX_SMEM_BYTES:
         raise ValueError(f"fused_readout_bwd: L={tk}, d={d}, {n} hops need "
                          "more shared memory than a block has")
     is_bf16 = int(mem.dtype == torch.bfloat16)
@@ -225,9 +246,9 @@ def _launch_bwd(g, args):
         + ((n, d), (n, d))
     grads = tuple(torch.empty(s, **f32) for s in shapes)
     ws = torch.empty((lib.fused_readout_bwd_workspace_bytes(
-        b, tk, d, n, is_bf16),), dtype=torch.uint8, device=mem.device)
+        b, tk, d, n, is_bf16, design),), dtype=torch.uint8, device=mem.device)
     status = lib.fused_readout_bwd_launch(
-        is_bf16, g.data_ptr(), *(t.data_ptr() for t in args),
+        is_bf16, design, g.data_ptr(), *(t.data_ptr() for t in args),
         *(t.data_ptr() for t in grads), ws.data_ptr(), b, tk, d, n,
         1.0 / d ** 0.5, device, stream)
     build.check(lib, status, "fused_readout_bwd")
@@ -240,11 +261,11 @@ def _bwd_library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_readout_bwd_launch.argtypes = (
-            [ci] + [vp] * 37 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            [ci, ci] + [vp] * 37 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.fused_readout_bwd_launch.restype = ci
-        lib.fused_readout_bwd_smem_bytes.argtypes = [ci, ci, ci]
+        lib.fused_readout_bwd_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.fused_readout_bwd_smem_bytes.restype = ctypes.c_longlong
-        lib.fused_readout_bwd_workspace_bytes.argtypes = [ci] * 5
+        lib.fused_readout_bwd_workspace_bytes.argtypes = [ci] * 6
         lib.fused_readout_bwd_workspace_bytes.restype = ctypes.c_longlong
         lib._port_typed = True
     return lib
