@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. card and build: the nvidia-smi name and power limit, then every
      kernel built from csrc/ (one nvcc per source, all at once), and the
      registers and spill bytes ptxas gives gru_scan_kernel's
-     instantiations (those at u=128 printed) and the four kernels of
-     fused_readout_bwd's "gemm" design;
+     instantiations (those at u=128 printed), the two kernels of
+     fused_readout's "gemm" design and the four of fused_readout_bwd's;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
@@ -46,11 +46,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 in f32 and
      bf16 (scalar and positional gate rows, ragged key lengths, one row
      with no live key, one masked query) and at the slice's B=64, L=512
-     with every key live; the backward in its default "gemm" design and
-     with the earlier "rows" design forced, each the same bits twice,
-     timed on the slice's shape in turns (gemm, rows, rows, gemm) with
-     the profiler's split of the gemm design's five launches; gru_scan
-     and gru_scan_bwd at B=64, L=512
+     with every key live; each in its default "gemm" design and with the
+     earlier "rows" design forced, each the same bits twice, timed on the
+     slice's shape in turns (gemm, rows, rows, gemm) with the profiler's
+     split of the gemm design's launches (the forward's two, the
+     backward's five); the forward also timed so at B = 1 and 16 (L=512,
+     every key live) and held at d = 32 and 64 (B=16, L=256), on inputs
+     of a generator of its own, and its workspace's bytes printed;
+     gru_scan and gru_scan_bwd at B=64, L=512
      (the forward as in phase 2, the backward as in phase 2b);
      dtable on phase 6's four tables with the ids of its first batch, as
      in phase 2b;
@@ -99,10 +102,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      step), then timed in turns of 10 steps with gru_scan_bwd forced to
      the earlier four-product design (default, four, four, default), then with
      gru_scan forced to the unit_column design (default, unit_column,
-     unit_column, default) and then with fused_readout_bwd forced to the
-     rows design (default, rows, rows, default), and
-     Recommender.recommend at L=512 for B = 1, 16, 64 in bf16 and f32
-     against the CPU (1 gru_scan + 1 fused_readout a call);
+     unit_column, default), then with fused_readout_bwd and then
+     fused_readout forced to the rows design (default, rows, rows,
+     default), and Recommender.recommend at L=512 for B = 1, 16, 64 in
+     bf16 and f32 against the CPU (1 gru_scan + 1 fused_readout a call),
+     the scoring call at B = 64 timed in turns with fused_readout forced
+     to the rows design (default, rows, rows, default);
   2e. (run after 2d) past 1024 keys: gru_scan and gru_scan_bwd (tgru)
      at B=64, L=2048, every row full, as in phase 2d (each twin run once
      to check and twice to time); fused_attention_blockwise in each
@@ -156,8 +161,9 @@ dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
 entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
 "four_product_ms", the four-product design on the same inputs, and "passes_ms",
 the default design's device time by kernel, gru_scan's "unit_column_ms",
-the unit_column design on the same inputs, fused_readout_bwd's
-"rows_ms", the rows design on the same inputs, and "passes_ms"), the
+the unit_column design on the same inputs, fused_readout's and
+fused_readout_bwd's "rows_ms", the rows design on the same inputs, and
+"passes_ms"), the
 blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
@@ -1162,11 +1168,18 @@ def check_attention_training(torch, timer, iters, failures):
 # ------------------------------------------------------------ phase 2d
 
 READOUT_BATCHES, READOUT_KEYS = (1, 16, 64), (256, 512, 1024)
+# the kernels of fused_readout's "gemm" design, in launch order (the
+# projection is readout_gemm.cuh's, which the backward shares)
+READOUT_FWD_GEMM_KERNELS = ("readout_proj_kernel", "readout_fwd_chain_kernel")
 # the kernels of fused_readout_bwd's "gemm" design, in launch order (the
 # fifth launch is the reduce kernel both designs share)
-READOUT_BWD_GEMM_KERNELS = ("readout_bwd_proj_kernel",
+READOUT_BWD_GEMM_KERNELS = ("readout_proj_kernel",
                             "readout_bwd_chain_kernel",
                             "readout_bwd_dmem_kernel", "readout_bwd_dw_kernel")
+# fused_readout's designs timed in turns at L=512 beside the slice's B=64,
+# and checked at the widths below 128 (B=16, L=256)
+READOUT_FWD_TIMED_BATCHES = (1, 16)
+READOUT_FWD_WIDTHS = (32, 64)
 
 
 def readout_inputs(torch, gen, dtype, B, L, d=128, n=3, gate="scalar",
@@ -1263,6 +1276,75 @@ def readout_bwd_bound(args, dtype_name):
     out = (B * L * d + B * d + 4 * n * d * d + 5 * n * d + 5 * n * L) * 4
     return _bound(_readout_in_bytes(args, n_span) + B * d * 4 + out, flops,
                   dtype_name)
+
+
+def check_readout_fwd(torch, rk, args, dname):
+    """fused_readout on the card against its twin: the default "gemm"
+    design (two launches through the entry point, the same bits twice)
+    and the earlier "rows" design forced (two launches, the same bits
+    twice), each within KERNEL_TOL of the twin.  Returns (max |diff|, max
+    rel, ok, same bits twice (gemm, rows), the forced design's max rel)."""
+    want = rk.fused_readout_plain(*args)
+    got = rk.fused_readout(*args)
+    again = rk.fused_readout(*args)
+    rows = rk._launch(args, _design="rows")
+    rows_again = rk._launch(args, _design="rows")
+    same = (torch.equal(got, again), torch.equal(rows, rows_again))
+    err, rel, ok = _agree(got, want, dname)
+    _, rows_rel, rows_ok = _agree(rows, want, dname)
+    return err, rel, ok and rows_ok and all(same), same, rows_rel
+
+
+def time_readout_fwd(timer, rk, args, iters):
+    """The default design and the rows design on the same inputs, in
+    turns (gemm, rows, rows, gemm), and the profiler's split of the
+    default design's device time between its two launches."""
+    run = lambda: rk.fused_readout(*args)  # noqa: E731
+    rows = lambda: rk._launch(args, _design="rows")  # noqa: E731
+    a, b1, b2, a2 = (timer(run, iters), timer(rows, iters),
+                     timer(rows, iters), timer(run, iters))
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "rows_ms": (b1 + b2) / 2, "rows_ms_repeats": [b1, b2],
+            "passes_ms": timer.passes(run)}
+
+
+def readout_fwd_more(torch, timer, rk, dtype, dname, iters, failures):
+    """fused_readout beyond phase 2d's cases, on inputs of a generator of
+    its own (the other checks' inputs stay as they were): both designs
+    timed in turns at L=512, every key live, for the smaller request
+    batches (READOUT_FWD_TIMED_BATCHES), and both held against the twin
+    at d = 32 and 64 (B=16, L=256, ragged keys)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2468)
+    out = {"by_batch": {}, "by_width": {}}
+    for bs in READOUT_FWD_TIMED_BATCHES:
+        args = readout_inputs(torch, gen, dtype, bs, LONG_L, full=True)
+        e, r, ok, same, rows_rel = check_readout_fwd(torch, rk, args, dname)
+        row = {"max_abs_err": e, "rel_err": r, "rows_rel_err": rows_rel,
+               "same_bits_twice": same[0], "rows_same_bits_twice": same[1],
+               "ok": ok, **time_readout_fwd(timer, rk, args, iters),
+               **readout_bound(args, dname)}
+        out["by_batch"][bs] = row
+        print(f"fused_readout B={bs:<3d} L={LONG_L} {dname:9s} rel={r:.3e} "
+              f"(rows {rows_rel:.3e}) ms={row['ms']:.4f} rows_ms="
+              f"{row['rows_ms']:.4f} bound_ms={row['bound_ms']:.4f} passes="
+              f"{row['passes_ms']} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"fused_readout B={bs} {dname}: rel {r:.3e}, "
+                            f"rows rel {rows_rel:.3e}, same bits {same}")
+    for d in READOUT_FWD_WIDTHS:
+        args = readout_inputs(torch, gen, dtype, 16, 256, d=d,
+                              gate="positional")
+        e, r, ok, same, rows_rel = check_readout_fwd(torch, rk, args, dname)
+        out["by_width"][d] = {"max_abs_err": e, "rel_err": r,
+                              "rows_rel_err": rows_rel, "same_bits": same,
+                              "ok": ok}
+        print(f"fused_readout B=16  L=256   d={d:<4d} {dname:9s} rel={r:.3e} "
+              f"(rows {rows_rel:.3e}) same_bits gemm/rows={same[0]}/"
+              f"{same[1]} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"fused_readout d={d} {dname}: rel {r:.3e}, "
+                            f"rows rel {rows_rel:.3e}, same bits {same}")
+    return out
 
 
 def check_readout_bwd(torch, rk, g, args, dname):
@@ -1378,19 +1460,24 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
     entries = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        fwd = {"err": 0.0, "rel": 0.0, "ok": True}
+        fwd = {"err": 0.0, "rel": 0.0, "ok": True, "rows_rel": 0.0}
         bwd = {"err": 0.0, "rel": 0.0, "ok": True, "rows_rel": 0.0}
         same = [True, True]           # the same bits twice: gemm, rows
+        fwd_same = [True, True]
         cases = [(bs, L, "scalar" if L == LONG_L else "positional", False)
                  for L in READOUT_KEYS for bs in READOUT_BATCHES]
         for bs, L, gate, full in cases + [(LONG_BATCH, LONG_L, "scalar",
                                            True)]:
             args = readout_inputs(torch, gen, dtype, bs, L, gate=gate,
                                   full=full)
-            e, r, o = _agree(rk.fused_readout(*args),
-                             rk.fused_readout_plain(*args), dname)
+            e, r, o, twice, rows_rel = check_readout_fwd(torch, rk, args,
+                                                         dname)
+            fwd_same = [fwd_same[0] and twice[0], fwd_same[1] and twice[1]]
             fwd = {"err": max(fwd["err"], e), "rel": max(fwd["rel"], r),
-                   "ok": fwd["ok"] and o}
+                   "ok": fwd["ok"] and o,
+                   "rows_rel": max(fwd["rows_rel"], rows_rel)}
+            fwd_print = (f"fwd rel={r:.3e} (rows {rows_rel:.3e}) same_bits "
+                         f"gemm/rows={twice[0]}/{twice[1]}")
             g = torch.randn((bs, 128), generator=gen, device=DEVICE)
             e, r, o, twice, rows_rel = check_readout_bwd(torch, rk, g, args,
                                                          dname)
@@ -1399,15 +1486,23 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
                    "ok": bwd["ok"] and o,
                    "rows_rel": max(bwd["rows_rel"], rows_rel)}
             print(f"fused_readout(+bwd) B={bs:<3d} L={L:<5d} {gate:10s}"
-                  f" {dname:9s} fwd rel={fwd['rel']:.3e} bwd rel="
-                  f"{r:.3e} (rows {rows_rel:.3e}) same_bits gemm/rows="
-                  f"{twice[0]}/{twice[1]}", flush=True)
+                  f" {dname:9s} {fwd_print}; bwd rel={r:.3e} (rows "
+                  f"{rows_rel:.3e}) same_bits gemm/rows={twice[0]}/"
+                  f"{twice[1]}", flush=True)
         # args and g are the slice's shape now
+        ws = rk._library().fused_readout_workspace_bytes(
+            LONG_BATCH, LONG_L, 128, 3, int(dtype == torch.bfloat16), 0)
+        print(f"fused_readout gemm workspace B={LONG_BATCH} L={LONG_L} "
+              f"d=128 3 hops {dname}: {ws} bytes ({ws / 1e6:.1f} MB)",
+              flush=True)
         rows = {
             "fused_readout": {
                 "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
-                "tol": KERNEL_TOL[dname], "ok": fwd["ok"],
-                "ms": timer(lambda: rk.fused_readout(*args), iters),
+                "rows_rel_err": fwd["rows_rel"], "tol": KERNEL_TOL[dname],
+                "ok": fwd["ok"] and all(fwd_same),
+                "same_bits_twice": fwd_same[0],
+                "rows_same_bits_twice": fwd_same[1], "workspace_bytes": ws,
+                **time_readout_fwd(timer, rk, args, iters),
                 "plain_ms": timer(lambda: rk.fused_readout_plain(*args),
                                   max(iters // 10, 3)),
                 **readout_bound(args, dname)},
@@ -1430,7 +1525,10 @@ def check_readout_kernels(torch, timer, iters, failures, tables):
                   f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
             if not row["ok"]:
                 failures.append(f"{kname} {dname}: rel err {row['rel_err']:.3e}"
-                                f", same bits {same}")
+                                f", same bits {same} / {fwd_same}")
+        # the forward's designs at the smaller batches and widths
+        rows["fused_readout"].update(readout_fwd_more(
+            torch, timer, rk, dtype, dname, iters, failures))
         # the T-GRU scan and its backward at the slice's length
         for kname, row in check_gru_long(torch, timer, gen, dtype, LONG_L,
                                          max(iters // 10, 3), 3,
@@ -1857,7 +1955,9 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
            "gru_scan": ("fwd_steps_in_turns", "gru_kernel", "_launch",
                         "unit_column"),
            "fused_readout_bwd": ("readout_bwd_steps_in_turns",
-                                 "readout_kernel", "_launch_bwd", "rows")}
+                                 "readout_kernel", "_launch_bwd", "rows"),
+           "fused_readout": ("readout_fwd_steps_in_turns", "readout_kernel",
+                             "_launch", "rows")}
 
 
 @contextlib.contextmanager
@@ -2265,7 +2365,8 @@ def run_long_history(torch, setup, failures):
                               launches))
     # each design forced in turns, 10 steps a turn (the main path's timed
     # run above takes 20)
-    for kernel in ("gru_scan_bwd", "gru_scan", "fused_readout_bwd"):
+    for kernel in ("gru_scan_bwd", "gru_scan", "fused_readout_bwd",
+                   "fused_readout"):
         report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
                                      kernel=kernel, steps=10))
     want_call = _want_counts(0)
@@ -2275,6 +2376,8 @@ def run_long_history(torch, setup, failures):
         torch, 10, failures, setup.meta, LONG_OVERRIDES,
         (1, 16, LONG_BATCH), want_call, "long-history serve")
     _add_launches(launches, serve_launches)
+    report["serving_in_turns"] = score_in_turns(
+        torch, setup, kernel="fused_readout", batch_size=LONG_BATCH)
     return report, launches
 
 
@@ -2809,19 +2912,21 @@ def serve_xl(torch, failures, setup, name, want, main_launches):
     return rows
 
 
-def score_in_turns(torch, setup, name="MTAM"):
-    """``name``'s scoring call at L=2048 and B=XL_BATCH (serve_xl's
-    largest request batch, an empty history in it) in bf16 and f32, timed
-    in turns with gru_scan forced to the unit_column design (default,
-    unit_column, unit_column, default): CUDA events over 5 calls and the
-    profiler's device time of one.  Not a main-path run: its launches are
-    not counted."""
+def score_in_turns(torch, setup, name="MTAM", kernel="gru_scan",
+                   batch_size=XL_BATCH):
+    """``name``'s scoring call at the setup's L and B=``batch_size`` (the
+    largest request batch of its serving check, an empty history in it)
+    in bf16 and f32, timed in turns with ``kernel`` forced to its earlier
+    design (EARLIER; default, earlier, earlier, default): CUDA events over
+    5 calls and the profiler's device time of one.  Not a main-path run:
+    its launches are not counted."""
     from mtamrecommender_tpu_torch.serve import Recommender
 
     meta = setup.meta
-    hists, req = make_histories(np.random.RandomState(XL_BATCH), XL_BATCH,
-                                meta.item_count, meta.category_count,
-                                meta.max_seq_len)
+    design = EARLIER[kernel][3]
+    hists, req = make_histories(np.random.RandomState(batch_size),
+                                batch_size, meta.item_count,
+                                meta.category_count, meta.max_seq_len)
     hists[1] = []
     fetch = min(50 + meta.max_seq_len, meta.item_vocab)
     rows = {}
@@ -2832,15 +2937,15 @@ def score_in_turns(torch, setup, name="MTAM"):
         batch = rec.batch_from_histories(hists, req)
         score = lambda: rec._score_impl(batch, fetch)  # noqa: E731
         rows[dname] = []
-        for turn in ("default", "unit_column", "unit_column", "default"):
-            with (forced_design("gru_scan") if turn == "unit_column"
+        for turn in ("default", design, design, "default"):
+            with (forced_design(kernel) if turn == design
                   else contextlib.nullcontext()):
                 ms = _event_ms(torch, score, 5)
                 busy = _device_busy(torch, score)["device_busy_ms"]
-            rows[dname].append({"gru_scan": turn, "score_topk_ms": ms,
+            rows[dname].append({kernel: turn, "score_topk_ms": ms,
                                 "device_busy_ms": busy})
-        print(f"serve {name} L={XL_L} {dname:9s} B={XL_BATCH} in turns "
-              f"(gru_scan default, unit_column, unit_column, default): "
+        print(f"serve {name} L={meta.max_seq_len} {dname:9s} B={batch_size}"
+              f" in turns ({kernel} default, {design}, {design}, default): "
               f"score_topk_ms={[r['score_topk_ms'] for r in rows[dname]]} "
               f"device_busy_ms={[r['device_busy_ms'] for r in rows[dname]]}",
               flush=True)
@@ -3014,9 +3119,10 @@ def kernels_line(entries, launches_by_shape):
             # gru_scan_bwd's: the four-product design's time on the same
             # inputs in the same run, and the default design's device time
             # by kernel; gru_scan's: the unit_column design's time on the
-            # same inputs in the same run; fused_readout_bwd's: the rows
-            # design's time on the same inputs in the same run, and the
-            # gemm design's device time by kernel
+            # same inputs in the same run; fused_readout's and
+            # fused_readout_bwd's: the rows design's time on the same
+            # inputs in the same run, and the gemm design's device time by
+            # kernel
             **{k: head[k] for k in ("simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms")
@@ -3075,18 +3181,20 @@ def main() -> int:
         if inst.endswith(", 128>"):
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
-    # fused_readout_bwd's "gemm" design: its four kernels' instantiations
-    # <type(, d)>
-    log = built["fused_readout_bwd"]["log"]
-    if log == "already built":
-        log = build.library_path("fused_readout_bwd").with_suffix(
-            ".log").read_text()
-    readout_ptxas = [row for kname in READOUT_BWD_GEMM_KERNELS
-                     for row in ptxas_counts(log, kname)]
-    print("ptxas fused_readout_bwd, gemm design:", flush=True)
-    for inst, regs, spill_st, spill_ld in readout_ptxas:
-        print(f"  {inst}: {regs} registers, {spill_st} bytes spill stores, "
-              f"{spill_ld} bytes spill loads", flush=True)
+    # the "gemm" designs of fused_readout and fused_readout_bwd: their
+    # kernels' instantiations <type(, d)>
+    readout_ptxas = {}
+    for lib_name, knames in (("fused_readout", READOUT_FWD_GEMM_KERNELS),
+                             ("fused_readout_bwd", READOUT_BWD_GEMM_KERNELS)):
+        log = built[lib_name]["log"]
+        if log == "already built":
+            log = build.library_path(lib_name).with_suffix(".log").read_text()
+        readout_ptxas[lib_name] = [row for kname in knames
+                                   for row in ptxas_counts(log, kname)]
+        print(f"ptxas {lib_name}, gemm design:", flush=True)
+        for inst, regs, spill_st, spill_ld in readout_ptxas[lib_name]:
+            print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+                  f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
 
     # phase 2: kernels against their plain twins
@@ -3209,7 +3317,9 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s,
                    "gru_scan_kernel_ptxas": gru_ptxas,
-                   "fused_readout_bwd_gemm_ptxas": readout_ptxas,
+                   "fused_readout_gemm_ptxas": readout_ptxas["fused_readout"],
+                   "fused_readout_bwd_gemm_ptxas":
+                       readout_ptxas["fused_readout_bwd"],
                    "phase_s": phase_s, **report,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,

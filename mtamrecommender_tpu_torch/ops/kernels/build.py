@@ -33,8 +33,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # kernel library name -> its source file; every source includes common.cuh
-# (the readouts' four include readout_hop.cuh, fused_readout_bwd.cu also
-# tile_gemm.cuh)
+# (the readouts' four include readout_hop.cuh; fused_readout.cu and
+# fused_readout_bwd.cu also readout_gemm.cuh, which includes tile_gemm.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
@@ -45,7 +45,8 @@ SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_readout_bwd": "fused_readout_bwd.cu",
            "readout_chain": "readout_chain.cu",
            "readout_chain_bwd": "readout_chain_bwd.cu"}
-_HEADERS = ("common.cuh", "readout_hop.cuh", "tile_gemm.cuh")
+_HEADERS = ("common.cuh", "readout_hop.cuh", "readout_gemm.cuh",
+            "tile_gemm.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

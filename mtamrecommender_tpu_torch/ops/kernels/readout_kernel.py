@@ -6,11 +6,12 @@ hop and its projections, in one call per direction.  The forward
 `fused_readout` (csrc/fused_readout.cu, the Pallas `_readout_kernel`),
 its backward `fused_readout_bwd` (csrc/fused_readout_bwd.cu, the Pallas
 `_readout_bwd_kernel`) and `fused_readout_vjp`, the autograd function
-that joins them as JAX's custom_vjp does.  The backward has two designs
-(`BWD_DESIGNS`): "gemm", the default, moves every [L,d] x [d,d] product
-to three matrix products over all B*L keys around a per-row kernel that
-runs only the hops' vector chain; "rows", the first, does it all a row a
-block.  Per row and hop i:
+that joins them as JAX's custom_vjp does.  Each direction has two
+designs (`FWD_DESIGNS`, `BWD_DESIGNS`): "gemm", the default, moves every
+[L,d] x [d,d] product to matrix products over all B*L keys (the forward
+one, the backward three) around a per-row kernel that runs only the
+hops' vector chain; "rows", the first, does it all a row a block.  Per
+row and hop i:
 
     q    = relu(dec_c @ Wq_i + bq_i)            dec_c: dec rounded to mem's type
     K    = relu(mem @ Wk_i + bk_i), V = relu(mem @ Wv_i + bv_i)   (rounded)
@@ -39,10 +40,14 @@ LN_EPS = 1e-8
 MAX_KEYS = 1024          # the kernels' longest memory, as in the JAX package
 WIDTHS = (32, 64, 128)   # the kernels' d
 MAX_SMEM_BYTES = 227 * 1024
-# the backward's designs, the default first (the C interface's `design`
-# is the index): "gemm" (the K/V projections, dmem's products and dWk /
-# dWv as block-tiled products over all B*L keys, tensor cores in bf16)
-# and "rows", the earlier one-block-a-row design, kept for comparison
+# the forward's designs, the default first (the C interface's `design`
+# is the index): "gemm" (every hop's K and V projections as one
+# block-tiled product over all B*L keys, tensor cores in bf16, then the
+# hops' vector chain a row a block) and "rows", the earlier
+# one-block-a-row design, kept for comparison
+FWD_DESIGNS = ("gemm", "rows")
+# the backward's, likewise: "gemm" (the K/V projections, dmem's products
+# and dWk / dWv as block-tiled products over all B*L keys) and "rows"
 BWD_DESIGNS = ("gemm", "rows")
 
 # the operands after mem and dec, in the order the functions take them
@@ -114,21 +119,41 @@ def fused_readout(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk, wv, bv,
     return _launch(args)
 
 
-def _launch(args) -> torch.Tensor:
+def _aligned(args):
+    """The operands, with mem, Wk and Wv copied where a view starts off
+    16-byte alignment: the gemm designs read them in 16-byte pieces."""
+    return tuple(t.clone() if i in (0, 7, 9) and t.data_ptr() % 16 else t
+                 for i, t in enumerate(args))
+
+
+def _launch(args, _design=FWD_DESIGNS[0]):
+    """Launch the forward in the "gemm" design.  ``_design="rows"``
+    forces the earlier design (chip_smoke.py holds and times it beside
+    the default); the main path never passes it.  A failed launch
+    raises: there is no fallback."""
     global launches
+    if _design not in FWD_DESIGNS:
+        raise ValueError(f"fused_readout: design {_design!r} is not one of "
+                         f"{FWD_DESIGNS}")
+    design = FWD_DESIGNS.index(_design)
+    args = _aligned(args)
     mem = args[0]
     device, stream = build.launch_context(args, "fused_readout")
     _kernel_shape("fused_readout", mem)
     b, tk, d = mem.shape
+    n = args[5].shape[0]
     lib = _library()
-    if lib.fused_readout_smem_bytes(tk, d) > MAX_SMEM_BYTES:
+    if lib.fused_readout_smem_bytes(tk, d, n, design) > MAX_SMEM_BYTES:
         raise ValueError(f"fused_readout: L={tk}, d={d} needs more shared "
                          "memory than a block has")
+    is_bf16 = int(mem.dtype == torch.bfloat16)
     out = torch.empty((b, d), dtype=torch.float32, device=mem.device)
+    # the K and V planes of every hop, freed when the call returns
+    ws = torch.empty((lib.fused_readout_workspace_bytes(
+        b, tk, d, n, is_bf16, design),), dtype=torch.uint8, device=mem.device)
     status = lib.fused_readout_launch(
-        int(mem.dtype == torch.bfloat16), *(t.data_ptr() for t in args),
-        out.data_ptr(), b, tk, d, args[5].shape[0], 1.0 / d ** 0.5, device,
-        stream)
+        is_bf16, design, *(t.data_ptr() for t in args), out.data_ptr(),
+        ws.data_ptr(), b, tk, d, n, 1.0 / d ** 0.5, device, stream)
     build.check(lib, status, "fused_readout")
     launches += 1
     return out
@@ -139,10 +164,12 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_readout_launch.argtypes = (
-            [ci] + [vp] * 20 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            [ci, ci] + [vp] * 21 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.fused_readout_launch.restype = ci
-        lib.fused_readout_smem_bytes.argtypes = [ci, ci]
+        lib.fused_readout_smem_bytes.argtypes = [ci] * 4
         lib.fused_readout_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_readout_workspace_bytes.argtypes = [ci] * 6
+        lib.fused_readout_workspace_bytes.restype = ctypes.c_longlong
         lib._port_typed = True
     return lib
 
@@ -226,10 +253,7 @@ def _launch_bwd(g, args, _design=BWD_DESIGNS[0]):
         raise ValueError(f"fused_readout_bwd: design {_design!r} is not one "
                          f"of {BWD_DESIGNS}")
     design = BWD_DESIGNS.index(_design)
-    # the gemm design copies mem, Wk and Wv in 16-byte pieces: a view that
-    # starts off that alignment is copied first
-    args = tuple(t.clone() if i in (0, 7, 9) and t.data_ptr() % 16 else t
-                 for i, t in enumerate(args))
+    args = _aligned(args)
     mem = args[0]
     device, stream = build.launch_context((g,) + args, "fused_readout_bwd")
     _kernel_shape("fused_readout_bwd", mem)
