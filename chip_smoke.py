@@ -56,7 +56,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      gru_scan and gru_scan_bwd at B=64, L=512
      (the forward as in phase 2, the backward as in phase 2b);
      dtable on phase 6's four tables with the ids of its first batch, as
-     in phase 2b;
+     in phase 2b; then the widths no kernel is built for, which the
+     wrappers pad, each against its twin at the native width, the same
+     bits twice and one launch a call: gru_scan and gru_scan_bwd at u =
+     16 and 48, dtable and scatter_add at d = 16, 48, 96, fused_readout
+     and fused_readout_bwd (gemm designs, the live width beside the
+     padded one) at d = 16, 48, 96;
   2f. the chain readout's kernels the same way: readout_chain and
      readout_chain_bwd at B = 1, 16, 256 x L = 50, 255 (d=128, 3 hops)
      and at B=16, L=50 with d = 16 and 64, in f32 and bf16 (positional
@@ -68,7 +73,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
      against the same Recommender on the CPU (the plain twins), and the
-     time per request batch;
+     time per request batch; then the same at num_units 16 for B = 16
+     (the GRU scan padded to 32 units);
   4. the training slice: bench.py's MTAM step (B=256, L=50, d=128, 3
      hops, 4832 users, 3706 items, 18 categories, tables padded to 128
      rows, adam clipped to 1.0) on 4096 rows made from seed 0 and held
@@ -81,7 +87,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      examples/s and device idle share in bf16 and f32, with the same
      run's readout alone at the step's shape, forward + backward, timed
      both ways (single_query_readout under autograd, readout_chain_stack),
-     and the step itself both ways, in turns;
+     and the step itself both ways, in turns; then one step at
+     num_units 16 against the CPU in f32 and bf16 (the GRU pair and
+     dtable padded);
   5. the self-attention slice on the same data and catalog, 3 blocks,
      1 head: Time_Aware_Self_Attention_Model's step as phase 4 checks
      MTAM's (3 fused_attention[time] + 3 fused_attention_bwd[time] + 4
@@ -115,12 +123,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      Tk = 1025, 2048, 4096), Tq = Tk = 2048 (B = 1, 16, 64), ragged
      key lengths (a row with no live key, a full row, one ending inside
      the first 512-key block) and two ragged tiles (B=3, Tq=Tk=1100,
-     key lengths 0, 1100, 1037; B=2, Tq=Tk=4096, 4096 and 2600); at Tq =
-     Tk bf16 takes the tensor-core design and f32 the register-tiled
-     design (each: the same bits twice; the SIMT design forced and checked
-     beside it); timed at B = 64, Tk = 2048, every key live (Tq = Tk: the
-     tiled design and the SIMT design, forced, in both dtypes; Tq = 1)
-     beside scaled_dot_product_attention for plain and tisas;
+     key lengths 0, 1100, 1037; B=2, Tq=Tk=4096, 4096 and 2600); at Tq
+     = 1 every case takes the split design (each row's keys in 256-key
+     splits, a block each, then a merge), at Tq = Tk bf16 the
+     tensor-core design and f32 the register-tiled design (each: the
+     same bits twice; the SIMT design forced and checked beside it; at
+     Tq = 1 rows 1, 2 and B-1 also alone, bit-equal to themselves in
+     the batch); timed at B = 64, Tk = 2048, every key live (Tq = Tk:
+     the tiled design and the SIMT design, forced, in both dtypes; Tq =
+     1: the split design and the SIMT design in turns, the profiler's
+     split of the two launches, and splits of 128, 256 and 512 keys in
+     turns) beside scaled_dot_product_attention for plain and tisas;
      dtable at the L=2048 cell's 131,072 ids a table (the user table's
      64), as in phase 2b; gather and scatter_add against their twins at
      those ids and at phase 4's ids, the same bits twice, timed beside
@@ -128,14 +141,16 @@ Phases, in order; any failure exits non-zero and prints no result:
   7. past 1024 keys at the slice's configuration (phase 6's cell at
      L=2048, 256 rows of its data): Recommender.recommend for MTAM,
      SASrec, TiSAS and Time_Aware_SA at B = 1, 16, 64 in bf16 and f32
-     (MTAM: 1 gru_scan + 3 fused_attention_blockwise[time] a call, the
-     SIMT design at Tq = 1; the others 3 a call in their mode, the
+     (MTAM: 1 gru_scan + 3 fused_attention_blockwise_split[time] a call,
+     the split design at Tq = 1; the others 3 a call in their mode, the
      tensor-core design (fused_attention_blockwise_mma) in bf16, the
      register-tiled design (fused_attention_blockwise_regtile) in f32),
      scores against the CPU
      at B = 2 (the CPU's time at L=2048 sets that size); MTAM's scoring
      call at B = 64 timed in turns with gru_scan forced to the unit_column
-     design (default, unit_column, unit_column, default);
+     design (default, unit_column, unit_column, default), and at B = 1,
+     16, 64 in turns with the blockwise kernel forced to the SIMT design
+     (default, simt, simt, default);
      Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
      (in bf16 the scalar gates' gradients reported, not held), timed at
      B = 64 in bf16 and f32 with its peak memory, MTAM's also in turns
@@ -168,7 +183,9 @@ blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
 the SIMT design's time on the same inputs beside it ("simt_ms"), the
-blockwise time mode at MTAM's Tq=1 hops as "@L2048Tq1"); the last line
+blockwise kernel's split design at MTAM's Tq=1 hops as
+"fused_attention_blockwise_split[<mode>]@L2048Tq1" with the SIMT
+design's time beside it, "simt_ms", and "passes_ms"); the last line
 is {"ok": true,
 "device": {...}}.  A full report is written to
 chiprun_out/chip_smoke.json.
@@ -224,6 +241,10 @@ KERNEL_FILES = {
         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
     # and its register-tiled design (f32, Tq > 1)
     "fused_attention_blockwise_regtile": (
+        "mtamrecommender_tpu_torch/csrc/fused_attention_blockwise.cu",
+        "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
+    # and its split design (Tq = 1: each row's keys across blocks, merged)
+    "fused_attention_blockwise_split": (
         "mtamrecommender_tpu_torch/csrc/fused_attention_blockwise.cu",
         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:134"),
     "gather": ("mtamrecommender_tpu_torch/csrc/embedding_gather.cu",
@@ -756,14 +777,20 @@ def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag):
     return rows, launches
 
 
-def run_slice(torch, iters, failures):
+def run_slice(torch, iters, failures, num_units=128):
     """Phase 3: MTAM serving at L=50 (1 gru_scan + 3 fused_attention[time]
-    launches a call, no fused_readout)."""
+    launches a call, no fused_readout); at ``num_units`` 16 (the width
+    __graft_entry__.py's smoke trains MTAM at, which no kernel is built
+    for) for B=16 only."""
     from mtamrecommender_tpu_torch.types import DatasetMeta
 
     want = _want_counts(0)
     want["gru_scan"]["tgru"] = 1
     want["fused_attention"]["time"] = 3
+    if num_units != 128:
+        return serve_mtam(torch, iters, failures, DatasetMeta(*SERVING_META),
+                          {"model.num_units": num_units}, (16,), want,
+                          f"slice u={num_units}")
     return serve_mtam(torch, iters, failures, DatasetMeta(*SERVING_META), {},
                       (1, 16, 256), want, "slice")
 
@@ -1347,6 +1374,87 @@ def readout_fwd_more(torch, timer, rk, dtype, dname, iters, failures):
     return out
 
 
+# widths no kernel is built for, which the wrappers pad (the GRU pair to
+# a multiple of 32, the table gradients to one of 32, 64, 128, 256, the
+# fused readout to one of 32, 64, 128 with the live width beside it)
+WIDTH_FAULT_UNITS = (16, 48)
+WIDTH_FAULT_DIMS = (16, 48, 96)
+
+
+def check_width_fault(torch, failures):
+    """The kernels at widths they are not built for, each against its
+    plain twin at the native width, in f32 and bf16: gru_scan and
+    gru_scan_bwd (tgru, B=16, L=50, ragged lengths) at u = 16 and 48;
+    dtable and scatter_add (2,000 ids into 500 rows) and fused_readout and
+    fused_readout_bwd in their gemm designs (B=16, L=256, ragged keys, a
+    row with no live key, a masked query) at d = 16, 48 and 96; each the
+    same bits twice, and each call one launch of its kernel."""
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+    from mtamrecommender_tpu_torch.ops.kernels import gru_kernel as gk
+    from mtamrecommender_tpu_torch.ops.kernels import readout_kernel as rk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4242)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        cases = []
+        for u in WIDTH_FAULT_UNITS:
+            args = gru_inputs(torch, gen, "tgru", dtype, B=16, L=50, u=u)
+            g = torch.randn((16, 50, u), generator=gen, device=DEVICE)
+            outs = gk.gru_scan_plain("tgru", *args)
+            cases += [
+                ("gru_scan", u, lambda a=args: gk.gru_scan("tgru", *a),
+                 lambda a=args: gk.gru_scan_plain("tgru", *a)),
+                ("gru_scan_bwd", u,
+                 lambda a=args, g=g, o=outs: gk.gru_scan_bwd("tgru", g, o,
+                                                             *a),
+                 lambda a=args, g=g, o=outs: gk.gru_scan_bwd_plain(
+                     "tgru", g, o, *a))]
+        for d in WIDTH_FAULT_DIMS:
+            ids = torch.randint(0, 500, (2000,), generator=gen,
+                                device=DEVICE, dtype=torch.int32)
+            ct = torch.randn((2000, d), generator=gen, device=DEVICE
+                             ).to(dtype)
+            args = readout_inputs(torch, gen, dtype, 16, 256, d=d,
+                                  gate="positional")
+            g = torch.randn((16, d), generator=gen, device=DEVICE)
+            cases += [
+                ("dtable", d, lambda c=ct, i=ids: ek.dtable(c, i, 500),
+                 lambda c=ct, i=ids: ek.dtable_plain(c, i, 500)),
+                ("scatter_add", d,
+                 lambda c=ct, i=ids: ek.scatter_add(c, i, 500),
+                 lambda c=ct, i=ids: ek.scatter_add_plain(c, i, 500)),
+                ("fused_readout", d, lambda a=args: rk.fused_readout(*a),
+                 lambda a=args: rk.fused_readout_plain(*a)),
+                ("fused_readout_bwd", d,
+                 lambda a=args, g=g: rk.fused_readout_bwd(g, *a),
+                 lambda a=args, g=g: rk.fused_readout_bwd_plain(g, *a))]
+        for kname, width, run, plain in cases:
+            _reset_counts()
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            launched = sum(_counts()[kname].values())
+            want = plain()
+            if isinstance(got, torch.Tensor):
+                got, again, want = (got,), (again,), (want,)
+            rel = max(rel_err(a, w)[1] for a, w in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = (rel <= KERNEL_TOL[dname] and same and launched == 2
+                  and all(bool(a.isfinite().all()) for a in got))
+            out.append({"kernel": kname, "width": width, "dtype": dname,
+                        "rel_err": rel, "tol": KERNEL_TOL[dname],
+                        "same_bits_twice": same, "launches": launched,
+                        "ok": ok})
+            print(f"width fault {kname:17s} width={width:<3d} {dname:9s} "
+                  f"rel={rel:.3e} same_bits={same} launches={launched} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"width fault {kname} width {width} {dname}"
+                                f": rel {rel:.3e}, same bits {same}, "
+                                f"launches {launched}")
+    return out
+
+
 def check_readout_bwd(torch, rk, g, args, dname):
     """fused_readout_bwd on the card against its twin: the default "gemm"
     design (two launches through the entry point, the same bits twice)
@@ -1650,6 +1758,24 @@ class TrainSetup:
             self.meta).to(device)
 
 
+class NarrowSetup:
+    """Phase 4's cell (its data, batch and tables) at model.num_units 16:
+    the width __graft_entry__.py's smoke trains MTAM at, padded by the
+    wrappers of the GRU pair and dtable."""
+
+    batch_size = TRAIN_BATCH
+    model = TrainSetup.model
+
+    def __init__(self, setup):
+        self.meta, self.batch, self.batch_cpu = (setup.meta, setup.batch,
+                                                 setup.batch_cpu)
+
+    @staticmethod
+    def cfg(dname, name="MTAM"):
+        return train_cfg(dname, name).with_overrides(
+            **{"model.num_units": 16})
+
+
 def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None):
     """One step's loss and gradients; ``drop_masks``, where given, are
     the forward's masks in block order (its mask source)."""
@@ -1679,6 +1805,8 @@ def _counts():
             "fused_attention_blockwise_mma": dict(ak.blockwise_mma_launches),
             "fused_attention_blockwise_regtile": dict(
                 ak.blockwise_regtile_launches),
+            "fused_attention_blockwise_split": dict(
+                ak.blockwise_split_launches),
             "dense_fwd": dict(ak.dense_fwd), "dense_bwd": dict(ak.dense_bwd),
             "dtable": dict(ek.launches),
             "gather": {"gather": ek.gather_launches["gather"]},
@@ -1694,7 +1822,7 @@ def _reset_counts():
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
                    ak.bwd_launches, ak.blockwise_launches,
                    ak.blockwise_mma_launches, ak.blockwise_regtile_launches,
-                   ak.dense_fwd, ak.dense_bwd,
+                   ak.blockwise_split_launches, ak.dense_fwd, ak.dense_bwd,
                    ek.launches, ek.gather_launches):
         for m in counts:
             counts[m] = 0
@@ -1724,6 +1852,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             "fused_attention_blockwise_mma": dict.fromkeys(
                 ak.BLOCKWISE_MODES, 0),
             "fused_attention_blockwise_regtile": dict.fromkeys(
+                ak.BLOCKWISE_MODES, 0),
+            "fused_attention_blockwise_split": dict.fromkeys(
                 ak.BLOCKWISE_MODES, 0),
             "dense_fwd": per(ak.MODES, dense_fwd),
             "dense_bwd": per(ak.MODES, dense_bwd),
@@ -1957,7 +2087,10 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
            "fused_readout_bwd": ("readout_bwd_steps_in_turns",
                                  "readout_kernel", "_launch_bwd", "rows"),
            "fused_readout": ("readout_fwd_steps_in_turns", "readout_kernel",
-                             "_launch", "rows")}
+                             "_launch", "rows"),
+           "fused_attention_blockwise": ("blockwise_steps_in_turns",
+                                         "attention_kernel",
+                                         "_launch_blockwise", "simt")}
 
 
 @contextlib.contextmanager
@@ -2400,17 +2533,52 @@ def xl_att_inputs(torch, gen, dtype, B, Tq, Tk):
     return args
 
 
+# the split design's keys a split, probed in turns at B=64, Tk=2048
+SPLIT_PROBE = (128, 256, 512)
+
+
+def _row_alone(args, r):
+    """The blockwise operands of batch row r alone (the [Tq, Tk] gate
+    parameters are shared by every row)."""
+    return [a if 7 <= i <= 11 else a[r:r + 1] for i, a in enumerate(args)]
+
+
+def time_split(timer, ak, mode, args, iters):
+    """At Tq = 1: the split design and the SIMT design, forced, on the
+    same inputs in turns (split, simt, simt, split), the profiler's split
+    of the split design's device time between its two kernels, and its
+    keys a split probed at SPLIT_PROBE in turns (each length twice)."""
+    split = lambda: ak.fused_attention_blockwise(mode, *args)  # noqa: E731
+    simt = lambda: ak._launch_blockwise(  # noqa: E731
+        mode, *args, _design="simt")
+    a, b1, b2, a2 = (timer(split, iters), timer(simt, iters),
+                     timer(simt, iters), timer(split, iters))
+    probe = {n: [] for n in SPLIT_PROBE}
+    for _ in range(2):
+        for n in SPLIT_PROBE:
+            probe[n].append(timer(lambda: ak._launch_blockwise(
+                mode, *args, _split=n), iters))
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "simt_ms": (b1 + b2) / 2, "simt_ms_repeats": [b1, b2],
+            "passes_ms": timer.passes(split),
+            "split_keys": ak.SPLIT_KEYS,
+            "split_keys_probe_ms": probe}
+
+
 def check_blockwise(torch, timer, iters, failures):
     """fused_attention_blockwise in each mode against its plain twin, f32
     and bf16, at Tq = 1 (B = 1, 16, 64 x Tk = 1025, 2048, 4096), Tq = Tk
     = 2048 (B = 1, 16, 64), ragged key lengths, and at the ragged tiles
-    of TILED_RAGGED_CASES.  At Tq = Tk bf16 takes the tensor-core design
-    and f32 the register-tiled design: there each case runs twice (the
-    same bits), and the SIMT design, forced, is held against the twin
-    beside it.  Timed at B = 64, Tk = 2048 with every key live for Tq =
-    Tk (the self-attention blocks: the tiled design and the SIMT design,
-    forced) and Tq = 1 (MTAM's hops), with scaled_dot_product_attention
-    beside the plain and tisas modes."""
+    of TILED_RAGGED_CASES.  At Tq = 1 every case takes the split design,
+    at Tq = Tk bf16 the tensor-core design and f32 the register-tiled
+    design: there each case runs twice (the same bits), and the SIMT
+    design, forced, is held against the twin beside it; at Tq = 1 rows
+    1, 2 and B-1 of each batch also run alone and must give the bits they
+    give in the batch.  Timed at B = 64, Tk = 2048 with every key live
+    for Tq = Tk (the self-attention blocks: the tiled design and the SIMT
+    design, forced) and Tq = 1 (MTAM's hops: the split design and the
+    SIMT design in turns, `time_split`), with
+    scaled_dot_product_attention beside the plain and tisas modes."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
 
     gen = torch.Generator(device=DEVICE).manual_seed(8642)
@@ -2423,7 +2591,8 @@ def check_blockwise(torch, timer, iters, failures):
             # per design: max |diff|, max rel, within the tolerance
             agree = {name: [0.0, 0.0, True]
                      for name in ak.BLOCKWISE_DESIGNS}
-            same, tiled = True, None   # tiled: this dtype's Tq > 1 design
+            same = {}            # per design other than simt: same bits
+            tiled, alone_same = None, True
             for bs, tq, tk, lens in cases:
                 args = xl_att_inputs(torch, gen, dtype, bs, tq, tk)
                 if lens is not None:
@@ -2431,12 +2600,20 @@ def check_blockwise(torch, timer, iters, failures):
                 design = ak.blockwise_design(dtype, tq, args[0].shape[-1])
                 got = ak.fused_attention_blockwise(mode, *args)
                 runs = [(design, got)]
-                if design != "simt":
+                if design in ("mma", "regtile"):
                     tiled = design
-                    same = same and bool(torch.equal(
-                        got, ak.fused_attention_blockwise(mode, *args)))
+                if design != "simt":
+                    same[design] = same.get(design, True) and bool(
+                        torch.equal(got, ak.fused_attention_blockwise(
+                            mode, *args)))
                     runs.append(("simt", ak._launch_blockwise(
                         mode, *args, _design="simt")))
+                if design == "split":
+                    for r in sorted({1, 2, bs - 1} & set(range(1, bs))):
+                        one = ak.fused_attention_blockwise(
+                            mode, *_row_alone(args, r))
+                        alone_same = alone_same and bool(
+                            torch.equal(one[0], got[r]))
                 want = ak.fused_attention_blockwise_plain(mode, *args)
                 for name, out in runs:
                     e, r, o = _agree(out, want, dname)
@@ -2444,18 +2621,26 @@ def check_blockwise(torch, timer, iters, failures):
                     a[0], a[1], a[2] = max(a[0], e), max(a[1], r), a[2] and o
                 del args, got, runs, want
             for name, (err, rel, ok) in agree.items():
-                if name not in ("simt", tiled):
+                if name not in ("simt", "split", tiled):
                     continue
-                tail = f" same_bits={same}" if name == tiled else ""
+                tail = (f" same_bits={same[name]}" if name in same else "")
+                if name == "split":
+                    tail += f" row_alone_same_bits={alone_same}"
                 print(f"fused_attention_blockwise {mode:6s} {dname:9s} "
                       f"{name:7s} max_abs_err={err:.3e} rel={rel:.3e}{tail} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     failures.append(f"fused_attention_blockwise {mode} "
                                     f"{dname} {name}: rel err {rel:.3e}")
-            if not same:
+            for name, twice in same.items():
+                if not twice:
+                    failures.append(f"fused_attention_blockwise {mode} "
+                                    f"{dname} {name}: two launches gave "
+                                    "different bits")
+            if not alone_same:
                 failures.append(f"fused_attention_blockwise {mode} {dname} "
-                                f"{tiled}: two launches gave different bits")
+                                "split: a row alone gave other bits than "
+                                "in its batch")
             rows = {}
             for tq in (XL_L, 1):
                 # every key live, as in the cell's training rows
@@ -2467,15 +2652,21 @@ def check_blockwise(torch, timer, iters, failures):
                 row = {"max_abs_err": err, "rel_err": rel,
                        "tol": KERNEL_TOL[dname], "ok": ok, "Tq": tq,
                        "design": design,
-                       "ms": timer(lambda: ak.fused_attention_blockwise(
-                           mode, *args), iters),
                        "plain_ms": timer(
                            lambda: ak.fused_attention_blockwise_plain(
                                mode, *args), 3, warmup=1),
                        **att_bound(mode, args, dname)}
-                if design != "simt":
-                    row["same_bits_twice"] = same
-                    row["ok"] = ok and same
+                if design == "split":
+                    row.update(time_split(timer, ak, mode, args, iters))
+                    row["same_bits_twice"] = same[design]
+                    row["row_alone_same_bits"] = alone_same
+                    row["ok"] = ok and same[design] and alone_same
+                else:
+                    row["ms"] = timer(lambda: ak.fused_attention_blockwise(
+                        mode, *args), iters)
+                if design not in ("simt", "split"):
+                    row["same_bits_twice"] = same[design]
+                    row["ok"] = ok and same[design]
                     row["simt_ms"] = timer(lambda: ak._launch_blockwise(
                         mode, *args, _design="simt"), iters)
                 library = att_library(torch, mode, args)
@@ -2489,7 +2680,9 @@ def check_blockwise(torch, timer, iters, failures):
                       f"{row['ms']:.4f} simt_ms={row.get('simt_ms')} "
                       f"plain_ms={row['plain_ms']:.4f} bound_ms="
                       f"{row['bound_ms']:.4f} ({row['bound_by']}) "
-                      f"library_ms={row.get('library_ms')}", flush=True)
+                      f"library_ms={row.get('library_ms')} "
+                      f"passes={row.get('passes_ms')} split_keys_probe_ms="
+                      f"{row.get('split_keys_probe_ms')}", flush=True)
                 del args
             full = rows[XL_L]
             if full["design"] != "simt":
@@ -2504,12 +2697,10 @@ def check_blockwise(torch, timer, iters, failures):
                 full = simt
             entries.setdefault(("fused_attention_blockwise", mode, "L2048"),
                                {})[dname] = full
-            if mode == "time":       # MTAM's hops: their own main path
-                entries.setdefault(("fused_attention_blockwise", mode,
-                                    "L2048Tq1"), {})[dname] = rows[1]
-            else:
-                entries[("fused_attention_blockwise", mode, "L2048")][
-                    f"{dname}_tq1"] = rows[1]
+            # Tq = 1: MTAM's hops in time mode (their main path), the
+            # split design's row with the SIMT design's time beside it
+            entries.setdefault(("fused_attention_blockwise_split", mode,
+                                "L2048Tq1"), {})[dname] = rows[1]
     return entries
 
 
@@ -2777,9 +2968,9 @@ XL_MODELS = {"MTAM": "time", "SASrec": "plain",
 def _blockwise_count(dname, tq):
     """The counter a blockwise launch at L=2048 adds to: self-attention
     (Tq = Tk) takes the tensor-core design in bf16 and the register-tiled
-    design in f32, MTAM's hops (Tq = 1) the SIMT design."""
+    design in f32, MTAM's hops (Tq = 1) the split design."""
     if tq == 1:
-        return "fused_attention_blockwise"
+        return "fused_attention_blockwise_split"
     return ("fused_attention_blockwise_mma" if dname == "bfloat16"
             else "fused_attention_blockwise_regtile")
 
@@ -2914,8 +3105,8 @@ def serve_xl(torch, failures, setup, name, want, main_launches):
 
 def score_in_turns(torch, setup, name="MTAM", kernel="gru_scan",
                    batch_size=XL_BATCH):
-    """``name``'s scoring call at the setup's L and B=``batch_size`` (the
-    largest request batch of its serving check, an empty history in it)
+    """``name``'s scoring call at the setup's L and B=``batch_size`` (from
+    B = 2 on an empty history in it)
     in bf16 and f32, timed in turns with ``kernel`` forced to its earlier
     design (EARLIER; default, earlier, earlier, default): CUDA events over
     5 calls and the profiler's device time of one.  Not a main-path run:
@@ -2927,7 +3118,8 @@ def score_in_turns(torch, setup, name="MTAM", kernel="gru_scan",
     hists, req = make_histories(np.random.RandomState(batch_size),
                                 batch_size, meta.item_count,
                                 meta.category_count, meta.max_seq_len)
-    hists[1] = []
+    if batch_size > 1:
+        hists[1] = []
     fetch = min(50 + meta.max_seq_len, meta.item_vocab)
     rows = {}
     for dname in ("bfloat16", "float32"):
@@ -3018,7 +3210,7 @@ def run_xl_history(torch, setup, failures):
     hops, blocks = {}, {}
     for name, mode in XL_MODELS.items():
         def want(dname, name=name, mode=mode):
-            # MTAM's hops: Tq = 1, the SIMT design in both dtypes
+            # MTAM's hops: Tq = 1, the split design in both dtypes
             tq = 1 if name == "MTAM" else XL_L
             counts = _want_counts(0)
             counts[_blockwise_count(dname, tq)][mode] = 3
@@ -3029,6 +3221,10 @@ def run_xl_history(torch, setup, failures):
             torch, failures, setup, name, want,
             hops if name == "MTAM" else blocks)
     report["mtam_serving_in_turns"] = score_in_turns(torch, setup)
+    # the hops' split design against the SIMT design, forced
+    report["mtam_serving_blockwise_in_turns"] = {
+        bs: score_in_turns(torch, setup, kernel="fused_attention_blockwise",
+                           batch_size=bs) for bs in (1, 16, XL_BATCH)}
     name = "Time_Aware_Self_Attention_Model"
 
     def want(steps, dname):
@@ -3079,8 +3275,9 @@ def kernels_line(entries, launches_by_shape):
     ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``:
     the SIMT design, forced, and the tiled designs as
     ``fused_attention_blockwise_mma`` in bf16 and
-    ``fused_attention_blockwise_regtile`` in f32) and, in time mode, at
-    MTAM's Tq=1 hops (``@L2048Tq1``), dtable and the gather /
+    ``fused_attention_blockwise_regtile`` in f32) and its split design
+    at MTAM's Tq=1 hops (``fused_attention_blockwise_split@L2048Tq1``,
+    the main path's in time mode), dtable and the gather /
     scatter-add pair at the L=2048 cell's ids (``@L2048``), each with the
     ms, bound and launches of that shape (``launches_by_shape[shape]``;
     the entries without a shape count the L=50 paths' launches under
@@ -3218,6 +3415,8 @@ def main() -> int:
     long_setup = LongSetup(torch)
     entries.update(check_readout_kernels(torch, timer, 100, failures,
                                          long_setup.tables))
+    # and the kernels at widths they are not built for
+    width_fault = {"kernels": check_width_fault(torch, failures)}
     lap("2d")
 
     # phase 2e: past 1024 keys, the gather / scatter-add pair
@@ -3236,10 +3435,17 @@ def main() -> int:
         if serve_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "serving path")
+    width_fault["serving_u16"] = run_slice(torch, 5, failures,
+                                           num_units=16)[0]
     lap("3")
 
     # phase 4: the training slice
     training, train_launches = run_training(torch, setup, failures)
+    print("width fault: MTAM at num_units 16, one training step",
+          flush=True)
+    width_fault["training_u16"] = one_step_check(
+        torch, NarrowSetup(setup), failures, "MTAM",
+        lambda steps, dname: _want_counts(steps, gru="tgru", chain=True))
     for kname, mode in (("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
                         ("dtable", None), ("readout_chain", None),
                         ("readout_chain_bwd", None)):
@@ -3279,7 +3485,7 @@ def main() -> int:
     for shape, kname, mode in (
             ("L2048Tq1", "gru_scan", "tgru"),
             ("L2048Tq1", "gru_scan_bwd", "tgru"),
-            ("L2048Tq1", "fused_attention_blockwise", "time"),
+            ("L2048Tq1", "fused_attention_blockwise_split", "time"),
             ("L2048", "fused_attention_blockwise_regtile", "time"),
             ("L2048", "fused_attention_blockwise_regtile", "plain"),
             ("L2048", "fused_attention_blockwise_regtile", "tisas"),
@@ -3320,7 +3526,7 @@ def main() -> int:
                    "fused_readout_gemm_ptxas": readout_ptxas["fused_readout"],
                    "fused_readout_bwd_gemm_ptxas":
                        readout_ptxas["fused_readout_bwd"],
-                   "phase_s": phase_s, **report,
+                   "phase_s": phase_s, **report, "width_fault": width_fault,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,
                    "launches_training": {k: {str(m): n for m, n in v.items()}

@@ -37,13 +37,14 @@
 // type over them, and updates m and l.  Then 64 v rows at a time are
 // staged, and each thread keeps its (query, column) outputs in registers
 // across the whole walk.  No float atomics: every sum has a fixed order.
-// Not yet: tensor cores (wgmma), TMA, and split-key decoding at Tq = 1,
-// where B = 64 rows fill only 64 of the 132 SMs.
+// At Tq = 1 this gives a row one block, so B = 64 rows fill only 64 of the
+// 132 SMs: the wrapper takes the split design below there (its
+// `blockwise_design` == "split"), and this kernel only when forced.
 //
 // The tensor-core design (`blockwise_mma_kernel`, the wrapper's
 // `blockwise_design` == "mma": bf16, Tq > 1, d in {16, 32, ..., 128}) is
 // FlashAttention-2's structure held to the rounding above.  The kernel
-// above stays for Tq = 1 (and any shape the two tiled designs refuse).
+// above stays for the Tq > 1 shapes the two tiled designs refuse.
 // - One block of 4 warps per (64 queries, batch row), 16 query rows a
 //   warp; the batch index runs fastest in the grid, so the blocks that
 //   read one query tile's five gate tiles (time mode) run together and
@@ -1081,6 +1082,288 @@ cudaError_t launch_regtile_d(const void* const* p, float* out, int B, int Tq,
   }
 }
 
+// ------------------------------------------------- split design (Tq = 1)
+//
+// MTAM's serving hops past 1024 keys: one query a row.  The SIMT kernel
+// above gives a row one block, so B = 64 rows fill 64 of the 132 SMs and
+// one row of 2048 keys keeps one SM busy alone.  Here a row's keys are cut
+// into splits of `split` keys (the wrapper's choice, a function of Tk
+// only, so a row's bits do not depend on the batch), and two launches:
+//  1. blockwise_split_kernel, one block of 256 threads a (row b, split s),
+//     s fastest in the grid:
+//     the split's scores as the SIMT kernel computes them (same gate, mask
+//     and fill), its max m_s, l_s = sum of the unrounded p = exp(s - m_s),
+//     and acc_s = sum round_T(p) v in f32, written as the triple (m_s,
+//     l_s, acc_s[D]) to an f32 workspace [B][S][D + 2].  A split wholly at
+//     or past the keys the weights reach writes m = -inf, l = 0, acc = 0.
+//  2. blockwise_merge_kernel, one block a row: m = max_s m_s, then l and
+//     acc as sums over the splits in order of the triples rescaled by
+//     exp(m_s - m), skipping the empty ones; out = acc / l.
+// No float atomics: every sum has a fixed order, so the same inputs give
+// the same bits.  Scores: warp w takes keys w*4.., four at a time, its
+// lanes over d (k and rawk read once, coalesced, q and tqw in registers),
+// warp sums; then one thread a key computes the gate and the score.  The
+// weighted sum: a thread takes VEC adjacent columns of v (16 bytes a load
+// where D's rows allow it, else one value), D / VEC threads a key row,
+// kThreads / (D / VEC) groups of them over keys g, g + G, ...; the groups'
+// sums are added in order.  16-byte loads keep enough of v in flight to
+// cover the memory's latency: with one 2-byte value a load, four blocks
+// an SM hold some 8 KB in flight.
+
+constexpr int kSplitKeysMax = 1024;   // the longest split a block takes
+constexpr int kSplitUnroll = 4;       // keys a warp scores at once
+
+size_t split_smem_floats(int split, int vec) {
+  return 2 * (size_t)split + (size_t)kThreads * vec;
+}
+
+// VEC values of T at p (VEC > 1: one 16-byte load) as f32
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
+  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "a load is 16 bytes");
+  if constexpr (VEC == 1) {
+    x[0] = port::to_float(p[0]);
+  } else {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const T* h = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) x[i] = port::to_float(h[i]);
+  }
+}
+
+// row b's keys [lo, lo + split) -> ws[(b * S + s) * (D + 2) ...]
+template <typename T, int MODE, int NJ, int VEC>
+__global__ void __launch_bounds__(kThreads) blockwise_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ t_q, const T* __restrict__ t_k,
+    const T* __restrict__ tqw, const T* __restrict__ rawk,
+    const T* __restrict__ w1, const T* __restrict__ b1,
+    const T* __restrict__ wo1, const T* __restrict__ wo2,
+    const T* __restrict__ bo, const int* __restrict__ key_len,
+    float* __restrict__ ws, int Tk, int D, int split, int S, float scale) {
+  constexpr bool TIME = MODE == BW_TIME;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kWarps];
+  float* s_dot = smem;                 // [split] q . k, then score, then p
+  float* s_dtm = s_dot + split;        // [split] tqw . rawk (time mode)
+  float* s_part = s_dtm + split;       // [G][D] the groups' sums
+  const int s = blockIdx.x % S, b = blockIdx.x / S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int live = max(0, min(key_len[b], Tk));
+  const int key_end = live > 0 ? live : Tk;   // keys the weights reach
+  const int lo = s * split;
+  const int n = max(0, min(split, key_end - lo));
+  float* out = ws + ((size_t)b * S + s) * (D + 2);
+  if (n == 0) {                        // the whole block leaves together
+    for (int e = tid; e < D + 2; e += kThreads)
+      out[e] = e == 0 ? -INFINITY : 0.f;
+    return;
+  }
+  const size_t row_k = (size_t)b * Tk + lo;   // the split's first key
+
+  // ---- q . k (and tqw . rawk) of the split's keys; with no live key
+  // every key scores the fill, and nothing is read
+  if (live > 0) {
+    float qr[NJ], tr[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int e = lane + 32 * j;
+      qr[j] = e < D ? port::to_float(q[(size_t)b * D + e]) : 0.f;
+      tr[j] = TIME && e < D ? port::to_float(tqw[(size_t)b * D + e]) : 0.f;
+    }
+    for (int r0 = warp * kSplitUnroll; r0 < n;
+         r0 += kWarps * kSplitUnroll) {
+      float dk[kSplitUnroll], dt[kSplitUnroll];
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        dk[u] = dt[u] = 0.f;
+        if (r0 + u < n) {
+          const size_t at = (row_k + r0 + u) * D;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int e = lane + 32 * j;
+            if (e < D) {
+              dk[u] = fmaf(qr[j], port::to_float(k[at + e]), dk[u]);
+              if (TIME)
+                dt[u] = fmaf(tr[j], port::to_float(rawk[at + e]), dt[u]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSplitUnroll; ++u) {
+        dk[u] = port::warp_sum(dk[u]);
+        if (TIME) dt[u] = port::warp_sum(dt[u]);
+        if (lane == 0 && r0 + u < n) {
+          s_dot[r0 + u] = dk[u];
+          s_dtm[r0 + u] = dt[u];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- scores (one thread a key), the split's max, p and l
+  float mx = -INFINITY;
+  for (int r = tid; r < n; r += kThreads) {
+    float sc = kNegFill;
+    if (live > 0) {
+      const int c = lo + r;
+      if (MODE == BW_PLAIN) {
+        sc = s_dot[r] * scale;
+      } else {
+        const float logdt = log1pf(fabsf(port::to_float(t_q[b]) -
+                                         port::to_float(t_k[row_k + r])));
+        if (TIME) {
+          const float decay = tanhf(logdt * port::to_float(w1[c]) +
+                                    port::to_float(b1[c]));
+          const float gate = port::to_float(wo1[c]) * decay +
+                             port::to_float(wo2[c]) * tanhf(s_dtm[r]) +
+                             port::to_float(bo[c]);
+          sc = s_dot[r] * port::sigmoid(gate) * scale;
+        } else {
+          sc = (s_dot[r] + logdt) * scale;
+        }
+      }
+    }
+    s_dot[r] = sc;
+    mx = fmaxf(mx, sc);
+  }
+  const float m = port::block_max<kThreads>(mx, red);
+  float sum = 0.f;
+  for (int r = tid; r < n; r += kThreads) {
+    const float p = expf(s_dot[r] - m);
+    sum += p;
+    s_dot[r] = port::round_to<T>(p);
+  }
+  const float l = port::block_sum<kThreads>(sum, red);   // ends in a barrier
+
+  // ---- acc = sum_r round(p_r) v_r: group g of D / VEC threads over keys
+  // g, g + G, ...; then the groups' sums in order
+  const int tpr = D / VEC;             // threads a key row
+  const int G = tpr < kThreads ? kThreads / tpr : 1;
+  const int grp = tid / tpr, col = (tid % tpr) * VEC;
+  float a[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) a[i] = 0.f;
+  if (grp < G) {
+    const T* vr = v + row_k * D + col;
+#pragma unroll 4
+    for (int r = grp; r < n; r += G) {
+      const float pr = s_dot[r];
+      float x[VEC];
+      load_vec<T, VEC>(vr + (size_t)r * D, x);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) a[i] = fmaf(pr, x[i], a[i]);
+    }
+    // group grp's sums at [grp][col ..]
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) s_part[grp * D + col + i] = a[i];
+  }
+  __syncthreads();
+  if (tid < D) {
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g) acc += s_part[g * D + tid];
+    out[2 + tid] = acc;
+  }
+  if (tid == 0) {
+    out[0] = m;
+    out[1] = l;
+  }
+}
+
+// out[b, :] from row b's S triples, merged in split order
+__global__ void __launch_bounds__(kThreads) blockwise_merge_kernel(
+    const float* __restrict__ ws, float* __restrict__ out, int S, int D) {
+  const int b = blockIdx.x;
+  const float* w = ws + (size_t)b * S * (D + 2);
+  float m = -INFINITY;
+  for (int s = 0; s < S; ++s) m = fmaxf(m, w[(size_t)s * (D + 2)]);
+  for (int e = threadIdx.x; e < D; e += kThreads) {
+    float l = 0.f, acc = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float* t = w + (size_t)s * (D + 2);
+      if (!(t[0] > -INFINITY)) continue;     // an empty split
+      const float f = expf(t[0] - m);
+      l += t[1] * f;
+      acc += t[2 + e] * f;
+    }
+    out[(size_t)b * D + e] = acc / l;
+  }
+}
+
+template <typename T, int MODE, int NJ, int VEC>
+cudaError_t launch_split(const void* const* p, float* out, float* ws, int B,
+                         int Tk, int D, int split, float scale,
+                         cudaStream_t stream) {
+  auto kernel = blockwise_split_kernel<T, MODE, NJ, VEC>;
+  const size_t smem = split_smem_floats(split, VEC) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int S = (Tk + split - 1) / split;
+  const long long grid = (long long)B * S;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto t = [p](int i) { return static_cast<const T*>(p[i]); };
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
+      t(0), t(1), t(2), t(3), t(4), t(5), t(6), t(7), t(8), t(9), t(10),
+      t(11), static_cast<const int*>(p[12]), ws, Tk, D, split, S, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blockwise_merge_kernel<<<B, kThreads, 0, stream>>>(ws, out, S, D);
+  return cudaGetLastError();
+}
+
+// VEC: 16-byte loads of v where its rows are whole 16-byte pieces and
+// v is 16-byte aligned, else one value a load
+template <typename T, int MODE, int NJ>
+cudaError_t launch_split_vec(const void* const* p, float* out, float* ws,
+                             int B, int Tk, int D, int split, float scale,
+                             cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (D % kVec == 0 && reinterpret_cast<size_t>(p[2]) % 16 == 0)
+    return launch_split<T, MODE, NJ, kVec>(p, out, ws, B, Tk, D, split,
+                                           scale, stream);
+  return launch_split<T, MODE, NJ, 1>(p, out, ws, B, Tk, D, split, scale,
+                                      stream);
+}
+
+// NJ = the 32-lane columns of d a lane takes in the score phase
+template <typename T, int MODE>
+cudaError_t launch_split_d(const void* const* p, float* out, float* ws,
+                           int B, int Tk, int D, int split, float scale,
+                           cudaStream_t stream) {
+  if (D <= 32)
+    return launch_split_vec<T, MODE, 1>(p, out, ws, B, Tk, D, split, scale,
+                                        stream);
+  if (D <= 64)
+    return launch_split_vec<T, MODE, 2>(p, out, ws, B, Tk, D, split, scale,
+                                        stream);
+  if (D <= 128)
+    return launch_split_vec<T, MODE, 4>(p, out, ws, B, Tk, D, split, scale,
+                                        stream);
+  return launch_split_vec<T, MODE, 8>(p, out, ws, B, Tk, D, split, scale,
+                                      stream);
+}
+
+template <typename T>
+cudaError_t launch_split_mode(int mode, const void* const* p, float* out,
+                              float* ws, int B, int Tk, int D, int split,
+                              float scale, cudaStream_t stream) {
+  switch (mode) {
+    case BW_PLAIN:
+      return launch_split_d<T, BW_PLAIN>(p, out, ws, B, Tk, D, split, scale,
+                                         stream);
+    case BW_TIME:
+      return launch_split_d<T, BW_TIME>(p, out, ws, B, Tk, D, split, scale,
+                                        stream);
+    case BW_TISAS:
+      return launch_split_d<T, BW_TISAS>(p, out, ws, B, Tk, D, split, scale,
+                                         stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays:
@@ -1172,4 +1455,31 @@ extern "C" int fused_attention_blockwise_regtile_launch(
       return launch_regtile_d<BW_TISAS>(p, o, B, Tq, Tk, D, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The split design (Tq = 1): the arguments of
+// fused_attention_blockwise_launch at Tq = 1, and ws an f32 workspace of
+// B * ceil(Tk / split) * (D + 2) floats; 1 <= split <= 1024 keys a split.
+// Two launches (the splits, then the merge); returns the first
+// cudaError_t (0 on success).
+extern "C" int fused_attention_blockwise_split_launch(
+    int mode, int is_bf16, const void* q, const void* k, const void* v,
+    const void* t_q, const void* t_k, const void* tqw, const void* rawk,
+    const void* w1, const void* b1, const void* wo1, const void* wo2,
+    const void* bo, const void* key_len, void* out, void* ws, int B, int Tk,
+    int D, int split, float scale, int device, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (Tk <= 0 || D <= 0 || D > kMaxD || split <= 0 || split > kSplitKeysMax)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const void* p[13] = {q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo,
+                       key_len};
+  float* o = static_cast<float*>(out);
+  float* w = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_split_mode<__nv_bfloat16>(mode, p, o, w, B, Tk, D, split,
+                                            scale, s);
+  return launch_split_mode<float>(mode, p, o, w, B, Tk, D, split, scale, s);
 }

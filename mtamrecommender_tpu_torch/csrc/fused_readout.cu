@@ -151,11 +151,12 @@ __global__ void __launch_bounds__(kThreads, 1) readout_fwd_chain_kernel(
     float o[1];
     readout::weighted_sums<D, 1>(s_w, V, s_w, V, span, scratch, o);
 
-    // residual + normalize (the query mask touches o only)
+    // residual + normalize over the dl live lanes (the query mask touches
+    // o only; a padded lane's x is 0 and its dx is set to 0)
     const float x = tid < D ? o[0] * qz + sm.dec[tid] : 0.f;
-    const float mean = port::block_sum<kThreads>(x, red) / D;
-    const float dx = tid < D ? x - mean : 0.f;
-    const float var = port::block_sum<kThreads>(dx * dx, red) / D;
+    const float mean = port::block_sum<kThreads>(x, red) / p.dl;
+    const float dx = tid < p.dl ? x - mean : 0.f;
+    const float var = port::block_sum<kThreads>(dx * dx, red) / p.dl;
     const float inv = 1.f / sqrtf(var + readout::kLnEps);
     if (tid < D)
       sm.dec[tid] =
@@ -232,20 +233,23 @@ extern "C" long long fused_readout_workspace_bytes(int B, int L, int D,
 // 0) or all bf16 (is_bf16 = 1); logdt [B,L], qmask [B] and
 // w1/b1/wo1/wo2/bo [n,L] f32; key_len [B] int32; out [B,D] f32; ws the
 // workspace of fused_readout_workspace_bytes, mem, wk and wv 16-byte
-// aligned in the gemm design.  D is 32, 64 or 128; design 0 "gemm", 1
-// "rows".  Returns the first cudaError_t of the launches (0 on success).
+// aligned in the gemm design.  D is 32, 64 or 128; dl the live width (1
+// <= dl <= D, the operands zero-padded past it; dl == D in the rows
+// design); design 0 "gemm", 1 "rows".  Returns the first cudaError_t of
+// the launches (0 on success).
 extern "C" int fused_readout_launch(
     int is_bf16, int design, const void* mem, const void* dec,
     const void* logdt, const void* key_len, const void* qmask, const void* wq,
     const void* bq, const void* wk, const void* bk, const void* wv,
     const void* bv, const void* wt, const void* w1, const void* b1,
     const void* wo1, const void* wo2, const void* bo, const void* lng,
-    const void* lnb, void* out, void* ws, int B, int L, int D, int n,
+    const void* lnb, void* out, void* ws, int B, int L, int D, int n, int dl,
     float scale, int device, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (L <= 0 || n <= 0 || D <= 0 || D > readout::kMaxD || D % 32 ||
       design < 0 || design >= kDesigns ||
-      (design == DESIGN_GEMM && D != 32 && D != 64 && D != 128))
+      (design == DESIGN_GEMM && D != 32 && D != 64 && D != 128) ||
+      dl < 1 || dl > D || (design == DESIGN_ROWS && dl != D))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -261,7 +265,7 @@ extern "C" int fused_readout_launch(
   p.wo2 = static_cast<const float*>(wo2);
   p.bo = static_cast<const float*>(bo);
   p.lng = lng; p.lnb = lnb;
-  p.B = B; p.L = L; p.D = D; p.n = n;
+  p.B = B; p.L = L; p.D = D; p.n = n; p.dl = dl;
   p.scale = scale;
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

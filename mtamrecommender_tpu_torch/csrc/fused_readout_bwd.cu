@@ -518,11 +518,12 @@ __device__ __forceinline__ void relu_grads(T* K, int live, const float* ds0,
   combine_pairs<D, 2>(sum, scratch, out);
 }
 
-// mean and 1/sqrt(var + eps) of x over the first D threads
-__device__ __forceinline__ float2 ln_stats(float x, float* red, int D) {
-  const float mean = port::block_sum<kThreads>(x, red) / D;
-  const float xm = threadIdx.x < D ? x - mean : 0.f;
-  const float var = port::block_sum<kThreads>(xm * xm, red) / D;
+// mean and 1/sqrt(var + eps) of x over the first dl threads, the live
+// lanes (a padded lane's x is 0)
+__device__ __forceinline__ float2 ln_stats(float x, float* red, int dl) {
+  const float mean = port::block_sum<kThreads>(x, red) / dl;
+  const float xm = threadIdx.x < dl ? x - mean : 0.f;
+  const float var = port::block_sum<kThreads>(xm * xm, red) / dl;
   return make_float2(mean, 1.f / sqrtf(var + readout::kLnEps));
 }
 
@@ -617,11 +618,11 @@ __global__ void __launch_bounds__(kThreads) readout_bwd_chain_kernel(
     if (tid < D) s_o[i * D + tid] = o[0];
     if (i + 1 < n) {   // residual + normalize: the next hop's query
       const float x = tid < D ? o[0] * qz + dec[tid] : 0.f;
-      const float2 st = ln_stats(x, red, D);
+      const float2 st = ln_stats(x, red, p.dl);
+      const float xh = tid < p.dl ? (x - st.x) * st.y : 0.f;
       if (tid < D)
         s_dec[(i + 1) * D + tid] =
-            (x - st.x) * st.y *
-                port::to_float(readout::ptr<T>(p.lng)[i * D + tid]) +
+            xh * port::to_float(readout::ptr<T>(p.lng)[i * D + tid]) +
             port::to_float(readout::ptr<T>(p.lnb)[i * D + tid]);
     }
     __syncthreads();
@@ -642,10 +643,10 @@ __global__ void __launch_bounds__(kThreads) readout_bwd_chain_kernel(
     for (int c = tid; c < L; c += kThreads) s_w[c] = c_w[c];
     __syncthreads();
 
-    // the LN backward (thread e: column e)
+    // the LN backward (thread e: column e; the dl live lanes)
     const float x = tid < D ? s_o[i * D + tid] * qz + dec[tid] : 0.f;
-    const float2 st = ln_stats(x, red, D);
-    const float xh = tid < D ? (x - st.x) * st.y : 0.f;
+    const float2 st = ln_stats(x, red, p.dl);
+    const float xh = tid < p.dl ? (x - st.x) * st.y : 0.f;
     const float g = tid < D ? s_g[tid] : 0.f;
     const float gamma =
         tid < D ? port::to_float(readout::ptr<T>(p.lng)[i * D + tid]) : 0.f;
@@ -654,9 +655,9 @@ __global__ void __launch_bounds__(kThreads) readout_bwd_chain_kernel(
       vslot(V_LNB, i)[tid] = g;
     }
     const float dxh = g * gamma;
-    const float m1 = port::block_sum<kThreads>(dxh, red) / D;
-    const float m2 = port::block_sum<kThreads>(dxh * xh, red) / D;
-    const float dx = (dxh - m1 - xh * m2) * st.y;
+    const float m1 = port::block_sum<kThreads>(dxh, red) / p.dl;
+    const float m2 = port::block_sum<kThreads>(dxh * xh, red) / p.dl;
+    const float dx = tid < p.dl ? (dxh - m1 - xh * m2) * st.y : 0.f;
     float dd = dx;                 // the residual branch of ddec_in
     if (tid < D) s_do[tid] = dx * qz;
     __syncthreads();
@@ -980,8 +981,10 @@ extern "C" long long fused_readout_bwd_workspace_bytes(int B, int L, int D,
 // forward's inputs as in fused_readout_launch; the f32 outputs dmem
 // [B,L,D], ddec [B,D], dwq/dwk/dwv/dwt [n,D,D], dbq/dbk/dbv/dlng/dlnb
 // [n,D], dw1/db1/dwo1/dwo2/dbo [n,L]; ws the workspace of
-// fused_readout_bwd_workspace_bytes; design 0 "gemm", 1 "rows".  Returns
-// the first cudaError_t of the launches (0 on success).
+// fused_readout_bwd_workspace_bytes; dl the live width (1 <= dl <= D,
+// the operands and g zero-padded past it; dl == D in the rows design);
+// design 0 "gemm", 1 "rows".  Returns the first cudaError_t of the
+// launches (0 on success).
 extern "C" int fused_readout_bwd_launch(
     int is_bf16, int design, const void* g, const void* mem, const void* dec,
     const void* logdt, const void* key_len, const void* qmask, const void* wq,
@@ -991,10 +994,12 @@ extern "C" int fused_readout_bwd_launch(
     const void* lnb, void* dmem, void* ddec, void* dwq, void* dbq, void* dwk,
     void* dbk, void* dwv, void* dbv, void* dwt, void* dw1, void* db1,
     void* dwo1, void* dwo2, void* dbo, void* dlng, void* dlnb, void* ws,
-    int B, int L, int D, int n, float scale, int device, void* stream) {
+    int B, int L, int D, int n, int dl, float scale, int device,
+    void* stream) {
   if (B < 0 || L <= 0 || n <= 0 || D <= 0 || D > readout::kMaxD || D % 32 ||
       design < 0 || design >= kDesigns ||
-      (design == DESIGN_GEMM && D != 32 && D != 64 && D != 128))
+      (design == DESIGN_GEMM && D != 32 && D != 64 && D != 128) ||
+      dl < 1 || dl > D || (design == DESIGN_ROWS && dl != D))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1010,7 +1015,7 @@ extern "C" int fused_readout_bwd_launch(
   p.wo2 = static_cast<const float*>(wo2);
   p.bo = static_cast<const float*>(bo);
   p.lng = lng; p.lnb = lnb;
-  p.B = B; p.L = L; p.D = D; p.n = n;
+  p.B = B; p.L = L; p.D = D; p.n = n; p.dl = dl;
   p.scale = scale;
   Outs o;
   o.dmem = static_cast<float*>(dmem);

@@ -30,7 +30,10 @@ constexpr float kLnEps = 1e-8f;                  // normalize()'s epsilon
 
 // One launch's operands (device pointers, contiguous).  T-typed: mem, dec,
 // the [n,D,D] weights, the [n,D] biases and LN params; f32: logdt [B,L],
-// qmask [B] and the five [n,L] gate rows; key_len [B] int32.
+// qmask [B] and the five [n,L] gate rows; key_len [B] int32.  dl is the
+// live width: the operands may be zero-padded from dl to D lanes, and the
+// gemm designs' chains then average each layer norm over the dl live
+// lanes and keep the padded ones 0 (the rows design takes dl == D).
 struct Params {
   const void *mem, *dec;
   const float* logdt;
@@ -39,7 +42,7 @@ struct Params {
   const void *wq, *bq, *wk, *bk, *wv, *bv, *wt;
   const float *w1, *b1, *wo1, *wo2, *bo;
   const void *lng, *lnb;
-  int B, L, D, n;
+  int B, L, D, n, dl;
   float scale;
 };
 

@@ -9,8 +9,8 @@ does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel
 MAX_KEYS and without a dropout mask, the blockwise kernel
 (csrc/fused_attention_blockwise.cu, the Pallas `_attn_kernel_blockwise`:
 an online softmax over KEY_BLOCK-key blocks; for Tq > 1 tensor-core tiles
-in bf16 and register-tiled FMA in f32, at Tq = 1 FMA from shared memory,
-by `blockwise_design`).  The backward is the
+in bf16 and register-tiled FMA in f32, at Tq = 1 each row's keys split
+across blocks and merged, by `blockwise_design`).  The backward is the
 single-tile kernel (csrc/fused_attention_bwd.cu, the Pallas
 `_attn_bwd_kernel`) up to SINGLE_TILE_KEYS keys and, above, autograd of
 `reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  Per batch
@@ -51,18 +51,25 @@ KEY_BLOCK = 512           # > that: online-softmax blocks of this many keys
 MAX_KEYS = 32768          # the blockwise kernel's cap; longer: the dense route
 BLOCKWISE_MODES = ("plain", "time", "tisas")
 BLOCKWISE_MAX_D = 256     # the blockwise kernel holds outputs in registers
-BLOCKWISE_DESIGNS = ("mma", "regtile", "simt")   # by `blockwise_design`
+BLOCKWISE_DESIGNS = ("mma", "regtile", "split", "simt")   # `blockwise_design`
 TILED_MAX_D = 128         # the tiled designs' d: 16, 32, ..., 128
+# the split design's keys a block (Tq = 1): one length for every Tk and
+# batch, so a row's output has the same bits alone or in a batch
+SPLIT_KEYS = 256
+SPLIT_MAX_KEYS = 1024     # the longest split its kernel takes
 BWD_SMEM_BYTES = 48 * 1024   # the backward's per-(row, query) scratch
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}
 bwd_launches = {mode: 0 for mode in MODES}
-# the blockwise kernel's three designs: SIMT (Tq = 1), tensor cores (bf16,
-# Tq > 1) and register tiles (f32, Tq > 1)
+# the blockwise kernel's four designs: SIMT (forced, or Tq > 1 at a d the
+# tiles do not take), tensor cores (bf16, Tq > 1), register tiles (f32, Tq
+# > 1) and split keys (Tq = 1; its two launches, splits and merge, count
+# once)
 blockwise_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 blockwise_mma_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 blockwise_regtile_launches = {mode: 0 for mode in BLOCKWISE_MODES}
+blockwise_split_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 # calls of the dense route (`dense_attention`, plain PyTorch on every
 # device, as JAX's jnp route): forwards past the kernels' reach, and the
 # backward's recompute above SINGLE_TILE_KEYS keys
@@ -272,23 +279,30 @@ def fused_attention_blockwise(mode: str, q, k, v, t_q, t_k, tqw, rawk,
 
 
 def blockwise_design(dtype: torch.dtype, tq: int, d: int) -> str:
-    """The blockwise kernel's design for a shape.  With Tq > 1 and d a
-    multiple of 16 up to TILED_MAX_D, tiles of 64 queries: "mma" (tensor
-    cores, mma.sync) for bf16, "regtile" (f32 FMA from registers, 8 or 4
-    queries x 4 keys a thread) for f32, whose 1e-4 agreement TF32 tensor
-    cores cannot give.  "simt" (FMA from shared memory) otherwise: Tq = 1, where
-    a 64-query tile would hold one live row, and any other d."""
-    if tq > 1 and d % 16 == 0 and 16 <= d <= TILED_MAX_D:
+    """The blockwise kernel's design for a shape.  Tq = 1: "split" (each
+    row's keys in SPLIT_KEYS-key splits, a block each, then a merge),
+    since one block a row leaves most SMs idle at serving batches.  With
+    Tq > 1 and d a multiple of 16 up to TILED_MAX_D, tiles of 64 queries:
+    "mma" (tensor cores, mma.sync) for bf16, "regtile" (f32 FMA from
+    registers, 8 or 4 queries x 4 keys a thread) for f32, whose 1e-4
+    agreement TF32 tensor cores cannot give.  "simt" (FMA from shared
+    memory, a block a row and query tile) for any other d."""
+    if tq == 1:
+        return "split"
+    if d % 16 == 0 and 16 <= d <= TILED_MAX_D:
         return "mma" if dtype == torch.bfloat16 else "regtile"
     return "simt"
 
 
-def _launch_blockwise(mode, *args, _design=None) -> torch.Tensor:
+def _launch_blockwise(mode, *args, _design=None,
+                      _split=None) -> torch.Tensor:
     """Launch the blockwise kernel in the design `blockwise_design` picks.
-    ``_design`` forces one (chip_smoke.py times the SIMT design on the
-    shapes that take a tiled design); "mma" and "regtile" only where they
-    are picked.  A design that fails to build or launch raises: there is
-    no fallback."""
+    ``_design="simt"`` forces the SIMT design (chip_smoke.py holds and
+    times it beside the design picked); "mma", "regtile" and "split" only
+    where they are picked.  ``_split`` sets the split design's keys a
+    split in place of SPLIT_KEYS (chip_smoke.py's probe of the length).
+    The main path passes neither.  A design that fails to build or launch
+    raises: there is no fallback."""
     q, k = args[0], args[1]
     b, tq, d = q.shape
     tk = k.shape[1]
@@ -298,6 +312,10 @@ def _launch_blockwise(mode, *args, _design=None) -> torch.Tensor:
         raise ValueError(
             f"fused_attention_blockwise: design {design!r} does not take "
             f"{q.dtype} with Tq={tq}, d={d} (blockwise_design: {picked!r})")
+    split = SPLIT_KEYS if _split is None else _split
+    if design == "split" and not 1 <= split <= SPLIT_MAX_KEYS:
+        raise ValueError(f"fused_attention_blockwise: a split takes 1 to "
+                         f"{SPLIT_MAX_KEYS} keys, got {split}")
     device, stream = build.launch_context(args, "fused_attention_blockwise")
     if not 1 <= tk <= MAX_KEYS or not 1 <= d <= BLOCKWISE_MAX_D:
         raise ValueError(
@@ -306,6 +324,17 @@ def _launch_blockwise(mode, *args, _design=None) -> torch.Tensor:
     lib = _blockwise_library()
     out = torch.empty((b, tq, d), dtype=torch.float32, device=q.device)
     ptrs = [t.data_ptr() for t in args]
+    if design == "split":
+        # each split's (m, l, acc[d]), freed when the call returns
+        ws = torch.empty((b * -(-tk // split) * (d + 2),),
+                         dtype=torch.float32, device=q.device)
+        status = lib.fused_attention_blockwise_split_launch(
+            BLOCKWISE_MODES.index(mode), int(q.dtype == torch.bfloat16),
+            *ptrs, out.data_ptr(), ws.data_ptr(), b, tk, d, split,
+            1.0 / d ** 0.5, device, stream)
+        build.check(lib, status, "fused_attention_blockwise (split)")
+        blockwise_split_launches[mode] += 1
+        return out
     if design != "simt":
         # q, k, v, tqw and rawk are staged 16 bytes at a time
         if any(ptrs[i] % 16 for i in (0, 1, 2, 5, 6)):
@@ -336,6 +365,9 @@ def _blockwise_library() -> ctypes.CDLL:
         lib.fused_attention_blockwise_launch.argtypes = (
             [ci, ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.fused_attention_blockwise_launch.restype = ci
+        lib.fused_attention_blockwise_split_launch.argtypes = (
+            [ci, ci] + [vp] * 15 + [ci] * 4 + [ctypes.c_float, ci, vp])
+        lib.fused_attention_blockwise_split_launch.restype = ci
         for tiled in (lib.fused_attention_blockwise_mma_launch,
                       lib.fused_attention_blockwise_regtile_launch):
             tiled.argtypes = (
@@ -380,6 +412,47 @@ def fused_attention_blockwise_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk,
                                          p.to(v.dtype).float(),
                                          v[:, cols].float())
         m = m_new
+    return acc / l
+
+
+def _split_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
+                        wo1, wo2, bo, key_len, split=None) -> torch.Tensor:
+    """The split design's arithmetic in plain PyTorch, at Tq = 1: for
+    each split of ``split`` keys (SPLIT_KEYS by default) its max m_s
+    over the keys the weights reach, l_s the sum of the unrounded p =
+    exp(s - m_s), acc_s the f32 sum of p rounded to v's type times v (a
+    split wholly past those keys: m_s = -inf, l_s = 0); then, over the
+    splits in order, m = max m_s, l = sum l_s exp(m_s - m), acc the same,
+    and acc / l."""
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    split = SPLIT_KEYS if split is None else split
+    live = key_len.long().clamp(0, tk)
+    key_end = torch.where(live > 0, live, torch.full_like(live, tk))
+    parts = []
+    for lo in range(0, tk, split):
+        cols = slice(lo, min(lo + split, tk))
+        scores, _ = _scores(mode, q, k[:, cols], t_q, t_k[:, cols], tqw,
+                            rawk[:, cols], w1[:, cols], b1[:, cols],
+                            wo1[:, cols], wo2[:, cols], bo[:, cols])
+        col = torch.arange(cols.start, cols.stop, device=q.device)
+        scores = scores.masked_fill(
+            col[None, None, :] >= key_len[:, None, None], NEG_FILL)
+        reach = col[None, None, :] < key_end[:, None, None]
+        m = scores.masked_fill(~reach, -float("inf")).amax(-1, keepdim=True)
+        p = torch.where(reach, torch.exp(scores - m.clamp_min(NEG_FILL)),
+                        torch.zeros_like(scores))
+        acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(),
+                           v[:, cols].float())
+        parts.append((m, p.sum(-1, keepdim=True), acc))
+    m = torch.stack([m_s for m_s, _, _ in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, tq, d), dtype=torch.float32, device=q.device)
+    for m_s, l_s, acc_s in parts:
+        f = torch.where(m_s > -float("inf"), torch.exp(m_s - m),
+                        torch.zeros_like(m_s))
+        l = l + l_s * f
+        acc = acc + acc_s * f
     return acc / l
 
 

@@ -31,11 +31,12 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from mtamrecommender_tpu_torch.ops.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_WIDTHS = (32, 64, 128, 256)   # d the kernel takes
+KERNEL_WIDTHS = (32, 64, 128, 256)   # d the kernels take (others: padded)
 # dtable's plan: up to SMALL_N ids one pass; past it a first pass of one
 # block a chunk of ids: the small chunk while that needs at most
 # WAVE_BLOCKS blocks (one wave on the H100's 132 SMs), else the large one
@@ -76,8 +77,9 @@ def dtable(ct: torch.Tensor, ids: torch.Tensor, vocab: int) -> torch.Tensor:
     """ct: [n, d] f32 or bf16; ids: [n] int32 -> [vocab, d] in ct's type.
 
     CPU tensors run `dtable_plain` after a check that raises on an id
-    outside [0, vocab).  CUDA tensors launch the kernel, which does not read ids
-    back to the host (that would stall the step): an id outside
+    outside [0, vocab).  CUDA tensors launch the kernel (d up to 256,
+    zero-padded to one of KERNEL_WIDTHS), which does not read ids back to
+    the host (that would stall the step): an id outside
     [0, vocab) matches no row there, and chip_smoke.py checks on the card
     that the training step's ids are in range."""
     _check(ct, ids, vocab)
@@ -107,12 +109,33 @@ def dtable_plan(n: int, d: int, vocab: int) -> Tuple[int, int]:
     return chunk, 4 * (n * d + n + -(-n // chunk))
 
 
+def kernel_width(what: str, d: int) -> int:
+    """The narrowest of KERNEL_WIDTHS that holds d columns; raises past
+    the widest."""
+    for width in KERNEL_WIDTHS:
+        if d <= width:
+            return width
+    raise ValueError(f"{what}: the kernel takes d up to {KERNEL_WIDTHS[-1]} "
+                     f"(padded to one of {KERNEL_WIDTHS}), got d={d}")
+
+
+def _pad_columns(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [n, d] with zero columns up to ``width``.  A table gradient's
+    column sums only its own column of the cotangent, so the padded
+    columns come out 0 and the real ones do not move."""
+    return F.pad(x, (0, width - x.shape[1]))
+
+
 def _launch(ct, ids, vocab, where) -> torch.Tensor:
+    """Launch the kernel, a width it does not take zero-padded to
+    `kernel_width` and the table gradient sliced back."""
+    d = ct.shape[1]
+    width = kernel_width("dtable", d)
+    if width != d:
+        return _launch(_pad_columns(ct, width), ids, vocab,
+                       where)[:, :d].contiguous()
     device, stream = build.launch_context((ct, ids), "dtable")
-    n, d = ct.shape
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"dtable: the kernel takes d in {KERNEL_WIDTHS}, "
-                         f"got d={d}")
+    n = ct.shape[0]
     chunk, ws_bytes = dtable_plan(n, d, vocab)
     lib = _library()
     ct_ptr = ct.data_ptr()
@@ -229,7 +252,8 @@ def scatter_add(grad: torch.Tensor, ids: torch.Tensor,
     grad[i], rounded to grad's type after every add (the Pallas
     `_scatter_kernel`'s sequential semantics).  CPU tensors run
     `scatter_add_plain` after a range check; CUDA tensors launch the
-    kernel (d in KERNEL_WIDTHS)."""
+    kernel (d up to 256, zero-padded to one of KERNEL_WIDTHS and the
+    result sliced back)."""
     _check_rows("scatter_add", grad, ids)
     if ids.shape[0] != grad.shape[0] or vocab < 0:
         raise ValueError(f"scatter_add: want [n] ids for the n rows of grad "
@@ -240,11 +264,12 @@ def scatter_add(grad: torch.Tensor, ids: torch.Tensor,
         return scatter_add_plain(grad, ids, vocab)
     if grad.device.type != "cuda":
         raise ValueError(f"scatter_add: no kernel for device {grad.device}")
-    device, stream = build.launch_context((grad, ids), "scatter_add")
     n, d = grad.shape
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"scatter_add: the kernel takes d in "
-                         f"{KERNEL_WIDTHS}, got d={d}")
+    width = kernel_width("scatter_add", d)
+    if width != d:
+        return scatter_add(_pad_columns(grad, width), ids,
+                           vocab)[:, :d].contiguous()
+    device, stream = build.launch_context((grad, ids), "scatter_add")
     lib = _gather_library()
     out = torch.empty((vocab, d), dtype=grad.dtype, device=grad.device)
     ws = torch.empty((lib.scatter_workspace_ints(n, vocab),),

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from mtamrecommender_tpu_torch.ops.kernels import build
 
@@ -76,7 +77,8 @@ def gru_scan(mode: str, gate_x, cand_x, e1, e2, lengths, h0,
     h0: [B,u]; w_gate_h: [u,2u]; w_cand_h: [u,u]; b_gate: [2u];
     b_cand: [u]; cell_vecs: [4,u] (read by tgru only).  Returns f32
     outputs [B,L,u].  CPU tensors run `gru_scan_plain`; CUDA tensors
-    launch the kernel."""
+    launch the kernel (at a width it does not take, on operands
+    zero-padded to `kernel_width`)."""
     args = (gate_x, cand_x, e1, e2, lengths, h0, w_gate_h, w_cand_h,
             b_gate, b_cand, cell_vecs)
     _check(mode, *args)
@@ -96,17 +98,67 @@ def fwd_design(u: int) -> str:
             else "unit_column")
 
 
+def kernel_width(u: int) -> int:
+    """The width the kernels run a width-u scan at: u rounded up to a
+    multiple of 32, at least 32 (`_pad_gru_operands` pads to it)."""
+    return max(32, -(-u // 32) * 32)
+
+
+def _pad_halves(x: torch.Tensor, u: int, width: int) -> torch.Tensor:
+    """x [..., 2u] = [r | u] with each half zero-padded to width."""
+    pad = (0, width - u)
+    return torch.cat([F.pad(x[..., :u], pad), F.pad(x[..., u:], pad)], -1)
+
+
+def _pad_gru_operands(width, gate_x, cand_x, e1, e2, lengths, h0, w_gate_h,
+                      w_cand_h, b_gate, b_cand, cell_vecs):
+    """`gru_scan`'s operands at width u zero-padded to ``width``: each half
+    of gate_x, w_gate_h's columns and b_gate on its own (padding the 2u
+    axis at its end would move the update gate's columns), every other
+    unit axis at its end.  A padded unit has zero weights to and from the
+    real units, zero inputs and h0 = 0: its candidate is tanh(0) = 0, so
+    its h stays 0 in every mode and the real units' outputs do not move."""
+    u = cand_x.shape[-1]
+    pad = (0, width - u)
+    w_gate_h = _pad_halves(F.pad(w_gate_h, (0, 0) + pad), u, width)
+    return (_pad_halves(gate_x, u, width), F.pad(cand_x, pad),
+            F.pad(e1, pad), F.pad(e2, pad), lengths, F.pad(h0, pad), w_gate_h,
+            F.pad(w_cand_h, pad + pad), _pad_halves(b_gate, u, width),
+            F.pad(b_cand, pad), F.pad(cell_vecs, pad))
+
+
+def _slice_gru_grads(u, dgx, dcx, de1, de2, dh0, dwgh, dwch, dbg, dbc, dvecs):
+    """`gru_scan_bwd`'s ten cotangents at a padded width sliced back to
+    width u (dgx, dW_gh's columns and db_g half by half)."""
+    width = dcx.shape[-1]
+
+    def halves(x):
+        return torch.cat([x[..., :u], x[..., width:width + u]], -1)
+
+    return (halves(dgx), dcx[..., :u].contiguous(), de1[..., :u].contiguous(),
+            de2[..., :u].contiguous(), dh0[:, :u].contiguous(),
+            halves(dwgh[:u]), dwch[:u, :u].contiguous(), halves(dbg),
+            dbc[:u].contiguous(), dvecs[:, :u].contiguous())
+
+
 def _launch(mode, gate_x, cand_x, e1, e2, lengths, h0, w_gate_h, w_cand_h,
             b_gate, b_cand, cell_vecs, _design=None) -> torch.Tensor:
-    """Launch the forward in the design `fwd_design` picks for its width.
-    ``_design="unit_column"`` forces the earlier design (chip_smoke.py
-    holds and times it beside the default); the main path never passes
-    it.  A failed launch raises: there is no fallback."""
+    """Launch the forward in the design `fwd_design` picks for its width,
+    a width the kernel does not take zero-padded to `kernel_width` and
+    the output sliced back.  ``_design="unit_column"`` forces the earlier
+    design (chip_smoke.py holds and times it beside the default); the
+    main path never passes it.  A failed launch raises: there is no
+    fallback."""
     if _design is not None and _design not in FWD_DESIGNS:
         raise ValueError(f"gru_scan: design {_design!r} is not one of "
                          f"{FWD_DESIGNS}")
     b, seq, u2 = gate_x.shape
     u = u2 // 2
+    if kernel_width(u) != u:
+        padded = _pad_gru_operands(
+            kernel_width(u), gate_x, cand_x, e1, e2, lengths, h0, w_gate_h,
+            w_cand_h, b_gate, b_cand, cell_vecs)
+        return _launch(mode, *padded, _design=_design)[..., :u].contiguous()
     design = fwd_design(u) if _design is None else _design
     if design == "sliced" and fwd_design(u) != "sliced":
         raise ValueError(f"gru_scan: the sliced design takes u a multiple "
@@ -123,8 +175,9 @@ def _launch(mode, gate_x, cand_x, e1, e2, lengths, h0, w_gate_h, w_cand_h,
     if u % 32 or not 32 <= u <= 512 \
             or lib.gru_scan_smem_bytes(u, is_bf16, code) > MAX_SMEM_BYTES:
         raise ValueError(
-            f"gru_scan: the kernel takes u a multiple of 32 in [32, 512] "
-            f"whose weights fit in shared memory; got u={u} in {gate_x.dtype}")
+            f"gru_scan: the kernel takes u up to 512 (padded to a multiple "
+            f"of 32) whose weights fit in shared memory; got u={u} in "
+            f"{gate_x.dtype}")
     out = torch.empty((b, seq, u), dtype=torch.float32, device=gate_x.device)
     status = lib.gru_scan_launch(
         MODES.index(mode), is_bf16, code, *(t.data_ptr() for t in args),
@@ -198,7 +251,8 @@ def gru_scan_bwd(mode: str, g, outs, gate_x, cand_x, e1, e2, lengths, h0,
     outs the f32 outputs it returned.  Returns the f32 cotangents of
     (gate_x, cand_x, e1, e2, h0, w_gate_h, w_cand_h, b_gate, b_cand,
     cell_vecs).  CPU tensors run `gru_scan_bwd_plain`; CUDA tensors
-    launch the kernel."""
+    launch the kernel (at a width it does not take, on operands
+    zero-padded to `kernel_width`)."""
     args = (gate_x, cand_x, e1, e2, lengths, h0, w_gate_h, w_cand_h,
             b_gate, b_cand, cell_vecs)
     _check_bwd(mode, g, outs, *args)
@@ -212,13 +266,22 @@ def gru_scan_bwd(mode: str, g, outs, gate_x, cand_x, e1, e2, lengths, h0,
 def _launch_bwd(mode, g, outs, *args, _design=BWD_DESIGNS[0]):
     """Launch the backward in the two-product design (a recompute pass
     over every (b, t) row, then the reverse chain with two products a
-    step).  ``_design="four_product"`` forces the earlier design, four
-    dependent products a step (chip_smoke.py holds and times it beside the
-    default); the main path never passes it.  A failed launch raises:
-    there is no fallback."""
+    step), a width the kernel does not take zero-padded to `kernel_width`
+    (g and outs too: a padded unit's output is 0) and the cotangents
+    sliced back.  ``_design="four_product"`` forces the earlier design,
+    four dependent products a step (chip_smoke.py holds and times it
+    beside the default); the main path never passes it.  A failed launch
+    raises: there is no fallback."""
     if _design not in BWD_DESIGNS:
         raise ValueError(f"gru_scan_bwd: design {_design!r} is not one of "
                          f"{BWD_DESIGNS}")
+    u = outs.shape[-1]
+    width = kernel_width(u)
+    if width != u:
+        pad = (0, width - u)
+        grads = _launch_bwd(mode, F.pad(g, pad), F.pad(outs, pad),
+                            *_pad_gru_operands(width, *args), _design=_design)
+        return _slice_gru_grads(u, *grads)
     design = BWD_DESIGNS.index(_design)
     # the kernel copies g, outs, e1, e2, w_gate_h and w_cand_h in 16-byte
     # pieces: a view that starts off that alignment is copied first
@@ -235,8 +298,8 @@ def _launch_bwd(mode, g, outs, *args, _design=BWD_DESIGNS[0]):
             or lib.gru_scan_bwd_smem_bytes(u, is_bf16, design) \
             > MAX_SMEM_BYTES:
         raise ValueError(
-            f"gru_scan_bwd: the kernel takes u a multiple of 32 in [32, "
-            f"{BWD_MAX_U}] whose weights fit in shared memory; got u={u}")
+            f"gru_scan_bwd: the kernel takes u up to {BWD_MAX_U} (padded to "
+            f"a multiple of 32) whose weights fit in shared memory; got u={u}")
     f32 = dict(dtype=torch.float32, device=gate_x.device)
     grads = (torch.empty((b, seq, 2 * u), **f32),        # dgx
              torch.empty((b, seq, u), **f32),            # dcx

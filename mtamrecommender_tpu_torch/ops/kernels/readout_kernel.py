@@ -20,7 +20,12 @@ row and hop i:
     s    = (q . K^T) * sigmoid(gate) / sqrt(d), key-masked with -2^32+1
     dec  = LN_i(softmax(s) @ V * qmask + dec)    normalize(), eps 1e-8
 
-Products sum in f32; the output is the last hop's f32 [B, d].  A row with
+Products sum in f32; the output is the last hop's f32 [B, d].  The
+kernels are built for d in WIDTHS; the gemm designs take any d up to 128
+on operands zero-padded to the next of WIDTHS, with the live d passed
+beside it: scale = 1/sqrt(d), and each hop's layer norm averages over the
+d live lanes and leaves the padded ones 0 (`_pad_readout_operands`; the
+twins take ``live_d`` to compute the same at the padded width).  A row with
 ``key_len == 0`` gets a uniform softmax over its L keys and no score
 gradient, as in the jnp reference (the Pallas kernel pads L to 128 first,
 and would spread the weights over the padding too).
@@ -31,6 +36,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from mtamrecommender_tpu_torch.ops.kernels import build
 
@@ -38,7 +44,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 NEG_FILL = -(2.0 ** 32) + 1.0
 LN_EPS = 1e-8
 MAX_KEYS = 1024          # the kernels' longest memory, as in the JAX package
-WIDTHS = (32, 64, 128)   # the kernels' d
+WIDTHS = (32, 64, 128)   # the kernels' d (the gemm designs pad others)
 MAX_SMEM_BYTES = 227 * 1024
 # the forward's designs, the default first (the C interface's `design`
 # is the index): "gemm" (every hop's K and V projections as one
@@ -93,12 +99,50 @@ def _check(args) -> None:
                         f"{sorted({str(t.dtype) for t in typed})}")
 
 
-def _kernel_shape(what: str, mem) -> None:
+def _kernel_shape(what: str, mem, design: str) -> int:
+    """Raises on a shape the design does not take; returns the width it
+    runs at: the narrowest of WIDTHS that holds d for "gemm", d itself
+    (one of WIDTHS) for "rows"."""
     b, tk, d = mem.shape
-    if not 1 <= tk <= MAX_KEYS or d not in WIDTHS:
+    if not 1 <= tk <= MAX_KEYS or not 1 <= d <= WIDTHS[-1]:
         raise ValueError(
-            f"{what}: the kernel takes 1 <= L <= {MAX_KEYS} keys and d in "
-            f"{WIDTHS}, got L={tk}, d={d}")
+            f"{what}: the kernel takes 1 <= L <= {MAX_KEYS} keys and 1 <= d "
+            f"<= {WIDTHS[-1]}, got L={tk}, d={d}")
+    if design == "rows" and d not in WIDTHS:
+        raise ValueError(f"{what}: the rows design takes d in {WIDTHS} only "
+                         f"(the gemm design pads the others), got d={d}")
+    return next(w for w in WIDTHS if d <= w)
+
+
+# the operands with a d axis: position -> the axes padded (mem, dec, the
+# [n,d,d] weights, the [n,d] biases and LN parameters)
+_PADDED = {0: 1, 1: 1, 5: 2, 6: 1, 7: 2, 8: 1, 9: 2, 10: 1, 11: 2, 17: 1,
+           18: 1}
+
+
+def _pad_readout_operands(args, width):
+    """`fused_readout`'s operands at width d zero-padded to ``width``: mem,
+    dec, every weight, bias and LN parameter.  A padded lane's q, K, V and
+    u are relu(0) = 0 or 0, so no score moves; with the layer norms taken
+    over the d live lanes and the padded LN parameters 0, every padded
+    output and cotangent lane is 0."""
+    out = []
+    for i, t in enumerate(args):
+        axes = _PADDED.get(i, 0)
+        pad = (0, width - t.shape[-1]) * axes
+        out.append(F.pad(t, pad) if axes else t)
+    return tuple(out)
+
+
+def _slice_readout_grads(d, grads):
+    """`fused_readout_bwd`'s 16 cotangents at a padded width sliced back to
+    d (the five gate rows have no d axis)."""
+    out = []
+    for i, t in zip(_DIFFERENTIABLE, grads):
+        axes = _PADDED.get(i, 0)
+        out.append(t[..., :d, :d].contiguous() if axes == 2
+                   else t[..., :d].contiguous() if axes else t)
+    return tuple(out)
 
 
 def fused_readout(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk, wv, bv,
@@ -127,36 +171,40 @@ def _aligned(args):
 
 
 def _launch(args, _design=FWD_DESIGNS[0]):
-    """Launch the forward in the "gemm" design.  ``_design="rows"``
-    forces the earlier design (chip_smoke.py holds and times it beside
-    the default); the main path never passes it.  A failed launch
-    raises: there is no fallback."""
+    """Launch the forward in the "gemm" design, a d outside WIDTHS on
+    operands zero-padded to the next of them and the output sliced back.
+    ``_design="rows"`` forces the earlier design (chip_smoke.py holds and
+    times it beside the default); the main path never passes it.  A
+    failed launch raises: there is no fallback."""
     global launches
     if _design not in FWD_DESIGNS:
         raise ValueError(f"fused_readout: design {_design!r} is not one of "
                          f"{FWD_DESIGNS}")
     design = FWD_DESIGNS.index(_design)
+    b, tk, d = args[0].shape
+    width = _kernel_shape("fused_readout", args[0], _design)
+    if width != d:
+        args = _pad_readout_operands(args, width)
     args = _aligned(args)
     mem = args[0]
     device, stream = build.launch_context(args, "fused_readout")
-    _kernel_shape("fused_readout", mem)
-    b, tk, d = mem.shape
     n = args[5].shape[0]
     lib = _library()
-    if lib.fused_readout_smem_bytes(tk, d, n, design) > MAX_SMEM_BYTES:
+    if lib.fused_readout_smem_bytes(tk, width, n, design) > MAX_SMEM_BYTES:
         raise ValueError(f"fused_readout: L={tk}, d={d} needs more shared "
                          "memory than a block has")
     is_bf16 = int(mem.dtype == torch.bfloat16)
-    out = torch.empty((b, d), dtype=torch.float32, device=mem.device)
+    out = torch.empty((b, width), dtype=torch.float32, device=mem.device)
     # the K and V planes of every hop, freed when the call returns
     ws = torch.empty((lib.fused_readout_workspace_bytes(
-        b, tk, d, n, is_bf16, design),), dtype=torch.uint8, device=mem.device)
+        b, tk, width, n, is_bf16, design),), dtype=torch.uint8,
+        device=mem.device)
     status = lib.fused_readout_launch(
         is_bf16, design, *(t.data_ptr() for t in args), out.data_ptr(),
-        ws.data_ptr(), b, tk, d, n, 1.0 / d ** 0.5, device, stream)
+        ws.data_ptr(), b, tk, width, n, d, 1.0 / d ** 0.5, device, stream)
     build.check(lib, status, "fused_readout")
     launches += 1
-    return out
+    return out if width == d else out[:, :d].contiguous()
 
 
 def _library() -> ctypes.CDLL:
@@ -164,7 +212,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_readout_launch.argtypes = (
-            [ci, ci] + [vp] * 21 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            [ci, ci] + [vp] * 21 + [ci] * 5 + [ctypes.c_float, ci, vp])
         lib.fused_readout_launch.restype = ci
         lib.fused_readout_smem_bytes.argtypes = [ci] * 4
         lib.fused_readout_smem_bytes.restype = ctypes.c_longlong
@@ -174,13 +222,31 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _lane_mean(x, live_d):
+    """The mean over the last axis, or over its first ``live_d`` lanes
+    (the others hold 0)."""
+    if live_d is None:
+        return x.mean(dim=-1, keepdim=True)
+    return x.sum(dim=-1, keepdim=True) / live_d
+
+
+def _live_lanes(x, live_d):
+    """x with the lanes from ``live_d`` on set to 0 (x where None)."""
+    if live_d is None:
+        return x
+    return x * (torch.arange(x.shape[-1], device=x.device) < live_d)
+
+
 def _hops_plain(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk, wv, bv,
-                wt, w1, b1, wo1, wo2, bo, lng, lnb):
+                wt, w1, b1, wo1, wo2, bo, lng, lnb, live_d=None):
     """The forward with the kernel's rounding, hop by hop.  Returns the
-    output and, per hop, what its backward reads."""
+    output and, per hop, what its backward reads.  ``live_d``: the
+    operands are zero-padded from that width (`_pad_readout_operands`)
+    and the layer norms and the scale take the live width, as the
+    kernels do."""
     rnd = lambda x: x.to(mem.dtype).float()  # noqa: E731  (a product operand)
     b, tk, d = mem.shape
-    scale = 1.0 / d ** 0.5
+    scale = 1.0 / (d if live_d is None else live_d) ** 0.5
     memf = mem.float()
     live = torch.arange(tk, device=mem.device)[None, :] < key_len[:, None]
     qz = qmask.float()[:, None]
@@ -200,10 +266,9 @@ def _hops_plain(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk, wv, bv,
                         torch.full_like(s0, NEG_FILL))
         w = torch.softmax(s, dim=-1)
         x = torch.einsum("bl,bld->bd", w, v) * qz + cur
-        mu = x.mean(dim=-1, keepdim=True)
-        inv = 1.0 / torch.sqrt(torch.square(x - mu).mean(dim=-1, keepdim=True)
-                               + LN_EPS)
-        xh = (x - mu) * inv
+        xc = _live_lanes(x - _lane_mean(x, live_d), live_d)
+        inv = 1.0 / torch.sqrt(_lane_mean(torch.square(xc), live_d) + LN_EPS)
+        xh = xc * inv
         hops.append(dict(dec=cur, dec_c=dec_c, q=q, k=k, v=v, u=u, tqk=tqk,
                          decay=decay, sig=sig, s0=s0, w=w, xh=xh, inv=inv))
         cur = xh * lng[i].float() + lnb[i].float()
@@ -211,12 +276,13 @@ def _hops_plain(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk, wv, bv,
 
 
 def fused_readout_plain(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk,
-                        wv, bv, wt, w1, b1, wo1, wo2, bo, lng, lnb
-                        ) -> torch.Tensor:
+                        wv, bv, wt, w1, b1, wo1, wo2, bo, lng, lnb,
+                        live_d=None) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: `_readout_kernel`'s math with its
-    operand rounding (K, V and dec_c rounded to mem's type, f32 sums)."""
+    operand rounding (K, V and dec_c rounded to mem's type, f32 sums).
+    ``live_d``: see `_hops_plain`."""
     return _hops_plain(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk, wv,
-                       bv, wt, w1, b1, wo1, wo2, bo, lng, lnb)[0]
+                       bv, wt, w1, b1, wo1, wo2, bo, lng, lnb, live_d)[0]
 
 
 # ------------------------------------------------------------- backward
@@ -244,20 +310,25 @@ def fused_readout_bwd(g, mem, dec, logdt, key_len, qmask, wq, bq, wk, bk,
 
 
 def _launch_bwd(g, args, _design=BWD_DESIGNS[0]):
-    """Launch the backward in the "gemm" design.  ``_design="rows"``
-    forces the earlier design (chip_smoke.py holds and times it beside
-    the default); the main path never passes it.  A failed launch
-    raises: there is no fallback."""
+    """Launch the backward in the "gemm" design, a d outside WIDTHS on
+    operands (g too) zero-padded to the next of them and the cotangents
+    sliced back.  ``_design="rows"`` forces the earlier design
+    (chip_smoke.py holds and times it beside the default); the main path
+    never passes it.  A failed launch raises: there is no fallback."""
     global bwd_launches
     if _design not in BWD_DESIGNS:
         raise ValueError(f"fused_readout_bwd: design {_design!r} is not one "
                          f"of {BWD_DESIGNS}")
     design = BWD_DESIGNS.index(_design)
+    live_d = args[0].shape[2]
+    d = _kernel_shape("fused_readout_bwd", args[0], _design)
+    if d != live_d:
+        g = F.pad(g, (0, d - live_d))
+        args = _pad_readout_operands(args, d)
     args = _aligned(args)
     mem = args[0]
     device, stream = build.launch_context((g,) + args, "fused_readout_bwd")
-    _kernel_shape("fused_readout_bwd", mem)
-    b, tk, d = mem.shape
+    b, tk, _ = mem.shape
     n = args[5].shape[0]
     lib = _bwd_library()
     if lib.fused_readout_bwd_smem_bytes(tk, d, n, design) > MAX_SMEM_BYTES:
@@ -273,11 +344,11 @@ def _launch_bwd(g, args, _design=BWD_DESIGNS[0]):
         b, tk, d, n, is_bf16, design),), dtype=torch.uint8, device=mem.device)
     status = lib.fused_readout_bwd_launch(
         is_bf16, design, g.data_ptr(), *(t.data_ptr() for t in args),
-        *(t.data_ptr() for t in grads), ws.data_ptr(), b, tk, d, n,
-        1.0 / d ** 0.5, device, stream)
+        *(t.data_ptr() for t in grads), ws.data_ptr(), b, tk, d, n, live_d,
+        1.0 / live_d ** 0.5, device, stream)
     build.check(lib, status, "fused_readout_bwd")
     bwd_launches += 1
-    return grads
+    return grads if d == live_d else _slice_readout_grads(live_d, grads)
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -285,7 +356,7 @@ def _bwd_library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.fused_readout_bwd_launch.argtypes = (
-            [ci, ci] + [vp] * 37 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            [ci, ci] + [vp] * 37 + [ci] * 5 + [ctypes.c_float, ci, vp])
         lib.fused_readout_bwd_launch.restype = ci
         lib.fused_readout_bwd_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.fused_readout_bwd_smem_bytes.restype = ctypes.c_longlong
@@ -296,18 +367,19 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def fused_readout_bwd_plain(g, mem, dec, logdt, key_len, qmask, wq, bq, wk,
-                            bk, wv, bv, wt, w1, b1, wo1, wo2, bo, lng, lnb):
+                            bk, wv, bv, wt, w1, b1, wo1, wo2, bo, lng, lnb,
+                            live_d=None):
     """Plain PyTorch twin of the backward kernel: `_readout_bwd_kernel`'s
     algebra with its operand rounding (du, dk_pre, dv_pre, dq_pre and the
     hop's query rounded to mem's type before each product; the relu masks
     compare the rounded K and V), the score gradient zeroed at masked keys
-    (the jnp reference's ``where``)."""
+    (the jnp reference's ``where``).  ``live_d``: see `_hops_plain`."""
     rnd = lambda x: x.to(mem.dtype).float()  # noqa: E731
     _, hops = _hops_plain(mem, dec, logdt, key_len, qmask, wq, bq, wk, bk,
-                          wv, bv, wt, w1, b1, wo1, wo2, bo, lng, lnb)
+                          wv, bv, wt, w1, b1, wo1, wo2, bo, lng, lnb, live_d)
     b, tk, d = mem.shape
     n = wq.shape[0]
-    scale = 1.0 / d ** 0.5
+    scale = 1.0 / (d if live_d is None else live_d) ** 0.5
     memf = mem.float()
     live = torch.arange(tk, device=mem.device)[None, :] < key_len[:, None]
     qz = qmask.float()[:, None]
@@ -326,8 +398,9 @@ def fused_readout_bwd_plain(g, mem, dec, logdt, key_len, qmask, wq, bq, wk,
         out["dlng"][i] = (g * h["xh"]).sum(0)
         out["dlnb"][i] = g.sum(0)
         dxh = g * lng[i].float()
-        dx = (dxh - dxh.mean(-1, keepdim=True)
-              - h["xh"] * (dxh * h["xh"]).mean(-1, keepdim=True)) * h["inv"]
+        dx = _live_lanes((dxh - _lane_mean(dxh, live_d)
+                          - h["xh"] * _lane_mean(dxh * h["xh"], live_d))
+                         * h["inv"], live_d)
         do = dx * qz                 # o was query-masked; the residual not
         ddec = dx
         # weighted sum and softmax backward

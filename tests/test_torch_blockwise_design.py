@@ -1,11 +1,12 @@
-"""The blockwise attention kernel's three designs, and what holds the
-tiled ones.
+"""The blockwise attention kernel's designs, and what holds the tiled
+ones.
 
-On the card, `fused_attention_blockwise` launches one of three designs of
+On the card, `fused_attention_blockwise` launches one of four designs of
 csrc/fused_attention_blockwise.cu, picked by shape in
-`blockwise_design`: for Tq > 1 and d a multiple of 16 up to 128,
-tensor-core tiles ("mma", bf16) or register tiles ("regtile", f32); FMA
-from shared memory ("simt") everywhere else.  chip_smoke.py holds the
+`blockwise_design`: at Tq = 1 each row's keys split across blocks
+("split", held in tests/test_torch_blockwise_split.py); for Tq > 1 and d
+a multiple of 16 up to 128, tensor-core tiles ("mma", bf16) or register
+tiles ("regtile", f32); FMA from shared memory ("simt") everywhere else.  chip_smoke.py holds the
 tiled designs against the plain twin, `fused_attention_blockwise_plain`;
 here that twin, at Tq = 80 (a 64-query tile and a ragged one) and Tk =
 1100 (two full 512-key blocks and a ragged third), is held against the
@@ -60,7 +61,7 @@ def _rel(got, want):
 @pytest.mark.parametrize("tq", [1, 2, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_blockwise_design_by_shape(dtype, tq, d):
-    want = "simt"
+    want = "split" if tq == 1 else "simt"
     if tq > 1 and d in (48, 128):
         want = "mma" if dtype == torch.bfloat16 else "regtile"
     assert tak.blockwise_design(dtype, tq, d) == want

@@ -185,8 +185,9 @@ def _meta_args(L, d=128, n=3):
 
 def test_readout_kernel_path_never_runs_the_twin(monkeypatch):
     """Off the CPU a wrapper launches its kernel or raises: never the
-    twin, and outside 1 <= L <= 1024 keys (or d not 32, 64 or 128) it
-    raises before building anything."""
+    twin, and outside 1 <= L <= 1024 keys (or d past 128) it raises
+    before building anything; a d below 128 that is not 32, 64 or 128 is
+    padded and reaches the build."""
     def refuse(*_a, **_k):
         raise AssertionError("the plain twin ran off the CPU")
 
@@ -205,15 +206,15 @@ def test_readout_kernel_path_never_runs_the_twin(monkeypatch):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         trk.fused_readout_bwd(torch.empty(B, 128, device="meta"),
                               *_meta_args(512))
-    for L, d in ((1025, 128), (0, 128), (512, 48)):
+    for L, d in ((1025, 128), (0, 128), (512, 129)):
         with pytest.raises(ValueError, match="1 <= L <= 1024"):
             trk._launch(_meta_args(L, d))
         with pytest.raises(ValueError, match="1 <= L <= 1024"):
             trk._launch_bwd(torch.empty(B, d, device="meta"),
                             _meta_args(L, d))
-    for L in (1, 256, 1024):
+    for L, d in ((1, 128), (256, 128), (1024, 128), (512, 48)):
         with pytest.raises(Built):
-            trk._launch(_meta_args(L))
+            trk._launch(_meta_args(L, d))
         with pytest.raises(Built):
-            trk._launch_bwd(torch.empty(B, 128, device="meta"),
-                            _meta_args(L))
+            trk._launch_bwd(torch.empty(B, d, device="meta"),
+                            _meta_args(L, d))
