@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel built from csrc/ (one nvcc per source, all at once), and the
      registers and spill bytes ptxas gives gru_scan_kernel's
      instantiations (those at u=128 printed), the two kernels of
-     fused_readout's "gemm" design and the four of fused_readout_bwd's;
+     fused_readout's "gemm" design, the four of fused_readout_bwd's and
+     scatter_add's columns_sum;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
@@ -137,7 +138,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      dtable at the L=2048 cell's 131,072 ids a table (the user table's
      64), as in phase 2b; gather and scatter_add against their twins at
      those ids and at phase 4's ids, the same bits twice, timed beside
-     index_select and index_add_;
+     index_select and index_add_; scatter_add in its default "columns"
+     design also torch.equal to its twin and to the earlier "segments" design
+     forced, both timed in turns (columns, segments, segments, columns)
+     with the profiler's device time a call and split by kernel, and
+     index_add_'s device time; at L=2048 first on 131,072 ids over 3
+     rows (a chain longer than any table's), whose chain time an add
+     gives each table's chain floor;
   7. past 1024 keys at the slice's configuration (phase 6's cell at
      L=2048, 256 rows of its data): Recommender.recommend for MTAM,
      SASrec, TiSAS and Time_Aware_SA at B = 1, 16, 64 in bf16 and f32
@@ -178,7 +185,9 @@ entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
 the default design's device time by kernel, gru_scan's "unit_column_ms",
 the unit_column design on the same inputs, fused_readout's and
 fused_readout_bwd's "rows_ms", the rows design on the same inputs, and
-"passes_ms"), the
+"passes_ms", scatter_add's "segments_ms" and "segments_device_ms", PR
+5's design on the same inputs in turns, "device_ms", "library_device_ms"
+and "passes_ms"), the
 blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
@@ -2090,7 +2099,9 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
                              "_launch", "rows"),
            "fused_attention_blockwise": ("blockwise_steps_in_turns",
                                          "attention_kernel",
-                                         "_launch_blockwise", "simt")}
+                                         "_launch_blockwise", "simt"),
+           "scatter_add": ("seam_in_turns", "embedding_kernel",
+                           "scatter_add", "segments")}
 
 
 @contextlib.contextmanager
@@ -2714,56 +2725,69 @@ def gather_bound(table, ids):
     return _bound(rows * d * es + 4 * n + n * d * es, 0, "float32")
 
 
-def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag):
+HOT_ROWS = (131072, 3, 128)   # ids, the rows they name, the padded vocab
+
+
+def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag,
+                 ns_per_add=None):
     """gather_rows and scatter_add against their plain twins on each of a
     step's four tables with its ids (``tables``: name -> (ids, padded
     vocab)), a random table and cotangent; two launches of each must give
     the same bits; index_select and index_add_ timed beside them.
-    Returns the two entry rows, each headed by the item table."""
+    scatter_add as `check_scatter` holds it, each table's chain floor
+    at ``ns_per_add``; without it, first the hot-row case (HOT_ROWS: a
+    chain longer than any table's), whose chain warp's time an add is
+    then taken (its row's "chain_ns_per_add").  Returns the two entry
+    rows, each headed by the item table."""
     from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
 
     dname = str(dtype).replace("torch.", "")
     shapes = {"gather": {}, "scatter_add": {}}
+    if ns_per_add is None:
+        n, rows, vocab = HOT_ROWS
+        ids = torch.randint(0, rows, (n,), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+        r = shapes["scatter_add"]["hot_rows"] = check_scatter(
+            torch, timer, iters, failures, gen, dtype, ids, vocab,
+            f"{tag} hot_rows", None)
+        ns_per_add = r["passes_ms"].get("columns_sum", 0) * 1e6 / r["max_run"]
+        r["chain_ns_per_add"] = ns_per_add
+        r["chain_floor_ms"] = r["max_run"] * ns_per_add / 1e6
     for table, (ids, vocab) in tables.items():
         tab = torch.randn((vocab, 128), generator=gen, device=DEVICE).to(dtype)
-        ct = torch.randn((ids.shape[0], 128), generator=gen,
-                         device=DEVICE).to(dtype)
         ids64 = ids.long()
-        for kname, run, plain, library, bound in (
-                ("gather", lambda: ek.gather_rows(tab, ids),
-                 lambda: ek.gather_plain(tab, ids),
-                 lambda: torch.index_select(tab, 0, ids64),
-                 gather_bound(tab, ids)),
-                ("scatter_add", lambda: ek.scatter_add(ct, ids, vocab),
-                 lambda: ek.scatter_add_plain(ct, ids, vocab),
-                 lambda: torch.zeros((vocab, 128), dtype=dtype,
-                                     device=DEVICE).index_add_(0, ids64, ct),
-                 dtable_bound(ct, ids, vocab))):
-            got, again, want = run(), run(), plain()
-            err, rel, ok = _agree(got, want, dname)
-            same = bool(torch.equal(got, again))
-            ok = ok and same
-            r = shapes[kname][table] = {
-                "n": int(ids.shape[0]), "vocab": vocab, "max_abs_err": err,
-                "rel_err": rel, "same_bits_twice": same, "ok": ok,
-                "ms": timer(run, iters),
-                "plain_ms": timer(plain, 2, warmup=1),
-                "library_ms": timer(library, iters), **bound}
-            print(f"{kname} {tag} {table:11s} n={r['n']:<6d} V={vocab:<5d} "
-                  f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} same_bits="
-                  f"{same} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']:.4f} bound_ms="
-                  f"{r['bound_ms']:.4f} ({r['bound_by']}) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                failures.append(f"{kname} {tag} {table} {dname}: rel err "
-                                f"{rel:.3e}, same bits {same}")
+        run = lambda: ek.gather_rows(tab, ids)  # noqa: E731
+        plain = lambda: ek.gather_plain(tab, ids)  # noqa: E731
+        got, again, want = run(), run(), plain()
+        err, rel, ok = _agree(got, want, dname)
+        same = bool(torch.equal(got, again))
+        ok = ok and same
+        r = shapes["gather"][table] = {
+            "n": int(ids.shape[0]), "vocab": vocab, "max_abs_err": err,
+            "rel_err": rel, "same_bits_twice": same, "ok": ok,
+            "ms": timer(run, iters), "plain_ms": timer(plain, 2, warmup=1),
+            "library_ms": timer(lambda: torch.index_select(tab, 0, ids64),
+                                iters), **gather_bound(tab, ids)}
+        print(f"gather {tag} {table:11s} n={r['n']:<6d} V={vocab:<5d} "
+              f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} same_bits="
+              f"{same} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"gather {tag} {table} {dname}: rel err "
+                            f"{rel:.3e}, same bits {same}")
+        shapes["scatter_add"][table] = check_scatter(
+            torch, timer, iters, failures, gen, dtype, ids, vocab,
+            f"{tag} {table}", ns_per_add)
     out = {}
     for kname, by_table in shapes.items():
         head = by_table["item_table"]
         out[kname] = {
             **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")},
+                                    "device_ms", "library_device_ms",
+                                    "segments_ms", "segments_device_ms",
+                                    "bound_ms", "bound_by") if k in head},
             "library_call": ("index_select" if kname == "gather"
                              else "index_add_"),
             "max_abs_err": max(r["max_abs_err"] for r in by_table.values()),
@@ -2772,6 +2796,95 @@ def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag):
             "ok": all(r["ok"] for r in by_table.values()),
             "by_table": by_table}
     return out
+
+
+def check_scatter(torch, timer, iters, failures, gen, dtype, ids, vocab,
+                  tag, ns_per_add):
+    """scatter_add on ``ids`` and a random cotangent (d=128) in its
+    default "columns" design: within KERNEL_TOL of scatter_add_plain and
+    torch.equal to it, the same bits twice, and torch.equal to the
+    earlier "segments" design forced (``_design="segments"``); the wrapper's
+    workspace sizes equal to the kernel's (scatter_workspace_bytes).
+    Both designs timed in turns (columns, segments, segments, columns:
+    ``ms`` the first and last, ``segments_ms`` the middle two,
+    ``in_turns`` all four), their device time a call (``device_ms``,
+    ``segments_device_ms``) and split by kernel (``passes_ms``,
+    ``segments_passes_ms``, and each split's total) from the profiler,
+    and torch.zeros + index_add_ the same ways (``library_ms``,
+    ``library_device_ms``).
+    The chain floor: the longest run's ids times ``ns_per_add`` (the
+    hot-row case's chain warp time an add, measured in this run)."""
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    dname = str(dtype).replace("torch.", "")
+    n = ids.shape[0]
+    ct = torch.randn((n, 128), generator=gen, device=DEVICE).to(dtype)
+    ids64 = ids.long()
+    run = lambda: ek.scatter_add(ct, ids, vocab)  # noqa: E731
+    old = lambda: ek.scatter_add(ct, ids, vocab,  # noqa: E731
+                                 _design="segments")
+    plain = lambda: ek.scatter_add_plain(ct, ids, vocab)  # noqa: E731
+    library = lambda: torch.zeros(  # noqa: E731
+        (vocab, 128), dtype=dtype, device=DEVICE).index_add_(0, ids64, ct)
+    got, again, forced, want = run(), run(), old(), plain()
+    err, rel, ok = _agree(got, want, dname)
+    same = bool(torch.equal(got, again))
+    equal = {"plain": bool(torch.equal(got, want)),
+             "segments": bool(torch.equal(got, forced))}
+    # the wrapper's workspace plans against the kernel's own layout
+    lib = ek._gather_library()
+    route, _, ws_bytes = ek.scatter_plan(n, 128, vocab)
+    ws_ok = (lib.scatter_workspace_bytes(
+        n, vocab, ek.SCATTER_ROUTES.index(route)) == ws_bytes
+        and lib.scatter_workspace_bytes(n, vocab, 2)
+        == ek._segments_bytes(n, vocab))
+    ok = ok and same and all(equal.values()) and ws_ok
+    turns = [timer(run, iters), timer(old, iters), timer(old, iters),
+             timer(run, iters)]
+    max_run = int(torch.bincount(ids64, minlength=vocab).max().item()) \
+        if n else 0
+    r = {"n": n, "vocab": vocab, "route": route, "max_run": max_run,
+         "max_abs_err": err, "rel_err": rel, "same_bits_twice": same,
+         "equal": equal, "workspace_agrees": ws_ok, "ok": ok,
+         "ms": (turns[0] + turns[3]) / 2,
+         "segments_ms": (turns[1] + turns[2]) / 2, "in_turns": turns,
+         # the twin's steps are one per occurrence rank: a long run
+         # takes seconds, so it is timed once there, and not at all on
+         # the hot rows
+         "plain_ms": (timer(plain, 2, warmup=1) if max_run < 1000
+                      else timer(plain, 1, warmup=0) if max_run < 20000
+                      else None),
+         "library_ms": timer(library, iters),
+         "device_ms": timer.device(run),
+         "segments_device_ms": timer.device(old),
+         "library_device_ms": timer.device(library),
+         "passes_ms": timer.passes(run),
+         "segments_passes_ms": timer.passes(old),
+         **dtable_bound(ct, ids, vocab)}
+    # the split's total beside device_ms: two profiler windows
+    r["passes_total_ms"] = sum(r["passes_ms"].values())
+    r["segments_passes_total_ms"] = sum(r["segments_passes_ms"].values())
+    if ns_per_add is not None:
+        r["chain_floor_ms"] = max_run * ns_per_add / 1e6
+    print(f"scatter_add {tag:22s} n={n:<6d} V={vocab:<5d} {dname:9s} "
+          f"route={r['route']} longest run={max_run} max_abs_err={err:.3e} "
+          f"rel={rel:.3e} same_bits={same} equal={equal} in turns "
+          f"(columns, segments, segments, columns) ms="
+          f"{[round(t, 4) for t in turns]} device_ms={r['device_ms']} "
+          f"segments_device_ms={r['segments_device_ms']} index_add_ms="
+          f"{r['library_ms']:.4f} index_add_device_ms="
+          f"{r['library_device_ms']} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']}) chain_floor_ms={r.get('chain_floor_ms')} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print(f"    passes_ms {r['passes_ms']} (total "
+          f"{r['passes_total_ms']:.4f}) segments_passes_ms "
+          f"{r['segments_passes_ms']} (total "
+          f"{r['segments_passes_total_ms']:.4f})", flush=True)
+    if not ok:
+        failures.append(f"scatter_add {tag} {dname}: rel err {rel:.3e}, "
+                        f"same bits {same}, equal {equal}, workspace "
+                        f"plan agrees {ws_ok}")
+    return r
 
 
 def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
@@ -2790,9 +2903,13 @@ def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
         entries.setdefault(("dtable", None, "L2048"), {})[dname] = \
             check_dtable(torch, timer, iters, failures, gen, dtype,
                          xl_tables, "L=2048")
+        ns_per_add = None   # the hot-row case's, at L=2048 first
         for tables, tag in ((xl_tables, "L=2048"), (l50_tables, "L=50")):
             rows = check_gather(torch, timer, iters, failures, gen, dtype,
-                                tables, tag)
+                                tables, tag, ns_per_add)
+            if ns_per_add is None:
+                ns_per_add = rows["scatter_add"]["by_table"]["hot_rows"][
+                    "chain_ns_per_add"]
             key = dname if tag == "L=2048" else f"{dname}_L50"
             for kname, row in rows.items():
                 entries.setdefault((kname, None, "L2048"), {})[key] = row
@@ -3149,7 +3266,8 @@ def check_gather_seam(torch, setup, failures, main_launches):
     backward on the cell's first batch (B=64, f32) against its default
     lookup, take_dtable, on the card: the same rows, and each table's
     gradient (rounded after every add there, summed in f32 here) within
-    KERNEL_TOL; 4 gather + 4 scatter_add launches and no dtable."""
+    KERNEL_TOL; 4 gather + 4 scatter_add launches and no dtable.  Then
+    timed in turns with the earlier scatter_add design (`seam_in_turns`)."""
     from mtamrecommender_tpu_torch.ops.embedding import behavior_embedding
     from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
 
@@ -3169,6 +3287,7 @@ def check_gather_seam(torch, setup, failures, main_launches):
         outs.append(e)
         grads.append({n: p.grad for n, p in emb.named_parameters()})
     _add_launches(main_launches, counts)
+    in_turns = seam_in_turns(torch, setup, model, w)
     same_rows = all(torch.equal(a, b) for a, b in zip(*outs))
     rel = {n: rel_err(grads[1][n], g)[1] for n, g in grads[0].items()}
     launches_ok = (counts["gather"]["gather"] == 4
@@ -3184,7 +3303,40 @@ def check_gather_seam(torch, setup, failures, main_launches):
         failures.append(f"behavior_embedding(gather=): same rows {same_rows}"
                         f", grad rel err {rel}, launches {counts}")
     return {"same_rows": same_rows, "grad_rel_err": rel,
-            "launches": counts, "ok": ok}
+            "launches": counts, "ok": ok, "seam_in_turns": in_turns}
+
+
+def seam_in_turns(torch, setup, model, w, iters=10):
+    """The seam's forward and backward (as check_gather_seam runs it, f32)
+    timed in turns with scatter_add forced to its earlier segments design
+    (default, segments, segments, default): CUDA-event ms a call after
+    the L2 flush and the profiler's device ms a call.  Not counted as
+    main-path launches."""
+    from mtamrecommender_tpu_torch.ops.embedding import behavior_embedding
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    emb = copy.deepcopy(model.embedding)
+    params = list(emb.parameters())
+
+    def step():
+        e = behavior_embedding(emb, setup.full, gather=ek.gather)
+        loss = ((e.behavior_emb * w).sum()
+                + sum(x.square().sum() for x in (e.user_emb, e.item_emb,
+                                                 e.cat_emb)))
+        return torch.autograd.grad(loss, params)
+
+    timer = Timer(torch)
+    rows = []
+    for turn in ("default", "segments", "segments", "default"):
+        with (forced_design("scatter_add") if turn == "segments"
+              else contextlib.nullcontext()):
+            rows.append({"design": turn, "ms": timer(step, iters),
+                         "device_ms": timer.device(step, iters)})
+    print(f"behavior_embedding(gather=) fwd+bwd B={XL_BATCH} L={XL_L} f32 "
+          f"in turns (default, segments, segments, default): ms="
+          f"{[round(r['ms'], 4) for r in rows]} device_ms="
+          f"{[r['device_ms'] for r in rows]}", flush=True)
+    return rows
 
 
 def run_xl_history(torch, setup, failures):
@@ -3319,10 +3471,12 @@ def kernels_line(entries, launches_by_shape):
             # same inputs in the same run; fused_readout's and
             # fused_readout_bwd's: the rows design's time on the same
             # inputs in the same run, and the gemm design's device time by
-            # kernel
+            # kernel; scatter_add's: the earlier segments design's time and
+            # device time on the same inputs in the same run, in turns
             **{k: head[k] for k in ("simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
-                                    "passes_ms", "unit_column_ms", "rows_ms")
+                                    "passes_ms", "unit_column_ms", "rows_ms",
+                                    "segments_ms", "segments_device_ms")
                if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
@@ -3392,6 +3546,17 @@ def main() -> int:
         for inst, regs, spill_st, spill_ld in readout_ptxas[lib_name]:
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
+    # scatter_add's "columns" design: columns_sum's instantiations
+    # <type, d / 32>
+    log = built["embedding_gather"]["log"]
+    if log == "already built":
+        log = build.library_path("embedding_gather").with_suffix(
+            ".log").read_text()
+    scatter_ptxas = ptxas_counts(log, "columns_sum")
+    print("ptxas embedding_gather, columns design:", flush=True)
+    for inst, regs, spill_st, spill_ld in scatter_ptxas:
+        print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
 
     # phase 2: kernels against their plain twins
@@ -3526,6 +3691,7 @@ def main() -> int:
                    "fused_readout_gemm_ptxas": readout_ptxas["fused_readout"],
                    "fused_readout_bwd_gemm_ptxas":
                        readout_ptxas["fused_readout_bwd"],
+                   "scatter_columns_sum_ptxas": scatter_ptxas,
                    "phase_s": phase_s, **report, "width_fault": width_fault,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,

@@ -19,7 +19,12 @@ three kernels the port has:
     out[i, :] = table[ids[i], :].
   * `scatter_add` (csrc/embedding_gather.cu, the Pallas `_scatter_kernel`):
     the sequential scatter-add, each row's cotangents added in ascending
-    position order and rounded to their type after every add.
+    position order and rounded to their type after every add.  Each
+    (row, column) is a chain no add may be reordered in, so the kernel
+    spreads rows and column slices: up to SMALL_N ids one pass, else a
+    sort of the ids into each row's list, then a block a (hot row, 32
+    columns) fed by a cp.async ring and a warp a cold row
+    (`scatter_plan` picks the route and sizes the workspace).
     `gather` is the lookup whose backward it is, as JAX's custom_vjp
     `gather`; `behavior_embedding(gather=embedding_kernel.gather)` takes
     it.
@@ -28,7 +33,7 @@ three kernels the port has:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +49,14 @@ SMALL_N = 256
 CHUNKS = (256, 1024)
 WAVE_BLOCKS = 128
 MAX_VOCAB = (1 << 22) - 1    # the sort key: id << log2(1024) | position
+# scatter_add's designs: the default, then the earlier one (forced only,
+# by `scatter_add(..., _design="segments")`); its routes, in the C
+# interface's order (the columns design takes "small" up to SMALL_N ids)
+SCATTER_DESIGNS = ("columns", "segments")
+SCATTER_ROUTES = ("small", "columns", "segments")
+SCATTER_SLICE = 32     # columns a hot row's chain warp owns, a lane each
+SCATTER_HOT = 64       # a row with more ids takes column-sliced chains
+SORT_CHUNK = 1024      # ids a sorting block owns
 
 # kernel launches (the plain twins are not counted)
 launches = {"dtable": 0}
@@ -153,10 +166,11 @@ def _launch(ct, ids, vocab, where) -> torch.Tensor:
     return out
 
 
-# dtable's scratch, one buffer per (device, stream), kept between calls
-# and grown to the largest call: kernels on one stream run in order, so a
-# call never writes scratch an earlier call still reads, and a call is
-# spared an allocation (host time is most of a small call's time)
+# dtable's and scatter_add's scratch, one buffer per (device, stream),
+# kept between calls and grown to the largest call: kernels on one stream
+# run in order, so a call never writes scratch an earlier call still
+# reads, and a call is spared an allocation (host time is most of a small
+# call's time)
 _workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -245,39 +259,95 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scatter_add(grad: torch.Tensor, ids: torch.Tensor,
-                vocab: int) -> torch.Tensor:
+def scatter_add(grad: torch.Tensor, ids: torch.Tensor, vocab: int,
+                _design: Optional[str] = None) -> torch.Tensor:
     """grad: [n, d] f32 or bf16; ids: [n] int32 -> [vocab, d] in grad's
     type: zeros, then for i = 0, 1, ..., n-1 in order out[ids[i]] +=
     grad[i], rounded to grad's type after every add (the Pallas
     `_scatter_kernel`'s sequential semantics).  CPU tensors run
     `scatter_add_plain` after a range check; CUDA tensors launch the
     kernel (d up to 256, zero-padded to one of KERNEL_WIDTHS and the
-    result sliced back)."""
+    result sliced back) in the route `scatter_plan` picks.
+    ``_design="segments"`` forces the earlier design (chip_smoke.py holds
+    and times it beside the default); the main path passes none.  A
+    design that fails to build or launch raises: there is no fallback."""
     _check_rows("scatter_add", grad, ids)
     if ids.shape[0] != grad.shape[0] or vocab < 0:
         raise ValueError(f"scatter_add: want [n] ids for the n rows of grad "
                          f"and vocab >= 0, got {tuple(ids.shape)}, "
                          f"{tuple(grad.shape)} and {vocab}")
+    if _design not in (None,) + SCATTER_DESIGNS:
+        raise ValueError(f"scatter_add: unknown design {_design!r}, want "
+                         f"one of {SCATTER_DESIGNS}")
     if grad.device.type == "cpu":
         _check_ids("scatter_add", ids, vocab)
         return scatter_add_plain(grad, ids, vocab)
     if grad.device.type != "cuda":
         raise ValueError(f"scatter_add: no kernel for device {grad.device}")
+    return _launch_scatter(grad, ids, vocab, _design or SCATTER_DESIGNS[0])
+
+
+def scatter_plan(n: int, d: int, vocab: int) -> Tuple[str, int, int]:
+    """(route, slice width, workspace bytes) of one default `scatter_add`
+    call on n ids into vocab rows at kernel width d.  "small" (n <=
+    SMALL_N, or no row to write): one pass, a warp a row over its d
+    columns, no workspace.  "columns": the ids sorted into each row's
+    list, then a row with more than SCATTER_HOT ids as chains over slices
+    of SCATTER_SLICE columns (the card decides which rows from the run
+    lengths), every other row a warp over its d columns; the workspace
+    holds two ints an id of each SORT_CHUNK-id chunk, a count for each
+    (chunk, row), three ints a row, each row's list (an int an id) and 4
+    counters, each array rounded up to 16 bytes.  Raises above MAX_VOCAB
+    there (the sort key holds the id in 22 bits)."""
+    if n <= SMALL_N or vocab == 0:
+        return "small", d, 0
+    if vocab > MAX_VOCAB:
+        raise ValueError(f"scatter_add: the kernel takes vocab <= "
+                         f"{MAX_VOCAB} past {SMALL_N} ids (the id and its "
+                         f"position share a 32-bit sort key), got {vocab}")
+    chunks = -(-n // SORT_CHUNK)
+    ints = (4 + 2 * chunks * SORT_CHUNK + _round4(chunks * vocab)
+            + 3 * _round4(vocab) + _round4(n))
+    return "columns", SCATTER_SLICE, 4 * ints
+
+
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _segments_bytes(n: int, vocab: int) -> int:
+    """The segments design's workspace: a count for each (1,024-id
+    segment, row), the rows' starts and each row's list."""
+    if vocab == 0:
+        return 0
+    return 4 * (-(-n // 1024) * vocab + vocab + 1 + n)
+
+
+def _launch_scatter(grad, ids, vocab, design) -> torch.Tensor:
+    """Launch `design` ("columns" in the route `scatter_plan` picks, or
+    "segments"), a width the kernel does not take zero-padded to
+    `kernel_width` and the table gradient sliced back."""
     n, d = grad.shape
     width = kernel_width("scatter_add", d)
     if width != d:
-        return scatter_add(_pad_columns(grad, width), ids,
-                           vocab)[:, :d].contiguous()
+        return _launch_scatter(_pad_columns(grad, width), ids, vocab,
+                               design)[:, :d].contiguous()
+    if design == "segments":
+        route, ws_bytes = design, _segments_bytes(n, vocab)
+    else:
+        route, _, ws_bytes = scatter_plan(n, d, vocab)
     device, stream = build.launch_context((grad, ids), "scatter_add")
     lib = _gather_library()
-    out = torch.empty((vocab, d), dtype=grad.dtype, device=grad.device)
-    ws = torch.empty((lib.scatter_workspace_ints(n, vocab),),
-                     dtype=torch.int32, device=grad.device)
+    if grad.data_ptr() % 16:        # the kernel loads 16-byte words
+        grad = grad.clone()
+    out = grad.new_empty((vocab, d))
+    ws_ptr = (_workspace(ws_bytes, device, stream, grad.device).data_ptr()
+              if ws_bytes else None)
     status = lib.scatter_add_launch(int(grad.dtype == torch.bfloat16),
                                     grad.data_ptr(), ids.data_ptr(),
-                                    out.data_ptr(), ws.data_ptr(), n, vocab,
-                                    d, device, stream)
+                                    out.data_ptr(), ws_ptr, ws_bytes, n,
+                                    vocab, d, SCATTER_ROUTES.index(route),
+                                    device, stream)
     build.check(lib, status, "scatter_add")
     gather_launches["scatter_add"] += 1
     return out
@@ -290,10 +360,12 @@ def _gather_library() -> ctypes.CDLL:
         lib.gather_launch.argtypes = [vp, vp, vp, ci, ci, ctypes.c_longlong,
                                       ci, vp]
         lib.gather_launch.restype = ci
-        lib.scatter_add_launch.argtypes = [ci] + [vp] * 4 + [ci] * 4 + [vp]
+        lib.scatter_add_launch.argtypes = ([ci] + [vp] * 4
+                                           + [ctypes.c_longlong]
+                                           + [ci] * 5 + [vp])
         lib.scatter_add_launch.restype = ci
-        lib.scatter_workspace_ints.argtypes = [ci, ci]
-        lib.scatter_workspace_ints.restype = ctypes.c_longlong
+        lib.scatter_workspace_bytes.argtypes = [ci, ci, ci]
+        lib.scatter_workspace_bytes.restype = ctypes.c_longlong
         lib._port_typed = True
     return lib
 
@@ -327,6 +399,79 @@ def scatter_add_plain(grad: torch.Tensor, ids: torch.Tensor,
         rows = ids[sel]                                # each id at most once
         out[rows] = (out[rows].float() + grad[sel].float()).to(grad.dtype)
     return out
+
+
+def _row_lists(ids: torch.Tensor, vocab: int):
+    """The columns design's ordering passes in plain PyTorch: each
+    SORT_CHUNK-id chunk's keys (id << 10 | position in the chunk, ids
+    outside [0, vocab) last) sorted, each entry's rank in its id's run and
+    each (chunk, row) count (columns_sort); each row's list, here laid out
+    in row order (on the card where its atomicAdd puts it), each chunk's
+    run after the row's runs in earlier chunks (columns_rows); each
+    position placed (columns_place).  Returns (start, length, lists): row
+    v's list is lists[start[v]:start[v] + length[v]]."""
+    ids = ids.long().cpu()
+    chunks = -(-ids.numel() // SORT_CHUNK)
+    col = torch.arange(SORT_CHUNK)
+    count = torch.zeros((chunks, vocab), dtype=torch.long)
+    runs = []
+    for c in range(chunks):
+        part = ids[c * SORT_CHUNK:(c + 1) * SORT_CHUNK]
+        named = torch.full((SORT_CHUNK,), vocab, dtype=torch.long)
+        named[:part.numel()] = torch.where((part >= 0) & (part < vocab),
+                                           part, vocab)
+        key = torch.sort(named << 10 | col).values
+        row = key >> 10
+        first = torch.ones(SORT_CHUNK, dtype=torch.bool)
+        first[1:] = row[1:] != row[:-1]
+        rank = col - torch.cummax(torch.where(first, col, 0), 0).values
+        live = row < vocab
+        count[c] = torch.bincount(row[live], minlength=vocab)
+        runs.append((key[live], rank[live]))
+    length = count.sum(0)
+    start = torch.cumsum(length, 0) - length
+    where = start + torch.cumsum(count, 0) - count
+    lists = torch.empty(int(length.sum()), dtype=torch.long)
+    for c, (key, rank) in enumerate(runs):
+        lists[where[c, key >> 10] + rank] = (c * SORT_CHUNK
+                                             + (key & (SORT_CHUNK - 1)))
+    return start, length, lists
+
+
+def _columns_design_plain(grad: torch.Tensor, ids: torch.Tensor,
+                          vocab: int) -> torch.Tensor:
+    """The default design's work split in plain PyTorch (the CPU tests
+    hold it): d padded to `kernel_width`, the route `scatter_plan` picks;
+    "small": each row's positions in order (the kernel's ballots);
+    "columns": each row's list from `_row_lists`, a row with more than
+    SCATTER_HOT ids as one chain a SCATTER_SLICE-column slice, any other
+    row as one chain over all its columns.  A chain adds its grad rows
+    one at a time in list order, rounded to grad's type after every add;
+    the result sliced back to d."""
+    n, d = grad.shape
+    width = kernel_width("scatter_add", d)
+    g = _pad_columns(grad, width)
+    route, slice_width, _ = scatter_plan(n, width, vocab)
+    out = torch.zeros((vocab, width), dtype=grad.dtype)
+    chains = []
+    if route == "small":
+        named = ids.long()
+        chains = [(v, slice(0, width), torch.nonzero(named == v).flatten())
+                  for v in range(vocab)]
+    else:
+        start, length, lists = _row_lists(ids, vocab)
+        for v in range(vocab):
+            chain = lists[start[v]:start[v] + length[v]]
+            cols = ([slice(c, c + slice_width)
+                     for c in range(0, width, slice_width)]
+                    if length[v] > SCATTER_HOT else [slice(0, width)])
+            chains += [(v, c, chain) for c in cols]
+    for v, cols, chain in chains:
+        acc = out[v, cols]
+        for p in chain.tolist():
+            acc = (acc.float() + g[p, cols].float()).to(grad.dtype)
+        out[v, cols] = acc
+    return out[:, :d].contiguous()
 
 
 class GatherFunction(torch.autograd.Function):
