@@ -40,9 +40,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      fused_attention_bwd in all five modes, at B = 1, 16, 256 with
      Tq = Tk = 50 and with Tq = 1, Tk = 1024, and the forward's plain,
      time and tisas modes at Tq = Tk = 50; two backward launches on the
-     same inputs must give the same bits; timed at B = 256, Tq = Tk = 50
-     (scaled_dot_product_attention forward + backward beside the plain
-     and tisas backward);
+     same inputs must give the same bits; at Tq = Tk = 50 the backward
+     takes its "tile" design (a block a batch row), held also against
+     its "rows" design forced (the same bits twice) and, in time mode at
+     B = 256, with its gate sums in chunks of 128 rows (the same bits);
+     at Tq = 1 its rows design; timed at B = 256, Tq = Tk = 50, the
+     backward's two designs in turns (tile, rows, rows, tile) with the
+     profiler's split of each by launch and the tile design's host time
+     a call (scaled_dot_product_attention forward + backward beside the
+     plain and tisas backward);
   2d. the long-history kernels the same way: fused_readout and
      fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 in f32 and
      bf16 (scalar and positional gate rows, ragged key lengths, one row
@@ -96,8 +102,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      MTAM's (3 fused_attention[time] + 3 fused_attention_bwd[time] + 4
      dtable launches a step); SASrec's and TiSAS's step in f32 and bf16
      against the CPU with masks drawn on the CPU and injected on both
-     sides (3 [*_drop] forward + 3 backward launches a step), then timed
-     with the card's own generator drawing the masks; and
+     sides (3 [*_drop] forward + 3 backward launches a step, the
+     backward's tile design, never its rows design), then timed with the
+     card's own generator drawing the masks, and each of the three
+     timed in turns with the backward forced to its rows design
+     (default, rows, rows, default); and
      Recommender.recommend for each of the three at B = 16 in bf16
      against the CPU;
   6. MTAM over long histories (benchmarks/long_history_bench.py's run:
@@ -182,7 +191,10 @@ kernels at B=64, L=2048 and
 dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
 entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
 "four_product_ms", the four-product design on the same inputs, and "passes_ms",
-the default design's device time by kernel, gru_scan's "unit_column_ms",
+the default design's device time by kernel, fused_attention_bwd's at
+Tq=Tk=50 "rows_ms", "rows_device_ms" and "rows_passes_ms", the rows
+design on the same inputs in turns, beside the tile design's
+"device_ms" and "passes_ms", gru_scan's "unit_column_ms",
 the unit_column design on the same inputs, fused_readout's and
 fused_readout_bwd's "rows_ms", the rows design on the same inputs, and
 "passes_ms", scatter_add's "segments_ms" and "segments_device_ms", PR
@@ -233,8 +245,11 @@ KERNEL_FILES = {
                      "mtamrecommender_tpu/ops/pallas/gru_kernel.py:174"),
     "dtable": ("mtamrecommender_tpu_torch/csrc/embedding_dtable.cu",
                "mtamrecommender_tpu/ops/pallas/embedding_kernel.py:174"),
+    # the tile design, the main path's at Tq = Tk = 50 (the rows design,
+    # fused_attention_bwd.cu, takes Tq = 1, Tk = 1024: by_dtype's
+    # "*_tq1_tk1024" rows)
     "fused_attention_bwd": (
-        "mtamrecommender_tpu_torch/csrc/fused_attention_bwd.cu",
+        "mtamrecommender_tpu_torch/csrc/fused_attention_bwd_tile.cu",
         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:325"),
     "fused_readout": ("mtamrecommender_tpu_torch/csrc/fused_readout.cu",
                       "mtamrecommender_tpu/ops/pallas/readout_kernel.py:115"),
@@ -1098,11 +1113,92 @@ def att_bwd_bound(mode, args, dm, dtype_name):
     return _bound(nbytes, flops, dtype_name)
 
 
+def check_attention_bwd(torch, ak, mode, g, args, dm, dname, acc):
+    """fused_attention_bwd on the card against its twin: the design the
+    wrapper picks (two launches, the same bits twice) and, where that is
+    the tile design, the rows design forced (two launches, the same bits
+    twice), each within KERNEL_TOL of the twin, and the tile design
+    against the rows design; in time mode at B = 256, the tile design
+    with its gate sums in chunks of 128 rows, the same bits as one chunk.
+    Folds the worst of them into ``acc``."""
+    got = ak.fused_attention_bwd(mode, g, *args, dm)
+    again = ak.fused_attention_bwd(mode, g, *args, dm)
+    want = ak.fused_attention_bwd_plain(mode, g, *args, dm)
+    # outside time mode dtqw, drawk and the gate gradients are None, on
+    # the card and in the twin
+    outputs = 10 if mode == "time" else 3
+    runs = [got, again, want]
+    tile = ak.attention_bwd_design(args[0].dtype, args[0].shape[1],
+                                   args[1].shape[1], args[0].shape[2]) \
+        == "tile"
+    if tile:
+        rows = ak._launch_bwd(mode, g, *args, dm, _design="rows")
+        rows_again = ak._launch_bwd(mode, g, *args, dm, _design="rows")
+        runs += [rows, rows_again]
+    shaped = all([t is not None for t in outs]
+                 == [i < outputs for i in range(10)] for outs in runs)
+    same = shaped and all(torch.equal(a, b)
+                          for a, b in zip(got[:outputs], again[:outputs]))
+    out = dict(acc)
+    out["ok"] = out["ok"] and shaped
+    for a, b in zip(got[:outputs], want[:outputs]):
+        e, r, o = _agree(a, b, dname)
+        out.update(err=max(out["err"], e), rel=max(out["rel"], r),
+                   ok=out["ok"] and o)
+    if tile:
+        same_rows = all(torch.equal(a, b) for a, b in
+                        zip(rows[:outputs], rows_again[:outputs]))
+        rows_rel = tile_rows_rel = 0.0
+        for a, r, w in zip(got[:outputs], rows[:outputs], want[:outputs]):
+            _, x, o1 = _agree(r, w, dname)
+            _, y, o2 = _agree(a, r, dname)
+            rows_rel, tile_rows_rel = max(rows_rel, x), max(tile_rows_rel, y)
+            out["ok"] = out["ok"] and o1 and o2
+        out["rows_rel_err"] = max(out.get("rows_rel_err", 0.0), rows_rel)
+        out["tile_vs_rows_rel_err"] = max(out.get("tile_vs_rows_rel_err",
+                                                  0.0), tile_rows_rel)
+        out["rows_same_bits_twice"] = (out.get("rows_same_bits_twice", True)
+                                       and same_rows)
+        out["ok"] = out["ok"] and same_rows
+        if mode == "time" and args[0].shape[0] == 256:
+            chunked = ak._launch_bwd(mode, g, *args, dm, _chunk_rows=128)
+            out["chunked_same_bits"] = all(
+                torch.equal(a, b) for a, b in zip(got, chunked))
+            out["ok"] = out["ok"] and out["chunked_same_bits"]
+    out["same"] = same
+    return out
+
+
+def time_attention_bwd(timer, ak, mode, g, args, dm, iters):
+    """The backward's time: where the wrapper picks the tile design, it
+    and the rows design forced on the same inputs in turns (tile, rows,
+    rows, tile), with the profiler's device time of each by launch."""
+    run = lambda: ak.fused_attention_bwd(mode, g, *args, dm)  # noqa: E731
+    if ak.attention_bwd_design(args[0].dtype, args[0].shape[1],
+                               args[1].shape[1], args[0].shape[2]) != "tile":
+        return {"ms": timer(run, iters)}
+    rows = lambda: ak._launch_bwd(  # noqa: E731
+        mode, g, *args, dm, _design="rows")
+    a, b1, b2, a2 = (timer(run, iters), timer(rows, iters),
+                     timer(rows, iters), timer(run, iters))
+    passes, rows_passes = timer.passes(run), timer.passes(rows)
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "rows_ms": (b1 + b2) / 2, "rows_ms_repeats": [b1, b2],
+            "passes_ms": passes, "rows_passes_ms": rows_passes,
+            "device_ms": sum(passes.values()) if passes else None,
+            "rows_device_ms": (sum(rows_passes.values()) if rows_passes
+                               else None),
+            "host_ms": timer.host(run)}
+
+
 def check_attention_training(torch, timer, iters, failures):
     """The self-attention training kernels against their plain twins:
     the forward's drop modes and its other modes at Tq = Tk = 50, the
     backward in every mode, at B = 1, 16, 256 and at Tq = 1, Tk = 1024;
-    two backward launches must give the same bits; timed at B = 256."""
+    two backward launches must give the same bits; at Tq = Tk = 50 the
+    backward's tile design also against its rows design forced
+    (`check_attention_bwd`); timed at B = 256, the backward's two designs
+    in turns (`time_attention_bwd`)."""
     from mtamrecommender_tpu_torch.ops import layers
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
 
@@ -1130,24 +1226,9 @@ def check_attention_training(torch, timer, iters, failures):
                                "ok": fwd["ok"] and o}
                     g = torch.randn(args[0].shape, generator=gen,
                                     device=DEVICE)
-                    got = ak.fused_attention_bwd(mode, g, *args, dm)
-                    again = ak.fused_attention_bwd(mode, g, *args, dm)
-                    want = ak.fused_attention_bwd_plain(mode, g, *args, dm)
-                    # outside time mode dtqw, drawk and the gate
-                    # gradients are None, on the card and in the twin
-                    outputs = 10 if mode == "time" else 3
-                    shaped = all([t is not None for t in outs]
-                                 == [i < outputs for i in range(10)]
-                                 for outs in (got, again, want))
-                    same = same and shaped and all(
-                        torch.equal(a, b)
-                        for a, b in zip(got[:outputs], again[:outputs]))
-                    bwd["ok"] = bwd["ok"] and shaped
-                    for a, b in zip(got[:outputs], want[:outputs]):
-                        e, r, o = _agree(a, b, dname)
-                        bwd = {"err": max(bwd["err"], e),
-                               "rel": max(bwd["rel"], r),
-                               "ok": bwd["ok"] and o}
+                    bwd = check_attention_bwd(torch, ak, mode, g, args, dm,
+                                              dname, bwd)
+                    same = same and bwd.pop("same")
                 key = dname if tq > 1 else f"{dname}_tq1_tk1024"
                 tag = f"Tq={tq} Tk={tk}"
                 if check_fwd:
@@ -1175,8 +1256,11 @@ def check_attention_training(torch, timer, iters, failures):
                 row = {"max_abs_err": bwd["err"], "rel_err": bwd["rel"],
                        "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and same,
                        "same_bits_twice": same,
-                       "ms": timer(lambda: ak.fused_attention_bwd(
-                           mode, g, *args, dm), iters),
+                       "design": ak.attention_bwd_design(dtype, tq, tk, 128),
+                       **{k: v for k, v in bwd.items()
+                          if k not in ("err", "rel", "ok")},
+                       **time_attention_bwd(timer, ak, mode, g, args, dm,
+                                            iters),
                        "plain_ms": timer(lambda: ak.fused_attention_bwd_plain(
                            mode, g, *args, dm), max(iters // 10, 3)),
                        **att_bwd_bound(mode, args, dm, dname)}
@@ -1188,12 +1272,19 @@ def check_attention_training(torch, timer, iters, failures):
                 entries.setdefault(("fused_attention_bwd", mode, "Tq50"),
                                    {})[key] = row
                 print(f"fused_attention_bwd {mode:10s} {tag:15s} {dname:9s} "
-                      f"max_abs_err={bwd['err']:.3e} rel={bwd['rel']:.3e} "
-                      f"same_bits={same} ms={row['ms']:.4f} plain_ms="
+                      f"{row['design']} max_abs_err={bwd['err']:.3e} "
+                      f"rel={bwd['rel']:.3e} same_bits={same} ms="
+                      f"{row['ms']:.4f} device_ms={row.get('device_ms')} "
+                      f"rows_ms={row.get('rows_ms')} rows_device_ms="
+                      f"{row.get('rows_device_ms')} plain_ms="
                       f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
                       f"({row['bound_by']}) library_ms="
                       f"{row.get('library_ms')} "
                       f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+                for what in ("passes_ms", "rows_passes_ms"):
+                    if what in row:
+                        print(f"    {what}: {json.dumps(row[what])}",
+                              flush=True)
                 if not row["ok"]:
                     failures.append(f"fused_attention_bwd {mode} {tag} "
                                     f"{dname}: rel err {bwd['rel']:.3e}, "
@@ -1810,6 +1901,7 @@ def _counts():
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
+            "fused_attention_bwd_rows": dict(ak.bwd_rows_launches),
             "fused_attention_blockwise": dict(ak.blockwise_launches),
             "fused_attention_blockwise_mma": dict(ak.blockwise_mma_launches),
             "fused_attention_blockwise_regtile": dict(
@@ -1829,7 +1921,8 @@ def _counts():
 def _reset_counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
-                   ak.bwd_launches, ak.blockwise_launches,
+                   ak.bwd_launches, ak.bwd_rows_launches,
+                   ak.blockwise_launches,
                    ak.blockwise_mma_launches, ak.blockwise_regtile_launches,
                    ak.blockwise_split_launches, ak.dense_fwd, ak.dense_bwd,
                    ek.launches, ek.gather_launches):
@@ -1843,7 +1936,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
                  dense_fwd=None, dense_bwd=None, chain=False):
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
-    forward and backward ``blocks`` times a step in mode ``attention``;
+    forward and backward ``blocks`` times a step in mode ``attention``
+    (the backward's rows design never);
     the fused readout and its backward once a step with ``readout``, the
     chain readout's pair with ``chain``; the dense route's forward and
     backward ``blocks`` times a step in the modes given; no blockwise
@@ -1857,6 +1951,9 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
                                for m in modes}
     return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
             "fused_attention": att, "fused_attention_bwd": dict(att),
+            # the main path never takes the backward's rows design at
+            # Tq = Tk = 50 (`attention_bwd_design`: "tile")
+            "fused_attention_bwd_rows": dict.fromkeys(ak.MODES, 0),
             "fused_attention_blockwise": dict.fromkeys(ak.BLOCKWISE_MODES, 0),
             "fused_attention_blockwise_mma": dict.fromkeys(
                 ak.BLOCKWISE_MODES, 0),
@@ -2101,7 +2198,10 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
                                          "attention_kernel",
                                          "_launch_blockwise", "simt"),
            "scatter_add": ("seam_in_turns", "embedding_kernel",
-                           "scatter_add", "segments")}
+                           "scatter_add", "segments"),
+           "fused_attention_bwd": ("attention_bwd_steps_in_turns",
+                                   "attention_kernel", "_launch_bwd",
+                                   "rows")}
 
 
 @contextlib.contextmanager
@@ -2133,12 +2233,23 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
     key, _, _, design = EARLIER[kernel]
     runs = {design: [], "default_again": []}
     t0 = time.perf_counter()
+
+    def want_rows(steps, dname):
+        # the attention backward forced: its launches take the rows design
+        counts = want(steps, dname)
+        counts["fused_attention_bwd_rows"] = dict(
+            counts["fused_attention_bwd"])
+        return counts
+
     for turn in (design, design, "default_again"):
         print(f"train {name}: {kernel} {turn}", flush=True)
-        with (forced_design(kernel) if turn == design
+        forced = turn == design
+        turn_want = want_rows if forced and kernel == "fused_attention_bwd" \
+            else want
+        with (forced_design(kernel) if forced
               else contextlib.nullcontext()):
-            runs[turn].append(timed_steps(torch, setup, failures, name, want,
-                                          {}, **kw))
+            runs[turn].append(timed_steps(torch, setup, failures, name,
+                                          turn_want, {}, **kw))
     runs["seconds"] = time.perf_counter() - t0
     return {key: runs}
 
@@ -2311,8 +2422,10 @@ def run_self_attention(torch, setup, failures):
     """Phase 5: the three self-attention models on phase 4's data.
     Time_Aware_SA as phase 4 checks MTAM; SASrec and TiSAS one step in
     f32 and bf16 with masks drawn on the CPU and injected on both sides,
-    then timed with the card's generator; Recommender.recommend for each
-    at B = 16 in bf16 against the CPU."""
+    then timed with the card's generator; each step then timed in turns
+    with the attention backward forced to its rows design (default,
+    rows, rows, default); Recommender.recommend for each at B = 16 in
+    bf16 against the CPU."""
     from mtamrecommender_tpu_torch.ops import layers
 
     report, main_launches = {}, {}
@@ -2331,6 +2444,8 @@ def run_self_attention(torch, setup, failures):
                                                          failures, name)
         rep.update(timed_steps(torch, setup, failures, name, want,
                                main_launches))
+        rep.update(steps_in_turns(torch, setup, failures, name, want,
+                                  kernel="fused_attention_bwd"))
         report[name] = rep
     serving, serve_launches = serve_self_attention(torch, setup, failures)
     report["serving"] = serving
@@ -3472,10 +3587,14 @@ def kernels_line(entries, launches_by_shape):
             # fused_readout_bwd's: the rows design's time on the same
             # inputs in the same run, and the gemm design's device time by
             # kernel; scatter_add's: the earlier segments design's time and
-            # device time on the same inputs in the same run, in turns
+            # device time on the same inputs in the same run, in turns;
+            # fused_attention_bwd's at Tq=Tk=50: the rows design's time,
+            # device time and split by launch on the same inputs in the
+            # same run, in turns, beside the tile design's
             **{k: head[k] for k in ("simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms",
+                                    "rows_device_ms", "rows_passes_ms",
                                     "segments_ms", "segments_device_ms")
                if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}

@@ -11,8 +11,10 @@ MAX_KEYS and without a dropout mask, the blockwise kernel
 an online softmax over KEY_BLOCK-key blocks; for Tq > 1 tensor-core tiles
 in bf16 and register-tiled FMA in f32, at Tq = 1 each row's keys split
 across blocks and merged, by `blockwise_design`).  The backward is the
-single-tile kernel (csrc/fused_attention_bwd.cu, the Pallas
-`_attn_bwd_kernel`) up to SINGLE_TILE_KEYS keys and, above, autograd of
+single-tile kernel (the Pallas `_attn_bwd_kernel`) up to SINGLE_TILE_KEYS
+keys, in the design `attention_bwd_design` picks (up to TILE_KEYS queries
+and keys csrc/fused_attention_bwd_tile.cu, a block a batch row; else
+csrc/fused_attention_bwd.cu, a block a query row) and, above, autograd of
 `reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  Per batch
 row and query row:
 
@@ -57,11 +59,21 @@ TILED_MAX_D = 128         # the tiled designs' d: 16, 32, ..., 128
 # batch, so a row's output has the same bits alone or in a batch
 SPLIT_KEYS = 256
 SPLIT_MAX_KEYS = 1024     # the longest split its kernel takes
-BWD_SMEM_BYTES = 48 * 1024   # the backward's per-(row, query) scratch
+BWD_SMEM_BYTES = 48 * 1024   # the rows design's per-(row, query) scratch
+# the backward's designs (`attention_bwd_design`): "tile", a block a batch
+# row with its whole Tq x Tk problem in shared memory, padded to TILE_KEYS;
+# "rows", the earlier, a block a (batch row, query row)
+BWD_DESIGNS = ("tile", "rows")
+TILE_KEYS = 64            # the tile design's largest Tq and Tk
+TILE_WIDTHS = (16, 32, 64, 128)   # its d: the powers of two to TILED_MAX_D
+GATE_ROWS = 32            # batch rows a part of the tile design's gate sums
+GATE_MAX_ROWS = 4096      # batch rows a gate-sum launch takes (128 parts)
+GATE_WORKSPACE_CAP = 1 << 25   # f32 gate terms a chunk of rows may hold
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}
-bwd_launches = {mode: 0 for mode in MODES}
+bwd_launches = {mode: 0 for mode in MODES}     # either design
+bwd_rows_launches = {mode: 0 for mode in MODES}   # the rows design alone
 # the blockwise kernel's four designs: SIMT (forced, or Tq > 1 at a d the
 # tiles do not take), tensor cores (bf16, Tq > 1), register tiles (f32, Tq
 # > 1) and split keys (Tq = 1; its two launches, splits and merge, count
@@ -510,7 +522,7 @@ def fused_attention_bwd(mode: str, g, q, k, v, t_q, t_k, tqw, rawk,
     but dq, dk and dv are None (nothing is computed or written for
     them).  The scores, gate and softmax are recomputed from the inputs.
     CPU tensors run `fused_attention_bwd_plain`; CUDA tensors launch the
-    kernel."""
+    kernel in the design `attention_bwd_design` picks."""
     args = (q, k, v, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo, key_len, dm)
     _check(mode, *args)
     if tuple(g.shape) != tuple(q.shape) or g.dtype != torch.float32:
@@ -524,37 +536,110 @@ def fused_attention_bwd(mode: str, g, q, k, v, t_q, t_k, tqw, rawk,
     return _launch_bwd(mode, g, *args)
 
 
-def _launch_bwd(mode, g, *args):
+def attention_bwd_design(dtype: torch.dtype, tq: int, tk: int, d: int) -> str:
+    """The backward's design for a shape.  "tile" where Tq and Tk are at
+    most TILE_KEYS and d is one of TILE_WIDTHS, in both dtypes (bf16
+    products on the tensor cores, f32 on the FMA units): one block a
+    batch row holds its whole problem in shared memory, padded to
+    TILE_KEYS x TILE_KEYS (the self-attention steps' Tq = Tk = 50).
+    "rows" elsewhere (MTAM's Tq = 1 over up to 1024 keys, other widths).
+    The tile launch also wants g, q, k, v (and in time mode tqw and rawk)
+    16-byte aligned, and refuses them otherwise."""
+    if dtype not in DTYPES:
+        raise TypeError(f"fused_attention_bwd: no design for {dtype}")
+    if 1 <= tq <= TILE_KEYS and 1 <= tk <= TILE_KEYS and d in TILE_WIDTHS:
+        return "tile"
+    return "rows"
+
+
+def gate_chunk_rows(b: int, tq: int, tk: int, forced=None) -> int:
+    """The batch rows the tile design takes a launch in time mode (its
+    gate terms' workspace holds a chunk's rows; the kernel sums the gate
+    terms in GATE_ROWS-row parts, so a chunk short of the batch is whole
+    parts): ``forced`` (a positive multiple of GATE_ROWS up to
+    GATE_MAX_ROWS), or as many whole parts as GATE_WORKSPACE_CAP floats
+    hold, at least one and at most GATE_MAX_ROWS; never more than ``b``."""
+    if forced is not None:
+        if forced <= 0 or forced % GATE_ROWS or forced > GATE_MAX_ROWS:
+            raise ValueError(f"fused_attention_bwd: a chunk takes a positive "
+                             f"multiple of {GATE_ROWS} rows up to "
+                             f"{GATE_MAX_ROWS}, got {forced}")
+        rows = forced
+    else:
+        rows = GATE_WORKSPACE_CAP // (5 * tq * tk) // GATE_ROWS * GATE_ROWS
+        rows = min(max(rows, GATE_ROWS), GATE_MAX_ROWS)
+    return min(rows, b)
+
+
+def _launch_bwd(mode, g, *args, _design=None, _chunk_rows=None):
+    """Launch the backward in the design `attention_bwd_design` picks.
+    ``_design="rows"`` forces the earlier design (chip_smoke.py holds and
+    times it beside the tile design); "tile" only where it is picked.
+    ``_chunk_rows`` sets the rows a tile launch takes in time mode
+    (`gate_chunk_rows`; chip_smoke.py's check that the chunking moves no
+    bit).  The main path passes neither.  A design that fails to build or
+    launch raises: there is no fallback."""
     q, k, dm = args[0], args[1], args[-1]
-    tensors = (g,) + (args[:-1] if dm is None else args)
-    device, stream = build.launch_context(tensors, "fused_attention_bwd")
     b, tq, d = q.shape
     tk = k.shape[1]
-    _single_tile("fused_attention_bwd", tk)
-    lib = _bwd_library()
-    if lib.fused_attention_bwd_smem_bytes(tk, d) > BWD_SMEM_BYTES:
+    picked = attention_bwd_design(q.dtype, tq, tk, d)
+    design = picked if _design is None else _design
+    if design not in (picked, "rows"):
         raise ValueError(
-            f"fused_attention_bwd: the kernel keeps (7*Tk + 3*d) f32 in "
-            f"{BWD_SMEM_BYTES} bytes of shared memory; got Tk={tk}, d={d}")
+            f"fused_attention_bwd: design {design!r} does not take Tq={tq}, "
+            f"Tk={tk}, d={d} (attention_bwd_design: {picked!r})")
+    time_mode = base_mode(mode) == "time"
+    if design == "tile":
+        # the batch rows a launch takes: in time mode as many as the gate
+        # terms' workspace holds
+        rows = gate_chunk_rows(b, tq, tk, _chunk_rows) if time_mode else b
+        read = (g, q, k, args[2]) + ((args[5], args[6]) if time_mode
+                                     else ())
+        if any(t.data_ptr() % 16 for t in read):
+            raise ValueError("fused_attention_bwd: the tile design takes g, "
+                             "q, k, v (and tqw, rawk in time mode) 16-byte "
+                             "aligned")
+    tensors = (g,) + (args[:-1] if dm is None else args)
+    device, stream = build.launch_context(tensors, "fused_attention_bwd")
+    _single_tile("fused_attention_bwd", tk)
     f32 = dict(dtype=torch.float32, device=q.device)
-    grads = (torch.empty((b, tq, d), **f32),     # dq
-             torch.empty((b, tk, d), **f32),     # dk
-             torch.empty((b, tk, d), **f32))     # dv
-    if base_mode(mode) == "time":
-        grads += (torch.empty((b, tq, d), **f32),     # dtqw
-                  torch.empty((b, tk, d), **f32),     # drawk
-                  *(torch.empty((tq, tk), **f32) for _ in range(5)))
+    # dq, dk, dv (and dtqw, drawk): at Tq = Tk slices of one allocation
+    # (the wrapper's host time is most of a call's at the training shape)
+    per_row = 5 if time_mode else 3
+    if tq == tk:
+        grads = torch.empty((per_row, b, tq, d), **f32).unbind(0)
     else:
-        grads += (None,) * 7
+        grads = tuple(torch.empty((b, t, d), **f32)
+                      for t in (tq, tk, tk, tq, tk)[:per_row])
+    if time_mode:   # the five gate gradients
+        grads += torch.empty((5, tq, tk), **f32).unbind(0)
+    grads += (None,) * (10 - len(grads))
     mode_id = MODES.index(mode)
-    ws = torch.empty((lib.fused_attention_bwd_workspace_floats(
-        mode_id, b, tq, tk),), **f32)
-    status = lib.fused_attention_bwd_launch(
-        mode_id, int(q.dtype == torch.bfloat16), g.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in args),
-        *(None if t is None else t.data_ptr() for t in grads),
-        ws.data_ptr(), b, tq, tk, d, 1.0 / d ** 0.5, device, stream)
-    build.check(lib, status, "fused_attention_bwd")
+    ptrs = (g.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in args),
+            *(None if t is None else t.data_ptr() for t in grads))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    if design == "tile":
+        lib = _bwd_tile_library()
+        ws = torch.empty((5 * rows * tq * tk,), **f32) if time_mode else None
+        status = lib.fused_attention_bwd_tile_launch(
+            mode_id, is_bf16, *ptrs, None if ws is None else ws.data_ptr(),
+            b, tq, tk, d, 1.0 / d ** 0.5, rows, device, stream)
+        build.check(lib, status, "fused_attention_bwd (tile)")
+    else:
+        lib = _bwd_library()
+        if lib.fused_attention_bwd_smem_bytes(tk, d) > BWD_SMEM_BYTES:
+            raise ValueError(
+                f"fused_attention_bwd: the rows design keeps (7*Tk + 3*d) "
+                f"f32 in {BWD_SMEM_BYTES} bytes of shared memory; got "
+                f"Tk={tk}, d={d}")
+        ws = torch.empty((lib.fused_attention_bwd_workspace_floats(
+            mode_id, b, tq, tk),), **f32)
+        status = lib.fused_attention_bwd_launch(
+            mode_id, is_bf16, *ptrs, ws.data_ptr(), b, tq, tk, d,
+            1.0 / d ** 0.5, device, stream)
+        build.check(lib, status, "fused_attention_bwd")
+        bwd_rows_launches[mode] += 1
     bwd_launches[mode] += 1
     return grads
 
@@ -570,6 +655,18 @@ def _bwd_library() -> ctypes.CDLL:
         lib.fused_attention_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.fused_attention_bwd_workspace_floats.argtypes = [ci, ci, ci, ci]
         lib.fused_attention_bwd_workspace_floats.restype = ctypes.c_longlong
+        lib._port_typed = True
+    return lib
+
+
+def _bwd_tile_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_bwd_tile")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_bwd_tile_launch.argtypes = (
+            [ci, ci] + [vp] * 26
+            + [ci, ci, ci, ci, ctypes.c_float, ci, ci, vp])
+        lib.fused_attention_bwd_tile_launch.restype = ci
         lib._port_typed = True
     return lib
 
@@ -617,6 +714,115 @@ def fused_attention_bwd_plain(mode: str, g, q, k, v, t_q, t_k, tqw, rawk,
         dtqw = drawk = None
     dq = torch.einsum("bqk,bkd->bqd", op(ds0), k.float())
     dk = torch.einsum("bqk,bqd->bkd", op(ds0), q.float())
+    return (dq, dk, dv, dtqw, drawk, *gate_grads)
+
+
+def _gate_sum(terms, rows):
+    """The tile design's sum of [B, Tq, Tk] gate terms over the batch, in
+    its launches' order: chunks of ``rows`` batch rows in turn; in each,
+    every GATE_ROWS-row part summed over its rows in order from 0, then
+    the parts added in order to the sums of the earlier chunks (0 at
+    first).  Chunks of whole parts give the same bits as one chunk."""
+    total = torch.zeros(terms.shape[1:], dtype=torch.float32,
+                        device=terms.device)
+    for c0 in range(0, terms.shape[0], max(rows, 1)):
+        chunk = terms[c0:c0 + rows]
+        for p0 in range(0, chunk.shape[0], GATE_ROWS):
+            part = torch.zeros_like(total)
+            for row in chunk[p0:p0 + GATE_ROWS]:
+                part = part + row
+            total = total + part
+    return total
+
+
+def _tile_design_plain(mode: str, g, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
+                       wo1, wo2, bo, key_len, dm=None, chunk_rows=None):
+    """The tile design's arithmetic in plain PyTorch (the arguments and
+    results of `fused_attention_bwd`): q, g (rounded) and tqw padded to
+    TILE_KEYS rows with zeros, k, v and rawk zero past each row's live
+    keys and padded the same way; the three score planes as f32 products;
+    the middle as the kernel's warps compute it, each key from its own
+    plane values, gate operands read at live keys only (0 elsewhere),
+    the softmax over the Tk keys, D_i over the live ones; ds0, dpre_tqk
+    and the dropped weights rounded to the input type and zero-padded to
+    TILE_KEYS x TILE_KEYS; the gradients as f32 products of those padded
+    planes and operands; the gate terms summed by `_gate_sum` in chunks
+    of `gate_chunk_rows` rows (``chunk_rows`` forced as the launch's
+    ``_chunk_rows``)."""
+    dt = q.dtype
+    op = lambda x: x.to(dt).float()  # noqa: E731  (a product operand)
+    base = base_mode(mode)
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    n = TILE_KEYS
+    scale = 1.0 / d ** 0.5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    live = key_len.long().clamp(0, tk)
+    key_ok = torch.arange(n, device=q.device)[None, :, None] \
+        < live[:, None, None]
+
+    def pad(x, rows):
+        return torch.cat([x.float(), torch.zeros((b, n - rows, d), **f32)],
+                         dim=1)
+
+    def keys(x):
+        return torch.where(key_ok, pad(x, tk), torch.zeros((), **f32))
+
+    qp, tqwp, gp = pad(q, tq), pad(tqw, tq), pad(op(g), tq)
+    kp, vp, rawkp = keys(k), keys(v), keys(rawk)
+    nt = lambda x, y: torch.einsum("bqd,bkd->bqk", x, y)  # noqa: E731
+    s0 = nt(qp, kp)[:, :tq, :tk]
+    dw = nt(gp, vp)[:, :tq, :tk]
+    lv = torch.arange(tk, device=q.device)[None, None, :] \
+        < live[:, None, None]
+    zero = torch.zeros((), **f32)
+    live_only = lambda x: torch.where(lv, x, zero)  # noqa: E731
+    if base in ("time", "tisas"):
+        ldt = live_only(torch.log1p(torch.abs(
+            t_q.float()[:, :, None] - t_k.float()[:, None, :])))
+    if base == "time":
+        tqk = live_only(torch.tanh(nt(tqwp, rawkp)[:, :tq, :tk]))
+        dec = live_only(torch.tanh(ldt * w1.float() + b1.float()))
+        sig = live_only(torch.sigmoid(wo1.float() * dec + wo2.float() * tqk
+                                      + bo.float()))
+        sc = s0 * sig * scale
+    elif base == "tisas":
+        sc = (s0 + ldt) * scale
+    else:
+        sc = s0 * scale
+    s = torch.where(lv, sc, torch.full_like(sc, NEG_FILL))
+    dw = live_only(dw)
+    if dm is not None:
+        dw = dw * dm
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    dsum = (dw * w).sum(dim=-1, keepdim=True)
+    ds = live_only(w * (dw - dsum))
+    planes = {"w": op(w if dm is None else w * dm)}
+    if base == "time":
+        dsig = ds * s0 * scale
+        planes["s"] = op(ds * sig * scale)
+        dgate = dsig * sig * (1.0 - sig)
+        dpre_dec = dgate * wo1.float() * (1.0 - dec * dec)
+        planes["t"] = op(dgate * wo2.float() * (1.0 - tqk * tqk))
+        rows = gate_chunk_rows(b, tq, tk, chunk_rows)
+        gate_grads = [_gate_sum(x, rows) for x in (
+            dpre_dec * ldt, dpre_dec, dgate * dec, dgate * tqk, dgate)]
+    else:
+        planes["s"] = op(ds * scale)
+        gate_grads = [None] * 5
+    for key, x in planes.items():
+        planes[key] = torch.nn.functional.pad(x, (0, n - tk, 0, n - tq))
+    nn = lambda p, x: torch.einsum("bqk,bkd->bqd", p, x)  # noqa: E731
+    tn = lambda p, x: torch.einsum("bqk,bqd->bkd", p, x)  # noqa: E731
+    dq = nn(planes["s"], kp)[:, :tq]
+    dk = tn(planes["s"], qp)[:, :tk]
+    dv = tn(planes["w"], gp)[:, :tk]
+    if base == "time":
+        dtqw = nn(planes["t"], rawkp)[:, :tq]
+        drawk = tn(planes["t"], tqwp)[:, :tk]
+    else:
+        dtqw = drawk = None
     return (dq, dk, dv, dtqw, drawk, *gate_grads)
 
 

@@ -34,10 +34,12 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 # kernel library name -> its source file; every source includes common.cuh
 # (the readouts' four include readout_hop.cuh; fused_readout.cu and
-# fused_readout_bwd.cu also readout_gemm.cuh, which includes tile_gemm.cuh)
+# fused_readout_bwd.cu also readout_gemm.cuh, which includes tile_gemm.cuh;
+# fused_attention_bwd_tile.cu includes tile_gemm.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
+           "fused_attention_bwd_tile": "fused_attention_bwd_tile.cu",
            "fused_attention_blockwise": "fused_attention_blockwise.cu",
            "embedding_dtable": "embedding_dtable.cu",
            "embedding_gather": "embedding_gather.cu",
