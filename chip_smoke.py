@@ -10,8 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel built from csrc/ (one nvcc per source, all at once), and the
      registers and spill bytes ptxas gives gru_scan_kernel's
      instantiations (those at u=128 printed), the two kernels of
-     fused_readout's "gemm" design, the four of fused_readout_bwd's and
-     scatter_add's columns_sum;
+     fused_readout's "gemm" design, the four of fused_readout_bwd's,
+     scatter_add's columns_sum and the attention forward's tile design;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
@@ -40,7 +40,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      fused_attention_bwd in all five modes, at B = 1, 16, 256 with
      Tq = Tk = 50 and with Tq = 1, Tk = 1024, and the forward's plain,
      time and tisas modes at Tq = Tk = 50; two backward launches on the
-     same inputs must give the same bits; at Tq = Tk = 50 the backward
+     same inputs must give the same bits; at Tq = Tk = 50 the forward
+     takes its "tile" design (a block a batch row): two launches the
+     same bits, and within 1e-5 / 2e-3 (f32 / bf16) of the largest
+     |out| from the twin and from its "query" design forced (a block a
+     query row), both timed in turns at B = 256 (tile, query, query,
+     tile: event ms, the profiler's device ms) with the tile design's
+     host time a call; the backward
      takes its "tile" design (a block a batch row), held also against
      its "rows" design forced (the same bits twice) and, in time mode at
      B = 256, with its gate sums in chunks of 128 rows (the same bits);
@@ -106,9 +112,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      backward's tile design, never its rows design), then timed with the
      card's own generator drawing the masks, and each of the three
      timed in turns with the backward forced to its rows design
-     (default, rows, rows, default); and
+     (default, rows, rows, default), then in turns of 10 steps with the
+     forward forced to its query design (3 fused_attention launches a
+     step in the tile design and none in the query design on the main
+     path); and
      Recommender.recommend for each of the three at B = 16 in bf16
-     against the CPU;
+     against the CPU (3 tile-design forward launches a call; MTAM's Tq =
+     1 hops in phase 3 take the query design);
   6. MTAM over long histories (benchmarks/long_history_bench.py's run:
      d=128, 3 hops, 1 head, the scalar gate, tables padded to 128 rows,
      adam clipped to 1.0, L=512, B=64, 100 users, 2000 items, 18
@@ -194,7 +204,9 @@ entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
 the default design's device time by kernel, fused_attention_bwd's at
 Tq=Tk=50 "rows_ms", "rows_device_ms" and "rows_passes_ms", the rows
 design on the same inputs in turns, beside the tile design's
-"device_ms" and "passes_ms", gru_scan's "unit_column_ms",
+"device_ms" and "passes_ms", fused_attention's at Tq=Tk=50 "design",
+"device_ms", "query_ms" and "query_device_ms", the query design on the
+same inputs in turns, gru_scan's "unit_column_ms",
 the unit_column design on the same inputs, fused_readout's and
 fused_readout_bwd's "rows_ms", the rows design on the same inputs, and
 "passes_ms", scatter_add's "segments_ms" and "segments_device_ms", PR
@@ -230,6 +242,9 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units; bf16 tensor cores
 # kernel vs plain twin on the card: max |diff| / max |output|
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the attention forward's tile design at Tq = Tk = 50 vs its twin and vs
+# the query design forced: max |diff| / max |output|
+TILE_FWD_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # card vs CPU scores: max |diff| / max |score| over the catalog
 SLICE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -239,6 +254,8 @@ DEVICE = "cuda"
 KERNEL_FILES = {
     "gru_scan": ("mtamrecommender_tpu_torch/csrc/gru_scan.cu",
                  "mtamrecommender_tpu/ops/pallas/gru_kernel.py:64"),
+    # the query design, the main path's at Tq = 1 (the "@Tq50" entries
+    # name the tile design's source, FWD_TILE_SOURCE)
     "fused_attention": ("mtamrecommender_tpu_torch/csrc/fused_attention.cu",
                         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:60"),
     "gru_scan_bwd": ("mtamrecommender_tpu_torch/csrc/gru_scan_bwd.cu",
@@ -282,6 +299,10 @@ KERNEL_FILES = {
         "mtamrecommender_tpu_torch/csrc/readout_chain_bwd.cu",
         "mtamrecommender_tpu/ops/pallas/readout_chain_kernel.py:131"),
 }
+FWD_TILE_SOURCE = "mtamrecommender_tpu_torch/csrc/fused_attention_tile.cu"
+# the forward tile design's kernels (bf16, f32), their template arguments
+# <mode, drop>
+FWD_TILE_KERNELS = ("attn_fwd_tile_mma_kernel", "attn_fwd_tile_fma_kernel")
 SERVING_MODES = ("plain", "time", "tisas")   # the forward modes phase 2 holds
 SELF_ATTENTION = {"SASrec": "plain_drop",
                   "Time_Aware_Self_Attention_Model": "time",
@@ -419,7 +440,8 @@ def ptxas_counts(log, kernel):
     """(instantiation, registers, spill store bytes, spill load bytes)
     for each instantiation of ``kernel`` in an nvcc -Xptxas -v log, its
     template arguments read from the mangled name (``f`` is float,
-    ``13__nv_bfloat16`` bf16, then the integer arguments)."""
+    ``13__nv_bfloat16`` bf16, then the integer and bool arguments; a
+    kernel whose first argument is no type gets no type in its name)."""
     rows, name, spill = [], None, None
     for ln in log.splitlines():
         found = re.search(r"Function properties for (\S+)", ln)
@@ -435,9 +457,10 @@ def ptxas_counts(log, kernel):
         found = re.search(r"Used (\d+) registers", ln)
         if found:
             args = name.split(f"{len(kernel)}{kernel}I", 1)[1]
-            dtype = "bf16" if args.startswith("13__nv_bfloat16") else "f32"
-            ints = re.findall(r"Li(\d+)E", args.split("EEv", 1)[0])
-            rows.append((f"{kernel}<{', '.join([dtype] + ints)}>",
+            dtype = ("bf16" if args.startswith("13__nv_bfloat16") else
+                     "f32" if args.startswith("f") else None)
+            ints = re.findall(r"L[ib](\d+)E", args.split("EEv", 1)[0])
+            rows.append((f"{kernel}<{', '.join(([dtype] if dtype else []) + ints)}>",
                          int(found.group(1)), *(spill or (None, None))))
             name = None
     return rows
@@ -803,14 +826,16 @@ def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag):
 
 def run_slice(torch, iters, failures, num_units=128):
     """Phase 3: MTAM serving at L=50 (1 gru_scan + 3 fused_attention[time]
-    launches a call, no fused_readout); at ``num_units`` 16 (the width
+    launches a call in the query design, no fused_readout); at ``num_units`` 16 (the width
     __graft_entry__.py's smoke trains MTAM at, which no kernel is built
     for) for B=16 only."""
     from mtamrecommender_tpu_torch.types import DatasetMeta
 
     want = _want_counts(0)
     want["gru_scan"]["tgru"] = 1
+    # the hops: Tq = 1, the forward's query design
     want["fused_attention"]["time"] = 3
+    want["fused_attention_query"]["time"] = 3
     if num_units != 128:
         return serve_mtam(torch, iters, failures, DatasetMeta(*SERVING_META),
                           {"model.num_units": num_units}, (16,), want,
@@ -1191,14 +1216,88 @@ def time_attention_bwd(timer, ak, mode, g, args, dm, iters):
             "host_ms": timer.host(run)}
 
 
+def check_attention_fwd(torch, ak, mode, args, dm, dname, acc):
+    """fused_attention on the card against its twin, within KERNEL_TOL, in
+    the design the wrapper picks; where that is the tile design, also two
+    launches the same bits, and within TILE_FWD_TOL of the twin and of
+    the query design forced (itself within KERNEL_TOL of the twin).
+    Folds the worst of them into ``acc``."""
+    got = ak.fused_attention(mode, *args, dm)
+    want = ak.fused_attention_plain(mode, *args, dm)
+    e, r, o = _agree(got, want, dname)
+    out = dict(acc, err=max(acc["err"], e), rel=max(acc["rel"], r),
+               ok=acc["ok"] and o)
+    q, k = args[0], args[1]
+    if ak.attention_fwd_design(q.dtype, q.shape[1], k.shape[1],
+                               q.shape[2]) != "tile":
+        return out
+    again = ak.fused_attention(mode, *args, dm)
+    query = ak._launch(mode, *args, dm, _design="query")
+    _, query_rel, query_ok = _agree(query, want, dname)
+    tile_rel = rel_err(got, want)[1]
+    tile_query_rel = rel_err(got, query)[1]
+    same = torch.equal(got, again)
+    for key, x in (("tile_rel_err", tile_rel),
+                   ("tile_vs_query_rel_err", tile_query_rel),
+                   ("query_rel_err", query_rel)):
+        out[key] = max(out.get(key, 0.0), x)
+    out["same_bits_twice"] = out.get("same_bits_twice", True) and same
+    out["ok"] = (out["ok"] and same and query_ok
+                 and tile_rel <= TILE_FWD_TOL[dname]
+                 and tile_query_rel <= TILE_FWD_TOL[dname])
+    return out
+
+
+def time_attention_fwd(timer, ak, mode, args, dm, iters):
+    """The forward's time: where the wrapper picks the tile design, it
+    and the query design (forced, `forced_design`) through the same entry
+    point on the same inputs in turns (tile, query, query, tile), by CUDA
+    events and by the profiler's device time, with each one's host time a
+    call."""
+    run = lambda: ak.fused_attention(mode, *args, dm)  # noqa: E731
+    q, k = args[0], args[1]
+    if ak.attention_fwd_design(q.dtype, q.shape[1], k.shape[1],
+                               q.shape[2]) != "tile":
+        return {"ms": timer(run, iters)}
+
+    def query(measure):
+        with forced_design("fused_attention"):
+            return measure(run)
+
+    a, b1, b2, a2 = (timer(run, iters), query(lambda f: timer(f, iters)),
+                     query(lambda f: timer(f, iters)), timer(run, iters))
+    d, e1, e2, d2 = (timer.device(run), query(timer.device),
+                     query(timer.device), timer.device(run))
+    mean = lambda x, y: None if None in (x, y) else (x + y) / 2  # noqa: E731
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "query_ms": (b1 + b2) / 2, "query_ms_repeats": [b1, b2],
+            "device_ms": mean(d, d2), "device_ms_repeats": [d, d2],
+            "query_device_ms": mean(e1, e2),
+            "query_device_ms_repeats": [e1, e2],
+            "host_ms": timer.host(run), "query_host_ms": query(timer.host)}
+
+
+def fwd_tile_occupancy(ak, mode, dtype, d=128):
+    """The forward tile design's shared memory a block (bytes) and blocks
+    an SM (the occupancy calculator's) for a mode and dtype at width d."""
+    lib = ak._tile_library()
+    mode_id, is_bf16 = ak.MODES.index(mode), int(dtype == "bfloat16")
+    return {"smem_bytes": lib.fused_attention_tile_smem_bytes(
+                mode_id, is_bf16, d),
+            "blocks_per_sm": lib.fused_attention_tile_blocks_per_sm(
+                mode_id, is_bf16, d, 0)}
+
+
 def check_attention_training(torch, timer, iters, failures):
     """The self-attention training kernels against their plain twins:
     the forward's drop modes and its other modes at Tq = Tk = 50, the
     backward in every mode, at B = 1, 16, 256 and at Tq = 1, Tk = 1024;
     two backward launches must give the same bits; at Tq = Tk = 50 the
-    backward's tile design also against its rows design forced
-    (`check_attention_bwd`); timed at B = 256, the backward's two designs
-    in turns (`time_attention_bwd`)."""
+    forward's tile design also against its query design forced
+    (`check_attention_fwd`) and the backward's tile design against its
+    rows design forced (`check_attention_bwd`); timed at B = 256, each
+    one's two designs in turns (`time_attention_fwd`,
+    `time_attention_bwd`)."""
     from mtamrecommender_tpu_torch.ops import layers
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
 
@@ -1218,12 +1317,8 @@ def check_attention_training(torch, timer, iters, failures):
                     dm = (layers.draw_drop_mask(gen, bs, tq, tk, 0.5, DEVICE)
                           if drop else None)
                     if check_fwd:
-                        want = ak.fused_attention_plain(mode, *args, dm)
-                        e, r, o = _agree(ak.fused_attention(mode, *args, dm),
-                                         want, dname)
-                        fwd = {"err": max(fwd["err"], e),
-                               "rel": max(fwd["rel"], r),
-                               "ok": fwd["ok"] and o}
+                        fwd = check_attention_fwd(torch, ak, mode, args, dm,
+                                                  dname, fwd)
                     g = torch.randn(args[0].shape, generator=gen,
                                     device=DEVICE)
                     bwd = check_attention_bwd(torch, ak, mode, g, args, dm,
@@ -1232,27 +1327,48 @@ def check_attention_training(torch, timer, iters, failures):
                 key = dname if tq > 1 else f"{dname}_tq1_tk1024"
                 tag = f"Tq={tq} Tk={tk}"
                 if check_fwd:
+                    design = ak.attention_fwd_design(dtype, tq, tk, 128)
                     row = {"max_abs_err": fwd["err"], "rel_err": fwd["rel"],
                            "tol": KERNEL_TOL[dname], "ok": fwd["ok"],
-                           "ms": timer(lambda: ak.fused_attention(
-                               mode, *args, dm), iters),
+                           "design": design,
+                           **{k: v for k, v in fwd.items()
+                              if k not in ("err", "rel", "ok")},
+                           **time_attention_fwd(timer, ak, mode, args, dm,
+                                                iters),
                            "plain_ms": timer(lambda: ak.fused_attention_plain(
                                mode, *args, dm), max(iters // 10, 3)),
                            **att_bound(mode, args, dname, dm)}
+                    if design == "tile":
+                        row.update(source=FWD_TILE_SOURCE,
+                                   tile_tol=TILE_FWD_TOL[dname],
+                                   **fwd_tile_occupancy(ak, mode, dname))
                     library = att_library(torch, mode, args)
                     if library is not None:
                         row["library_ms"] = timer(library, iters)
                     entries.setdefault(("fused_attention", mode, "Tq50"),
                                        {})[key] = row
                     print(f"fused_attention {mode:10s} {tag:15s} {dname:9s} "
-                          f"max_abs_err={fwd['err']:.3e} rel={fwd['rel']:.3e} "
-                          f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                          f"bound_ms={row['bound_ms']:.4f} "
-                          f"library_ms={row.get('library_ms')} "
+                          f"{design} max_abs_err={fwd['err']:.3e} "
+                          f"rel={fwd['rel']:.3e} tile_rel="
+                          f"{row.get('tile_rel_err')} tile_vs_query_rel="
+                          f"{row.get('tile_vs_query_rel_err')} same_bits="
+                          f"{row.get('same_bits_twice')} ms={row['ms']:.4f} "
+                          f"device_ms={row.get('device_ms')} query_ms="
+                          f"{row.get('query_ms')} query_device_ms="
+                          f"{row.get('query_device_ms')} host_ms="
+                          f"{row.get('host_ms')} plain_ms="
+                          f"{row['plain_ms']:.4f} bound_ms="
+                          f"{row['bound_ms']:.4f} library_ms="
+                          f"{row.get('library_ms')} smem_bytes="
+                          f"{row.get('smem_bytes')} blocks_per_sm="
+                          f"{row.get('blocks_per_sm')} "
                           f"{'ok' if fwd['ok'] else 'FAIL'}", flush=True)
                     if not fwd["ok"]:
+                        tile = {k: v for k, v in fwd.items()
+                                if k.endswith(("rel_err", "twice"))}
                         failures.append(f"fused_attention {mode} {tag} "
-                                        f"{dname}: rel err {fwd['rel']:.3e}")
+                                        f"{dname}: rel err {fwd['rel']:.3e}, "
+                                        f"tile design {tile}")
                 row = {"max_abs_err": bwd["err"], "rel_err": bwd["rel"],
                        "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and same,
                        "same_bits_twice": same,
@@ -1900,6 +2016,7 @@ def _counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
+            "fused_attention_query": dict(ak.fwd_query_launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
             "fused_attention_bwd_rows": dict(ak.bwd_rows_launches),
             "fused_attention_blockwise": dict(ak.blockwise_launches),
@@ -1921,7 +2038,8 @@ def _counts():
 def _reset_counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
-                   ak.bwd_launches, ak.bwd_rows_launches,
+                   ak.fwd_query_launches, ak.bwd_launches,
+                   ak.bwd_rows_launches,
                    ak.blockwise_launches,
                    ak.blockwise_mma_launches, ak.blockwise_regtile_launches,
                    ak.blockwise_split_launches, ak.dense_fwd, ak.dense_bwd,
@@ -1937,7 +2055,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
     forward and backward ``blocks`` times a step in mode ``attention``
-    (the backward's rows design never);
+    (at Tq = Tk = 50: the forward's query design and the backward's rows
+    design never);
     the fused readout and its backward once a step with ``readout``, the
     chain readout's pair with ``chain``; the dense route's forward and
     backward ``blocks`` times a step in the modes given; no blockwise
@@ -1950,7 +2069,11 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     per = lambda modes, mode: {m: steps * blocks * int(m == mode)  # noqa: E731
                                for m in modes}
     return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
-            "fused_attention": att, "fused_attention_bwd": dict(att),
+            "fused_attention": att,
+            # the main path takes the forward's query design at Tq = 1
+            # only (`attention_fwd_design`), which callers add
+            "fused_attention_query": dict.fromkeys(ak.MODES, 0),
+            "fused_attention_bwd": dict(att),
             # the main path never takes the backward's rows design at
             # Tq = Tk = 50 (`attention_bwd_design`: "tile")
             "fused_attention_bwd_rows": dict.fromkeys(ak.MODES, 0),
@@ -2201,7 +2324,9 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
                            "scatter_add", "segments"),
            "fused_attention_bwd": ("attention_bwd_steps_in_turns",
                                    "attention_kernel", "_launch_bwd",
-                                   "rows")}
+                                   "rows"),
+           "fused_attention": ("attention_fwd_steps_in_turns",
+                               "attention_kernel", "_launch", "query")}
 
 
 @contextlib.contextmanager
@@ -2234,18 +2359,18 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
     runs = {design: [], "default_again": []}
     t0 = time.perf_counter()
 
-    def want_rows(steps, dname):
-        # the attention backward forced: its launches take the rows design
+    def want_forced(steps, dname):
+        # an attention kernel forced: its launches take the earlier design
+        # (counted under "fused_attention_query", "fused_attention_bwd_rows")
         counts = want(steps, dname)
-        counts["fused_attention_bwd_rows"] = dict(
-            counts["fused_attention_bwd"])
+        counts[f"{kernel}_{design}"] = dict(counts[kernel])
         return counts
 
     for turn in (design, design, "default_again"):
         print(f"train {name}: {kernel} {turn}", flush=True)
         forced = turn == design
-        turn_want = want_rows if forced and kernel == "fused_attention_bwd" \
-            else want
+        turn_want = want_forced if forced and kernel in (
+            "fused_attention", "fused_attention_bwd") else want
         with (forced_design(kernel) if forced
               else contextlib.nullcontext()):
             runs[turn].append(timed_steps(torch, setup, failures, name,
@@ -2424,8 +2549,9 @@ def run_self_attention(torch, setup, failures):
     f32 and bf16 with masks drawn on the CPU and injected on both sides,
     then timed with the card's generator; each step then timed in turns
     with the attention backward forced to its rows design (default,
-    rows, rows, default); Recommender.recommend for each at B = 16 in
-    bf16 against the CPU."""
+    rows, rows, default), then in turns of 10 steps with the forward
+    forced to its query design; Recommender.recommend for each at B = 16
+    in bf16 against the CPU."""
     from mtamrecommender_tpu_torch.ops import layers
 
     report, main_launches = {}, {}
@@ -2446,6 +2572,8 @@ def run_self_attention(torch, setup, failures):
                                main_launches))
         rep.update(steps_in_turns(torch, setup, failures, name, want,
                                   kernel="fused_attention_bwd"))
+        rep.update(steps_in_turns(torch, setup, failures, name, want,
+                                  kernel="fused_attention", steps=10))
         report[name] = rep
     serving, serve_launches = serve_self_attention(torch, setup, failures)
     report["serving"] = serving
@@ -2456,8 +2584,8 @@ def run_self_attention(torch, setup, failures):
 def serve_self_attention(torch, setup, failures):
     """Recommender.recommend for each self-attention model at B = 16 in
     bf16 (the serving config), launch counts around the call (3 forward
-    launches of the model's mode, no backward), then its scores against
-    the same Recommender on the CPU."""
+    launches of the model's mode, in the tile design; no backward), then
+    its scores against the same Recommender on the CPU."""
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
     from mtamrecommender_tpu_torch.serve import Recommender
 
@@ -3559,7 +3687,7 @@ def kernels_line(entries, launches_by_shape):
         name = f"{kname}[{mode}]" if mode else kname
         out.append({
             "name": f"{name}@{shape}" if shape else name, "route": "cuda",
-            "source": KERNEL_FILES[kname][0],
+            "source": head.get("source", KERNEL_FILES[kname][0]),
             "replaces": KERNEL_FILES[kname][1],
             "launches": launches_by_shape[shape].get(kname, {}).get(mode, 0),
             "max_abs_err": max(r["max_abs_err"] for r in by_dtype.values()),
@@ -3590,12 +3718,16 @@ def kernels_line(entries, launches_by_shape):
             # device time on the same inputs in the same run, in turns;
             # fused_attention_bwd's at Tq=Tk=50: the rows design's time,
             # device time and split by launch on the same inputs in the
-            # same run, in turns, beside the tile design's
-            **{k: head[k] for k in ("simt_ms", "device_ms",
+            # same run, in turns, beside the tile design's;
+            # fused_attention's at Tq=Tk=50: its design, and the query
+            # design's time and device time on the same inputs in the same
+            # run, in turns, beside the tile design's
+            **{k: head[k] for k in ("design", "simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms",
                                     "rows_device_ms", "rows_passes_ms",
-                                    "segments_ms", "segments_device_ms")
+                                    "segments_ms", "segments_device_ms",
+                                    "query_ms", "query_device_ms")
                if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
@@ -3676,6 +3808,19 @@ def main() -> int:
     for inst, regs, spill_st, spill_ld in scatter_ptxas:
         print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
+    # the attention forward's tile design: <mode, drop> of each kernel
+    # (mma: bf16, fma: f32); phase 2c reports its shared memory a block
+    # and blocks an SM
+    log = built["fused_attention_tile"]["log"]
+    if log == "already built":
+        log = build.library_path("fused_attention_tile").with_suffix(
+            ".log").read_text()
+    fwd_tile_ptxas = [row for kname in FWD_TILE_KERNELS
+                      for row in ptxas_counts(log, kname)]
+    print("ptxas fused_attention_tile:", flush=True)
+    for inst, regs, spill_st, spill_ld in fwd_tile_ptxas:
+        print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
 
     # phase 2: kernels against their plain twins
@@ -3715,7 +3860,8 @@ def main() -> int:
 
     # phase 3: the serving slice
     slice_rows, serve_launches = run_slice(torch, 20, failures)
-    for kname, mode in (("gru_scan", "tgru"), ("fused_attention", "time")):
+    for kname, mode in (("gru_scan", "tgru"), ("fused_attention", "time"),
+                        ("fused_attention_query", "time")):
         if serve_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "serving path")
@@ -3811,6 +3957,7 @@ def main() -> int:
                    "fused_readout_bwd_gemm_ptxas":
                        readout_ptxas["fused_readout_bwd"],
                    "scatter_columns_sum_ptxas": scatter_ptxas,
+                   "fused_attention_tile_ptxas": fwd_tile_ptxas,
                    "phase_s": phase_s, **report, "width_fault": width_fault,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,

@@ -27,6 +27,10 @@
 // block reads ~77 KB of k, v and rawk (f32) and does ~26 KFLOP, so the
 // card's 3.35 TB/s sets the pace: ~6 us for B=256 in f32.
 //
+// This is the wrapper's "query" design (`attention_fwd_design`): MTAM's
+// Tq = 1 hops, and every shape the "tile" design (fused_attention_tile.cu,
+// a block a batch row, 2 <= Tq <= 64, Tk <= 64) does not take.
+//
 // Design: one block of 128 threads per (b, i).  Each warp takes four keys
 // at a time and reads their k and rawk rows with coalesced loads,
 // lane-strided over d, all in flight together, then sums with shuffles;

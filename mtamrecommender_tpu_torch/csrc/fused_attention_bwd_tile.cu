@@ -40,7 +40,9 @@
 // (32 columns of two operands for a score product, 64 columns of one for
 // a gradient product), the next two slices copied while the current one
 // is summed: six [64][128] f32 operands do not fit beside the planes, and
-// at 105 KB two blocks share an SM.
+// at 105 KB two blocks share an SM.  The staging, the products and the
+// slice ring are attention_tile.cuh's, which the forward's tile design
+// (fused_attention_tile.cu) shares.
 // The gate gradients: a second launch sums the workspace over the batch,
 // each part of kGateRows rows in order by one warp, then the parts in
 // order.  A batch runs in chunks of whole parts (the wrapper's
@@ -48,33 +50,17 @@
 // parts to the sums so far, so the order never depends on the chunking.  No float atomics: the same inputs
 // give the same bits.
 
-#include "common.cuh"
-#include "tile_gemm.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace attn_tile;
 
-// the Python wrapper's MODES order
-enum { ATT_PLAIN = 0, ATT_TIME = 1, ATT_TISAS = 2, ATT_PLAIN_DROP = 3,
-       ATT_TISAS_DROP = 4 };
-constexpr int kThreads = 256;              // the f32 kernel's
+constexpr int kThreads = kFmaThreads;      // the f32 kernel's
 constexpr int kMmaThreads = 512;           // the bf16 kernel's
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;                 // Tq and Tk padded to this
-constexpr int kMaxD = 128;
-constexpr int kPlane = kTile + 4;         // an f32 plane row: 68 floats
-constexpr int kPlaneBf = 2 * kPlane;      // the same 272 bytes as bf16
 constexpr int kGateRows = 32;             // batch rows a part of the gate sums
 constexpr int kMaxParts = 128;            // parts a gate launch sums
-constexpr float kNegFill = -4294967295.0f;       // -(2^32) + 1
-// f32 slices: 32 columns of two operands (score products), 64 of one
-// (gradient products)
-constexpr int kSliceA = 32, kStrideA = kSliceA + 4;
-constexpr int kSliceB = 64, kStrideB = kSliceB + 4;
-constexpr int kBufFloats = 2 * kTile * kStrideA > kTile * kStrideB
-                               ? 2 * kTile * kStrideA : kTile * kStrideB;
-constexpr int kStages = 3;                // f32 slices in flight
 
 struct GateOut {
   float* out[5];  // dw1, db1, dwo1, dwo2, dbo, each [Tq, Tk]
@@ -90,8 +76,6 @@ struct TileArgs {
   int b0, n_rows, Tq, Tk, D;
   float scale;
 };
-
-__host__ __device__ constexpr int bf_stride(int D) { return D + 8; }
 
 size_t smem_bytes(bool bf16_in, bool time, int D) {
   const size_t planes = (size_t)(time ? 3 : 2) * kTile * kPlane * 4;
@@ -221,98 +205,6 @@ __device__ void middle(const TileArgs& a, int b, int lb, float* pS,
 
 // ---------------------------------------------------------- bf16 (mma.sync)
 
-// C (16 rows x two 8-column n-tiles) = A B over `ksteps` k-steps of 16.
-// A_T: A stored [k][m] (else [m][k]); B_T: B stored [k][n] (else [n][k]);
-// sa, sb the row strides in elements; (m0, n0) the tile's origin.
-// Fragment layouts: tile_gemm.cuh's frag_a / frag_b, at these strides.
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void mma_tile(float (&c)[2][4], const bf16* A,
-                                         int sa, const bf16* B, int sb,
-                                         int m0, int n0, int ksteps) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-  for (int kk = 0; kk < 16 * ksteps; kk += 16) {
-    unsigned a[4], bb[4];
-    if constexpr (A_T)
-      tile::ldsm_x4_trans(a, A + (kk + (lane >> 4) * 8 + (lane & 7)) * sa +
-                                 m0 + ((lane >> 3) & 1) * 8);
-    else
-      tile::ldsm_x4(a, A + (m0 + (lane & 15)) * sa + kk + (lane >> 4) * 8);
-    if constexpr (B_T)
-      tile::ldsm_x4_trans(bb, B + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                      sb + n0 + (lane >> 4) * 8);
-    else
-      tile::ldsm_x4(bb, B + (n0 + (lane >> 4) * 8 + (lane & 7)) * sb + kk +
-                            ((lane >> 3) & 1) * 8);
-    tile::mma_bf16(c[0], a, bb[0], bb[1]);
-    tile::mma_bf16(c[1], a, bb[2], bb[3]);
-  }
-}
-
-// an f32 plane = A B^T (A [64][D] the queries' rows, B [64][D] the keys'),
-// over the 16 x 16 tiles holding a query row < Tq and a key < Tk
-__device__ void mma_scores(float* plane, const bf16* A, const bf16* B, int S,
-                           int nk, int Tq, int Tk) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = (Tq + 15) / 16, nt = (Tk + 15) / 16;
-  for (int u = warp; u < mt * nt; u += kMmaThreads / 32) {
-    const int m0 = (u % mt) * 16, n0 = (u / mt) * 16;
-    float c[2][4];
-    mma_tile<false, false>(c, A, S, B, S, m0, n0, nk);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float* p = plane + (m0 + g) * kPlane + n0 + 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(p) = make_float2(c[j][0], c[j][1]);
-      *reinterpret_cast<float2*>(p + 8 * kPlane) =
-          make_float2(c[j][2], c[j][3]);
-    }
-  }
-}
-
-// out[row][col], out[row][col + 1] of an [R][D] f32 output, rows < R only
-__device__ void store_pair(float* out, int R, int D, int row, int col,
-                           float x, float y) {
-  if (row < R)
-    *reinterpret_cast<float2*>(out + (size_t)row * D + col) =
-        make_float2(x, y);
-}
-
-// out [R][D] f32 = P X (TRANS false: P the bf16 plane [m][k]) or P^T X
-// (TRANS true: P [k][m]), X [64][D] staged; ksteps of 16 over the k axis
-template <bool TRANS>
-__device__ void mma_grads(float* out, const float* plane, const bf16* X,
-                          int S, int R, int D, int ksteps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* P = reinterpret_cast<const bf16*>(plane);
-  const int mt = (R + 15) / 16, nt = D / 16;
-  for (int u = warp; u < mt * nt; u += kMmaThreads / 32) {
-    const int m0 = (u % mt) * 16, n0 = (u / mt) * 16;
-    float c[2][4];
-    mma_tile<TRANS, true>(c, P, kPlaneBf, X, S, m0, n0, ksteps);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = n0 + 8 * j + 2 * t;
-      store_pair(out, R, D, m0 + g, col, c[j][0], c[j][1]);
-      store_pair(out, R, D, m0 + g + 8, col, c[j][2], c[j][3]);
-    }
-  }
-}
-
-// rows [0, 64) of a [rows][D] operand into a staged tile of stride D + 8:
-// row r < valid copied, zeros elsewhere, 16 bytes a piece
-__device__ void stage_rows(bf16* dst, const bf16* src, int valid, int D) {
-  const int ch = D / 8, S = bf_stride(D);
-  for (int i = threadIdx.x; i < kTile * ch; i += kMmaThreads) {
-    const int r = i / ch, c = (i % ch) * 8;
-    const bool ok = r < valid;
-    tile::cp_async16(dst + r * S + c, src + (size_t)(ok ? r : 0) * D + c, ok);
-  }
-}
-
 // two f32 rounded to bf16 (nearest even), lo in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -386,30 +278,16 @@ __global__ void __launch_bounds__(kMmaThreads) attn_bwd_tile_mma_kernel(
   __syncthreads();
 
   const int kq = (Tq + 15) / 16, kk = (Tk + 15) / 16;
-  mma_grads<false>(a.dq + qrow, pS, sk, S, Tq, D, kk);
-  mma_grads<true>(a.dk + krow, pS, sq, S, Tk, D, kq);
-  mma_grads<true>(a.dv + krow, pW, sg, S, Tk, D, kq);
+  mma_product<false>(a.dq + qrow, pS, sk, S, Tq, D, kk);
+  mma_product<true>(a.dk + krow, pS, sq, S, Tk, D, kq);
+  mma_product<true>(a.dv + krow, pW, sg, S, Tk, D, kq);
   if (TIME) {
-    mma_grads<false>(a.dtqw + qrow, pT, srk, S, Tq, D, kk);
-    mma_grads<true>(a.drawk + krow, pT, stq, S, Tk, D, kq);
+    mma_product<false>(a.dtqw + qrow, pT, srk, S, Tq, D, kk);
+    mma_product<true>(a.drawk + krow, pT, stq, S, Tk, D, kq);
   }
 }
 
 // ------------------------------------------------------------- f32 (FMA)
-
-// rows [0, 64) x columns [c0, c0 + width) of a [rows][D] operand into a
-// buffer of row stride `stride`: rows r < valid and columns < D copied,
-// zeros elsewhere, 16 bytes a piece
-__device__ void stage_slice(float* dst, int stride, int width,
-                            const float* src, int valid, int D, int c0) {
-  const int ch = width / 4;
-  for (int i = threadIdx.x; i < kTile * ch; i += kThreads) {
-    const int r = i / ch, c = (i % ch) * 4;
-    const bool ok = r < valid && c0 + c < D;
-    tile::cp_async16(dst + r * stride + c,
-                     src + (ok ? (size_t)r * D + c0 + c : 0), ok);
-  }
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads) attn_bwd_tile_fma_kernel(
@@ -420,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_tile_fma_kernel(
   const int D = a.D, Tq = a.Tq, Tk = a.Tk;
   const int lb = blockIdx.x, b = a.b0 + lb;
   const int live = max(0, min(a.key_len[b], Tk));
-  const int tid = threadIdx.x, warp = tid >> 5, ty = tid >> 4, tx = tid & 15;
+  const int warp = threadIdx.x >> 5;
   float* pS = smem_f;
   float* pW = pS + kTile * kPlane;
   float* pT = pW + kTile * kPlane;            // time mode only
@@ -480,11 +358,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_tile_fma_kernel(
   };
 
   float acc[4][4];
-  for (int s = 0; s < kStages - 1; ++s) stage(s);
-  for (int s = 0; s < n_steps; ++s) {
-    stage(s + kStages - 1);
-    tile::cp_async_wait<kStages - 1>();   // step s's slices have landed
-    __syncthreads();
+  slice_ring(n_steps, stage, [&](int s) {
     if (s == n_a) {
       middle<float, MODE>(a, b, lb, pS, pT, pW);
       __syncthreads();
@@ -494,111 +368,17 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_tile_fma_kernel(
       // rows 4ty + r (queries) x columns tx + 16 j (keys), summed over
       // the slice's 32 columns of d in order
       const int p = s / sa, slice = s % sa;
-      if (slice == 0) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-      }
-      const float* y = x + kTile * kStrideA;
-      if (8 * warp < Tq) {
-#pragma unroll 2
-        for (int e = 0; e < kSliceA; e += 4) {
-          float4 av[4], bv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            av[r] = *reinterpret_cast<const float4*>(
-                x + (4 * ty + r) * kStrideA + e);
-            bv[r] = *reinterpret_cast<const float4*>(
-                y + (tx + 16 * r) * kStrideA + e);
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[r][j] = fmaf(av[r].x, bv[j].x, acc[r][j]);
-              acc[r][j] = fmaf(av[r].y, bv[j].y, acc[r][j]);
-              acc[r][j] = fmaf(av[r].z, bv[j].z, acc[r][j]);
-              acc[r][j] = fmaf(av[r].w, bv[j].w, acc[r][j]);
-            }
-        }
-      }
-      if (slice == sa - 1) {
-        float* plane = p == 0 ? pW : p == 1 ? pS : pT;
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            plane[(4 * ty + r) * kPlane + tx + 16 * j] = acc[r][j];
-      }
+      if (slice == 0) fma_zero(acc);
+      if (8 * warp < Tq) fma_scores_slice(acc, x, x + kTile * kStrideA);
+      if (slice == sa - 1)
+        fma_store_plane(p == 0 ? pW : p == 1 ? pS : pT, acc);
     } else {
       // rows 4ty + r x columns 4tx + j of the output's slice
       const Grad gr = grad((s - n_a) / sb);
-      const int c0 = ((s - n_a) % sb) * kSliceB;
-      const float* P = gr.plane;
-      const int R = gr.rows;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-      if (8 * warp < R) {
-        if (gr.trans) {
-          // P^T x: the contraction over the Tq queries
-#pragma unroll 4
-          for (int i = 0; i < Tq; ++i) {
-            const float4 av =
-                *reinterpret_cast<const float4*>(P + i * kPlane + 4 * ty);
-            const float4 bv =
-                *reinterpret_cast<const float4*>(x + i * kStrideB + 4 * tx);
-            const float ar[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              acc[r][0] = fmaf(ar[r], bv.x, acc[r][0]);
-              acc[r][1] = fmaf(ar[r], bv.y, acc[r][1]);
-              acc[r][2] = fmaf(ar[r], bv.z, acc[r][2]);
-              acc[r][3] = fmaf(ar[r], bv.w, acc[r][3]);
-            }
-          }
-        } else {
-          // P x: the contraction over the keys (P is 0 past Tk)
-          const int kn = (Tk + 3) / 4 * 4;
-#pragma unroll 2
-          for (int c = 0; c < kn; c += 4) {
-            float4 av[4], bv[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              av[r] = *reinterpret_cast<const float4*>(
-                  P + (4 * ty + r) * kPlane + c);
-              bv[r] = *reinterpret_cast<const float4*>(
-                  x + (c + r) * kStrideB + 4 * tx);
-            }
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float ar[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                acc[r][0] = fmaf(ar[u], bv[u].x, acc[r][0]);
-                acc[r][1] = fmaf(ar[u], bv[u].y, acc[r][1]);
-                acc[r][2] = fmaf(ar[u], bv[u].z, acc[r][2]);
-                acc[r][3] = fmaf(ar[u], bv[u].w, acc[r][3]);
-              }
-            }
-          }
-        }
-      }
-      const int col = c0 + 4 * tx;
-      if (col < D) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = 4 * ty + r;
-          if (row < R)
-            *reinterpret_cast<float4*>(gr.out + (size_t)row * D + col) =
-                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        }
-      }
+      fma_product_slice(acc, gr.plane, x, gr.trans, gr.rows, Tq, Tk);
+      fma_store_out(gr.out, gr.rows, D, ((s - n_a) % sb) * kSliceB, acc);
     }
-    __syncthreads();   // this buffer free again
-  }
+  });
 }
 
 // ----------------------------------------------------------- gate sums

@@ -4,8 +4,11 @@ Counterpart of mtamrecommender_tpu/ops/pallas/attention_kernel.py: the
 forward `fused_attention`, its backward `fused_attention_bwd` and
 `fused_attention_vjp`, the autograd function that joins them as JAX's
 custom_vjp does.  The forward routes by key count as `_fused_attention_fwd`
-does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel
-(csrc/fused_attention.cu, the Pallas `_attn_kernel`), above that, up to
+does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel (the
+Pallas `_attn_kernel`) in the design `attention_fwd_design` picks (with 2
+to TILE_KEYS queries and up to TILE_KEYS keys csrc/fused_attention_tile.cu,
+a block a batch row; else csrc/fused_attention.cu, a block a query row),
+above that, up to
 MAX_KEYS and without a dropout mask, the blockwise kernel
 (csrc/fused_attention_blockwise.cu, the Pallas `_attn_kernel_blockwise`:
 an online softmax over KEY_BLOCK-key blocks; for Tq > 1 tensor-core tiles
@@ -69,9 +72,14 @@ TILE_WIDTHS = (16, 32, 64, 128)   # its d: the powers of two to TILED_MAX_D
 GATE_ROWS = 32            # batch rows a part of the tile design's gate sums
 GATE_MAX_ROWS = 4096      # batch rows a gate-sum launch takes (128 parts)
 GATE_WORKSPACE_CAP = 1 << 25   # f32 gate terms a chunk of rows may hold
+# the single-tile forward's designs (`attention_fwd_design`): "tile", a
+# block a batch row with its whole Tq x Tk problem in shared memory (the
+# backward's layout); "query", the earlier, a block a (batch row, query row)
+FWD_DESIGNS = ("tile", "query")
 
 # kernel launches per mode (the plain twins are not counted)
-launches = {mode: 0 for mode in MODES}
+launches = {mode: 0 for mode in MODES}            # either forward design
+fwd_query_launches = {mode: 0 for mode in MODES}  # the query design alone
 bwd_launches = {mode: 0 for mode in MODES}     # either design
 bwd_rows_launches = {mode: 0 for mode in MODES}   # the rows design alone
 # the blockwise kernel's four designs: SIMT (forced, or Tq > 1 at a d the
@@ -163,8 +171,9 @@ def fused_attention(mode: str, q, k, v, t_q, t_k, tqw, rawk,
     do not read an operand still take it at its shape.  Returns f32
     [B,Tq,d].  By `route`: up to SINGLE_TILE_KEYS keys CPU tensors run
     `fused_attention_plain` and CUDA tensors launch the single-tile
-    kernel; above, the blockwise kernel (`fused_attention_blockwise`, its
-    twin `fused_attention_blockwise_plain` on the CPU; on CUDA the design
+    kernel in the design `attention_fwd_design` picks; above, the
+    blockwise kernel (`fused_attention_blockwise`, its twin
+    `fused_attention_blockwise_plain` on the CPU; on CUDA the design
     `blockwise_design` picks).  A drop mask above
     SINGLE_TILE_KEYS keys, or more than MAX_KEYS keys, raises: the caller
     takes `dense_attention` there, as JAX takes its jnp path."""
@@ -195,20 +204,61 @@ def _single_tile(what, tk) -> None:
             f"{SINGLE_TILE_KEYS}, got Tk={tk}")
 
 
-def _launch(mode, *args) -> torch.Tensor:
+def attention_fwd_design(dtype: torch.dtype, tq: int, tk: int,
+                         d: int) -> str:
+    """The single-tile forward's design for a shape.  "tile" where 2 <= Tq
+    <= TILE_KEYS, 1 <= Tk <= TILE_KEYS and d is one of TILE_WIDTHS, in
+    both dtypes (bf16 products on the tensor cores, f32 on the FMA
+    units): one block a batch row holds its whole problem in shared
+    memory, padded to TILE_KEYS x TILE_KEYS (the self-attention blocks'
+    Tq = Tk = 50).  "query" elsewhere (MTAM's Tq = 1 hops, up to
+    SINGLE_TILE_KEYS keys, other widths).  The tile launch also wants q,
+    k, v (and in time mode tqw and rawk) 16-byte aligned, and refuses
+    them otherwise."""
+    if dtype not in DTYPES:
+        raise TypeError(f"fused_attention: no design for {dtype}")
+    if 2 <= tq <= TILE_KEYS and 1 <= tk <= TILE_KEYS and d in TILE_WIDTHS:
+        return "tile"
+    return "query"
+
+
+def _launch(mode, *args, _design=None) -> torch.Tensor:
+    """Launch the single-tile forward in the design `attention_fwd_design`
+    picks.  ``_design="query"`` forces the earlier design (chip_smoke.py
+    holds and times it beside the tile design); "tile" only where it is
+    picked.  The main path passes nothing.  A design that fails to build
+    or launch raises: there is no fallback."""
     q, k, dm = args[0], args[1], args[-1]
-    tensors = args[:-1] if dm is None else args
-    device, stream = build.launch_context(tensors, "fused_attention")
     b, tq, d = q.shape
     tk = k.shape[1]
+    picked = attention_fwd_design(q.dtype, tq, tk, d)
+    design = picked if _design is None else _design
+    if design not in (picked, "query"):
+        raise ValueError(
+            f"fused_attention: design {design!r} does not take Tq={tq}, "
+            f"Tk={tk}, d={d} (attention_fwd_design: {picked!r})")
+    if design == "tile":
+        read = args[:3] + (args[5:7] if base_mode(mode) == "time" else ())
+        if any(t.data_ptr() % 16 for t in read):
+            raise ValueError("fused_attention: the tile design takes q, k, "
+                             "v (and tqw, rawk in time mode) 16-byte "
+                             "aligned")
+    tensors = args[:-1] if dm is None else args
+    device, stream = build.launch_context(tensors, "fused_attention")
     _single_tile("fused_attention", tk)
-    lib = _library()
     out = torch.empty((b, tq, d), dtype=torch.float32, device=q.device)
-    status = lib.fused_attention_launch(
-        MODES.index(mode), int(q.dtype == torch.bfloat16),
-        *(None if t is None else t.data_ptr() for t in args),
-        out.data_ptr(), b, tq, tk, d, 1.0 / d ** 0.5, device, stream)
-    build.check(lib, status, "fused_attention")
+    ptrs = (*(None if t is None else t.data_ptr() for t in args),
+            out.data_ptr(), b, tq, tk, d, 1.0 / d ** 0.5, device, stream)
+    mode_id, is_bf16 = MODES.index(mode), int(q.dtype == torch.bfloat16)
+    if design == "tile":
+        lib = _tile_library()
+        status = lib.fused_attention_tile_launch(mode_id, is_bf16, *ptrs)
+        build.check(lib, status, "fused_attention (tile)")
+    else:
+        lib = _library()
+        status = lib.fused_attention_launch(mode_id, is_bf16, *ptrs)
+        build.check(lib, status, "fused_attention")
+        fwd_query_launches[mode] += 1
     launches[mode] += 1
     return out
 
@@ -220,6 +270,21 @@ def _library() -> ctypes.CDLL:
         lib.fused_attention_launch.argtypes = (
             [ci, ci] + [vp] * 15 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.fused_attention_launch.restype = ci
+        lib._port_typed = True
+    return lib
+
+
+def _tile_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_tile")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_tile_launch.argtypes = (
+            [ci, ci] + [vp] * 15 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.fused_attention_tile_launch.restype = ci
+        lib.fused_attention_tile_smem_bytes.argtypes = [ci, ci, ci]
+        lib.fused_attention_tile_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_attention_tile_blocks_per_sm.argtypes = [ci, ci, ci, ci]
+        lib.fused_attention_tile_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -265,6 +330,65 @@ def fused_attention_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk,
         weights = weights * dm
     return torch.einsum("bqk,bkd->bqd", weights.to(v.dtype).float(),
                         v.float())
+
+
+def _tile_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
+                           wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
+    """The forward tile design's arithmetic in plain PyTorch (the
+    arguments and result of `fused_attention`): q and tqw padded to
+    TILE_KEYS rows with zeros; k and rawk zero past each row's live keys,
+    v past the keys its weights reach (all Tk in a row with none live),
+    padded the same way; the score planes S0 and TQK as f32 products of
+    those; the middle as the kernel's warps compute it, each key's score
+    from its own plane values, -2^32 + 1 at masked keys, the softmax over
+    the Tk keys, then dm; the weights rounded to v's type and zero-padded
+    to TILE_KEYS x TILE_KEYS; the output the f32 product of that plane
+    and the padded v, its first Tq rows."""
+    base = base_mode(mode)
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    n = TILE_KEYS
+    scale = 1.0 / d ** 0.5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    live = key_len.long().clamp(0, tk)
+    span = torch.where(live > 0, live, torch.full_like(live, tk))
+    row = torch.arange(n, device=q.device)[None, :, None]
+
+    def pad(x, rows, valid=None):
+        x = torch.cat([x.float(), torch.zeros((b, n - rows, d), **f32)],
+                      dim=1)
+        if valid is None:
+            return x
+        return torch.where(row < valid[:, None, None], x,
+                           torch.zeros((), **f32))
+
+    qp, tqwp = pad(q, tq), pad(tqw, tq)
+    kp, rawkp, vp = pad(k, tk, live), pad(rawk, tk, live), pad(v, tk, span)
+    nt = lambda x, y: torch.einsum("bqd,bkd->bqk", x, y)  # noqa: E731
+    s0 = nt(qp, kp)[:, :tq, :tk]
+    if base in ("time", "tisas"):
+        ldt = torch.log1p(torch.abs(t_q.float()[:, :, None]
+                                    - t_k.float()[:, None, :]))
+    if base == "time":
+        tqk = nt(tqwp, rawkp)[:, :tq, :tk]
+        dec = torch.tanh(ldt * w1.float() + b1.float())
+        sig = torch.sigmoid(wo1.float() * dec + wo2.float() * torch.tanh(tqk)
+                            + bo.float())
+        sc = s0 * sig * scale
+    elif base == "tisas":
+        sc = (s0 + ldt) * scale
+    else:
+        sc = s0 * scale
+    lv = torch.arange(tk, device=q.device)[None, None, :] \
+        < live[:, None, None]
+    s = torch.where(lv, sc, torch.full_like(sc, NEG_FILL))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    if dm is not None:
+        w = w * dm
+    plane = torch.nn.functional.pad(w.to(v.dtype).float(),
+                                    (0, n - tk, 0, n - tq))
+    return torch.einsum("bqk,bkd->bqd", plane, vp)[:, :tq]
 
 
 # ------------------------------------------------------------ blockwise

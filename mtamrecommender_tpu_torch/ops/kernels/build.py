@@ -35,9 +35,11 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # kernel library name -> its source file; every source includes common.cuh
 # (the readouts' four include readout_hop.cuh; fused_readout.cu and
 # fused_readout_bwd.cu also readout_gemm.cuh, which includes tile_gemm.cuh;
-# fused_attention_bwd_tile.cu includes tile_gemm.cuh)
+# fused_attention_tile.cu and fused_attention_bwd_tile.cu include
+# attention_tile.cuh, which includes tile_gemm.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
+           "fused_attention_tile": "fused_attention_tile.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
            "fused_attention_bwd_tile": "fused_attention_bwd_tile.cu",
            "fused_attention_blockwise": "fused_attention_blockwise.cu",
@@ -48,7 +50,7 @@ SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "readout_chain": "readout_chain.cu",
            "readout_chain_bwd": "readout_chain_bwd.cu"}
 _HEADERS = ("common.cuh", "readout_hop.cuh", "readout_gemm.cuh",
-            "tile_gemm.cuh")
+            "tile_gemm.cuh", "attention_tile.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
