@@ -2032,7 +2032,9 @@ def _counts():
             "fused_readout": {"fused_readout": rk.launches},
             "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches},
             "readout_chain": {"readout_chain": rc.launches},
-            "readout_chain_bwd": {"readout_chain_bwd": rc.bwd_launches}}
+            "readout_chain_bwd": {"readout_chain_bwd": rc.bwd_launches},
+            "readout_chain_bwd_rows": {
+                "readout_chain_bwd_rows": rc.bwd_rows_launches}}
 
 
 def _reset_counts():
@@ -2047,7 +2049,7 @@ def _reset_counts():
         for m in counts:
             counts[m] = 0
     rk.launches = rk.bwd_launches = 0
-    rc.launches = rc.bwd_launches = 0
+    rc.launches = rc.bwd_launches = rc.bwd_rows_launches = 0
 
 
 def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
@@ -2058,7 +2060,9 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     (at Tq = Tk = 50: the forward's query design and the backward's rows
     design never);
     the fused readout and its backward once a step with ``readout``, the
-    chain readout's pair with ``chain``; the dense route's forward and
+    chain readout's pair with ``chain`` (the backward's rows design
+    never: at L=50 it takes the staged design); the dense route's
+    forward and
     backward ``blocks`` times a step in the modes given; no blockwise
     launch (the callers that expect one add it)."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
@@ -2091,7 +2095,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             "fused_readout": {"fused_readout": steps * int(readout)},
             "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)},
             "readout_chain": {"readout_chain": steps * int(chain)},
-            "readout_chain_bwd": {"readout_chain_bwd": steps * int(chain)}}
+            "readout_chain_bwd": {"readout_chain_bwd": steps * int(chain)},
+            "readout_chain_bwd_rows": {"readout_chain_bwd_rows": 0}}
 
 
 def _kernel_modules():
@@ -2326,7 +2331,10 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
                                    "attention_kernel", "_launch_bwd",
                                    "rows"),
            "fused_attention": ("attention_fwd_steps_in_turns",
-                               "attention_kernel", "_launch", "query")}
+                               "attention_kernel", "_launch", "query"),
+           "readout_chain_bwd": ("readout_chain_bwd_steps_in_turns",
+                                 "readout_chain_kernel", "_launch_bwd",
+                                 "rows")}
 
 
 @contextlib.contextmanager
@@ -2360,17 +2368,22 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
     t0 = time.perf_counter()
 
     def want_forced(steps, dname):
-        # an attention kernel forced: its launches take the earlier design
-        # (counted under "fused_attention_query", "fused_attention_bwd_rows")
+        # a kernel with a count of its earlier design's launches forced:
+        # they take the earlier design (counted under
+        # "fused_attention_query", "fused_attention_bwd_rows",
+        # "readout_chain_bwd_rows")
         counts = want(steps, dname)
-        counts[f"{kernel}_{design}"] = dict(counts[kernel])
+        earlier = f"{kernel}_{design}"
+        counts[earlier] = ({earlier: counts[kernel][kernel]}
+                           if kernel in UNMODED else dict(counts[kernel]))
         return counts
 
     for turn in (design, design, "default_again"):
         print(f"train {name}: {kernel} {turn}", flush=True)
         forced = turn == design
         turn_want = want_forced if forced and kernel in (
-            "fused_attention", "fused_attention_bwd") else want
+            "fused_attention", "fused_attention_bwd",
+            "readout_chain_bwd") else want
         with (forced_design(kernel) if forced
               else contextlib.nullcontext()):
             runs[turn].append(timed_steps(torch, setup, failures, name,
@@ -2380,7 +2393,8 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
 
 
 UNMODED = ("dtable", "gather", "scatter_add", "fused_readout",
-           "fused_readout_bwd", "readout_chain", "readout_chain_bwd")
+           "fused_readout_bwd", "readout_chain", "readout_chain_bwd",
+           "readout_chain_bwd_rows")
 
 
 def _add_launches(main_launches, counts):
@@ -2523,8 +2537,10 @@ def step_both_ways(torch, setup, steps=8):
 
 def run_training(torch, setup, failures):
     """Phase 4: MTAM's step (its readout through the chain pair), one
-    step and five f32 steps against the CPU, then timed in bf16 and f32;
-    the readout alone and the step, each both ways."""
+    step and five f32 steps against the CPU, then timed in bf16 and f32,
+    then in turns with the chain backward forced to its rows design
+    (default, rows, rows, default); the readout alone and the step, each
+    both ways."""
     report = {"ids_in_range": setup.ids_in_range}
     if not all(report["ids_in_range"].values()):
         failures.append(f"training ids out of range: {report['ids_in_range']}")
@@ -2536,6 +2552,8 @@ def run_training(torch, setup, failures):
     main_launches = {}
     report.update(timed_steps(torch, setup, failures, "MTAM", want,
                               main_launches))
+    report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
+                                 kernel="readout_chain_bwd"))
     report["readout_alone"] = readout_alone(torch, setup, failures)
     report["step_both_ways"] = step_both_ways(torch, setup)
     return report, main_launches
@@ -3163,6 +3181,9 @@ def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
 
 CHAIN_CASES = ([(bs, L, 128) for L in (50, 255) for bs in (1, 16, 256)]
                + [(16, 50, 16), (16, 50, 64)])
+# the staged design's templated kernels (phase 1's ptxas lines)
+CHAIN_BWD_STAGED_KERNELS = ("chain_bwd_query_kernel",
+                            "chain_bwd_staged_kernel")
 
 
 def chain_inputs(torch, gen, dtype, B, L, d=128, n=3, gate="positional",
@@ -3240,15 +3261,95 @@ def chain_bwd_bound(args, dtype_name):
     return _bound(nbytes, flops, dtype_name)
 
 
+def check_chain_bwd(torch, rc, g, args, curs, dname):
+    """readout_chain_bwd on the card against its twin: the design the
+    wrapper picks, two launches the same bits, every score-side cotangent
+    (dk, dt, dgp) of a row with no live key exactly 0; at L=50 (where the
+    staged design is picked) also the rows design forced on the same
+    inputs, held the same way, and the two designs against each other.
+    Returns (design, {err, rel, ok, same, rows_rel, staged_vs_rows_rel,
+    rows_same})."""
+    k = args[3]
+    design = rc.chain_bwd_design(k.dtype, k.shape[2], k.shape[3])
+    want = rc.readout_chain_bwd_plain(g, *args[1:], curs)
+    dead = torch.nonzero(args[1] == 0).flatten()
+
+    def hold(got, ref):
+        err = rel = 0.0
+        ok = True
+        for i, (a, b) in enumerate(zip(got, ref)):
+            # dk, dt, dgp: no score gradient in a row with no live key
+            e, r, o = _agree(a, b, dname, (slice(None), dead)
+                             if ref is want and i in (1, 3, 4)
+                             and dead.numel() else None)
+            err, rel, ok = max(err, e), max(rel, r), ok and o
+        return err, rel, ok
+
+    got = rc.readout_chain_bwd(g, *args[1:], curs)
+    again = rc.readout_chain_bwd(g, *args[1:], curs)
+    err, rel, ok = hold(got, want)
+    out = {"err": err, "rel": rel, "ok": ok,
+           "same": all(torch.equal(a, b) for a, b in zip(got, again))}
+    if design == "staged" and k.shape[2] == 50:
+        rows = rc._launch_bwd(g, args[1:], curs, _design="rows")
+        rows_again = rc._launch_bwd(g, args[1:], curs, _design="rows")
+        _, out["rows_rel"], rows_ok = hold(rows, want)
+        _, out["staged_vs_rows_rel"], both_ok = hold(got, rows)
+        out["rows_same"] = all(torch.equal(a, b)
+                               for a, b in zip(rows, rows_again))
+        out["ok"] = out["ok"] and rows_ok and both_ok and out["rows_same"]
+    return design, out
+
+
+def time_chain_bwd(timer, rc, g, args, curs, iters):
+    """The backward's time at phase 4's shape: the staged design (picked)
+    and the rows design forced on the same inputs in turns (staged, rows,
+    rows, staged) by CUDA events and by the profiler's device time, each
+    one's split by kernel (staged: the query pass, the staged kernel, the
+    batch sums, dwq; rows: the rows kernel, the batch sums) and host time
+    a call."""
+    run = lambda: rc.readout_chain_bwd(g, *args[1:], curs)  # noqa: E731
+    rows = lambda: rc._launch_bwd(  # noqa: E731
+        g, args[1:], curs, _design="rows")
+    a, b1, b2, a2 = (timer(run, iters), timer(rows, iters),
+                     timer(rows, iters), timer(run, iters))
+    d, e1, e2, d2 = (timer.device(run), timer.device(rows),
+                     timer.device(rows), timer.device(run))
+    mean = lambda x, y: None if None in (x, y) else (x + y) / 2  # noqa: E731
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "rows_ms": (b1 + b2) / 2, "rows_ms_repeats": [b1, b2],
+            "device_ms": mean(d, d2), "device_ms_repeats": [d, d2],
+            "rows_device_ms": mean(e1, e2), "rows_device_ms_repeats": [e1, e2],
+            "passes_ms": timer.passes(run),
+            "rows_passes_ms": timer.passes(rows),
+            "host_ms": timer.host(run), "rows_host_ms": timer.host(rows)}
+
+
+def chain_bwd_occupancy(rc, dname, L=50, d=128):
+    """The chain backward's staged kernel's shared memory a block (bytes,
+    static and dynamic) and blocks an SM (the occupancy calculator's) at
+    (L, d) in dtype ``dname``."""
+    lib = rc._bwd_library()
+    is_bf16 = int(dname == "bfloat16")
+    return {"smem_bytes": lib.readout_chain_bwd_staged_smem_bytes(
+                is_bf16, L, d),
+            "blocks_per_sm": lib.readout_chain_bwd_staged_blocks_per_sm(
+                is_bf16, L, d, 0)}
+
+
 def check_chain_kernels(torch, timer, iters, failures):
     """Phase 2f: readout_chain and readout_chain_bwd against their plain
     twins at CHAIN_CASES in f32 and bf16 (positional wo2 rows at L=50,
     scalar at L=255 and the narrow widths; ragged keys, one row with no
     live key, one masked query): the forward's output and hop-input
-    chain, the backward's ten cotangents from the kernel's chain, every
-    score-side cotangent of a row with no live key exactly 0, two
-    backward launches bit-equal; timed at phase 4's shape (B=256, L=50,
-    d=128, every key live) with the twins beside them."""
+    chain, the backward's ten cotangents from the kernel's chain in the
+    design `chain_bwd_design` picks ("staged" at L=50, "rows" at L=255),
+    every score-side cotangent of a row with no live key exactly 0, two
+    backward launches bit-equal, at L=50 the rows design forced beside
+    the staged one (`check_chain_bwd`); timed at phase 4's shape (B=256,
+    L=50, d=128, every key live) with the twins beside them, the
+    backward's two designs in turns with the profiler's split by kernel
+    (`time_chain_bwd`), the forward's device time by the profiler."""
     from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
 
     gen = torch.Generator(device=DEVICE).manual_seed(97531)
@@ -3256,8 +3357,9 @@ def check_chain_kernels(torch, timer, iters, failures):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         fwd = {"err": 0.0, "rel": 0.0, "ok": True}
-        bwd = {"err": 0.0, "rel": 0.0, "ok": True}
-        same = True
+        bwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
+               "rows_rel": 0.0, "staged_vs_rows_rel": 0.0,
+               "rows_same": True}
         cases = [(bs, L, d, False) for bs, L, d in CHAIN_CASES]
         for bs, L, d, full in cases + [(TRAIN_BATCH, 50, 128, True)]:
             gate = "positional" if L == 50 and d == 128 else "scalar"
@@ -3270,48 +3372,68 @@ def check_chain_kernels(torch, timer, iters, failures):
                 fwd = {"err": max(fwd["err"], e), "rel": max(fwd["rel"], r),
                        "ok": fwd["ok"] and o}
             g = torch.randn((bs, d), generator=gen, device=DEVICE).to(dtype)
-            got = rc.readout_chain_bwd(g, *args[1:], curs)
-            again = rc.readout_chain_bwd(g, *args[1:], curs)
-            want = rc.readout_chain_bwd_plain(g, *args[1:], curs)
-            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
-            dead = torch.nonzero(args[1] == 0).flatten()
-            for i, (a, b) in enumerate(zip(got, want)):
-                # dk, dt, dgp: no score gradient in a row with no live key
-                e, r, o = _agree(a, b, dname, (slice(None), dead)
-                                 if i in (1, 3, 4) and dead.numel() else None)
-                bwd = {"err": max(bwd["err"], e), "rel": max(bwd["rel"], r),
-                       "ok": bwd["ok"] and o}
+            design, got = check_chain_bwd(torch, rc, g, args, curs, dname)
+            bwd = {"err": max(bwd["err"], got["err"]),
+                   "rel": max(bwd["rel"], got["rel"]),
+                   "ok": bwd["ok"] and got["ok"],
+                   "same": bwd["same"] and got["same"],
+                   "rows_rel": max(bwd["rows_rel"], got.get("rows_rel", 0.0)),
+                   "staged_vs_rows_rel": max(bwd["staged_vs_rows_rel"],
+                                             got.get("staged_vs_rows_rel",
+                                                     0.0)),
+                   "rows_same": bwd["rows_same"] and got.get("rows_same",
+                                                             True)}
+            rows_part = (f" rows rel={got['rows_rel']:.3e} staged-rows rel="
+                         f"{got['staged_vs_rows_rel']:.3e} rows_same_bits="
+                         f"{got['rows_same']}" if "rows_rel" in got else "")
             print(f"readout_chain(+bwd) B={bs:<3d} L={L:<3d} d={d:<3d} "
-                  f"{gate:10s} {dname:9s} fwd rel={fwd['rel']:.3e} bwd rel="
-                  f"{bwd['rel']:.3e} same_bits={same}", flush=True)
+                  f"{gate:10s} {dname:9s} bwd design={design:6s} fwd rel="
+                  f"{fwd['rel']:.3e} bwd rel={got['rel']:.3e} same_bits="
+                  f"{got['same']}{rows_part} "
+                  f"{'ok' if got['ok'] else 'FAIL'}", flush=True)
         # args, g and curs are phase 4's shape now, every key live
+        fwd_run = lambda: rc.readout_chain(*args)  # noqa: E731
         rows = {
             "readout_chain": {
                 "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
                 "tol": KERNEL_TOL[dname], "ok": fwd["ok"],
-                "ms": timer(lambda: rc.readout_chain(*args), iters),
+                "ms": timer(fwd_run, iters),
+                "device_ms": timer.device(fwd_run),
+                "passes_ms": timer.passes(fwd_run),
+                "host_ms": timer.host(fwd_run),
                 "plain_ms": timer(lambda: rc.readout_chain_plain(*args),
                                   max(iters // 10, 3)),
                 **chain_bound(args, dname)},
             "readout_chain_bwd": {
+                "design": rc.chain_bwd_design(dtype, 50, 128),
                 "max_abs_err": bwd["err"], "rel_err": bwd["rel"],
-                "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and same,
-                "same_bits_twice": same,
-                "ms": timer(lambda: rc.readout_chain_bwd(g, *args[1:], curs),
-                            iters),
+                "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and bwd["same"],
+                "same_bits_twice": bwd["same"],
+                "rows_rel_err": bwd["rows_rel"],
+                "staged_vs_rows_rel_err": bwd["staged_vs_rows_rel"],
+                "rows_same_bits_twice": bwd["rows_same"],
+                **time_chain_bwd(timer, rc, g, args, curs, iters),
+                **chain_bwd_occupancy(rc, dname),
                 "plain_ms": timer(lambda: rc.readout_chain_bwd_plain(
                     g, *args[1:], curs), max(iters // 10, 3)),
                 **chain_bwd_bound(args, dname)}}
         for kname, row in rows.items():
             entries.setdefault((kname, None, "L50"), {})[dname] = row
+            extra = "".join(
+                f" {k}={row[k]:.4f}" if isinstance(row.get(k), float)
+                else f" {k}={row[k]}" for k in (
+                    "device_ms", "host_ms", "rows_ms", "rows_device_ms",
+                    "rows_host_ms", "passes_ms", "rows_passes_ms",
+                    "smem_bytes", "blocks_per_sm") if k in row)
             print(f"{kname} B={TRAIN_BATCH} L=50 {dname:9s} max_abs_err="
                   f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
                   f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms="
-                  f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                  f"{row['bound_ms']:.4f} ({row['bound_by']}){extra} "
                   f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
             if not row["ok"]:
                 failures.append(f"{kname} {dname}: rel err "
-                                f"{row['rel_err']:.3e}, same bits {same}")
+                                f"{row['rel_err']:.3e}, same bits "
+                                f"{bwd['same']}")
     return entries
 
 
@@ -3721,7 +3843,11 @@ def kernels_line(entries, launches_by_shape):
             # same run, in turns, beside the tile design's;
             # fused_attention's at Tq=Tk=50: its design, and the query
             # design's time and device time on the same inputs in the same
-            # run, in turns, beside the tile design's
+            # run, in turns, beside the tile design's;
+            # readout_chain_bwd's: its design, its device time and split
+            # by launch, and the rows design's on the same inputs in the
+            # same run, in turns; readout_chain's: its device time and
+            # split by launch
             **{k: head[k] for k in ("design", "simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms",
@@ -3819,6 +3945,19 @@ def main() -> int:
                       for row in ptxas_counts(log, kname)]
     print("ptxas fused_attention_tile:", flush=True)
     for inst, regs, spill_st, spill_ld in fwd_tile_ptxas:
+        print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
+    # the chain backward's staged design: its query pass's and staged
+    # kernel's instantiations <type>; phase 2f reports the staged kernel's
+    # shared memory a block and blocks an SM
+    log = built["readout_chain_bwd"]["log"]
+    if log == "already built":
+        log = build.library_path("readout_chain_bwd").with_suffix(
+            ".log").read_text()
+    chain_bwd_ptxas = [row for kname in CHAIN_BWD_STAGED_KERNELS
+                       for row in ptxas_counts(log, kname)]
+    print("ptxas readout_chain_bwd, staged design:", flush=True)
+    for inst, regs, spill_st, spill_ld in chain_bwd_ptxas:
         print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
@@ -3958,6 +4097,7 @@ def main() -> int:
                        readout_ptxas["fused_readout_bwd"],
                    "scatter_columns_sum_ptxas": scatter_ptxas,
                    "fused_attention_tile_ptxas": fwd_tile_ptxas,
+                   "readout_chain_bwd_staged_ptxas": chain_bwd_ptxas,
                    "phase_s": phase_s, **report, "width_fault": width_fault,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,

@@ -22,18 +22,60 @@
 //
 // What bounds it: bytes.  It reads K, V and tprec again and writes as
 // many elements of their cotangents: at B=256, L=50, D=128, 3 hops about
-// 59 MB in bf16, for a few times the forward's ~55 MFLOP.
+// 59 MB in bf16, for a few times the forward's ~55 MFLOP.  Both designs
+// spend no float atomics, so the same inputs give the same bits.
 //
-// Design (two kernels, no atomics, so the same inputs give the same bits):
-//  1. rows: one block of 256 threads per batch row, the reversed hop loop
-//     inside it, every [L] and [D] vector of the hop in shared memory.
-//     The scores and dw take a warp per live key; the [L,D] cotangents
-//     are written by all threads, element by element, coalesced; dcur's
-//     and dq's sums over keys take a thread per column; dq_pre Wq^T a warp
-//     per row of Wq.  The per-row terms of the batch sums (cur_c, the
-//     rounded dq_pre, g xh, g and dgate tqk) go to an f32 workspace.
-//  2. reduce: each batch sum over the rows in order, one thread per
-//     output element; dwq[i][k][e] = sum_b cur_c[i,b,k] dq_pre[i,b,e].
+// 1. "staged" (1 <= L <= 64, D a multiple of 16 up to 128: MTAM's
+//    training readout at L=50, d=128, and the narrow d=16), four launches:
+//    a. the query pass: q = relu(cur_c Wq + bq) for every hop and row
+//       (the hop inputs curs are known before the backward starts), Wq_i
+//       staged in shared memory once per 4 rows, the sum over k in 16
+//       slices; cur_c and q to the workspace.
+//    b. the staged kernel: one block of 256 threads per batch row (two
+//       blocks an SM), the reversed hop loop inside it.  Each hop's K and
+//       tprec rows of the live keys and V rows of the reached keys come
+//       into shared memory once, by 16-byte cp.async, and every later
+//       read of them is a shared-memory read.  bf16 double-buffers across
+//       hops, warps 1-7 issuing hop i-1's copies while warp 0 takes the
+//       softmax of hop i; f32 (twice the bytes) has one buffer and
+//       refills V once dw has read it, K and tprec once dq_pre Wq^T has
+//       its operands.  One thread mapping throughout: lane c of half-warp
+//       h (16 a block) owns 8 columns (`col`), so the score dots q.K_l,
+//       cur.tprec_l and do.V_l take a half-warp per key (the keys' loads
+//       in flight together, their lane sums in one butterfly), the key
+//       sums (o = sum w_l V_l, sum dpre_l tprec_l, dq = sum ds0_l K_l)
+//       take keys l = h, h+16, ... a half-warp, added h and h+1 first,
+//       then the 8 warps in order, and dq_pre Wq^T takes rows e = h,
+//       h+16, ... a half-warp, Wq read from L2 with 16-byte loads (bf16:
+//       into registers at the hop's start).  The [L] and [D] vectors of
+//       the softmax, the layer norm forward and backward and the softmax
+//       transpose fit one warp (a lane 2 keys or 4 columns): warp
+//       shuffles there, while warps 1-7 write dv or issue copies.  dk, dv
+//       and dt leave in 16-byte streaming stores over all L keys, zero
+//       past the live keys (dk, dt) and the reached ones (dv).  A hop's
+//       short vectors (cur, q, lng, gate_part, wo2) come into registers a
+//       hop ahead.  No row stride is padded: every shared-memory access of
+//       a quarter-warp covers 128 contiguous bytes, so none conflicts.
+//       L2 hints: the rows and cotangents evict first, Wq last.
+//    c. the batch sums dwo2, dbq, dlng, dlnb as the rows design sums them
+//       (3 below), and
+//    d. dwq, the one batch sum that is a product, in a kernel of its own:
+//       a 16 x 16 tile a block, 2 x 2 outputs a thread, the rows in order
+//       (the reduce pass's order: the same bits).
+// 2. "rows" (every L up to 256, D up to 128; the first design), two
+//    launches: one block of 256 threads per batch row, every [L] and [D]
+//    vector of the hop in shared memory, K, V and tprec read from global
+//    memory key by key.  The scores and dw take a warp per live key; the
+//    [L,D] cotangents are written by all threads, element by element,
+//    coalesced; dcur's and dq's sums over keys take a thread per column;
+//    dq_pre Wq^T a warp per row of Wq; then
+// 3. reduce: each batch sum over the rows in order, one thread per
+//    output element; dwq[i][k][e] = sum_b cur_c[i,b,k] dq_pre[i,b,e].
+// Either writes the per-row terms of the batch sums (cur_c, the rounded
+// dq_pre, g xh, g and dgate tqk) to an f32 workspace.
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "readout_hop.cuh"
 
@@ -45,9 +87,9 @@ using readout::kThreads;
 using readout::kWarps;
 
 constexpr int kMaxL = 256;
-// per-row f32 vectors [kVecs, n, B, D] of the workspace, then dgate tqk
-// [n, B, L]
-enum { V_CURR = 0, V_DQ, V_GXH, V_G, kVecs };
+// per-row f32 vectors [kVecs, n, B, D] of the workspace (V_Q: the staged
+// design's alone), then dgate tqk [n, B, L]
+enum { V_CURR = 0, V_DQ, V_GXH, V_G, V_Q, kVecs };
 
 struct Args {
   const void *g, *k, *v, *t, *gp, *wo2, *wq, *bq, *lng, *lnb;
@@ -221,21 +263,845 @@ __global__ void __launch_bounds__(kThreads) chain_bwd_rows_kernel(Args a) {
   for (int e = tid; e < D; e += kThreads) ddec[e] = from_float<T>(dcur[e]);
 }
 
+// ------------------------------------------------------------ staged
+
+constexpr int kStagedKeys = 64;               // the staged design's largest L
+constexpr int kHalves = kThreads / 16;        // half-warps a block
+constexpr int kGroup = 8;                     // columns a lane owns
+constexpr int kSlots = kMaxD / kHalves;       // rows of Wq a half-warp takes
+constexpr int kKeySlots = kStagedKeys / kHalves;   // keys a half-warp takes
+constexpr unsigned kFull = 0xffffffffu;
+
+bool staged_takes(int L, int D) {
+  return L >= 1 && L <= kStagedKeys && D >= 16 && D <= kMaxD && D % 16 == 0;
+}
+
+// rows of K, V and tprec in flight at once: bf16 double-buffers across
+// hops, f32 (twice the bytes) stages one hop at a time
+template <typename T>
+constexpr int kStages = sizeof(T) == 2 ? 2 : 1;
+
+size_t staged_dynamic_bytes(bool bf16, int L, int D) {
+  return bf16 ? (size_t)2 * 3 * L * D * 2 : (size_t)3 * L * D * 4;
+}
+
+// The block's f32 vectors (static shared memory).
+struct StagedVecs {
+  float cur[kMaxD], q[kMaxD], lng[kMaxD], dcur[kMaxD], dov[kMaxD],
+      dqp[kMaxD];
+  float gp[kStagedKeys], wo2[kStagedKeys], s0[kStagedKeys], tp[kStagedKeys],
+      tqk[kStagedKeys], sig[kStagedKeys], w[kStagedKeys], dw[kStagedKeys],
+      ds0[kStagedKeys], dpre[kStagedKeys];
+  float part[2][kWarps][kMaxD];   // per-warp partials of a sum over keys
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// L2 policies: the rows and cotangents stream through once (evict first);
+// Wq is read by every block of a hop (evict last)
+__device__ __forceinline__ unsigned long long evict_first() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ unsigned long long evict_last() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           unsigned long long policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "l"(policy));
+}
+__device__ __forceinline__ uint4 ldg16(const void* src,
+                                       unsigned long long policy) {
+  uint4 r;
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(src), "l"(policy));
+  return r;
+}
+
+// The 8 columns lane c of a half-warp owns, so that each 16-byte access
+// of a quarter-warp covers 128 contiguous bytes (no bank conflict, full
+// sectors): in bf16 8c .. 8c+7 (one vector), in f32 4c .. 4c+3 and D/2 +
+// 4c .. D/2 + 4c+3 (two).  x[j] is column col<T>(c, j, D).
+template <typename T>
+__device__ __forceinline__ int col(int c, int j, int D) {
+  if constexpr (sizeof(T) == 2) return kGroup * c + j;
+  else return j < 4 ? 4 * c + j : D / 2 + 4 * c + j - 4;
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void split(const float4& a, const float4& b,
+                                      float (&x)[8]) {
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+// A lane's 8 elements of a row of T in shared memory, as f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c, int D,
+                                      float (&x)[8]) {
+  unpack(*reinterpret_cast<const uint4*>(row + kGroup * c), x);
+}
+__device__ __forceinline__ void load8(const float* row, int c, int D,
+                                      float (&x)[8]) {
+  split(*reinterpret_cast<const float4*>(row + 4 * c),
+        *reinterpret_cast<const float4*>(row + D / 2 + 4 * c), x);
+}
+// A lane's 8 f32 values, each rounded once to T, to its columns of a row
+// (streaming stores: evict first).
+__device__ __forceinline__ void store8(__nv_bfloat16* row, int c, int D,
+                                       const float (&x)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+  __stcs(reinterpret_cast<uint4*>(row + kGroup * c), u);
+}
+__device__ __forceinline__ void store8(float* row, int c, int D,
+                                       const float (&x)[8]) {
+  __stcs(reinterpret_cast<float4*>(row + 4 * c),
+         make_float4(x[0], x[1], x[2], x[3]));
+  __stcs(reinterpret_cast<float4*>(row + D / 2 + 4 * c),
+         make_float4(x[4], x[5], x[6], x[7]));
+}
+// A lane's 8 elements of an f32 vector of the block (0 past D's lanes).
+template <typename T>
+__device__ __forceinline__ void lane8(const float* vec, int c, int D, bool on,
+                                      float (&x)[8]) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) x[j] = on ? vec[col<T>(c, j, D)] : 0.f;
+}
+
+// x[k] (k < N, N a power of 2 up to 16) summed over the 16 lanes of a
+// half-warp (every lane of the warp calls): each xor level halves the
+// values a lane carries (lanes with the offset's bit set keep the upper
+// half), so the sums take N - 1 + 4 - log2 N shuffles where N separate
+// butterflies take 4 N, and every sum pairs its lanes as a butterfly does
+// (xor 8, 4, 2, 1).  Returns the sum of x[k] in every lane whose bits 3
+// .. 4 - log2 N, read as a number (bit 3 first), are k.
+template <int N>
+__device__ __forceinline__ float half_sums(float (&x)[N], int lane) {
+#pragma unroll
+  for (int off = 8, n = N; off > 0; off >>= 1) {
+    if (n > 1) {
+      const bool up = lane & off;
+#pragma unroll
+      for (int k = 0; k < n / 2; ++k) {
+        const float send = up ? x[k] : x[k + n / 2];
+        const float keep = up ? x[k + n / 2] : x[k];
+        x[k] = keep + __shfl_xor_sync(kFull, send, off);
+      }
+      n /= 2;
+    } else {
+      x[0] += __shfl_xor_sync(kFull, x[0], off);
+    }
+  }
+  return x[0];
+}
+
+// the value index a lane of a half-warp holds after half_sums<N>
+template <int N>
+__device__ __forceinline__ int half_sums_index(int lane) {
+  int k = 0;
+#pragma unroll
+  for (int off = 8, n = N; n > 1; off >>= 1, n /= 2) k = 2 * k + ((lane & off) != 0);
+  return k;
+}
+
+// d[s] = a . X[l] over the lane's columns for keys l = h + 16 s, s <
+// kKeySlots, 0 at l >= n: the keys' loads all in flight together
+template <typename T>
+__device__ __forceinline__ void key_dots(const float (&a)[8], const T* X,
+                                         int n, int D, int h, int c, bool on,
+                                         float (&d)[kKeySlots]) {
+#pragma unroll
+  for (int s = 0; s < kKeySlots; ++s) {
+    const int l = h + kHalves * s;
+    d[s] = 0.f;
+    if (on && l < n) {
+      float x[8];
+      load8(X + (size_t)l * D, c, D, x);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) d[s] = fmaf(a[j], x[j], d[s]);
+    }
+  }
+}
+
+// acc = sum over keys l = h, h+16, ... < n of coef[l] X[l] over the lane's
+// columns, in key order
+template <typename T>
+__device__ __forceinline__ void key_sum(const float* coef, const T* X, int n,
+                                        int D, int h, int c, bool on,
+                                        float (&acc)[8]) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kKeySlots; ++s) {
+    const int l = h + kHalves * s;
+    if (on && l < n) {
+      float x[8];
+      load8(X + (size_t)l * D, c, D, x);
+      const float k = coef[l];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) acc[j] = fmaf(k, x[j], acc[j]);
+    }
+  }
+}
+
+// a warp's two half-warp partials added (lane + lane ^ 16) and stored to
+// part at the lane's columns (every lane of the warp calls)
+template <typename T>
+__device__ __forceinline__ void warp_partial(float (&acc)[8], float* part,
+                                             int lane, int c, int D, bool on) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], 16);
+  if (lane < 16 && on)
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) part[col<T>(c, j, D)] = acc[j];
+}
+
+// sum of the warps' partials of column e, warp 0 first
+__device__ __forceinline__ float warps_sum(const float (&part)[kWarps][kMaxD],
+                                          int e) {
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += part[w][e];
+  return s;
+}
+
+// Issue copies of hop i's rows of row b into its buffer [K | V | tprec]:
+// with `kt` K and tprec (the live rows), with `vv` V (the reached ones),
+// by thread t of `nt` (the block's threads, or those of warps 1-7).
+template <typename T>
+__device__ __forceinline__ void stage_rows(const Args& a, T* buf, int i, int b,
+                                           int live, int span, bool kt,
+                                           bool vv, int t, int nt) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int D = a.D, per_row = D / kVec;
+  // a thread copies one 16-byte piece of every step-th row (threads past
+  // step * per_row copy none)
+  const int step = nt / per_row, row0 = t / per_row;
+  const int off0 = (t - row0 * per_row) * kVec;
+  if (row0 >= step) return;
+  const size_t LD = (size_t)a.L * D, hb = (size_t)i * a.B + b;
+  const unsigned long long policy = evict_first();
+  if (kt) {
+    const T* K = at<T>(a.k, hb * LD);
+    const T* TP = at<T>(a.t, hb * LD);
+    for (int l = row0; l < live; l += step) {
+      const int off = l * D + off0;
+      cp_async16(buf + off, K + off, policy);
+      cp_async16(buf + 2 * LD + off, TP + off, policy);
+    }
+  }
+  if (vv) {
+    const T* V = at<T>(a.v, hb * LD);
+    for (int l = row0; l < span; l += step) {
+      const int off = l * D + off0;
+      cp_async16(buf + LD + off, V + off, policy);
+    }
+  }
+}
+
+// A hop's short vectors, one element a thread: threads e < D hold cur[e]
+// (f32), q[e] (from the query pass) and lng[e]; threads kMaxD + l, l < L,
+// hold gate_part[l] and wo2[l].  Loaded into registers a hop ahead,
+// stored after the last read of the hop before.
+struct HopVecs {
+  float cur, q, lng, gp, wo2;
+};
+
+template <typename T>
+__device__ __forceinline__ HopVecs load_hop_vecs(const Args& a, int i, int b) {
+  const int tid = threadIdx.x, D = a.D, L = a.L;
+  const size_t hb = (size_t)i * a.B + b, nBD = (size_t)a.n * a.B * D;
+  HopVecs x{0.f, 0.f, 0.f, 0.f, 0.f};
+  if (tid < D) {
+    x.cur = a.curs[hb * D + tid];
+    x.q = a.vec[V_Q * nBD + hb * D + tid];
+    x.lng = port::to_float(at<T>(a.lng, (size_t)i * D)[tid]);
+  } else if (tid >= kMaxD && tid - kMaxD < L) {
+    x.gp = port::to_float(at<T>(a.gp, hb * L)[tid - kMaxD]);
+    x.wo2 = port::to_float(at<T>(a.wo2, (size_t)i * L)[tid - kMaxD]);
+  }
+  return x;
+}
+
+__device__ __forceinline__ void store_hop_vecs(StagedVecs& v, const HopVecs& x,
+                                               int D, int L) {
+  const int tid = threadIdx.x;
+  if (tid < D) {
+    v.cur[tid] = x.cur;
+    v.q[tid] = x.q;
+    v.lng[tid] = x.lng;
+  } else if (tid >= kMaxD && tid - kMaxD < L) {
+    v.gp[tid - kMaxD] = x.gp;
+    v.wo2[tid - kMaxD] = x.wo2;
+  }
+}
+
+// Row e = h + 16 s of Wq_i at the lane's k columns, s < kSlots, for dq_pre
+// Wq^T: in bf16 loaded at the hop's start (eight 16-byte vectors a lane
+// in registers), in f32 (twice the registers) where it is used.
+template <typename T>
+struct WqRows {
+  uint4 raw[kSlots];
+};
+template <>
+struct WqRows<float> {};
+
+template <typename T>
+__device__ __forceinline__ void fetch_wq_rows(WqRows<T>& r, const T* WQ,
+                                              int h, int c, int D, bool on) {
+  if constexpr (sizeof(T) == 2) {
+    const unsigned long long policy = evict_last();
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int e = h + kHalves * s;
+      if (on && e < D) r.raw[s] = ldg16(WQ + (size_t)e * D + kGroup * c, policy);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void wq_row(const WqRows<T>& r, const T* WQ, int s,
+                                       int e, int c, int D,
+                                       unsigned long long policy,
+                                       float (&x)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    unpack(r.raw[s], x);
+  } else {
+    const uint4 a = ldg16(WQ + (size_t)e * D + 4 * c, policy);
+    const uint4 b = ldg16(WQ + (size_t)e * D + D / 2 + 4 * c, policy);
+    split(reinterpret_cast<const float4&>(a), reinterpret_cast<const float4&>(b),
+          x);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) chain_bwd_staged_kernel(Args a) {
+  constexpr int S = kStages<T>;
+  extern __shared__ __align__(16) unsigned char staged_raw[];
+  T* rows = reinterpret_cast<T*>(staged_raw);    // S x [K | V | tprec], [L, D]
+  __shared__ __align__(16) StagedVecs v;
+  const int D = a.D, L = a.L, B = a.B, b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = tid >> 4, c = tid & 15;
+  const bool on = kGroup * c < D;               // the lane owns columns
+  const int live = max(0, min(a.klen[b], L));
+  const int span = live > 0 ? live : L;
+  const float qz = a.qz[b];
+  const size_t nBD = (size_t)a.n * B * D, LD = (size_t)L * D;
+  for (int e = tid; e < D; e += kThreads)
+    v.dcur[e] = port::to_float(at<T>(a.g, (size_t)b * D)[e]);
+  stage_rows<T>(a, rows + (size_t)((a.n - 1) % S) * 3 * LD, a.n - 1, b, live,
+                span, true, true, tid, kThreads);
+  cp_async_commit();
+  store_hop_vecs(v, load_hop_vecs<T>(a, a.n - 1, b), D, L);
+  for (int i = a.n - 1; i >= 0; --i) {
+    const size_t hb = (size_t)i * B + b;
+    const T* WQ = at<T>(a.wq, (size_t)i * D * D);
+    T* buf = rows + (size_t)(i % S) * 3 * LD;
+    // in flight through the hop: the next hop's short vectors and (bf16)
+    // this hop's rows of Wq for dq_pre Wq^T
+    const HopVecs next = i > 0 ? load_hop_vecs<T>(a, i - 1, b) : HopVecs{};
+    WqRows<T> wq_rows;
+    fetch_wq_rows<T>(wq_rows, WQ, h, c, D, on);
+    cp_async_wait<0>();
+    __syncthreads();                            // hop i's rows and vectors in
+    const T* Ks = buf;
+    const T* Vs = buf + LD;
+    const T* Ts = buf + 2 * LD;
+
+    // ---- the score dots q.K_l and cur.tprec_l, a half-warp a key
+    {
+      float qv[8], cv[8], s0[kKeySlots], tp[kKeySlots];
+      lane8<T>(v.q, c, D, on, qv);
+      lane8<T>(v.cur, c, D, on, cv);
+      key_dots(qv, Ks, live, D, h, c, on, s0);
+      key_dots(cv, Ts, live, D, h, c, on, tp);
+      float x[2 * kKeySlots];
+#pragma unroll
+      for (int s = 0; s < kKeySlots; ++s) {
+        x[s] = s0[s];
+        x[kKeySlots + s] = tp[s];
+      }
+      // lane c ends with value half_sums_index(c): s0 of slot k, or tp of
+      // slot k - kKeySlots
+      const float r = half_sums(x, lane);
+      const int k = half_sums_index<2 * kKeySlots>(lane);
+      const int l = h + kHalves * (k % kKeySlots);
+      if ((c & 1) == 0 && l < live) (k < kKeySlots ? v.s0 : v.tp)[l] = r;
+    }
+    __syncthreads();
+    // ---- the gate and the softmax over the L keys in warp 0 (a lane 2
+    // keys)
+    if (warp == 0) {
+      float s[2], m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int l = lane + 32 * j;
+        s[j] = readout::kNegFill;
+        if (l < live) {
+          const float tqk = tanhf(v.tp[l]);
+          const float sig = port::sigmoid(v.gp[l] + v.wo2[l] * tqk);
+          v.tqk[l] = tqk;
+          v.sig[l] = sig;
+          s[j] = v.s0[l] * sig * a.scale;
+        }
+        if (l < L) m = fmaxf(m, s[j]);
+      }
+      m = port::warp_max(m);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[j] = lane + 32 * j < L ? expf(s[j] - m) : 0.f;
+        sum += s[j];
+      }
+      sum = port::warp_sum(sum);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (lane + 32 * j < L) v.w[lane + 32 * j] = s[j] / sum;
+    } else if constexpr (S == 2) {
+      // bf16, warps 1-7 meanwhile: hop i-1's rows into the other buffer,
+      // free since hop i+1 ended, in flight through this hop
+      if (i > 0) {
+        stage_rows<T>(a, rows + (size_t)((i - 1) % 2) * 3 * LD, i - 1, b,
+                      live, span, true, true, tid - 32, kThreads - 32);
+        cp_async_commit();
+      }
+    }
+    __syncthreads();
+    // ---- o = sum_l w_l V_l over the reached keys
+    {
+      float acc[8];
+      key_sum(v.w, Vs, span, D, h, c, on, acc);
+      warp_partial<T>(acc, v.part[0][warp], lane, c, D, on);
+    }
+    __syncthreads();
+    // ---- residual, layer norm and its backward in warp 0 (a lane 4
+    // columns)
+    if (warp == 0) {
+      float x[4], sx = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = lane + 32 * j;
+        x[j] = e < D ? warps_sum(v.part[0], e) * qz + v.cur[e] : 0.f;
+        sx += x[j];
+      }
+      const float mean = port::warp_sum(sx) / D;
+      float sv = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x[j] = lane + 32 * j < D ? x[j] - mean : 0.f;
+        sv += x[j] * x[j];
+      }
+      const float inv = 1.f / sqrtf(port::warp_sum(sv) / D + readout::kLnEps);
+      float xh[4], dxh[4], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = lane + 32 * j;
+        xh[j] = x[j] * inv;
+        dxh[j] = 0.f;
+        if (e < D) {
+          const float g = v.dcur[e];
+          dxh[j] = g * v.lng[e];
+          a.vec[V_GXH * nBD + hb * D + e] = g * xh[j];
+          a.vec[V_G * nBD + hb * D + e] = g;
+        }
+        s1 += dxh[j];
+        s2 += dxh[j] * xh[j];
+      }
+      const float m1 = port::warp_sum(s1) / D;
+      const float m2 = port::warp_sum(s2) / D;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = lane + 32 * j;
+        if (e < D) {
+          const float dx = (dxh[j] - m1 - xh[j] * m2) * inv;
+          v.dov[e] = dx * qz;
+          v.dcur[e] = dx;                     // the residual branch
+        }
+      }
+    }
+    __syncthreads();
+    // ---- dw_l = do . V_l over the live keys, a half-warp a key
+    {
+      float dv[8], dw[kKeySlots];
+      lane8<T>(v.dov, c, D, on, dv);
+      key_dots(dv, Vs, live, D, h, c, on, dw);
+      const float r = half_sums(dw, lane);
+      const int l = h + kHalves * half_sums_index<kKeySlots>(lane);
+      if ((c & 3) == 0 && l < live) v.dw[l] = r;
+    }
+    __syncthreads();
+    // ---- the softmax transpose and the gate's cotangents in warp 0 (a
+    // lane 2 keys)
+    if (warp == 0) {
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int l = lane + 32 * j;
+        if (l < live) part += v.dw[l] * v.w[l];
+      }
+      const float sdw = port::warp_sum(part);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int l = lane + 32 * j;
+        if (l >= L) continue;
+        float dgate = 0.f, ds0 = 0.f, dpre = 0.f, dgt = 0.f;
+        if (l < live) {                         // no score gradient else
+          const float ds = v.w[l] * (v.dw[l] - sdw);
+          const float sig = v.sig[l], tqk = v.tqk[l];
+          dgate = ds * v.s0[l] * a.scale * sig * (1.f - sig);
+          ds0 = ds * sig * a.scale;
+          dpre = dgate * v.wo2[l] * (1.f - tqk * tqk);
+          dgt = dgate * tqk;
+        }
+        v.ds0[l] = ds0;
+        v.dpre[l] = dpre;
+        out_at<T>(a.dgp, hb * L)[l] = from_float<T>(dgate);
+        a.dgt[hb * L + l] = dgt;
+      }
+    } else {
+      // warps 1-7 meanwhile: dv_l = w_l do over all L keys (zero past the
+      // reached ones), a half-warp a key, 16-byte stores; f32: V's last
+      // read is done, hop i-1's V rows into its place
+      T* DV = out_at<T>(a.dv, hb * LD);
+      float dv[8];
+      lane8<T>(v.dov, c, D, on, dv);
+      if (on)
+        for (int l = h - 2; l < L; l += kHalves - 2) {
+          const float wl = l < span ? v.w[l] : 0.f;
+          float x[8];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) x[j] = wl * dv[j];
+          store8(DV + (size_t)l * D, c, D, x);
+        }
+      if constexpr (S == 1) {
+        if (i > 0)
+          stage_rows<T>(a, buf, i - 1, b, live, span, false, true, tid - 32,
+                        kThreads - 32);
+      }
+    }
+    __syncthreads();
+
+    // ---- dk, dt over all L keys (zero past the live ones): a half-warp a
+    // key, 16-byte stores
+    {
+      T* DK = out_at<T>(a.dk, hb * LD);
+      T* DT = out_at<T>(a.dt, hb * LD);
+      float cv[8], qv[8];
+      lane8<T>(v.cur, c, D, on, cv);
+      lane8<T>(v.q, c, D, on, qv);
+      if (on)
+        for (int l = h; l < L; l += kHalves) {
+          const float pl = l < live ? v.dpre[l] : 0.f;
+          const float kl = l < live ? v.ds0[l] : 0.f;
+          float xt[8], xk[8];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            xt[j] = pl * cv[j];
+            xk[j] = kl * qv[j];
+          }
+          store8(DT + (size_t)l * D, c, D, xt);
+          store8(DK + (size_t)l * D, c, D, xk);
+        }
+    }
+    // ---- sum_l dpre_l tprec_l and dq = sum_l ds0_l K_l (live keys)
+    {
+      float acc_t[8], acc_q[8];
+      key_sum(v.dpre, Ts, live, D, h, c, on, acc_t);
+      key_sum(v.ds0, Ks, live, D, h, c, on, acc_q);
+      warp_partial<T>(acc_t, v.part[0][warp], lane, c, D, on);
+      warp_partial<T>(acc_q, v.part[1][warp], lane, c, D, on);
+    }
+    __syncthreads();
+    if (tid < D) {
+      v.dcur[tid] += warps_sum(v.part[0], tid);
+    } else if (tid < 2 * D) {
+      const int e = tid - D;
+      const float dq = warps_sum(v.part[1], e);
+      const float dq_pre = port::round_to<T>(v.q[e] > 0.f ? dq : 0.f);
+      v.dqp[e] = dq_pre;
+      a.vec[V_DQ * nBD + hb * D + e] = dq_pre;
+    }
+    __syncthreads();
+    // the hop's short vectors are read no more: the next hop's take
+    // their place
+    if (i > 0) store_hop_vecs(v, next, D, L);
+    // ---- dcur += dq_pre Wq^T: half-warp h takes rows e = h, h+16, ...
+    {
+      float dq8[8], acc[kSlots];
+      lane8<T>(v.dqp, c, D, on, dq8);
+      const unsigned long long policy = evict_last();
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        acc[s] = 0.f;
+        const int e = h + kHalves * s;
+        if (on && e < D) {
+          float wv[8];
+          wq_row<T>(wq_rows, WQ, s, e, c, D, policy, wv);
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) acc[s] = fmaf(dq8[j], wv[j], acc[s]);
+        }
+      }
+      // f32: K's and tprec's last reads are done, and this product's
+      // loads are in: hop i-1's rows into their place (one cp.async group
+      // with its V rows)
+      if constexpr (S == 1) {
+        if (i > 0) {
+          stage_rows<T>(a, buf, i - 1, b, live, span, true, false, tid,
+                        kThreads);
+          cp_async_commit();
+        }
+      }
+      // lane c ends with row h + 16 half_sums_index(c)'s sum
+      const float r = half_sums(acc, lane);
+      const int e = h + kHalves * half_sums_index<kSlots>(lane);
+      if ((c & 1) == 0 && e < D) v.dcur[e] += r;
+    }
+    __syncthreads();
+  }
+  T* ddec = out_at<T>(a.ddec, (size_t)b * D);
+  for (int e = tid; e < D; e += kThreads) ddec[e] = from_float<T>(v.dcur[e]);
+}
+
+// The query pass, before the staged kernel: for every hop i and row b,
+// cur_c = curs[i,b] rounded to T and q = relu(cur_c Wq_i + bq_i) (f32) to
+// the workspace.  A block of 256 threads takes kQueryRows rows of one
+// hop: Wq_i comes into shared memory by cp.async, the rows' cur_c beside
+// it.  Half-warp h sums k = h, h+16, ... in order for the block's rows at
+// lane c's 8 columns (`col`); the half-warps' partials are then added as
+// the staged kernel adds its key sums (h and h+1 first, then the warps
+// in order from 0).
+constexpr int kQueryRows = 4;
+
+size_t query_dynamic_bytes(bool bf16, int D) {
+  return (size_t)D * D * (bf16 ? 2 : 4);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) chain_bwd_query_kernel(Args a) {
+  constexpr int kVec = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char query_raw[];
+  T* sw = reinterpret_cast<T*>(query_raw);      // Wq_i [D, D]
+  __shared__ __align__(16) float sc[kQueryRows][kMaxD];
+  __shared__ float part[kWarps][kQueryRows][kMaxD];
+  __shared__ float sb[kMaxD];
+  const int D = a.D, B = a.B, i = blockIdx.y, r0 = blockIdx.x * kQueryRows;
+  const int nr = min(kQueryRows, B - r0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = tid >> 4, c = tid & 15;
+  const bool on = kGroup * c < D;
+  const size_t nBD = (size_t)a.n * B * D, hop = (size_t)i * B;
+  const T* WQ = at<T>(a.wq, (size_t)i * D * D);
+  const unsigned long long policy = evict_last();
+  for (int t = tid; t < D * D / kVec; t += kThreads)
+    cp_async16(sw + t * kVec, WQ + t * kVec, policy);
+  const float* cur = a.curs + (hop + r0) * D;
+  for (int t = tid; t < nr * D / 4; t += kThreads)
+    cp_async16(&sc[0][0] + (t / (D / 4)) * kMaxD + (t % (D / 4)) * 4,
+               cur + 4 * t);
+  cp_async_commit();
+  // bq beside them: no load of it waits behind a store of q
+  for (int e = tid; e < D; e += kThreads)
+    sb[e] = port::to_float(at<T>(a.bq, (size_t)i * D)[e]);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int t = tid; t < kQueryRows * D; t += kThreads) {
+    const int r = t / D, e = t - r * D;
+    const float x = r < nr ? port::round_to<T>(sc[r][e]) : 0.f;
+    if (r < nr) a.vec[V_CURR * nBD + (hop + r0 + r) * D + e] = x;
+    sc[r][e] = x;
+  }
+  __syncthreads();
+  float acc[kQueryRows][kGroup];
+#pragma unroll
+  for (int r = 0; r < kQueryRows; ++r)
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) acc[r][j] = 0.f;
+  if (on) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int k = h + kHalves * s;
+      if (k < D) {
+        float w[8];
+        load8(sw + (size_t)k * D, c, D, w);
+#pragma unroll
+        for (int r = 0; r < kQueryRows; ++r) {
+          const float x = sc[r][k];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) acc[r][j] = fmaf(x, w[j], acc[r][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kQueryRows; ++r)
+    warp_partial<T>(acc[r], part[warp][r], lane, c, D, on);
+  __syncthreads();
+  for (int t = tid; t < nr * D; t += kThreads) {
+    const int r = t / D, e = t - r * D;
+    float x = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) x += part[w][r][e];
+    a.vec[V_Q * nBD + (hop + r0 + r) * D + e] = fmaxf(x + sb[e], 0.f);
+  }
+}
+
+// dwq[i][k][e] = sum_b cur_c[i,b,k] dq_pre[i,b,e] over the rows in order
+// from b = 0, one fmaf a row (the reduce pass's order: the same bits): a
+// block of 64 threads a 16 x 16 tile of one hop, a thread 2 x 2 outputs
+// (four chains in flight), kDwqRows rows of the tile's 16 k and 16 e
+// columns staged in shared memory at a time by cp.async.
+constexpr int kDwqTile = 16, kDwqRows = 256, kDwqThreads = 64;
+
+__global__ void __launch_bounds__(kDwqThreads) chain_bwd_dwq_kernel(
+    const float* vec, float* dwq, int B, int D, int n) {
+  __shared__ __align__(16) float sc[kDwqRows][kDwqTile];
+  __shared__ __align__(16) float sd[kDwqRows][kDwqTile];
+  const int tiles = D / kDwqTile, i = blockIdx.y;
+  const int k0 = (blockIdx.x / tiles) * kDwqTile;
+  const int e0 = (blockIdx.x % tiles) * kDwqTile;
+  const int tk = 2 * (threadIdx.x / 8), te = 2 * (threadIdx.x % 8);
+  const size_t nBD = (size_t)n * B * D, hop = (size_t)i * B * D;
+  const float* curr = vec + V_CURR * nBD + hop + k0;
+  const float* dq = vec + V_DQ * nBD + hop + e0;
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int r0 = 0; r0 < B; r0 += kDwqRows) {
+    const int nr = min(kDwqRows, B - r0);
+    __syncthreads();                            // the last chunk is read
+    // a row's 16 columns are 4 16-byte pieces (D % 16 == 0), all copied
+    // by cp.async at once
+    for (int t = threadIdx.x; t < nr * 4; t += kDwqThreads) {
+      const int r = t / 4, c = 4 * (t % 4);
+      const size_t off = (size_t)(r0 + r) * D + c;
+      cp_async16(&sc[r][c], curr + off);
+      cp_async16(&sd[r][c], dq + off);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 16
+    for (int r = 0; r < nr; ++r) {
+      const float2 c = *reinterpret_cast<const float2*>(&sc[r][tk]);
+      const float2 d = *reinterpret_cast<const float2*>(&sd[r][te]);
+      acc[0][0] = fmaf(c.x, d.x, acc[0][0]);
+      acc[0][1] = fmaf(c.x, d.y, acc[0][1]);
+      acc[1][0] = fmaf(c.y, d.x, acc[1][0]);
+      acc[1][1] = fmaf(c.y, d.y, acc[1][1]);
+    }
+  }
+  float* out = dwq + (size_t)i * D * D + (size_t)(k0 + tk) * D + e0 + te;
+  *reinterpret_cast<float2*>(out) = make_float2(acc[0][0], acc[0][1]);
+  *reinterpret_cast<float2*>(out + D) = make_float2(acc[1][0], acc[1][1]);
+}
+
+template <typename T>
+cudaError_t launch_staged(const Args& a, cudaStream_t s) {
+  const size_t qsmem = query_dynamic_bytes(sizeof(T) == 2, a.D);
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_bwd_query_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)qsmem);
+  if (err != cudaSuccess) return err;
+  chain_bwd_query_kernel<T><<<dim3((a.B + kQueryRows - 1) / kQueryRows, a.n),
+                              kThreads, qsmem, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem = staged_dynamic_bytes(sizeof(T) == 2, a.L, a.D);
+  err = cudaFuncSetAttribute(chain_bwd_staged_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  chain_bwd_staged_kernel<T><<<a.B, kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 constexpr int kJobs = 5;   // batch sums of the reduce pass
 
 size_t vec_floats(int B, int D, int n) {
   return (size_t)kVecs * n * B * D;
 }
 
+enum { kStaged = 0, kRows = 1 };   // the designs, as BWD_DESIGNS orders them
+
+bool takes(int design, int L, int D) {
+  if (design == kStaged) return staged_takes(L, D);
+  return design == kRows && L >= 1 && L <= kMaxL && D >= 1 && D <= kMaxD;
+}
+
 }  // namespace
 
-// Workspace bytes the launch needs.
-extern "C" long long readout_chain_bwd_workspace_bytes(int B, int L, int D,
-                                                       int n) {
+// Workspace bytes the launch needs (the same for both designs, the rows
+// design leaving V_Q unused; 0 for a shape the design does not take).
+extern "C" long long readout_chain_bwd_workspace_bytes(int design, int B,
+                                                       int L, int D, int n) {
+  if (!takes(design, L, D) || B < 0 || n <= 0) return 0;
   return (long long)(vec_floats(B, D, n) + (size_t)n * B * L) *
          (long long)sizeof(float);
 }
 
+// The staged design's shared memory a block at (L, D), static and
+// dynamic, in bytes (0 for a shape it does not take).
+extern "C" long long readout_chain_bwd_staged_smem_bytes(int is_bf16, int L,
+                                                         int D) {
+  if (!staged_takes(L, D)) return 0;
+  return (long long)(staged_dynamic_bytes(is_bf16 != 0, L, D) +
+                     sizeof(StagedVecs));
+}
+
+// The staged design's blocks that fit on one SM at (L, D) (the occupancy
+// calculator's answer, with the launch's shared memory), or the negated
+// cudaError_t.
+extern "C" int readout_chain_bwd_staged_blocks_per_sm(int is_bf16, int L,
+                                                      int D, int device) {
+  if (!staged_takes(L, D)) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t smem = staged_dynamic_bytes(is_bf16 != 0, L, D);
+  const void* kernel =
+      is_bf16 ? (const void*)chain_bwd_staged_kernel<__nv_bfloat16>
+              : (const void*)chain_bwd_staged_kernel<float>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, smem);
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
+// design: 0 "staged" (1 <= L <= 64, D a multiple of 16 up to 128; k, v,
+// t, wq, dk, dv and dt 16-byte aligned), 1 "rows" (L <= 256, D <= 128).
 // All pointers are device pointers to contiguous arrays.  g [B,D]; the
 // forward's inputs after dec as in readout_chain_launch; curs [n,B,D] f32;
 // the outputs ddec [B,D], dk/dv/dt [n,B,L,D], dgp [n,B,L] in the inputs'
@@ -244,15 +1110,19 @@ extern "C" long long readout_chain_bwd_workspace_bytes(int B, int L, int D,
 // readout_chain_bwd_workspace_bytes.  Returns the first cudaError_t of
 // the launches (0 on success).
 extern "C" int readout_chain_bwd_launch(
-    int is_bf16, const void* g, const void* klen, const void* qz,
+    int design, int is_bf16, const void* g, const void* klen, const void* qz,
     const void* k, const void* v, const void* t, const void* gp,
     const void* wo2, const void* wq, const void* bq, const void* lng,
     const void* lnb, const void* curs, void* ddec, void* dk, void* dv,
     void* dt, void* dgp, void* dwo2, void* dwq, void* dbq, void* dlng,
     void* dlnb, void* ws, int B, int L, int D, int n, float scale,
     int device, void* stream) {
-  if (B < 0 || L <= 0 || L > kMaxL || D <= 0 || D > kMaxD || n <= 0)
-    return cudaErrorInvalidValue;
+  if (B < 0 || !takes(design, L, D) || n <= 0) return cudaErrorInvalidValue;
+  if (design == kStaged) {
+    for (const void* p : {k, v, t, wq, (const void*)dk, (const void*)dv,
+                          (const void*)dt})
+      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Args a;
@@ -268,11 +1138,15 @@ extern "C" int readout_chain_bwd_launch(
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    if (is_bf16)
+    if (design == kStaged)
+      err = is_bf16 ? launch_staged<__nv_bfloat16>(a, s)
+                    : launch_staged<float>(a, s);
+    else if (is_bf16)
       chain_bwd_rows_kernel<__nv_bfloat16><<<B, kThreads, 0, s>>>(a);
     else
       chain_bwd_rows_kernel<float><<<B, kThreads, 0, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
   const long long nBD = (long long)n * B * D, BD = (long long)B * D;
   const float* vec = a.vec;
@@ -287,5 +1161,14 @@ extern "C" int readout_chain_bwd_launch(
                  n, B, D, D};
   jobs.job[4] = {vec + V_CURR * nBD, vec + V_DQ * nBD,
                  static_cast<float*>(dwq), BD, D, n, B, D * D, D};
-  return readout::batch_sums(jobs, kJobs, s);
+  if (design == kRows) return readout::batch_sums(jobs, kJobs, s);
+  // the staged design: dwq, the one sum that is a product, by its own
+  // kernel (a tile a block; D is a multiple of 16), the other four as the
+  // rows design sums them
+  if ((err = readout::batch_sums(jobs, kJobs - 1, s)) != cudaSuccess)
+    return err;
+  const int tiles = D / kDwqTile;
+  chain_bwd_dwq_kernel<<<dim3(tiles * tiles, n), kDwqThreads, 0, s>>>(
+      vec, static_cast<float*>(dwq), B, D, n);
+  return cudaGetLastError();
 }

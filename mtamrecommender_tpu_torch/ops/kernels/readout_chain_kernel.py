@@ -16,7 +16,10 @@ The forward `readout_chain` (csrc/readout_chain.cu, the Pallas
 `_chain_fwd_kernel`) returns the last hop's output in dec's type and the
 hop-input chain ``curs`` [n, B, d] f32, which its backward
 `readout_chain_bwd` (csrc/readout_chain_bwd.cu, `_chain_bwd_kernel`)
-replays hop by hop in reverse.  The cotangents of k_all, v_all, tprec and
+replays hop by hop in reverse, in the design `chain_bwd_design` picks:
+"staged" at L <= 64 with d a multiple of 16 up to 128 (each hop's K, V
+and tprec rows staged once in shared memory; MTAM's training readout at
+L=50), "rows" elsewhere.  The cotangents of k_all, v_all, tprec and
 gate_part leave as plain outputs, so autograd carries them through the
 hop-batched einsums, as XLA's AD does in the JAX package.
 `readout_chain_vjp` joins the two as JAX's custom_vjp does.
@@ -41,6 +44,16 @@ NEG_FILL = -(2.0 ** 32) + 1.0
 LN_EPS = 1e-8
 MAX_KEYS = 256    # the short-memory regime, as in the JAX package
 MAX_D = 128       # the kernels' widest d (every d up to it)
+# the backward's designs (`chain_bwd_design`): "staged", a block a batch
+# row with each hop's K, V and tprec rows in shared memory, at L up to
+# STAGED_KEYS and d a multiple of 16 up to MAX_D; "rows" (the first
+# design, the rows read from global memory key by key) at every other
+# shape
+BWD_DESIGNS = ("staged", "rows")
+STAGED_KEYS = 64
+# the staged design's thread mapping: 16 half-warps (the slices of its
+# sums over k and over keys) of 16 lanes (a lane 8 columns), 8 warps
+HALVES, GROUP, WARPS = 16, 8, 8
 
 # the operands, in the order the functions take them
 _OPERANDS = ("dec", "klen", "qz", "k_all", "v_all", "tprec", "gate_part",
@@ -50,7 +63,8 @@ _GRADS = ("ddec", "dk", "dv", "dt", "dgp", "dwo2", "dwq", "dbq", "dlng",
 
 # kernel launches (the plain twins are not counted)
 launches = 0
-bwd_launches = 0
+bwd_launches = 0         # either backward design
+bwd_rows_launches = 0    # the rows design alone
 
 
 def supported(tk_len: int, d: int, num_heads: int) -> bool:
@@ -197,7 +211,8 @@ def readout_chain_bwd(g, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
     chain.  Returns (ddec [B,d] in g's type, dk, dv, dt [n,B,L,d] and dgp
     [n,B,L] in their inputs' type, and the f32 batch sums dwo2 [n,L], dwq
     [n,d,d], dbq, dlng, dlnb [n,d]).  CPU tensors run
-    `readout_chain_bwd_plain`; CUDA tensors launch the kernel."""
+    `readout_chain_bwd_plain`; CUDA tensors launch the kernel in the
+    design `chain_bwd_design` picks."""
     args = (klen, qz, k_all, v_all, tprec, gate_part, wo2, wq, bq, lng, lnb)
     n, b, _, d = k_all.shape
     _check((None,) + args)
@@ -216,13 +231,48 @@ def readout_chain_bwd(g, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
     return _launch_bwd(g, args, curs)
 
 
-def _launch_bwd(g, args, curs):
-    global bwd_launches
+def chain_bwd_design(dtype: torch.dtype, tk: int, d: int) -> str:
+    """The backward's design for a shape.  "staged" at 1 <= L <=
+    STAGED_KEYS keys with d a multiple of 16 up to MAX_D, in f32 and bf16
+    (MTAM's training readout at L=50, d=128, and the narrow d=16): a
+    block a batch row stages each hop's K, V and tprec rows in shared
+    memory once.  "rows" elsewhere (L = 65-256, other d).  The staged
+    launch also wants k_all, v_all, tprec and wq 16-byte aligned; a
+    launch given others takes "rows"."""
+    if dtype not in DTYPES:
+        raise TypeError(f"readout_chain_bwd: no design for {dtype}")
+    if 1 <= tk <= STAGED_KEYS and d % 16 == 0 and 16 <= d <= MAX_D:
+        return "staged"
+    return "rows"
+
+
+def _launch_bwd(g, args, curs, _design=None):
+    """Launch the backward in the design `chain_bwd_design` picks (the
+    rows design where the staged one is picked but an operand it reads
+    16 bytes at a time is not 16-byte aligned).  ``_design="rows"``
+    forces the earlier design (chip_smoke.py holds and times it beside
+    the staged design); "staged" only where it is picked.  The main path
+    passes nothing.  A design that fails to build or launch raises: there
+    is no fallback."""
+    global bwd_launches, bwd_rows_launches
     k_all = args[2]
+    n, b, tk, d = k_all.shape
+    picked = chain_bwd_design(k_all.dtype, tk, d)
+    design = picked if _design is None else _design
+    if design not in (picked, "rows"):
+        raise ValueError(
+            f"readout_chain_bwd: design {design!r} does not take L={tk}, "
+            f"d={d} (chain_bwd_design: {picked!r})")
+    if design == "staged" and any(t.data_ptr() % 16
+                                  for t in (args[2], args[3], args[4],
+                                            args[7])):
+        if _design is not None:
+            raise ValueError("readout_chain_bwd: the staged design takes "
+                             "k_all, v_all, tprec and wq 16-byte aligned")
+        design = "rows"
     device, stream = build.launch_context((g,) + args + (curs,),
                                           "readout_chain_bwd")
     _kernel_shape("readout_chain_bwd", k_all)
-    n, b, tk, d = k_all.shape
     lib = _bwd_library()
     typed = dict(dtype=k_all.dtype, device=k_all.device)
     f32 = dict(dtype=torch.float32, device=k_all.device)
@@ -231,15 +281,18 @@ def _launch_bwd(g, args, curs):
              torch.empty((n, b, tk), **typed), torch.empty((n, tk), **f32),
              torch.empty((n, d, d), **f32),
              *(torch.empty((n, d), **f32) for _ in range(3)))
-    ws = torch.empty((lib.readout_chain_bwd_workspace_bytes(b, tk, d, n),),
-                     dtype=torch.uint8, device=k_all.device)
+    design_id = BWD_DESIGNS.index(design)
+    ws = torch.empty((lib.readout_chain_bwd_workspace_bytes(
+        design_id, b, tk, d, n),), dtype=torch.uint8, device=k_all.device)
     status = lib.readout_chain_bwd_launch(
-        int(k_all.dtype == torch.bfloat16), g.data_ptr(),
+        design_id, int(k_all.dtype == torch.bfloat16), g.data_ptr(),
         *(t.data_ptr() for t in args), curs.data_ptr(),
         *(t.data_ptr() for t in grads), ws.data_ptr(), b, tk, d, n,
         1.0 / d ** 0.5, device, stream)
-    build.check(lib, status, "readout_chain_bwd")
+    build.check(lib, status, f"readout_chain_bwd ({design})")
     bwd_launches += 1
+    if design == "rows":
+        bwd_rows_launches += 1
     return grads
 
 
@@ -248,10 +301,14 @@ def _bwd_library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.readout_chain_bwd_launch.argtypes = (
-            [ci] + [vp] * 24 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            [ci, ci] + [vp] * 24 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.readout_chain_bwd_launch.restype = ci
-        lib.readout_chain_bwd_workspace_bytes.argtypes = [ci] * 4
+        lib.readout_chain_bwd_workspace_bytes.argtypes = [ci] * 5
         lib.readout_chain_bwd_workspace_bytes.restype = ctypes.c_longlong
+        lib.readout_chain_bwd_staged_smem_bytes.argtypes = [ci] * 3
+        lib.readout_chain_bwd_staged_smem_bytes.restype = ctypes.c_longlong
+        lib.readout_chain_bwd_staged_blocks_per_sm.argtypes = [ci] * 4
+        lib.readout_chain_bwd_staged_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -309,6 +366,158 @@ def readout_chain_bwd_plain(g, klen, qz, k_all, v_all, tprec, gate_part, wo2,
                              ).to(dt_).float()
         dcur = dcur + dq_pre @ wq[i].float().T
         dwq[i] = h["cur_c"].T @ dq_pre
+        dbq[i] = dq_pre.sum(0)
+    return (dcur.to(g.dtype), dk, dv, dt, dgp, dwo2, dwq, dbq, dlng, dlnb)
+
+
+def _warps_in_order(parts):
+    """The staged design's combine of HALVES half-warp partials [16, ...]:
+    half-warps 2w and 2w+1 added, then the warps' sums in order from 0."""
+    pairs = parts[0::2] + parts[1::2]
+    out = torch.zeros_like(pairs[0])
+    for w in range(WARPS):
+        out = out + pairs[w]
+    return out
+
+
+def _lanes_tree(parts):
+    """The sum over a half-warp's 16 lanes [16, ...] as its xor shuffles
+    take it (offsets 8, 4, 2, 1); lane 0's result."""
+    idx = torch.arange(HALVES)
+    for off in (8, 4, 2, 1):
+        parts = parts + parts[idx ^ off]
+    return parts[0]
+
+
+def _lane_columns(d: int, dtype: torch.dtype) -> torch.Tensor:
+    """[d / 8, 8]: the columns lane c of a half-warp owns in the staged
+    design, so that a quarter-warp's 16-byte accesses cover 128
+    contiguous bytes: bf16 8c .. 8c+7; f32 4c .. 4c+3 and d/2 + 4c ..
+    d/2 + 4c+3."""
+    c = torch.arange(d // GROUP)[:, None]
+    if dtype == torch.bfloat16:
+        return GROUP * c + torch.arange(GROUP)[None, :]
+    j = torch.arange(GROUP // 2)[None, :]
+    return torch.cat([4 * c + j, d // 2 + 4 * c + j], dim=1)
+
+
+def _lanes_dot(a, x, cols):
+    """sum_e a[..., e] x[..., e] the staged design's way: each lane its
+    columns ``cols`` [G, 8], then `_lanes_tree` over the 16 lanes (lanes
+    past G add 0).  a and x broadcast; the sum leaves the last axis."""
+    per_lane = (a[..., cols] * x[..., cols]).sum(-1)         # [..., G]
+    lanes = torch.zeros((HALVES,) + per_lane.shape[:-1], dtype=x.dtype,
+                        device=x.device)
+    lanes[:cols.shape[0]] = per_lane.movedim(-1, 0)
+    return _lanes_tree(lanes)
+
+
+def _key_slices(coef, x):
+    """sum_l coef[:, l] x[:, l] over the STAGED_KEYS padded keys the
+    staged design's way: half-warp h takes keys h, h+16, ..., then
+    `_warps_in_order` -> [B,d]."""
+    return _warps_in_order(torch.stack([
+        torch.einsum("bl,bld->bd", coef[:, h::HALVES], x[:, h::HALVES])
+        for h in range(HALVES)]))
+
+
+def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
+                             wo2, wq, bq, lng, lnb, curs):
+    """The staged design's steps in plain PyTorch, the same outputs as
+    `readout_chain_bwd_plain` (its rounding points too): the query pass
+    (q = relu(cur_c Wq + bq) for every hop and row, by the 16 k-slices k =
+    h, h+16, ... combined by `_warps_in_order`); per hop, the row's K
+    and tprec staged zero past the live keys and V past the reached
+    ones, all zero-padded to STAGED_KEYS rows; the score dots q.K_l,
+    cur.tprec_l and do.V_l by `_lanes_dot` over the lane columns of
+    `_lane_columns`; the weighted sum o, sum dpre_l tprec_l and dq = sum
+    ds0_l K_l over the padded keys by `_key_slices`; dk, dt zero past the
+    live keys and dv past the reached ones; dq_pre Wq^T a row of Wq at a
+    time by `_lanes_dot` over the lane columns of k.  Takes d a multiple
+    of 16 up to MAX_D and L up to STAGED_KEYS (the design's range;
+    chain_bwd_design)."""
+    live, qzf, scale = _row_terms(klen, qz, k_all)
+    n, b, tk, d = k_all.shape
+    if chain_bwd_design(k_all.dtype, tk, d) != "staged":
+        raise ValueError(f"_staged_bwd_design_plain: the staged design does "
+                         f"not take L={tk}, d={d}")
+    dt_ = k_all.dtype
+    cols = _lane_columns(d, dt_)
+    n_live = klen.clamp(0, tk)
+    reached = torch.where(n_live > 0, n_live, torch.full_like(n_live, tk))
+    keys = torch.arange(STAGED_KEYS, device=k_all.device)[None, :]
+    live64 = (keys < n_live[:, None]).float()[:, :, None]
+    reached64 = (keys < reached[:, None]).float()[:, :, None]
+
+    def staged(x, rows):
+        out = torch.zeros((b, STAGED_KEYS, d), dtype=torch.float32,
+                          device=x.device)
+        out[:, :tk] = x.float()
+        return out * rows
+
+    def pad_keys(x):
+        out = torch.zeros((b, STAGED_KEYS), dtype=torch.float32,
+                          device=x.device)
+        out[:, :tk] = x
+        return out
+
+    # the query pass: cur_c and q of every hop and row, the sum over k in
+    # the 16 slices k = h, h+16, ... combined by `_warps_in_order`
+    cur_cs = curs.to(dt_).float()
+    wqf = wq.float()
+    qs = torch.relu(_warps_in_order(torch.stack([
+        cur_cs[:, :, h::HALVES] @ wqf[:, h::HALVES] for h in range(HALVES)]))
+        + bq.float()[:, None, :])
+    dk, dv, dt = (torch.empty_like(x) for x in (k_all, v_all, tprec))
+    dgp = torch.empty_like(gate_part)
+    f32 = dict(dtype=torch.float32, device=k_all.device)
+    dwo2 = torch.zeros(wo2.shape, **f32)
+    dwq = torch.zeros(wq.shape, **f32)
+    dbq, dlng, dlnb = (torch.zeros(bq.shape, **f32) for _ in range(3))
+    dcur = g.float()
+    for i in range(n - 1, -1, -1):
+        ks, vs, ts = (staged(k_all[i], live64), staged(v_all[i], reached64),
+                      staged(tprec[i], live64))
+        cur, cur_c, q = curs[i], cur_cs[i], qs[i]
+        s0 = _lanes_dot(q[:, None, :], ks, cols)[:, :tk]
+        tqk = torch.tanh(_lanes_dot(cur[:, None, :], ts, cols)[:, :tk])
+        sig = torch.sigmoid(gate_part[i].float() + wo2[i].float() * tqk)
+        w = torch.softmax(torch.where(live, s0 * sig * scale,
+                                      torch.full_like(s0, NEG_FILL)), dim=-1)
+        x = _key_slices(pad_keys(w), vs) * qzf + cur
+        mu = x.mean(dim=-1, keepdim=True)
+        inv = 1.0 / torch.sqrt(torch.square(x - mu).mean(dim=-1, keepdim=True)
+                               + LN_EPS)
+        xh = (x - mu) * inv
+        g_i = dcur
+        dlng[i] = (g_i * xh).sum(0)
+        dlnb[i] = g_i.sum(0)
+        dxh = g_i * lng[i].float()
+        dx = (dxh - dxh.mean(-1, keepdim=True)
+              - xh * (dxh * xh).mean(-1, keepdim=True)) * inv
+        do = dx * qzf
+        dcur = dx                                   # the residual branch
+        dw = _lanes_dot(do[:, None, :], vs, cols)[:, :tk]
+        sdw = torch.where(live, dw * w, torch.zeros_like(dw)).sum(
+            -1, keepdim=True)
+        ds = torch.where(live, w * (dw - sdw), torch.zeros_like(dw))
+        dgate = ds * s0 * scale * sig * (1.0 - sig)
+        ds0 = ds * sig * scale
+        dpre = dgate * wo2[i].float() * (1.0 - tqk * tqk)
+        dgp[i] = dgate.to(dt_)
+        dwo2[i] = (dgate * tqk).sum(0)
+        # the [L, D] cotangents over all L keys
+        dv[i] = ((w * reached64[:, :tk, 0])[:, :, None]
+                 * do[:, None, :]).to(dt_)
+        dt[i] = (dpre[:, :, None] * cur[:, None, :]).to(dt_)
+        dk[i] = (ds0[:, :, None] * q[:, None, :]).to(dt_)
+        dcur = dcur + _key_slices(pad_keys(dpre), ts)
+        dq = _key_slices(pad_keys(ds0), ks)
+        dq_pre = torch.where(q > 0, dq, torch.zeros_like(dq)).to(dt_).float()
+        # dq_pre Wq^T: row e of Wq, lane c its k columns
+        dcur = dcur + _lanes_dot(dq_pre[:, None, :], wq[i].float()[None],
+                                 cols)
+        dwq[i] = cur_c.T @ dq_pre
         dbq[i] = dq_pre.sum(0)
     return (dcur.to(g.dtype), dk, dv, dt, dgp, dwo2, dwq, dbq, dlng, dlnb)
 
