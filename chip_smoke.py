@@ -11,13 +11,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      registers and spill bytes ptxas gives gru_scan_kernel's
      instantiations (those at u=128 printed), the two kernels of
      fused_readout's "gemm" design, the four of fused_readout_bwd's,
-     scatter_add's columns_sum and the attention forward's tile design;
+     scatter_add's columns_sum, the attention forward's tile design and
+     the chain readout pair's staged designs;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
      B=256, the kernel's time, the twin's time, the least time the card
      could take (bound) and, where one PyTorch call computes the same
-     function, that call's time; gru_scan in each mode in its default
+     function, that call's time (fused_attention at Tq=1, MTAM's
+     serving hops, also the profiler's device time and the host time a
+     call); gru_scan in each mode in its default
      "sliced" design, the same bits twice, with the earlier "unit_column"
      design forced and held beside it and timed on the same inputs in
      turns (default, unit_column, unit_column, default);
@@ -79,9 +82,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      readout_chain_bwd at B = 1, 16, 256 x L = 50, 255 (d=128, 3 hops)
      and at B=16, L=50 with d = 16 and 64, in f32 and bf16 (positional
      and scalar wo2 rows, ragged key lengths, one row with no live key
-     and no score gradient, one masked query), two backward launches
-     bit-equal; both timed at phase 4's shape (B=256, L=50, every key
-     live);
+     and no score gradient, one masked query), each in the design the
+     wrapper picks ("staged" at L=50, "rows" at L=255), two launches of
+     each bit-equal, at L=50 also the "rows" design forced beside the
+     staged one, held and bit-equal the same way; both timed at phase 4's
+     shape (B=256, L=50, every key live), each design pair in turns
+     (staged, rows, rows, staged) by events, by the profiler's device
+     time and its split by launch, and by the host time a call, with the
+     staged kernels' shared memory a block and blocks an SM;
   3. the serving slice: Recommender.recommend at full width (MTAM d=128,
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
@@ -96,8 +104,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      the card's own run; the parameters after each step taken from the
      CPU's parameters and Adam state before it), launch counts
      per step (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1 readout_chain, 1
-     readout_chain_bwd, 0 fused_attention), and the time per step,
-     examples/s and device idle share in bf16 and f32, with the same
+     readout_chain_bwd, both in the staged design, 0 fused_attention),
+     and the time per step, examples/s and device idle share in bf16 and
+     f32, then in turns with the chain backward and then the chain
+     forward forced to its rows design (default, rows, rows, default),
+     with the same
      run's readout alone at the step's shape, forward + backward, timed
      both ways (single_query_readout under autograd, readout_chain_stack),
      and the step itself both ways, in turns; then one step at
@@ -367,58 +378,65 @@ class Timer:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
-    def device(self, fn, iters=20, warmup=3):
-        """Device time per call from torch.profiler: the kernels ``fn``
-        launches, each call after the same L2 flush as __call__, the
-        flush's own kernel (the uint8 fill) left out; None where the
-        profiler sees no device time."""
+    def _profiled(self, fn, iters, warmup):
+        """The device kernels ``fn`` launches over ``iters`` calls, each
+        after the L2 flush, as (key, device us a call) from torch.profiler's
+        averages, the flush's own kernel (the uint8 fill) left out.  A
+        kernel's time a call is the mean of its recorded launches times
+        its launches a call (its record count over ``iters``, rounded):
+        in a long process the profiler drops some records (and a kernel
+        with fewer records than half of ``iters`` is a stray of an
+        earlier call).  None where it records no device time or a
+        kernel's count is no near multiple of ``iters``, after two
+        tries."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        for _ in range(2):   # the profiler now and then records nothing
+        for _ in range(2):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
                     self.flush.zero_()
                     fn()
                 torch.cuda.synchronize()
-            total = sum(
-                getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")
-                and "FillFunctor<unsigned char>" not in e.key
-                and not e.key.startswith("Activity Buffer"))
-            if total > 0:
-                return total / 1e3 / iters
+            rows = []
+            for e in prof.key_averages():
+                if (not str(getattr(e, "device_type", "")).endswith("CUDA")
+                        or e.key.startswith("Activity Buffer")
+                        or "FillFunctor<unsigned char>" in e.key
+                        or not e.count):
+                    continue
+                per_call = round(e.count / iters)
+                if per_call < 1:      # a stray record of an earlier call
+                    continue
+                if abs(e.count / iters - per_call) > 0.25:
+                    rows = None
+                    break
+                rows.append((e.key, getattr(e, "self_device_time_total", 0)
+                             / e.count * per_call))
+            if rows and sum(t for _, t in rows) > 0:
+                return rows
         return None
+
+    def device(self, fn, iters=20, warmup=3):
+        """Device time per call from torch.profiler (`_profiled`): the
+        kernels ``fn`` launches, each call after the same L2 flush as
+        __call__, the flush's own kernel left out; None where the
+        profiler gives none."""
+        rows = self._profiled(fn, iters, warmup)
+        return None if rows is None else sum(t for _, t in rows) / 1e3
 
     def passes(self, fn, iters=5, warmup=2):
         """Device time per call of each kernel ``fn`` launches, by kernel
-        function name, from torch.profiler (each call after the L2 flush,
-        the flush's own kernel left out); {} where the profiler sees no
-        device time."""
-        from torch.profiler import ProfilerActivity, profile
-
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
+        function name, from torch.profiler (`_profiled`); {} where the
+        profiler gives none."""
         split = {}
-        for e in prof.key_averages():
-            total = getattr(e, "self_device_time_total", 0)
-            if (not str(getattr(e, "device_type", "")).endswith("CUDA")
-                    or total <= 0 or "FillFunctor<unsigned char>" in e.key):
-                continue
-            found = re.search(r"::(\w+)[<(]", e.key)
-            name = found.group(1) if found else e.key[:60]
-            split[name] = split.get(name, 0.0) + total / 1e3 / iters
+        for key, per_call in self._profiled(fn, iters, warmup) or ():
+            found = re.search(r"::(\w+)[<(]", key)
+            name = found.group(1) if found else key[:60]
+            split[name] = split.get(name, 0.0) + per_call / 1e3
         return split
 
     def host(self, fn, iters=200, warmup=3):
@@ -699,10 +717,14 @@ def check_kernels(torch, timer, iters, failures):
                     e, r, o = _agree(ak.fused_attention(mode, *args), want,
                                      dname)
                     err, rel, ok = max(err, e), max(rel, r), ok and o
+                run = lambda: ak.fused_attention(mode, *args)  # noqa: E731
                 row = {"max_abs_err": err, "rel_err": rel,
                        "tol": KERNEL_TOL[dname], "ok": ok,
-                       "ms": timer(lambda: ak.fused_attention(mode, *args),
-                                   iters),
+                       "ms": timer(run, iters),
+                       # MTAM's serving hops (Tk = 50): the profiler's
+                       # device time and the host time a call
+                       **({"device_ms": timer.device(run),
+                           "host_ms": timer.host(run)} if tk == 50 else {}),
                        "plain_ms": timer(
                            lambda: ak.fused_attention_plain(mode, *args),
                            max(iters // 10, 3)),
@@ -716,7 +738,9 @@ def check_kernels(torch, timer, iters, failures):
                                    {})[key] = row
                 print(f"fused_attention {mode:6s} Tk={tk:<5d}{dname:9s} "
                       f"max_abs_err={err:.3e} rel={rel:.3e} ms="
-                      f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                      f"{row['ms']:.4f} device_ms={row.get('device_ms')} "
+                      f"host_ms={row.get('host_ms')} plain_ms="
+                      f"{row['plain_ms']:.4f} "
                       f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
                       f"library_ms={row.get('library_ms')} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -2032,6 +2056,7 @@ def _counts():
             "fused_readout": {"fused_readout": rk.launches},
             "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches},
             "readout_chain": {"readout_chain": rc.launches},
+            "readout_chain_rows": {"readout_chain_rows": rc.rows_launches},
             "readout_chain_bwd": {"readout_chain_bwd": rc.bwd_launches},
             "readout_chain_bwd_rows": {
                 "readout_chain_bwd_rows": rc.bwd_rows_launches}}
@@ -2049,7 +2074,8 @@ def _reset_counts():
         for m in counts:
             counts[m] = 0
     rk.launches = rk.bwd_launches = 0
-    rc.launches = rc.bwd_launches = rc.bwd_rows_launches = 0
+    rc.launches = rc.rows_launches = 0
+    rc.bwd_launches = rc.bwd_rows_launches = 0
 
 
 def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
@@ -2060,8 +2086,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     (at Tq = Tk = 50: the forward's query design and the backward's rows
     design never);
     the fused readout and its backward once a step with ``readout``, the
-    chain readout's pair with ``chain`` (the backward's rows design
-    never: at L=50 it takes the staged design); the dense route's
+    chain readout's pair with ``chain`` (the rows designs never: at L=50
+    both take the staged design); the dense route's
     forward and
     backward ``blocks`` times a step in the modes given; no blockwise
     launch (the callers that expect one add it)."""
@@ -2095,6 +2121,7 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             "fused_readout": {"fused_readout": steps * int(readout)},
             "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)},
             "readout_chain": {"readout_chain": steps * int(chain)},
+            "readout_chain_rows": {"readout_chain_rows": 0},
             "readout_chain_bwd": {"readout_chain_bwd": steps * int(chain)},
             "readout_chain_bwd_rows": {"readout_chain_bwd_rows": 0}}
 
@@ -2334,7 +2361,9 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
                                "attention_kernel", "_launch", "query"),
            "readout_chain_bwd": ("readout_chain_bwd_steps_in_turns",
                                  "readout_chain_kernel", "_launch_bwd",
-                                 "rows")}
+                                 "rows"),
+           "readout_chain": ("readout_chain_steps_in_turns",
+                             "readout_chain_kernel", "_launch", "rows")}
 
 
 @contextlib.contextmanager
@@ -2371,7 +2400,7 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
         # a kernel with a count of its earlier design's launches forced:
         # they take the earlier design (counted under
         # "fused_attention_query", "fused_attention_bwd_rows",
-        # "readout_chain_bwd_rows")
+        # "readout_chain_bwd_rows", "readout_chain_rows")
         counts = want(steps, dname)
         earlier = f"{kernel}_{design}"
         counts[earlier] = ({earlier: counts[kernel][kernel]}
@@ -2383,7 +2412,7 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
         forced = turn == design
         turn_want = want_forced if forced and kernel in (
             "fused_attention", "fused_attention_bwd",
-            "readout_chain_bwd") else want
+            "readout_chain_bwd", "readout_chain") else want
         with (forced_design(kernel) if forced
               else contextlib.nullcontext()):
             runs[turn].append(timed_steps(torch, setup, failures, name,
@@ -2393,8 +2422,8 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
 
 
 UNMODED = ("dtable", "gather", "scatter_add", "fused_readout",
-           "fused_readout_bwd", "readout_chain", "readout_chain_bwd",
-           "readout_chain_bwd_rows")
+           "fused_readout_bwd", "readout_chain", "readout_chain_rows",
+           "readout_chain_bwd", "readout_chain_bwd_rows")
 
 
 def _add_launches(main_launches, counts):
@@ -2539,8 +2568,9 @@ def run_training(torch, setup, failures):
     """Phase 4: MTAM's step (its readout through the chain pair), one
     step and five f32 steps against the CPU, then timed in bf16 and f32,
     then in turns with the chain backward forced to its rows design
-    (default, rows, rows, default); the readout alone and the step, each
-    both ways."""
+    (default, rows, rows, default; 20 steps a turn), then likewise with
+    the chain forward forced (10 steps a turn); the readout alone and the
+    step, each both ways."""
     report = {"ids_in_range": setup.ids_in_range}
     if not all(report["ids_in_range"].values()):
         failures.append(f"training ids out of range: {report['ids_in_range']}")
@@ -2554,6 +2584,8 @@ def run_training(torch, setup, failures):
                               main_launches))
     report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
                                  kernel="readout_chain_bwd"))
+    report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
+                                 kernel="readout_chain", steps=10))
     report["readout_alone"] = readout_alone(torch, setup, failures)
     report["step_both_ways"] = step_both_ways(torch, setup)
     return report, main_launches
@@ -3181,7 +3213,8 @@ def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
 
 CHAIN_CASES = ([(bs, L, 128) for L in (50, 255) for bs in (1, 16, 256)]
                + [(16, 50, 16), (16, 50, 64)])
-# the staged design's templated kernels (phase 1's ptxas lines)
+# the staged designs' templated kernels (phase 1's ptxas lines)
+CHAIN_FWD_STAGED_KERNELS = ("chain_fwd_staged_kernel",)
 CHAIN_BWD_STAGED_KERNELS = ("chain_bwd_query_kernel",
                             "chain_bwd_staged_kernel")
 
@@ -3261,6 +3294,71 @@ def chain_bwd_bound(args, dtype_name):
     return _bound(nbytes, flops, dtype_name)
 
 
+def check_chain_fwd(torch, rc, args, dname):
+    """readout_chain on the card against its twin: the design the wrapper
+    picks, two launches the same bits (out and curs); at L=50 (where the
+    staged design is picked) also the rows design forced on the same
+    inputs, held the same way, and the two designs against each other.
+    Returns (design, curs, {err, rel, ok, same, rows_rel,
+    staged_vs_rows_rel, rows_same})."""
+    k = args[3]
+    design = rc.chain_fwd_design(k.dtype, k.shape[2], k.shape[3])
+    want = rc.readout_chain_plain(*args)
+
+    def hold(got, ref):
+        err = rel = 0.0
+        ok = True
+        for a, b in zip(got, ref):
+            e, r, o = _agree(a, b, dname)
+            err, rel, ok = max(err, e), max(rel, r), ok and o
+        return err, rel, ok
+
+    got = rc.readout_chain(*args)
+    again = rc.readout_chain(*args)
+    err, rel, ok = hold(got, want)
+    out = {"err": err, "rel": rel, "ok": ok,
+           "same": all(torch.equal(a, b) for a, b in zip(got, again))}
+    if design == "staged" and k.shape[2] == 50:
+        rows = rc._launch(args, _design="rows")
+        rows_again = rc._launch(args, _design="rows")
+        _, out["rows_rel"], rows_ok = hold(rows, want)
+        _, out["staged_vs_rows_rel"], both_ok = hold(got, rows)
+        out["rows_same"] = all(torch.equal(a, b)
+                               for a, b in zip(rows, rows_again))
+        out["ok"] = out["ok"] and rows_ok and both_ok and out["rows_same"]
+    return design, got[1], out
+
+
+def time_chain_fwd(timer, rc, args, iters):
+    """The forward's time at phase 4's shape: the staged design (picked)
+    and the rows design forced on the same inputs in turns (staged, rows,
+    rows, staged), both through `_launch` (`_in_turns`), and the host
+    time of a public call (`readout_chain`, its operand checks too)."""
+    run = lambda: rc._launch(args)  # noqa: E731
+    rows = lambda: rc._launch(args, _design="rows")  # noqa: E731
+    return {**_in_turns(timer, run, rows, iters),
+            "call_host_ms": timer.host(lambda: rc.readout_chain(*args))}
+
+
+def _in_turns(timer, run, rows, iters):
+    """``run`` (the picked design) and ``rows`` (the rows design forced),
+    both through the same launch function, in turns (run, rows, rows,
+    run) by CUDA events and by the profiler's device time, then each
+    one's split by kernel and host time a call."""
+    a, b1, b2, a2 = (timer(run, iters), timer(rows, iters),
+                     timer(rows, iters), timer(run, iters))
+    d, e1, e2, d2 = (timer.device(run), timer.device(rows),
+                     timer.device(rows), timer.device(run))
+    mean = lambda x, y: None if None in (x, y) else (x + y) / 2  # noqa: E731
+    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+            "rows_ms": (b1 + b2) / 2, "rows_ms_repeats": [b1, b2],
+            "device_ms": mean(d, d2), "device_ms_repeats": [d, d2],
+            "rows_device_ms": mean(e1, e2), "rows_device_ms_repeats": [e1, e2],
+            "passes_ms": timer.passes(run),
+            "rows_passes_ms": timer.passes(rows),
+            "host_ms": timer.host(run), "rows_host_ms": timer.host(rows)}
+
+
 def check_chain_bwd(torch, rc, g, args, curs, dname):
     """readout_chain_bwd on the card against its twin: the design the
     wrapper picks, two launches the same bits, every score-side cotangent
@@ -3304,36 +3402,32 @@ def check_chain_bwd(torch, rc, g, args, curs, dname):
 def time_chain_bwd(timer, rc, g, args, curs, iters):
     """The backward's time at phase 4's shape: the staged design (picked)
     and the rows design forced on the same inputs in turns (staged, rows,
-    rows, staged) by CUDA events and by the profiler's device time, each
-    one's split by kernel (staged: the query pass, the staged kernel, the
-    batch sums, dwq; rows: the rows kernel, the batch sums) and host time
-    a call."""
-    run = lambda: rc.readout_chain_bwd(g, *args[1:], curs)  # noqa: E731
+    rows, staged), both through `_launch_bwd` (`_in_turns`; each one's
+    split by kernel, staged: the query pass, the staged kernel, the batch
+    sums, dwq; rows: the rows kernel, the batch sums), and the host time
+    of a public call (`readout_chain_bwd`, its operand checks too)."""
+    run = lambda: rc._launch_bwd(g, args[1:], curs)  # noqa: E731
     rows = lambda: rc._launch_bwd(  # noqa: E731
         g, args[1:], curs, _design="rows")
-    a, b1, b2, a2 = (timer(run, iters), timer(rows, iters),
-                     timer(rows, iters), timer(run, iters))
-    d, e1, e2, d2 = (timer.device(run), timer.device(rows),
-                     timer.device(rows), timer.device(run))
-    mean = lambda x, y: None if None in (x, y) else (x + y) / 2  # noqa: E731
-    return {"ms": (a + a2) / 2, "ms_repeats": [a, a2],
-            "rows_ms": (b1 + b2) / 2, "rows_ms_repeats": [b1, b2],
-            "device_ms": mean(d, d2), "device_ms_repeats": [d, d2],
-            "rows_device_ms": mean(e1, e2), "rows_device_ms_repeats": [e1, e2],
-            "passes_ms": timer.passes(run),
-            "rows_passes_ms": timer.passes(rows),
-            "host_ms": timer.host(run), "rows_host_ms": timer.host(rows)}
+    return {**_in_turns(timer, run, rows, iters),
+            "call_host_ms": timer.host(
+                lambda: rc.readout_chain_bwd(g, *args[1:], curs))}
 
 
-def chain_bwd_occupancy(rc, dname, L=50, d=128):
-    """The chain backward's staged kernel's shared memory a block (bytes,
-    static and dynamic) and blocks an SM (the occupancy calculator's) at
-    (L, d) in dtype ``dname``."""
-    lib = rc._bwd_library()
+def chain_occupancy(rc, dname, bwd, L=50, d=128):
+    """The chain forward's (``bwd`` False) or backward's staged kernel's
+    shared memory a block (bytes, static and dynamic) and blocks an SM
+    (the occupancy calculator's) at (L, d) in dtype ``dname``."""
     is_bf16 = int(dname == "bfloat16")
-    return {"smem_bytes": lib.readout_chain_bwd_staged_smem_bytes(
-                is_bf16, L, d),
-            "blocks_per_sm": lib.readout_chain_bwd_staged_blocks_per_sm(
+    if bwd:
+        lib = rc._bwd_library()
+        return {"smem_bytes": lib.readout_chain_bwd_staged_smem_bytes(
+                    is_bf16, L, d),
+                "blocks_per_sm": lib.readout_chain_bwd_staged_blocks_per_sm(
+                    is_bf16, L, d, 0)}
+    lib = rc._library()
+    return {"smem_bytes": lib.readout_chain_staged_smem_bytes(is_bf16, L, d),
+            "blocks_per_sm": lib.readout_chain_staged_blocks_per_sm(
                 is_bf16, L, d, 0)}
 
 
@@ -3341,22 +3435,25 @@ def check_chain_kernels(torch, timer, iters, failures):
     """Phase 2f: readout_chain and readout_chain_bwd against their plain
     twins at CHAIN_CASES in f32 and bf16 (positional wo2 rows at L=50,
     scalar at L=255 and the narrow widths; ragged keys, one row with no
-    live key, one masked query): the forward's output and hop-input
-    chain, the backward's ten cotangents from the kernel's chain in the
-    design `chain_bwd_design` picks ("staged" at L=50, "rows" at L=255),
-    every score-side cotangent of a row with no live key exactly 0, two
-    backward launches bit-equal, at L=50 the rows design forced beside
-    the staged one (`check_chain_bwd`); timed at phase 4's shape (B=256,
-    L=50, d=128, every key live) with the twins beside them, the
-    backward's two designs in turns with the profiler's split by kernel
-    (`time_chain_bwd`), the forward's device time by the profiler."""
+    live key, one masked query), each in the design the wrapper picks
+    ("staged" at L=50, "rows" at L=255), two launches of each
+    bit-equal, at L=50 the rows design forced beside the staged one: the
+    forward's output and hop-input chain (`check_chain_fwd`), the
+    backward's ten cotangents from the kernel's chain, every score-side
+    cotangent of a row with no live key exactly 0 (`check_chain_bwd`);
+    timed at phase 4's shape (B=256, L=50, d=128, every key live) with
+    the twins beside them, each kernel's two designs in turns with the
+    profiler's split by kernel (`time_chain_fwd`, `time_chain_bwd`) and
+    its staged kernel's shared memory and blocks an SM."""
     from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
 
     gen = torch.Generator(device=DEVICE).manual_seed(97531)
     entries = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        fwd = {"err": 0.0, "rel": 0.0, "ok": True}
+        fwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
+               "rows_rel": 0.0, "staged_vs_rows_rel": 0.0,
+               "rows_same": True}
         bwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
                "rows_rel": 0.0, "staged_vs_rows_rel": 0.0,
                "rows_same": True}
@@ -3365,42 +3462,33 @@ def check_chain_kernels(torch, timer, iters, failures):
             gate = "positional" if L == 50 and d == 128 else "scalar"
             args = chain_inputs(torch, gen, dtype, bs, L, d, gate=gate,
                                 full=full)
-            out, curs = rc.readout_chain(*args)
-            want_out, want_curs = rc.readout_chain_plain(*args)
-            for a, b in ((out, want_out), (curs, want_curs)):
-                e, r, o = _agree(a, b, dname)
-                fwd = {"err": max(fwd["err"], e), "rel": max(fwd["rel"], r),
-                       "ok": fwd["ok"] and o}
+            fwd_design, curs, fgot = check_chain_fwd(torch, rc, args, dname)
+            fwd = _merge_chain(fwd, fgot)
             g = torch.randn((bs, d), generator=gen, device=DEVICE).to(dtype)
             design, got = check_chain_bwd(torch, rc, g, args, curs, dname)
-            bwd = {"err": max(bwd["err"], got["err"]),
-                   "rel": max(bwd["rel"], got["rel"]),
-                   "ok": bwd["ok"] and got["ok"],
-                   "same": bwd["same"] and got["same"],
-                   "rows_rel": max(bwd["rows_rel"], got.get("rows_rel", 0.0)),
-                   "staged_vs_rows_rel": max(bwd["staged_vs_rows_rel"],
-                                             got.get("staged_vs_rows_rel",
-                                                     0.0)),
-                   "rows_same": bwd["rows_same"] and got.get("rows_same",
-                                                             True)}
-            rows_part = (f" rows rel={got['rows_rel']:.3e} staged-rows rel="
-                         f"{got['staged_vs_rows_rel']:.3e} rows_same_bits="
-                         f"{got['rows_same']}" if "rows_rel" in got else "")
-            print(f"readout_chain(+bwd) B={bs:<3d} L={L:<3d} d={d:<3d} "
-                  f"{gate:10s} {dname:9s} bwd design={design:6s} fwd rel="
-                  f"{fwd['rel']:.3e} bwd rel={got['rel']:.3e} same_bits="
-                  f"{got['same']}{rows_part} "
-                  f"{'ok' if got['ok'] else 'FAIL'}", flush=True)
+            bwd = _merge_chain(bwd, got)
+            for what, x, dz in (("fwd", fgot, fwd_design),
+                                ("bwd", got, design)):
+                rows_part = (f" rows rel={x['rows_rel']:.3e} staged-rows "
+                             f"rel={x['staged_vs_rows_rel']:.3e} "
+                             f"rows_same_bits={x['rows_same']}"
+                             if "rows_rel" in x else "")
+                print(f"readout_chain {what} B={bs:<3d} L={L:<3d} d={d:<3d} "
+                      f"{gate:10s} {dname:9s} design={dz:6s} rel="
+                      f"{x['rel']:.3e} same_bits={x['same']}{rows_part} "
+                      f"{'ok' if x['ok'] else 'FAIL'}", flush=True)
         # args, g and curs are phase 4's shape now, every key live
-        fwd_run = lambda: rc.readout_chain(*args)  # noqa: E731
         rows = {
             "readout_chain": {
+                "design": rc.chain_fwd_design(dtype, 50, 128),
                 "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
-                "tol": KERNEL_TOL[dname], "ok": fwd["ok"],
-                "ms": timer(fwd_run, iters),
-                "device_ms": timer.device(fwd_run),
-                "passes_ms": timer.passes(fwd_run),
-                "host_ms": timer.host(fwd_run),
+                "tol": KERNEL_TOL[dname], "ok": fwd["ok"] and fwd["same"],
+                "same_bits_twice": fwd["same"],
+                "rows_rel_err": fwd["rows_rel"],
+                "staged_vs_rows_rel_err": fwd["staged_vs_rows_rel"],
+                "rows_same_bits_twice": fwd["rows_same"],
+                **time_chain_fwd(timer, rc, args, iters),
+                **chain_occupancy(rc, dname, bwd=False),
                 "plain_ms": timer(lambda: rc.readout_chain_plain(*args),
                                   max(iters // 10, 3)),
                 **chain_bound(args, dname)},
@@ -3413,7 +3501,7 @@ def check_chain_kernels(torch, timer, iters, failures):
                 "staged_vs_rows_rel_err": bwd["staged_vs_rows_rel"],
                 "rows_same_bits_twice": bwd["rows_same"],
                 **time_chain_bwd(timer, rc, g, args, curs, iters),
-                **chain_bwd_occupancy(rc, dname),
+                **chain_occupancy(rc, dname, bwd=True),
                 "plain_ms": timer(lambda: rc.readout_chain_bwd_plain(
                     g, *args[1:], curs), max(iters // 10, 3)),
                 **chain_bwd_bound(args, dname)}}
@@ -3422,7 +3510,8 @@ def check_chain_kernels(torch, timer, iters, failures):
             extra = "".join(
                 f" {k}={row[k]:.4f}" if isinstance(row.get(k), float)
                 else f" {k}={row[k]}" for k in (
-                    "device_ms", "host_ms", "rows_ms", "rows_device_ms",
+                    "design", "device_ms", "host_ms", "call_host_ms",
+                    "rows_ms", "rows_device_ms",
                     "rows_host_ms", "passes_ms", "rows_passes_ms",
                     "smem_bytes", "blocks_per_sm") if k in row)
             print(f"{kname} B={TRAIN_BATCH} L=50 {dname:9s} max_abs_err="
@@ -3433,8 +3522,21 @@ def check_chain_kernels(torch, timer, iters, failures):
             if not row["ok"]:
                 failures.append(f"{kname} {dname}: rel err "
                                 f"{row['rel_err']:.3e}, same bits "
-                                f"{bwd['same']}")
+                                f"{row['same_bits_twice']}")
     return entries
+
+
+def _merge_chain(acc, got):
+    """The worst of `check_chain_fwd`'s or `check_chain_bwd`'s figures so
+    far (``acc``) and one case's (``got``)."""
+    return {"err": max(acc["err"], got["err"]),
+            "rel": max(acc["rel"], got["rel"]),
+            "ok": acc["ok"] and got["ok"],
+            "same": acc["same"] and got["same"],
+            "rows_rel": max(acc["rows_rel"], got.get("rows_rel", 0.0)),
+            "staged_vs_rows_rel": max(acc["staged_vs_rows_rel"],
+                                      got.get("staged_vs_rows_rel", 0.0)),
+            "rows_same": acc["rows_same"] and got.get("rows_same", True)}
 
 
 # ------------------------------------------------------------ phase 7
@@ -3844,10 +3946,12 @@ def kernels_line(entries, launches_by_shape):
             # fused_attention's at Tq=Tk=50: its design, and the query
             # design's time and device time on the same inputs in the same
             # run, in turns, beside the tile design's;
-            # readout_chain_bwd's: its design, its device time and split
-            # by launch, and the rows design's on the same inputs in the
-            # same run, in turns; readout_chain's: its device time and
-            # split by launch
+            # readout_chain's and readout_chain_bwd's: the design, its
+            # device time and split by launch, and the rows design's on
+            # the same inputs in the same run, in turns, both through the
+            # launch function (the JSON: each one's host time, and the
+            # public call's, `call_host_ms`); fused_attention's at Tq=1,
+            # Tk=50: its device time
             **{k: head[k] for k in ("design", "simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms",
@@ -3947,19 +4051,22 @@ def main() -> int:
     for inst, regs, spill_st, spill_ld in fwd_tile_ptxas:
         print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
-    # the chain backward's staged design: its query pass's and staged
-    # kernel's instantiations <type>; phase 2f reports the staged kernel's
-    # shared memory a block and blocks an SM
-    log = built["readout_chain_bwd"]["log"]
-    if log == "already built":
-        log = build.library_path("readout_chain_bwd").with_suffix(
-            ".log").read_text()
-    chain_bwd_ptxas = [row for kname in CHAIN_BWD_STAGED_KERNELS
-                       for row in ptxas_counts(log, kname)]
-    print("ptxas readout_chain_bwd, staged design:", flush=True)
-    for inst, regs, spill_st, spill_ld in chain_bwd_ptxas:
-        print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
-              f"stores, {spill_ld} bytes spill loads", flush=True)
+    # the chain pair's staged designs: the forward's kernel's, the
+    # backward's query pass's and staged kernel's instantiations <type>;
+    # phase 2f reports the staged kernels' shared memory a block and
+    # blocks an SM
+    chain_ptxas = {}
+    for lib_name, knames in (("readout_chain", CHAIN_FWD_STAGED_KERNELS),
+                             ("readout_chain_bwd", CHAIN_BWD_STAGED_KERNELS)):
+        log = built[lib_name]["log"]
+        if log == "already built":
+            log = build.library_path(lib_name).with_suffix(".log").read_text()
+        chain_ptxas[lib_name] = [row for kname in knames
+                                 for row in ptxas_counts(log, kname)]
+        print(f"ptxas {lib_name}, staged design:", flush=True)
+        for inst, regs, spill_st, spill_ld in chain_ptxas[lib_name]:
+            print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+                  f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
 
     # phase 2: kernels against their plain twins
@@ -4097,7 +4204,9 @@ def main() -> int:
                        readout_ptxas["fused_readout_bwd"],
                    "scatter_columns_sum_ptxas": scatter_ptxas,
                    "fused_attention_tile_ptxas": fwd_tile_ptxas,
-                   "readout_chain_bwd_staged_ptxas": chain_bwd_ptxas,
+                   "readout_chain_staged_ptxas": chain_ptxas["readout_chain"],
+                   "readout_chain_bwd_staged_ptxas":
+                       chain_ptxas["readout_chain_bwd"],
                    "phase_s": phase_s, **report, "width_fault": width_fault,
                    "slice": slice_rows, "training": training,
                    "launches_serving": serve_launches,

@@ -1,0 +1,246 @@
+// Shared pieces of the chain readout's "staged" designs: the forward
+// (readout_chain.cu) and the backward (readout_chain_bwd.cu).  Both take
+// one block of 256 threads a batch row, at 1 <= L <= kStagedKeys keys
+// with D a multiple of 16 up to 128, and stage each hop's K and tprec rows
+// of the live keys and V rows of the reached keys in shared memory once
+// (the backward by 16-byte cp.async, `stage_rows`; the forward by bulk
+// copies).  One thread mapping: lane c of half-warp h (16 a block) owns 8
+// columns (`col`), so
+//  - a dot product against every key (`key_dots`) takes a half-warp a key,
+//    keys l = h, h+16, ..., the keys' loads in flight together and their
+//    lane sums in one butterfly (`half_sums`);
+//  - a sum over keys (`key_sum`) takes keys l = h, h+16, ... a half-warp in
+//    key order, then the two half-warps of a warp are added
+//    (`warp_partial`) and the 8 warps' partials in order from warp 0
+//    (`warps_sum`);
+//  - a product with Wq takes its rows h, h+16, ... a half-warp, each row
+//    at the lane's columns by 16-byte loads from L2 (`fetch_wq_rows`).
+// Every sum runs in a fixed order: the same inputs give the same bits.
+// L2 hints: the streamed rows evict first, Wq (read by every block of a
+// hop) last.
+#pragma once
+
+#include <cstdint>
+
+#include "readout_hop.cuh"
+
+namespace chain_staged {
+
+using readout::kMaxD;
+using readout::kThreads;
+using readout::kWarps;
+
+constexpr int kStagedKeys = 64;               // the staged designs' largest L
+constexpr int kHalves = kThreads / 16;        // half-warps a block
+constexpr int kGroup = 8;                     // columns a lane owns
+constexpr int kSlots = kMaxD / kHalves;       // rows of Wq a half-warp takes
+constexpr int kKeySlots = kStagedKeys / kHalves;   // keys a half-warp takes
+constexpr unsigned kFull = 0xffffffffu;
+
+inline bool staged_takes(int L, int D) {
+  return L >= 1 && L <= kStagedKeys && D >= 16 && D <= kMaxD && D % 16 == 0;
+}
+
+// hops of K, V and tprec rows in shared memory at once: bf16
+// double-buffers across hops, f32 (twice the bytes) stages one hop at a
+// time, refilled piece by piece once its last reads are done
+template <typename T>
+constexpr int kStages = sizeof(T) == 2 ? 2 : 1;
+
+inline size_t staged_dynamic_bytes(bool bf16, int L, int D) {
+  return bf16 ? (size_t)2 * 3 * L * D * 2 : (size_t)3 * L * D * 4;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// L2 policies: the rows and cotangents stream through once (evict first);
+// Wq is read by every block of a hop (evict last)
+__device__ __forceinline__ unsigned long long evict_first() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ unsigned long long evict_last() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint4 ldg16(const void* src,
+                                       unsigned long long policy) {
+  uint4 r;
+  asm volatile(
+      "ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(src), "l"(policy));
+  return r;
+}
+
+// The 8 columns lane c of a half-warp owns, so that each 16-byte access
+// of a quarter-warp covers 128 contiguous bytes (no bank conflict, full
+// sectors): in bf16 8c .. 8c+7 (one vector), in f32 4c .. 4c+3 and D/2 +
+// 4c .. D/2 + 4c+3 (two).  x[j] is column col<T>(c, j, D).
+template <typename T>
+__device__ __forceinline__ int col(int c, int j, int D) {
+  if constexpr (sizeof(T) == 2) return kGroup * c + j;
+  else return j < 4 ? 4 * c + j : D / 2 + 4 * c + j - 4;
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    x[2 * j] = f.x;
+    x[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void split(const float4& a, const float4& b,
+                                      float (&x)[8]) {
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+// A lane's 8 elements of a row of T in shared memory, as f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c, int D,
+                                      float (&x)[8]) {
+  unpack(*reinterpret_cast<const uint4*>(row + kGroup * c), x);
+}
+__device__ __forceinline__ void load8(const float* row, int c, int D,
+                                      float (&x)[8]) {
+  split(*reinterpret_cast<const float4*>(row + 4 * c),
+        *reinterpret_cast<const float4*>(row + D / 2 + 4 * c), x);
+}
+// A lane's 8 elements of an f32 vector of the block (0 past D's lanes).
+template <typename T>
+__device__ __forceinline__ void lane8(const float* vec, int c, int D, bool on,
+                                      float (&x)[8]) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) x[j] = on ? vec[col<T>(c, j, D)] : 0.f;
+}
+
+// x[k] (k < N, N a power of 2 up to 16) summed over the 16 lanes of a
+// half-warp (every lane of the warp calls): each xor level halves the
+// values a lane carries (lanes with the offset's bit set keep the upper
+// half), so the sums take N - 1 + 4 - log2 N shuffles where N separate
+// butterflies take 4 N, and every sum pairs its lanes as a butterfly does
+// (xor 8, 4, 2, 1).  Returns the sum of x[k] in every lane whose bits 3
+// .. 4 - log2 N, read as a number (bit 3 first), are k.
+template <int N>
+__device__ __forceinline__ float half_sums(float (&x)[N], int lane) {
+#pragma unroll
+  for (int off = 8, n = N; off > 0; off >>= 1) {
+    if (n > 1) {
+      const bool up = lane & off;
+#pragma unroll
+      for (int k = 0; k < n / 2; ++k) {
+        const float send = up ? x[k] : x[k + n / 2];
+        const float keep = up ? x[k + n / 2] : x[k];
+        x[k] = keep + __shfl_xor_sync(kFull, send, off);
+      }
+      n /= 2;
+    } else {
+      x[0] += __shfl_xor_sync(kFull, x[0], off);
+    }
+  }
+  return x[0];
+}
+
+// the value index a lane of a half-warp holds after half_sums<N>
+template <int N>
+__device__ __forceinline__ int half_sums_index(int lane) {
+  int k = 0;
+#pragma unroll
+  for (int off = 8, n = N; n > 1; off >>= 1, n /= 2) k = 2 * k + ((lane & off) != 0);
+  return k;
+}
+
+// d[s] = a . X[l] over the lane's columns for keys l = h + 16 s, s <
+// kKeySlots, 0 at l >= n: the keys' loads all in flight together
+template <typename T>
+__device__ __forceinline__ void key_dots(const float (&a)[8], const T* X,
+                                         int n, int D, int h, int c, bool on,
+                                         float (&d)[kKeySlots]) {
+#pragma unroll
+  for (int s = 0; s < kKeySlots; ++s) {
+    const int l = h + kHalves * s;
+    d[s] = 0.f;
+    if (on && l < n) {
+      float x[8];
+      load8(X + (size_t)l * D, c, D, x);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) d[s] = fmaf(a[j], x[j], d[s]);
+    }
+  }
+}
+
+// acc = sum over keys l = h, h+16, ... < n of coef[l] X[l] over the lane's
+// columns, in key order
+template <typename T>
+__device__ __forceinline__ void key_sum(const float* coef, const T* X, int n,
+                                        int D, int h, int c, bool on,
+                                        float (&acc)[8]) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kKeySlots; ++s) {
+    const int l = h + kHalves * s;
+    if (on && l < n) {
+      float x[8];
+      load8(X + (size_t)l * D, c, D, x);
+      const float k = coef[l];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) acc[j] = fmaf(k, x[j], acc[j]);
+    }
+  }
+}
+
+// a warp's two half-warp partials added (lane + lane ^ 16) and stored to
+// part at the lane's columns (every lane of the warp calls)
+template <typename T>
+__device__ __forceinline__ void warp_partial(float (&acc)[8], float* part,
+                                             int lane, int c, int D, bool on) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], 16);
+  if (lane < 16 && on)
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) part[col<T>(c, j, D)] = acc[j];
+}
+
+// sum of the warps' partials of column e, warp 0 first
+__device__ __forceinline__ float warps_sum(const float (&part)[kWarps][kMaxD],
+                                          int e) {
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += part[w][e];
+  return s;
+}
+
+// Rows e = h + 16 s of a [D, D] matrix at the lane's columns, s < kSlots:
+// in bf16 loaded ahead (eight 16-byte vectors a lane in registers), in
+// f32 (twice the registers) where each is used.
+template <typename T>
+struct WqRows {
+  uint4 raw[kSlots];
+};
+template <>
+struct WqRows<float> {};
+
+template <typename T>
+__device__ __forceinline__ void fetch_wq_rows(WqRows<T>& r, const T* WQ,
+                                              int h, int c, int D, bool on) {
+  if constexpr (sizeof(T) == 2) {
+    const unsigned long long policy = evict_last();
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int e = h + kHalves * s;
+      if (on && e < D) r.raw[s] = ldg16(WQ + (size_t)e * D + kGroup * c, policy);
+    }
+  }
+}
+
+
+}  // namespace chain_staged

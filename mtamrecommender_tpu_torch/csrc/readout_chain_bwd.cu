@@ -56,7 +56,9 @@
 //       short vectors (cur, q, lng, gate_part, wo2) come into registers a
 //       hop ahead.  No row stride is padded: every shared-memory access of
 //       a quarter-warp covers 128 contiguous bytes, so none conflicts.
-//       L2 hints: the rows and cotangents evict first, Wq last.
+//       L2 hints: the rows and cotangents evict first, Wq last.  The
+//       lane mapping and the sums' helpers are chain_staged.cuh's, which
+//       the forward's staged design shares.
 //    c. the batch sums dwo2, dbq, dlng, dlnb as the rows design sums them
 //       (3 below), and
 //    d. dwq, the one batch sum that is a product, in a kernel of its own:
@@ -77,10 +79,11 @@
 #include <cstdint>
 #include <initializer_list>
 
-#include "readout_hop.cuh"
+#include "chain_staged.cuh"
 
 namespace {
 
+using namespace chain_staged;
 using readout::from_float;
 using readout::kMaxD;
 using readout::kThreads;
@@ -265,26 +268,6 @@ __global__ void __launch_bounds__(kThreads) chain_bwd_rows_kernel(Args a) {
 
 // ------------------------------------------------------------ staged
 
-constexpr int kStagedKeys = 64;               // the staged design's largest L
-constexpr int kHalves = kThreads / 16;        // half-warps a block
-constexpr int kGroup = 8;                     // columns a lane owns
-constexpr int kSlots = kMaxD / kHalves;       // rows of Wq a half-warp takes
-constexpr int kKeySlots = kStagedKeys / kHalves;   // keys a half-warp takes
-constexpr unsigned kFull = 0xffffffffu;
-
-bool staged_takes(int L, int D) {
-  return L >= 1 && L <= kStagedKeys && D >= 16 && D <= kMaxD && D % 16 == 0;
-}
-
-// rows of K, V and tprec in flight at once: bf16 double-buffers across
-// hops, f32 (twice the bytes) stages one hop at a time
-template <typename T>
-constexpr int kStages = sizeof(T) == 2 ? 2 : 1;
-
-size_t staged_dynamic_bytes(bool bf16, int L, int D) {
-  return bf16 ? (size_t)2 * 3 * L * D * 2 : (size_t)3 * L * D * 4;
-}
-
 // The block's f32 vectors (static shared memory).
 struct StagedVecs {
   float cur[kMaxD], q[kMaxD], lng[kMaxD], dcur[kMaxD], dov[kMaxD],
@@ -295,9 +278,6 @@ struct StagedVecs {
   float part[2][kWarps][kMaxD];   // per-warp partials of a sum over keys
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)), "l"(src));
@@ -310,20 +290,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// L2 policies: the rows and cotangents stream through once (evict first);
-// Wq is read by every block of a hop (evict last)
-__device__ __forceinline__ unsigned long long evict_first() {
-  unsigned long long p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ unsigned long long evict_last() {
-  unsigned long long p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-               : "=l"(p));
-  return p;
-}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            unsigned long long policy) {
   asm volatile(
@@ -331,51 +297,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
           smem_addr(dst)),
       "l"(src), "l"(policy));
 }
-__device__ __forceinline__ uint4 ldg16(const void* src,
-                                       unsigned long long policy) {
-  uint4 r;
-  asm volatile(
-      "ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-      : "l"(src), "l"(policy));
-  return r;
-}
 
-// The 8 columns lane c of a half-warp owns, so that each 16-byte access
-// of a quarter-warp covers 128 contiguous bytes (no bank conflict, full
-// sectors): in bf16 8c .. 8c+7 (one vector), in f32 4c .. 4c+3 and D/2 +
-// 4c .. D/2 + 4c+3 (two).  x[j] is column col<T>(c, j, D).
-template <typename T>
-__device__ __forceinline__ int col(int c, int j, int D) {
-  if constexpr (sizeof(T) == 2) return kGroup * c + j;
-  else return j < 4 ? 4 * c + j : D / 2 + 4 * c + j - 4;
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    x[2 * j] = f.x;
-    x[2 * j + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void split(const float4& a, const float4& b,
-                                      float (&x)[8]) {
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-// A lane's 8 elements of a row of T in shared memory, as f32.
-__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c, int D,
-                                      float (&x)[8]) {
-  unpack(*reinterpret_cast<const uint4*>(row + kGroup * c), x);
-}
-__device__ __forceinline__ void load8(const float* row, int c, int D,
-                                      float (&x)[8]) {
-  split(*reinterpret_cast<const float4*>(row + 4 * c),
-        *reinterpret_cast<const float4*>(row + D / 2 + 4 * c), x);
-}
 // A lane's 8 f32 values, each rounded once to T, to its columns of a row
 // (streaming stores: evict first).
 __device__ __forceinline__ void store8(__nv_bfloat16* row, int c, int D,
@@ -393,111 +315,6 @@ __device__ __forceinline__ void store8(float* row, int c, int D,
   __stcs(reinterpret_cast<float4*>(row + D / 2 + 4 * c),
          make_float4(x[4], x[5], x[6], x[7]));
 }
-// A lane's 8 elements of an f32 vector of the block (0 past D's lanes).
-template <typename T>
-__device__ __forceinline__ void lane8(const float* vec, int c, int D, bool on,
-                                      float (&x)[8]) {
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j) x[j] = on ? vec[col<T>(c, j, D)] : 0.f;
-}
-
-// x[k] (k < N, N a power of 2 up to 16) summed over the 16 lanes of a
-// half-warp (every lane of the warp calls): each xor level halves the
-// values a lane carries (lanes with the offset's bit set keep the upper
-// half), so the sums take N - 1 + 4 - log2 N shuffles where N separate
-// butterflies take 4 N, and every sum pairs its lanes as a butterfly does
-// (xor 8, 4, 2, 1).  Returns the sum of x[k] in every lane whose bits 3
-// .. 4 - log2 N, read as a number (bit 3 first), are k.
-template <int N>
-__device__ __forceinline__ float half_sums(float (&x)[N], int lane) {
-#pragma unroll
-  for (int off = 8, n = N; off > 0; off >>= 1) {
-    if (n > 1) {
-      const bool up = lane & off;
-#pragma unroll
-      for (int k = 0; k < n / 2; ++k) {
-        const float send = up ? x[k] : x[k + n / 2];
-        const float keep = up ? x[k + n / 2] : x[k];
-        x[k] = keep + __shfl_xor_sync(kFull, send, off);
-      }
-      n /= 2;
-    } else {
-      x[0] += __shfl_xor_sync(kFull, x[0], off);
-    }
-  }
-  return x[0];
-}
-
-// the value index a lane of a half-warp holds after half_sums<N>
-template <int N>
-__device__ __forceinline__ int half_sums_index(int lane) {
-  int k = 0;
-#pragma unroll
-  for (int off = 8, n = N; n > 1; off >>= 1, n /= 2) k = 2 * k + ((lane & off) != 0);
-  return k;
-}
-
-// d[s] = a . X[l] over the lane's columns for keys l = h + 16 s, s <
-// kKeySlots, 0 at l >= n: the keys' loads all in flight together
-template <typename T>
-__device__ __forceinline__ void key_dots(const float (&a)[8], const T* X,
-                                         int n, int D, int h, int c, bool on,
-                                         float (&d)[kKeySlots]) {
-#pragma unroll
-  for (int s = 0; s < kKeySlots; ++s) {
-    const int l = h + kHalves * s;
-    d[s] = 0.f;
-    if (on && l < n) {
-      float x[8];
-      load8(X + (size_t)l * D, c, D, x);
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) d[s] = fmaf(a[j], x[j], d[s]);
-    }
-  }
-}
-
-// acc = sum over keys l = h, h+16, ... < n of coef[l] X[l] over the lane's
-// columns, in key order
-template <typename T>
-__device__ __forceinline__ void key_sum(const float* coef, const T* X, int n,
-                                        int D, int h, int c, bool on,
-                                        float (&acc)[8]) {
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int s = 0; s < kKeySlots; ++s) {
-    const int l = h + kHalves * s;
-    if (on && l < n) {
-      float x[8];
-      load8(X + (size_t)l * D, c, D, x);
-      const float k = coef[l];
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) acc[j] = fmaf(k, x[j], acc[j]);
-    }
-  }
-}
-
-// a warp's two half-warp partials added (lane + lane ^ 16) and stored to
-// part at the lane's columns (every lane of the warp calls)
-template <typename T>
-__device__ __forceinline__ void warp_partial(float (&acc)[8], float* part,
-                                             int lane, int c, int D, bool on) {
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j) acc[j] += __shfl_xor_sync(kFull, acc[j], 16);
-  if (lane < 16 && on)
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) part[col<T>(c, j, D)] = acc[j];
-}
-
-// sum of the warps' partials of column e, warp 0 first
-__device__ __forceinline__ float warps_sum(const float (&part)[kWarps][kMaxD],
-                                          int e) {
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += part[w][e];
-  return s;
-}
-
 // Issue copies of hop i's rows of row b into its buffer [K | V | tprec]:
 // with `kt` K and tprec (the live rows), with `vv` V (the reached ones),
 // by thread t of `nt` (the block's threads, or those of warps 1-7).
@@ -569,29 +386,9 @@ __device__ __forceinline__ void store_hop_vecs(StagedVecs& v, const HopVecs& x,
   }
 }
 
-// Row e = h + 16 s of Wq_i at the lane's k columns, s < kSlots, for dq_pre
-// Wq^T: in bf16 loaded at the hop's start (eight 16-byte vectors a lane
-// in registers), in f32 (twice the registers) where it is used.
-template <typename T>
-struct WqRows {
-  uint4 raw[kSlots];
-};
-template <>
-struct WqRows<float> {};
-
-template <typename T>
-__device__ __forceinline__ void fetch_wq_rows(WqRows<T>& r, const T* WQ,
-                                              int h, int c, int D, bool on) {
-  if constexpr (sizeof(T) == 2) {
-    const unsigned long long policy = evict_last();
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int e = h + kHalves * s;
-      if (on && e < D) r.raw[s] = ldg16(WQ + (size_t)e * D + kGroup * c, policy);
-    }
-  }
-}
-
+// Row e of Wq_i at the lane's k columns (`fetch_wq_rows`'s slot s) for
+// dq_pre Wq^T: bf16 from the registers fetched at the hop's start, f32
+// loaded where it is used.
 template <typename T>
 __device__ __forceinline__ void wq_row(const WqRows<T>& r, const T* WQ, int s,
                                        int e, int c, int D,

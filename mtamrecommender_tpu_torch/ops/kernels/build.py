@@ -36,7 +36,9 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # (the readouts' four include readout_hop.cuh; fused_readout.cu and
 # fused_readout_bwd.cu also readout_gemm.cuh, which includes tile_gemm.cuh;
 # fused_attention_tile.cu and fused_attention_bwd_tile.cu include
-# attention_tile.cuh, which includes tile_gemm.cuh)
+# attention_tile.cuh, which includes tile_gemm.cuh; readout_chain.cu and
+# readout_chain_bwd.cu include chain_staged.cuh, which includes
+# readout_hop.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_tile": "fused_attention_tile.cu",
@@ -50,7 +52,7 @@ SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "readout_chain": "readout_chain.cu",
            "readout_chain_bwd": "readout_chain_bwd.cu"}
 _HEADERS = ("common.cuh", "readout_hop.cuh", "readout_gemm.cuh",
-            "tile_gemm.cuh", "attention_tile.cuh")
+            "tile_gemm.cuh", "attention_tile.cuh", "chain_staged.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -16,10 +16,12 @@ The forward `readout_chain` (csrc/readout_chain.cu, the Pallas
 `_chain_fwd_kernel`) returns the last hop's output in dec's type and the
 hop-input chain ``curs`` [n, B, d] f32, which its backward
 `readout_chain_bwd` (csrc/readout_chain_bwd.cu, `_chain_bwd_kernel`)
-replays hop by hop in reverse, in the design `chain_bwd_design` picks:
+replays hop by hop in reverse.  Each takes the design that
+`chain_fwd_design` and `chain_bwd_design` pick by one predicate:
 "staged" at L <= 64 with d a multiple of 16 up to 128 (each hop's K, V
 and tprec rows staged once in shared memory; MTAM's training readout at
-L=50), "rows" elsewhere.  The cotangents of k_all, v_all, tprec and
+L=50; the helpers both share are csrc/chain_staged.cuh), "rows"
+elsewhere.  The cotangents of k_all, v_all, tprec and
 gate_part leave as plain outputs, so autograd carries them through the
 hop-batched einsums, as XLA's AD does in the JAX package.
 `readout_chain_vjp` joins the two as JAX's custom_vjp does.
@@ -44,12 +46,12 @@ NEG_FILL = -(2.0 ** 32) + 1.0
 LN_EPS = 1e-8
 MAX_KEYS = 256    # the short-memory regime, as in the JAX package
 MAX_D = 128       # the kernels' widest d (every d up to it)
-# the backward's designs (`chain_bwd_design`): "staged", a block a batch
-# row with each hop's K, V and tprec rows in shared memory, at L up to
-# STAGED_KEYS and d a multiple of 16 up to MAX_D; "rows" (the first
-# design, the rows read from global memory key by key) at every other
-# shape
-BWD_DESIGNS = ("staged", "rows")
+# the designs of the forward (`chain_fwd_design`) and the backward
+# (`chain_bwd_design`), picked alike: "staged", a block a batch row with
+# each hop's K, V and tprec rows in shared memory, at L up to STAGED_KEYS
+# and d a multiple of 16 up to MAX_D; "rows" (the first designs, the rows
+# read from global memory key by key) at every other shape
+FWD_DESIGNS = BWD_DESIGNS = ("staged", "rows")
 STAGED_KEYS = 64
 # the staged design's thread mapping: 16 half-warps (the slices of its
 # sums over k and over keys) of 16 lanes (a lane 8 columns), 8 warps
@@ -62,7 +64,8 @@ _GRADS = ("ddec", "dk", "dv", "dt", "dgp", "dwo2", "dwq", "dbq", "dlng",
           "dlnb")
 
 # kernel launches (the plain twins are not counted)
-launches = 0
+launches = 0            # either forward design
+rows_launches = 0        # the forward's rows design alone
 bwd_launches = 0         # either backward design
 bwd_rows_launches = 0    # the rows design alone
 
@@ -119,7 +122,8 @@ def readout_chain(dec, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
     tprec [n,B,L,d]; gate_part [n,B,L]; wo2 [n,L]; wq [n,d,d]; bq, lng,
     lnb [n,d], all in one type.  Returns (out [B,d] in dec's type, curs
     [n,B,d] f32, each hop's input).  CPU tensors run `readout_chain_plain`;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel in the design `chain_fwd_design`
+    picks."""
     args = (dec, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq, bq, lng,
             lnb)
     _check(args)
@@ -131,9 +135,62 @@ def readout_chain(dec, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
     return _launch(args)
 
 
-def _launch(args):
-    global launches
+def _pick_design(what: str, dtype: torch.dtype, tk: int, d: int) -> str:
+    """The one predicate of `chain_fwd_design` and `chain_bwd_design`."""
+    if dtype not in DTYPES:
+        raise TypeError(f"{what}: no design for {dtype}")
+    if 1 <= tk <= STAGED_KEYS and d % 16 == 0 and 16 <= d <= MAX_D:
+        return "staged"
+    return "rows"
+
+
+def chain_fwd_design(dtype: torch.dtype, tk: int, d: int) -> str:
+    """The forward's design for a shape, the backward's too
+    (`chain_bwd_design`).  "staged" at 1 <= L <= STAGED_KEYS keys with d
+    a multiple of 16 up to MAX_D, in f32 and bf16 (MTAM's training
+    readout at L=50, d=128, and the narrow d=16): a block a batch row
+    stages each hop's K, V and tprec rows in shared memory once.  "rows"
+    elsewhere (L = 65-256, other d).  The staged launch also wants
+    k_all, v_all, tprec and wq 16-byte aligned; a launch given others
+    takes "rows"."""
+    return _pick_design("readout_chain", dtype, tk, d)
+
+
+def _launch_design(what: str, args4, forced) -> str:
+    """The design a launch takes, from k_all, v_all, tprec and wq
+    (``args4``), by one rule for the pair: the picked design, or the
+    forced one if it is the picked one or "rows" (else a ValueError);
+    where "staged" is picked but one of the four is not 16-byte aligned,
+    "rows" (forced "staged": a ValueError).  Raises before any build."""
+    k_all = args4[0]
+    _, _, tk, d = k_all.shape
+    picked = _pick_design(what, k_all.dtype, tk, d)
+    design = picked if forced is None else forced
+    if design not in (picked, "rows"):
+        raise ValueError(
+            f"{what}: design {design!r} does not take L={tk}, d={d} "
+            f"(picked: {picked!r})")
+    if design == "staged" and any(t.data_ptr() % 16 for t in args4):
+        if forced is not None:
+            raise ValueError(f"{what}: the staged design takes k_all, "
+                             "v_all, tprec and wq 16-byte aligned")
+        design = "rows"
+    return design
+
+
+def _launch(args, _design=None):
+    """Launch the forward in the design `chain_fwd_design` picks (the
+    rows design where the staged one is picked but an operand it reads
+    16 bytes at a time, k_all, v_all, tprec or wq, is not 16-byte
+    aligned).  ``_design="rows"`` forces the earlier design
+    (chip_smoke.py holds and times it beside the staged design);
+    "staged" only where it is picked and aligned.  The main path passes
+    nothing.  A design that fails to build or launch raises: there is no
+    fallback."""
+    global launches, rows_launches
     k_all = args[3]
+    design = _launch_design("readout_chain",
+                            (k_all, args[4], args[5], args[8]), _design)
     device, stream = build.launch_context(args, "readout_chain")
     _kernel_shape("readout_chain", k_all)
     n, b, tk, d = k_all.shape
@@ -141,11 +198,13 @@ def _launch(args):
     out = torch.empty((b, d), dtype=k_all.dtype, device=k_all.device)
     curs = torch.empty((n, b, d), dtype=torch.float32, device=k_all.device)
     status = lib.readout_chain_launch(
-        int(k_all.dtype == torch.bfloat16), *(t.data_ptr() for t in args),
-        out.data_ptr(), curs.data_ptr(), b, tk, d, n, 1.0 / d ** 0.5,
-        device, stream)
-    build.check(lib, status, "readout_chain")
+        FWD_DESIGNS.index(design), int(k_all.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in args), out.data_ptr(), curs.data_ptr(), b,
+        tk, d, n, 1.0 / d ** 0.5, device, stream)
+    build.check(lib, status, f"readout_chain ({design})")
     launches += 1
+    if design == "rows":
+        rows_launches += 1
     return out, curs
 
 
@@ -154,8 +213,12 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.readout_chain_launch.argtypes = (
-            [ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+            [ci, ci] + [vp] * 14 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
         lib.readout_chain_launch.restype = ci
+        lib.readout_chain_staged_smem_bytes.argtypes = [ci] * 3
+        lib.readout_chain_staged_smem_bytes.restype = ctypes.c_longlong
+        lib.readout_chain_staged_blocks_per_sm.argtypes = [ci] * 4
+        lib.readout_chain_staged_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -232,44 +295,26 @@ def readout_chain_bwd(g, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq,
 
 
 def chain_bwd_design(dtype: torch.dtype, tk: int, d: int) -> str:
-    """The backward's design for a shape.  "staged" at 1 <= L <=
-    STAGED_KEYS keys with d a multiple of 16 up to MAX_D, in f32 and bf16
-    (MTAM's training readout at L=50, d=128, and the narrow d=16): a
-    block a batch row stages each hop's K, V and tprec rows in shared
-    memory once.  "rows" elsewhere (L = 65-256, other d).  The staged
-    launch also wants k_all, v_all, tprec and wq 16-byte aligned; a
-    launch given others takes "rows"."""
-    if dtype not in DTYPES:
-        raise TypeError(f"readout_chain_bwd: no design for {dtype}")
-    if 1 <= tk <= STAGED_KEYS and d % 16 == 0 and 16 <= d <= MAX_D:
-        return "staged"
-    return "rows"
+    """The backward's design for a shape: the forward's
+    (`chain_fwd_design`, one predicate), with the same rule for operands
+    that are not 16-byte aligned."""
+    return _pick_design("readout_chain_bwd", dtype, tk, d)
 
 
 def _launch_bwd(g, args, curs, _design=None):
     """Launch the backward in the design `chain_bwd_design` picks (the
     rows design where the staged one is picked but an operand it reads
-    16 bytes at a time is not 16-byte aligned).  ``_design="rows"``
+    16 bytes at a time, k_all, v_all, tprec or wq, is not 16-byte
+    aligned: the forward's rule, `_launch_design`).  ``_design="rows"``
     forces the earlier design (chip_smoke.py holds and times it beside
-    the staged design); "staged" only where it is picked.  The main path
-    passes nothing.  A design that fails to build or launch raises: there
-    is no fallback."""
+    the staged design); "staged" only where it is picked and aligned.
+    The main path passes nothing.  A design that fails to build or
+    launch raises: there is no fallback."""
     global bwd_launches, bwd_rows_launches
     k_all = args[2]
     n, b, tk, d = k_all.shape
-    picked = chain_bwd_design(k_all.dtype, tk, d)
-    design = picked if _design is None else _design
-    if design not in (picked, "rows"):
-        raise ValueError(
-            f"readout_chain_bwd: design {design!r} does not take L={tk}, "
-            f"d={d} (chain_bwd_design: {picked!r})")
-    if design == "staged" and any(t.data_ptr() % 16
-                                  for t in (args[2], args[3], args[4],
-                                            args[7])):
-        if _design is not None:
-            raise ValueError("readout_chain_bwd: the staged design takes "
-                             "k_all, v_all, tprec and wq 16-byte aligned")
-        design = "rows"
+    design = _launch_design("readout_chain_bwd",
+                            (k_all, args[3], args[4], args[7]), _design)
     device, stream = build.launch_context((g,) + args + (curs,),
                                           "readout_chain_bwd")
     _kernel_shape("readout_chain_bwd", k_all)
@@ -421,6 +466,96 @@ def _key_slices(coef, x):
         for h in range(HALVES)]))
 
 
+def _staged_masks(klen, tk):
+    """[B, STAGED_KEYS, 1] f32: the rows the staged designs stage, K and
+    tprec at the live keys, V at the reached ones (all L keys in a row
+    with none live)."""
+    n_live = klen.clamp(0, tk)
+    reached = torch.where(n_live > 0, n_live, torch.full_like(n_live, tk))
+    keys = torch.arange(STAGED_KEYS, device=klen.device)[None, :]
+    return ((keys < n_live[:, None]).float()[:, :, None],
+            (keys < reached[:, None]).float()[:, :, None])
+
+
+def _staged(x, rows):
+    """x [B, L, d] as staged: f32, zero-padded to STAGED_KEYS rows, zero
+    past the rows ``rows`` (`_staged_masks`) keeps."""
+    b, tk, d = x.shape
+    out = torch.zeros((b, STAGED_KEYS, d), dtype=torch.float32,
+                      device=x.device)
+    out[:, :tk] = x.float()
+    return out * rows
+
+
+def _pad_keys(x):
+    """[B, L] -> [B, STAGED_KEYS] f32, zero past L."""
+    out = torch.zeros((x.shape[0], STAGED_KEYS), dtype=torch.float32,
+                      device=x.device)
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def _staged_query(cur_c, wq, bq):
+    """q = relu(cur_c Wq + bq) the staged designs' way: the sum over k in
+    the 16 slices k = h, h+16, ... combined by `_warps_in_order`.  cur_c
+    [..., d] and wq [..., d, d] f32 (leading axes batched), bq
+    broadcasting."""
+    return torch.relu(_warps_in_order(torch.stack([
+        cur_c[..., h::HALVES] @ wq[..., h::HALVES, :]
+        for h in range(HALVES)])) + bq)
+
+
+def _staged_hop(cur, q, ks, vs, ts, gp, wo2, live, qzf, scale, cols):
+    """One hop's forward the staged designs' way, from its input cur and
+    query q [B, d] and its staged rows ks, vs, ts (`_staged`): the score
+    dots q.K_l and cur.tprec_l by `_lanes_dot` over the lane columns
+    ``cols``, the gate and the softmax, o = sum_l w_l V_l by `_key_slices`,
+    the residual and normalize().  Returns (s0, tqk, sig, w, xh, inv)."""
+    tk = gp.shape[-1]
+    s0 = _lanes_dot(q[:, None, :], ks, cols)[:, :tk]
+    tqk = torch.tanh(_lanes_dot(cur[:, None, :], ts, cols)[:, :tk])
+    sig = torch.sigmoid(gp.float() + wo2.float() * tqk)
+    w = torch.softmax(torch.where(live, s0 * sig * scale,
+                                  torch.full_like(s0, NEG_FILL)), dim=-1)
+    x = _key_slices(_pad_keys(w), vs) * qzf + cur
+    mu = x.mean(dim=-1, keepdim=True)
+    inv = 1.0 / torch.sqrt(torch.square(x - mu).mean(dim=-1, keepdim=True)
+                           + LN_EPS)
+    return s0, tqk, sig, w, (x - mu) * inv, inv
+
+
+def _staged_fwd_design_plain(dec, klen, qz, k_all, v_all, tprec, gate_part,
+                             wo2, wq, bq, lng, lnb):
+    """The forward's staged design in plain PyTorch, the same outputs as
+    `readout_chain_plain` (its rounding points too): per hop, q =
+    relu(cur_c Wq + bq) by the 16 k-slices (`_staged_query`); the row's K
+    and tprec staged zero past the live keys and V past the reached ones,
+    all zero-padded to STAGED_KEYS rows; the score dots by lane columns
+    and a half-warp's butterfly, o by 16 key slices in order
+    (`_staged_hop`); cur = normalize(o qz + cur) lng + lnb.  Takes d a
+    multiple of 16 up to MAX_D and L up to STAGED_KEYS (the design's
+    range; chain_fwd_design)."""
+    live, qzf, scale = _row_terms(klen, qz, k_all)
+    n, _, tk, d = k_all.shape
+    if chain_fwd_design(k_all.dtype, tk, d) != "staged":
+        raise ValueError(f"_staged_fwd_design_plain: the staged design does "
+                         f"not take L={tk}, d={d}")
+    cols = _lane_columns(d, k_all.dtype)
+    live64, reached64 = _staged_masks(klen, tk)
+    cur = dec[:, 0, :].float()
+    curs = []
+    for i in range(n):
+        curs.append(cur)
+        q = _staged_query(cur.to(k_all.dtype).float(), wq[i].float(),
+                          bq[i].float())
+        *_, xh, _ = _staged_hop(
+            cur, q, _staged(k_all[i], live64), _staged(v_all[i], reached64),
+            _staged(tprec[i], live64), gate_part[i], wo2[i], live, qzf, scale,
+            cols)
+        cur = xh * lng[i].float() + lnb[i].float()
+    return cur.to(dec.dtype), torch.stack(curs)
+
+
 def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
                              wo2, wq, bq, lng, lnb, curs):
     """The staged design's steps in plain PyTorch, the same outputs as
@@ -443,31 +578,10 @@ def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
                          f"not take L={tk}, d={d}")
     dt_ = k_all.dtype
     cols = _lane_columns(d, dt_)
-    n_live = klen.clamp(0, tk)
-    reached = torch.where(n_live > 0, n_live, torch.full_like(n_live, tk))
-    keys = torch.arange(STAGED_KEYS, device=k_all.device)[None, :]
-    live64 = (keys < n_live[:, None]).float()[:, :, None]
-    reached64 = (keys < reached[:, None]).float()[:, :, None]
-
-    def staged(x, rows):
-        out = torch.zeros((b, STAGED_KEYS, d), dtype=torch.float32,
-                          device=x.device)
-        out[:, :tk] = x.float()
-        return out * rows
-
-    def pad_keys(x):
-        out = torch.zeros((b, STAGED_KEYS), dtype=torch.float32,
-                          device=x.device)
-        out[:, :tk] = x
-        return out
-
-    # the query pass: cur_c and q of every hop and row, the sum over k in
-    # the 16 slices k = h, h+16, ... combined by `_warps_in_order`
+    live64, reached64 = _staged_masks(klen, tk)
+    # the query pass: cur_c and q of every hop and row
     cur_cs = curs.to(dt_).float()
-    wqf = wq.float()
-    qs = torch.relu(_warps_in_order(torch.stack([
-        cur_cs[:, :, h::HALVES] @ wqf[:, h::HALVES] for h in range(HALVES)]))
-        + bq.float()[:, None, :])
+    qs = _staged_query(cur_cs, wq.float(), bq.float()[:, None, :])
     dk, dv, dt = (torch.empty_like(x) for x in (k_all, v_all, tprec))
     dgp = torch.empty_like(gate_part)
     f32 = dict(dtype=torch.float32, device=k_all.device)
@@ -476,19 +590,11 @@ def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
     dbq, dlng, dlnb = (torch.zeros(bq.shape, **f32) for _ in range(3))
     dcur = g.float()
     for i in range(n - 1, -1, -1):
-        ks, vs, ts = (staged(k_all[i], live64), staged(v_all[i], reached64),
-                      staged(tprec[i], live64))
+        ks, vs, ts = (_staged(k_all[i], live64), _staged(v_all[i], reached64),
+                      _staged(tprec[i], live64))
         cur, cur_c, q = curs[i], cur_cs[i], qs[i]
-        s0 = _lanes_dot(q[:, None, :], ks, cols)[:, :tk]
-        tqk = torch.tanh(_lanes_dot(cur[:, None, :], ts, cols)[:, :tk])
-        sig = torch.sigmoid(gate_part[i].float() + wo2[i].float() * tqk)
-        w = torch.softmax(torch.where(live, s0 * sig * scale,
-                                      torch.full_like(s0, NEG_FILL)), dim=-1)
-        x = _key_slices(pad_keys(w), vs) * qzf + cur
-        mu = x.mean(dim=-1, keepdim=True)
-        inv = 1.0 / torch.sqrt(torch.square(x - mu).mean(dim=-1, keepdim=True)
-                               + LN_EPS)
-        xh = (x - mu) * inv
+        s0, tqk, sig, w, xh, inv = _staged_hop(
+            cur, q, ks, vs, ts, gate_part[i], wo2[i], live, qzf, scale, cols)
         g_i = dcur
         dlng[i] = (g_i * xh).sum(0)
         dlnb[i] = g_i.sum(0)
@@ -511,8 +617,8 @@ def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
                  * do[:, None, :]).to(dt_)
         dt[i] = (dpre[:, :, None] * cur[:, None, :]).to(dt_)
         dk[i] = (ds0[:, :, None] * q[:, None, :]).to(dt_)
-        dcur = dcur + _key_slices(pad_keys(dpre), ts)
-        dq = _key_slices(pad_keys(ds0), ks)
+        dcur = dcur + _key_slices(_pad_keys(dpre), ts)
+        dq = _key_slices(_pad_keys(ds0), ks)
         dq_pre = torch.where(q > 0, dq, torch.zeros_like(dq)).to(dt_).float()
         # dq_pre Wq^T: row e of Wq, lane c its k columns
         dcur = dcur + _lanes_dot(dq_pre[:, None, :], wq[i].float()[None],
