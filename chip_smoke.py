@@ -11,16 +11,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      registers and spill bytes ptxas gives gru_scan_kernel's
      instantiations (those at u=128 printed), the two kernels of
      fused_readout's "gemm" design, the four of fused_readout_bwd's,
-     scatter_add's columns_sum, the attention forward's tile design and
-     the chain readout pair's staged designs;
+     scatter_add's columns_sum, the attention forward's tile and hop
+     designs and the chain readout pair's staged designs;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
      B=256, the kernel's time, the twin's time, the least time the card
      could take (bound) and, where one PyTorch call computes the same
-     function, that call's time (fused_attention at Tq=1, MTAM's
-     serving hops, also the profiler's device time and the host time a
-     call); gru_scan in each mode in its default
+     function, that call's time; fused_attention at Tq = 1 (MTAM's
+     serving hops) in all five modes (a rate-0.5 mask in the drop
+     modes) at Tk = 1, 17, 50, 64 and d = 16, 128 in its "hop" design (a
+     block a batch row, the rows by bulk copies into shared memory):
+     two launches the same bits, within KERNEL_TOL of the twin and
+     within 1e-5 / 2e-3 (f32 / bf16) of the largest |out| from the
+     "query" design forced (a block a query row), at Tk=50, d=128 both
+     timed in turns (hop, query, query, hop: event ms, the profiler's
+     device ms, the host ms a call) with the hop design's shared memory
+     a block and blocks an SM; at Tk = 1024 (plain, time, tisas) the
+     query design; gru_scan in each mode in its default
      "sliced" design, the same bits twice, with the earlier "unit_column"
      design forced and held beside it and timed on the same inputs in
      turns (default, unit_column, unit_column, default);
@@ -94,8 +102,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
      against the same Recommender on the CPU (the plain twins), and the
-     time per request batch; then the same at num_units 16 for B = 16
-     (the GRU scan padded to 32 units);
+     time per request batch (1 gru_scan + 3 fused_attention[time] in the
+     hop design a call, none in the query design); at B = 256 the scoring
+     call's device busy time and event ms in turns with the attention
+     forward forced to its query design (hop, query, query, hop); then
+     the same at num_units 16 for B = 16 (the GRU scan padded to 32
+     units);
   4. the training slice: bench.py's MTAM step (B=256, L=50, d=128, 3
      hops, 4832 users, 3706 items, 18 categories, tables padded to 128
      rows, adam clipped to 1.0) on 4096 rows made from seed 0 and held
@@ -129,7 +141,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      path); and
      Recommender.recommend for each of the three at B = 16 in bf16
      against the CPU (3 tile-design forward launches a call; MTAM's Tq =
-     1 hops in phase 3 take the query design);
+     1 hops in phase 3 take the hop design);
   6. MTAM over long histories (benchmarks/long_history_bench.py's run:
      d=128, 3 hops, 1 head, the scalar gate, tables padded to 128 rows,
      adam clipped to 1.0, L=512, B=64, 100 users, 2000 items, 18
@@ -215,9 +227,10 @@ entries also carry "device_ms" and "library_device_ms", gru_scan_bwd's
 the default design's device time by kernel, fused_attention_bwd's at
 Tq=Tk=50 "rows_ms", "rows_device_ms" and "rows_passes_ms", the rows
 design on the same inputs in turns, beside the tile design's
-"device_ms" and "passes_ms", fused_attention's at Tq=Tk=50 "design",
-"device_ms", "query_ms" and "query_device_ms", the query design on the
-same inputs in turns, gru_scan's "unit_column_ms",
+"device_ms" and "passes_ms", fused_attention's at Tq=Tk=50 (tile) and
+at Tq=1, Tk=50 (hop) "design", "device_ms", "query_ms" and
+"query_device_ms", the query design on the same inputs in turns,
+gru_scan's "unit_column_ms",
 the unit_column design on the same inputs, fused_readout's and
 fused_readout_bwd's "rows_ms", the rows design on the same inputs, and
 "passes_ms", scatter_add's "segments_ms" and "segments_device_ms", PR
@@ -254,7 +267,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 FMA units; bf16 tens
 # kernel vs plain twin on the card: max |diff| / max |output|
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the attention forward's tile design at Tq = Tk = 50 vs its twin and vs
-# the query design forced: max |diff| / max |output|
+# the query design forced, and its hop design at Tq = 1 vs the query
+# design forced: max |diff| / max |output|
 TILE_FWD_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 # card vs CPU scores: max |diff| / max |score| over the catalog
 SLICE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -265,9 +279,10 @@ DEVICE = "cuda"
 KERNEL_FILES = {
     "gru_scan": ("mtamrecommender_tpu_torch/csrc/gru_scan.cu",
                  "mtamrecommender_tpu/ops/pallas/gru_kernel.py:64"),
-    # the query design, the main path's at Tq = 1 (the "@Tq50" entries
-    # name the tile design's source, FWD_TILE_SOURCE)
-    "fused_attention": ("mtamrecommender_tpu_torch/csrc/fused_attention.cu",
+    # the hop design, the main path's at Tq = 1, Tk = 50 (the "@Tq50"
+    # entries name the tile design's source; each row its own design's,
+    # FWD_SOURCES)
+    "fused_attention": ("mtamrecommender_tpu_torch/csrc/fused_attention_hop.cu",
                         "mtamrecommender_tpu/ops/pallas/attention_kernel.py:60"),
     "gru_scan_bwd": ("mtamrecommender_tpu_torch/csrc/gru_scan_bwd.cu",
                      "mtamrecommender_tpu/ops/pallas/gru_kernel.py:174"),
@@ -311,6 +326,15 @@ KERNEL_FILES = {
         "mtamrecommender_tpu/ops/pallas/readout_chain_kernel.py:131"),
 }
 FWD_TILE_SOURCE = "mtamrecommender_tpu_torch/csrc/fused_attention_tile.cu"
+# the single-tile forward's source by design (`attention_fwd_design`)
+FWD_SOURCES = {"tile": FWD_TILE_SOURCE,
+               "hop": "mtamrecommender_tpu_torch/csrc/fused_attention_hop.cu",
+               "query": "mtamrecommender_tpu_torch/csrc/fused_attention.cu"}
+# the forward hop design's kernel, its template arguments <type, mode, drop>
+FWD_HOP_KERNELS = ("attn_fwd_hop_kernel",)
+# the hop design's (Tk, d) in phase 2 (Tk=50, d=128: MTAM's serving hops,
+# timed; d=16: the narrow width phase 3 also serves)
+HOP_SHAPES = tuple((tk, d) for tk in (1, 17, 50, 64) for d in (16, 128))
 # the forward tile design's kernels (bf16, f32), their template arguments
 # <mode, drop>
 FWD_TILE_KERNELS = ("attn_fwd_tile_mma_kernel", "attn_fwd_tile_fma_kernel")
@@ -670,6 +694,79 @@ def _agree(got, want, dname, dead=None):
     return err, rel, ok
 
 
+def check_tq1_attention(torch, ak, timer, iters, failures, gen, mode,
+                        dtype):
+    """fused_attention at Tq = 1 in one mode and dtype
+    (`check_attention_fwd`) at B = 1, 16, 256 for each (Tk, d) of
+    HOP_SHAPES, the hop design's, and in the plain, time and tisas modes
+    at Tk = 1024, d=128, the query design's; at B = 256 timed at Tk=50,
+    d=128 (MTAM's serving hops; the hop design and the query design
+    forced in turns, `time_attention_fwd`) and at Tk = 1024.  Returns
+    {row key: row}: the row at Tk=50, d=128 under the dtype's name, the
+    others under the dtype's name and their shape."""
+    from mtamrecommender_tpu_torch.ops import layers
+
+    dname = str(dtype).replace("torch.", "")
+    shapes = HOP_SHAPES + (((1024, 128),) if mode in SERVING_MODES else ())
+    rows = {}
+    for tk, d in shapes:
+        fwd = {"err": 0.0, "rel": 0.0, "ok": True}
+        for bs in (1, 16, 256):
+            args = att_inputs(torch, gen, dtype, B=bs, Tk=tk, d=d)
+            dm = (layers.draw_drop_mask(gen, bs, 1, tk, 0.5, DEVICE)
+                  if mode.endswith("_drop") else None)
+            fwd = check_attention_fwd(torch, ak, mode, args, dm, dname, fwd)
+        design = ak.attention_fwd_design(dtype, 1, tk, d)
+        row = {"max_abs_err": fwd["err"], "rel_err": fwd["rel"],
+               "tol": KERNEL_TOL[dname], "ok": fwd["ok"], "design": design,
+               "source": FWD_SOURCES[design], "Tk": tk, "d": d,
+               **{k: v for k, v in fwd.items()
+                  if k not in ("err", "rel", "ok")}}
+        timed = (tk, d) in ((50, 128), (1024, 128))
+        if timed:
+            row.update(**time_attention_fwd(timer, ak, mode, args, dm,
+                                            iters),
+                       plain_ms=timer(lambda: ak.fused_attention_plain(
+                           mode, *args, dm), max(iters // 10, 3)),
+                       **att_bound(mode, args, dname, dm))
+            library = att_library(torch, mode, args)
+            if library is not None:
+                row["library_ms"] = timer(library, iters)
+                row["library_max_abs_err"] = rel_err(
+                    library(), ak.fused_attention_plain(mode, *args))[0]
+            if design == "hop":
+                row.update(hop_tol=TILE_FWD_TOL[dname],
+                           **fwd_hop_occupancy(ak, mode, dname, tk, d))
+        key = (dname if (tk, d) == (50, 128) else
+               f"{dname}_tk{tk}" if tk == 1024 else f"{dname}_tk{tk}_d{d}")
+        rows[key] = row
+        if timed or not fwd["ok"]:
+            print(f"fused_attention {mode:10s} Tq=1 Tk={tk:<5d}d={d:<4d}"
+                  f"{dname:9s} {design} max_abs_err={fwd['err']:.3e} "
+                  f"rel={fwd['rel']:.3e} vs_query_rel="
+                  f"{row.get('hop_vs_query_rel_err')} same_bits="
+                  f"{row.get('same_bits_twice')} ms={row.get('ms')} "
+                  f"device_ms={row.get('device_ms')} host_ms="
+                  f"{row.get('host_ms')} query_ms={row.get('query_ms')} "
+                  f"query_device_ms={row.get('query_device_ms')} "
+                  f"query_host_ms={row.get('query_host_ms')} plain_ms="
+                  f"{row.get('plain_ms')} bound_ms={row.get('bound_ms')} "
+                  f"library_ms={row.get('library_ms')} smem_bytes="
+                  f"{row.get('smem_bytes')} blocks_per_sm="
+                  f"{row.get('blocks_per_sm')} "
+                  f"{'ok' if fwd['ok'] else 'FAIL'}", flush=True)
+        if not fwd["ok"]:
+            failures.append(f"fused_attention {mode} Tq=1 Tk={tk} d={d} "
+                            f"{dname}: {row}")
+    hop = [r for r in rows.values() if r["design"] == "hop"]
+    print(f"fused_attention {mode:10s} Tq=1 {dname:9s} hop design over "
+          f"{len(hop)} shapes x B = 1, 16, 256: worst rel "
+          f"{max(r['rel_err'] for r in hop):.3e}, vs query "
+          f"{max(r['hop_vs_query_rel_err'] for r in hop):.3e}, same bits "
+          f"{all(r['same_bits_twice'] for r in hop)}", flush=True)
+    return rows
+
+
 def check_kernels(torch, timer, iters, failures):
     """Each kernel mode against its plain twin at the request batches of
     the slice (B = 1, 16, 256); timed at B = 256."""
@@ -707,46 +804,10 @@ def check_kernels(torch, timer, iters, failures):
                 failures.append(f"gru_scan {mode} {dname}: rel err {rel:.3e}, "
                                 f"unit_column {column_rel:.3e}, same bits "
                                 f"{same}")
-        for mode in SERVING_MODES:
-            for tk in (50, 1024):
-                err = rel = 0.0
-                ok = True
-                for bs in (1, 16, 256):
-                    args = att_inputs(torch, gen, dtype, B=bs, Tk=tk)
-                    want = ak.fused_attention_plain(mode, *args)
-                    e, r, o = _agree(ak.fused_attention(mode, *args), want,
-                                     dname)
-                    err, rel, ok = max(err, e), max(rel, r), ok and o
-                run = lambda: ak.fused_attention(mode, *args)  # noqa: E731
-                row = {"max_abs_err": err, "rel_err": rel,
-                       "tol": KERNEL_TOL[dname], "ok": ok,
-                       "ms": timer(run, iters),
-                       # MTAM's serving hops (Tk = 50): the profiler's
-                       # device time and the host time a call
-                       **({"device_ms": timer.device(run),
-                           "host_ms": timer.host(run)} if tk == 50 else {}),
-                       "plain_ms": timer(
-                           lambda: ak.fused_attention_plain(mode, *args),
-                           max(iters // 10, 3)),
-                       **att_bound(mode, args, dname)}
-                library = att_library(torch, mode, args)
-                if library is not None:
-                    row["library_ms"] = timer(library, iters)
-                    row["library_max_abs_err"] = rel_err(library(), want)[0]
-                key = dname if tk == 50 else f"{dname}_tk1024"
-                entries.setdefault(("fused_attention", mode, "Tq1"),
-                                   {})[key] = row
-                print(f"fused_attention {mode:6s} Tk={tk:<5d}{dname:9s} "
-                      f"max_abs_err={err:.3e} rel={rel:.3e} ms="
-                      f"{row['ms']:.4f} device_ms={row.get('device_ms')} "
-                      f"host_ms={row.get('host_ms')} plain_ms="
-                      f"{row['plain_ms']:.4f} "
-                      f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                      f"library_ms={row.get('library_ms')} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    failures.append(f"fused_attention {mode} Tk={tk} {dname}:"
-                                    f" rel err {rel:.3e}")
+        for mode in ak.MODES:
+            entries.setdefault(("fused_attention", mode, "Tq1"), {}).update(
+                check_tq1_attention(torch, ak, timer, iters, failures, gen,
+                                    mode, dtype))
     return entries
 
 
@@ -755,13 +816,18 @@ def check_kernels(torch, timer, iters, failures):
 SERVING_META = (6040, 3706, 18, 50)      # the ml-1m catalog, L=50
 
 
-def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag):
+def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag,
+               turns_batch=None):
     """Recommender.recommend for MTAM at full width (d=128, 3 hops, 1 head,
     k=50; ``overrides`` on the config) for each request batch size in
     ``batches``, in bf16 and f32 compute: the launches of one call,
     counted from 0, against ``want``; the scores against the same
     Recommender on the CPU (the plain twins) over the catalog's columns;
-    the time per request batch.  Returns (rows, the calls' launches)."""
+    the time per request batch; at ``turns_batch`` also the scoring
+    call's event ms and device busy ms in turns with the attention
+    forward forced to its query design (`forced_design`; hop, query,
+    query, hop), launches not counted.  Returns (rows, the calls'
+    launches)."""
     from mtamrecommender_tpu_torch.config import ExperimentConfig
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
     from mtamrecommender_tpu_torch.models.mtam import init_mtam
@@ -821,6 +887,21 @@ def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag):
             score_ms = _event_ms(torch, lambda: rec._score_impl(batch, fetch),
                                  iters)
             busy = _device_busy(torch, lambda: rec._score_impl(batch, fetch))
+            if bs == turns_batch:
+                score = lambda: rec._score_impl(batch, fetch)  # noqa: E731
+                turns = []
+                for turn in ("hop", "query", "query", "hop"):
+                    with (forced_design("fused_attention") if turn == "query"
+                          else contextlib.nullcontext()):
+                        turns.append({
+                            "fused_attention": turn,
+                            "score_topk_ms": _event_ms(torch, score, iters),
+                            "device_busy_ms": _device_busy(
+                                torch, score)["device_busy_ms"]})
+                print(f"{tag} {dname:9s} B={bs} in turns (fused_attention "
+                      "hop, query, query, hop): score_topk_ms="
+                      f"{[t['score_topk_ms'] for t in turns]} device_busy_ms="
+                      f"{[t['device_busy_ms'] for t in turns]}", flush=True)
             row = {"compute_dtype": dname, "batch": bs, "k": 50,
                    "seq_len": meta.max_seq_len,
                    "launches_per_call": got, "launches_ok": launches_ok,
@@ -830,6 +911,8 @@ def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag):
                    **busy, "idle_share": (None if busy["device_busy_ms"] is None
                                           else 1 - busy["device_busy_ms"]
                                           / score_ms),
+                   **({"attention_fwd_in_turns": turns}
+                      if bs == turns_batch else {}),
                    "ok": ok}
             rows.append(row)
             fired = {k: {m: n for m, n in v.items() if n}
@@ -850,22 +933,23 @@ def serve_mtam(torch, iters, failures, meta, overrides, batches, want, tag):
 
 def run_slice(torch, iters, failures, num_units=128):
     """Phase 3: MTAM serving at L=50 (1 gru_scan + 3 fused_attention[time]
-    launches a call in the query design, no fused_readout); at ``num_units`` 16 (the width
-    __graft_entry__.py's smoke trains MTAM at, which no kernel is built
-    for) for B=16 only."""
+    launches a call in the hop design, none in the query design, no
+    fused_readout), at B = 256 also in turns with the query design forced;
+    at ``num_units`` 16 (the width __graft_entry__.py's smoke trains MTAM
+    at, which the GRU pair is not built for) for B=16 only."""
     from mtamrecommender_tpu_torch.types import DatasetMeta
 
     want = _want_counts(0)
     want["gru_scan"]["tgru"] = 1
-    # the hops: Tq = 1, the forward's query design
+    # the hops: Tq = 1, Tk = 50, the forward's hop design (d = 128 and 16)
     want["fused_attention"]["time"] = 3
-    want["fused_attention_query"]["time"] = 3
+    want["fused_attention_hop"]["time"] = 3
     if num_units != 128:
         return serve_mtam(torch, iters, failures, DatasetMeta(*SERVING_META),
                           {"model.num_units": num_units}, (16,), want,
                           f"slice u={num_units}")
     return serve_mtam(torch, iters, failures, DatasetMeta(*SERVING_META), {},
-                      (1, 16, 256), want, "slice")
+                      (1, 16, 256), want, "slice", turns_batch=256)
 
 
 def _host_ms(torch, fn, iters):
@@ -1242,46 +1326,50 @@ def time_attention_bwd(timer, ak, mode, g, args, dm, iters):
 
 def check_attention_fwd(torch, ak, mode, args, dm, dname, acc):
     """fused_attention on the card against its twin, within KERNEL_TOL, in
-    the design the wrapper picks; where that is the tile design, also two
-    launches the same bits, and within TILE_FWD_TOL of the twin and of
-    the query design forced (itself within KERNEL_TOL of the twin).
-    Folds the worst of them into ``acc``."""
+    the design the wrapper picks; where that is the tile or the hop
+    design, also two launches the same bits, and within TILE_FWD_TOL of
+    the query design forced (itself within KERNEL_TOL of the twin), the
+    tile design also within TILE_FWD_TOL of the twin.  Folds the worst of
+    them into ``acc`` (keys "<design>_rel_err", "<design>_vs_query_rel_err",
+    "query_rel_err", "same_bits_twice")."""
     got = ak.fused_attention(mode, *args, dm)
     want = ak.fused_attention_plain(mode, *args, dm)
     e, r, o = _agree(got, want, dname)
     out = dict(acc, err=max(acc["err"], e), rel=max(acc["rel"], r),
                ok=acc["ok"] and o)
     q, k = args[0], args[1]
-    if ak.attention_fwd_design(q.dtype, q.shape[1], k.shape[1],
-                               q.shape[2]) != "tile":
+    design = ak.attention_fwd_design(q.dtype, q.shape[1], k.shape[1],
+                                     q.shape[2])
+    if design == "query":
         return out
     again = ak.fused_attention(mode, *args, dm)
     query = ak._launch(mode, *args, dm, _design="query")
     _, query_rel, query_ok = _agree(query, want, dname)
-    tile_rel = rel_err(got, want)[1]
-    tile_query_rel = rel_err(got, query)[1]
+    design_rel = rel_err(got, want)[1]
+    vs_query_rel = rel_err(got, query)[1]
     same = torch.equal(got, again)
-    for key, x in (("tile_rel_err", tile_rel),
-                   ("tile_vs_query_rel_err", tile_query_rel),
+    for key, x in ((f"{design}_rel_err", design_rel),
+                   (f"{design}_vs_query_rel_err", vs_query_rel),
                    ("query_rel_err", query_rel)):
         out[key] = max(out.get(key, 0.0), x)
     out["same_bits_twice"] = out.get("same_bits_twice", True) and same
     out["ok"] = (out["ok"] and same and query_ok
-                 and tile_rel <= TILE_FWD_TOL[dname]
-                 and tile_query_rel <= TILE_FWD_TOL[dname])
+                 and vs_query_rel <= TILE_FWD_TOL[dname]
+                 and (design != "tile"
+                      or design_rel <= TILE_FWD_TOL[dname]))
     return out
 
 
 def time_attention_fwd(timer, ak, mode, args, dm, iters):
-    """The forward's time: where the wrapper picks the tile design, it
-    and the query design (forced, `forced_design`) through the same entry
-    point on the same inputs in turns (tile, query, query, tile), by CUDA
-    events and by the profiler's device time, with each one's host time a
-    call."""
+    """The forward's time: where the wrapper picks the tile or the hop
+    design, it and the query design (forced, `forced_design`) through the
+    same entry point on the same inputs in turns (picked, query, query,
+    picked), by CUDA events and by the profiler's device time, with each
+    one's host time a call."""
     run = lambda: ak.fused_attention(mode, *args, dm)  # noqa: E731
     q, k = args[0], args[1]
     if ak.attention_fwd_design(q.dtype, q.shape[1], k.shape[1],
-                               q.shape[2]) != "tile":
+                               q.shape[2]) == "query":
         return {"ms": timer(run, iters)}
 
     def query(measure):
@@ -1310,6 +1398,17 @@ def fwd_tile_occupancy(ak, mode, dtype, d=128):
                 mode_id, is_bf16, d),
             "blocks_per_sm": lib.fused_attention_tile_blocks_per_sm(
                 mode_id, is_bf16, d, 0)}
+
+
+def fwd_hop_occupancy(ak, mode, dtype, tk=50, d=128):
+    """The forward hop design's shared memory a block (bytes) and blocks
+    an SM (the occupancy calculator's) for a mode and dtype at (Tk, d)."""
+    lib = ak._hop_library()
+    mode_id, is_bf16 = ak.MODES.index(mode), int(dtype == "bfloat16")
+    return {"smem_bytes": lib.fused_attention_hop_smem_bytes(
+                mode_id, is_bf16, tk, d),
+            "blocks_per_sm": lib.fused_attention_hop_blocks_per_sm(
+                mode_id, is_bf16, tk, d, 0)}
 
 
 def check_attention_training(torch, timer, iters, failures):
@@ -2040,6 +2139,7 @@ def _counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
+            "fused_attention_hop": dict(ak.fwd_hop_launches),
             "fused_attention_query": dict(ak.fwd_query_launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
             "fused_attention_bwd_rows": dict(ak.bwd_rows_launches),
@@ -2065,7 +2165,8 @@ def _counts():
 def _reset_counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
-                   ak.fwd_query_launches, ak.bwd_launches,
+                   ak.fwd_hop_launches, ak.fwd_query_launches,
+                   ak.bwd_launches,
                    ak.bwd_rows_launches,
                    ak.blockwise_launches,
                    ak.blockwise_mma_launches, ak.blockwise_regtile_launches,
@@ -2083,8 +2184,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
     forward and backward ``blocks`` times a step in mode ``attention``
-    (at Tq = Tk = 50: the forward's query design and the backward's rows
-    design never);
+    (at Tq = Tk = 50: the forward's hop and query designs and the
+    backward's rows design never);
     the fused readout and its backward once a step with ``readout``, the
     chain readout's pair with ``chain`` (the rows designs never: at L=50
     both take the staged design); the dense route's
@@ -2100,8 +2201,10 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
                                for m in modes}
     return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
             "fused_attention": att,
-            # the main path takes the forward's query design at Tq = 1
-            # only (`attention_fwd_design`), which callers add
+            # the main path takes the forward's hop design at Tq = 1, Tk
+            # <= 64 only (`attention_fwd_design`), which callers add, and
+            # its query design only past 64 keys
+            "fused_attention_hop": dict.fromkeys(ak.MODES, 0),
             "fused_attention_query": dict.fromkeys(ak.MODES, 0),
             "fused_attention_bwd": dict(att),
             # the main path never takes the backward's rows design at
@@ -3951,7 +4054,8 @@ def kernels_line(entries, launches_by_shape):
             # the same inputs in the same run, in turns, both through the
             # launch function (the JSON: each one's host time, and the
             # public call's, `call_host_ms`); fused_attention's at Tq=1,
-            # Tk=50: its device time
+            # Tk=50: its design (hop), device time, and the query
+            # design's time and device time in the same turns
             **{k: head[k] for k in ("design", "simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms",
@@ -4051,6 +4155,18 @@ def main() -> int:
     for inst, regs, spill_st, spill_ld in fwd_tile_ptxas:
         print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
+    # the attention forward's hop design: <type, mode, drop>; phase 2
+    # reports its shared memory a block and blocks an SM
+    log = built["fused_attention_hop"]["log"]
+    if log == "already built":
+        log = build.library_path("fused_attention_hop").with_suffix(
+            ".log").read_text()
+    fwd_hop_ptxas = [row for kname in FWD_HOP_KERNELS
+                     for row in ptxas_counts(log, kname)]
+    print("ptxas fused_attention_hop:", flush=True)
+    for inst, regs, spill_st, spill_ld in fwd_hop_ptxas:
+        print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
     # the chain pair's staged designs: the forward's kernel's, the
     # backward's query pass's and staged kernel's instantiations <type>;
     # phase 2f reports the staged kernels' shared memory a block and
@@ -4107,7 +4223,7 @@ def main() -> int:
     # phase 3: the serving slice
     slice_rows, serve_launches = run_slice(torch, 20, failures)
     for kname, mode in (("gru_scan", "tgru"), ("fused_attention", "time"),
-                        ("fused_attention_query", "time")):
+                        ("fused_attention_hop", "time")):
         if serve_launches[kname][mode] == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "serving path")
@@ -4204,6 +4320,7 @@ def main() -> int:
                        readout_ptxas["fused_readout_bwd"],
                    "scatter_columns_sum_ptxas": scatter_ptxas,
                    "fused_attention_tile_ptxas": fwd_tile_ptxas,
+                   "fused_attention_hop_ptxas": fwd_hop_ptxas,
                    "readout_chain_staged_ptxas": chain_ptxas["readout_chain"],
                    "readout_chain_bwd_staged_ptxas":
                        chain_ptxas["readout_chain_bwd"],

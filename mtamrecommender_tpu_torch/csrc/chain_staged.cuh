@@ -1,11 +1,12 @@
-// Shared pieces of the chain readout's "staged" designs: the forward
-// (readout_chain.cu) and the backward (readout_chain_bwd.cu).  Both take
+// Shared pieces of the chain readout's "staged" designs, the forward
+// (readout_chain.cu) and the backward (readout_chain_bwd.cu), and of the
+// attention forward's "hop" design (fused_attention_hop.cu).  Each takes
 // one block of 256 threads a batch row, at 1 <= L <= kStagedKeys keys
-// with D a multiple of 16 up to 128, and stage each hop's K and tprec rows
-// of the live keys and V rows of the reached keys in shared memory once
-// (the backward by 16-byte cp.async, `stage_rows`; the forward by bulk
-// copies).  One thread mapping: lane c of half-warp h (16 a block) owns 8
-// columns (`col`), so
+// with D a multiple of 16 up to 128, and stages a hop's K (and tprec or
+// rawk) rows of the live keys and V rows of the reached keys in shared
+// memory once (the chain backward by 16-byte cp.async, `stage_rows`; the
+// two forwards by bulk copies, `bulk_copy`).  One thread mapping: lane c
+// of half-warp h (16 a block) owns 8 columns (`col`), so
 //  - a dot product against every key (`key_dots`) takes a half-warp a key,
 //    keys l = h, h+16, ..., the keys' loads in flight together and their
 //    lane sums in one butterfly (`half_sums`);
@@ -77,6 +78,43 @@ __device__ __forceinline__ uint4 ldg16(const void* src,
       : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
       : "l"(src), "l"(policy));
   return r;
+}
+
+// Bulk copies (TMA) into shared memory, completed on an mbarrier: one
+// thread issues a block of rows with one instruction, and no thread
+// stalls on the copies until it waits on the barrier.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar)));
+}
+// The issuing thread's arrival, expecting `bytes` of copies (0: none).
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of parity `parity` completes.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar,
+                                          unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
 }
 
 // The 8 columns lane c of a half-warp owns, so that each 16-byte access

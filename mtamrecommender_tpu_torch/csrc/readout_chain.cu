@@ -167,42 +167,6 @@ struct StagedVecs {
   alignas(8) unsigned long long bar[2][2];
 };
 
-// ---- bulk copies (TMA) into shared memory, completed on an mbarrier
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar)));
-}
-// The issuing thread's arrival, expecting `bytes` of copies (0: none).
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-// Wait until the barrier's phase of parity `parity` completes.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar,
-                                          unsigned long long policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
-      : "memory");
-}
-
 // By one thread: hop i's K and tprec rows of the live keys (`kt`, on
 // bar[0]) and V rows of the reached ones (`vv`, on bar[1]) of row b into
 // `buf` [K | V | tprec], each block of rows one contiguous bulk copy.

@@ -7,8 +7,9 @@ custom_vjp does.  The forward routes by key count as `_fused_attention_fwd`
 does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel (the
 Pallas `_attn_kernel`) in the design `attention_fwd_design` picks (with 2
 to TILE_KEYS queries and up to TILE_KEYS keys csrc/fused_attention_tile.cu,
-a block a batch row; else csrc/fused_attention.cu, a block a query row),
-above that, up to
+a block a batch row; with one query and up to HOP_KEYS keys
+csrc/fused_attention_hop.cu, a block a batch row; else
+csrc/fused_attention.cu, a block a query row), above that, up to
 MAX_KEYS and without a dropout mask, the blockwise kernel
 (csrc/fused_attention_blockwise.cu, the Pallas `_attn_kernel_blockwise`:
 an online softmax over KEY_BLOCK-key blocks; for Tq > 1 tensor-core tiles
@@ -47,6 +48,7 @@ import ctypes
 import torch
 
 from mtamrecommender_tpu_torch.ops.kernels import build
+from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as chain
 
 MODES = ("plain", "time", "tisas", "plain_drop", "tisas_drop")
 DTYPES = (torch.float32, torch.bfloat16)
@@ -74,11 +76,18 @@ GATE_MAX_ROWS = 4096      # batch rows a gate-sum launch takes (128 parts)
 GATE_WORKSPACE_CAP = 1 << 25   # f32 gate terms a chunk of rows may hold
 # the single-tile forward's designs (`attention_fwd_design`): "tile", a
 # block a batch row with its whole Tq x Tk problem in shared memory (the
-# backward's layout); "query", the earlier, a block a (batch row, query row)
-FWD_DESIGNS = ("tile", "query")
+# backward's layout); "hop", a block a batch row of one query (MTAM's
+# readout hops) with its rows in shared memory; "query", the earlier, a
+# block a (batch row, query row)
+FWD_DESIGNS = ("tile", "hop", "query")
+HOP_KEYS = 64             # the hop design's largest Tk
+# the operands each design's launch copies 16 bytes at a time, by index in
+# the forward's arguments: always, and in time mode also
+FWD_ALIGNED = {"tile": ((0, 1, 2), (5, 6)), "hop": ((1, 2), (6,))}
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}            # either forward design
+fwd_hop_launches = {mode: 0 for mode in MODES}    # the hop design alone
 fwd_query_launches = {mode: 0 for mode in MODES}  # the query design alone
 bwd_launches = {mode: 0 for mode in MODES}     # either design
 bwd_rows_launches = {mode: 0 for mode in MODES}   # the rows design alone
@@ -211,23 +220,30 @@ def attention_fwd_design(dtype: torch.dtype, tq: int, tk: int,
     both dtypes (bf16 products on the tensor cores, f32 on the FMA
     units): one block a batch row holds its whole problem in shared
     memory, padded to TILE_KEYS x TILE_KEYS (the self-attention blocks'
-    Tq = Tk = 50).  "query" elsewhere (MTAM's Tq = 1 hops, up to
-    SINGLE_TILE_KEYS keys, other widths).  The tile launch also wants q,
-    k, v (and in time mode tqw and rawk) 16-byte aligned, and refuses
-    them otherwise."""
+    Tq = Tk = 50).  "hop" where Tq = 1, 1 <= Tk <= HOP_KEYS and d is a
+    multiple of 16 up to TILED_MAX_D, in both dtypes: one block a batch
+    row stages its rows in shared memory by bulk copies (MTAM's readout
+    hops at L=50).  "query" elsewhere (Tq = 1 past HOP_KEYS keys, up to
+    SINGLE_TILE_KEYS, other widths).  The tile launch also wants q, k, v
+    (and in time mode tqw and rawk), the hop launch k and v (and rawk),
+    16-byte aligned (FWD_ALIGNED), and refuses them otherwise."""
     if dtype not in DTYPES:
         raise TypeError(f"fused_attention: no design for {dtype}")
     if 2 <= tq <= TILE_KEYS and 1 <= tk <= TILE_KEYS and d in TILE_WIDTHS:
         return "tile"
+    if tq == 1 and 1 <= tk <= HOP_KEYS and d % 16 == 0 \
+            and 16 <= d <= TILED_MAX_D:
+        return "hop"
     return "query"
 
 
 def _launch(mode, *args, _design=None) -> torch.Tensor:
     """Launch the single-tile forward in the design `attention_fwd_design`
     picks.  ``_design="query"`` forces the earlier design (chip_smoke.py
-    holds and times it beside the tile design); "tile" only where it is
-    picked.  The main path passes nothing.  A design that fails to build
-    or launch raises: there is no fallback."""
+    holds and times it beside the tile and hop designs); "tile" and "hop"
+    only where they are picked.  The main path passes nothing.  A design
+    that fails to build or launch, or an operand its copies cannot take
+    (FWD_ALIGNED), raises: there is no fallback."""
     q, k, dm = args[0], args[1], args[-1]
     b, tq, d = q.shape
     tk = k.shape[1]
@@ -237,12 +253,16 @@ def _launch(mode, *args, _design=None) -> torch.Tensor:
         raise ValueError(
             f"fused_attention: design {design!r} does not take Tq={tq}, "
             f"Tk={tk}, d={d} (attention_fwd_design: {picked!r})")
-    if design == "tile":
-        read = args[:3] + (args[5:7] if base_mode(mode) == "time" else ())
-        if any(t.data_ptr() % 16 for t in read):
-            raise ValueError("fused_attention: the tile design takes q, k, "
-                             "v (and tqw, rawk in time mode) 16-byte "
-                             "aligned")
+    if design in FWD_ALIGNED:
+        always, timed = FWD_ALIGNED[design]
+        read = always + (timed if base_mode(mode) == "time" else ())
+        if any(args[i].data_ptr() % 16 for i in read):
+            names = ("q", "k", "v", "t_q", "t_k", "tqw", "rawk")
+            raise ValueError(
+                f"fused_attention: the {design} design takes "
+                f"{', '.join(names[i] for i in always)} (and "
+                f"{', '.join(names[i] for i in timed)} in time mode) "
+                "16-byte aligned")
     tensors = args[:-1] if dm is None else args
     device, stream = build.launch_context(tensors, "fused_attention")
     _single_tile("fused_attention", tk)
@@ -254,6 +274,11 @@ def _launch(mode, *args, _design=None) -> torch.Tensor:
         lib = _tile_library()
         status = lib.fused_attention_tile_launch(mode_id, is_bf16, *ptrs)
         build.check(lib, status, "fused_attention (tile)")
+    elif design == "hop":
+        lib = _hop_library()
+        status = lib.fused_attention_hop_launch(mode_id, is_bf16, *ptrs)
+        build.check(lib, status, "fused_attention (hop)")
+        fwd_hop_launches[mode] += 1
     else:
         lib = _library()
         status = lib.fused_attention_launch(mode_id, is_bf16, *ptrs)
@@ -285,6 +310,21 @@ def _tile_library() -> ctypes.CDLL:
         lib.fused_attention_tile_smem_bytes.restype = ctypes.c_longlong
         lib.fused_attention_tile_blocks_per_sm.argtypes = [ci, ci, ci, ci]
         lib.fused_attention_tile_blocks_per_sm.restype = ci
+        lib._port_typed = True
+    return lib
+
+
+def _hop_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_hop")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_hop_launch.argtypes = (
+            [ci, ci] + [vp] * 15 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.fused_attention_hop_launch.restype = ci
+        lib.fused_attention_hop_smem_bytes.argtypes = [ci] * 4
+        lib.fused_attention_hop_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_attention_hop_blocks_per_sm.argtypes = [ci] * 5
+        lib.fused_attention_hop_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -389,6 +429,54 @@ def _tile_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
     plane = torch.nn.functional.pad(w.to(v.dtype).float(),
                                     (0, n - tk, 0, n - tq))
     return torch.einsum("bqk,bkd->bqd", plane, vp)[:, :tq]
+
+
+def _hop_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
+                          wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
+    """The forward hop design's arithmetic in plain PyTorch (the arguments
+    and result of `fused_attention`, at Tq = 1 and the shapes
+    `attention_fwd_design` gives "hop"), on the chain readout's staged
+    layout: k and rawk staged zero past each row's live keys and v past
+    the keys its weights reach (all Tk in a row with none live), zero-
+    padded to HOP_KEYS rows; the score dots q . k_c and tqw . rawk_c by
+    the lane columns and a half-warp's butterfly; the gate, the scale,
+    -2^32 + 1 at masked keys and the softmax over the Tk keys, then dm;
+    the weights rounded to v's type; out = sum_c w_c v_c by 16 key slices
+    in order (the kernel's half-warps), then the warps in order."""
+    base = base_mode(mode)
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    if attention_fwd_design(q.dtype, tq, tk, d) != "hop":
+        raise ValueError(f"_hop_fwd_design_plain: the hop design does not "
+                         f"take Tq={tq}, Tk={tk}, d={d}")
+    scale = 1.0 / d ** 0.5
+    cols = chain._lane_columns(d, q.dtype)
+    live_rows, reached_rows = chain._staged_masks(key_len, tk)
+    s0 = chain._lanes_dot(q.float(), chain._staged(k, live_rows),
+                          cols)[:, :tk]
+    if base in ("time", "tisas"):
+        ldt = torch.log1p(torch.abs(t_q.float() - t_k.float()))
+    if base == "time":
+        tqk = chain._lanes_dot(tqw.float(), chain._staged(rawk, live_rows),
+                               cols)[:, :tk]
+        dec = torch.tanh(ldt * w1.float() + b1.float())
+        sig = torch.sigmoid(wo1.float() * dec + wo2.float() * torch.tanh(tqk)
+                            + bo.float())
+        sc = s0 * sig * scale
+    elif base == "tisas":
+        sc = (s0 + ldt) * scale
+    else:
+        sc = s0 * scale
+    lv = torch.arange(tk, device=q.device)[None, :] \
+        < key_len.long()[:, None]
+    s = torch.where(lv, sc, torch.full_like(sc, NEG_FILL))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    if dm is not None:
+        w = w * dm[:, 0]
+    w = w.to(v.dtype).float()
+    return chain._key_slices(chain._pad_keys(w),
+                             chain._staged(v, reached_rows))[:, None, :]
 
 
 # ------------------------------------------------------------ blockwise

@@ -36,12 +36,13 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # (the readouts' four include readout_hop.cuh; fused_readout.cu and
 # fused_readout_bwd.cu also readout_gemm.cuh, which includes tile_gemm.cuh;
 # fused_attention_tile.cu and fused_attention_bwd_tile.cu include
-# attention_tile.cuh, which includes tile_gemm.cuh; readout_chain.cu and
-# readout_chain_bwd.cu include chain_staged.cuh, which includes
-# readout_hop.cuh)
+# attention_tile.cuh, which includes tile_gemm.cuh; readout_chain.cu,
+# readout_chain_bwd.cu and fused_attention_hop.cu include chain_staged.cuh,
+# which includes readout_hop.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_tile": "fused_attention_tile.cu",
+           "fused_attention_hop": "fused_attention_hop.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
            "fused_attention_bwd_tile": "fused_attention_bwd_tile.cu",
            "fused_attention_blockwise": "fused_attention_blockwise.cu",
