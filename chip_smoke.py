@@ -180,7 +180,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      dtable at the L=2048 cell's 131,072 ids a table (the user table's
      64), as in phase 2b; gather and scatter_add against their twins at
      those ids and at phase 4's ids, the same bits twice, timed beside
-     index_select and index_add_; scatter_add in its default "columns"
+     index_select and index_add_; gather in its default "vector" design
+     also torch.equal to its twin and to the earlier "warp_row" design
+     forced, ids below 0 and past V giving zero rows in both, both timed
+     in turns (vector, warp_row, warp_row, vector) by events and the
+     host's clock, with the profiler's device time a call of each and of
+     index_select from rounds of the same turns; then gather at d = 16,
+     64, 256 and 6 ("warp_row") in both dtypes, the library's design and
+     grid rules equal to the wrapper's; scatter_add in its default "columns"
      design also torch.equal to its twin and to the earlier "segments" design
      forced, both timed in turns (columns, segments, segments, columns)
      with the profiler's device time a call and split by kernel, and
@@ -214,7 +221,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      dense_fwd a step and no attention kernel), timed in bf16; and
      behavior_embedding(gather=embedding_kernel.gather) forward and
      backward on the cell's first batch against take_dtable (4 gather +
-     4 scatter_add launches).
+     4 scatter_add launches), timed in turns with scatter_add's and then
+     gather's earlier design forced.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
@@ -235,7 +243,9 @@ the unit_column design on the same inputs, fused_readout's and
 fused_readout_bwd's "rows_ms", the rows design on the same inputs, and
 "passes_ms", scatter_add's "segments_ms" and "segments_device_ms", PR
 5's design on the same inputs in turns, "device_ms", "library_device_ms"
-and "passes_ms"), the
+and "passes_ms", gather's "design", "device_ms", "library_device_ms",
+"warp_row_ms" and "warp_row_device_ms", the warp_row design on the same
+inputs in turns), the
 blockwise kernel's
 tiled designs as "fused_attention_blockwise_mma[<mode>]@L2048" (bf16)
 and "fused_attention_blockwise_regtile[<mode>]@L2048" (f32), each with
@@ -2152,6 +2162,8 @@ def _counts():
             "dense_fwd": dict(ak.dense_fwd), "dense_bwd": dict(ak.dense_bwd),
             "dtable": dict(ek.launches),
             "gather": {"gather": ek.gather_launches["gather"]},
+            "gather_warp_row": {
+                "gather_warp_row": ek.gather_launches["gather_warp_row"]},
             "scatter_add": {"scatter_add": ek.gather_launches["scatter_add"]},
             "fused_readout": {"fused_readout": rk.launches},
             "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches},
@@ -2220,7 +2232,8 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             "dense_fwd": per(ak.MODES, dense_fwd),
             "dense_bwd": per(ak.MODES, dense_bwd),
             "dtable": {"dtable": 4 * steps},
-            "gather": {"gather": 0}, "scatter_add": {"scatter_add": 0},
+            "gather": {"gather": 0}, "gather_warp_row": {"gather_warp_row": 0},
+            "scatter_add": {"scatter_add": 0},
             "fused_readout": {"fused_readout": steps * int(readout)},
             "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)},
             "readout_chain": {"readout_chain": steps * int(chain)},
@@ -2457,6 +2470,8 @@ EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
                                          "_launch_blockwise", "simt"),
            "scatter_add": ("seam_in_turns", "embedding_kernel",
                            "scatter_add", "segments"),
+           "gather": ("seam_in_turns", "embedding_kernel", "gather_rows",
+                      "warp_row"),
            "fused_attention_bwd": ("attention_bwd_steps_in_turns",
                                    "attention_kernel", "_launch_bwd",
                                    "rows"),
@@ -2524,7 +2539,8 @@ def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
     return {key: runs}
 
 
-UNMODED = ("dtable", "gather", "scatter_add", "fused_readout",
+UNMODED = ("dtable", "gather", "gather_warp_row", "scatter_add",
+           "fused_readout",
            "fused_readout_bwd", "readout_chain", "readout_chain_rows",
            "readout_chain_bwd", "readout_chain_bwd_rows")
 
@@ -3126,17 +3142,14 @@ HOT_ROWS = (131072, 3, 128)   # ids, the rows they name, the padded vocab
 
 def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag,
                  ns_per_add=None):
-    """gather_rows and scatter_add against their plain twins on each of a
-    step's four tables with its ids (``tables``: name -> (ids, padded
-    vocab)), a random table and cotangent; two launches of each must give
-    the same bits; index_select and index_add_ timed beside them.
+    """gather_rows (`check_gather_table`) and scatter_add against their
+    plain twins on each of a step's four tables with its ids (``tables``:
+    name -> (ids, padded vocab)), a random table and cotangent.
     scatter_add as `check_scatter` holds it, each table's chain floor
     at ``ns_per_add``; without it, first the hot-row case (HOT_ROWS: a
     chain longer than any table's), whose chain warp's time an add is
     then taken (its row's "chain_ns_per_add").  Returns the two entry
     rows, each headed by the item table."""
-    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
-
     dname = str(dtype).replace("torch.", "")
     shapes = {"gather": {}, "scatter_add": {}}
     if ns_per_add is None:
@@ -3151,28 +3164,8 @@ def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag,
         r["chain_floor_ms"] = r["max_run"] * ns_per_add / 1e6
     for table, (ids, vocab) in tables.items():
         tab = torch.randn((vocab, 128), generator=gen, device=DEVICE).to(dtype)
-        ids64 = ids.long()
-        run = lambda: ek.gather_rows(tab, ids)  # noqa: E731
-        plain = lambda: ek.gather_plain(tab, ids)  # noqa: E731
-        got, again, want = run(), run(), plain()
-        err, rel, ok = _agree(got, want, dname)
-        same = bool(torch.equal(got, again))
-        ok = ok and same
-        r = shapes["gather"][table] = {
-            "n": int(ids.shape[0]), "vocab": vocab, "max_abs_err": err,
-            "rel_err": rel, "same_bits_twice": same, "ok": ok,
-            "ms": timer(run, iters), "plain_ms": timer(plain, 2, warmup=1),
-            "library_ms": timer(lambda: torch.index_select(tab, 0, ids64),
-                                iters), **gather_bound(tab, ids)}
-        print(f"gather {tag} {table:11s} n={r['n']:<6d} V={vocab:<5d} "
-              f"{dname:9s} max_abs_err={err:.3e} rel={rel:.3e} same_bits="
-              f"{same} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f} bound_ms="
-              f"{r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            failures.append(f"gather {tag} {table} {dname}: rel err "
-                            f"{rel:.3e}, same bits {same}")
+        shapes["gather"][table] = check_gather_table(
+            torch, timer, iters, failures, tab, ids, f"{tag} {table}")
         shapes["scatter_add"][table] = check_scatter(
             torch, timer, iters, failures, gen, dtype, ids, vocab,
             f"{tag} {table}", ns_per_add)
@@ -3180,8 +3173,11 @@ def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag,
     for kname, by_table in shapes.items():
         head = by_table["item_table"]
         out[kname] = {
-            **{k: head[k] for k in ("ms", "plain_ms", "library_ms",
+            **{k: head[k] for k in ("design", "ms", "plain_ms", "library_ms",
                                     "device_ms", "library_device_ms",
+                                    "host_ms", "warp_row_ms",
+                                    "warp_row_device_ms",
+                                    "warp_row_host_ms",
                                     "segments_ms", "segments_device_ms",
                                     "bound_ms", "bound_by") if k in head},
             "library_call": ("index_select" if kname == "gather"
@@ -3191,6 +3187,166 @@ def check_gather(torch, timer, iters, failures, gen, dtype, tables, tag,
             "tol": KERNEL_TOL[dname],
             "ok": all(r["ok"] for r in by_table.values()),
             "by_table": by_table}
+    return out
+
+
+def _gather_masked_plain(ek, tab, ids):
+    """gather_plain with a zero row for each id outside [0, V): what both
+    gather designs write on the card."""
+    vocab = tab.shape[0]
+    want = ek.gather_plain(tab, ids.clamp(0, vocab - 1))
+    want[(ids < 0) | (ids >= vocab)] = 0
+    return want
+
+
+def _gather_bad_ids(ids, vocab):
+    """``ids`` with every 7th id below 0 and every 11th (from the 4th) at
+    or past ``vocab``."""
+    bad = ids.clone()
+    bad[::7] = -1 - ids[::7]
+    bad[3::11] = vocab + ids[3::11]
+    return bad
+
+
+def check_gather_table(torch, timer, iters, failures, tab, ids, tag):
+    """gather_rows on one table with ``ids`` in its default design
+    ("vector" at d=128): torch.equal to gather_plain, to itself twice and
+    to the earlier "warp_row" design forced (``_design="warp_row"``);
+    with ids below 0 and at or past V (`_gather_bad_ids`) both designs
+    torch.equal to the twin with those rows zero.  The two designs timed
+    in turns (vector, warp_row, warp_row, vector: ``ms`` and ``host_ms``
+    the first and last, ``warp_row_ms`` and ``warp_row_host_ms`` the
+    middle two, ``in_turns`` all four), CUDA events after the L2 flush
+    and the host's time a call; the device time a call from one profiler
+    window in which every round runs the same turns and index_select,
+    each call after the flush, split by kernel (``device_ms``,
+    ``warp_row_device_ms``, ``library_device_ms``); index_select's event
+    ms (``library_ms``) beside them; ``seconds`` the check's wall time."""
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    t0 = time.perf_counter()
+    dname = str(tab.dtype).replace("torch.", "")
+    vocab = tab.shape[0]
+    ids64 = ids.long()
+    design = ek.gather_design(tab.shape[1] * tab.element_size())
+    run = lambda: ek.gather_rows(tab, ids)  # noqa: E731
+    old = lambda: ek.gather_rows(tab, ids, _design="warp_row")  # noqa: E731
+    plain = lambda: ek.gather_plain(tab, ids)  # noqa: E731
+    library = lambda: torch.index_select(tab, 0, ids64)  # noqa: E731
+    got, again, forced, want = run(), run(), old(), plain()
+    err, rel, ok = _agree(got, want, dname)
+    bad = _gather_bad_ids(ids, vocab)
+    want_bad = _gather_masked_plain(ek, tab, bad)
+    equal = {"plain": bool(torch.equal(got, want)),
+             "twice": bool(torch.equal(got, again)),
+             "warp_row": bool(torch.equal(got, forced)),
+             "invalid_ids": bool(torch.equal(ek.gather_rows(tab, bad),
+                                             want_bad)),
+             "invalid_ids_warp_row": bool(torch.equal(
+                 ek.gather_rows(tab, bad, _design="warp_row"), want_bad))}
+    ok = ok and all(equal.values())
+    turns = [(d, timer(fn, iters), timer.host(fn))
+             for d, fn in (("vector", run), ("warp_row", old),
+                           ("warp_row", old), ("vector", run))]
+
+    def in_turns():
+        # each call after the flush (the window's own flush precedes the
+        # first); the flush's fill is left out of the split
+        for fn in (run, old, old, run):
+            fn()
+            timer.flush.zero_()
+        library()
+
+    split = timer.passes(in_turns, iters=20)
+    vec, row = split.pop("gather_vector_kernel", None), \
+        split.pop("gather_kernel", None)
+    r = {"n": int(ids.shape[0]), "vocab": vocab, "design": design,
+         "max_abs_err": err, "rel_err": rel, "same_bits_twice": equal["twice"],
+         "equal": equal, "ok": ok,
+         "ms": (turns[0][1] + turns[3][1]) / 2,
+         "warp_row_ms": (turns[1][1] + turns[2][1]) / 2,
+         "host_ms": (turns[0][2] + turns[3][2]) / 2,
+         "warp_row_host_ms": (turns[1][2] + turns[2][2]) / 2,
+         "in_turns": turns,
+         "device_ms": None if vec is None else vec / 2,
+         "warp_row_device_ms": None if row is None else row / 2,
+         "library_device_ms": sum(split.values()) if split else None,
+         "library_kernels": sorted(split),
+         "plain_ms": timer(plain, 2, warmup=1),
+         "library_ms": timer(library, iters), **gather_bound(tab, ids)}
+    r["seconds"] = time.perf_counter() - t0
+    print(f"gather {tag:22s} n={r['n']:<6d} V={vocab:<5d} {dname:9s} "
+          f"design={design} max_abs_err={err:.3e} equal={equal} in turns "
+          f"(vector, warp_row, warp_row, vector) ms="
+          f"{[round(t[1], 4) for t in turns]} host_ms="
+          f"{[round(t[2], 4) for t in turns]} device_ms={r['device_ms']} "
+          f"warp_row_device_ms={r['warp_row_device_ms']} index_select ms="
+          f"{r['library_ms']:.4f} device_ms={r['library_device_ms']} "
+          f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"gather {tag} {dname}: rel err {rel:.3e}, equal "
+                        f"{equal}")
+    return r
+
+
+GATHER_WIDTHS = (16, 64, 256, 6)     # d = 6: rows of 12 / 24 bytes
+GATHER_WIDTH_NS = (1, 33, 4099)
+
+
+def check_gather_widths(torch, failures):
+    """gather_rows at d = 16, 64, 256 ("vector") and 6 ("warp_row") in
+    both dtypes, n = 1, 33, 4,099 ids over 1,000 rows with ids below 0
+    and past V: torch.equal to the twin with those rows zero, the same
+    bits twice, and (in the vector design) to "warp_row" forced; one
+    launch a call; the library's gather_design and gather_vector_blocks
+    equal to the wrapper's gather_design and gather_grid (on this card's
+    SMs and on 132)."""
+    from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
+
+    lib = ek._gather_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=DEVICE).manual_seed(4242)
+    vocab, out = 1000, []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for d in GATHER_WIDTHS:
+            rows = []
+            tab = torch.randn((vocab, d), generator=gen, device=DEVICE).to(dtype)
+            row_bytes = d * tab.element_size()
+            design = ek.gather_design(row_bytes)
+            plan_ok = (ek.GATHER_DESIGNS[lib.gather_design(row_bytes)]
+                       == design)
+            for n in GATHER_WIDTH_NS:
+                plan_ok = plan_ok and all(
+                    lib.gather_vector_blocks(n, row_bytes, m)
+                    == ek.gather_grid(n, row_bytes, m) for m in (sms, 132))
+                ids = _gather_bad_ids(torch.randint(
+                    0, vocab, (n,), generator=gen, device=DEVICE,
+                    dtype=torch.int32), vocab)
+                want = _gather_masked_plain(ek, tab, ids)
+                _reset_counts()
+                got, again = ek.gather_rows(tab, ids), ek.gather_rows(tab, ids)
+                torch.cuda.synchronize()
+                launched = _counts()["gather"]["gather"]
+                equal = {"plain": bool(torch.equal(got, want)),
+                         "twice": bool(torch.equal(got, again))}
+                if design == "vector":
+                    equal["warp_row"] = bool(torch.equal(
+                        got, ek.gather_rows(tab, ids, _design="warp_row")))
+                ok = plan_ok and all(equal.values()) and launched == 2
+                rows.append({"d": d, "dtype": dname, "n": n,
+                             "design": design, "plan_agrees": plan_ok,
+                             "equal": equal, "launches": launched, "ok": ok})
+                if not ok:
+                    failures.append(f"gather d={d} {dname} n={n} {design}: "
+                                    f"plan agrees {plan_ok}, equal {equal}, "
+                                    f"launches {launched}")
+            out += rows
+            print(f"gather widths d={d:<3d} {dname:9s} design={design} "
+                  f"n={GATHER_WIDTH_NS} plan agrees={plan_ok} "
+                  f"{'ok' if all(r['ok'] for r in rows) else 'FAIL'}",
+                  flush=True)
     return out
 
 
@@ -3861,6 +4017,7 @@ def check_gather_seam(torch, setup, failures, main_launches):
     same_rows = all(torch.equal(a, b) for a, b in zip(*outs))
     rel = {n: rel_err(grads[1][n], g)[1] for n, g in grads[0].items()}
     launches_ok = (counts["gather"]["gather"] == 4
+                   and counts["gather_warp_row"]["gather_warp_row"] == 0
                    and counts["scatter_add"]["scatter_add"] == 4
                    and counts["dtable"]["dtable"] == 0)
     ok = same_rows and launches_ok and max(rel.values()) <= \
@@ -3879,9 +4036,10 @@ def check_gather_seam(torch, setup, failures, main_launches):
 def seam_in_turns(torch, setup, model, w, iters=10):
     """The seam's forward and backward (as check_gather_seam runs it, f32)
     timed in turns with scatter_add forced to its earlier segments design
-    (default, segments, segments, default): CUDA-event ms a call after
-    the L2 flush and the profiler's device ms a call.  Not counted as
-    main-path launches."""
+    and then with gather forced to its earlier warp_row design (default,
+    segments, segments, default, warp_row, warp_row, default): CUDA-event
+    ms a call after the L2 flush and the profiler's device ms a call.
+    Not counted as main-path launches."""
     from mtamrecommender_tpu_torch.ops.embedding import behavior_embedding
     from mtamrecommender_tpu_torch.ops.kernels import embedding_kernel as ek
 
@@ -3897,15 +4055,17 @@ def seam_in_turns(torch, setup, model, w, iters=10):
 
     timer = Timer(torch)
     rows = []
-    for turn in ("default", "segments", "segments", "default"):
+    turns = ("default", "segments", "segments", "default", "warp_row",
+             "warp_row", "default")
+    for turn in turns:
         with (forced_design("scatter_add") if turn == "segments"
+              else forced_design("gather") if turn == "warp_row"
               else contextlib.nullcontext()):
             rows.append({"design": turn, "ms": timer(step, iters),
                          "device_ms": timer.device(step, iters)})
     print(f"behavior_embedding(gather=) fwd+bwd B={XL_BATCH} L={XL_L} f32 "
-          f"in turns (default, segments, segments, default): ms="
-          f"{[round(r['ms'], 4) for r in rows]} device_ms="
-          f"{[r['device_ms'] for r in rows]}", flush=True)
+          f"in turns {turns}: ms={[round(r['ms'], 4) for r in rows]} "
+          f"device_ms={[r['device_ms'] for r in rows]}", flush=True)
     return rows
 
 
@@ -4055,13 +4215,17 @@ def kernels_line(entries, launches_by_shape):
             # launch function (the JSON: each one's host time, and the
             # public call's, `call_host_ms`); fused_attention's at Tq=1,
             # Tk=50: its design (hop), device time, and the query
-            # design's time and device time in the same turns
+            # design's time and device time in the same turns; gather's:
+            # its design (vector), device time, and the warp_row design's
+            # time and device time in the same turns (the JSON: both
+            # designs' host time)
             **{k: head[k] for k in ("design", "simt_ms", "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms",
                                     "rows_device_ms", "rows_passes_ms",
                                     "segments_ms", "segments_device_ms",
-                                    "query_ms", "query_device_ms")
+                                    "query_ms", "query_device_ms",
+                                    "warp_row_ms", "warp_row_device_ms")
                if k in head},
             "by_dtype": {k: {kk: v for kk, v in r.items() if kk != "ok"}
                          for k, r in by_dtype.items()},
@@ -4142,6 +4306,12 @@ def main() -> int:
     for inst, regs, spill_st, spill_ld in scatter_ptxas:
         print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
+    # gather's vector design: gather_vector_kernel<words a lane in flight>
+    gather_ptxas = ptxas_counts(log, "gather_vector_kernel")
+    print("ptxas embedding_gather, vector design:", flush=True)
+    for inst, regs, spill_st, spill_ld in gather_ptxas:
+        print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
     # the attention forward's tile design: <mode, drop> of each kernel
     # (mma: bf16, fma: f32); phase 2c reports its shared memory a block
     # and blocks an SM
@@ -4214,6 +4384,8 @@ def main() -> int:
     xl_setup = XLSetup(torch)
     entries.update(check_xl_kernels(torch, timer, 100, failures,
                                     xl_setup.tables, setup.tables))
+    # and gather at other widths, both designs
+    gather_widths = check_gather_widths(torch, failures)
     lap("2e")
 
     # phase 2f: the chain readout's pair, MTAM's training readout at L=50
@@ -4319,6 +4491,8 @@ def main() -> int:
                    "fused_readout_bwd_gemm_ptxas":
                        readout_ptxas["fused_readout_bwd"],
                    "scatter_columns_sum_ptxas": scatter_ptxas,
+                   "gather_vector_ptxas": gather_ptxas,
+                   "gather_widths": gather_widths,
                    "fused_attention_tile_ptxas": fwd_tile_ptxas,
                    "fused_attention_hop_ptxas": fwd_hop_ptxas,
                    "readout_chain_staged_ptxas": chain_ptxas["readout_chain"],

@@ -23,8 +23,34 @@
 // whose loads do not depend on them: the design parallelises over rows
 // and column slices and keeps the loads far ahead of the adds.
 //
-// Design of gather: one warp per row, lanes over the row in the widest
-// word (16, 8, 4 or 2 bytes) that divides it.
+// Design of gather ("vector", the default for rows of a multiple of 16
+// bytes: every d that is a multiple of 8 in bf16 or of 4 in f32).  At the
+// L = 2048 cell the table (at most 2.5 MB) sits in L2 and the output is
+// nearly all of the bytes, so the kernel has to keep the output's writes
+// streaming: every lane busy, many rows in flight, a grid sized to the
+// card.  Below a few thousand ids a call is latency-bound instead.
+//  * The output is n x W words of 16 bytes (W = row_bytes / 16).  A warp's
+//    item is a tile of 32 rows and kVecSteps steps of 32 consecutive words
+//    of it: in step s lane l takes word w = s * 32 + l of the tile, row
+//    w / W, column w % W, so each store instruction writes 512 contiguous
+//    bytes whatever W is (a row of W <= 32 words takes W lanes).
+//  * The ids are read once, coalesced: lane l of the item loads the id of
+//    the tile's row l when the item's words fall in that row, and a
+//    shuffle hands each lane its row's id.
+//  * A lane issues all of its kVecSteps loads (8 rows a warp at d = 128
+//    in bf16) into registers before its first store.  The table is read
+//    through the read-only path with an L2 evict-last policy (it is small
+//    and re-read); the output goes out with streaming stores (st.global.cs,
+//    evict first), so that output lines do not push table rows out of L2.
+//    An id outside [0, V) loads nothing and stores zeros.
+//  * The grid is one warp an item up to kVecBlocksPerSM blocks an SM (four
+//    waves of the kVecResident blocks an SM that 64 registers a thread
+//    allow), each warp walking the items with a stride of the grid's warps
+//    past that (n > 270,336 at d = 128 in bf16 on 132 SMs).
+// The earlier design ("warp_row", the rows of other widths, or forced):
+// one warp per row, lanes over the row in the widest word (16, 8, 4 or 2
+// bytes) that divides it.  gather_design() picks between them by the row's
+// bytes; the wrapper's gather_design agrees.
 //
 // Design of scatter_add ("columns", the default), no float atomics, the
 // same bits on every run; the wrapper's scatter_plan picks the route.
@@ -73,7 +99,93 @@ constexpr int kThreads = 256;      // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// ---------------------------------------------------------------- gather
+int sm_count(int device) {
+  static int counts[64] = {0};
+  int& c = counts[device & 63];
+  if (c == 0 && cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount,
+                                       device) != cudaSuccess)
+    c = 132;
+  return c;
+}
+
+// ------------------------------------------------------ gather: "vector"
+
+constexpr int kVecSteps = 8;         // 16-byte words a lane loads, then stores
+constexpr int kVecResident = 4;      // blocks an SM its registers must allow
+constexpr int kVecBlocksPerSM = 16;  // the grid's most blocks an SM
+
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint4 load_evict_last(const uint4* p,
+                                                 unsigned long long policy) {
+  uint4 r;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p), "l"(policy));
+  return r;
+}
+
+// Items of the vector design: tiles of 32 rows times the STEPS-step
+// batches of a tile's 32 * W words.
+template <int STEPS>
+__host__ __device__ long long vector_items(int n, long long W) {
+  return (long long)((n + 31) / 32) * ((W + STEPS - 1) / STEPS);
+}
+
+int vector_blocks(int n, long long row_bytes, int sms) {
+  const long long want =
+      (vector_items<kVecSteps>(n, row_bytes / 16) + kWarps - 1) / kWarps;
+  const long long most = (long long)sms * kVecBlocksPerSM;
+  return (int)(want < most ? want : most);
+}
+
+template <int STEPS>
+__global__ void __launch_bounds__(kThreads, kVecResident)
+    gather_vector_kernel(const uint4* __restrict__ table,
+                         const int* __restrict__ ids, uint4* __restrict__ out,
+                         int n, int V, int W) {
+  const int lane = threadIdx.x & 31;
+  const int batches = (W + STEPS - 1) / STEPS;
+  const long long items = vector_items<STEPS>(n, W);
+  const unsigned long long policy = evict_last_policy();
+  for (long long item = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       item < items; item += (long long)gridDim.x * kWarps) {
+    const int tile = (int)(item / batches);
+    const int s0 = (int)(item - (long long)tile * batches) * STEPS;
+    const int steps = min(STEPS, W - s0);
+    const int rows = min(32, n - tile * 32);
+    // the tile's rows this item's words fall in; lane r loads row r's id
+    const int first = s0 * 32 / W, last = ((s0 + steps) * 32 - 1) / W;
+    int id = -1;
+    if (lane >= first && lane <= last && lane < rows)
+      id = __ldcs(ids + tile * 32 + lane);
+    uint4 v[STEPS];
+    unsigned live = 0;              // the steps whose word this lane stores
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      const int w = (s0 + s) * 32 + lane;
+      const int r = w / W;
+      const int row_id = __shfl_sync(kFull, id, r & 31);
+      v[s] = make_uint4(0u, 0u, 0u, 0u);
+      if (s < steps && r < rows) {
+        live |= 1u << s;
+        if (row_id >= 0 && row_id < V)
+          v[s] = load_evict_last(table + (size_t)row_id * W + (w - r * W),
+                                 policy);
+      }
+    }
+    uint4* dst = out + (size_t)tile * 32 * W;
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s)
+      if (live >> s & 1u) __stcs(dst + (s0 + s) * 32 + lane, v[s]);
+  }
+}
+
+// ---------------------------------------------------- gather: "warp_row"
 
 template <typename W>
 __global__ void __launch_bounds__(kThreads) gather_kernel(
@@ -586,15 +698,6 @@ struct ColumnsWs {
   }
 };
 
-int sm_count(int device) {
-  static int counts[64] = {0};
-  int& c = counts[device & 63];
-  if (c == 0 && cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount,
-                                       device) != cudaSuccess)
-    c = 132;
-  return c;
-}
-
 template <typename T, int CPL>
 cudaError_t launch_columns(const T* grad, const int* ids, T* out, int n,
                            int V, void* ws, int device, cudaStream_t stream) {
@@ -847,18 +950,43 @@ cudaError_t launch_scatter_d(int d, int design, const void* grad,
 
 }  // namespace
 
+// The gather design a row of row_bytes takes: 0 "vector" (a multiple of
+// 16 bytes), else 1 "warp_row"; the wrapper's gather_design agrees.
+extern "C" int gather_design(long long row_bytes) {
+  return row_bytes % 16 == 0 ? 0 : 1;
+}
+
+// Blocks of a vector-design launch over n rows on a card of sms SMs; the
+// wrapper's gather_grid agrees.
+extern "C" int gather_vector_blocks(int n, long long row_bytes, int sms) {
+  return vector_blocks(n, row_bytes, sms);
+}
+
 // table [V, row_bytes] of any type, ids [n] int32, out [n, row_bytes];
-// device pointers to contiguous arrays, row_bytes even.  Returns the
-// cudaError_t of the launch (0 on success).
+// device pointers to contiguous arrays aligned to 16 bytes, row_bytes
+// even; design 0 "vector" (row_bytes a multiple of 16) or 1 "warp_row".
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int gather_launch(const void* table, const void* ids, void* out,
-                             int n, int V, long long row_bytes, int device,
-                             void* stream) {
+                             int n, int V, long long row_bytes, int design,
+                             int device, void* stream) {
+  if (row_bytes % 2 != 0 || design < 0 || design > 1 ||
+      (design == 0 && row_bytes % 16 != 0))
+    return cudaErrorInvalidValue;
   if (n <= 0 || row_bytes <= 0) return cudaSuccess;
-  if (row_bytes % 2 != 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return err;
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return err;
   const int* id = static_cast<const int*>(ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == 0) {
+    gather_vector_kernel<kVecSteps>
+        <<<vector_blocks(n, row_bytes, sm_count(device)), kThreads, 0, s>>>(
+            static_cast<const uint4*>(table), id, static_cast<uint4*>(out), n,
+            V, (int)(row_bytes / 16));
+    return cudaGetLastError();
+  }
   const size_t rb = (size_t)row_bytes;
   if (rb % 16 == 0) return launch_gather<uint4>(table, id, out, n, V, rb, s);
   if (rb % 8 == 0) return launch_gather<uint2>(table, id, out, n, V, rb, s);

@@ -16,7 +16,12 @@ three kernels the port has:
     Every lookup of `ops/embedding.behavior_embedding` takes it by
     default.
   * `gather_rows` (csrc/embedding_gather.cu, the Pallas `_gather_kernel`):
-    out[i, :] = table[ids[i], :].
+    out[i, :] = table[ids[i], :].  Rows of a multiple of 16 bytes take the
+    "vector" design: the output as 16-byte words, a warp a tile of 32
+    rows (its ids read once and shuffled to the lanes) and GATHER_STEPS
+    words a lane in flight, on a grid of at most GATHER_BLOCKS_PER_SM
+    blocks an SM (`gather_design` picks it, `gather_grid` sizes it);
+    other rows take the earlier "warp_row" design, a warp a row.
   * `scatter_add` (csrc/embedding_gather.cu, the Pallas `_scatter_kernel`):
     the sequential scatter-add, each row's cotangents added in ascending
     position order and rounded to their type after every add.  Each
@@ -57,10 +62,20 @@ SCATTER_ROUTES = ("small", "columns", "segments")
 SCATTER_SLICE = 32     # columns a hot row's chain warp owns, a lane each
 SCATTER_HOT = 64       # a row with more ids takes column-sliced chains
 SORT_CHUNK = 1024      # ids a sorting block owns
+# gather's designs, in the C interface's order: the default for rows of a
+# multiple of GATHER_WORD bytes, then the earlier one (every other row,
+# and forced by `gather_rows(..., _design="warp_row")`)
+GATHER_DESIGNS = ("vector", "warp_row")
+GATHER_WORD = 16           # bytes of the vector design's word
+GATHER_TILE = 32           # rows a warp's item covers, an id a lane
+GATHER_STEPS = 8           # words a lane loads before its first store
+GATHER_WARPS = 8           # warps a block
+GATHER_BLOCKS_PER_SM = 16  # the vector design's most blocks an SM
 
-# kernel launches (the plain twins are not counted)
+# kernel launches (the plain twins are not counted); "gather" counts both
+# designs' launches, "gather_warp_row" the earlier design's
 launches = {"dtable": 0}
-gather_launches = {"gather": 0, "scatter_add": 0}
+gather_launches = {"gather": 0, "gather_warp_row": 0, "scatter_add": 0}
 
 
 def _check_ids(what, ids, vocab) -> None:
@@ -237,25 +252,87 @@ def _check_rows(what, x, ids) -> None:
         raise TypeError(f"{what}: ids must be int32, got {ids.dtype}")
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                _design: Optional[str] = None) -> torch.Tensor:
     """table: [V, d] f32 or bf16; ids: [n] int32 -> table[ids], [n, d] in
     the table's type.  CPU tensors run `gather_plain` after a range check;
-    CUDA tensors launch the gather kernel."""
+    CUDA tensors launch the gather kernel in the design `gather_design`
+    picks, where an id outside [0, V) gives a zero row.
+    ``_design="warp_row"`` forces the earlier design (chip_smoke.py holds
+    and times it beside the default); the main path passes none.  An
+    unknown design, or "vector" on rows it does not take, raises before
+    any build; a design that fails to build or launch raises: there is no
+    fallback."""
     _check_rows("gather", table, ids)
+    design = _gather_pick(table, _design)
     if table.device.type == "cpu":
         _check_ids("gather", ids, table.shape[0])
         return gather_plain(table, ids)
     if table.device.type != "cuda":
         raise ValueError(f"gather: no kernel for device {table.device}")
+    return _launch_gather(table, ids, design)
+
+
+def gather_design(row_bytes: int) -> str:
+    """The gather design a table row of ``row_bytes`` bytes takes:
+    "vector" for a multiple of GATHER_WORD (every d that is a multiple of
+    8 in bf16 or of 4 in f32), else "warp_row".  The kernel library's
+    gather_design agrees (chip_smoke.py compares them)."""
+    return GATHER_DESIGNS[0] if row_bytes % GATHER_WORD == 0 else \
+        GATHER_DESIGNS[1]
+
+
+def gather_grid(n: int, row_bytes: int, sms: int) -> int:
+    """Blocks of a vector-design launch over n rows on a card of ``sms``
+    SMs: one warp an item (a tile of GATHER_TILE rows times a batch of
+    GATHER_STEPS steps of its words), GATHER_WARPS warps a block, at most
+    GATHER_BLOCKS_PER_SM blocks an SM (the warps then walk the items with
+    a stride of the grid's warps).  The kernel library's
+    gather_vector_blocks agrees (chip_smoke.py compares them)."""
+    items = -(-n // GATHER_TILE) * -(-(row_bytes // GATHER_WORD)
+                                      // GATHER_STEPS)
+    return min(-(-items // GATHER_WARPS), sms * GATHER_BLOCKS_PER_SM)
+
+
+def _gather_pick(table: torch.Tensor, forced: Optional[str]) -> str:
+    row_bytes = table.shape[1] * table.element_size()
+    if forced is None:
+        return gather_design(row_bytes)
+    if forced not in GATHER_DESIGNS:
+        raise ValueError(f"gather: unknown design {forced!r}, want one of "
+                         f"{GATHER_DESIGNS}")
+    if forced == "vector" and gather_design(row_bytes) != "vector":
+        raise ValueError(f"gather: the vector design does not take rows of "
+                         f"{row_bytes} bytes (it takes multiples of "
+                         f"{GATHER_WORD})")
+    return forced
+
+
+# the gather library and its typed launch function, kept from the first
+# launch on (a launch then looks nothing up and takes no lock)
+_gather_entry: Optional[tuple] = None
+
+
+def _launch_gather(table, ids, design) -> torch.Tensor:
+    """Launch ``design`` on CUDA tensors (a table not aligned to the
+    kernels' 16-byte words copied first)."""
+    global _gather_entry
     device, stream = build.launch_context((table, ids), "gather")
-    lib = _gather_library()
+    if _gather_entry is None:
+        lib = _gather_library()
+        _gather_entry = (lib, lib.gather_launch)
+    lib, launch = _gather_entry
+    if table.data_ptr() % GATHER_WORD:
+        table = table.clone()
     n, (vocab, d) = ids.shape[0], table.shape
-    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
-    status = lib.gather_launch(table.data_ptr(), ids.data_ptr(),
-                               out.data_ptr(), n, vocab,
-                               d * table.element_size(), device, stream)
+    out = table.new_empty((n, d))
+    status = launch(table.data_ptr(), ids.data_ptr(), out.data_ptr(), n,
+                    vocab, d * table.element_size(),
+                    GATHER_DESIGNS.index(design), device, stream)
     build.check(lib, status, "gather")
     gather_launches["gather"] += 1
+    if design == "warp_row":
+        gather_launches["gather_warp_row"] += 1
     return out
 
 
@@ -358,8 +435,12 @@ def _gather_library() -> ctypes.CDLL:
     if not getattr(lib, "_port_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gather_launch.argtypes = [vp, vp, vp, ci, ci, ctypes.c_longlong,
-                                      ci, vp]
+                                      ci, ci, vp]
         lib.gather_launch.restype = ci
+        lib.gather_design.argtypes = [ctypes.c_longlong]
+        lib.gather_design.restype = ci
+        lib.gather_vector_blocks.argtypes = [ci, ctypes.c_longlong, ci]
+        lib.gather_vector_blocks.restype = ci
         lib.scatter_add_launch.argtypes = ([ci] + [vp] * 4
                                            + [ctypes.c_longlong]
                                            + [ci] * 5 + [vp])
@@ -373,6 +454,64 @@ def _gather_library() -> ctypes.CDLL:
 def gather_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin of the gather kernel: table[ids]."""
     return table[ids.long()]
+
+
+def _gather_design_plain(table: torch.Tensor, ids: torch.Tensor,
+                         sms: int = 132) -> torch.Tensor:
+    """The vector design's work in plain PyTorch (the CPU tests hold it):
+    the output as n x W words of GATHER_WORD bytes, the launcher's grid
+    (`gather_grid` on ``sms`` SMs) walked pass by pass, warp g of the grid
+    taking items g, g + warps, ...; item k is tile k // batches (rows 32t
+    to 32t + 31) and steps s0 = (k % batches) * GATHER_STEPS on, lane l
+    of step s taking the tile's word w = s * 32 + l (row w // W, column w
+    % W).  Lane r loads the id of the tile's row r only when the item's
+    words fall in that row, and each word takes its id from its row's
+    lane (the shuffle); an id outside [0, V) gives zeros.  Raises unless
+    every word is written exactly once."""
+    n, d = ids.shape[0], table.shape[1]
+    vocab = table.shape[0]
+    row_bytes = d * table.element_size()
+    if gather_design(row_bytes) != "vector":
+        raise ValueError(f"gather: the vector design does not take rows of "
+                         f"{row_bytes} bytes")
+    W = row_bytes // GATHER_WORD
+    words = table.contiguous().view(torch.int32).reshape(vocab, W, 4)
+    out = torch.zeros((n * W, 4), dtype=torch.int32)
+    written = torch.zeros(n * W, dtype=torch.long)
+    ids = ids.long()
+    batches = -(-W // GATHER_STEPS)
+    items = -(-n // GATHER_TILE) * batches
+    warps = gather_grid(n, row_bytes, sms) * GATHER_WARPS
+    lane = torch.arange(GATHER_TILE)
+    step = torch.arange(GATHER_STEPS)
+    for first in range(0, items, warps):          # the grid-stride passes
+        item = torch.arange(first, min(first + warps, items))
+        tile = item // batches
+        s0 = (item % batches) * GATHER_STEPS
+        steps = (W - s0).clamp(max=GATHER_STEPS)
+        rows = (n - tile * GATHER_TILE).clamp(max=GATHER_TILE)
+        lo = s0 * 32 // W
+        hi = ((s0 + steps) * 32 - 1) // W
+        loads = ((lane >= lo[:, None]) & (lane <= hi[:, None])
+                 & (lane < rows[:, None]))
+        lane_id = torch.where(
+            loads, ids[(tile[:, None] * GATHER_TILE + lane).clamp(max=n - 1)],
+            -1)                                           # [items, lanes]
+        w = (s0[:, None, None] + step[None, :, None]) * 32 + lane
+        r = w // W                                    # [items, steps, lanes]
+        live = (step[None, :, None] < steps[:, None, None]) & (
+            r < rows[:, None, None])
+        row_id = torch.gather(lane_id, 1, (r % 32).flatten(1)).view_as(r)
+        valid = live & (row_id >= 0) & (row_id < vocab)
+        got = words[row_id.clamp(0, max(vocab - 1, 0)), w % W]
+        got = torch.where(valid[..., None], got, 0)
+        at = (tile[:, None, None] * GATHER_TILE * W + w)[live]
+        out[at] = got[live]
+        written.index_add_(0, at, torch.ones_like(at))
+    if not bool((written == 1).all()):
+        raise AssertionError("gather: the vector design's items do not "
+                             "cover every word exactly once")
+    return out.reshape(n, W * 4).view(table.dtype).reshape(n, d)
 
 
 def scatter_add_plain(grad: torch.Tensor, ids: torch.Tensor,
