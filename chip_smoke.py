@@ -222,7 +222,35 @@ Phases, in order; any failure exits non-zero and prints no result:
      behavior_embedding(gather=embedding_kernel.gather) forward and
      backward on the cell's first batch against take_dtable (4 gather +
      4 scatter_add launches), timed in turns with scatter_add's and then
-     gather's earlier design forced.
+     gather's earlier design forced;
+  8. a trained model from disk, on phase 4's cell in bf16 and f32
+     (train.checkpoint, train.evaluate, serve.from_checkpoint,
+     serve.main; the checkpoints in a temporary directory, removed
+     afterwards): 6 unbroken make_train_step steps against 3 steps, a
+     Checkpointer save, a restore (apply_load_type "full") into a
+     fresh model on the card and 3 more steps, parameters, Adam mu / nu
+     and losses torch.equal; "fine_tune" (the saved parameters, Adam
+     zero, step 0) and the card's checkpoint restored on the CPU
+     (parameters and Adam state equal); evaluate_dataset from the
+     6-step checkpoint on the card and on the CPU over
+     make_train_arrays(meta, 3000, seed=1) in batches of
+     train.test_batch_size (2,048: two, the second 952 live rows and
+     its pad slots): every HR@k / NDCG@k within EVAL_ATOL (0.005 f32,
+     0.02 bf16) of the CPU's, in f32 at least EVAL_RANKS_EQUAL (99 %)
+     of the live rows' ranks equal (bf16: reported), the first batch's
+     scores within SLICE_TOL of the largest |score|, an eval batch's
+     event ms and device busy ms and the profiler's launches (1
+     gru_scan_kernel + 3 attn_fwd_hop_kernel a batch); then
+     Recommender.from_checkpoint on the card, recommend k=50 at B=16
+     with the same ids as a Recommender of the in-memory model; then
+     python -m mtamrecommender_tpu_torch.serve in a subprocess on 4
+     request lines (an empty history, one of 2L events, two with k
+     given) answering as in-process recommend line by line (the same
+     ids, scores within 1e-5), and each request's host ms in-process.
+     Launches, counted from 0 around each part: 12 steps (1 gru_scan
+     + 1 gru_scan_bwd + 4 dtable + 1 readout_chain + 1
+     readout_chain_bwd a step), 2 eval batches and 1 recommend call (1
+     gru_scan + 3 fused_attention_hop[time] each).
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
@@ -4146,6 +4174,378 @@ def run_xl_history(torch, setup, failures):
     return report, {"L2048Tq1": hops, "L2048": blocks}
 
 
+# ------------------------------------------------------------ phase 8
+
+# held-out rows for phase 8's evaluation: make_train_arrays(meta, 3000,
+# seed=1), two batches of train.test_batch_size (2,048; the second 952
+# live rows and 1,096 pad slots)
+EVAL_ROWS = 3000
+# card vs CPU from the same checkpoint: every HR@k / NDCG@k within
+# EVAL_ATOL; in f32 at least EVAL_RANKS_EQUAL of the live rows' ranks equal
+EVAL_ATOL = {"float32": 0.005, "bfloat16": 0.02}
+EVAL_RANKS_EQUAL = 0.99
+# serve.main's answers against in-process recommend (scores rounded to 5
+# places by main)
+SERVE_MAIN_ATOL = 1e-5
+
+
+def _params_differ(torch, a, b):
+    """The names of the parameters of models ``a`` and ``b`` whose
+    values differ (compared on the CPU, bit for bit)."""
+    pb = dict(b.named_parameters())
+    return [n for n, p in a.named_parameters()
+            if not torch.equal(p.detach().cpu(), pb[n].detach().cpu())]
+
+
+def _adam_differ(torch, a, b):
+    """The Adam leaves (``mu.<name>``, ``nu.<name>``) that differ, and
+    ``count`` where the counts do."""
+    bad = [] if a.count == b.count else ["count"]
+    for key in ("mu", "nu"):
+        mb = getattr(b, key)
+        bad += [f"{key}.{n}" for n, t in getattr(a, key).items()
+                if not torch.equal(t.cpu(), mb[n].cpu())]
+    return bad
+
+
+def _kernel_launches(torch, fn):
+    """The profiler's launch count of each CUDA kernel ``fn`` launches in
+    one call, by kernel function name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and e.count:
+            found = re.search(r"(\w+_kernel)\b", e.key)
+            name = found.group(1) if found else e.key[:60]
+            counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
+def _resume_check(torch, setup, cfg, dname, ckpt_dir, failures):
+    """6 unbroken steps against 3 steps, a save, a restore (`full`) into
+    a fresh model on the card and 3 more steps; `fine_tune` and a restore
+    on the CPU from the same step.  Returns (report, the resumed
+    TrainState after 6 steps, the launches of the 12 steps)."""
+    from mtamrecommender_tpu_torch.data.device_data import gather_batch
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.train.checkpoint import (Checkpointer,
+                                                            apply_load_type)
+    from mtamrecommender_tpu_torch.train.trainer import (TrainState,
+                                                         make_optimizer,
+                                                         make_train_step)
+
+    vocab, bs = setup.meta.item_vocab, setup.batch_size
+    opt = make_optimizer(cfg.train)
+
+    def fresh(device, seed=1):
+        model = get_model("MTAM").init(torch.Generator().manual_seed(seed),
+                                       cfg.model, setup.meta).to(device)
+        return TrainState(model, opt.init(model), 0)
+
+    def steps(model, state, start, n):
+        step = make_train_step(get_model("MTAM"), cfg, opt, vocab,
+                               device=DEVICE)
+        losses = []
+        for k in range(start, start + n):
+            state, m = step(model, state,
+                            gather_batch(setup.data, setup.order, k, bs))
+            losses.append(m["loss"])
+        return state, torch.stack(losses).cpu()
+
+    _reset_counts()
+    unbroken = setup.model(torch, cfg, DEVICE)
+    st_a, losses_a = steps(unbroken, opt.init(unbroken), 0, 6)
+    first = setup.model(torch, cfg, DEVICE)
+    st_b, losses_b = steps(first, opt.init(first), 0, 3)
+    ckpt = Checkpointer(ckpt_dir)
+    t0 = time.perf_counter()
+    ckpt.save(TrainState(first, st_b, 3))
+    save_s = time.perf_counter() - t0
+    full = cfg.with_overrides(**{"train.load_type": "full"})
+    t0 = time.perf_counter()
+    resumed = apply_load_type(full.train, fresh(DEVICE), ckpt_dir)
+    restore_s = time.perf_counter() - t0
+    st_c, losses_c = steps(resumed.model, resumed.opt_state, 3, 3)
+    torch.cuda.synchronize()
+    launches = _counts()
+    params_differ = _params_differ(torch, resumed.model, unbroken)
+    adam_differ = _adam_differ(torch, st_c, st_a)
+    losses_equal = torch.equal(torch.cat([losses_b, losses_c]), losses_a)
+    # fine_tune: the step-3 parameters, Adam zero, step 0
+    tune = cfg.with_overrides(**{"train.load_type": "fine_tune",
+                                 "train.fine_tune_load_path": ckpt_dir})
+    tuned = apply_load_type(tune.train, fresh(DEVICE, 2), "unused",
+                            optimizer_init=opt.init)
+    tune_ok = (tuned.step == 0 and tuned.opt_state.count == 0
+               and not _params_differ(torch, tuned.model, first)
+               and not any(bool(t.any()) for key in ("mu", "nu")
+                           for t in getattr(tuned.opt_state, key).values()))
+    # the card's checkpoint restored on the CPU
+    on_cpu = ckpt.restore(fresh("cpu"))
+    cpu_ok = (on_cpu.step == 3
+              and next(on_cpu.model.parameters()).device.type == "cpu"
+              and not _params_differ(torch, on_cpu.model, first)
+              and not _adam_differ(torch, on_cpu.opt_state, st_b))
+    # the resumed run, saved for evaluation and serving
+    ckpt.save(TrainState(resumed.model, st_c, 6))
+    ok = (not params_differ and not adam_differ and losses_equal
+          and resumed.step == 3 and tune_ok and cpu_ok
+          and ckpt.all_steps() == [3, 6]
+          and launches == _want_counts(12, gru="tgru", chain=True))
+    report = {"params_differ": params_differ, "adam_differ": adam_differ,
+              "losses_equal": losses_equal, "losses": losses_a.tolist(),
+              "fine_tune_ok": tune_ok, "restored_on_cpu_ok": cpu_ok,
+              "save_s": save_s, "restore_s": restore_s,
+              "launches_12_steps": launches, "ok": ok}
+    print(f"disk {dname:9s} resume: 3 + save/restore + 3 steps vs 6 "
+          f"unbroken: params differ {params_differ} adam differ "
+          f"{adam_differ} losses equal {losses_equal}; fine_tune {tune_ok}; "
+          f"restored on the CPU {cpu_ok}; save {save_s:.3f} s restore "
+          f"{restore_s:.3f} s {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"from disk {dname} resume: {report}")
+    return report, TrainState(resumed.model, st_c, 6), launches
+
+
+def _eval_check(torch, setup, cfg, dname, ckpt_dir, eval_data, failures):
+    """evaluate_dataset on the card and on the CPU from the latest step
+    of ``ckpt_dir``: metrics, ranks and the first batch's scores against
+    the CPU's, the eval batch timed.  Returns (report, launches)."""
+    from mtamrecommender_tpu_torch.models.base import scores_for_eval
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.train.checkpoint import Checkpointer
+    from mtamrecommender_tpu_torch.train.evaluate import (eval_batches,
+                                                          evaluate_dataset,
+                                                          make_eval_step,
+                                                          ranks_from_scores)
+    from mtamrecommender_tpu_torch.train.trainer import TrainState
+
+    vocab, bs = setup.meta.item_vocab, cfg.train.test_batch_size
+    ckpt = Checkpointer(ckpt_dir)
+    models = {dev: ckpt.restore(TrainState(setup.model(torch, cfg, dev),
+                                           None)).model
+              for dev in (DEVICE, "cpu")}
+    step = make_eval_step(get_model("MTAM"), cfg.model, valid_vocab=vocab)
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics_gpu = evaluate_dataset(step, models[DEVICE],
+                                   eval_batches(eval_data[DEVICE], bs))
+    eval_s = time.perf_counter() - t0
+    launches = _counts()
+    t0 = time.perf_counter()
+    metrics_cpu = evaluate_dataset(step, models["cpu"],
+                                   eval_batches(eval_data["cpu"], bs))
+    cpu_eval_s = time.perf_counter() - t0
+    metric_err = {k: abs(metrics_gpu[k] - metrics_cpu[k])
+                  for k in metrics_cpu}
+    # ranks of the live rows, and the first batch's scores
+    casts = {dev: step.cast(m) for dev, m in models.items()}
+    same, live, score_rel, finite = 0, 0, 0.0, True
+    batches = {dev: list(eval_batches(eval_data[dev], bs))
+               for dev in (DEVICE, "cpu")}
+    for i, ((_, bg), (_, bc)) in enumerate(zip(batches[DEVICE],
+                                               batches["cpu"])):
+        with torch.no_grad():
+            sg = scores_for_eval(step.model_def, casts[DEVICE], cfg.model,
+                                 bg, vocab)
+            sc = scores_for_eval(step.model_def, casts["cpu"], cfg.model,
+                                 bc, vocab)
+        mask = bc.valid > 0
+        rg = ranks_from_scores(sg, bg.target_id).cpu()
+        rc = ranks_from_scores(sc, bc.target_id)
+        same += int((rg[mask] == rc[mask]).sum())
+        live += int(mask.sum())
+        if i == 0:
+            sg = sg.cpu()
+            finite = bool(torch.isfinite(sg[:, :vocab]).all())
+            score_err, score_rel = rel_err(sg[:, :vocab], sc[:, :vocab])
+    ranks_equal = same / live
+    batch0 = batches[DEVICE][0][1]
+    run = lambda: step(casts[DEVICE], batch0)  # noqa: E731
+    event_ms = _event_ms(torch, run, 10)
+    busy = _device_busy(torch, run)
+    profiled = _kernel_launches(torch, run)
+    gru = profiled.get("gru_scan_kernel", 0)
+    hop = profiled.get("attn_fwd_hop_kernel", 0)
+    want = _want_counts(0)
+    want["gru_scan"]["tgru"] = 2
+    want["fused_attention"]["time"] = 6
+    want["fused_attention_hop"]["time"] = 6
+    ok = (max(metric_err.values()) <= EVAL_ATOL[dname] and finite
+          and score_rel <= SLICE_TOL[dname]
+          and (dname != "float32" or ranks_equal >= EVAL_RANKS_EQUAL)
+          and launches == want and gru == 1 and hop == 3
+          and len(batches[DEVICE]) == 2
+          and int(batches[DEVICE][1][1].valid.sum()) == EVAL_ROWS - bs)
+    report = {"metrics_gpu": metrics_gpu, "metrics_cpu": metrics_cpu,
+              "metric_abs_err": metric_err, "tol": EVAL_ATOL[dname],
+              "ranks_equal": ranks_equal, "live_rows": live,
+              "first_batch_max_abs_score_err": score_err,
+              "first_batch_rel_score_err": score_rel,
+              "eval_batch": bs, "eval_batch_event_ms": event_ms,
+              "eval_batch_device_busy_ms": busy["device_busy_ms"],
+              "idle_share": (None if busy["device_busy_ms"] is None
+                             else 1 - busy["device_busy_ms"] / event_ms),
+              "top_kernels": busy["top_kernels"][:5],
+              "profiler_launches_per_batch": profiled,
+              "evaluate_dataset_s": eval_s, "cpu_evaluate_dataset_s":
+                  cpu_eval_s, "launches": launches, "ok": ok}
+    print(f"disk {dname:9s} eval B={bs} x2 ({EVAL_ROWS} rows): "
+          + " ".join(f"{k}={v:.4f}" for k, v in metrics_gpu.items())
+          + f" | max metric err vs CPU {max(metric_err.values()):.2e} ranks "
+          f"equal {ranks_equal:.4f} first batch rel score err "
+          f"{score_rel:.2e}; eval batch event_ms={event_ms:.3f} device_"
+          f"busy_ms={busy['device_busy_ms']} profiler launches gru_scan="
+          f"{gru} hop={hop}; evaluate_dataset {eval_s:.3f} s (CPU "
+          f"{cpu_eval_s:.1f} s) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"from disk {dname} evaluation: {report}")
+    return report, launches
+
+
+def _serve_main_lines(setup, cfg, ckpt_dir, requests):
+    """serve.main in a subprocess (``python -m
+    mtamrecommender_tpu_torch.serve``) on ``requests``, with the flags
+    that give ``cfg``'s model: (its answers, its wall seconds, its return
+    code and stderr's tail)."""
+    m = setup.meta
+    argv = [sys.executable, "-m", "mtamrecommender_tpu_torch.serve",
+            "--checkpoint", ckpt_dir, "--items", str(m.item_count),
+            "--users", str(m.user_count), "--categories",
+            str(m.category_count), "--max_seq_len", str(m.max_seq_len),
+            "--num_units", str(cfg.model.num_units), "--num_blocks",
+            str(cfg.model.num_blocks), "--device", DEVICE,
+            "--set", f"model.vocab_pad_multiple="
+                     f"{cfg.model.vocab_pad_multiple}",
+            "--set", f'model.compute_dtype="{cfg.model.compute_dtype}"']
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, input="".join(json.dumps(r) + "\n"
+                                             for r in requests),
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    answers = [json.loads(line) for line in res.stdout.splitlines()
+               if line.startswith("{")]
+    return answers, seconds, res.returncode, res.stderr[-2000:]
+
+
+def _serve_check(torch, setup, cfg, dname, ckpt_dir, in_memory, failures):
+    """Recommender.from_checkpoint on the card against a Recommender of
+    the in-memory model (k=50, B=16: the same ids), then serve.main in a
+    subprocess against in-process recommend, line by line.  Returns
+    (report, launches of the from-disk recommend call)."""
+    from mtamrecommender_tpu_torch.serve import Recommender
+
+    m = setup.meta
+    rec = Recommender.from_checkpoint(cfg, m, ckpt_dir, device=DEVICE)
+    hists, req = make_histories(np.random.RandomState(88), 16, m.item_count,
+                                m.category_count, m.max_seq_len)
+    hists[1] = []
+    _reset_counts()
+    got = rec.recommend(hists, req, k=50)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = Recommender(cfg, m, in_memory, device=DEVICE).recommend(
+        hists, req, k=50)
+    ids_equal = [[i for i, _ in r] for r in got] == \
+        [[i for i, _ in r] for r in want]
+    # serve.main: an empty history, one longer than L-1, two others
+    rng = np.random.RandomState(89)
+    t = 1_700_000_000 + np.cumsum(rng.randint(60, 86400, 2 * m.max_seq_len))
+    long_h = [[int(rng.randint(1, m.item_count + 1)),
+               int(rng.randint(1, m.category_count + 1)), float(tt)]
+              for tt in t]
+    requests = [{"history": [], "request_time": req[0], "user_id": 7},
+                {"history": long_h, "request_time": float(t[-1] + 3600),
+                 "user_id": 3},
+                {"history": [list(e) for e in hists[2]],
+                 "request_time": req[2], "k": 5},
+                {"history": [list(e) for e in hists[3]],
+                 "request_time": req[3], "user_id": 11, "k": 20}]
+    answers, main_s, rc, err = _serve_main_lines(setup, cfg, ckpt_dir,
+                                                 requests)
+    in_process, host_ms = [], []
+    for r in requests:
+        args = ([[tuple(e) for e in r["history"]]], [r["request_time"]])
+        kw = dict(k=int(r.get("k", 10)), user_ids=[int(r.get("user_id", 0))])
+        in_process.append(rec.recommend(*args, **kw)[0])
+        host_ms.append(_host_ms(torch, lambda: rec.recommend(*args, **kw),
+                                10))
+    lines_ok = rc == 0 and len(answers) == len(requests)
+    worst = 0.0
+    for a, w in zip(answers, in_process):
+        lines_ok = lines_ok and a["items"] == [i for i, _ in w]
+        if a["items"] == [i for i, _ in w]:
+            worst = max([worst] + [abs(s - ws) for s, (_, ws)
+                                   in zip(a["scores"], w)])
+    lines_ok = lines_ok and worst <= SERVE_MAIN_ATOL
+    want_launches = _want_counts(0)
+    want_launches["gru_scan"]["tgru"] = 1
+    want_launches["fused_attention"]["time"] = 3
+    want_launches["fused_attention_hop"]["time"] = 3
+    ok = ids_equal and lines_ok and launches == want_launches \
+        and len(requests[1]["history"]) > m.max_seq_len - 1
+    report = {"from_checkpoint_ids_equal": ids_equal,
+              "serve_main_rc": rc, "serve_main_answers": len(answers),
+              "serve_main_max_abs_score_err": worst,
+              "serve_main_wall_s": main_s,
+              "request_host_ms": host_ms, "launches": launches,
+              "serve_main_stderr_tail": err if rc else "", "ok": ok}
+    print(f"disk {dname:9s} serve: from_checkpoint k=50 B=16 ids equal "
+          f"{ids_equal}; serve.main subprocess rc={rc} {len(answers)} "
+          f"answers, max |score - in-process| {worst:.2e}, wall "
+          f"{main_s:.1f} s; per-request host ms "
+          f"{[round(x, 3) for x in host_ms]} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        failures.append(f"from disk {dname} serving: {report}")
+    return report, launches
+
+
+def run_from_disk(torch, setup, failures):
+    """Phase 8: a trained model from disk, on phase 4's cell (B=256,
+    bf16 and f32): resume bit for bit, evaluate on the card and on the
+    CPU from one checkpoint, serve from it in-process and through
+    serve.main in a subprocess.  The checkpoints live in a temporary
+    directory, removed afterwards.  Returns (report, the main path's
+    launches: 12 training steps, 2 eval batches and one recommend call a
+    dtype)."""
+    import shutil
+    import tempfile
+
+    from mtamrecommender_tpu_torch.data.device_data import to_device
+
+    arrays = make_train_arrays(setup.meta, EVAL_ROWS, seed=1)
+    eval_data = {dev: to_device(arrays, device=dev)
+                 for dev in (DEVICE, "cpu")}
+    report, launches = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for dname in ("bfloat16", "float32"):
+            cfg = setup.cfg(dname)
+            ckpt_dir = os.path.join(root, dname)
+            resume, state, got = _resume_check(torch, setup, cfg, dname,
+                                               ckpt_dir, failures)
+            _add_launches(launches, got)
+            evaluation, got = _eval_check(torch, setup, cfg, dname, ckpt_dir,
+                                          eval_data, failures)
+            _add_launches(launches, got)
+            serving, got = _serve_check(torch, setup, cfg, dname, ckpt_dir,
+                                        state.model, failures)
+            _add_launches(launches, got)
+            report[dname] = {"resume": resume, "evaluate": evaluation,
+                             "serve": serving}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return report, launches
+
+
 # ------------------------------------------------------------ report
 
 def kernels_line(entries, launches_by_shape):
@@ -4462,14 +4862,28 @@ def main() -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             f"L=2048 path ({shape})")
     lap("7")
+
+    # phase 8: a trained model from disk (phase 4's cell)
+    from_disk, disk_launches = run_from_disk(torch, setup, failures)
+    for kname, mode in (("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
+                        ("dtable", None), ("readout_chain", None),
+                        ("readout_chain_bwd", None),
+                        ("fused_attention_hop", "time")):
+        if disk_launches.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "from-disk path")
+    lap("8")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
-    # launches on the main paths: MTAM's at L=50 (phases 3 and 4) run the
-    # attention kernels at Tq=1 and the chain pair (phase 4's step), the
-    # self-attention models' (phase 5) at Tq=Tk=50; MTAM's at L=512
-    # (phase 6) the readout and GRU kernels
+    # launches on the main paths: MTAM's at L=50 (phases 3, 4 and 8) run
+    # the attention kernels at Tq=1 and the chain pair (phases 4 and 8's
+    # steps), the self-attention models' (phase 5) at Tq=Tk=50; MTAM's at
+    # L=512 (phase 6) the readout and GRU kernels
     mtam_launches = {k: dict(v) for k, v in serve_launches.items()}
     _add_launches(mtam_launches, train_launches)
+    _add_launches(mtam_launches, disk_launches)
+    l50_launches = copy.deepcopy(train_launches)
+    _add_launches(l50_launches, disk_launches)
     main_launches = copy.deepcopy(mtam_launches)
     _add_launches(main_launches, sa_launches)
     # the GRU pair's @L2048 entries count MTAM's launches at L=2048
@@ -4480,7 +4894,7 @@ def main() -> int:
     report = kernels_line(entries, {None: main_launches,
                                     "Tq1": mtam_launches,
                                     "Tq50": sa_launches,
-                                    "L50": train_launches,
+                                    "L50": l50_launches,
                                     "L512": long_launches, **xl_launches,
                                     "L2048": l2048})
     os.makedirs("chiprun_out", exist_ok=True)
@@ -4516,6 +4930,10 @@ def main() -> int:
                        shape: {k: {str(m): n for m, n in v.items()}
                                for k, v in by_kernel.items()}
                        for shape, by_kernel in xl_launches.items()},
+                   "from_disk": from_disk,
+                   "launches_from_disk": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in disk_launches.items()},
                    "failures": failures}, f, indent=1, default=str)
     if failures:
         for msg in failures:

@@ -7,6 +7,8 @@ dots into the port's parameter names, e.g. ``{"att": [{"q": {"w": ..}}]}``
 weight layout: nothing is transposed.  A gradient tree of the same
 structure (``jax.grad`` of a loss over the parameters) converts the same
 way, so the port's gradients can be compared with JAX's leaf by leaf.
+`opt_state_from_jax` carries the adam preset's optimizer state across
+(``jax.device_get`` of optax's chain state) as the port's `AdamState`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from mtamrecommender_tpu_torch.train.trainer import AdamState
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -67,3 +71,47 @@ def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
         for name, param in own.items():
             param.copy_(incoming[name])
     return model
+
+
+# the adam preset's chain (JAX train/trainer.py: clip_by_global_norm,
+# scale_by_adam, scale_by_schedule): each state's type name and fields
+_ADAM_CHAIN = (("EmptyState", ()),
+               ("ScaleByAdamState", ("count", "mu", "nu")),
+               ("ScaleByScheduleState", ("count",)))
+
+
+def opt_state_from_jax(opt_state: Any) -> AdamState:
+    """optax's state of the adam preset -> the port's `AdamState`.
+
+    The state is the chain's tuple: the clip's empty state,
+    ``ScaleByAdamState(count, mu, nu)`` and ``ScaleByScheduleState(count)``,
+    with ``mu`` and ``nu`` parameter trees; both counts must agree.  Any
+    other structure (another optimizer, ``flatten_optimizer``'s flat
+    vectors, ``pack_small_leaves``' packed lists) raises, naming the
+    leaf.  Matched by type name and fields: the port imports no optax."""
+    if not isinstance(opt_state, (tuple, list)) or \
+            len(opt_state) != len(_ADAM_CHAIN):
+        raise TypeError(f"opt_state_from_jax: opt_state is a "
+                        f"{type(opt_state).__name__}, not the adam chain's "
+                        f"{len(_ADAM_CHAIN)}-tuple")
+    for i, (name, fields) in enumerate(_ADAM_CHAIN):
+        got = type(opt_state[i]).__name__
+        if got != name or tuple(getattr(opt_state[i], "_fields", ())) \
+                != fields:
+            raise TypeError(f"opt_state_from_jax: opt_state[{i}] is a {got}"
+                            f", not the adam chain's {name}")
+    adam, sched = opt_state[1], opt_state[2]
+    for field in ("mu", "nu"):
+        if not isinstance(getattr(adam, field), Mapping):
+            raise TypeError(
+                f"opt_state_from_jax: opt_state[1].{field} is a "
+                f"{type(getattr(adam, field)).__name__}, not a parameter "
+                "tree (flatten_optimizer and pack_small_leaves are not "
+                "ported)")
+    count, sched_count = int(np.asarray(adam.count)), \
+        int(np.asarray(sched.count))
+    if count != sched_count:
+        raise ValueError(f"opt_state_from_jax: opt_state[1].count is {count} "
+                         f"but opt_state[2].count is {sched_count}")
+    return AdamState(count=count, mu=params_from_jax(adam.mu),
+                     nu=params_from_jax(adam.nu))

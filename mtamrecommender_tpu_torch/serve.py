@@ -10,9 +10,11 @@ History tensors are built with the same windowing and time-feature rules
 as training: pass raw (item, category, unix_seconds) event triples and a
 request time.  The scoring step runs on CUDA unless the caller passes
 ``device="cpu"``, where the kernels' plain twins run instead.
-Restoring from a checkpoint (``from_checkpoint``) and the JSON-lines
-service (``main``) are not ported yet: they wait for the checkpoint
-module (ROADMAP.md, Queue 1).
+`Recommender.from_checkpoint` restores a model the port's
+`train.checkpoint.Checkpointer` saved; `main` is the JSON-lines service,
+``python -m mtamrecommender_tpu_torch.serve``.  The port cannot read an
+Orbax directory: a JAX checkpoint reaches it by restoring it with JAX and
+passing the parameters to `Recommender` (`bridge.load_jax_params`).
 """
 
 from __future__ import annotations
@@ -53,6 +55,25 @@ class Recommender:
         # the compute-dtype copy is made once, not per request
         self._model_c = base.cast_floats(self.model,
                                          base.compute_dtype(cfg.model))
+
+    @classmethod
+    def from_checkpoint(cls, cfg: ExperimentConfig, meta: DatasetMeta,
+                        checkpoint_dir: str, device=None) -> "Recommender":
+        """The latest step under ``checkpoint_dir`` (the port's
+        `Checkpointer` layout), its parameters only, on ``device``."""
+        from mtamrecommender_tpu_torch.train.checkpoint import Checkpointer
+        from mtamrecommender_tpu_torch.train.trainer import TrainState
+
+        device = resolve_device(device)
+        model_def = get_model(cfg.model.experiment_type)
+        skeleton = model_def.init(torch.Generator().manual_seed(0), cfg.model,
+                                  meta).to(device)
+        ckpt = Checkpointer(checkpoint_dir)
+        try:
+            state = ckpt.restore(TrainState(model=skeleton, opt_state=None))
+        finally:
+            ckpt.close()
+        return cls(cfg, meta, state.model, device=device, model_def=model_def)
 
     # ------------------------------------------------------------ scoring
 
@@ -132,3 +153,66 @@ class Recommender:
                     if int(i) not in seen][:k]
             out.append(recs)
         return out
+
+
+def main(argv=None) -> int:
+    """JSON-lines scoring service.
+
+    Reads one request per stdin line:
+        {"history": [[item, cat, unix_seconds], ...],
+         "request_time": unix_seconds, "user_id": 0, "k": 10}
+    writes one response per line:
+        {"items": [id, ...], "scores": [s, ...]}
+
+    Usage (``--device cpu`` runs the kernels' plain twins on the CPU):
+        python -m mtamrecommender_tpu_torch.serve --checkpoint ckpt/run \\
+            --experiment_type MTAM --items 3706 --users 6040 --categories 18
+    """
+    import argparse
+    import json
+    import sys
+
+    ap = argparse.ArgumentParser(prog="mtamrecommender_tpu_torch.serve")
+    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--experiment_type", default="MTAM")
+    ap.add_argument("--items", type=int, required=True)
+    ap.add_argument("--users", type=int, required=True)
+    ap.add_argument("--categories", type=int, required=True)
+    ap.add_argument("--max_seq_len", type=int, default=50)
+    ap.add_argument("--num_units", type=int, default=128)
+    ap.add_argument("--num_blocks", type=int, default=3)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = ExperimentConfig().with_overrides(**{
+        "model.experiment_type": args.experiment_type,
+        "model.num_units": args.num_units,
+        "model.num_blocks": args.num_blocks,
+        "data.max_seq_len": args.max_seq_len,
+        **{kv.partition("=")[0]: json.loads(kv.partition("=")[2])
+           for kv in args.set}})
+    meta = DatasetMeta(user_count=args.users, item_count=args.items,
+                       category_count=args.categories,
+                       max_seq_len=args.max_seq_len)
+    rec = Recommender.from_checkpoint(cfg, meta, args.checkpoint,
+                                      device=args.device)
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        req = json.loads(line)
+        out = rec.recommend(
+            [[tuple(e) for e in req["history"]]],
+            [req["request_time"]], k=int(req.get("k", args.k)),
+            user_ids=[int(req.get("user_id", 0))])[0]
+        print(json.dumps({"items": [i for i, _ in out],
+                          "scores": [round(s, 5) for _, s in out]}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

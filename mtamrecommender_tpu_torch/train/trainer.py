@@ -9,20 +9,25 @@ mtamrecommender_tpu/train/trainer.py).
     out on the parameter tensors, updated in place;
   * `make_train_step`: loss -> backward -> clipped Adam update;
   * `make_superstep`: K such steps over batches gathered from a
-    device-resident dataset, the per-step metrics stacked.
+    device-resident dataset, the per-step metrics stacked;
+  * `TrainState`: the model, its Adam state and the step, what
+    `train.checkpoint` saves and restores.
 
 A step's dropout masks (SASrec and TiSAS; MTAM and the time-aware
 self-attention model draw nothing) come from one `torch.Generator` on
 the step's device, seeded from ``cfg.train.seed``; every step draws
 from where the last one stopped, so a run is reproducible on one
 device.  Its stream is not JAX's: the masks cannot match JAX's threefry
-draws.  The other optimizers, ``flatten_optimizer`` and
-``pack_small_leaves`` are not ported yet (ROADMAP.md, Queue 1).
+draws, and a checkpoint does not carry the generator's state, so a run
+resumed from one redraws its masks.  The other optimizers,
+``flatten_optimizer``, ``pack_small_leaves`` and the ``Trainer`` loop
+are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -61,6 +66,17 @@ class AdamState(NamedTuple):
     count: int                       # updates applied so far
     mu: Dict[str, torch.Tensor]      # first moments, by parameter name
     nu: Dict[str, torch.Tensor]      # second moments
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Plain ints and dicts of tensors, which ``torch.load`` reads
+        back with ``weights_only=True`` (a pickled NamedTuple it
+        refuses)."""
+        return {"count": int(self.count), "mu": dict(self.mu),
+                "nu": dict(self.nu)}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AdamState":
+        return cls(count=int(d["count"]), mu=dict(d["mu"]), nu=dict(d["nu"]))
 
 
 class Optimizer(NamedTuple):
@@ -120,6 +136,17 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
         return AdamState(count=count, mu=mu, nu=nu)
 
     return Optimizer(init=init, update=update)
+
+
+@dataclass
+class TrainState:
+    """What a checkpoint holds: the model (its parameters), the Adam
+    state (None where only the parameters are wanted) and the number of
+    steps taken."""
+
+    model: nn.Module
+    opt_state: Optional[AdamState]
+    step: int = 0
 
 
 def _check_device(device: torch.device, model: nn.Module,
