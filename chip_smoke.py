@@ -251,6 +251,28 @@ Phases, in order; any failure exits non-zero and prints no result:
      + 1 gru_scan_bwd + 4 dtable + 1 readout_chain + 1
      readout_chain_bwd a step), 2 eval batches and 1 recommend call (1
      gru_scan + 3 fused_attention_hop[time] each).
+  9. the zoo models built from ported parts, on phase 4's cell at 3
+     hops (ZOO_MODELS: Gru4Rec, Vallina_Gru4Rec, T_SeqRec, T_GRU,
+     MTAM_no_time_aware_rnn, MTAM_via_rnn, MTAM_with_T_SeqRec,
+     MTAM_via_T_GRU, MTAM_hybird): each one step's loss and every
+     gradient leaf against the CPU at B=64 in f32 and bf16 (phase 4's
+     tolerances) with the step's launches (1 gru_scan + 1 gru_scan_bwd
+     in the model's mode, 4 dtable, and 1 readout_chain + 1
+     readout_chain_bwd where the model reads out), 20 timed
+     make_superstep steps after 3 warm-up at B=256 in bf16 and f32 (ms
+     a step, examples/s, idle share), recommend k=50 at B=16 against
+     the CPU (SLICE_TOL) and at B=256 timed (1 gru_scan, and 3
+     fused_attention_hop[time] where the model reads out, a call);
+     MTAM_with_T_SeqRec at its preset's 6 hops
+     (MTAM_with_T_SeqRecb6_yoochoose): one step against the CPU at
+     B=256, 5 timed steps, recommend at B=256 against the CPU and timed
+     (6 hops a call); bidirectional_gru_net at B=16, L=50, u=128
+     against the CPU, the output and every gradient (2 gru_scan[plain]
+     + 2 gru_scan_bwd[plain]); MTAM_hybird (the concat head) from disk:
+     2 steps, a Checkpointer save, Recommender.from_checkpoint on the
+     card giving the in-memory model's ids at B=16, and
+     evaluate_dataset over one batch of 2,048 held-out rows against the
+     CPU within EVAL_ATOL.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
@@ -2164,8 +2186,11 @@ def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None):
     metrics = compute_loss(get_model(cfg.model.experiment_type), model,
                            cfg.model, batch, vocab, gen=source)
     metrics["loss"].backward()
+    # a parameter the loss does not reach (Vallina_Gru4Rec's behavior
+    # projection) has no grad: zeros, as the train step takes it
     return ({k: v.item() for k, v in metrics.items()},
-            {n: p.grad.detach().float().cpu()
+            {n: (p.grad.detach().float().cpu() if p.grad is not None
+                 else torch.zeros(p.shape))
              for n, p in model.named_parameters()})
 
 
@@ -4546,6 +4571,326 @@ def run_from_disk(torch, setup, failures):
     return report, launches
 
 
+# ------------------------------------------------------------ phase 9
+
+# the zoo models built from ported parts: name -> (the GRU pair's mode,
+# whether the model has the time-attention readout)
+ZOO_MODELS = {"Gru4Rec": ("plain", False),
+              "Vallina_Gru4Rec": ("plain", False),
+              "T_SeqRec": ("tseqrec", False), "T_GRU": ("tseqrec", False),
+              "MTAM_no_time_aware_rnn": ("plain", True),
+              "MTAM_via_rnn": ("plain", True),
+              "MTAM_with_T_SeqRec": ("tseqrec", True),
+              "MTAM_via_T_GRU": ("tgru", True),
+              "MTAM_hybird": ("tgru", True)}
+ZOO_CHECK_BATCH = 64         # the one-step check against the CPU
+# MTAM_with_T_SeqRecb6_yoochoose's hops (mtamrecommender_tpu/config.py)
+ZOO_PRESET = ("MTAM_with_T_SeqRec", 6)
+ZOO_EVAL_ROWS = 2048         # one batch of train.test_batch_size
+
+
+class ZooSetup:
+    """Phase 4's cell (its data, order and catalog) for the zoo models:
+    ``hops`` readout hops, the one-step check on the first ``batch``
+    rows of phase 4's first batch."""
+
+    model = TrainSetup.model
+
+    def __init__(self, setup, batch, hops=3):
+        from mtamrecommender_tpu_torch.data.device_data import gather_batch
+
+        self.meta, self.data, self.data_cpu = (setup.meta, setup.data,
+                                               setup.data_cpu)
+        self.order, self.order_cpu = setup.order, setup.order_cpu
+        self.batch_size, self.hops = TRAIN_BATCH, hops
+        self.batch = gather_batch(setup.data, setup.order, 0, batch)
+        self.batch_cpu = gather_batch(setup.data_cpu, setup.order_cpu, 0,
+                                      batch)
+
+    def cfg(self, dname, name="MTAM"):
+        return train_cfg(dname, name).with_overrides(
+            **{"model.num_blocks": self.hops})
+
+
+def _zoo_want(mode, readout, hops=3):
+    """Launches of ``steps`` training steps (the GRU pair in ``mode``, 4
+    dtable, the chain pair where the model reads out) and of one serving
+    call or eval batch (1 gru_scan, ``hops`` hop-design attention
+    launches where the model reads out)."""
+    def train(steps, dname=None):
+        return _want_counts(steps, gru=mode, chain=readout)
+
+    serve = _want_counts(0)
+    serve["gru_scan"][mode] = 1
+    if readout:
+        serve["fused_attention"]["time"] = hops
+        serve["fused_attention_hop"]["time"] = hops
+    return train, serve
+
+
+def serve_zoo(torch, setup, failures, name, want, check_batches=(16,),
+              timed_batch=256, iters=5):
+    """Recommender.recommend for model ``name`` (k=50) in bf16 and f32:
+    at each of ``check_batches`` the launches of one call against
+    ``want`` and the scores against the same Recommender on the CPU
+    within SLICE_TOL; at ``timed_batch`` the launches of one call, the
+    host ms a call and the scoring step's event and device busy ms.
+    Returns (rows, the calls' launches)."""
+    from mtamrecommender_tpu_torch.models.base import scores_for_eval
+    from mtamrecommender_tpu_torch.serve import Recommender
+
+    meta, rows, total = setup.meta, {}, {}
+    vocab = meta.item_vocab
+    for dname in ("bfloat16", "float32"):
+        cfg = setup.cfg(dname, name)
+        model = setup.model(torch, cfg, "cpu")
+        rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
+        rec = Recommender(cfg, meta, model, device=DEVICE)
+        for bs in sorted(set(check_batches) | {timed_batch}):
+            hists, req = make_histories(np.random.RandomState(bs), bs,
+                                        meta.item_count, meta.category_count,
+                                        meta.max_seq_len)
+            hists[1] = []                             # an empty history
+            _reset_counts()
+            recs = rec.recommend(hists, req, k=50)
+            torch.cuda.synchronize()
+            counts = _counts()
+            _add_launches(total, counts)
+            row = {"launches": counts}
+            ok = counts == want and all(len(r) == 50 for r in recs)
+            if bs in check_batches:
+                with torch.no_grad():
+                    s_gpu = scores_for_eval(
+                        rec.model_def, rec._model_c, cfg.model,
+                        rec.batch_from_histories(hists, req), vocab).cpu()
+                    s_cpu = scores_for_eval(
+                        rec_cpu.model_def, rec_cpu._model_c, cfg.model,
+                        rec_cpu.batch_from_histories(hists, req), vocab)
+                err, rel = rel_err(s_gpu[:, :vocab], s_cpu[:, :vocab])
+                row.update(max_abs_score_err=err, rel_score_err=rel,
+                           tol=SLICE_TOL[dname])
+                ok = ok and rel <= SLICE_TOL[dname] and bool(
+                    torch.isfinite(s_gpu).all())
+            if bs == timed_batch:
+                batch = rec.batch_from_histories(hists, req)
+                fetch = min(50 + meta.max_seq_len, vocab)
+                score = lambda: rec._score_impl(batch, fetch)  # noqa: E731
+                row["recommend_ms"] = _host_ms(torch, lambda: rec.recommend(
+                    hists, req, k=50), iters)
+                row["score_topk_ms"] = _event_ms(torch, score, iters)
+                busy = _device_busy(torch, score)
+                row.update(busy)
+                row["idle_share"] = (None if busy["device_busy_ms"] is None
+                                     else 1 - busy["device_busy_ms"]
+                                     / row["score_topk_ms"])
+            row["ok"] = ok
+            rows[f"{dname}_B{bs}"] = row
+            print(f"zoo serve {name} {dname:9s} B={bs:<3d} "
+                  f"rel_score_err={row.get('rel_score_err')} "
+                  f"recommend_ms={row.get('recommend_ms')} score_topk_ms="
+                  f"{row.get('score_topk_ms')} device_busy_ms="
+                  f"{row.get('device_busy_ms')} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failures.append(f"zoo serving {name} {dname} B={bs}: {row}")
+    return rows, total
+
+
+def check_bidirectional(torch, failures):
+    """bidirectional_gru_net at B=16, L=50, u=128 on the card against the
+    CPU, f32 and bf16: the output and every gradient (inputs and both
+    GRUs' parameters) of sum(out * cotangent) within KERNEL_TOL of the
+    CPU's largest |value|, and 2 gru_scan[plain] + 2 gru_scan_bwd[plain]
+    launches.  No model of either package calls it: held as a module."""
+    from mtamrecommender_tpu_torch.ops import time_gru
+
+    B, L, u = 16, 50, 128
+    gen = torch.Generator().manual_seed(25)
+    params = time_gru.init_bidirectional_gru(gen, u, u)
+    x = torch.randn(B, L, u, generator=gen)
+    cot = torch.randn(B, L, 2 * u, generator=gen)
+    lengths = torch.randint(0, L + 1, (B,), generator=gen)
+    lengths[0], lengths[1] = 0, L
+    want = _want_counts(0)
+    want["gru_scan"]["plain"] = 2
+    want["gru_scan_bwd"]["plain"] = 2
+    report = {}
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            module = time_gru.BidirectionalGRU(
+                {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in params.items()}).to(dev).to(dt)
+            xin = x.clone().to(dev).requires_grad_(True)
+            _reset_counts()
+            out = time_gru.bidirectional_gru_net(
+                module, xin.to(dt), lengths.to(dev)).float()
+            (out * cot.to(dev)).sum().backward()
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                launches = _counts()
+            runs[dev] = {"out": out.detach().cpu(), "inputs": xin.grad.cpu(),
+                         **{n: p.grad.float().cpu()
+                            for n, p in module.named_parameters()}}
+        errs = {k: rel_err(runs[DEVICE][k], v)[1]
+                for k, v in runs["cpu"].items()}
+        worst = max(errs, key=errs.get)
+        ok = errs[worst] <= KERNEL_TOL[dname] and launches == want and all(
+            bool(torch.isfinite(t).all()) for t in runs[DEVICE].values())
+        report[dname] = {"rel_err": errs, "launches": launches, "ok": ok}
+        print(f"zoo bidirectional_gru_net {dname:9s} B={B} L={L} u={u}: "
+              f"worst rel err {errs[worst]:.3e} ({worst}) launches "
+              f"gru_scan={launches['gru_scan']} gru_scan_bwd="
+              f"{launches['gru_scan_bwd']} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"bidirectional_gru_net {dname}: {report[dname]}")
+    return report
+
+
+def hybird_from_disk(torch, setup, failures):
+    """MTAM_hybird (the concat head) from disk, bf16 and f32: two
+    make_train_step steps on the card, a Checkpointer save,
+    Recommender.from_checkpoint on the card, recommend k=50 at B=16 with
+    the in-memory model's ids; then evaluate_dataset from the checkpoint
+    over one batch of 2,048 held-out rows on the card and on the CPU,
+    every metric within EVAL_ATOL.  The checkpoints live in a temporary
+    directory, removed afterwards.  Returns (report, launches)."""
+    import shutil
+    import tempfile
+
+    from mtamrecommender_tpu_torch.data.device_data import (gather_batch,
+                                                             to_device)
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.serve import Recommender
+    from mtamrecommender_tpu_torch.train.checkpoint import Checkpointer
+    from mtamrecommender_tpu_torch.train.evaluate import (eval_batches,
+                                                          evaluate_dataset,
+                                                          make_eval_step)
+    from mtamrecommender_tpu_torch.train.trainer import (TrainState,
+                                                         make_optimizer,
+                                                         make_train_step)
+
+    name = "MTAM_hybird"
+    mode, _ = ZOO_MODELS[name]
+    train_want, serve_want = _zoo_want(mode, True)
+    m, vocab = setup.meta, setup.meta.item_vocab
+    arrays = make_train_arrays(m, ZOO_EVAL_ROWS, seed=1)
+    eval_data = {dev: to_device(arrays, device=dev)
+                 for dev in (DEVICE, "cpu")}
+    hists, req = make_histories(np.random.RandomState(99), 16, m.item_count,
+                                m.category_count, m.max_seq_len)
+    hists[1] = []
+    report, total = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        for dname in ("bfloat16", "float32"):
+            cfg = train_cfg(dname, name)
+            ckpt_dir = os.path.join(root, dname)
+            opt = make_optimizer(cfg.train)
+            step = make_train_step(get_model(name), cfg, opt, vocab,
+                                   device=DEVICE)
+            model = setup.model(torch, cfg, DEVICE)
+            state = opt.init(model)
+            _reset_counts()
+            losses = []
+            for k in range(2):
+                state, metrics = step(model, state, gather_batch(
+                    setup.data, setup.order, k, TRAIN_BATCH))
+                losses.append(metrics["loss"].item())
+            got = _counts()
+            _add_launches(total, got)
+            train_ok = got == train_want(2) and all(map(math.isfinite,
+                                                        losses))
+            Checkpointer(ckpt_dir).save(TrainState(model, state, 2))
+            rec = Recommender.from_checkpoint(cfg, m, ckpt_dir,
+                                              device=DEVICE)
+            _reset_counts()
+            from_disk = rec.recommend(hists, req, k=50)
+            torch.cuda.synchronize()
+            serve_launches = _counts()
+            _add_launches(total, serve_launches)
+            in_memory = Recommender(cfg, m, model, device=DEVICE).recommend(
+                hists, req, k=50)
+            ids_equal = [[i for i, _ in r] for r in from_disk] == \
+                [[i for i, _ in r] for r in in_memory]
+            serve_ok = ids_equal and serve_launches == serve_want
+            restored = {dev: Recommender.from_checkpoint(
+                cfg, m, ckpt_dir, device=dev).model for dev in (DEVICE, "cpu")}
+            ev = make_eval_step(get_model(name), cfg.model, valid_vocab=vocab)
+            _reset_counts()
+            metrics_gpu = evaluate_dataset(ev, restored[DEVICE], eval_batches(
+                eval_data[DEVICE], cfg.train.test_batch_size))
+            got = _counts()
+            _add_launches(total, got)
+            metrics_cpu = evaluate_dataset(ev, restored["cpu"], eval_batches(
+                eval_data["cpu"], cfg.train.test_batch_size))
+            metric_err = {k: abs(metrics_gpu[k] - metrics_cpu[k])
+                          for k in metrics_cpu}
+            eval_ok = (max(metric_err.values()) <= EVAL_ATOL[dname]
+                       and got == serve_want
+                       and cfg.train.test_batch_size == ZOO_EVAL_ROWS)
+            ok = train_ok and serve_ok and eval_ok
+            report[dname] = {"losses": losses, "train_ok": train_ok,
+                             "from_checkpoint_ids_equal": ids_equal,
+                             "recommend_launches": serve_launches,
+                             "eval_launches": got, "serve_ok": serve_ok,
+                             "metrics_gpu": metrics_gpu,
+                             "metrics_cpu": metrics_cpu,
+                             "metric_abs_err": metric_err,
+                             "tol": EVAL_ATOL[dname], "ok": ok}
+            print(f"zoo disk {name} {dname:9s}: 2 steps losses {losses}; "
+                  f"from_checkpoint k=50 B=16 ids equal {ids_equal}; eval "
+                  f"B={ZOO_EVAL_ROWS} max metric err vs CPU "
+                  f"{max(metric_err.values()):.2e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"zoo from disk {name} {dname}: "
+                                f"{report[dname]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return report, total
+
+
+def run_zoo(torch, setup, failures):
+    """Phase 9: the nine zoo models built from ported parts, on phase 4's
+    cell at 3 hops: each one step's loss and every gradient leaf against
+    the CPU at B=64 (f32 and bf16) with its launches, 20 timed
+    make_superstep steps at B=256 in bf16 and f32, and recommend at B=16
+    against the CPU and at B=256 timed; MTAM_with_T_SeqRec at its
+    preset's 6 hops (one step against the CPU at B=256, 5 timed steps,
+    recommend at B=256 against the CPU and timed);
+    bidirectional_gru_net as a module; MTAM_hybird from disk.  Returns
+    (report, the main paths' launches)."""
+    report, launches = {}, {}
+    three = ZooSetup(setup, ZOO_CHECK_BATCH)
+    for name, (mode, readout) in ZOO_MODELS.items():
+        train_want, serve_want = _zoo_want(mode, readout)
+        rep = one_step_check(torch, three, failures, name, train_want)
+        rep.update(timed_steps(torch, three, failures, name, train_want,
+                               launches))
+        rep["serving"], got = serve_zoo(torch, three, failures, name,
+                                        serve_want)
+        _add_launches(launches, got)
+        report[name] = rep
+    name, hops = ZOO_PRESET
+    six = ZooSetup(setup, TRAIN_BATCH, hops=hops)
+    train_want, serve_want = _zoo_want(ZOO_MODELS[name][0], True, hops)
+    rep = one_step_check(torch, six, failures, name, train_want)
+    rep.update(timed_steps(torch, six, failures, name, train_want, launches,
+                           steps=5, warm=2))
+    rep["serving"], got = serve_zoo(torch, six, failures, name, serve_want,
+                                    check_batches=(TRAIN_BATCH,))
+    _add_launches(launches, got)
+    report[f"{name}@{hops}hops"] = rep
+    report["bidirectional_gru_net"] = check_bidirectional(torch, failures)
+    report["hybird_from_disk"], got = hybird_from_disk(torch, setup,
+                                                       failures)
+    _add_launches(launches, got)
+    return report, launches
+
+
 # ------------------------------------------------------------ report
 
 def kernels_line(entries, launches_by_shape):
@@ -4873,17 +5218,34 @@ def main() -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "from-disk path")
     lap("8")
+
+    # phase 9: the zoo models built from ported parts (phase 4's cell)
+    zoo, zoo_launches = run_zoo(torch, setup, failures)
+    for kname, mode in (("gru_scan", "plain"), ("gru_scan_bwd", "plain"),
+                        ("gru_scan", "tseqrec"), ("gru_scan_bwd", "tseqrec"),
+                        ("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
+                        ("dtable", None), ("readout_chain", None),
+                        ("readout_chain_bwd", None),
+                        ("fused_attention_hop", "time")):
+        if zoo_launches.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "zoo models' paths")
+    lap("9")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
-    # launches on the main paths: MTAM's at L=50 (phases 3, 4 and 8) run
-    # the attention kernels at Tq=1 and the chain pair (phases 4 and 8's
-    # steps), the self-attention models' (phase 5) at Tq=Tk=50; MTAM's at
-    # L=512 (phase 6) the readout and GRU kernels
+    # launches on the main paths: MTAM's and the zoo models' at L=50
+    # (phases 3, 4, 8 and 9) run the attention kernels at Tq=1 and the
+    # chain pair (phases 4, 8 and 9's steps), the GRU pair in all three
+    # modes (phase 9: plain and tseqrec), the self-attention models'
+    # (phase 5) at Tq=Tk=50; MTAM's at L=512 (phase 6) the readout and
+    # GRU kernels
     mtam_launches = {k: dict(v) for k, v in serve_launches.items()}
     _add_launches(mtam_launches, train_launches)
     _add_launches(mtam_launches, disk_launches)
+    _add_launches(mtam_launches, zoo_launches)
     l50_launches = copy.deepcopy(train_launches)
     _add_launches(l50_launches, disk_launches)
+    _add_launches(l50_launches, zoo_launches)
     main_launches = copy.deepcopy(mtam_launches)
     _add_launches(main_launches, sa_launches)
     # the GRU pair's @L2048 entries count MTAM's launches at L=2048
@@ -4934,6 +5296,10 @@ def main() -> int:
                    "launches_from_disk": {
                        k: {str(m): n for m, n in v.items()}
                        for k, v in disk_launches.items()},
+                   "zoo": zoo,
+                   "launches_zoo": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in zoo_launches.items()},
                    "failures": failures}, f, indent=1, default=str)
     if failures:
         for msg in failures:

@@ -7,7 +7,9 @@ and run by ``ModelDef.apply(model, cfg, batch, train=..., gen=...)``:
 generator or an iterator of masks drawn elsewhere, one per dropping
 block (`ops.layers.draw_drop_mask`).  Training takes `compute_loss`
 (full-catalog softmax cross-entropy plus the L2 of the lookups, in f32);
-serving takes `scores_for_eval`.
+serving takes `scores_for_eval`.  A model of the "concat" output mode
+predicts [B, 2d], which `project_concat` maps through its ``output_w``
+[2d, d] before the item table (output_concat); "bpr" is not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ NEG_FILL = -(2.0 ** 32) + 1.0  # the reference's mask fill
 
 
 class ModelOutput(NamedTuple):
-    predict_emb: torch.Tensor          # [B, d]
+    predict_emb: torch.Tensor          # [B, d] ([B, 2d] for concat)
     embedded: emb_ops.EmbeddedBatch    # residuals for the L2 term
 
 
@@ -42,6 +44,33 @@ class ModelDef(NamedTuple):
 
 def embed(model: nn.Module, batch: Batch) -> emb_ops.EmbeddedBatch:
     return emb_ops.behavior_embedding(model.embedding, batch)
+
+
+# the output modes the port has; "bpr" (BPRMF's loss) is not ported yet
+OUTPUT_MODES = ("plain", "concat")
+
+
+def _check_output_mode(model_def: ModelDef) -> None:
+    if model_def.output_mode not in OUTPUT_MODES:
+        raise NotImplementedError(
+            f"output mode {model_def.output_mode!r} is not ported yet "
+            "(ROADMAP.md, Queue 1)")
+
+
+def project_concat(output_w: torch.Tensor,
+                   predict_emb: torch.Tensor) -> torch.Tensor:
+    """The concat head's [2d, d] projection before the item table."""
+    return torch.matmul(predict_emb, output_w)
+
+
+def _head(model_def: ModelDef, output_w: Optional[torch.Tensor],
+          predict_emb: torch.Tensor) -> torch.Tensor:
+    """The prediction the item table scores: in the concat mode projected
+    by ``output_w`` upcast to f32 (under bf16 compute the bf16-rounded
+    weight, as JAX's loss and scoring take it), else as it is."""
+    if model_def.output_mode == "concat":
+        return project_concat(output_w.float(), predict_emb)
+    return predict_emb
 
 
 def item_logits(item_table: torch.Tensor, predict_emb: torch.Tensor,
@@ -97,14 +126,15 @@ def scores_for_eval(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
                     batch: Batch, valid_vocab: Optional[int] = None
                     ) -> torch.Tensor:
     """Full-catalog ranking scores [B, vocab] in f32.  Under bf16 compute
-    the scores are f32 products against the bf16-rounded item table."""
-    if model_def.output_mode != "plain":
-        raise NotImplementedError(
-            f"output mode {model_def.output_mode!r} is not ported yet")
+    the scores are f32 products against the bf16-rounded item table
+    (and, in the concat mode, the bf16-rounded ``output_w``)."""
+    _check_output_mode(model_def)
     model_c, batch_c = _compute_cast(cfg, model, batch)
     out = model_def.apply(model_c, cfg, batch_c, train=False)
-    return item_logits(model_c.embedding.item_table.float(),
-                       out.predict_emb.float(), valid_vocab)
+    predict = _head(model_def, getattr(model_c, "output_w", None),
+                    out.predict_emb.float())
+    return item_logits(model_c.embedding.item_table.float(), predict,
+                       valid_vocab)
 
 
 # ------------------------------------------------------------ training loss
@@ -165,22 +195,22 @@ def compute_loss(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
     f32 master parameters (so gradients flow back through the casts, as
     through JAX's ``cast_floats``) and on a bf16 batch; the loss is f32:
     the prediction and the looked-up rows are upcast, the logits use the
-    bf16-rounded item table upcast to f32, and ``valid`` and the targets
-    come from the original batch."""
-    if model_def.output_mode != "plain":
-        raise NotImplementedError(
-            f"output mode {model_def.output_mode!r} is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    bf16-rounded item table (and concat head) upcast to f32, and
+    ``valid`` and the targets come from the original batch."""
+    _check_output_mode(model_def)
     dtype = compute_dtype(cfg)
     if dtype == torch.float32:
         out = model_def.apply(model, cfg, batch, train=True, gen=gen)
-        return softmax_ce_loss(model.embedding.item_table, out.predict_emb,
+        predict = _head(model_def, getattr(model, "output_w", None),
+                        out.predict_emb)
+        return softmax_ce_loss(model.embedding.item_table, predict,
                                out.embedded, batch, cfg, valid_vocab)
     cast = {f"model.{name}": p.to(dtype)
             for name, p in model.named_parameters()}
     out = functional_call(_TrainApply(model_def, model, cfg), cast,
                           (cast_floats(batch, dtype), gen))
+    predict = _head(model_def, cast.get("model.output_w"),
+                    out.predict_emb.float())
     return softmax_ce_loss(cast["model.embedding.item_table"].float(),
-                           out.predict_emb.float(),
-                           cast_floats(out.embedded, torch.float32), batch,
-                           cfg, valid_vocab)
+                           predict, cast_floats(out.embedded, torch.float32),
+                           batch, cfg, valid_vocab)
