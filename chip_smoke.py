@@ -97,7 +97,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      shape (B=256, L=50, every key live), each design pair in turns
      (staged, rows, rows, staged) by events, by the profiler's device
      time and its split by launch, and by the host time a call, with the
-     staged kernels' shared memory a block and blocks an SM;
+     staged kernels' shared memory a block and blocks an SM; then the
+     same at ONE hop (NARM+'s and NARM++'s readout: B = 1, 16 at d=128
+     and B=16 at d=16, ragged; phase 4's shape timed, "@L50h1");
   3. the serving slice: Recommender.recommend at full width (MTAM d=128,
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
@@ -251,18 +253,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      + 1 gru_scan_bwd + 4 dtable + 1 readout_chain + 1
      readout_chain_bwd a step), 2 eval batches and 1 recommend call (1
      gru_scan + 3 fused_attention_hop[time] each).
-  9. the zoo models built from ported parts, on phase 4's cell at 3
-     hops (ZOO_MODELS: Gru4Rec, Vallina_Gru4Rec, T_SeqRec, T_GRU,
+  9. the rest of the registry, on phase 4's cell at 3 hops
+     (ZOO_MODELS: Gru4Rec, Vallina_Gru4Rec, T_SeqRec, T_GRU,
      MTAM_no_time_aware_rnn, MTAM_via_rnn, MTAM_with_T_SeqRec,
-     MTAM_via_T_GRU, MTAM_hybird): each one step's loss and every
-     gradient leaf against the CPU at B=64 in f32 and bf16 (phase 4's
-     tolerances) with the step's launches (1 gru_scan + 1 gru_scan_bwd
-     in the model's mode, 4 dtable, and 1 readout_chain + 1
-     readout_chain_bwd where the model reads out), 20 timed
-     make_superstep steps after 3 warm-up at B=256 in bf16 and f32 (ms
-     a step, examples/s, idle share), recommend k=50 at B=16 against
-     the CPU (SLICE_TOL) and at B=256 timed (1 gru_scan, and 3
-     fused_attention_hop[time] where the model reads out, a call);
+     MTAM_via_T_GRU, MTAM_hybird, MTAM_no_time_aware_att, NARM, NARM+,
+     NARM++, LSTUR, LSTUR_time_rnn, STAMP, pistrec, bpr): each one
+     step's loss and every gradient leaf against the CPU at B=64 in f32
+     and bf16 (phase 4's tolerances; the plain readout's dropout masks
+     and bpr's negative item drawn on the CPU and injected on both
+     sides) with the step's launches (1 gru_scan + 1 gru_scan_bwd in
+     the model's mode, dtable once a table the loss reaches, 1
+     readout_chain + 1 readout_chain_bwd where the model reads out in
+     the time kind, 3 fused_attention[time] + 3 fused_attention_bwd[time]
+     where it self-attends), 20 timed make_superstep steps after 3
+     warm-up at B=256 in bf16 and f32 (ms a step, examples/s, idle
+     share), recommend k=50 at B=16 against the CPU (SLICE_TOL) and at
+     B=256 timed (1 gru_scan, the readout's hops in the hop design of
+     its kind, 3 fused_attention[time] where it self-attends, a call);
+     launches on each first-time path (ZOO_GROUP_KERNELS: the plain
+     readout's hops, the chain pair at one hop, the GRU pair from a
+     user's row, PISTRec's self-attention pair);
      MTAM_with_T_SeqRec at its preset's 6 hops
      (MTAM_with_T_SeqRecb6_yoochoose): one step against the CPU at
      B=256, 5 timed steps, recommend at B=256 against the CPU and timed
@@ -272,11 +282,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      2 steps, a Checkpointer save, Recommender.from_checkpoint on the
      card giving the in-memory model's ids at B=16, and
      evaluate_dataset over one batch of 2,048 held-out rows against the
-     CPU within EVAL_ATOL.
+     CPU within EVAL_ATOL; FPMC (no kernel) at ml-1m's catalog: 5
+     sbpr_steps at B=256 against the CPU, score_all, train_fpmc for one
+     epoch on the card and evaluate against the CPU.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
-as "@L50"; the readout, GRU and dtable kernels at B=64,
+as "@L50" and at one hop as "@L50h1"; the readout, GRU and dtable kernels at B=64,
 L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048, the GRU
 kernels at B=64, L=2048 and
 dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
@@ -319,6 +331,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -2175,16 +2188,19 @@ class NarrowSetup:
             **{"model.num_units": 16})
 
 
-def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None):
+def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None,
+                neg_id=None):
     """One step's loss and gradients; ``drop_masks``, where given, are
-    the forward's masks in block order (its mask source)."""
+    the forward's masks in block (or hop) order (its mask source), and
+    ``neg_id`` the bpr loss's negative item."""
     from mtamrecommender_tpu_torch.models.base import compute_loss
     from mtamrecommender_tpu_torch.models.registry import get_model
 
     model.zero_grad(set_to_none=True)
     source = None if drop_masks is None else iter(drop_masks)
     metrics = compute_loss(get_model(cfg.model.experiment_type), model,
-                           cfg.model, batch, vocab, gen=source)
+                           cfg.model, batch, vocab, gen=source,
+                           neg_id=neg_id)
     metrics["loss"].backward()
     # a parameter the loss does not reach (Vallina_Gru4Rec's behavior
     # projection) has no grad: zeros, as the train step takes it
@@ -2305,11 +2321,12 @@ def _kernel_modules():
 
 
 def one_step_check(torch, setup, failures, name, want, drop_masks=None,
-                   hold_bf16_scalars=True):
+                   hold_bf16_scalars=True, neg_id=None):
     """One step's loss and every gradient leaf on the card against the
     CPU (the plain twins), in f32 and bf16, and the step's launches
-    against ``want``.  ``drop_masks``: CPU masks, one per block, injected
-    on both sides.  Without ``hold_bf16_scalars`` the bf16 gradients of
+    against ``want``.  ``drop_masks``: CPU masks, one per block (or
+    readout hop), injected on both sides; ``neg_id``: the bpr loss's
+    negative item, likewise.  Without ``hold_bf16_scalars`` the bf16 gradients of
     scalar leaves (the scalar decay gates) are reported, not held: at
     L=2048 each is a sum of B*L*L terms that cancel, which bf16 rounding
     leaves noise on either device (PERF.md, PR 5); f32 holds them."""
@@ -2320,12 +2337,15 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
     for dname in ("float32", "bfloat16"):
         cfg = setup.cfg(dname, name)
         m_cpu, g_cpu = _loss_grads(torch, cfg, setup.model(torch, cfg, "cpu"),
-                                   setup.batch_cpu, vocab, drop_masks)
+                                   setup.batch_cpu, vocab, drop_masks,
+                                   neg_id)
         if dname == "float32":
             cpu32 = g_cpu
         _reset_counts()
         m_gpu, g_gpu = _loss_grads(torch, cfg, setup.model(torch, cfg, DEVICE),
-                                   setup.batch, vocab, on_card)
+                                   setup.batch, vocab, on_card,
+                                   None if neg_id is None
+                                   else neg_id.to(DEVICE))
         torch.cuda.synchronize()
         counts = _counts()
         worst, worst_leaf, ok = 0.0, None, True
@@ -3525,6 +3545,10 @@ def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
 
 CHAIN_CASES = ([(bs, L, 128) for L in (50, 255) for bs in (1, 16, 256)]
                + [(16, 50, 16), (16, 50, 64)])
+# one hop (NARM+'s and NARM++'s training readout): (B, L, d, every key
+# live); phase 4's shape is added
+CHAIN_ONE_HOP_CASES = ((1, 50, 128, False), (16, 50, 128, False),
+                       (16, 50, 16, False))
 # the staged designs' templated kernels (phase 1's ptxas lines)
 CHAIN_FWD_STAGED_KERNELS = ("chain_fwd_staged_kernel",)
 CHAIN_BWD_STAGED_KERNELS = ("chain_bwd_query_kernel",
@@ -3745,97 +3769,114 @@ def chain_occupancy(rc, dname, bwd, L=50, d=128):
 
 def check_chain_kernels(torch, timer, iters, failures):
     """Phase 2f: readout_chain and readout_chain_bwd against their plain
-    twins at CHAIN_CASES in f32 and bf16 (positional wo2 rows at L=50,
-    scalar at L=255 and the narrow widths; ragged keys, one row with no
-    live key, one masked query), each in the design the wrapper picks
-    ("staged" at L=50, "rows" at L=255), two launches of each
-    bit-equal, at L=50 the rows design forced beside the staged one: the
-    forward's output and hop-input chain (`check_chain_fwd`), the
-    backward's ten cotangents from the kernel's chain, every score-side
-    cotangent of a row with no live key exactly 0 (`check_chain_bwd`);
-    timed at phase 4's shape (B=256, L=50, d=128, every key live) with
-    the twins beside them, each kernel's two designs in turns with the
-    profiler's split by kernel (`time_chain_fwd`, `time_chain_bwd`) and
-    its staged kernel's shared memory and blocks an SM."""
+    twins at CHAIN_CASES in f32 and bf16 (3 hops; positional wo2 rows at
+    L=50, scalar at L=255 and the narrow widths; ragged keys, one row
+    with no live key, one masked query), then at ONE hop at
+    CHAIN_ONE_HOP_CASES (NARM+'s and NARM++'s readout), each in the
+    design the wrapper picks ("staged" at L=50, "rows" at L=255), two
+    launches of each bit-equal, at L=50 the rows design forced beside
+    the staged one: the forward's output and hop-input chain
+    (`check_chain_fwd`), the backward's ten cotangents from the kernel's
+    chain, every score-side cotangent of a row with no live key exactly
+    0 (`check_chain_bwd`); timed at phase 4's shape (B=256, L=50, d=128,
+    every key live; 3 hops: ``@L50``, 1 hop: ``@L50h1``) with the twins
+    beside them, each kernel's two designs in turns with the profiler's
+    split by kernel (`time_chain_fwd`, `time_chain_bwd`) and its staged
+    kernel's shared memory and blocks an SM."""
     from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
 
     gen = torch.Generator(device=DEVICE).manual_seed(97531)
     entries = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        fwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
-               "rows_rel": 0.0, "staged_vs_rows_rel": 0.0,
-               "rows_same": True}
-        bwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
-               "rows_rel": 0.0, "staged_vs_rows_rel": 0.0,
-               "rows_same": True}
-        cases = [(bs, L, d, False) for bs, L, d in CHAIN_CASES]
-        for bs, L, d, full in cases + [(TRAIN_BATCH, 50, 128, True)]:
-            gate = "positional" if L == 50 and d == 128 else "scalar"
-            args = chain_inputs(torch, gen, dtype, bs, L, d, gate=gate,
-                                full=full)
-            fwd_design, curs, fgot = check_chain_fwd(torch, rc, args, dname)
-            fwd = _merge_chain(fwd, fgot)
-            g = torch.randn((bs, d), generator=gen, device=DEVICE).to(dtype)
-            design, got = check_chain_bwd(torch, rc, g, args, curs, dname)
-            bwd = _merge_chain(bwd, got)
-            for what, x, dz in (("fwd", fgot, fwd_design),
-                                ("bwd", got, design)):
-                rows_part = (f" rows rel={x['rows_rel']:.3e} staged-rows "
-                             f"rel={x['staged_vs_rows_rel']:.3e} "
-                             f"rows_same_bits={x['rows_same']}"
-                             if "rows_rel" in x else "")
-                print(f"readout_chain {what} B={bs:<3d} L={L:<3d} d={d:<3d} "
-                      f"{gate:10s} {dname:9s} design={dz:6s} rel="
-                      f"{x['rel']:.3e} same_bits={x['same']}{rows_part} "
-                      f"{'ok' if x['ok'] else 'FAIL'}", flush=True)
-        # args, g and curs are phase 4's shape now, every key live
-        rows = {
-            "readout_chain": {
-                "design": rc.chain_fwd_design(dtype, 50, 128),
-                "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
-                "tol": KERNEL_TOL[dname], "ok": fwd["ok"] and fwd["same"],
-                "same_bits_twice": fwd["same"],
-                "rows_rel_err": fwd["rows_rel"],
-                "staged_vs_rows_rel_err": fwd["staged_vs_rows_rel"],
-                "rows_same_bits_twice": fwd["rows_same"],
-                **time_chain_fwd(timer, rc, args, iters),
-                **chain_occupancy(rc, dname, bwd=False),
-                "plain_ms": timer(lambda: rc.readout_chain_plain(*args),
-                                  max(iters // 10, 3)),
-                **chain_bound(args, dname)},
-            "readout_chain_bwd": {
-                "design": rc.chain_bwd_design(dtype, 50, 128),
-                "max_abs_err": bwd["err"], "rel_err": bwd["rel"],
-                "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and bwd["same"],
-                "same_bits_twice": bwd["same"],
-                "rows_rel_err": bwd["rows_rel"],
-                "staged_vs_rows_rel_err": bwd["staged_vs_rows_rel"],
-                "rows_same_bits_twice": bwd["rows_same"],
-                **time_chain_bwd(timer, rc, g, args, curs, iters),
-                **chain_occupancy(rc, dname, bwd=True),
-                "plain_ms": timer(lambda: rc.readout_chain_bwd_plain(
-                    g, *args[1:], curs), max(iters // 10, 3)),
-                **chain_bwd_bound(args, dname)}}
-        for kname, row in rows.items():
-            entries.setdefault((kname, None, "L50"), {})[dname] = row
-            extra = "".join(
-                f" {k}={row[k]:.4f}" if isinstance(row.get(k), float)
-                else f" {k}={row[k]}" for k in (
-                    "design", "device_ms", "host_ms", "call_host_ms",
-                    "rows_ms", "rows_device_ms",
-                    "rows_host_ms", "passes_ms", "rows_passes_ms",
-                    "smem_bytes", "blocks_per_sm") if k in row)
-            print(f"{kname} B={TRAIN_BATCH} L=50 {dname:9s} max_abs_err="
-                  f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
-                  f"{row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms="
-                  f"{row['bound_ms']:.4f} ({row['bound_by']}){extra} "
-                  f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
-            if not row["ok"]:
-                failures.append(f"{kname} {dname}: rel err "
-                                f"{row['rel_err']:.3e}, same bits "
-                                f"{row['same_bits_twice']}")
+        for hops, cases, shape in (
+                (3, [(bs, L, d, False) for bs, L, d in CHAIN_CASES], "L50"),
+                (1, list(CHAIN_ONE_HOP_CASES), "L50h1")):
+            fwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
+                   "rows_rel": 0.0, "staged_vs_rows_rel": 0.0,
+                   "rows_same": True}
+            bwd = dict(fwd)
+            for bs, L, d, full in cases + [(TRAIN_BATCH, 50, 128, True)]:
+                gate = "positional" if L == 50 and d == 128 else "scalar"
+                args = chain_inputs(torch, gen, dtype, bs, L, d, n=hops,
+                                    gate=gate, full=full)
+                fwd_design, curs, fgot = check_chain_fwd(torch, rc, args,
+                                                         dname)
+                fwd = _merge_chain(fwd, fgot)
+                g = torch.randn((bs, d), generator=gen,
+                                device=DEVICE).to(dtype)
+                design, got = check_chain_bwd(torch, rc, g, args, curs,
+                                              dname)
+                bwd = _merge_chain(bwd, got)
+                for what, x, dz in (("fwd", fgot, fwd_design),
+                                    ("bwd", got, design)):
+                    rows_part = (f" rows rel={x['rows_rel']:.3e} "
+                                 f"staged-rows rel="
+                                 f"{x['staged_vs_rows_rel']:.3e} "
+                                 f"rows_same_bits={x['rows_same']}"
+                                 if "rows_rel" in x else "")
+                    print(f"readout_chain {what} n={hops} B={bs:<3d} "
+                          f"L={L:<3d} d={d:<3d} {gate:10s} {dname:9s} "
+                          f"design={dz:6s} rel={x['rel']:.3e} "
+                          f"same_bits={x['same']}{rows_part} "
+                          f"{'ok' if x['ok'] else 'FAIL'}", flush=True)
+            # args, g and curs are phase 4's shape now, every key live
+            rows = _chain_rows(torch, timer, rc, dtype, dname, args, g,
+                               curs, fwd, bwd, iters)
+            for kname, row in rows.items():
+                entries.setdefault((kname, None, shape), {})[dname] = row
+                extra = "".join(
+                    f" {k}={row[k]:.4f}" if isinstance(row.get(k), float)
+                    else f" {k}={row[k]}" for k in (
+                        "design", "device_ms", "host_ms", "call_host_ms",
+                        "rows_ms", "rows_device_ms",
+                        "rows_host_ms", "passes_ms", "rows_passes_ms",
+                        "smem_bytes", "blocks_per_sm") if k in row)
+                print(f"{kname} n={hops} B={TRAIN_BATCH} L=50 {dname:9s} "
+                      f"max_abs_err={row['max_abs_err']:.3e} rel="
+                      f"{row['rel_err']:.3e} ms={row['ms']:.4f} plain_ms="
+                      f"{row['plain_ms']:.4f} bound_ms="
+                      f"{row['bound_ms']:.4f} ({row['bound_by']}){extra} "
+                      f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+                if not row["ok"]:
+                    failures.append(f"{kname} {hops} hops {dname}: rel err "
+                                    f"{row['rel_err']:.3e}, same bits "
+                                    f"{row['same_bits_twice']}")
     return entries
+
+
+def _chain_rows(torch, timer, rc, dtype, dname, args, g, curs, fwd, bwd,
+                iters):
+    """The kernels line's rows of the chain pair at phase 4's shape
+    (``args``, ``g``, ``curs``), with the worst figures of the checks
+    before (``fwd``, ``bwd``)."""
+    return {
+        "readout_chain": {
+            "design": rc.chain_fwd_design(dtype, 50, 128),
+            "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
+            "tol": KERNEL_TOL[dname], "ok": fwd["ok"] and fwd["same"],
+            "same_bits_twice": fwd["same"],
+            "rows_rel_err": fwd["rows_rel"],
+            "staged_vs_rows_rel_err": fwd["staged_vs_rows_rel"],
+            "rows_same_bits_twice": fwd["rows_same"],
+            **time_chain_fwd(timer, rc, args, iters),
+            **chain_occupancy(rc, dname, bwd=False),
+            "plain_ms": timer(lambda: rc.readout_chain_plain(*args),
+                              max(iters // 10, 3)),
+            **chain_bound(args, dname)},
+        "readout_chain_bwd": {
+            "design": rc.chain_bwd_design(dtype, 50, 128),
+            "max_abs_err": bwd["err"], "rel_err": bwd["rel"],
+            "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and bwd["same"],
+            "same_bits_twice": bwd["same"],
+            "rows_rel_err": bwd["rows_rel"],
+            "staged_vs_rows_rel_err": bwd["staged_vs_rows_rel"],
+            "rows_same_bits_twice": bwd["rows_same"],
+            **time_chain_bwd(timer, rc, g, args, curs, iters),
+            **chain_occupancy(rc, dname, bwd=True),
+            "plain_ms": timer(lambda: rc.readout_chain_bwd_plain(
+                g, *args[1:], curs), max(iters // 10, 3)),
+            **chain_bwd_bound(args, dname)}}
 
 
 def _merge_chain(acc, got):
@@ -4573,20 +4614,63 @@ def run_from_disk(torch, setup, failures):
 
 # ------------------------------------------------------------ phase 9
 
-# the zoo models built from ported parts: name -> (the GRU pair's mode,
-# whether the model has the time-attention readout)
-ZOO_MODELS = {"Gru4Rec": ("plain", False),
-              "Vallina_Gru4Rec": ("plain", False),
-              "T_SeqRec": ("tseqrec", False), "T_GRU": ("tseqrec", False),
-              "MTAM_no_time_aware_rnn": ("plain", True),
-              "MTAM_via_rnn": ("plain", True),
-              "MTAM_with_T_SeqRec": ("tseqrec", True),
-              "MTAM_via_T_GRU": ("tgru", True),
-              "MTAM_hybird": ("tgru", True)}
+class ZooModel(NamedTuple):
+    """A zoo model's paths on phase 4's cell: the GRU pair's mode (None:
+    no GRU), the Tq=1 readout's attention kind (None: no readout) and
+    hops (None: the cell's), whether it self-attends (time blocks at Tq
+    = Tk = 50, the cell's count), whether its GRU starts from the user's
+    embedding, and the tables its loss reaches (dtable launches a
+    step)."""
+    gru: Optional[str]
+    att: Optional[str] = None
+    hops: Optional[int] = None
+    self_att: bool = False
+    h0: bool = False
+    tables: int = 4
+
+
+# every registry model but the MTAM and self-attention models (phases
+# 4-5), which phase 9 trains, serves and holds against the CPU
+ZOO_MODELS = {"Gru4Rec": ZooModel("plain"),
+              "Vallina_Gru4Rec": ZooModel("plain"),
+              "T_SeqRec": ZooModel("tseqrec"), "T_GRU": ZooModel("tseqrec"),
+              "MTAM_no_time_aware_rnn": ZooModel("plain", "time"),
+              "MTAM_via_rnn": ZooModel("plain", "time"),
+              "MTAM_with_T_SeqRec": ZooModel("tseqrec", "time"),
+              "MTAM_via_T_GRU": ZooModel("tgru", "time"),
+              "MTAM_hybird": ZooModel("tgru", "time"),
+              "MTAM_no_time_aware_att": ZooModel("tgru", "plain"),
+              "NARM": ZooModel("plain", "plain", hops=1),
+              "NARM+": ZooModel("plain", "time", hops=1),
+              "NARM++": ZooModel("tgru", "time", hops=1),
+              "LSTUR": ZooModel("plain", h0=True),
+              "LSTUR_time_rnn": ZooModel("tseqrec", h0=True),
+              "STAMP": ZooModel(None),
+              "pistrec": ZooModel("tseqrec", "time", self_att=True),
+              "bpr": ZooModel(None, tables=2)}
+# the paths phase 9 must show launches on, each a group of zoo models:
+# (group, kernel, mode)
+ZOO_GROUP_KERNELS = (("plain_readout", "fused_attention_hop", "plain"),
+                     ("one_hop", "readout_chain", None),
+                     ("one_hop", "readout_chain_bwd", None),
+                     ("h0", "gru_scan", "plain"),
+                     ("h0", "gru_scan_bwd", "plain"),
+                     ("h0", "gru_scan_bwd", "tseqrec"),
+                     ("self_attention", "fused_attention", "time"),
+                     ("self_attention", "fused_attention_bwd", "time"))
+BPR_NEGATIVE = 1234          # the one-step check's injected negative item
 ZOO_CHECK_BATCH = 64         # the one-step check against the CPU
 # MTAM_with_T_SeqRecb6_yoochoose's hops (mtamrecommender_tpu/config.py)
 ZOO_PRESET = ("MTAM_with_T_SeqRec", 6)
 ZOO_EVAL_ROWS = 2048         # one batch of train.test_batch_size
+
+
+def _zoo_groups(spec):
+    """The groups of ZOO_GROUP_KERNELS a model belongs to."""
+    return ([g for g, member in (
+        ("plain_readout", spec.att == "plain"),
+        ("one_hop", spec.att == "time" and spec.hops == 1),
+        ("h0", spec.h0), ("self_attention", spec.self_att)) if member])
 
 
 class ZooSetup:
@@ -4612,30 +4696,60 @@ class ZooSetup:
             **{"model.num_blocks": self.hops})
 
 
-def _zoo_want(mode, readout, hops=3):
-    """Launches of ``steps`` training steps (the GRU pair in ``mode``, 4
-    dtable, the chain pair where the model reads out) and of one serving
-    call or eval batch (1 gru_scan, ``hops`` hop-design attention
-    launches where the model reads out)."""
+def _zoo_want(spec, hops=3):
+    """Launches of ``steps`` training steps (the GRU pair in its mode,
+    dtable once a table the loss reaches, the chain pair where the model
+    reads out in the time kind, the attention pair ``hops`` times where
+    it self-attends; the plain readout trains in plain PyTorch) and of
+    one serving call or eval batch (1 gru_scan, the readout's hops in the
+    hop design of its kind, ``hops`` self-attention forwards)."""
+    n = spec.hops or hops
+
     def train(steps, dname=None):
-        return _want_counts(steps, gru=mode, chain=readout)
+        want = _want_counts(steps, gru=spec.gru,
+                            attention="time" if spec.self_att else None,
+                            blocks=hops, chain=spec.att == "time")
+        want["dtable"]["dtable"] = spec.tables * steps
+        return want
 
     serve = _want_counts(0)
-    serve["gru_scan"][mode] = 1
-    if readout:
-        serve["fused_attention"]["time"] = hops
-        serve["fused_attention_hop"]["time"] = hops
+    if spec.gru:
+        serve["gru_scan"][spec.gru] = 1
+    if spec.att:
+        serve["fused_attention"][spec.att] += n
+        serve["fused_attention_hop"][spec.att] += n
+    if spec.self_att:
+        serve["fused_attention"]["time"] += hops
     return train, serve
+
+
+def _zoo_sources(torch, setup, name, spec):
+    """The one-step check's injected draws: CPU masks f32 [B, 1, L], one a
+    plain readout hop at the cell's dropout; bpr's negative item."""
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.ops.layers import draw_drop_mask
+
+    kw = {}
+    if spec.att == "plain":
+        gen = torch.Generator().manual_seed(26)
+        b, L = setup.batch_cpu.items.shape
+        rate = setup.cfg("float32", name).model.dropout
+        kw["drop_masks"] = [draw_drop_mask(gen, b, 1, L, rate, "cpu")
+                            for _ in range(spec.hops or setup.hops)]
+    if get_model(name).output_mode == "bpr":
+        kw["neg_id"] = torch.tensor([BPR_NEGATIVE], dtype=torch.int32)
+    return kw
 
 
 def serve_zoo(torch, setup, failures, name, want, check_batches=(16,),
               timed_batch=256, iters=5):
-    """Recommender.recommend for model ``name`` (k=50) in bf16 and f32:
-    at each of ``check_batches`` the launches of one call against
-    ``want`` and the scores against the same Recommender on the CPU
-    within SLICE_TOL; at ``timed_batch`` the launches of one call, the
-    host ms a call and the scoring step's event and device busy ms.
-    Returns (rows, the calls' launches)."""
+    """Recommender.recommend for model ``name`` (k=50) in bf16 and f32,
+    each request with a user id (LSTUR starts its GRU from the user's
+    row, BPRMF scores it): at each of ``check_batches`` the launches of
+    one call against ``want`` and the scores against the same
+    Recommender on the CPU within SLICE_TOL; at ``timed_batch`` the
+    launches of one call, the host ms a call and the scoring step's
+    event and device busy ms.  Returns (rows, the calls' launches)."""
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
     from mtamrecommender_tpu_torch.serve import Recommender
 
@@ -4651,8 +4765,10 @@ def serve_zoo(torch, setup, failures, name, want, check_batches=(16,),
                                         meta.item_count, meta.category_count,
                                         meta.max_seq_len)
             hists[1] = []                             # an empty history
+            users = np.random.RandomState(bs + 1).randint(
+                1, meta.user_count + 1, bs).tolist()
             _reset_counts()
-            recs = rec.recommend(hists, req, k=50)
+            recs = rec.recommend(hists, req, user_ids=users, k=50)
             torch.cuda.synchronize()
             counts = _counts()
             _add_launches(total, counts)
@@ -4662,21 +4778,23 @@ def serve_zoo(torch, setup, failures, name, want, check_batches=(16,),
                 with torch.no_grad():
                     s_gpu = scores_for_eval(
                         rec.model_def, rec._model_c, cfg.model,
-                        rec.batch_from_histories(hists, req), vocab).cpu()
+                        rec.batch_from_histories(hists, req, users),
+                        vocab).cpu()
                     s_cpu = scores_for_eval(
                         rec_cpu.model_def, rec_cpu._model_c, cfg.model,
-                        rec_cpu.batch_from_histories(hists, req), vocab)
+                        rec_cpu.batch_from_histories(hists, req, users),
+                        vocab)
                 err, rel = rel_err(s_gpu[:, :vocab], s_cpu[:, :vocab])
                 row.update(max_abs_score_err=err, rel_score_err=rel,
                            tol=SLICE_TOL[dname])
                 ok = ok and rel <= SLICE_TOL[dname] and bool(
                     torch.isfinite(s_gpu).all())
             if bs == timed_batch:
-                batch = rec.batch_from_histories(hists, req)
+                batch = rec.batch_from_histories(hists, req, users)
                 fetch = min(50 + meta.max_seq_len, vocab)
                 score = lambda: rec._score_impl(batch, fetch)  # noqa: E731
                 row["recommend_ms"] = _host_ms(torch, lambda: rec.recommend(
-                    hists, req, k=50), iters)
+                    hists, req, user_ids=users, k=50), iters)
                 row["score_topk_ms"] = _event_ms(torch, score, iters)
                 busy = _device_busy(torch, score)
                 row.update(busy)
@@ -4773,8 +4891,7 @@ def hybird_from_disk(torch, setup, failures):
                                                          make_train_step)
 
     name = "MTAM_hybird"
-    mode, _ = ZOO_MODELS[name]
-    train_want, serve_want = _zoo_want(mode, True)
+    train_want, serve_want = _zoo_want(ZOO_MODELS[name])
     m, vocab = setup.meta, setup.meta.item_vocab
     arrays = make_train_arrays(m, ZOO_EVAL_ROWS, seed=1)
     eval_data = {dev: to_device(arrays, device=dev)
@@ -4853,30 +4970,43 @@ def hybird_from_disk(torch, setup, failures):
     return report, total
 
 
+def zoo_model(torch, setup, failures, name, spec):
+    """One zoo model on the cell: one step's loss and every gradient leaf
+    against the CPU (f32 and bf16, draws injected: `_zoo_sources`) with
+    its launches, 20 timed make_superstep steps at B=256 in bf16 and f32,
+    and recommend at B=16 against the CPU and at B=256 timed.  Returns
+    (report, the launches of the timed steps and the serving calls)."""
+    train_want, serve_want = _zoo_want(spec)
+    launches = {}
+    rep = one_step_check(torch, setup, failures, name, train_want,
+                         **_zoo_sources(torch, setup, name, spec))
+    rep.update(timed_steps(torch, setup, failures, name, train_want,
+                           launches))
+    rep["serving"], got = serve_zoo(torch, setup, failures, name,
+                                    serve_want)
+    _add_launches(launches, got)
+    return rep, launches
+
+
 def run_zoo(torch, setup, failures):
-    """Phase 9: the nine zoo models built from ported parts, on phase 4's
-    cell at 3 hops: each one step's loss and every gradient leaf against
-    the CPU at B=64 (f32 and bf16) with its launches, 20 timed
-    make_superstep steps at B=256 in bf16 and f32, and recommend at B=16
-    against the CPU and at B=256 timed; MTAM_with_T_SeqRec at its
-    preset's 6 hops (one step against the CPU at B=256, 5 timed steps,
-    recommend at B=256 against the CPU and timed);
-    bidirectional_gru_net as a module; MTAM_hybird from disk.  Returns
-    (report, the main paths' launches)."""
+    """Phase 9: the registry's models but MTAM and the self-attention
+    models (ZOO_MODELS) on phase 4's cell at 3 hops (`zoo_model`);
+    MTAM_with_T_SeqRec at its preset's 6 hops (one step against the CPU
+    at B=256, 5 timed steps, recommend at B=256 against the CPU and
+    timed); bidirectional_gru_net as a module; MTAM_hybird from disk;
+    FPMC.  Returns (report, the main paths' launches, the launches of
+    each group of ZOO_GROUP_KERNELS)."""
     report, launches = {}, {}
+    groups = {group: {} for group, _, _ in ZOO_GROUP_KERNELS}
     three = ZooSetup(setup, ZOO_CHECK_BATCH)
-    for name, (mode, readout) in ZOO_MODELS.items():
-        train_want, serve_want = _zoo_want(mode, readout)
-        rep = one_step_check(torch, three, failures, name, train_want)
-        rep.update(timed_steps(torch, three, failures, name, train_want,
-                               launches))
-        rep["serving"], got = serve_zoo(torch, three, failures, name,
-                                        serve_want)
+    for name, spec in ZOO_MODELS.items():
+        report[name], got = zoo_model(torch, three, failures, name, spec)
         _add_launches(launches, got)
-        report[name] = rep
+        for group in _zoo_groups(spec):
+            _add_launches(groups[group], got)
     name, hops = ZOO_PRESET
     six = ZooSetup(setup, TRAIN_BATCH, hops=hops)
-    train_want, serve_want = _zoo_want(ZOO_MODELS[name][0], True, hops)
+    train_want, serve_want = _zoo_want(ZOO_MODELS[name], hops)
     rep = one_step_check(torch, six, failures, name, train_want)
     rep.update(timed_steps(torch, six, failures, name, train_want, launches,
                            steps=5, warm=2))
@@ -4888,7 +5018,100 @@ def run_zoo(torch, setup, failures):
     report["hybird_from_disk"], got = hybird_from_disk(torch, setup,
                                                        failures)
     _add_launches(launches, got)
-    return report, launches
+    report["fpmc"] = check_fpmc(torch, failures)
+    return report, launches, groups
+
+
+FPMC_CELL = (6040, 3706, 32)    # ml-1m's users and items, n_factor
+FPMC_BATCH, FPMC_STEPS, FPMC_TUPLES = 256, 5, 4096
+
+
+def fpmc_tuples(n, seed, n_user, n_item):
+    """``n`` (user, item, basket) tuples: each user walks the catalog
+    i -> i + 1 from a random start, the basket the 1-3 items before."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        u, start, k = (int(rng.randint(n_user)), int(rng.randint(n_item)),
+                       int(rng.randint(1, 4)))
+        basket = [(start + j) % n_item for j in range(k)]
+        out.append((u, (start + k) % n_item, basket))
+    return out
+
+
+def check_fpmc(torch, failures):
+    """FPMC at ml-1m's catalog (6,040 users, 3,706 items, 32 factors):
+    FPMC_STEPS sbpr_steps at B=256 on the card and on the CPU from the
+    same tables and batches, each step's loss and the four tables after
+    the last within KERNEL_TOL (f32); score_all against the CPU; then
+    `train_fpmc` on the card for one epoch over FPMC_TUPLES tuples and
+    `evaluate` on 1,024 held-out tuples, the accuracy and MRR of the
+    trained tables on the card within EVAL_ATOL of the CPU's.  FPMC runs
+    no kernel: this holds the model, not a kernel, on the card."""
+    from mtamrecommender_tpu_torch.models import fpmc
+
+    n_user, n_item, n_factor = FPMC_CELL
+    cfg = fpmc.FPMCConfig(n_user=n_user, n_item=n_item, n_factor=n_factor)
+    tr = fpmc_tuples(FPMC_TUPLES, 0, n_user, n_item)
+    te = fpmc_tuples(1024, 1, n_user, n_item)
+    models = {dev: fpmc.init_fpmc(torch.Generator().manual_seed(26),
+                                  cfg).to(dev) for dev in ("cpu", DEVICE)}
+    rng = np.random.RandomState(3)
+    losses = {"cpu": [], DEVICE: []}
+    step_ms = []
+    for _ in range(FPMC_STEPS):
+        sel = rng.randint(0, len(tr), FPMC_BATCH)
+        u, i, basket, mask = fpmc.pack_batch(tr, sel, 50)
+        j = rng.randint(0, n_item, FPMC_BATCH).astype(np.int32)
+        for dev, model in models.items():
+            args = [torch.from_numpy(a).to(dev) for a in
+                    (u, i, j, basket, mask)]
+            t0 = time.perf_counter()
+            loss = fpmc.sbpr_step(model, *args, learn_rate=cfg.learn_rate,
+                                  regular=cfg.regular)
+            losses[dev].append(loss.item())
+            if dev == DEVICE:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses[DEVICE], losses["cpu"]))
+    table_err = max((getattr(models[DEVICE], n).detach().cpu()
+                     - getattr(models["cpu"], n).detach()).abs().max().item()
+                    for n in fpmc.TABLES)
+    u, _, basket, mask = fpmc.pack_batch(te, np.arange(256), 50)
+    with torch.no_grad():
+        s_cpu = fpmc.score_all(models["cpu"], *(torch.from_numpy(a) for a in
+                                                (u, basket, mask)))
+        s_gpu = fpmc.score_all(models[DEVICE], *(
+            torch.from_numpy(a).to(DEVICE) for a in (u, basket, mask))).cpu()
+    _, score_rel = rel_err(s_gpu, s_cpu)
+    t0 = time.perf_counter()
+    trained, (acc, mrr) = fpmc.train_fpmc(cfg, tr, te, n_epoch=1,
+                                          neg_batch_size=2,
+                                          batch_size=FPMC_BATCH,
+                                          device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    acc_cpu, mrr_cpu = fpmc.evaluate(trained.to("cpu"), te)
+    ok = (loss_rel <= KERNEL_TOL["float32"]
+          and table_err <= KERNEL_TOL["float32"]
+          and score_rel <= KERNEL_TOL["float32"]
+          and abs(acc - acc_cpu) <= EVAL_ATOL["float32"]
+          and abs(mrr - mrr_cpu) <= EVAL_ATOL["float32"]
+          and all(math.isfinite(x) for x in losses[DEVICE]))
+    report = {"losses_gpu": losses[DEVICE], "losses_cpu": losses["cpu"],
+              "loss_rel_err": loss_rel, "table_max_abs_err": table_err,
+              "score_rel_err": score_rel, "sbpr_step_host_ms": step_ms,
+              "train_fpmc_s": train_s, "acc_mrr_gpu": [acc, mrr],
+              "acc_mrr_cpu": [acc_cpu, mrr_cpu], "ok": ok}
+    print(f"zoo FPMC users={n_user} items={n_item} f={n_factor} "
+          f"B={FPMC_BATCH}: {FPMC_STEPS} steps loss rel err {loss_rel:.3e} "
+          f"tables max abs err {table_err:.3e} scores rel err "
+          f"{score_rel:.3e}; train_fpmc 1 epoch {train_s:.2f} s, acc / MRR "
+          f"{acc:.4f} / {mrr:.4f} (CPU {acc_cpu:.4f} / {mrr_cpu:.4f}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"FPMC: {report}")
+    return report
 
 
 # ------------------------------------------------------------ report
@@ -4897,7 +5120,8 @@ def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
     Tq=Tk=50 (the self-attention blocks, ``@Tq50``), the chain readout's
-    pair at MTAM's L=50 step (B=256, ``@L50``), the readout, GRU
+    pair at MTAM's L=50 step (B=256, ``@L50``) and at one hop (NARM+'s
+    and NARM++'s, ``@L50h1``), the readout, GRU
     and dtable kernels at MTAM's long-history shape (B=64, L=512,
     ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``:
     the SIMT design, forced, and the tiled designs as
@@ -5219,17 +5443,28 @@ def main() -> int:
                             "from-disk path")
     lap("8")
 
-    # phase 9: the zoo models built from ported parts (phase 4's cell)
-    zoo, zoo_launches = run_zoo(torch, setup, failures)
+    # phase 9: the rest of the registry and FPMC (phase 4's cell)
+    zoo, zoo_launches, zoo_groups = run_zoo(torch, setup, failures)
     for kname, mode in (("gru_scan", "plain"), ("gru_scan_bwd", "plain"),
                         ("gru_scan", "tseqrec"), ("gru_scan_bwd", "tseqrec"),
                         ("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
                         ("dtable", None), ("readout_chain", None),
                         ("readout_chain_bwd", None),
-                        ("fused_attention_hop", "time")):
+                        ("fused_attention_hop", "time"),
+                        ("fused_attention_hop", "plain"),
+                        ("fused_attention", "plain"),
+                        ("fused_attention", "time"),
+                        ("fused_attention_bwd", "time")):
         if zoo_launches.get(kname, {}).get(mode, 0) == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "zoo models' paths")
+    # the paths launched on a main path for the first time here: the
+    # plain readout's serving hops, the chain pair at one hop, the GRU
+    # pair from a user's row (LSTUR), PISTRec's self-attention pair
+    for group, kname, mode in ZOO_GROUP_KERNELS:
+        if zoo_groups[group].get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            f"zoo's {group} path")
     lap("9")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
@@ -5237,8 +5472,8 @@ def main() -> int:
     # (phases 3, 4, 8 and 9) run the attention kernels at Tq=1 and the
     # chain pair (phases 4, 8 and 9's steps), the GRU pair in all three
     # modes (phase 9: plain and tseqrec), the self-attention models'
-    # (phase 5) at Tq=Tk=50; MTAM's at L=512 (phase 6) the readout and
-    # GRU kernels
+    # (phase 5, and PISTRec's blocks in phase 9) at Tq=Tk=50; MTAM's at
+    # L=512 (phase 6) the readout and GRU kernels
     mtam_launches = {k: dict(v) for k, v in serve_launches.items()}
     _add_launches(mtam_launches, train_launches)
     _add_launches(mtam_launches, disk_launches)
@@ -5246,8 +5481,26 @@ def main() -> int:
     l50_launches = copy.deepcopy(train_launches)
     _add_launches(l50_launches, disk_launches)
     _add_launches(l50_launches, zoo_launches)
+    # the chain pair's @L50 rows are 3 hops; its one-hop launches (NARM+,
+    # NARM++) go to the @L50h1 rows
+    for kname in ("readout_chain", "readout_chain_bwd"):
+        l50_launches[kname][None] -= zoo_groups["one_hop"].get(
+            kname, {}).get(None, 0)
     main_launches = copy.deepcopy(mtam_launches)
     _add_launches(main_launches, sa_launches)
+    # PISTRec's self-attention blocks (phase 9) run at Tq = Tk = 50: their
+    # launches go to the @Tq50 rows, not to the Tq=1 hops'
+    sa_zoo = zoo_groups["self_attention"]
+    tq50_zoo = {"fused_attention": {"time": (
+        sa_zoo.get("fused_attention", {}).get("time", 0)
+        - sa_zoo.get("fused_attention_hop", {}).get("time", 0))},
+        "fused_attention_bwd": {"time": sa_zoo.get(
+            "fused_attention_bwd", {}).get("time", 0)}}
+    for kname, by_mode in tq50_zoo.items():
+        for mode, n in by_mode.items():
+            mtam_launches[kname][mode] -= n
+    tq50_launches = copy.deepcopy(sa_launches)
+    _add_launches(tq50_launches, tq50_zoo)
     # the GRU pair's @L2048 entries count MTAM's launches at L=2048
     # (phase 7's serving and training, under "L2048Tq1")
     l2048 = {**xl_launches["L2048"],
@@ -5255,8 +5508,9 @@ def main() -> int:
                 for k in ("gru_scan", "gru_scan_bwd")}}
     report = kernels_line(entries, {None: main_launches,
                                     "Tq1": mtam_launches,
-                                    "Tq50": sa_launches,
+                                    "Tq50": tq50_launches,
                                     "L50": l50_launches,
+                                    "L50h1": zoo_groups["one_hop"],
                                     "L512": long_launches, **xl_launches,
                                     "L2048": l2048})
     os.makedirs("chiprun_out", exist_ok=True)
@@ -5300,6 +5554,10 @@ def main() -> int:
                    "launches_zoo": {
                        k: {str(m): n for m, n in v.items()}
                        for k, v in zoo_launches.items()},
+                   "launches_zoo_groups": {
+                       group: {k: {str(m): n for m, n in v.items()}
+                               for k, v in by_kernel.items()}
+                       for group, by_kernel in zoo_groups.items()},
                    "failures": failures}, f, indent=1, default=str)
     if failures:
         for msg in failures:

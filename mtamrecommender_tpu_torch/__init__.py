@@ -20,7 +20,10 @@ Ported so far:
     gather -> layer norm;
   * MTAM over long histories (256 <= L <= 1024), training and serving:
     the whole multi-hop readout, projections included, in one fused
-    readout kernel per direction.
+    readout kernel per direction;
+  * the rest of the registry (`models.registry`, all 22 entries: the
+    MTAM ablations, the RNN and hybrid baselines, PISTRec and BPRMF)
+    through the same entry points, and FPMC (`models.fpmc`).
 Their TPU kernels (the GRU scan and its backward, the fused attention
 and its backward, the embedding-table backward, the fused multi-hop
 readout and its backward) are hand-written CUDA

@@ -9,7 +9,9 @@ block (`ops.layers.draw_drop_mask`).  Training takes `compute_loss`
 (full-catalog softmax cross-entropy plus the L2 of the lookups, in f32);
 serving takes `scores_for_eval`.  A model of the "concat" output mode
 predicts [B, 2d], which `project_concat` maps through its ``output_w``
-[2d, d] before the item table (output_concat); "bpr" is not ported.
+[2d, d] before the item table (output_concat).  The "bpr" mode (BPRMF)
+trains on `bpr_loss`, a pairwise loss against one shared negative item
+a step, and scores as the plain mode does.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch.func import functional_call
 
 from mtamrecommender_tpu_torch.config import ModelConfig
 from mtamrecommender_tpu_torch.ops import embedding as emb_ops
+from mtamrecommender_tpu_torch.ops.kernels.embedding_kernel import take_dtable
 from mtamrecommender_tpu_torch.ops.layers import MaskSource
 from mtamrecommender_tpu_torch.types import Batch
 
@@ -46,15 +49,16 @@ def embed(model: nn.Module, batch: Batch) -> emb_ops.EmbeddedBatch:
     return emb_ops.behavior_embedding(model.embedding, batch)
 
 
-# the output modes the port has; "bpr" (BPRMF's loss) is not ported yet
-OUTPUT_MODES = ("plain", "concat")
+OUTPUT_MODES = ("plain", "concat", "bpr")
+
+# BPRMF's fixed L2 rate (BPRMF.py:59)
+BPR_L2_RATE = 5e-5
 
 
 def _check_output_mode(model_def: ModelDef) -> None:
     if model_def.output_mode not in OUTPUT_MODES:
-        raise NotImplementedError(
-            f"output mode {model_def.output_mode!r} is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown output mode {model_def.output_mode!r}; "
+                         f"known: {OUTPUT_MODES}")
 
 
 def project_concat(output_w: torch.Tensor,
@@ -168,6 +172,59 @@ def softmax_ce_loss(item_table: torch.Tensor, predict_emb: torch.Tensor,
             "l2": l2}
 
 
+def bpr_loss(item_table: torch.Tensor, item_bias: torch.Tensor,
+             embedded: emb_ops.EmbeddedBatch, batch: Batch,
+             neg_id: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """BPRMF's loss (BPRMF.py:41-61): x = b[pos] - b[neg] + u . (pos -
+    neg) against ONE negative item shared by the batch (``neg_id``, [1]),
+    -mean(log_sigmoid(x)) over the valid rows plus 5e-5 times the L2 of
+    the user, positive and negative rows (the negative's once).  The
+    table rows come through `take_dtable` (one lookup of the targets and
+    the negative together), the bias rows by indexing.  ``log_sigmoid``
+    is the JAX package's documented divergence from the reference's
+    ``tf.log(tf.sigmoid(x))``, which underflows to -inf for x below
+    about -88.  Under bf16 compute the bias difference is taken in
+    bf16 and the rest in f32, as in the JAX package."""
+    u = embedded.user_emb
+    ids = torch.cat([batch.target_id, neg_id.to(batch.target_id.dtype)])
+    rows = take_dtable(item_table, ids)
+    pos, neg = rows[:-1], rows[-1:]
+    bias = item_bias[ids.long(), 0]
+    x = (bias[:-1] - bias[-1:]) + (u * (pos - neg)).sum(dim=1)
+    valid = batch.valid
+    l2 = 0.5 * ((u.square() * valid[:, None]).sum()
+                + (pos.square() * valid[:, None]).sum() + neg.square().sum())
+    n_valid = valid.sum().clamp(min=1.0)
+    rank_term = (torch.nn.functional.logsigmoid(x) * valid).sum() / n_valid
+    return {"loss": BPR_L2_RATE * l2 - rank_term, "ce": -rank_term,
+            "l2": l2}
+
+
+def draw_negative(gen: Optional[MaskSource], item_count: int,
+                  device) -> torch.Tensor:
+    """The bpr loss's shared negative, [1] int32 uniform in [0,
+    item_count), from the step's generator (JAX draws it with
+    ``randint(split(rng)[1], (1,), 0, item_count)``)."""
+    if not isinstance(gen, torch.Generator):
+        raise ValueError("the bpr loss draws its negative item from a "
+                         "torch.Generator: pass gen=, or neg_id=")
+    return torch.randint(0, item_count, (1,), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def _loss(model_def: ModelDef, item_table, item_bias, output_w, predict,
+          embedded, batch: Batch, cfg: ModelConfig,
+          valid_vocab: Optional[int], gen, neg_id) -> Dict[str, torch.Tensor]:
+    if model_def.output_mode == "bpr":
+        if neg_id is None:
+            vocab = item_table.shape[0] if valid_vocab is None \
+                else valid_vocab
+            neg_id = draw_negative(gen, vocab - 3, batch.target_id.device)
+        return bpr_loss(item_table, item_bias, embedded, batch, neg_id)
+    return softmax_ce_loss(item_table, _head(model_def, output_w, predict),
+                           embedded, batch, cfg, valid_vocab)
+
+
 class _TrainApply(nn.Module):
     """``model_def.apply(model, ..., train=True)`` as a module, so that
     `functional_call` can run it on cast views of the parameters."""
@@ -184,12 +241,15 @@ class _TrainApply(nn.Module):
 
 def compute_loss(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
                  batch: Batch, valid_vocab: Optional[int] = None,
-                 gen: Optional[MaskSource] = None
+                 gen: Optional[MaskSource] = None,
+                 neg_id: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
     """{"loss", "ce", "l2"} of one training batch, differentiable with
     respect to the model's parameters.  The forward's dropout masks come
     from ``gen`` (none without it, as in the JAX package without an
-    rng).
+    rng).  The bpr mode's negative item is ``neg_id`` ([1] int) where
+    given, else drawn from ``gen`` after the forward, in [0, vocab - 3)
+    (``ce`` is then the negated rank term).
 
     bfloat16 compute runs the model on bf16 views ``p.to(bf16)`` of the
     f32 master parameters (so gradients flow back through the casts, as
@@ -201,16 +261,16 @@ def compute_loss(model_def: ModelDef, model: nn.Module, cfg: ModelConfig,
     dtype = compute_dtype(cfg)
     if dtype == torch.float32:
         out = model_def.apply(model, cfg, batch, train=True, gen=gen)
-        predict = _head(model_def, getattr(model, "output_w", None),
-                        out.predict_emb)
-        return softmax_ce_loss(model.embedding.item_table, predict,
-                               out.embedded, batch, cfg, valid_vocab)
+        return _loss(model_def, model.embedding.item_table,
+                     getattr(model, "item_bias", None),
+                     getattr(model, "output_w", None), out.predict_emb,
+                     out.embedded, batch, cfg, valid_vocab, gen, neg_id)
     cast = {f"model.{name}": p.to(dtype)
             for name, p in model.named_parameters()}
     out = functional_call(_TrainApply(model_def, model, cfg), cast,
                           (cast_floats(batch, dtype), gen))
-    predict = _head(model_def, cast.get("model.output_w"),
-                    out.predict_emb.float())
-    return softmax_ce_loss(cast["model.embedding.item_table"].float(),
-                           predict, cast_floats(out.embedded, torch.float32),
-                           batch, cfg, valid_vocab)
+    return _loss(model_def, cast["model.embedding.item_table"].float(),
+                 cast.get("model.item_bias"), cast.get("model.output_w"),
+                 out.predict_emb.float(),
+                 cast_floats(out.embedded, torch.float32), batch, cfg,
+                 valid_vocab, gen, neg_id)

@@ -2,11 +2,11 @@
 
 Each shares a short-term-intent encoder (a GRU variant over the behavior
 sequence), a gather at the last history position, and, where the model
-has one, a multi-hop single-query time-aware attention readout over a
-memory (the behavior embeddings, or the GRU's states in the ``via``
-models), then a layer norm.  The cells: "new" (T-GRU), "T-SeqRec" and
-"plain".  MTAM_no_time_aware_att (the plain attention kind) is not
-ported yet.
+has one, a multi-hop single-query attention readout over a memory (the
+behavior embeddings, or the GRU's states in the ``via`` models), then a
+layer norm.  The cells: "new" (T-GRU), "T-SeqRec" and "plain".  The
+readout is time-aware, except in MTAM_no_time_aware_att: the plain
+kind, with attention-weight dropout in training and no layer norm.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class MTAM(nn.Module):
         self.rnn = (time_gru.GRU(params["rnn"]) if rnn == "plain"
                     else time_gru.TimeGRU(params["rnn"]))
         if "att" in params:
-            self.att = nn.ModuleList(attention.TimeAttentionBlock(p)
+            self.att = nn.ModuleList(attention.attention_block(p)
                                      for p in params["att"])
         if "ln_intent" in params:
             self.ln_intent = layers.LayerNorm(params["ln_intent"])
@@ -89,33 +89,40 @@ def _intent(model: MTAM, batch: Batch, embedded, rnn: str):
 
 
 def _readout(model: MTAM, cfg: ModelConfig, batch: Batch, memory,
-             intent, train: bool) -> torch.Tensor:
-    """Multi-hop single-query attention over the memory.  The route
-    depends on the memory's length (`attention.vanilla_attention_stack`):
-    over 256 to 1024 keys the whole readout is one fused readout kernel
-    call per direction, in training and serving; below 256 keys training
-    batches the projections across hops and runs the query chain in one
+             intent, train: bool, kind: str = "time",
+             gen: Optional[layers.MaskSource] = None) -> torch.Tensor:
+    """Multi-hop single-query attention of ``kind`` over the memory.  The
+    route depends on the kind and the memory's length
+    (`attention.vanilla_attention_stack`): in the time kind, over 256 to
+    1024 keys the whole readout is one fused readout kernel call per
+    direction, in training and serving; below 256 keys training batches
+    the projections across hops and runs the query chain in one
     readout_chain kernel call per direction, past 1024 keys in plain
-    PyTorch; outside 256 to 1024 keys serving runs hop by hop on the
-    attention kernel.  The key length is seq_len, the mask slot
+    PyTorch.  The plain kind trains in plain PyTorch at every length,
+    dropping attention weights at ``cfg.dropout`` with one mask a hop
+    from ``gen``.  Outside 256 to 1024 time keys serving runs hop by hop
+    on the attention kernel.  The key length is seq_len, the mask slot
     included, whichever the memory."""
     ones = torch.ones_like(batch.seq_len)
     return attention.vanilla_attention_stack(
         model.att, memory, intent[:, None, :], key_len=batch.seq_len,
-        query_len=ones, kind="time", num_heads=cfg.num_heads,
+        query_len=ones, kind=kind, num_heads=cfg.num_heads,
         t_queries=batch.target_time[:, None], t_keys=batch.times,
-        train=train)
+        dropout_rate=cfg.dropout, train=train, gen=gen)
 
 
 def _apply(model: MTAM, cfg: ModelConfig, batch: Batch, train: bool, *,
-           rnn: str, memory: str = "embedding",
-           hybrid: bool = False) -> base.ModelOutput:
+           rnn: str, memory: str = "embedding", hybrid: bool = False,
+           kind: str = "time", ln_readout: bool = True,
+           gen: Optional[layers.MaskSource] = None) -> base.ModelOutput:
     """The family's forward.  Without an attention stack the prediction
     is the layer-normed intent.  ``memory`` "states" attends over the
     GRU's states with a layer-normed intent (the ``via`` models);
-    ``hybrid`` predicts [intent, ln_out(readout)] for the concat head.
-    No model of the family draws random numbers, and ``train`` and the
-    history's length pick the readout's route, not its math."""
+    ``hybrid`` predicts [intent, ln_out(readout)] for the concat head;
+    without ``ln_readout`` the readout is the prediction as it is.  Only
+    the plain ``kind`` draws random numbers (its dropout masks, from
+    ``gen``); ``train`` and the history's length pick the time
+    readout's route, not its math."""
     e = base.embed(model, batch)
     states, intent = _intent(model, batch, e, rnn)
     if not hasattr(model, "att"):
@@ -125,8 +132,10 @@ def _apply(model: MTAM, cfg: ModelConfig, batch: Batch, train: bool, *,
         mem = states
     else:
         mem = e.behavior_emb
-    readout = layers.layer_norm(
-        model.ln_out, _readout(model, cfg, batch, mem, intent, train))
+    readout = _readout(model, cfg, batch, mem, intent, train, kind, gen)
+    if not ln_readout:
+        return base.ModelOutput(readout, e)
+    readout = layers.layer_norm(model.ln_out, readout)
     if hybrid:
         return base.ModelOutput(torch.cat([intent, readout], dim=1), e)
     return base.ModelOutput(readout, e)
@@ -164,6 +173,20 @@ def apply_mtam_no_time_rnn(model, cfg, batch, *, train, gen=None):
     """MTAM_no_time_aware_rnn (MTAMRec_model.py:93-127): MTAM with the
     plain GRU."""
     return _apply(model, cfg, batch, train, rnn="plain")
+
+
+def init_mtam_no_time_att(gen, cfg, meta):
+    return init_family(gen, cfg, meta, rnn="new", att_kind="plain")
+
+
+def apply_mtam_no_time_att(model, cfg, batch, *, train, gen=None):
+    """MTAM_no_time_aware_att (MTAMRec_model.py:128-164): the T-GRU's
+    intent, then the plain multi-hop readout over the behavior
+    embeddings, with attention-weight dropout in training.  The
+    reference does not layer-norm this readout (:158), so ``ln_out``
+    gets no gradient."""
+    return _apply(model, cfg, batch, train, rnn="new", kind="plain",
+                  ln_readout=False, gen=gen)
 
 
 def init_mtam_via_t_gru(gen, cfg, meta):

@@ -20,8 +20,9 @@ def _init(gen: torch.Generator, cfg, meta, rnn: str) -> mtam.MTAM:
     return mtam.init_family(gen, cfg, meta, rnn=rnn, att_kind=None)
 
 
-def _head(model: mtam.MTAM, batch, out: torch.Tensor,
-          embedded) -> base.ModelOutput:
+def gru_head(model: mtam.MTAM, batch, out: torch.Tensor,
+             embedded) -> base.ModelOutput:
+    """The GRU's state at ``seq_len - 2``, layer-normed by ``ln_out``."""
     intent = layers.gather_positions(out, batch.seq_len - 2)
     return base.ModelOutput(layers.layer_norm(model.ln_out, intent),
                             embedded)
@@ -35,7 +36,7 @@ def apply_gru4rec(model, cfg, batch, *, train, gen=None):
     """Gru4Rec (RNN_baesline_models.py:55-70): plain GRU over the fused
     behavior embedding."""
     e = base.embed(model, batch)
-    return _head(model, batch, time_gru.gru_net(
+    return gru_head(model, batch, time_gru.gru_net(
         model.rnn, e.behavior_emb, batch.seq_len - 1), e)
 
 
@@ -47,7 +48,7 @@ def apply_vallina_gru4rec(model, cfg, batch, *, train, gen=None):
     """Vallina_Gru4Rec (RNN_baesline_models.py:72-87): plain GRU over the
     raw item embeddings only."""
     e = base.embed(model, batch)
-    return _head(model, batch, time_gru.gru_net(
+    return gru_head(model, batch, time_gru.gru_net(
         model.rnn, e.item_emb, batch.seq_len - 1), e)
 
 
@@ -60,6 +61,6 @@ def apply_t_seqrec(model, cfg, batch, *, train, gen=None):
     time-aware GRU over the behavior embedding and the two time
     features."""
     e = base.embed(model, batch)
-    return _head(model, batch, time_gru.tseqrec_net(
+    return gru_head(model, batch, time_gru.tseqrec_net(
         model.rnn, e.behavior_emb, batch.time_last, batch.time_now,
         batch.seq_len - 1), e)

@@ -19,7 +19,8 @@ JAX's jnp path there).
     weights in training through the kernel's '*_drop' modes with one
     mask per block, taken from ``gen`` (`layers.draw_drop_mask`); the
     time kind never drops.
-  * `vanilla_attention_stack` runs MTAM's Tq=1 readout.  Over 256 to
+  * `vanilla_attention_stack` runs the Tq=1 readouts of MTAM's family
+    and NARM's, in the time or the plain kind.  Time kind: over 256 to
     1024 keys (`READOUT_KERNEL_MIN_KEYS`, `readout_kernel.MAX_KEYS`) all
     hops, projections included, take the `fused_readout` kernel
     (`fused_readout_stack`), in training and serving, as in the JAX
@@ -29,7 +30,12 @@ JAX's jnp path there).
     256 keys the query chain takes the `readout_chain` kernel pair
     (`readout_chain_stack`, JAX's chain kernel route, which JAX keeps
     opt-in on the strength of a TPU measurement), past 1024 keys it runs
-    in plain PyTorch (`single_query_readout`), as JAX's jnp path.
+    in plain PyTorch (`single_query_readout`), as JAX's jnp path.  Plain
+    kind: both readout kernels are time-only, so training runs
+    `plain_single_query_readout` (plain PyTorch, JAX's hop-batched jnp
+    readout) at every length, with one attention-weight dropout mask a
+    hop from ``gen``; serving runs hop by hop on the attention kernel in
+    plain mode.
 
 Faithfulness notes kept from the JAX package:
   * the content-time term tanh(Q W_t K^T) uses the RAW queries/keys;
@@ -129,6 +135,14 @@ class TimeAttentionBlock(MHABlock):
         super().__init__(params)
         for name in ("time_input_w",) + GATE_PARAMS:
             self.register_parameter(name, nn.Parameter(params[name]))
+
+
+def attention_block(params: Params) -> MHABlock:
+    """A block of `init_mha_block`'s or `init_time_mha_block`'s params:
+    a `TimeAttentionBlock` where they hold the time parameters."""
+    if "time_input_w" in params:
+        return TimeAttentionBlock(params)
+    return MHABlock(params)
 
 
 def _gate_tile(x: torch.Tensor, t_q_len: int, t_k_len: int) -> torch.Tensor:
@@ -295,6 +309,18 @@ def _stack(blocks, get) -> torch.Tensor:
     return torch.stack([get(p) for p in blocks])
 
 
+def _kv_precompute(blocks, enc: torch.Tensor):
+    """The n hops' relu K and V projections of the memory as two einsums:
+    k_all, v_all [n, B, Tk, d].  enc: [B, Tk, d]."""
+    def project(get):
+        return torch.relu(
+            torch.einsum("bld,nde->nble", enc,
+                         _stack(blocks, lambda p: get(p).w))
+            + _stack(blocks, lambda p: get(p).b)[:, None, None, :])
+
+    return project(lambda p: p.k), project(lambda p: p.v)
+
+
 def _readout_precompute(blocks, enc: torch.Tensor, t_queries: torch.Tensor,
                         t_keys: torch.Tensor):
     """The memory-side work of the n Tq=1 time hops, batched across hops
@@ -306,12 +332,7 @@ def _readout_precompute(blocks, enc: torch.Tensor, t_queries: torch.Tensor,
     Returns k_all, v_all, tprec [n, B, Tk, d], gate_part [n, B, Tk] and
     the wo2 rows."""
     n, tk = len(blocks), enc.shape[1]
-    k_all = torch.relu(torch.einsum("bld,nde->nble", enc,
-                                    _stack(blocks, lambda p: p.k.w))
-                       + _stack(blocks, lambda p: p.k.b)[:, None, None, :])
-    v_all = torch.relu(torch.einsum("bld,nde->nble", enc,
-                                    _stack(blocks, lambda p: p.v.w))
-                       + _stack(blocks, lambda p: p.v.b)[:, None, None, :])
+    k_all, v_all = _kv_precompute(blocks, enc)
     tprec = torch.einsum("ble,nde->nbld", enc,
                          _stack(blocks, lambda p: p.time_input_w))
     delta = torch.abs(t_queries[:, :, None] - t_keys[:, None, :])  # [B,1,Tk]
@@ -356,6 +377,40 @@ def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
         scores = scores / d ** 0.5
         scores = torch.where(kmask, scores, torch.full_like(scores, NEG_FILL))
         weights = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bl,ble->be", weights, v_all[i])
+        cur = layers.normalize(p.ln, out * qz + cur)
+    return cur
+
+
+def plain_single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
+                               key_len: torch.Tensor, query_len: torch.Tensor,
+                               *, num_heads: int, dropout_rate: float = 0.0,
+                               train: bool = False,
+                               gen: Optional[layers.MaskSource] = None
+                               ) -> torch.Tensor:
+    """The n Tq=1 plain-attention hops in plain PyTorch (twin of the JAX
+    `_fused_single_query_readout`, plain kind): the K/V projections of
+    all hops batched (`_kv_precompute`), then the query chain hop by hop
+    under autograd.  In training at a positive rate each hop drops
+    attention weights with its own mask, f32 [B, 1, Tk] from ``gen``
+    (`layers.draw_drop_mask`), drawn in hop order; JAX folds the hop
+    index into its rng for the same [B, h, 1, Tk] draw.  enc: [B, Tk, d];
+    dec: [B, 1, d]; returns [B, d]."""
+    _one_head(num_heads)
+    b, tk, d = enc.shape
+    k_all, v_all = _kv_precompute(blocks, enc)
+    kmask = layers.sequence_mask(key_len, tk)                      # [B, Tk]
+    qz = (query_len > 0).to(dec.dtype)[:, None]                    # [B, 1]
+    cur = dec[:, 0, :]
+    for i, p in enumerate(blocks):
+        q = layers.dense(p.q, cur, torch.relu)
+        scores = torch.einsum("be,ble->bl", q, k_all[i]) / d ** 0.5
+        scores = torch.where(kmask, scores, torch.full_like(scores, NEG_FILL))
+        weights = torch.softmax(scores, dim=-1)
+        if train and dropout_rate > 0.0 and gen is not None:
+            mask = layers.draw_drop_mask(gen, b, 1, tk, dropout_rate,
+                                         enc.device)
+            weights = weights * mask[:, 0, :].to(weights.dtype)
         out = torch.einsum("bl,ble->be", weights, v_all[i])
         cur = layers.normalize(p.ln, out * qz + cur)
     return cur
@@ -420,33 +475,50 @@ def fused_readout_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
 def vanilla_attention_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
                             key_len: torch.Tensor, query_len: torch.Tensor,
                             *, kind: str, num_heads: int,
-                            t_queries: torch.Tensor, t_keys: torch.Tensor,
-                            train: bool = False) -> torch.Tensor:
-    """Decoder cross-attention hops; returns [B*Tq, d].  One query over
-    `READOUT_KERNEL_MIN_KEYS` to `readout_kernel.MAX_KEYS` keys takes
-    `fused_readout_stack`, in training and serving alike.  Otherwise
-    ``train=True`` with one query takes `readout_chain_stack` where
-    `readout_chain_kernel.supported` (below 256 keys: the JAX package's
-    chain kernel route) and `single_query_readout` past 1024 keys, both
-    hop-batched; serving runs hop by hop on the fused attention kernel
-    (its route at L=50, the blockwise kernel past 1024 keys)."""
-    if kind != "time":
-        raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet (ROADMAP.md)")
-    if (dec.shape[1] == 1 and len(blocks) > 0
-            and READOUT_KERNEL_MIN_KEYS <= enc.shape[1]
-            <= readout_kernel.MAX_KEYS):
+                            t_queries: Optional[torch.Tensor] = None,
+                            t_keys: Optional[torch.Tensor] = None,
+                            dropout_rate: float = 0.0, train: bool = False,
+                            gen: Optional[layers.MaskSource] = None
+                            ) -> torch.Tensor:
+    """Decoder cross-attention hops of ``kind`` "time" or "plain";
+    returns [B*Tq, d].  Only the time kind reaches the readout kernels,
+    which are time-only: one time query over `READOUT_KERNEL_MIN_KEYS`
+    to `readout_kernel.MAX_KEYS` keys takes `fused_readout_stack`, in
+    training and serving alike; otherwise ``train=True`` with one time
+    query takes `readout_chain_stack` where `readout_chain_kernel.
+    supported` (below 256 keys: the JAX package's chain kernel route) and
+    `single_query_readout` past 1024 keys, both hop-batched.  One plain
+    query in training takes `plain_single_query_readout` at every
+    length, dropping weights per hop at ``dropout_rate`` with masks from
+    ``gen``.  Serving runs hop by hop on the fused attention kernel (its
+    hop design at L=50, the blockwise kernel past 1024 keys).  The time
+    kind never drops."""
+    if kind not in ("plain", "time"):
+        raise ValueError(f"unknown attention kind {kind!r}; the readout "
+                         "takes 'plain' or 'time'")
+    one_query = dec.shape[1] == 1 and len(blocks) > 0
+    if (kind == "time" and one_query and READOUT_KERNEL_MIN_KEYS
+            <= enc.shape[1] <= readout_kernel.MAX_KEYS):
         _one_head(num_heads)
         return fused_readout_stack(blocks, enc, dec, key_len, query_len,
                                    t_queries=t_queries, t_keys=t_keys)
-    if train and dec.shape[1] == 1 and len(blocks) > 0:
+    if train and one_query and kind == "plain":
+        return plain_single_query_readout(
+            blocks, enc, dec, key_len, query_len, num_heads=num_heads,
+            dropout_rate=dropout_rate, train=train, gen=gen)
+    if train and one_query:
         readout = (readout_chain_stack if readout_chain_kernel.supported(
             enc.shape[1], enc.shape[2], num_heads) else single_query_readout)
         return readout(blocks, enc, dec, key_len, query_len,
                        num_heads=num_heads, t_queries=t_queries,
                        t_keys=t_keys)
     for p in blocks:
-        dec = time_aware_multihead_attention(
-            p, dec, enc, key_len, query_len, t_queries, t_keys,
-            num_heads=num_heads)
+        if kind == "plain":
+            dec = multihead_attention(
+                p, dec, enc, key_len, query_len, num_heads=num_heads,
+                dropout_rate=dropout_rate, train=train, gen=gen)
+        else:
+            dec = time_aware_multihead_attention(
+                p, dec, enc, key_len, query_len, t_queries, t_keys,
+                num_heads=num_heads)
     return dec.reshape(-1, dec.shape[-1])

@@ -13,13 +13,14 @@ mtamrecommender_tpu/train/trainer.py).
   * `TrainState`: the model, its Adam state and the step, what
     `train.checkpoint` saves and restores.
 
-A step's dropout masks (SASrec and TiSAS; MTAM and the time-aware
-self-attention model draw nothing) come from one `torch.Generator` on
-the step's device, seeded from ``cfg.train.seed``; every step draws
-from where the last one stopped, so a run is reproducible on one
-device.  Its stream is not JAX's: the masks cannot match JAX's threefry
-draws, and a checkpoint does not carry the generator's state, so a run
-resumed from one redraws its masks.  The other optimizers,
+A step's random draws (the attention-weight dropout masks of SASrec,
+TiSAS, NARM and MTAM_no_time_aware_att, and bpr's negative item; the
+other models draw nothing) come from one `torch.Generator` on the
+step's device, seeded from ``cfg.train.seed``; every step draws from
+where the last one stopped, so a run is reproducible on one device.
+Its stream is not JAX's: the draws cannot match JAX's threefry draws,
+and a checkpoint does not carry the generator's state, so a run resumed
+from one redraws them.  The other optimizers,
 ``flatten_optimizer``, ``pack_small_leaves`` and the ``Trainer`` loop
 are not ported yet (ROADMAP.md, Queue 1).
 """

@@ -128,8 +128,8 @@ def test_bridge_is_strict():
 
 
 def test_registry_and_config():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_model("NARM")
+    with pytest.raises(KeyError, match="known"):
+        get_model("NARM+++")
     for name in jconfig.preset_names():
         assert tconfig.get_preset(name).to_dict() == \
             jconfig.get_preset(name).to_dict()

@@ -392,6 +392,6 @@ def test_unported_training_options_raise():
             ttrainer.make_optimizer(_cfg(**{key: value}).train)
     _, model = _models(cfg)
     _, tb = _batches()
-    bpr = get_model("MTAM")._replace(output_mode="bpr")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbase.compute_loss(bpr, model, cfg.model, tb)
+    unknown = get_model("MTAM")._replace(output_mode="listwise")
+    with pytest.raises(ValueError, match="output mode"):
+        tbase.compute_loss(unknown, model, cfg.model, tb)

@@ -1,7 +1,8 @@
-"""MTAM_hybird (the concat head) and T_SeqRec (the T-SeqRec cell) from
-disk: a `Checkpointer` round trip, `evaluate_dataset` of the restored
-model against JAX's evaluation of the same parameters (within 1e-6),
-and, after two CPU training steps and a save, `Recommender.
+"""MTAM_hybird (the concat head), T_SeqRec (the T-SeqRec cell), bpr
+(BPRMF's bpr output mode) and NARM (the plain readout and the concat
+head) from disk: a `Checkpointer` round trip, `evaluate_dataset` of the
+restored model against JAX's evaluation of the same parameters (within
+1e-6), and, after two CPU training steps and a save, `Recommender.
 from_checkpoint` and `serve.main` giving the in-memory model's ids."""
 
 import io
@@ -28,7 +29,7 @@ from helpers import make_batch
 
 torch.set_num_threads(2)
 
-MODELS = ("MTAM_hybird", "T_SeqRec")
+MODELS = ("MTAM_hybird", "T_SeqRec", "bpr", "NARM")
 EVAL_ATOL = 1e-6
 
 

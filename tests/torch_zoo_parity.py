@@ -1,15 +1,21 @@
 """Shared parity checks of the port's zoo models against the JAX package
 (used by tests/test_torch_rnn_models.py, tests/test_torch_mtam_ablations.py,
 tests/test_torch_mtam_ablations_via.py,
-tests/test_torch_mtam_hybird.py and
-tests/test_torch_zoo_checkpoint.py).
+tests/test_torch_mtam_hybird.py, tests/test_torch_zoo_checkpoint.py,
+tests/test_torch_narm.py, tests/test_torch_lstur_stamp.py,
+tests/test_torch_mtam_no_time_att.py, tests/test_torch_pistrec*.py and
+tests/test_torch_bprmf.py).
 
 Parameters come from the JAX package's init through
 `bridge.load_jax_params`; batches are made with numpy from a seed, with
 one filler row and a row of ``seq_len`` 1 (an empty history: GRU length
 0, gathered at -1).  JAX runs both of its routes: the jnp path
 (use_pallas=False) and the Pallas kernels in interpret mode
-(use_pallas=True).
+(use_pallas=True).  ``over`` is a tuple of extra (config key, value)
+pairs; ``rng_seed`` gives JAX's loss an rng (PRNGKey(rng_seed)) and the
+port what JAX draws from it: the bpr loss's negative item
+(`jax_negative`) and, for ``n_masks`` plain readout hops, each hop's
+attention-weight dropout mask (`jax_readout_masks`).
 
 Tolerances (tests/test_torch_train.py's): the f32 loss terms within
 1e-5; every f32 gradient leaf within 1e-5 of its largest |value|; f32
@@ -34,6 +40,7 @@ from mtamrecommender_tpu import types as jtypes
 from mtamrecommender_tpu.config import ExperimentConfig
 from mtamrecommender_tpu.models import base as jbase
 from mtamrecommender_tpu.models.registry import get_model as jget_model
+from mtamrecommender_tpu.ops import attention as jatt
 from mtamrecommender_tpu_torch import types as ttypes
 from mtamrecommender_tpu_torch.bridge import load_jax_params, params_from_jax
 from mtamrecommender_tpu_torch.models import base as tbase
@@ -94,16 +101,17 @@ def batches(seed=5, valid=VALID):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_loss_and_grads(name, use_pallas, dtype):
+def jax_loss_and_grads(name, use_pallas, dtype, over=(), rng_seed=None):
     """JAX's loss terms and gradients by port name, memoized per module."""
     c = cfg(name, **{"model.use_pallas": use_pallas,
-                     "model.compute_dtype": dtype})
+                     "model.compute_dtype": dtype, **dict(over)})
     jmeta, _ = meta()
     params = jax_params(name, c)
     jb, _ = batches()
+    rng = None if rng_seed is None else jax.random.PRNGKey(rng_seed)
 
     def loss_fn(p):
-        m = jbase.compute_loss(jget_model(name), p, c.model, jb, True, None,
+        m = jbase.compute_loss(jget_model(name), p, c.model, jb, True, rng,
                                jmeta.item_vocab)
         return m["loss"], m
 
@@ -113,10 +121,42 @@ def jax_loss_and_grads(name, use_pallas, dtype):
             params_from_jax(jax.device_get(grads)))
 
 
-def port_loss_and_grads(name, c, model, tb):
+def jax_negative(rng_seed):
+    """The negative item JAX's bpr loss draws from compute_loss's rng:
+    ``randint(split(rng)[1], (1,), 0, item_count)``, as an int32 tensor."""
+    jmeta, _ = meta()
+    loss_rng = jax.random.split(jax.random.PRNGKey(rng_seed))[1]
+    neg = jax.random.randint(loss_rng, (1,), 0, jmeta.item_count)
+    return torch.tensor(np.asarray(neg), dtype=torch.int32)
+
+
+def jax_readout_masks(rng_seed, n_masks, rate=0.5):
+    """The dropout masks of JAX's plain Tq=1 readout under compute_loss's
+    rng: hop i draws bernoulli(fold_in(split(rng)[0], i), 1 - rate,
+    [B, 1, 1, L]), here f32 [B, 1, L] of 0 or 1/(1 - rate)."""
+    apply_rng = jax.random.split(jax.random.PRNGKey(rng_seed))[0]
+    dec = jnp.zeros((B, 1, D), jnp.float32)
+    enc = jnp.zeros((B, L, D), jnp.float32)
+    return [torch.tensor(np.asarray(jatt._draw_drop_mask(
+        jax.random.fold_in(apply_rng, i), dec, enc, rate, True)))
+        for i in range(n_masks)]
+
+
+def _port_sources(name, rng_seed, n_masks, rate):
+    """(gen, neg_id) for the port's compute_loss: JAX's masks and, in the
+    bpr mode, JAX's negative."""
+    if rng_seed is None:
+        return None, None
+    gen = iter(jax_readout_masks(rng_seed, n_masks, rate))
+    neg = (jax_negative(rng_seed) if get_model(name).output_mode == "bpr"
+           else None)
+    return gen, neg
+
+
+def port_loss_and_grads(name, c, model, tb, gen=None, neg_id=None):
     _, tmeta = meta()
     metrics = tbase.compute_loss(get_model(name), model, c.model, tb,
-                                 tmeta.item_vocab)
+                                 tmeta.item_vocab, gen=gen, neg_id=neg_id)
     metrics["loss"].backward()
     # a parameter the loss does not reach (Vallina_Gru4Rec's behavior
     # projection) has no grad; JAX's is zeros, as the train step takes it
@@ -125,9 +165,9 @@ def port_loss_and_grads(name, c, model, tb):
                      for n, p in model.named_parameters()}
 
 
-def check_init_keys(name):
+def check_init_keys(name, over=()):
     """The port's init gives exactly JAX's key paths and shapes."""
-    c = cfg(name)
+    c = cfg(name, **dict(over))
     _, tmeta = meta()
     want = {n: tuple(t.shape)
             for n, t in params_from_jax(jax_params(name, c)).items()}
@@ -138,13 +178,15 @@ def check_init_keys(name):
     assert get_model(name).output_mode == jget_model(name).output_mode
 
 
-def check_f32(name, use_pallas):
+def check_f32(name, use_pallas, over=(), rng_seed=None, n_masks=0):
     """Loss terms and every gradient leaf of one f32 step."""
-    c = cfg(name)
+    c = cfg(name, **dict(over))
     _, model = models(name, c)
     _, tb = batches()
-    want, jgrads = jax_loss_and_grads(name, use_pallas, "float32")
-    got, tgrads = port_loss_and_grads(name, c, model, tb)
+    want, jgrads = jax_loss_and_grads(name, use_pallas, "float32", over,
+                                      rng_seed)
+    gen, neg = _port_sources(name, rng_seed, n_masks, c.model.dropout)
+    got, tgrads = port_loss_and_grads(name, c, model, tb, gen, neg)
     for key in ("loss", "ce", "l2"):
         np.testing.assert_allclose(got[key].item(), want[key],
                                    atol=ATOL_F32, rtol=ATOL_F32, err_msg=key)
@@ -157,14 +199,17 @@ def check_f32(name, use_pallas):
     return tgrads
 
 
-def check_bf16(name, use_pallas):
+def check_bf16(name, use_pallas, over=(), rng_seed=None, n_masks=0):
     """Loss and every gradient leaf of one step under bf16 compute."""
-    c = cfg(name, **{"model.compute_dtype": "bfloat16"})
+    c = cfg(name, **{"model.compute_dtype": "bfloat16", **dict(over)})
     _, model = models(name, c)
     _, tb = batches()
-    want, jgrads = jax_loss_and_grads(name, use_pallas, "bfloat16")
-    _, jgrads32 = jax_loss_and_grads(name, use_pallas, "float32")
-    got, tgrads = port_loss_and_grads(name, c, model, tb)
+    want, jgrads = jax_loss_and_grads(name, use_pallas, "bfloat16", over,
+                                      rng_seed)
+    _, jgrads32 = jax_loss_and_grads(name, use_pallas, "float32", over,
+                                     rng_seed)
+    gen, neg = _port_sources(name, rng_seed, n_masks, c.model.dropout)
+    got, tgrads = port_loss_and_grads(name, c, model, tb, gen, neg)
     assert got["loss"].dtype == torch.float32
     np.testing.assert_allclose(got["loss"].item(), want["loss"],
                                rtol=REL_LOSS_BF16)
@@ -176,10 +221,56 @@ def check_bf16(name, use_pallas):
             REL_GRAD_BF16 * np.abs(w32).max() + np.abs(w - w32).max()), leaf
 
 
-def scores(name, dtype="float32", use_pallas=False):
+def _bf16_allowance(w, w32):
+    return REL_GRAD_BF16 * np.abs(w32).max() + np.abs(w - w32).max()
+
+
+def check_bf16_where_routes_agree(name, use_pallas, over=(), rng_seed=None,
+                                  n_masks=0):
+    """`check_bf16` against the JAX route ``use_pallas`` on every leaf
+    where JAX's other route itself passes that check against it.  On a
+    leaf where the other route does not, JAX's two bf16 routes differ by
+    more than the allowance (the jnp route carries the GRU state in
+    bf16, the Pallas route and the port in f32; in PISTRec the bf16
+    hour stamps and the hard switch add more), so JAX gives two
+    references: the port's leaf must pass `check_bf16`'s rule against
+    one of them.  Where the routes agree on every leaf this is
+    `check_bf16`.  Returns the leaves that passed against the other
+    route only."""
+    c = cfg(name, **{"model.compute_dtype": "bfloat16", **dict(over)})
+    _, model = models(name, c)
+    _, tb = batches()
+    route = {}
+    for up in (use_pallas, not use_pallas):
+        want, jgrads = jax_loss_and_grads(name, up, "bfloat16", over,
+                                          rng_seed)
+        _, jgrads32 = jax_loss_and_grads(name, up, "float32", over,
+                                         rng_seed)
+        route[up] = (want, jgrads, jgrads32)
+    gen, neg = _port_sources(name, rng_seed, n_masks, c.model.dropout)
+    got, tgrads = port_loss_and_grads(name, c, model, tb, gen, neg)
+    assert got["loss"].dtype == torch.float32
+    np.testing.assert_allclose(got["loss"].item(), route[use_pallas][0]["loss"],
+                               rtol=REL_LOSS_BF16)
+    assert set(tgrads) == set(route[use_pallas][1])
+    apart = []
+    for leaf, g in tgrads.items():
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), leaf
+        w, w32 = (route[use_pallas][k][leaf].numpy() for k in (1, 2))
+        if np.abs(g.numpy() - w).max() <= _bf16_allowance(w, w32):
+            continue
+        wo, wo32 = (route[not use_pallas][k][leaf].numpy() for k in (1, 2))
+        assert np.abs(wo - w).max() > _bf16_allowance(w, w32), leaf
+        assert np.abs(g.numpy() - wo).max() <= _bf16_allowance(wo, wo32), \
+            leaf
+        apart.append(leaf)
+    return apart
+
+
+def scores(name, dtype="float32", use_pallas=False, over=()):
     """(the port's scores, JAX's, the logical vocab) on one batch."""
     c = cfg(name, **{"model.compute_dtype": dtype,
-                     "model.use_pallas": use_pallas})
+                     "model.use_pallas": use_pallas, **dict(over)})
     params, model = models(name, c)
     jb, tb = batches()
     jmeta, tmeta = meta()
@@ -191,8 +282,8 @@ def scores(name, dtype="float32", use_pallas=False):
     return got, want, tmeta.item_vocab
 
 
-def check_scores_f32(name, use_pallas):
-    got, want, vocab = scores(name, use_pallas=use_pallas)
+def check_scores_f32(name, use_pallas, over=()):
+    got, want, vocab = scores(name, use_pallas=use_pallas, over=over)
     assert got.shape == want.shape and got.dtype == np.float32
     # the padded table's columns hold the mask fill on both sides
     np.testing.assert_array_equal(got[:, vocab:], want[:, vocab:])
