@@ -265,7 +265,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      the model's mode, dtable once a table the loss reaches, 1
      readout_chain + 1 readout_chain_bwd where the model reads out in
      the time kind, 3 fused_attention[time] + 3 fused_attention_bwd[time]
-     where it self-attends), 20 timed make_superstep steps after 3
+     where it self-attends), 8 timed make_superstep steps after 2
      warm-up at B=256 in bf16 and f32 (ms a step, examples/s, idle
      share), recommend k=50 at B=16 against the CPU (SLICE_TOL) and at
      B=256 timed (1 gru_scan, the readout's hops in the hop design of
@@ -284,7 +284,31 @@ Phases, in order; any failure exits non-zero and prints no result:
      evaluate_dataset over one batch of 2,048 held-out rows against the
      CPU within EVAL_ATOL; FPMC (no kernel) at ml-1m's catalog: 5
      sbpr_steps at B=256 against the CPU, score_all, train_fpmc for one
-     epoch on the card and evaluate against the CPU.
+     epoch on the card and evaluate against the CPU;
+  10. the command line end to end, from a log: synthetic_timed at its
+     default size (2,000 users, 3,600 items; ~76,000 training rows);
+     the native builder (g++ at first use) and the Python builder timed
+     on it, their rows equal as a multiset; `cli.main` in process to
+     step 120 at the default widths (MTAM d=128, 3 hops, L=50, B=256,
+     test batch 2,048) in bf16, evaluation and checkpoints every 40
+     steps: the native builder ran, finite losses, evaluations at steps
+     0, 40, 80 and 120, hr@10 above 10/3,600, and the launches counted
+     from 0 around it exactly 120 x (1 gru_scan + 1 gru_scan_bwd + 4
+     dtable + 1 readout_chain + 1 readout_chain_bwd) + each evaluation
+     batch's 1 gru_scan + 3 fused_attention_hop[time]; `python -m
+     mtamrecommender_tpu_torch` in a subprocess to step 80, then again
+     with train.load_type=full to 120: it logs "resuming at step 80" and
+     its final parameters, Adam state and best equal the in-process
+     run's (torch.equal); SASrec at dropout 0.5 through the Trainer
+     (steps_per_call 4), 3 + 3 steps resumed mid-epoch equal to 6; 6
+     steps of the Trainer's host path (batch_iterator +
+     prefetch_to_device) equal to its device-resident path's; 10
+     f32 Trainer steps on the card, each loss within TRAJ_LOSS_RTOL of
+     the CPU's from the same parameters; the fit's bf16 step timed (steps
+     a second, the profiler's idle share), one evaluation pass, and the
+     command's seconds from launch to its first step.  The runs live in
+     the ignored build/phase10/, removed afterwards.
+     `python3 chip_smoke.py --only 10` builds and runs phase 10 alone.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
@@ -4663,6 +4687,7 @@ ZOO_CHECK_BATCH = 64         # the one-step check against the CPU
 # MTAM_with_T_SeqRecb6_yoochoose's hops (mtamrecommender_tpu/config.py)
 ZOO_PRESET = ("MTAM_with_T_SeqRec", 6)
 ZOO_EVAL_ROWS = 2048         # one batch of train.test_batch_size
+ZOO_TIMED_STEPS = 8          # timed make_superstep steps a model and dtype
 
 
 def _zoo_groups(spec):
@@ -4973,7 +4998,8 @@ def hybird_from_disk(torch, setup, failures):
 def zoo_model(torch, setup, failures, name, spec):
     """One zoo model on the cell: one step's loss and every gradient leaf
     against the CPU (f32 and bf16, draws injected: `_zoo_sources`) with
-    its launches, 20 timed make_superstep steps at B=256 in bf16 and f32,
+    its launches, ZOO_TIMED_STEPS timed make_superstep steps at B=256 in
+    bf16 and f32,
     and recommend at B=16 against the CPU and at B=256 timed.  Returns
     (report, the launches of the timed steps and the serving calls)."""
     train_want, serve_want = _zoo_want(spec)
@@ -4981,7 +5007,7 @@ def zoo_model(torch, setup, failures, name, spec):
     rep = one_step_check(torch, setup, failures, name, train_want,
                          **_zoo_sources(torch, setup, name, spec))
     rep.update(timed_steps(torch, setup, failures, name, train_want,
-                           launches))
+                           launches, steps=ZOO_TIMED_STEPS, warm=2))
     rep["serving"], got = serve_zoo(torch, setup, failures, name,
                                     serve_want)
     _add_launches(launches, got)
@@ -5116,6 +5142,407 @@ def check_fpmc(torch, failures):
 
 # ------------------------------------------------------------ report
 
+# ------------------------------------------------------------ phase 10
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+# the runs' working directory: under the checkout's ignored build/,
+# emptied first and removed afterwards
+LOG_RUN_DIR = os.path.join(REPO_ROOT, "build", "phase10")
+LOG_STEPS, LOG_RESUME_AT, LOG_EVAL_FREQ = 120, 80, 40
+# the command line of phase 10's runs: synthetic_timed at its default
+# size, MTAM at the default widths (d=128, 3 hops, L=50, B=256, test
+# batch 2,048), evaluation and checkpoints every 40 steps, bf16
+LOG_ARGS = ["--type", "synthetic_timed", "--experiment_type", "MTAM",
+            "--set", f"train.eval_freq={LOG_EVAL_FREQ}",
+            "--set", f"train.save_freq={LOG_EVAL_FREQ}",
+            "--set", "train.steps_per_call=1",
+            "--set", "model.compute_dtype=bfloat16",
+            "--data_root", "data", "--run_root", "runs"]
+LOG_CPU_STEPS = 10           # f32 Trainer steps against the CPU
+LOG_TIMED_STEPS = 40         # the fit's step function, profiled
+LOG_FIELDS = ("user_id", "items", "cats", "times", "time_last", "time_now",
+              "positions", "target_id", "target_cat", "target_time",
+              "seq_len")
+
+
+def _log_cfg(**over):
+    from mtamrecommender_tpu_torch.config import ExperimentConfig
+    return ExperimentConfig().with_overrides(**{
+        "data.dataset": "synthetic_timed", **over})
+
+
+def _sorted_rows(ds):
+    """The packed rows as one sorted array of raw bytes (a multiset)."""
+    n = len(ds)
+    raw = np.concatenate([np.ascontiguousarray(getattr(ds, f)).reshape(
+        n, -1).view(np.uint8) for f in LOG_FIELDS], axis=1)
+    return np.sort(np.ascontiguousarray(raw).view(
+        np.dtype((np.void, raw.shape[1]))).reshape(-1))
+
+
+def log_builders(failures):
+    """Phase 10, part 1: the log, then both example builders on it (host
+    seconds each); the native builder's rows must equal the Python
+    builder's as a multiset.  Returns (report, (train, test))."""
+    from mtamrecommender_tpu_torch.data import (fastprep, ingest, pipeline,
+                                                prepare)
+
+    cfg = _log_cfg()
+    t0 = time.perf_counter()
+    log = ingest.load_origin_data(cfg.data)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fastprep._load()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train, test, _ = fastprep.build_packed(log, cfg.data)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepared = prepare.prepare_examples(log, cfg.data)
+    py_train = pipeline.pack_examples(prepared.train_set, prepared.meta)
+    py_test = pipeline.pack_examples(prepared.test_set, prepared.meta)
+    python_s = time.perf_counter() - t0
+    same = all(np.array_equal(_sorted_rows(a), _sorted_rows(b))
+               for a, b in ((train, py_train), (test, py_test)))
+    report = {"events": len(log), "train_rows": len(train),
+              "test_rows": len(test), "generate_s": gen_s,
+              "native_build_s": build_s, "native_s": native_s,
+              "python_s": python_s, "same_rows": same}
+    print(f"from a log: {len(log)} events -> {len(train)} train / "
+          f"{len(test)} test rows; generate {gen_s:.2f} s, g++ "
+          f"{build_s:.2f} s, native builder {native_s:.3f} s, Python "
+          f"builder {python_s:.2f} s, rows {'equal' if same else 'DIFFER'}",
+          flush=True)
+    if not same:
+        failures.append("phase 10: the native builder's rows differ from "
+                        "the Python builder's")
+    return report, (train, test)
+
+
+def _nonzero(counts):
+    return {k: {m: n for m, n in v.items() if n} for k, v in counts.items()
+            if any(v.values())}
+
+
+def _events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+class _LogLines:
+    """Collects the messages of the port's run logger."""
+
+    def __init__(self):
+        import logging
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+        self.logger = logging.getLogger("mtamrec_torch")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def _ckpt_state(torch, cfg, meta, ckpt_dir, step):
+    """The checkpoint of ``step`` under ``ckpt_dir`` on the card, and its
+    cursor."""
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.train.checkpoint import Checkpointer
+    from mtamrecommender_tpu_torch.train.trainer import (TrainState,
+                                                         make_optimizer)
+
+    model = get_model("MTAM").init(torch.Generator().manual_seed(0),
+                                   cfg.model, meta).to(DEVICE)
+    template = TrainState(model, make_optimizer(cfg.train).init(model), 0)
+    return Checkpointer(ckpt_dir).restore(template, step=step,
+                                          with_cursor=True)
+
+
+def _states_equal(torch, a, b):
+    from mtamrecommender_tpu_torch.train.trainer import moments
+
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    params = all(torch.equal(pa[n], pb[n]) for n in pa)
+    opt = a.opt_state.count == b.opt_state.count and all(
+        torch.equal(t, moments(b.opt_state)[key][n])
+        for key, m in moments(a.opt_state).items() for n, t in m.items())
+    return params, opt
+
+
+def log_cli_runs(torch, failures, data):
+    """Phase 10, parts 2-3: `cli.main` in process to LOG_STEPS (the
+    launches counted from 0 around it), then the same command as a
+    subprocess to LOG_RESUME_AT and again with load_type=full to
+    LOG_STEPS.  Returns (report, the in-process run's launches)."""
+    from mtamrecommender_tpu_torch import cli
+
+    report = {}
+    meta, test_rows = data[0].meta, len(data[1])
+    run = ["--version", "p10", "--max_steps", str(LOG_STEPS)]
+    cwd = os.getcwd()
+    os.chdir(LOG_RUN_DIR)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _LogLines() as logged:
+            rc = cli.main(LOG_ARGS + run)
+        report["in_process_s"] = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        os.chdir(cwd)
+    run_name = "synthetic_timed_MTAM_p10"
+    events = _events(os.path.join(LOG_RUN_DIR, "runs", run_name,
+                                  "events.jsonl"))
+    losses = [e["train_loss"] for e in events if "train_loss" in e]
+    evals = [e for e in events if "hr@10" in e]
+    eval_steps = [e["step"] for e in evals]
+    # each evaluation pass: ceil(test rows / 2,048) batches of 1 gru_scan
+    # + 3 fused_attention_hop[time]
+    batches = len(evals) * -(-test_rows // 2048)
+    want = _want_counts(LOG_STEPS, gru="tgru", chain=True)
+    want["gru_scan"]["tgru"] += batches
+    want["fused_attention"]["time"] += 3 * batches
+    want["fused_attention_hop"]["time"] += 3 * batches
+    hr10 = evals[-1]["hr@10"] if evals else float("nan")
+    native = any(m.startswith("examples (native builder)")
+                 for m in logged.lines)
+    # steady steps a second: display records 10 steps apart with no
+    # evaluation between them (the eval at step s follows its display)
+    stamps = {e["step"]: e["time"] for e in events if "train_loss" in e}
+    gaps = [stamps[s] - stamps[s - 10] for s in stamps
+            if s - 10 in stamps and (s - 10) % LOG_EVAL_FREQ != 0]
+    steady = 10 / sorted(gaps)[len(gaps) // 2] if gaps else None
+    ok = (rc == 0 and native and counts == want and len(losses) ==
+          LOG_STEPS // 10 and all(math.isfinite(x) for x in losses)
+          and sorted(set(eval_steps)) == [0, 40, 80, 120]
+          and hr10 > 10 / 3600)
+    report.update({"rc": rc, "native_builder": native, "losses": losses,
+                   "eval_steps": eval_steps, "hr@10": hr10,
+                   "ndcg@10": evals[-1]["ndcg@10"] if evals else None,
+                   "eval_batches": batches, "launches": counts,
+                   "steady_steps_per_s": steady, "ok": ok})
+    print(f"from a log: cli.main to step {LOG_STEPS} in "
+          f"{report['in_process_s']:.1f} s, native builder {native}, "
+          f"evals at {eval_steps}, hr@10 {hr10:.4f} ndcg@10 "
+          f"{report['ndcg@10']}, steady {steady} steps/s, launches "
+          f"{_nonzero(counts)} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"phase 10 cli run: {report}; launches "
+                        f"{_nonzero(counts)}, want {_nonzero(want)}")
+
+    # the same command as a user starts it: to step 80, then resumed
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "mtamrecommender_tpu_torch"] + LOG_ARGS + [
+        "--version", "p10r"]
+    procs = []
+    for extra in (["--max_steps", str(LOG_RESUME_AT)],
+                  ["--max_steps", str(LOG_STEPS), "--set",
+                   "train.load_type=full"]):
+        t0 = time.time()
+        proc = subprocess.run(cmd + extra, cwd=LOG_RUN_DIR, env=env,
+                              capture_output=True, text=True, timeout=600)
+        procs.append((proc, t0, time.time() - t0))
+    events = _events(os.path.join(LOG_RUN_DIR, "runs",
+                                  "synthetic_timed_MTAM_p10r",
+                                  "events.jsonl"))
+    first_eval = next(e["time"] for e in events if "hr@10" in e)
+    resumed = f"resuming at step {LOG_RESUME_AT}" in procs[1][0].stderr
+    cfg = _log_cfg(**{"model.compute_dtype": "bfloat16"})
+    ckpt = os.path.join(LOG_RUN_DIR, "data", "check_point")
+    a, cur_a = _ckpt_state(torch, cfg, meta, os.path.join(ckpt, run_name),
+                           LOG_STEPS)
+    b, cur_b = _ckpt_state(torch, cfg, meta, os.path.join(
+        ckpt, "synthetic_timed_MTAM_p10r"), LOG_STEPS)
+    params_eq, opt_eq = _states_equal(torch, a, b)
+    best_eq = cur_a["best"] == cur_b["best"]
+    ok = (all(p.returncode == 0 for p, _, _ in procs) and resumed
+          and params_eq and opt_eq and best_eq)
+    report["resume"] = {
+        "rcs": [p.returncode for p, _, _ in procs],
+        "wall_s": [s for _, _, s in procs],
+        "start_to_first_step_s": first_eval - procs[0][1],
+        "logged_resume": resumed, "params_equal": params_eq,
+        "opt_state_equal": opt_eq, "best_equal": best_eq, "ok": ok}
+    print(f"from a log: python -m mtamrecommender_tpu_torch to step "
+          f"{LOG_RESUME_AT} in {procs[0][2]:.1f} s (first step "
+          f"{report['resume']['start_to_first_step_s']:.1f} s after "
+          f"launch), resumed to {LOG_STEPS} in {procs[1][2]:.1f} s: logged "
+          f"resume {resumed}, parameters equal {params_eq}, Adam state "
+          f"equal {opt_eq}, best equal {best_eq} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"phase 10 resume: {report['resume']}; stderr "
+                        f"{[p.stderr[-2000:] for p, _, _ in procs]}")
+    return report, counts
+
+
+def _log_trainer(torch, name, cfg, data, tag, device=DEVICE, **kw):
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.train.trainer import Trainer
+
+    train, test = data
+    return Trainer(cfg=cfg, model=get_model(name), train_data=train,
+                   test_data=test, run_dir=os.path.join(LOG_RUN_DIR, tag),
+                   device=device, **kw)
+
+
+def log_trainer_checks(torch, failures, data):
+    """Phase 10, parts 4-6: SASrec at dropout 0.5 resumed mid-epoch
+    through the Trainer (3 + 3 steps against 6, steps_per_call 4); 6
+    steps of the host path (prefetch_to_device) against the
+    device-resident path, bit for bit; 10 f32 Trainer steps against the
+    CPU's, each loss within
+    TRAJ_LOSS_RTOL; the fit's step function timed (steps a second, the
+    device's idle share from the profiler) and one evaluation pass."""
+    from mtamrecommender_tpu_torch.data import device_data as dd
+    from mtamrecommender_tpu_torch.train.checkpoint import Checkpointer
+
+    report = {}
+    cfg = _log_cfg(**{"model.experiment_type": "SASrec",
+                      "model.compute_dtype": "bfloat16",
+                      "model.dropout": 0.5, "train.steps_per_call": 4,
+                      "train.eval_freq": 10 ** 6})
+    full = _log_trainer(torch, "SASrec", cfg, data, "sas_full").fit(
+        max_steps=6)
+    ck = Checkpointer(os.path.join(LOG_RUN_DIR, "sas_ck"))
+    _log_trainer(torch, "SASrec", cfg, data, "sas_a").fit(
+        max_steps=3, checkpointer=ck)
+    t_b = _log_trainer(torch, "SASrec", cfg, data, "sas_b")
+    restored, cursor = ck.restore(t_b.init_state(), with_cursor=True)
+    start_epoch, skip = t_b.resume_from_cursor(cursor, restored)
+    resumed = t_b.fit(restored, max_steps=6, start_epoch=start_epoch,
+                      skip_steps=skip)
+    params_eq, opt_eq = _states_equal(torch, full, resumed)
+    ok = params_eq and opt_eq and (start_epoch, skip) == (0, 3)
+    report["dropout_resume"] = {"params_equal": params_eq,
+                                "opt_state_equal": opt_eq, "ok": ok}
+    print(f"from a log: SASrec dropout 0.5, 3 + 3 Trainer steps against 6 "
+          f"(steps_per_call 4): parameters equal {params_eq}, Adam state "
+          f"equal {opt_eq} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"phase 10 dropout resume: {report}")
+
+    # the host path (batch_iterator + prefetch_to_device: pinned copies
+    # on a side stream) against the device-resident path, MTAM in bf16
+    cfg = _log_cfg(**{"model.compute_dtype": "bfloat16",
+                      "train.eval_freq": 10 ** 6})
+    fits = [_log_trainer(torch, "MTAM", cfg, data, f"host_{resident}",
+                         device_resident=resident).fit(max_steps=6)
+            for resident in (True, False)]
+    params_eq, opt_eq = _states_equal(torch, *fits)
+    ok = params_eq and opt_eq
+    report["host_path"] = {"params_equal": params_eq,
+                           "opt_state_equal": opt_eq, "ok": ok}
+    print(f"from a log: 6 Trainer steps through batch_iterator + "
+          f"prefetch_to_device against the device-resident path: "
+          f"parameters equal {params_eq}, Adam state equal {opt_eq} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"phase 10 host path: {report['host_path']}")
+
+    # f32, the same initial parameters (a CPU generator) on both sides
+    cfg = _log_cfg(**{"train.display_freq": 1, "train.eval_freq": 10 ** 6})
+    losses = {}
+    for device in (DEVICE, "cpu"):
+        t = _log_trainer(torch, "MTAM", cfg, data, f"f32_{device}",
+                         device=device)
+        t.fit(max_steps=LOG_CPU_STEPS)
+        losses[device] = [e["train_loss"] for e in _events(os.path.join(
+            LOG_RUN_DIR, f"f32_{device}", "events.jsonl"))
+            if "train_loss" in e]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[DEVICE],
+                                                  losses["cpu"]))
+    ok = len(losses[DEVICE]) == LOG_CPU_STEPS and err <= TRAJ_LOSS_RTOL
+    report["against_cpu"] = {"losses_gpu": losses[DEVICE],
+                             "losses_cpu": losses["cpu"], "loss_rel_err": err,
+                             "ok": ok}
+    print(f"from a log: {LOG_CPU_STEPS} f32 Trainer steps against the CPU: "
+          f"loss rel err {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"phase 10 against the CPU: {report['against_cpu']}")
+
+    # the fit's step function (the device-resident step) in bf16, timed
+    # and profiled; then one evaluation pass
+    cfg = _log_cfg(**{"model.compute_dtype": "bfloat16"})
+    t = _log_trainer(torch, "MTAM", cfg, data, "timed")
+    state = t.init_state()
+    t._device_data = dd.to_device(t.train_data, t.device)
+    order_np, n_steps = dd.epoch_order(len(t.train_data),
+                                       cfg.train.train_batch_size, t.np_rng)
+    order = torch.as_tensor(order_np, device=t.device)
+
+    def steps(lo, n):
+        for i in range(lo, lo + n):
+            state.opt_state, _ = t.device_train_step(
+                state.model, state.opt_state, t._device_data, order, i)
+
+    steps(0, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(5, LOG_TIMED_STEPS)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / LOG_TIMED_STEPS
+    busy = _device_busy(torch, lambda: steps(5 + LOG_TIMED_STEPS,
+                                             LOG_TIMED_STEPS))
+    busy_ms = (None if busy["device_busy_ms"] is None
+               else busy["device_busy_ms"] / LOG_TIMED_STEPS)
+    t.evaluate(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.evaluate(state)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    report["timed"] = {
+        "steps": LOG_TIMED_STEPS, "ms_per_step": wall_ms,
+        "steps_per_s": 1e3 / wall_ms, "device_busy_ms_per_step": busy_ms,
+        "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+        "top_kernels": busy["top_kernels"][:5], "eval_pass_ms": eval_ms,
+        "test_rows": len(t.test_data)}
+    print(f"from a log: the fit's bf16 step {wall_ms:.3f} ms "
+          f"({1e3 / wall_ms:.1f} steps/s), device busy {busy_ms} ms/step, "
+          f"idle share {report['timed']['idle_share']}; one evaluation "
+          f"pass ({len(t.test_data)} rows) {eval_ms:.1f} ms", flush=True)
+    return report
+
+
+def run_from_log(torch, failures):
+    """Phase 10: the command line end to end from a generated log.
+    Returns (report, the in-process cli run's launches)."""
+    import shutil
+
+    shutil.rmtree(LOG_RUN_DIR, ignore_errors=True)
+    os.makedirs(LOG_RUN_DIR)
+    try:
+        report, data = log_builders(failures)
+        runs, launches = log_cli_runs(torch, failures, data)
+        report["cli"] = runs
+        report.update(log_trainer_checks(torch, failures, data))
+    finally:
+        shutil.rmtree(LOG_RUN_DIR, ignore_errors=True)
+    return report, launches
+
+
+def _run_from_log_phase(torch, failures):
+    """Phase 10 and the check that its main path launched MTAM's kernels;
+    returns (report, the launches by kernel and mode)."""
+    from_log, counts = run_from_log(torch, failures)
+    launches = {}
+    _add_launches(launches, counts)
+    for kname, mode in (("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
+                        ("dtable", None), ("readout_chain", None),
+                        ("readout_chain_bwd", None),
+                        ("fused_attention_hop", "time")):
+        if launches.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "command line's path")
+    return from_log, launches
+
+
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
@@ -5202,8 +5629,17 @@ def kernels_line(entries, launches_by_shape):
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py")
+    parser.add_argument("--only", choices=["10"], default=None,
+                        help="build, then run only this phase, and write "
+                             "its report to chiprun_out/chip_smoke_<n>.json "
+                             "(no result line)")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -5323,6 +5759,21 @@ def main() -> int:
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
+    if args.only == "10":
+        from_log, log_launches = _run_from_log_phase(torch, failures)
+        lap("10")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_10.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "phase_s": phase_s,
+                       "from_log": from_log, "launches": {
+                           k: {str(m): n for m, n in v.items()}
+                           for k, v in log_launches.items()},
+                       "failures": failures}, f, indent=1, default=str)
+        print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
+        for msg in failures:
+            print(f"FAIL {msg}", file=sys.stderr)
+        return 1 if failures else 0
 
     # phase 2: kernels against their plain twins
     timer = Timer(torch)
@@ -5466,6 +5917,10 @@ def main() -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             f"zoo's {group} path")
     lap("9")
+
+    # phase 10: the command line end to end, from a generated log
+    from_log, log_launches = _run_from_log_phase(torch, failures)
+    lap("10")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
     # launches on the main paths: MTAM's and the zoo models' at L=50
@@ -5478,9 +5933,11 @@ def main() -> int:
     _add_launches(mtam_launches, train_launches)
     _add_launches(mtam_launches, disk_launches)
     _add_launches(mtam_launches, zoo_launches)
+    _add_launches(mtam_launches, log_launches)
     l50_launches = copy.deepcopy(train_launches)
     _add_launches(l50_launches, disk_launches)
     _add_launches(l50_launches, zoo_launches)
+    _add_launches(l50_launches, log_launches)
     # the chain pair's @L50 rows are 3 hops; its one-hop launches (NARM+,
     # NARM++) go to the @L50h1 rows
     for kname in ("readout_chain", "readout_chain_bwd"):
@@ -5554,6 +6011,10 @@ def main() -> int:
                    "launches_zoo": {
                        k: {str(m): n for m, n in v.items()}
                        for k, v in zoo_launches.items()},
+                   "from_log": from_log,
+                   "launches_from_log": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in log_launches.items()},
                    "launches_zoo_groups": {
                        group: {k: {str(m): n for m, n in v.items()}
                                for k, v in by_kernel.items()}

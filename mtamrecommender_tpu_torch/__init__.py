@@ -23,7 +23,14 @@ Ported so far:
     readout kernel per direction;
   * the rest of the registry (`models.registry`, all 22 entries: the
     MTAM ablations, the RNN and hybrid baselines, PISTRec and BPRMF)
-    through the same entry points, and FPMC (`models.fpmc`).
+    through the same entry points, FPMC (`models.fpmc`) and the TopPop /
+    P-Pop floors (`models.top_pop`);
+  * the command line end to end (`python -m mtamrecommender_tpu_torch`,
+    `cli`, and the experiment fleet, `fleet`): a raw or generated log
+    (`data.ingest`, numpy columns, no pandas) -> examples (the native
+    builder `data.fastprep` over native/fastprep.cpp, or `data.prepare`
+    with its cache) -> `train.trainer.Trainer` (adam, adadelta, rmsprop,
+    sgd; evaluation, checkpoints and exact resume on its cadence).
 Their TPU kernels (the GRU scan and its backward, the fused attention
 and its backward, the embedding-table backward, the fused multi-hop
 readout and its backward) are hand-written CUDA

@@ -7,19 +7,21 @@ dots into the port's parameter names, e.g. ``{"att": [{"q": {"w": ..}}]}``
 weight layout: nothing is transposed.  A gradient tree of the same
 structure (``jax.grad`` of a loss over the parameters) converts the same
 way, so the port's gradients can be compared with JAX's leaf by leaf.
-`opt_state_from_jax` carries the adam preset's optimizer state across
-(``jax.device_get`` of optax's chain state) as the port's `AdamState`.
+`opt_state_from_jax` carries an optimizer state across (``jax.device_get``
+of the chain state of the JAX package's `make_optimizer`): adam,
+adadelta, rmsprop or sgd, per leaf, flattened or packed, as the port's
+state of the same kind and layout.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from mtamrecommender_tpu_torch.train.trainer import AdamState
+from mtamrecommender_tpu_torch.train.trainer import OPT_STATES, Layout
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -73,45 +75,83 @@ def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
     return model
 
 
-# the adam preset's chain (JAX train/trainer.py: clip_by_global_norm,
-# scale_by_adam, scale_by_schedule): each state's type name and fields
-_ADAM_CHAIN = (("EmptyState", ()),
-               ("ScaleByAdamState", ("count", "mu", "nu")),
-               ("ScaleByScheduleState", ("count",)))
+# the JAX package's optimizer chain (train/trainer.py make_optimizer):
+# clip_by_global_norm's empty state, the core's state, then
+# scale_by_schedule's count.  Each core: optax's state type name and
+# fields, and the port's kind
+_CORES = {("ScaleByAdamState", ("count", "mu", "nu")): "adam",
+          ("ScaleByAdaDeltaState", ("e_g", "e_x")): "adadelta",
+          ("ScaleByRmsState", ("nu",)): "rmsprop",
+          ("EmptyState", ()): "sgd"}
 
 
-def opt_state_from_jax(opt_state: Any) -> AdamState:
-    """optax's state of the adam preset -> the port's `AdamState`.
+def _check_type(opt_state, i: int, name: str, fields: tuple) -> None:
+    got = type(opt_state[i]).__name__
+    if got != name or tuple(getattr(opt_state[i], "_fields", ())) != fields:
+        raise TypeError(f"opt_state_from_jax: opt_state[{i}] is a {got}, "
+                        f"not the chain's {name}")
 
-    The state is the chain's tuple: the clip's empty state,
-    ``ScaleByAdamState(count, mu, nu)`` and ``ScaleByScheduleState(count)``,
-    with ``mu`` and ``nu`` parameter trees; both counts must agree.  Any
-    other structure (another optimizer, ``flatten_optimizer``'s flat
-    vectors, ``pack_small_leaves``' packed lists) raises, naming the
-    leaf.  Matched by type name and fields: the port imports no optax."""
-    if not isinstance(opt_state, (tuple, list)) or \
-            len(opt_state) != len(_ADAM_CHAIN):
+
+def _moment(tree: Any, where: str, model: Optional[nn.Module]
+            ) -> Dict[str, torch.Tensor]:
+    """One moment in the layout it was saved in: a parameter tree (per
+    leaf), one vector (flatten_optimizer, key "flat"), or a list
+    (pack_small_leaves: the small leaves' vectors a dtype, then the
+    tables, named by `trainer.Layout` over ``model``'s parameters)."""
+    if isinstance(tree, Mapping):
+        return params_from_jax(tree)
+    if isinstance(tree, (list, tuple)):
+        if model is None:
+            raise ValueError(f"opt_state_from_jax: {where} is packed "
+                             "(pack_small_leaves); pass model= to name its "
+                             "entries")
+        keys = Layout("packed", {n: (p.shape, p.dtype) for n, p in
+                                 model.named_parameters()}).keys
+        if len(keys) != len(tree):
+            raise ValueError(f"opt_state_from_jax: {where} has {len(tree)} "
+                             f"entries, the model's packed layout "
+                             f"{len(keys)}")
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                for k, v in zip(keys, tree)}
+    if hasattr(tree, "__array__") and np.ndim(tree) == 1:
+        return {"flat": torch.from_numpy(np.array(tree, dtype=np.float32))}
+    raise TypeError(f"opt_state_from_jax: {where} is a "
+                    f"{type(tree).__name__}, not a parameter tree, a flat "
+                    "vector or a packed list")
+
+
+def opt_state_from_jax(opt_state: Any, model: Optional[nn.Module] = None):
+    """optax's state of the JAX package's optimizer chain -> the port's
+    state of the same optimizer (`trainer.OPT_STATES`) and layout.
+
+    The state is the chain's tuple: the clip's empty state, the core's
+    state (``ScaleByAdamState(count, mu, nu)``,
+    ``ScaleByAdaDeltaState(e_g, e_x)``, ``ScaleByRmsState(nu)``, or
+    sgd's ``EmptyState``) and ``ScaleByScheduleState(count)``; Adam's
+    count must agree with the schedule's.  The moments are parameter
+    trees, ``flatten_optimizer``'s vectors or ``pack_small_leaves``'
+    lists; the last need ``model`` (the port's, of the same parameters)
+    to name their entries.  Any other structure raises, naming the
+    entry.  Matched by type name and fields: the port imports no optax."""
+    if not isinstance(opt_state, (tuple, list)) or len(opt_state) != 3 \
+            or hasattr(opt_state, "_fields"):
         raise TypeError(f"opt_state_from_jax: opt_state is a "
-                        f"{type(opt_state).__name__}, not the adam chain's "
-                        f"{len(_ADAM_CHAIN)}-tuple")
-    for i, (name, fields) in enumerate(_ADAM_CHAIN):
-        got = type(opt_state[i]).__name__
-        if got != name or tuple(getattr(opt_state[i], "_fields", ())) \
-                != fields:
-            raise TypeError(f"opt_state_from_jax: opt_state[{i}] is a {got}"
-                            f", not the adam chain's {name}")
-    adam, sched = opt_state[1], opt_state[2]
-    for field in ("mu", "nu"):
-        if not isinstance(getattr(adam, field), Mapping):
-            raise TypeError(
-                f"opt_state_from_jax: opt_state[1].{field} is a "
-                f"{type(getattr(adam, field)).__name__}, not a parameter "
-                "tree (flatten_optimizer and pack_small_leaves are not "
-                "ported)")
-    count, sched_count = int(np.asarray(adam.count)), \
-        int(np.asarray(sched.count))
-    if count != sched_count:
-        raise ValueError(f"opt_state_from_jax: opt_state[1].count is {count} "
-                         f"but opt_state[2].count is {sched_count}")
-    return AdamState(count=count, mu=params_from_jax(adam.mu),
-                     nu=params_from_jax(adam.nu))
+                        f"{type(opt_state).__name__}, not the optimizer "
+                        "chain's 3-tuple")
+    _check_type(opt_state, 0, "EmptyState", ())
+    _check_type(opt_state, 2, "ScaleByScheduleState", ("count",))
+    core = opt_state[1]
+    kind = _CORES.get((type(core).__name__,
+                       tuple(getattr(core, "_fields", ()))))
+    if kind is None:
+        raise TypeError(f"opt_state_from_jax: opt_state[1] is a "
+                        f"{type(core).__name__}, not the state of adam, "
+                        "adadelta, rmsprop or sgd")
+    count = int(np.asarray(opt_state[2].count))
+    if kind == "adam" and int(np.asarray(core.count)) != count:
+        raise ValueError(f"opt_state_from_jax: opt_state[1].count is "
+                         f"{int(np.asarray(core.count))} but "
+                         f"opt_state[2].count is {count}")
+    cls = OPT_STATES[kind]
+    return cls(count, *(_moment(getattr(core, f), f"opt_state[1].{f}", model)
+                        for f in cls._fields[1:]))

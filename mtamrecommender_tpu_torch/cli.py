@@ -1,0 +1,238 @@
+"""Training CLI — the `train_process.py` equivalent (the counterpart of
+mtamrecommender_tpu/cli.py).
+
+Usage:
+
+    python -m mtamrecommender_tpu_torch --experiment_name MTAM_ml1m
+    python -m mtamrecommender_tpu_torch --type synthetic_timed \\
+        --experiment_type MTAM --set train.max_epochs=3
+    python -m mtamrecommender_tpu_torch --type synthetic --device cpu ...
+
+Presets come from config.get_preset (the reference's --experiment_name
+dispatch); every config leaf is overridable with --set
+section.leaf=value.  The run: load the raw log (`data.ingest`), build the
+examples with the native builder (`data.fastprep`, falling back to the
+Python builder and its cache on RuntimeError), train with
+`train.trainer.Trainer` (evaluation on its cadence, checkpoints under
+``data/check_point/<run_name>`` of the working directory), and resume
+from the latest checkpoint with ``--set train.load_type=full``.
+
+It runs on CUDA unless ``--device cpu``.  ``--use_pallas`` is accepted
+and ignored (the port routes to its kernels by shape).
+``--model_parallel > 1`` and ``--embedding_engine`` raise
+NotImplementedError: ``parallel/`` is not ported (ROADMAP.md, Queue 1
+item 7).  ``--profile`` writes a torch.profiler trace of the fit under
+``<run_dir>/profile``.  The JAX package's persistent XLA compile cache
+(`_enable_compile_cache`) has no counterpart: the port compiles its
+kernels once into ``build/`` and PyTorch's eager ops compile nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Any, List, Optional
+
+from mtamrecommender_tpu_torch.config import (ExperimentConfig, get_preset,
+                                              preset_names)
+
+NOT_PORTED = ("is not ported: parallel/ on torch.distributed is ROADMAP.md "
+              "Queue 1 item 7")
+
+
+def _parse_value(raw: str) -> Any:
+    try:
+        return json.loads(raw)
+    except json.JSONDecodeError:
+        return raw
+
+
+def build_config(args: argparse.Namespace) -> ExperimentConfig:
+    if args.model_parallel > 1:
+        raise NotImplementedError(f"--model_parallel {args.model_parallel} "
+                                  f"{NOT_PORTED}")
+    if args.embedding_engine:
+        raise NotImplementedError(f"--embedding_engine {NOT_PORTED}")
+    cfg = get_preset(args.experiment_name) if args.experiment_name \
+        else ExperimentConfig()
+    over = {}
+    if args.type:
+        over["data.dataset"] = args.type
+    if args.experiment_type:
+        over["model.experiment_type"] = args.experiment_type
+    if args.version:
+        over["version"] = args.version
+    if args.train_batch_size:
+        over["train.train_batch_size"] = args.train_batch_size
+    if args.load_type:
+        over["train.load_type"] = args.load_type
+    if args.use_pallas:
+        over["model.use_pallas"] = True
+    for item in args.set or []:
+        key, _, raw = item.partition("=")
+        over[key] = _parse_value(raw)
+    return cfg.with_overrides(**over) if over else cfg
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="mtamrecommender_tpu_torch",
+        description="sequential-recommender training on PyTorch/CUDA")
+    p.add_argument("--experiment_name", choices=preset_names(), default=None,
+                   help="named preset (reference --experiment_name)")
+    p.add_argument("--type", default=None, help="dataset (reference --type)")
+    p.add_argument("--experiment_type", default=None,
+                   help="model family (reference --experiment_type)")
+    p.add_argument("--version", default=None)
+    p.add_argument("--train_batch_size", type=int, default=None)
+    p.add_argument("--load_type", default=None,
+                   choices=["from_scratch", "full", "fine_tune"])
+    p.add_argument("--set", action="append", metavar="KEY=VALUE",
+                   help="dotted config override, e.g. model.num_blocks=5")
+    p.add_argument("--max_epochs", type=int, default=None)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--use_pallas", action="store_true",
+                   help="accepted and ignored: the port routes to its "
+                        "kernels by shape")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="model-axis size; above 1 not ported (raises)")
+    p.add_argument("--embedding_engine", default=None,
+                   choices=["gspmd", "a2a", "psum"],
+                   help="sharded-lookup engine; not ported (raises)")
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--run_root", default="data/runs")
+    p.add_argument("--tensorboard", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the fit under "
+                        "<run_dir>/profile")
+    p.add_argument("--statistics", action="store_true",
+                   help="print dataset statistics and exit "
+                        "(reference experiment_name=statistics)")
+    p.add_argument("--top_pop", action="store_true",
+                   help="evaluate the non-learned TopPop/P-Pop baselines")
+    p.add_argument("--no_fast_prep", action="store_true",
+                   help="force the Python example builder")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; cpu runs "
+                        "the kernels' plain twins)")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = make_parser().parse_args(argv)
+    cfg = build_config(args)
+    if cfg.mesh.model_axis_size > 1 or cfg.mesh.data_axis_size > 1:
+        raise NotImplementedError(f"a device mesh {NOT_PORTED}")
+    if args.data_root:
+        cfg = cfg.with_overrides(**{"data.data_root": args.data_root})
+
+    from mtamrecommender_tpu_torch.data.ingest import (data_statistics,
+                                                       load_origin_data)
+    from mtamrecommender_tpu_torch.data.pipeline import pack_examples
+    from mtamrecommender_tpu_torch.data.prepare import prepare_examples
+    from mtamrecommender_tpu_torch.utils.logging import create_log
+
+    logger = create_log(cfg.data.dataset, cfg.model.experiment_type,
+                        cfg.version)
+    logger.info("resolved config: %s", json.dumps(cfg.to_dict()))
+
+    origin = load_origin_data(cfg.data)
+    if args.statistics:
+        for k, v in data_statistics(origin).items():
+            logger.info("statistics %s = %s", k, v)
+        return 0
+
+    train = test = None
+    if not (args.top_pop or args.no_fast_prep):
+        # native example builder; falls back to the Python builder for
+        # unsupported configs / a missing toolchain
+        from mtamrecommender_tpu_torch.data import fastprep
+        try:
+            train, test, _ = fastprep.build_packed(origin, cfg.data)
+            logger.info("examples (native builder): train=%d test=%d",
+                        len(train), len(test))
+        except RuntimeError as exc:
+            logger.info("fastprep fallback: %s", exc)
+
+    if train is None:
+        cache_dir = os.path.join(cfg.data.data_root, "train_data",
+                                 cfg.data.dataset)
+        prepared = prepare_examples(origin, cfg.data, cache_dir=cache_dir)
+        logger.info("examples: train=%d test=%d items=%d users=%d",
+                    len(prepared.train_set), len(prepared.test_set),
+                    prepared.meta.item_count, prepared.meta.user_count)
+
+        if args.top_pop:
+            from mtamrecommender_tpu_torch.models.top_pop import (
+                eval_p_pop, eval_top_pop)
+            for name, metrics in (("TopPop", eval_top_pop(
+                    prepared.train_set, prepared.test_set)),
+                    ("P-Pop", eval_p_pop(prepared.train_set,
+                                         prepared.test_set))):
+                logger.info("%s: %s", name,
+                            {k: round(v, 4) for k, v in metrics.items()})
+            return 0
+
+        train = pack_examples(prepared.train_set, prepared.meta)
+        test = pack_examples(prepared.test_set, prepared.meta)
+
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.train.checkpoint import (Checkpointer,
+                                                            apply_load_type)
+    from mtamrecommender_tpu_torch.train.trainer import Trainer
+
+    run_name = f"{cfg.data.dataset}_{cfg.model.experiment_type}_{cfg.version}"
+    run_dir = os.path.join(args.run_root, run_name)
+    trainer = Trainer(cfg=cfg, model=get_model(cfg.model.experiment_type),
+                      train_data=train, test_data=test, run_dir=run_dir,
+                      use_tensorboard=args.tensorboard, device=args.device)
+
+    ckpt_dir = os.path.join("data", "check_point", run_name)
+    checkpointer = Checkpointer(ckpt_dir)
+    state = trainer.init_state()
+    try:
+        state, cursor = apply_load_type(cfg.train, state, ckpt_dir,
+                                        optimizer_init=trainer.optimizer.init,
+                                        with_cursor=True)
+    except FileNotFoundError as exc:
+        # load_type=full before the first save (e.g. a fleet retry of a
+        # run that crashed pre-checkpoint): start from scratch instead of
+        # refusing to run
+        logger.info("no checkpoint to restore (%s); training from scratch",
+                    exc)
+        cursor = None
+    start_epoch = skip_steps = 0
+    if cursor is not None:
+        start_epoch, skip_steps = trainer.resume_from_cursor(cursor, state)
+        logger.info("resuming at step %d (epoch %d, skipping %d steps)",
+                    state.step, start_epoch, skip_steps)
+
+    profiler = None
+    if args.profile:
+        import torch
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if trainer.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+
+    try:
+        state = trainer.fit(state, max_epochs=args.max_epochs,
+                            max_steps=args.max_steps,
+                            checkpointer=checkpointer,
+                            start_epoch=start_epoch, skip_steps=skip_steps)
+    finally:
+        if profiler is not None:
+            profiler.stop()
+            os.makedirs(os.path.join(run_dir, "profile"), exist_ok=True)
+            profiler.export_chrome_trace(
+                os.path.join(run_dir, "profile", "trace.json"))
+        checkpointer.close()
+    logger.info("done at step %d; best: %s", state.step,
+                {k: round(v, 4) for k, v in trainer.best.items()})
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

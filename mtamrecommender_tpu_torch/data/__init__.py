@@ -1,2 +1,3 @@
-"""Data path of the port: the device-resident dataset and its batch
-gather so far; the host pipeline is not ported yet (ROADMAP.md)."""
+"""Data path of the port, pandas-free: ingest (raw logs to an `EventLog`
+of numpy columns), prepare and fastprep (examples), pipeline (packed
+arrays, batches, prefetch) and the device-resident dataset."""

@@ -2,8 +2,8 @@
 memory and each train step gathers its batch there (twin of
 mtamrecommender_tpu/data/device_data.py).
 
-The host pipeline is not ported yet, so `to_device` takes the packed
-arrays as numpy.  `epoch_order` consumes the same
+`to_device` takes a `data.pipeline.PackedDataset` or any mapping of its
+arrays by field name.  `epoch_order` consumes the same
 ``np.random.RandomState`` stream as the JAX package's, and
 `gather_batch` keeps its padding semantics: a pad slot (order == -1)
 becomes an all-zero row with ``seq_len=2`` and ``valid=0``, which
@@ -40,8 +40,9 @@ _FLOAT_FIELDS = ("times", "time_last", "time_now", "target_time")
 
 
 def to_device(arrays: Mapping[str, np.ndarray], device=None) -> DeviceDataset:
-    """One bulk copy of the packed arrays (numpy, keyed by field name) to
-    ``device``: CUDA unless the caller passes ``device="cpu"``."""
+    """One bulk copy of the packed arrays (a PackedDataset, or numpy
+    arrays keyed by field name) to ``device``: CUDA unless the caller
+    passes ``device="cpu"``."""
     device = resolve_device(device)
     return DeviceDataset(**{
         name: torch.tensor(

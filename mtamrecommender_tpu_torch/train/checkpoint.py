@@ -5,7 +5,7 @@ The JAX package writes Orbax checkpoints; Orbax imports jax, so the port
 writes its own with ``torch.save``.  A checkpoint directory holds one
 directory a step::
 
-    <directory>/<step>/state.pt      params, Adam state, step
+    <directory>/<step>/state.pt      params, optimizer state, step
     <directory>/<step>/cursor.json   the data cursor, where one was given
 
 ``state.pt`` holds only tensors, ints and dicts, so it loads with
@@ -19,13 +19,21 @@ removed only after a save has succeeded.
 Load modes (`apply_load_type`):
 
   * from_scratch — ignore any checkpoint
-  * full         — restore params, Adam state and step from the run's dir
+  * full         — restore params, optimizer state and step from the
+                   run's dir
   * fine_tune    — restore params only (fresh optimizer state, step 0)
                    from `fine_tune_load_path`
 
-The cursor is a JSON-able dict stored beside the tensors and handed back
-unchanged; the ``Trainer`` loop that fills it is not ported yet
-(ROADMAP.md, Queue 1).  The port cannot read an Orbax directory, nor the
+The optimizer state is any of `train.trainer`'s (Adam, Adadelta, RMSprop,
+SGD) in any layout (per leaf, ``flatten_optimizer``'s one vector,
+``pack_small_leaves``' packed vectors), saved as its kind, its count and
+its moment tensors by layout key; a restore checks them against the
+template's.  The cursor is a JSON-able dict stored beside the tensors
+and handed back unchanged; `Trainer._cursor_for_save` fills it with the
+epoch, the step at the epoch's start, the shuffle's numpy state, the
+step generator's state and the best metrics so far, and
+`Trainer.resume_from_cursor` reads it back for an exact resume.  The
+port cannot read an Orbax directory, nor the
 JAX package's pre-Composite "legacy" layout: a JAX checkpoint reaches the
 port by restoring it with JAX and converting the arrays with
 `bridge.load_jax_params` and `bridge.opt_state_from_jax`.
@@ -43,7 +51,8 @@ import torch
 from torch import nn
 
 from mtamrecommender_tpu_torch.config import TrainConfig
-from mtamrecommender_tpu_torch.train.trainer import AdamState, TrainState
+from mtamrecommender_tpu_torch.train.trainer import (OPT_STATES, AdamState,
+                                                     TrainState, moments)
 
 Cursor = Dict[str, Any]   # JSON-able: epoch, step_at_epoch_start, rng states
 
@@ -101,9 +110,10 @@ class Checkpointer:
             return False
         payload = {
             "params": _cpu(dict(state.model.named_parameters())),
-            "opt_state": (None if state.opt_state is None else AdamState(
-                state.opt_state.count, _cpu(state.opt_state.mu),
-                _cpu(state.opt_state.nu)).to_dict()),
+            "opt_state": (None if state.opt_state is None else {
+                "kind": state.opt_state.kind,
+                "count": int(state.opt_state.count),
+                **{k: _cpu(m) for k, m in moments(state.opt_state).items()}}),
             "step": step}
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -126,7 +136,8 @@ class Checkpointer:
                 with_cursor: bool = False):
         """A new TrainState from step ``step`` (the latest by default):
         a copy of ``template.model`` with the saved parameters, and the
-        saved Adam state on the devices of the template's, or None where
+        saved optimizer state (of the template's kind and layout) on the
+        devices of the template's, or None where
         ``template.opt_state`` is None.  Names and shapes must match the
         template's; the template is left as it was.  With
         ``with_cursor=True`` also the cursor (None where the step has
@@ -151,15 +162,19 @@ class Checkpointer:
             if saved is None:
                 raise KeyError(f"restore: step {step} holds no optimizer "
                                "state")
-            moments = {}
-            for key in ("mu", "nu"):
-                like = getattr(template.opt_state, key)
-                _check_names(f"Adam {key}", saved[key], like)
-                moments[key] = {n: t.to(device=like[n].device,
-                                        dtype=like[n].dtype)
-                                for n, t in saved[key].items()}
-            opt_state = AdamState.from_dict({"count": saved["count"],
-                                             **moments})
+            cls = type(template.opt_state)
+            # checkpoints written before the other optimizers hold Adam's
+            kind = saved.get("kind", AdamState.kind)
+            if OPT_STATES.get(kind) is not cls:
+                raise TypeError(f"restore: step {step} holds a {kind} "
+                                f"state, the template a {cls.kind} one")
+            restored = {}
+            for key, like in moments(template.opt_state).items():
+                _check_names(f"{kind} {key}", saved[key], like)
+                restored[key] = {n: t.to(device=like[n].device,
+                                         dtype=like[n].dtype)
+                                 for n, t in saved[key].items()}
+            opt_state = cls.from_dict({"count": saved["count"], **restored})
         state = TrainState(model=model, opt_state=opt_state, step=int(step))
         if not with_cursor:
             return state
@@ -177,7 +192,7 @@ class Checkpointer:
 
 def apply_load_type(cfg: TrainConfig, state: TrainState, run_ckpt_dir: str,
                     optimizer_init: Optional[Callable[[nn.Module],
-                                                      AdamState]] = None,
+                                                      Any]] = None,
                     with_cursor: bool = False):
     """Dispatch on ``cfg.load_type`` (base_model.init_variables:48-69).
 

@@ -19,6 +19,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -406,20 +407,27 @@ def test_opt_state_from_jax_refuses_other_structures():
     adam = opt_state_from_jax(good)
     assert adam.count == 0 and set(adam.mu) == set(params_from_jax(params))
     assert all(t.dtype == torch.float32 for t in adam.nu.values())
+    # the other optimizers and layouts convert (tests/test_torch_optim.py
+    # holds their values); a packed state needs the model to name entries
     flat = jax.device_get(jtrainer.make_optimizer(cfg.with_overrides(**{
         "train.flatten_optimizer": True}).train).init(params))
-    with pytest.raises(TypeError, match=r"opt_state\[1\]\.mu"):
-        opt_state_from_jax(flat)
+    assert list(opt_state_from_jax(flat).mu) == ["flat"]
     packed = jax.device_get(jtrainer.make_optimizer(cfg.with_overrides(**{
         "train.pack_small_leaves": True}).train).init(params))
-    with pytest.raises(TypeError, match=r"opt_state"):
+    with pytest.raises(ValueError, match=r"opt_state\[1\]\.mu is packed"):
         opt_state_from_jax(packed)
     rms = jax.device_get(jtrainer.make_optimizer(cfg.with_overrides(**{
         "train.optimizer": "rmsprop"}).train).init(params))
-    with pytest.raises(TypeError, match=r"opt_state\[1\] is a ScaleByRms"):
-        opt_state_from_jax(rms)
+    assert type(opt_state_from_jax(rms)).kind == "rmsprop"
+    # what no optimizer of the JAX package makes is refused
+    lion = jax.device_get(optax.scale_by_lion().init(params))
+    with pytest.raises(TypeError, match=r"opt_state\[1\] is a ScaleByLion"):
+        opt_state_from_jax((good[0], lion, good[2]))
+    mangled = (good[0], good[1]._replace(mu=[1, 2]), good[2])
+    with pytest.raises(ValueError, match="pass model="):
+        opt_state_from_jax(mangled)
     skewed = (good[0], good[1], good[2]._replace(count=np.int32(5)))
     with pytest.raises(ValueError, match="count"):
         opt_state_from_jax(skewed)
-    with pytest.raises(TypeError, match="adam chain"):
+    with pytest.raises(TypeError, match="chain's 3-tuple"):
         opt_state_from_jax(good[1])

@@ -386,10 +386,13 @@ def test_batch_from_numpy_runs_on_cuda_by_default(monkeypatch):
 
 def test_unported_training_options_raise():
     cfg = _cfg()
+    # every optimizer and layout of the JAX package is ported
+    # (tests/test_torch_optim.py); an unknown optimizer is refused
     for key, value in (("train.optimizer", "sgd"),
                        ("train.pack_small_leaves", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.make_optimizer(_cfg(**{key: value}).train)
+        ttrainer.make_optimizer(_cfg(**{key: value}).train)
+    with pytest.raises(ValueError, match="unknown optimizer 'adagrad'"):
+        ttrainer.make_optimizer(_cfg(**{"train.optimizer": "adagrad"}).train)
     _, model = _models(cfg)
     _, tb = _batches()
     unknown = get_model("MTAM")._replace(output_mode="listwise")
