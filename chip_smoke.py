@@ -135,12 +135,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      against the CPU with masks drawn on the CPU and injected on both
      sides (3 [*_drop] forward + 3 backward launches a step, the
      backward's tile design, never its rows design), then timed with the
-     card's own generator drawing the masks, and each of the three
-     timed in turns with the backward forced to its rows design
-     (default, rows, rows, default), then in turns of 10 steps with the
-     forward forced to its query design (3 fused_attention launches a
-     step in the tile design and none in the query design on the main
-     path); and
+     card's own generator drawing the masks (3 fused_attention launches
+     a step in the tile design and none in the query design); and
      Recommender.recommend for each of the three at B = 16 in bf16
      against the CPU (3 tile-design forward launches a call; MTAM's Tq =
      1 hops in phase 3 take the hop design);
@@ -152,12 +148,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      bf16, five f32 steps against the CPU as in phase 4, the step timed
      in bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1
      fused_readout, 1 fused_readout_bwd, 0 fused_attention launches a
-     step), then timed in turns of 10 steps with gru_scan_bwd forced to
-     the earlier four-product design (default, four, four, default), then with
-     gru_scan forced to the unit_column design (default, unit_column,
-     unit_column, default), then with fused_readout_bwd and then
-     fused_readout forced to the rows design (default, rows, rows,
-     default), and Recommender.recommend at L=512 for B = 1, 16, 64 in
+     step), and Recommender.recommend at L=512 for B = 1, 16, 64 in
      bf16 and f32 against the CPU (1 gru_scan + 1 fused_readout a call),
      the scoring call at B = 64 timed in turns with fused_readout forced
      to the rows design (default, rows, rows, default);
@@ -211,10 +202,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      (default, simt, simt, default);
      Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
      (in bf16 the scalar gates' gradients reported, not held), timed at
-     B = 64 in bf16 and f32 with its peak memory, MTAM's also in turns
-     with gru_scan_bwd forced to the earlier four-product design (default,
-     four, four, default) and with gru_scan forced to the unit_column
-     design (Time_Aware_SA: 3
+     B = 64 in bf16 and f32 with its peak memory (Time_Aware_SA: 3
      blockwise[time] (mma in bf16, regtile in f32) + 3 dense_bwd[time] +
      4 dtable a step, no
      fused_attention_bwd; MTAM: 1 gru_scan + 1 gru_scan_bwd + 4 dtable,
@@ -309,6 +297,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      command's seconds from launch to its first step.  The runs live in
      the ignored build/phase10/, removed afterwards.
      `python3 chip_smoke.py --only 10` builds and runs phase 10 alone.
+  11. multi-head attention and the last single-device modules, on phase
+     4's cell at num_heads = 2 (d=128, 64 a head; the attention and
+     readout kernels take one head, so the attention takes the dense
+     route, `dense_fwd`, as the JAX package takes its jnp path): MTAM's
+     step against the CPU at B=64 in f32 and bf16 (1 gru_scan + 1
+     gru_scan_bwd + 4 dtable, no attention, readout or chain kernel), 8
+     timed steps after 2 warm-up at B=256 in bf16 and f32, recommend
+     k=50 at B=16 against the CPU and at B=256 (1 gru_scan + 3
+     dense_fwd[time] a call); Time_Aware_SA, SASrec and TiSAS one step
+     each against the CPU in f32 and bf16 (SASrec's and TiSAS's [B, 2,
+     L, L] masks drawn on the CPU and injected on both sides; 3
+     dense_fwd in the model's mode + 4 dtable a step), then 8 timed bf16
+     steps; MTAM at L=512, B=16 (phase 6's cell) one f32 step against
+     the CPU (no fused_readout launch) and recommend at B=16 against the
+     CPU; PISTRec one f32 step against the CPU; the phase's MTAM from
+     disk (2 steps, a Checkpointer save, figures.heatmap_arrays of
+     Recommender.from_checkpoint on the card and the CPU within 1e-5,
+     the item tables equal); the five layer helpers on CUDA tensors
+     against the CPU within 1e-6 (output and input gradient).
+     `python3 chip_smoke.py --only 11` builds and runs phase 11 alone.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
@@ -2345,10 +2353,12 @@ def _kernel_modules():
 
 
 def one_step_check(torch, setup, failures, name, want, drop_masks=None,
-                   hold_bf16_scalars=True, neg_id=None):
+                   hold_bf16_scalars=True, neg_id=None,
+                   dtypes=("float32", "bfloat16")):
     """One step's loss and every gradient leaf on the card against the
-    CPU (the plain twins), in f32 and bf16, and the step's launches
-    against ``want``.  ``drop_masks``: CPU masks, one per block (or
+    CPU (the plain twins), in each of ``dtypes`` (f32 first: bf16 is held
+    against it too), and the step's launches against ``want``.
+    ``drop_masks``: CPU masks, one per block (or
     readout hop), injected on both sides; ``neg_id``: the bpr loss's
     negative item, likewise.  Without ``hold_bf16_scalars`` the bf16 gradients of
     scalar leaves (the scalar decay gates) are reported, not held: at
@@ -2358,7 +2368,7 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
     on_card = None if drop_masks is None else [m.to(DEVICE)
                                                 for m in drop_masks]
     report, cpu32 = {}, None
-    for dname in ("float32", "bfloat16"):
+    for dname in dtypes:
         cfg = setup.cfg(dname, name)
         m_cpu, g_cpu = _loss_grads(torch, cfg, setup.model(torch, cfg, "cpu"),
                                    setup.batch_cpu, vocab, drop_masks,
@@ -2813,11 +2823,9 @@ def run_self_attention(torch, setup, failures):
     """Phase 5: the three self-attention models on phase 4's data.
     Time_Aware_SA as phase 4 checks MTAM; SASrec and TiSAS one step in
     f32 and bf16 with masks drawn on the CPU and injected on both sides,
-    then timed with the card's generator; each step then timed in turns
-    with the attention backward forced to its rows design (default,
-    rows, rows, default), then in turns of 10 steps with the forward
-    forced to its query design; Recommender.recommend for each at B = 16
-    in bf16 against the CPU."""
+    then timed with the card's generator; Recommender.recommend for each
+    at B = 16 in bf16 against the CPU.  (Phase 2c holds and times the
+    attention pair's earlier designs forced.)"""
     from mtamrecommender_tpu_torch.ops import layers
 
     report, main_launches = {}, {}
@@ -2836,10 +2844,6 @@ def run_self_attention(torch, setup, failures):
                                                          failures, name)
         rep.update(timed_steps(torch, setup, failures, name, want,
                                main_launches))
-        rep.update(steps_in_turns(torch, setup, failures, name, want,
-                                  kernel="fused_attention_bwd"))
-        rep.update(steps_in_turns(torch, setup, failures, name, want,
-                                  kernel="fused_attention", steps=10))
         report[name] = rep
     serving, serve_launches = serve_self_attention(torch, setup, failures)
     report["serving"] = serving
@@ -3000,10 +3004,11 @@ def run_long_history(torch, setup, failures):
     """Phase 6: MTAM over long histories.  One step's loss and every
     gradient leaf, and five f32 steps, against the CPU; the step timed in
     bf16 and f32 (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1 fused_readout,
-    1 fused_readout_bwd and no fused_attention launch a step), then in
-    turns with gru_scan_bwd, gru_scan and fused_readout_bwd each forced to
-    its earlier design; then Recommender.recommend at B = 1, 16, 64
-    against the CPU (1 gru_scan + 1 fused_readout a call)."""
+    1 fused_readout_bwd and no fused_attention launch a step); then
+    Recommender.recommend at B = 1, 16, 64 against the CPU (1 gru_scan +
+    1 fused_readout a call), the scoring call timed in turns with
+    fused_readout forced to its rows design.  (Phase 2d holds and times
+    the readout and GRU kernels' earlier designs forced.)"""
     report = {"ids_in_range": setup.ids_in_range}
     if not all(report["ids_in_range"].values()):
         failures.append("long-history ids out of range: "
@@ -3016,12 +3021,6 @@ def run_long_history(torch, setup, failures):
     launches = {}
     report.update(timed_steps(torch, setup, failures, "MTAM", want,
                               launches))
-    # each design forced in turns, 10 steps a turn (the main path's timed
-    # run above takes 20)
-    for kernel in ("gru_scan_bwd", "gru_scan", "fused_readout_bwd",
-                   "fused_readout"):
-        report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
-                                     kernel=kernel, steps=10))
     want_call = _want_counts(0)
     want_call["gru_scan"]["tgru"] = 1
     want_call["fused_readout"]["fused_readout"] = 1
@@ -4244,10 +4243,6 @@ def run_xl_history(torch, setup, failures):
                          hold_bf16_scalars=False)
     rep.update(timed_steps(torch, setup, failures, "MTAM", want, hops,
                            steps=5, warm=2))
-    rep.update(steps_in_turns(torch, setup, failures, "MTAM", want,
-                              steps=5, warm=2))
-    rep.update(steps_in_turns(torch, setup, failures, "MTAM", want,
-                              kernel="gru_scan", steps=5, warm=2))
     report["training"]["MTAM"] = rep
     for name, mode in (("SASrec", "plain_drop"),
                        ("Ti_Self_Attention_Model", "tisas_drop")):
@@ -5543,6 +5538,276 @@ def _run_from_log_phase(torch, failures):
     return from_log, launches
 
 
+# ------------------------------------------------------------ phase 11
+
+HEADS = 2                  # phase 11's head count: d = 128, 64 a head
+HEADS_TIMED_STEPS = 8      # timed make_superstep steps a model and dtype
+HEADS_LONG_BATCH = 16      # MTAM at L=512: the rows held against the CPU
+HEADS_DISK_ROWS = 4        # the figures' test batch
+HEADS_DISK_TOL = 1e-5      # the heatmaps, card vs CPU, absolute
+HELPER_TOL = 1e-6          # the layer helpers, card vs CPU, relative
+# the self-attention models and their dense-route mode at HEADS heads:
+# SASrec and TiSAS at the cell's dropout 0.5, masks [B, h, L, L]
+HEADS_SELF_ATTENTION = {"Time_Aware_Self_Attention_Model": "time",
+                        "SASrec": "plain_drop",
+                        "Ti_Self_Attention_Model": "tisas_drop"}
+
+
+class HeadsSetup(ZooSetup):
+    """Phase 4's cell (its data, order and catalog) at HEADS heads, the
+    one-step checks on the first ``batch`` rows of phase 4's first
+    batch."""
+
+    def cfg(self, dname, name="MTAM"):
+        return super().cfg(dname, name).with_overrides(
+            **{"model.num_heads": HEADS})
+
+
+class LongHeadsSetup:
+    """Phase 6's cell at HEADS heads, its first HEADS_LONG_BATCH rows."""
+
+    model = TrainSetup.model
+
+    def __init__(self, long_setup):
+        from mtamrecommender_tpu_torch.data.device_data import gather_batch
+
+        self.meta = long_setup.meta
+        self.batch = gather_batch(long_setup.data, long_setup.order, 0,
+                                  HEADS_LONG_BATCH)
+        self.batch_cpu = gather_batch(long_setup.data_cpu,
+                                      long_setup.order_cpu, 0,
+                                      HEADS_LONG_BATCH)
+
+    @staticmethod
+    def cfg(dname, name="MTAM"):
+        return long_cfg(dname, name).with_overrides(
+            **{"model.num_heads": HEADS})
+
+
+def _heads_call_want():
+    """One MTAM scoring call at HEADS heads: 1 gru_scan, then the three
+    hops on the dense route, no attention kernel."""
+    want = _want_counts(0)
+    want["gru_scan"]["tgru"] = 1
+    want["dense_fwd"]["time"] = 3
+    return want
+
+
+def heads_mtam(torch, setup, failures, launches):
+    """MTAM at HEADS heads on phase 4's cell: one step against the CPU in
+    f32 and bf16 (1 gru_scan + 1 gru_scan_bwd + 4 dtable, no attention,
+    readout or chain kernel), HEADS_TIMED_STEPS timed steps in each, and
+    recommend at B = 16 against the CPU and at B = 256 timed."""
+    want = lambda steps, dname: _want_counts(steps, gru="tgru")  # noqa: E731
+    rep = one_step_check(torch, setup, failures, "MTAM", want)
+    rep.update(timed_steps(torch, setup, failures, "MTAM", want, launches,
+                           steps=HEADS_TIMED_STEPS, warm=2))
+    rep["serving"], got = serve_mtam(
+        torch, 5, failures, setup.meta,
+        {"model.num_heads": HEADS, "model.vocab_pad_multiple": 128},
+        (16, TRAIN_BATCH), _heads_call_want(), f"heads={HEADS} serve")
+    _add_launches(launches, got)
+    return rep
+
+
+def heads_self_attention(torch, setup, failures, launches):
+    """The three self-attention models at HEADS heads: one step each
+    against the CPU in f32 and bf16 (SASrec's and TiSAS's [B, h, L, L]
+    masks drawn on the CPU and injected on both sides; 3 dense_fwd in
+    the model's mode and 4 dtable a step, no attention kernel), then
+    HEADS_TIMED_STEPS timed bf16 steps with the card's generator."""
+    from mtamrecommender_tpu_torch.ops import layers
+
+    report = {}
+    b, L = setup.batch_cpu.items.shape
+    for name, mode in HEADS_SELF_ATTENTION.items():
+        want = lambda steps, dname, m=mode: _want_counts(  # noqa: E731
+            steps, dense_fwd=m)
+        masks = None
+        if mode.endswith("_drop"):
+            gen = torch.Generator().manual_seed(111)
+            masks = [layers.draw_drop_mask(gen, b, L, L, 0.5, "cpu",
+                                           num_heads=HEADS)
+                     for _ in range(3)]
+        rep = one_step_check(torch, setup, failures, name, want, masks)
+        rep.update(timed_steps(torch, setup, failures, name, want, launches,
+                               steps=HEADS_TIMED_STEPS, warm=2,
+                               dtypes=("bfloat16",)))
+        report[name] = rep
+    return report
+
+
+def heads_long(torch, long_setup, failures, launches):
+    """MTAM at HEADS heads on phase 6's cell (L=512, the scalar gate), B
+    = 16, f32: one step against the CPU with no fused_readout or
+    fused_readout_bwd launch (256 to 1024 keys leave the readout kernels
+    at h > 1), then recommend at B = 16 against the CPU."""
+    setup = LongHeadsSetup(long_setup)
+    want = lambda steps, dname: _want_counts(steps, gru="tgru")  # noqa: E731
+    rep = one_step_check(torch, setup, failures, "MTAM", want,
+                         dtypes=("float32",))
+    rep["serving"], got = serve_mtam(
+        torch, 3, failures, setup.meta,
+        {"model.num_heads": HEADS, **LONG_OVERRIDES}, (HEADS_LONG_BATCH,),
+        _heads_call_want(), f"heads={HEADS} L={LONG_L} serve")
+    _add_launches(launches, got)
+    return rep
+
+
+def heads_from_disk(torch, setup, failures, launches):
+    """The phase's MTAM from disk: 2 f32 make_superstep steps on the card,
+    a Checkpointer save, then the figures' path up to its arrays
+    (`figures.heatmap_arrays` of a Recommender.from_checkpoint) on the
+    card and on the CPU: the heatmaps of a HEADS_DISK_ROWS-row test batch
+    within HEADS_DISK_TOL, the item tables equal.  The t-SNE and the PNGs
+    are host work the CPU tests hold (no sklearn or matplotlib here)."""
+    import shutil
+    import tempfile
+
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.serve import Recommender
+    from mtamrecommender_tpu_torch.train.checkpoint import Checkpointer
+    from mtamrecommender_tpu_torch.train.trainer import (TrainState,
+                                                         make_optimizer,
+                                                         make_superstep)
+    from mtamrecommender_tpu_torch.utils import figures
+
+    cfg = setup.cfg("float32")
+    model = setup.model(torch, cfg, DEVICE)
+    opt = make_optimizer(cfg.train)
+    run = make_superstep(get_model("MTAM"), cfg, opt, setup.meta.item_vocab,
+                         setup.batch_size)
+    _reset_counts()
+    run(model, opt.init(model), setup.data, setup.order, 0, 2)
+    torch.cuda.synchronize()
+    steps = _counts()
+    _add_launches(launches, steps)
+    rows = type(setup.batch_cpu)(*(t[:HEADS_DISK_ROWS]
+                                   for t in setup.batch_cpu))
+    root = tempfile.mkdtemp(prefix="chip_smoke_heads_")
+    try:
+        Checkpointer(root).save(TrainState(model, None, 2))
+        heat, table = {}, {}
+        for dev in (DEVICE, "cpu"):
+            rec = Recommender.from_checkpoint(cfg, setup.meta, root,
+                                              device=dev)
+            heat[dev] = figures.heatmap_arrays(rec, rows, HEADS_DISK_ROWS)
+            table[dev] = rec.model.embedding.item_table.detach().cpu()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(heat[DEVICE], heat["cpu"]))
+    ok = (len(heat[DEVICE]) == HEADS_DISK_ROWS and err <= HEADS_DISK_TOL
+          and torch.equal(table[DEVICE], table["cpu"])
+          and steps == _want_counts(2, gru="tgru")
+          and all(np.isfinite(h).all() for h in heat[DEVICE]))
+    report = {"heatmap_max_abs_err": err, "tol": HEADS_DISK_TOL,
+              "heatmap_shapes": [list(h.shape) for h in heat[DEVICE]],
+              "launches_2_steps": steps, "ok": ok}
+    print(f"heads={HEADS} from disk: heatmaps "
+          f"{report['heatmap_shapes']} card vs CPU max abs err {err:.3e}, "
+          f"item tables equal {torch.equal(table[DEVICE], table['cpu'])} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"heads from disk: {report}")
+    return report
+
+
+def heads_layer_helpers(torch, failures):
+    """The five layer helpers on CUDA tensors against the CPU (B=256,
+    L=50, d=128, lengths 1 to L): the output and the input's gradient of
+    sum(out * cotangent), each within HELPER_TOL of the CPU's largest
+    |value|."""
+    from mtamrecommender_tpu_torch.ops import layers
+
+    gen = torch.Generator().manual_seed(28)
+    B, L, D = TRAIN_BATCH, 50, 128
+    x = torch.randn(B, L, D, generator=gen)
+    lengths = torch.randint(1, L + 1, (B,), generator=gen)
+    lengths[0] = L
+    alpha = torch.rand(D, generator=gen)
+    helpers = {
+        "sequential_average_pooling":
+            lambda x, a, n: layers.sequential_average_pooling(x, n),
+        "sequential_max_pooling":
+            lambda x, a, n: layers.sequential_max_pooling(x, n),
+        "prelu": lambda x, a, n: layers.prelu(x, a),
+        "dice": lambda x, a, n: layers.dice(x, a),
+        "gelu": lambda x, a, n: layers.gelu(x)}
+    report = {}
+    for name, fn in helpers.items():
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            xin = x.detach().clone().to(dev).requires_grad_(True)
+            out = fn(xin, alpha.to(dev), lengths.to(dev))
+            cot = torch.randn(out.shape, generator=torch.Generator(
+            ).manual_seed(29)).to(dev)
+            (out * cot).sum().backward()
+            runs[dev] = (out.detach().cpu(), xin.grad.cpu())
+        errs = [rel_err(got, want)[1]
+                for got, want in zip(runs[DEVICE], runs["cpu"])]
+        ok = max(errs) <= HELPER_TOL and all(
+            bool(torch.isfinite(t).all()) for t in runs[DEVICE])
+        report[name] = {"out_rel_err": errs[0], "grad_rel_err": errs[1],
+                        "ok": ok}
+        print(f"layer helper {name:26s} card vs CPU rel err out "
+              f"{errs[0]:.3e} grad {errs[1]:.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"layer helper {name}: {report[name]}")
+    return report
+
+
+def run_heads(torch, setup, long_setup, failures):
+    """Phase 11: multi-head attention and the last single-device modules
+    on the card.  Returns (report, the L=50 main path's launches, the
+    L=512 part's launches)."""
+    heads = HeadsSetup(setup, ZOO_CHECK_BATCH)
+    report, launches, long_launches = {}, {}, {}
+    t0 = time.perf_counter()
+    report["MTAM"] = heads_mtam(torch, heads, failures, launches)
+    report["self_attention"] = heads_self_attention(torch, heads, failures,
+                                                    launches)
+    report["MTAM@L512"] = heads_long(torch, long_setup, failures,
+                                     long_launches)
+    want = lambda steps, dname: _want_counts(  # noqa: E731
+        steps, gru="tseqrec", dense_fwd="time")
+    report["pistrec"] = one_step_check(torch, heads, failures, "pistrec",
+                                       want, dtypes=("float32",))
+    report["from_disk"] = heads_from_disk(torch, heads, failures, launches)
+    report["layer_helpers"] = heads_layer_helpers(torch, failures)
+    report["seconds"] = time.perf_counter() - t0
+    fired = {k: {str(m): n for m, n in v.items() if n}
+             for k, v in launches.items()}
+    print(f"heads={HEADS} main path launches (L=50): "
+          f"{ {k: v for k, v in fired.items() if v} }", flush=True)
+    return report, launches, long_launches
+
+
+def _run_heads_phase(torch, setup, long_setup, failures):
+    """Phase 11 and the check that its main path ran the GRU pair and
+    dtable, and no attention, readout or chain kernel (at h > 1 the
+    attention takes the dense route, as in the JAX package)."""
+    report, launches, long_launches = run_heads(torch, setup, long_setup,
+                                                failures)
+    for kname, mode in (("gru_scan", "tgru"), ("gru_scan_bwd", "tgru"),
+                        ("dtable", None)):
+        if launches.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "multi-head path")
+    if launches.get("dense_fwd", {}).get("time", 0) == 0:
+        failures.append("the multi-head path never took the dense route")
+    for counts in (launches, long_launches):
+        for kname in ("fused_attention", "fused_attention_bwd",
+                      "fused_attention_blockwise", "fused_readout",
+                      "fused_readout_bwd", "readout_chain",
+                      "readout_chain_bwd"):
+            if any(counts.get(kname, {}).values()):
+                failures.append(f"{kname} was launched on the multi-head "
+                                f"path: {counts[kname]}")
+    return report, launches, long_launches
+
+
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
@@ -5635,7 +5900,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
-    parser.add_argument("--only", choices=["10"], default=None,
+    parser.add_argument("--only", choices=["10", "11"], default=None,
                         help="build, then run only this phase, and write "
                              "its report to chiprun_out/chip_smoke_<n>.json "
                              "(no result line)")
@@ -5769,6 +6034,25 @@ def main(argv=None) -> int:
                        "from_log": from_log, "launches": {
                            k: {str(m): n for m, n in v.items()}
                            for k, v in log_launches.items()},
+                       "failures": failures}, f, indent=1, default=str)
+        print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
+        for msg in failures:
+            print(f"FAIL {msg}", file=sys.stderr)
+        return 1 if failures else 0
+    if args.only == "11":
+        heads, heads_launches, heads_long = _run_heads_phase(
+            torch, TrainSetup(torch), LongSetup(torch), failures)
+        lap("11")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_11.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "phase_s": phase_s,
+                       "heads": heads, "launches": {
+                           k: {str(m): n for m, n in v.items()}
+                           for k, v in heads_launches.items()},
+                       "launches_L512": {
+                           k: {str(m): n for m, n in v.items()}
+                           for k, v in heads_long.items()},
                        "failures": failures}, f, indent=1, default=str)
         print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
         for msg in failures:
@@ -5921,23 +6205,32 @@ def main(argv=None) -> int:
     # phase 10: the command line end to end, from a generated log
     from_log, log_launches = _run_from_log_phase(torch, failures)
     lap("10")
+
+    # phase 11: multi-head attention and the last single-device modules
+    heads, heads_launches, heads_long = _run_heads_phase(
+        torch, setup, long_setup, failures)
+    lap("11")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
     # launches on the main paths: MTAM's and the zoo models' at L=50
-    # (phases 3, 4, 8 and 9) run the attention kernels at Tq=1 and the
+    # (phases 3, 4, 8, 9 and 11) run the attention kernels at Tq=1 and the
     # chain pair (phases 4, 8 and 9's steps), the GRU pair in all three
     # modes (phase 9: plain and tseqrec), the self-attention models'
     # (phase 5, and PISTRec's blocks in phase 9) at Tq=Tk=50; MTAM's at
-    # L=512 (phase 6) the readout and GRU kernels
+    # L=512 (phases 6 and 11) the readout and GRU kernels; phase 11's
+    # multi-head paths the GRU pair and dtable only
     mtam_launches = {k: dict(v) for k, v in serve_launches.items()}
     _add_launches(mtam_launches, train_launches)
     _add_launches(mtam_launches, disk_launches)
     _add_launches(mtam_launches, zoo_launches)
     _add_launches(mtam_launches, log_launches)
+    _add_launches(mtam_launches, heads_launches)
     l50_launches = copy.deepcopy(train_launches)
     _add_launches(l50_launches, disk_launches)
     _add_launches(l50_launches, zoo_launches)
     _add_launches(l50_launches, log_launches)
+    _add_launches(l50_launches, heads_launches)
+    _add_launches(long_launches, heads_long)
     # the chain pair's @L50 rows are 3 hops; its one-hop launches (NARM+,
     # NARM++) go to the @L50h1 rows
     for kname in ("readout_chain", "readout_chain_bwd"):
@@ -6019,6 +6312,10 @@ def main(argv=None) -> int:
                        group: {k: {str(m): n for m, n in v.items()}
                                for k, v in by_kernel.items()}
                        for group, by_kernel in zoo_groups.items()},
+                   "heads": heads,
+                   "launches_heads": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in heads_launches.items()},
                    "failures": failures}, f, indent=1, default=str)
     if failures:
         for msg in failures:

@@ -18,7 +18,13 @@ Python builder and its cache on RuntimeError), train with
 from the latest checkpoint with ``--set train.load_type=full``.
 
 It runs on CUDA unless ``--device cpu``.  ``--use_pallas`` is accepted
-and ignored (the port routes to its kernels by shape).
+and ignored (the port routes to its kernels by shape).  ``--set
+model.num_heads=2`` (any count dividing ``model.num_units``) runs
+multi-head attention in every model that reads it (MTAM, PISTRec, the
+self-attention models), as the JAX package does on its jnp path: the
+attention and readout kernels take one head, so the attention takes
+the dense route (plain PyTorch) while the GRU and table kernels still
+run.
 ``--model_parallel > 1`` and ``--embedding_engine`` raise
 NotImplementedError: ``parallel/`` is not ported (ROADMAP.md, Queue 1
 item 7).  ``--profile`` writes a torch.profiler trace of the fit under

@@ -1,18 +1,21 @@
 """Attention modules (twin of mtamrecommender_tpu/ops/attention.py).
 
 Plain multi-head attention (SASrec), MTAM's time-gated attention and the
-TiSAS log-interval bias, one head each.  Every variant takes the JAX
-package's kernel route: relu Q/K/V projections as matmuls, the middle
-(scores -> gate or bias -> key mask -> softmax -> dropout -> weighted
-sum) through `fused_attention_vjp` (ops/kernels/attention_kernel.py),
-then `_tail`: query mask, residual and the attention modules' normalize
-(eps 1e-8).  The middle routes by key count (`_middle`), as JAX's does:
-up to 1024 keys the single-tile `fused_attention` kernel, whose backward
-is the `fused_attention_bwd` kernel; above, up to 32768 keys and without
+TiSAS log-interval bias, with ``num_heads`` heads.  Every variant takes
+the JAX package's kernel route: relu Q/K/V projections as matmuls, the
+middle (scores -> gate or bias -> key mask -> softmax -> dropout ->
+weighted sum) through `fused_attention_vjp`
+(ops/kernels/attention_kernel.py), then `_tail`: query mask, residual
+and the attention modules' normalize (eps 1e-8).  The middle routes by
+head and key count (`_middle`), as JAX's does: at one head up to 1024
+keys the single-tile `fused_attention` kernel, whose backward is the
+`fused_attention_bwd` kernel; above, up to 32768 keys and without
 dropout, the blockwise kernel, whose backward is JAX's recompute through
-autograd of `reference_middle`; a drop mask above 1024 keys, or more
-than 32768 keys, takes the dense route (`dense_attention`, plain PyTorch,
-JAX's jnp path there).
+autograd of `reference_middle`; more than one head (the kernels take
+one, as the Pallas kernels do), a drop mask above 1024 keys, or more
+than 32768 keys takes the dense route (`dense_attention`, plain PyTorch,
+JAX's jnp path there), with the heads on an einsum axis of their own.
+The head count must divide d (`ValueError` otherwise).
 
   * `self_attention_stack` (Tq = Tk = L) trains and serves the three
     self-attention models.  Plain and TiSAS attention drop attention
@@ -35,7 +38,9 @@ JAX's jnp path there).
     `plain_single_query_readout` (plain PyTorch, JAX's hop-batched jnp
     readout) at every length, with one attention-weight dropout mask a
     hop from ``gen``; serving runs hop by hop on the attention kernel in
-    plain mode.
+    plain mode.  The readout kernels take one head: with more, training
+    runs `single_query_readout` / `plain_single_query_readout` at every
+    length and serving runs hop by hop on the dense route, as JAX does.
 
 Faithfulness notes kept from the JAX package:
   * the content-time term tanh(Q W_t K^T) uses the RAW queries/keys;
@@ -160,11 +165,13 @@ def _tail(p: MHABlock, out: torch.Tensor, queries: torch.Tensor,
     return layers.normalize(p.ln, out * qmask + queries)
 
 
-def _one_head(num_heads: int) -> None:
-    if num_heads != 1:
-        raise NotImplementedError(
-            "the fused attention kernel takes one head; multi-head "
-            "attention is not ported yet (ROADMAP.md)")
+def _head_width(d: int, num_heads: int) -> int:
+    """d / num_heads, the width of a head; a count that does not divide d
+    raises."""
+    if num_heads < 1 or d % num_heads:
+        raise ValueError(f"num_heads={num_heads} must divide the width "
+                         f"d={d}")
+    return d // num_heads
 
 
 def _project(p: MHABlock, queries: torch.Tensor, keys: torch.Tensor):
@@ -175,18 +182,22 @@ def _project(p: MHABlock, queries: torch.Tensor, keys: torch.Tensor):
 
 
 def _drop_mask(queries, keys, dropout_rate: float, train: bool,
-               gen: Optional[layers.MaskSource]) -> Optional[torch.Tensor]:
+               gen: Optional[layers.MaskSource],
+               num_heads: int) -> Optional[torch.Tensor]:
     """The mask a dropping call applies: the next from ``gen`` in
-    training at a positive rate; None (no dropout) otherwise, as in the
-    JAX package without an rng."""
+    training at a positive rate, [B, Tq, Tk] at one head and [B, h, Tq,
+    Tk] at h > 1; None (no dropout) otherwise, as in the JAX package
+    without an rng."""
     if not train or dropout_rate <= 0.0 or gen is None:
         return None
     return layers.draw_drop_mask(gen, queries.shape[0], queries.shape[1],
-                                 keys.shape[1], dropout_rate, queries.device)
+                                 keys.shape[1], dropout_rate, queries.device,
+                                 num_heads)
 
 
 def _untimed_attention(kind: str, p: MHABlock, queries, keys, key_len,
-                       query_len, t_queries, t_keys, dm) -> torch.Tensor:
+                       query_len, t_queries, t_keys, dm,
+                       num_heads: int) -> torch.Tensor:
     """Plain or TiSAS attention on the kernel route (`_plain_attention_
     pallas` / `_tisas_attention_pallas`): the modes that read no gate
     take zeros for it, plain mode zeros for the hour stamps too."""
@@ -199,20 +210,23 @@ def _untimed_attention(kind: str, p: MHABlock, queries, keys, key_len,
     mode = kind if dm is None else f"{kind}_drop"
     out = _middle(mode, q, k, v, t_queries.contiguous(), t_keys.contiguous(),
                   torch.zeros_like(q), torch.zeros_like(k), zg, zg, zg, zg, zg,
-                  key_len.to(torch.int32), dm)
+                  key_len.to(torch.int32), dm, num_heads=num_heads)
     return _tail(p, out.to(queries.dtype), queries, query_len)
 
 
-def _middle(mode: str, *args) -> torch.Tensor:
+def _middle(mode: str, *args, num_heads: int) -> torch.Tensor:
     """The attention middle by `attention_kernel.route`: the kernels
-    through `fused_attention_vjp` (single tile up to 1024 keys, blockwise
-    above), or `dense_attention` where they do not reach (a drop mask
-    above 1024 keys, or more than `attention_kernel.MAX_KEYS`), as the JAX
-    package takes its jnp path there.  ``args``: those of
-    `fused_attention`, the drop mask (or None) last."""
-    if attention_kernel.route(args[1].shape[1], args[-1] is not None) \
-            == "dense":
-        return attention_kernel.dense_attention(mode, *args)
+    through `fused_attention_vjp` (one head: single tile up to 1024 keys,
+    blockwise above), or `dense_attention` where they do not reach (more
+    than one head, a drop mask above 1024 keys, or more than
+    `attention_kernel.MAX_KEYS`), as the JAX package takes its jnp path
+    there.  ``args``: those of `fused_attention`, the drop mask (or None)
+    last."""
+    _head_width(args[0].shape[-1], num_heads)
+    if attention_kernel.route(args[1].shape[1], args[-1] is not None,
+                              num_heads) == "dense":
+        return attention_kernel.dense_attention(mode, *args,
+                                                num_heads=num_heads)
     return attention_kernel.fused_attention_vjp(mode, *args)
 
 
@@ -223,13 +237,12 @@ def multihead_attention(p: MHABlock, queries: torch.Tensor,
                         gen: Optional[layers.MaskSource] = None
                         ) -> torch.Tensor:
     """Plain MHA (multihead_attention.py:71-193) with attention-weight
-    dropout in training: one f32 [B, Tq, Tk] mask (0 or 1/keep) drawn
-    from ``gen``, or the next of the masks it yields.  Returns
-    [B, Tq, d] in the queries' type."""
-    _one_head(num_heads)
-    dm = _drop_mask(queries, keys, dropout_rate, train, gen)
+    dropout in training: one f32 mask (0 or 1/keep), [B, Tq, Tk] at one
+    head and [B, h, Tq, Tk] at h > 1, drawn from ``gen``, or the next of
+    the masks it yields.  Returns [B, Tq, d] in the queries' type."""
+    dm = _drop_mask(queries, keys, dropout_rate, train, gen, num_heads)
     return _untimed_attention("plain", p, queries, keys, key_len, query_len,
-                              None, None, dm)
+                              None, None, dm, num_heads)
 
 
 def tisas_multihead_attention(p: MHABlock, queries: torch.Tensor,
@@ -241,11 +254,11 @@ def tisas_multihead_attention(p: MHABlock, queries: torch.Tensor,
                               gen: Optional[layers.MaskSource] = None
                               ) -> torch.Tensor:
     """TiSAS: scores += log(|dt|+1) (time_aware_attention.py:73-214),
-    with dropout as `multihead_attention`."""
-    _one_head(num_heads)
-    dm = _drop_mask(queries, keys, dropout_rate, train, gen)
+    with dropout as `multihead_attention`.  The bias is one per (row,
+    query, key), shared by the heads."""
+    dm = _drop_mask(queries, keys, dropout_rate, train, gen, num_heads)
     return _untimed_attention("tisas", p, queries, keys, key_len, query_len,
-                              t_queries, t_keys, dm)
+                              t_queries, t_keys, dm, num_heads)
 
 
 def time_aware_multihead_attention(p: TimeAttentionBlock,
@@ -260,17 +273,18 @@ def time_aware_multihead_attention(p: TimeAttentionBlock,
     in the queries' type, differentiable through the backward kernel.
     The reference leaves dropout off here.  Scalar gates are broadcast
     to the kernel's [Tq, Tk] tiles, and autograd sums their gradients
-    back (JAX keeps scalar gates on its jnp path, with the same math)."""
-    _one_head(num_heads)
+    back (JAX keeps scalar gates on its jnp path, with the same math).
+    With h > 1 heads the gate, its content term on the raw queries and
+    keys, is one per (row, query, key) and scales every head's scores."""
     q, k, v = _project(p, queries, keys)
     tqw = torch.matmul(queries, p.time_input_w)
     t_q_len, t_k_len = queries.shape[1], keys.shape[1]
     gates = [getattr(p, name) for name in GATE_PARAMS]
-    if attention_kernel.route(t_k_len, False) != "dense":
+    if attention_kernel.route(t_k_len, False, num_heads) != "dense":
         gates = [_gate_tile(g, t_q_len, t_k_len) for g in gates]
     out = _middle("time", q, k, v, t_queries.contiguous(),
                   t_keys.contiguous(), tqw, keys.contiguous(), *gates,
-                  key_len.to(torch.int32), None)
+                  key_len.to(torch.int32), None, num_heads=num_heads)
     return _tail(p, out.to(queries.dtype), queries, query_len)
 
 
@@ -359,25 +373,29 @@ def single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
     """The n Tq=1 time-attention hops in plain PyTorch (twin of the JAX
     `_fused_single_query_readout`, time kind): `_readout_precompute`,
     then only the query chain dec_0 -> dec_1 -> ... hop by hop, under
-    autograd.  enc: [B, Tk, d]; dec: [B, 1, d]; returns [B, d]."""
-    _one_head(num_heads)
-    d, tk = enc.shape[2], enc.shape[1]
+    autograd.  With h heads K and V split [n, B, Tk, h, d/h] and each
+    hop's query [B, h, d/h]; the gate, [B, Tk], scales every head's
+    scores.  enc: [B, Tk, d]; dec: [B, 1, d]; returns [B, d]."""
+    b, tk, d = enc.shape
+    dh = _head_width(d, num_heads)
     k_all, v_all, tprec, gate_part, wo2 = _readout_precompute(
         blocks, enc, t_queries, t_keys)
-    kmask = layers.sequence_mask(key_len, tk)                      # [B, Tk]
+    k_all = k_all.reshape(len(blocks), b, tk, num_heads, dh)
+    v_all = v_all.reshape(len(blocks), b, tk, num_heads, dh)
+    kmask = layers.sequence_mask(key_len, tk)[:, None, :]          # [B,1,Tk]
     # the per-hop query mask: a row with query_len == 0 keeps only its
     # residual and normalize
     qz = (query_len > 0).to(dec.dtype)[:, None]                    # [B, 1]
     cur = dec[:, 0, :]
     for i, p in enumerate(blocks):
-        q = layers.dense(p.q, cur, torch.relu)
-        scores = torch.einsum("be,ble->bl", q, k_all[i])
+        q = layers.dense(p.q, cur, torch.relu).reshape(b, num_heads, dh)
+        scores = torch.einsum("bhe,blhe->bhl", q, k_all[i])
         tqk = torch.tanh(torch.einsum("bd,bld->bl", cur, tprec[i]))
-        scores = scores * torch.sigmoid(gate_part[i] + wo2[i] * tqk)
-        scores = scores / d ** 0.5
+        gate = torch.sigmoid(gate_part[i] + wo2[i] * tqk)        # [B, Tk]
+        scores = scores * gate[:, None, :] / dh ** 0.5
         scores = torch.where(kmask, scores, torch.full_like(scores, NEG_FILL))
         weights = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bl,ble->be", weights, v_all[i])
+        out = torch.einsum("bhl,blhe->bhe", weights, v_all[i]).reshape(b, d)
         cur = layers.normalize(p.ln, out * qz + cur)
     return cur
 
@@ -391,27 +409,31 @@ def plain_single_query_readout(blocks, enc: torch.Tensor, dec: torch.Tensor,
     """The n Tq=1 plain-attention hops in plain PyTorch (twin of the JAX
     `_fused_single_query_readout`, plain kind): the K/V projections of
     all hops batched (`_kv_precompute`), then the query chain hop by hop
-    under autograd.  In training at a positive rate each hop drops
-    attention weights with its own mask, f32 [B, 1, Tk] from ``gen``
-    (`layers.draw_drop_mask`), drawn in hop order; JAX folds the hop
-    index into its rng for the same [B, h, 1, Tk] draw.  enc: [B, Tk, d];
-    dec: [B, 1, d]; returns [B, d]."""
-    _one_head(num_heads)
+    under autograd, with the heads split as in `single_query_readout`.
+    In training at a positive rate each hop drops attention weights with
+    its own mask from ``gen`` (`layers.draw_drop_mask`), f32 [B, 1, Tk]
+    at one head and [B, h, 1, Tk] at h > 1, drawn in hop order; JAX
+    folds the hop index into its rng for the same [B, h, 1, Tk] draw.
+    enc: [B, Tk, d]; dec: [B, 1, d]; returns [B, d]."""
     b, tk, d = enc.shape
+    dh = _head_width(d, num_heads)
     k_all, v_all = _kv_precompute(blocks, enc)
-    kmask = layers.sequence_mask(key_len, tk)                      # [B, Tk]
+    k_all = k_all.reshape(len(blocks), b, tk, num_heads, dh)
+    v_all = v_all.reshape(len(blocks), b, tk, num_heads, dh)
+    kmask = layers.sequence_mask(key_len, tk)[:, None, :]          # [B,1,Tk]
     qz = (query_len > 0).to(dec.dtype)[:, None]                    # [B, 1]
     cur = dec[:, 0, :]
     for i, p in enumerate(blocks):
-        q = layers.dense(p.q, cur, torch.relu)
-        scores = torch.einsum("be,ble->bl", q, k_all[i]) / d ** 0.5
+        q = layers.dense(p.q, cur, torch.relu).reshape(b, num_heads, dh)
+        scores = torch.einsum("bhe,blhe->bhl", q, k_all[i]) / dh ** 0.5
         scores = torch.where(kmask, scores, torch.full_like(scores, NEG_FILL))
-        weights = torch.softmax(scores, dim=-1)
+        weights = torch.softmax(scores, dim=-1)                  # [B,h,Tk]
         if train and dropout_rate > 0.0 and gen is not None:
             mask = layers.draw_drop_mask(gen, b, 1, tk, dropout_rate,
-                                         enc.device)
-            weights = weights * mask[:, 0, :].to(weights.dtype)
-        out = torch.einsum("bl,ble->be", weights, v_all[i])
+                                         enc.device, num_heads)
+            weights = weights * mask.reshape(b, num_heads, tk).to(
+                weights.dtype)
+        out = torch.einsum("bhl,blhe->bhe", weights, v_all[i]).reshape(b, d)
         cur = layers.normalize(p.ln, out * qz + cur)
     return cur
 
@@ -425,8 +447,12 @@ def readout_chain_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
     `_fused_single_query_readout` with its chain kernel): the cotangents
     of k_all, v_all, tprec and gate_part leave the chain's backward and
     autograd carries them through the precompute.  enc: [B, Tk, d]; dec:
-    [B, 1, d]; returns [B, d] in dec's type."""
-    _one_head(num_heads)
+    [B, 1, d]; returns [B, d] in dec's type.  The kernels take one
+    head."""
+    if num_heads != 1:
+        raise NotImplementedError(
+            f"the readout_chain kernels take one head, not {num_heads}; "
+            "vanilla_attention_stack takes single_query_readout there")
     k_all, v_all, tprec, gate_part, wo2 = _readout_precompute(
         blocks, enc, t_queries, t_keys)
     out = readout_chain_kernel.readout_chain_vjp(
@@ -481,25 +507,28 @@ def vanilla_attention_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
                             gen: Optional[layers.MaskSource] = None
                             ) -> torch.Tensor:
     """Decoder cross-attention hops of ``kind`` "time" or "plain";
-    returns [B*Tq, d].  Only the time kind reaches the readout kernels,
-    which are time-only: one time query over `READOUT_KERNEL_MIN_KEYS`
-    to `readout_kernel.MAX_KEYS` keys takes `fused_readout_stack`, in
-    training and serving alike; otherwise ``train=True`` with one time
-    query takes `readout_chain_stack` where `readout_chain_kernel.
-    supported` (below 256 keys: the JAX package's chain kernel route) and
-    `single_query_readout` past 1024 keys, both hop-batched.  One plain
-    query in training takes `plain_single_query_readout` at every
-    length, dropping weights per hop at ``dropout_rate`` with masks from
-    ``gen``.  Serving runs hop by hop on the fused attention kernel (its
-    hop design at L=50, the blockwise kernel past 1024 keys).  The time
-    kind never drops."""
+    returns [B*Tq, d].  Only the time kind at one head reaches the
+    readout kernels, which are time-only and take one head: one time
+    query over `READOUT_KERNEL_MIN_KEYS` to `readout_kernel.MAX_KEYS` keys
+    takes `fused_readout_stack`, in training and serving alike; otherwise
+    ``train=True`` with one time query takes `readout_chain_stack` where
+    `readout_chain_kernel.supported` (one head below 256 keys: the JAX
+    package's chain kernel route) and `single_query_readout` elsewhere
+    (past 1024 keys, and at every length with more than one head), both
+    hop-batched.  One plain query in training takes
+    `plain_single_query_readout` at every length, dropping weights per
+    hop at ``dropout_rate`` with masks from ``gen``.  Serving runs hop by
+    hop through the attention variants (at one head the fused attention
+    kernel: its hop design at L=50, the blockwise kernel past 1024 keys;
+    with more the dense route, one call a hop).  The time kind never
+    drops."""
     if kind not in ("plain", "time"):
         raise ValueError(f"unknown attention kind {kind!r}; the readout "
                          "takes 'plain' or 'time'")
     one_query = dec.shape[1] == 1 and len(blocks) > 0
-    if (kind == "time" and one_query and READOUT_KERNEL_MIN_KEYS
-            <= enc.shape[1] <= readout_kernel.MAX_KEYS):
-        _one_head(num_heads)
+    if (kind == "time" and one_query and num_heads == 1
+            and READOUT_KERNEL_MIN_KEYS <= enc.shape[1]
+            <= readout_kernel.MAX_KEYS):
         return fused_readout_stack(blocks, enc, dec, key_len, query_len,
                                    t_queries=t_queries, t_keys=t_keys)
     if train and one_query and kind == "plain":

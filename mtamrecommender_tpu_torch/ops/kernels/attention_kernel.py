@@ -19,7 +19,9 @@ single-tile kernel (the Pallas `_attn_bwd_kernel`) up to SINGLE_TILE_KEYS
 keys, in the design `attention_bwd_design` picks (up to TILE_KEYS queries
 and keys csrc/fused_attention_bwd_tile.cu, a block a batch row; else
 csrc/fused_attention_bwd.cu, a block a query row) and, above, autograd of
-`reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  Per batch
+`reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  The
+kernels take one head, as the Pallas kernels do (`supported`): more heads
+take the dense route, `dense_attention`, at every length.  Per batch
 row and query row:
 
     scores   = Q K^T
@@ -100,8 +102,9 @@ blockwise_mma_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 blockwise_regtile_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 blockwise_split_launches = {mode: 0 for mode in BLOCKWISE_MODES}
 # calls of the dense route (`dense_attention`, plain PyTorch on every
-# device, as JAX's jnp route): forwards past the kernels' reach, and the
-# backward's recompute above SINGLE_TILE_KEYS keys
+# device, as JAX's jnp route): forwards past the kernels' reach (more
+# than one head at any length among them), and the backward's recompute
+# above SINGLE_TILE_KEYS keys
 dense_fwd = {mode: 0 for mode in MODES}
 dense_bwd = {mode: 0 for mode in MODES}
 
@@ -122,12 +125,12 @@ def dropout_supported(tk: int) -> bool:
     return tk <= SINGLE_TILE_KEYS
 
 
-def route(tk: int, drop: bool) -> str:
+def route(tk: int, drop: bool, num_heads: int = 1) -> str:
     """The forward's route for Tk keys: 'single_tile', 'blockwise', or
-    'dense' (a drop mask past SINGLE_TILE_KEYS, or more than MAX_KEYS
-    keys), where the kernels do not reach and the caller takes
-    `dense_attention`."""
-    if not supported(tk, 1) or (drop and not dropout_supported(tk)):
+    'dense' (more than one head, a drop mask past SINGLE_TILE_KEYS, or
+    more than MAX_KEYS keys), where the kernels do not reach and the
+    caller takes `dense_attention`."""
+    if not supported(tk, num_heads) or (drop and not dropout_supported(tk)):
         return "dense"
     return "single_tile" if tk <= SINGLE_TILE_KEYS else "blockwise"
 
@@ -681,15 +684,28 @@ def _split_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
 
 
 def reference_middle(mode: str, q, k, v, t_q, t_k, tqw, rawk,
-                     w1, b1, wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
-    """The JAX package's `_reference_middle` in plain PyTorch, in f32:
-    the whole [B, Tq, Tk] scores, gate and softmax at once.  The gate
-    params may be [Tq, Tk] tiles or scalars (they broadcast).  Returns
-    f32 [B, Tq, d]; differentiable."""
+                     w1, b1, wo1, wo2, bo, key_len, dm=None,
+                     num_heads: int = 1,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The JAX package's `_reference_middle` in plain PyTorch, computed
+    in ``dtype`` (f32 unless told): the whole [B, Tq, Tk] scores, gate
+    and softmax at once.  The gate params may be [Tq, Tk] tiles or
+    scalars (they broadcast).  With ``num_heads`` h > 1 it is the JAX jnp
+    path's multi-head middle (`_project_qkv` to `_finish`): q, k and v
+    split [B, T, h, d/h] -> [B, h, T, d/h]; the time gate (its content
+    term on the raw tqw and rawk) and the TiSAS bias once per (row,
+    query, key), broadcast over the heads; scores scaled by sqrt(d/h);
+    ``dm`` [B, h, Tq, Tk] (at h = 1 [B, Tq, Tk]); the heads merged back.
+    Returns [B, Tq, d] in ``dtype``; differentiable."""
     base = base_mode(mode)
-    f = lambda x: x.float()  # noqa: E731
-    d = q.shape[-1]
-    scores = torch.einsum("bqd,bkd->bqk", f(q), f(k))
+    f = lambda x: x.to(dtype)  # noqa: E731
+    b, tq, d = q.shape
+    dh = d // num_heads
+
+    def heads(x):                              # [B, T, d] -> [B, h, T, dh]
+        return f(x).reshape(b, x.shape[1], num_heads, dh).transpose(1, 2)
+
+    scores = torch.einsum("bhqe,bhke->bhqk", heads(q), heads(k))
     if base in ("time", "tisas"):
         logdt = torch.log1p(torch.abs(f(t_q)[:, :, None]
                                       - f(t_k)[:, None, :]))
@@ -697,29 +713,35 @@ def reference_middle(mode: str, q, k, v, t_q, t_k, tqw, rawk,
         time_qk = torch.tanh(torch.einsum("bqd,bkd->bqk", f(tqw), f(rawk)))
         decay = torch.tanh(logdt * f(w1) + f(b1))
         gate = f(wo1) * decay + f(wo2) * time_qk + f(bo)
-        scores = scores * torch.sigmoid(gate) / d ** 0.5
+        scores = scores * torch.sigmoid(gate)[:, None] / dh ** 0.5
     elif base == "tisas":
-        scores = (scores + logdt) / d ** 0.5
+        scores = (scores + logdt[:, None]) / dh ** 0.5
     else:
-        scores = scores / d ** 0.5
-    col = torch.arange(scores.shape[2], device=q.device)
-    scores = scores.masked_fill(col[None, None, :] >= key_len[:, None, None],
-                                NEG_FILL)
+        scores = scores / dh ** 0.5
+    col = torch.arange(scores.shape[-1], device=q.device)
+    scores = scores.masked_fill(
+        col[None, None, None, :] >= key_len[:, None, None, None], NEG_FILL)
     weights = torch.softmax(scores, dim=-1)
     if dm is not None:
-        weights = weights * dm
-    return torch.einsum("bqk,bkd->bqd", weights, f(v))
+        weights = weights * f(dm if dm.dim() == 4 else dm[:, None])
+    out = torch.einsum("bhqk,bhke->bhqe", weights, heads(v))
+    return out.transpose(1, 2).reshape(b, tq, d)
 
 
 def dense_attention(mode: str, q, k, v, t_q, t_k, tqw, rawk,
-                    w1, b1, wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
-    """The dense route (JAX's jnp path where no kernel reaches:
-    attention-weight dropout above SINGLE_TILE_KEYS keys, or more than
-    MAX_KEYS keys): `reference_middle` under autograd, on any device,
-    counted in ``dense_fwd[mode]``."""
+                    w1, b1, wo1, wo2, bo, key_len, dm=None,
+                    num_heads: int = 1) -> torch.Tensor:
+    """The dense route (JAX's jnp path where no kernel reaches: more than
+    one head, attention-weight dropout above SINGLE_TILE_KEYS keys, or
+    more than MAX_KEYS keys): `reference_middle` under autograd, on any
+    device, counted in ``dense_fwd[mode]``.  With more than one head it
+    computes in q's type, as JAX's jnp path does under bf16 compute; at
+    one head in f32 (ROADMAP.md, Queue 3, settled item 6).  Returns
+    [B, Tq, d] in that type."""
     dense_fwd[mode] += 1
     return reference_middle(mode, q, k, v, t_q, t_k, tqw, rawk,
-                            w1, b1, wo1, wo2, bo, key_len, dm)
+                            w1, b1, wo1, wo2, bo, key_len, dm, num_heads,
+                            q.dtype if num_heads > 1 else torch.float32)
 
 
 # ------------------------------------------------------------- backward

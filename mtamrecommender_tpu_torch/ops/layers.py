@@ -88,22 +88,25 @@ MaskSource = Union[torch.Generator, Iterator[torch.Tensor]]
 
 
 def draw_drop_mask(gen: MaskSource, b: int, tq: int, tk: int, rate: float,
-                   device) -> torch.Tensor:
-    """A pre-scaled attention-weight dropout mask, f32 [B, Tq, Tk] with
-    values 0 or 1/(1-rate): tf.layers.dropout's inverted dropout applied
-    to ones (the JAX package's `_draw_drop_mask`), each element kept with
+                   device, num_heads: int = 1) -> torch.Tensor:
+    """A pre-scaled attention-weight dropout mask, f32 [B, Tq, Tk] (with
+    ``num_heads`` h > 1, [B, h, Tq, Tk], the shape of the jnp path's
+    weights) with values 0 or 1/(1-rate): tf.layers.dropout's inverted
+    dropout applied to ones (the JAX package's `_draw_drop_mask`, and
+    `dropout` on the multi-head weights), each element kept with
     probability 1-rate.  ``gen`` is a generator on ``device`` to draw
     from, or an iterator whose next mask is returned: torch cannot draw
     JAX's threefry bits, so that is how a mask drawn elsewhere (by JAX, or
     on another device) takes the place of a draw."""
+    shape = (b, tq, tk) if num_heads == 1 else (b, num_heads, tq, tk)
     if not isinstance(gen, torch.Generator):
         mask = next(gen)
-        if tuple(mask.shape) != (b, tq, tk) or mask.dtype != torch.float32:
-            raise ValueError(f"drop mask: want float32 {(b, tq, tk)}, got "
+        if tuple(mask.shape) != shape or mask.dtype != torch.float32:
+            raise ValueError(f"drop mask: want float32 {shape}, got "
                              f"{mask.dtype} {tuple(mask.shape)}")
         return mask
     keep = 1.0 - rate
-    kept = torch.rand((b, tq, tk), generator=gen, device=device) < keep
+    kept = torch.rand(shape, generator=gen, device=device) < keep
     return kept.float() / keep
 
 
@@ -127,3 +130,46 @@ def gather_positions(sequence: torch.Tensor,
     idx = torch.remainder(positions.long(), length)
     idx = idx[:, None, None].expand(-1, 1, sequence.shape[2])
     return torch.gather(sequence, 1, idx)[:, 0, :]
+
+
+def sequential_average_pooling(sequence: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """Masked mean over time: the live positions' sum over the padded
+    length L, as the reference's reduce_mean divides (net_utils.py:94-100).
+    sequence: [B, L, D]; lengths: [B] -> [B, D]."""
+    mask = sequence_mask(lengths, sequence.shape[1]).to(sequence.dtype)
+    return torch.mean(sequence * mask[:, :, None], dim=1)
+
+
+def sequential_max_pooling(sequence: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Masked max over time (net_utils.sequential_max_pooling:102-110):
+    padded positions hold -2^32+1, so a live one wins wherever there is
+    one.  sequence: [B, L, D]; lengths: [B] -> [B, D]."""
+    mask = sequence_mask(lengths, sequence.shape[1])[:, :, None]
+    neg = torch.full_like(sequence, -(2.0 ** 32) + 1.0)
+    return torch.amax(torch.where(mask, sequence, neg), dim=1)
+
+
+# ---- activations (net_utils.py:8-61,131-144) ----
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros_like(x)
+    return torch.maximum(zero, x) + alpha * torch.minimum(zero, x)
+
+
+def dice(x: torch.Tensor, alpha: torch.Tensor, axis: int = -1,
+         epsilon: float = 1e-9) -> torch.Tensor:
+    """Dice: a sigmoid gate on x standardized over every axis but
+    ``axis``, blending x and alpha * x."""
+    axes = tuple(i for i in range(x.dim()) if i != axis % x.dim())
+    mean = torch.mean(x, dim=axes, keepdim=True)
+    std = torch.sqrt(torch.mean(torch.square(x - mean) + epsilon, dim=axes,
+                                keepdim=True))
+    x_p = torch.sigmoid((x - mean) / (std + epsilon))
+    return alpha * (1.0 - x_p) * x + x_p * x
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU's tanh approximation, as jax.nn.gelu(approximate=True)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")

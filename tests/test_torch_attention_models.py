@@ -230,12 +230,22 @@ def test_attention_modules_match_jax_at_tq_gt_1(kind, use_pallas):
 
 
 def test_unported_attention_options_raise():
+    """Two heads run (on the dense route) and match JAX's jnp path; a
+    head count that does not divide d, and an unknown kind, raise."""
     jp = jatt.init_attention_stack(jax.random.PRNGKey(4), 1, D, kind="plain")
     block = _port_block(jp[0], "plain")
-    x = torch.zeros((B, L, D))
+    enc = np.random.RandomState(3).randn(B, L, D).astype(np.float32)
+    want, _ = jatt.multihead_attention(
+        jp[0], jnp.asarray(enc), jnp.asarray(enc),
+        jnp.asarray(SEQ_LENS, jnp.int32), jnp.asarray(SEQ_LENS, jnp.int32),
+        num_heads=2, train=False)
+    x = torch.tensor(enc)
     lens = torch.tensor(SEQ_LENS, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="multi-head"):
-        tatt.multihead_attention(block, x, x, lens, lens, num_heads=2)
+    got = tatt.multihead_attention(block, x, x, lens, lens, num_heads=2)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL_F32, rtol=0)
+    with pytest.raises(ValueError, match="num_heads=3"):
+        tatt.multihead_attention(block, x, x, lens, lens, num_heads=3)
     with pytest.raises(ValueError, match="kind"):
         tatt.self_attention_stack([block], x, lens, lens, kind="cross",
                                   num_heads=1, dropout_rate=0.0, train=False)

@@ -220,11 +220,18 @@ def test_serving_runs_hop_by_hop_like_jax(L, use_pallas, no_readout_kernels,
 
 
 def test_unknown_kind_and_heads_refused():
-    _, blocks = _blocks()
-    x = {k: torch.tensor(v) for k, v in _inputs(12).items()}
+    """An unknown kind raises; two heads train (in plain PyTorch, as
+    JAX's hop-batched jnp readout) and match JAX."""
+    jp, blocks = _blocks()
+    xn = _inputs(12)
+    x = {k: torch.tensor(v) for k, v in xn.items()}
     args = (blocks, x["enc"], x["dec"], x["key_len"], x["qlen"])
     with pytest.raises(ValueError, match="kind"):
         tatt.vanilla_attention_stack(*args, kind="tisas", num_heads=1)
-    with pytest.raises(NotImplementedError, match="multi-head"):
-        tatt.vanilla_attention_stack(*args, kind="plain", num_heads=2,
-                                     train=True)
+    want = jatt.vanilla_attention_stack(
+        jp, jnp.asarray(xn["enc"]), jnp.asarray(xn["dec"]),
+        jnp.asarray(xn["key_len"]), jnp.asarray(xn["qlen"]), kind="plain",
+        num_heads=2, dropout_rate=0.0, train=True)
+    got = tatt.vanilla_attention_stack(*args, kind="plain", num_heads=2,
+                                       train=True)
+    _hold(got, want)

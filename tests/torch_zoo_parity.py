@@ -3,8 +3,8 @@
 tests/test_torch_mtam_ablations_via.py,
 tests/test_torch_mtam_hybird.py, tests/test_torch_zoo_checkpoint.py,
 tests/test_torch_narm.py, tests/test_torch_lstur_stamp.py,
-tests/test_torch_mtam_no_time_att.py, tests/test_torch_pistrec*.py and
-tests/test_torch_bprmf.py).
+tests/test_torch_mtam_no_time_att.py, tests/test_torch_pistrec*.py,
+tests/test_torch_bprmf.py and tests/test_torch_multihead_*.py).
 
 Parameters come from the JAX package's init through
 `bridge.load_jax_params`; batches are made with numpy from a seed, with
@@ -15,7 +15,9 @@ one filler row and a row of ``seq_len`` 1 (an empty history: GRU length
 pairs; ``rng_seed`` gives JAX's loss an rng (PRNGKey(rng_seed)) and the
 port what JAX draws from it: the bpr loss's negative item
 (`jax_negative`) and, for ``n_masks`` plain readout hops, each hop's
-attention-weight dropout mask (`jax_readout_masks`).
+attention-weight dropout mask (`jax_readout_masks`); ``masks``, where
+given, are the port's masks instead (multi-head self-attention's:
+`jax_block_masks`).
 
 Tolerances (tests/test_torch_train.py's): the f32 loss terms within
 1e-5; every f32 gradient leaf within 1e-5 of its largest |value|; f32
@@ -142,12 +144,25 @@ def jax_readout_masks(rng_seed, n_masks, rate=0.5):
         for i in range(n_masks)]
 
 
-def _port_sources(name, rng_seed, n_masks, rate):
-    """(gen, neg_id) for the port's compute_loss: JAX's masks and, in the
-    bpr mode, JAX's negative."""
+def jax_block_masks(rng_seed, n_blocks, heads, rate=0.5):
+    """The dropout masks of JAX's jnp self-attention blocks at ``heads``
+    heads under compute_loss's rng: block i's `layers.dropout` draws
+    bernoulli(fold_in(split(rng)[0], i), 1 - rate, [B, h, L, L]) on its
+    weights, here f32 of 0 or 1/(1 - rate)."""
+    apply_rng = jax.random.split(jax.random.PRNGKey(rng_seed))[0]
+    keep = 1.0 - rate
+    return [torch.tensor(np.asarray(jax.random.bernoulli(
+        jax.random.fold_in(apply_rng, i), keep, (B, heads, L, L)),
+        np.float32) / keep) for i in range(n_blocks)]
+
+
+def _port_sources(name, rng_seed, n_masks, rate, masks=None):
+    """(gen, neg_id) for the port's compute_loss: JAX's masks (``masks``
+    where given) and, in the bpr mode, JAX's negative."""
     if rng_seed is None:
         return None, None
-    gen = iter(jax_readout_masks(rng_seed, n_masks, rate))
+    gen = iter(jax_readout_masks(rng_seed, n_masks, rate)
+               if masks is None else masks)
     neg = (jax_negative(rng_seed) if get_model(name).output_mode == "bpr"
            else None)
     return gen, neg
@@ -178,14 +193,15 @@ def check_init_keys(name, over=()):
     assert get_model(name).output_mode == jget_model(name).output_mode
 
 
-def check_f32(name, use_pallas, over=(), rng_seed=None, n_masks=0):
+def check_f32(name, use_pallas, over=(), rng_seed=None, n_masks=0,
+              masks=None):
     """Loss terms and every gradient leaf of one f32 step."""
     c = cfg(name, **dict(over))
     _, model = models(name, c)
     _, tb = batches()
     want, jgrads = jax_loss_and_grads(name, use_pallas, "float32", over,
                                       rng_seed)
-    gen, neg = _port_sources(name, rng_seed, n_masks, c.model.dropout)
+    gen, neg = _port_sources(name, rng_seed, n_masks, c.model.dropout, masks)
     got, tgrads = port_loss_and_grads(name, c, model, tb, gen, neg)
     for key in ("loss", "ce", "l2"):
         np.testing.assert_allclose(got[key].item(), want[key],
@@ -199,7 +215,8 @@ def check_f32(name, use_pallas, over=(), rng_seed=None, n_masks=0):
     return tgrads
 
 
-def check_bf16(name, use_pallas, over=(), rng_seed=None, n_masks=0):
+def check_bf16(name, use_pallas, over=(), rng_seed=None, n_masks=0,
+               masks=None):
     """Loss and every gradient leaf of one step under bf16 compute."""
     c = cfg(name, **{"model.compute_dtype": "bfloat16", **dict(over)})
     _, model = models(name, c)
@@ -208,7 +225,7 @@ def check_bf16(name, use_pallas, over=(), rng_seed=None, n_masks=0):
                                       rng_seed)
     _, jgrads32 = jax_loss_and_grads(name, use_pallas, "float32", over,
                                      rng_seed)
-    gen, neg = _port_sources(name, rng_seed, n_masks, c.model.dropout)
+    gen, neg = _port_sources(name, rng_seed, n_masks, c.model.dropout, masks)
     got, tgrads = port_loss_and_grads(name, c, model, tb, gen, neg)
     assert got["loss"].dtype == torch.float32
     np.testing.assert_allclose(got["loss"].item(), want["loss"],
