@@ -120,14 +120,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      per step (1 gru_scan, 1 gru_scan_bwd, 4 dtable, 1 readout_chain, 1
      readout_chain_bwd, both in the staged design, 0 fused_attention),
      and the time per step, examples/s and device idle share in bf16 and
-     f32, then in turns with the chain backward and then the chain
-     forward forced to its rows design (default, rows, rows, default),
-     with the same
-     run's readout alone at the step's shape, forward + backward, timed
-     both ways (single_query_readout under autograd, readout_chain_stack),
-     and the step itself both ways, in turns; then one step at
-     num_units 16 against the CPU in f32 and bf16 (the GRU pair and
-     dtable padded);
+     f32 (phase 2f holds and times the chain pair's rows designs); then
+     one step at num_units 16 against the CPU in f32 and bf16 (the GRU
+     pair and dtable padded);
   5. the self-attention slice on the same data and catalog, 3 blocks,
      1 head: Time_Aware_Self_Attention_Model's step as phase 4 checks
      MTAM's (3 fused_attention[time] + 3 fused_attention_bwd[time] + 4
@@ -253,8 +248,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      the model's mode, dtable once a table the loss reaches, 1
      readout_chain + 1 readout_chain_bwd where the model reads out in
      the time kind, 3 fused_attention[time] + 3 fused_attention_bwd[time]
-     where it self-attends), 8 timed make_superstep steps after 2
-     warm-up at B=256 in bf16 and f32 (ms a step, examples/s, idle
+     where it self-attends), 4 timed make_superstep steps after 1
+     warm-up at B=256 in bf16 (ms a step, examples/s, idle
      share), recommend k=50 at B=16 against the CPU (SLICE_TOL) and at
      B=256 timed (1 gru_scan, the readout's hops in the hop design of
      its kind, 3 fused_attention[time] where it self-attends, a call);
@@ -263,7 +258,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      user's row, PISTRec's self-attention pair);
      MTAM_with_T_SeqRec at its preset's 6 hops
      (MTAM_with_T_SeqRecb6_yoochoose): one step against the CPU at
-     B=256, 5 timed steps, recommend at B=256 against the CPU and timed
+     B=256, 4 timed bf16 steps, recommend at B=256 against the CPU and timed
      (6 hops a call); bidirectional_gru_net at B=16, L=50, u=128
      against the CPU, the output and every gradient (2 gru_scan[plain]
      + 2 gru_scan_bwd[plain]); MTAM_hybird (the concat head) from disk:
@@ -317,6 +312,34 @@ Phases, in order; any failure exits non-zero and prints no result:
      the item tables equal); the five layer helpers on CUDA tensors
      against the CPU within 1e-6 (output and input gradient).
      `python3 chip_smoke.py --only 11` builds and runs phase 11 alone.
+  12. parallel/ on torch.distributed (`run_phase12`): 4 spawned ranks (a
+     FileStore under the ignored build/phase12/; NCCL where each rank
+     has its own card, gloo where they share one, printed with whether
+     the collectives go through host memory) and `python -m
+     torch.distributed.run --nproc_per_node 2 -m mtamrecommender_tpu_torch
+     --model_parallel 2` on phase 10's log (6 steps) start; while they
+     set up, (a) the reference, one rank on a 1-rank NCCL group, mesh
+     1x1, in this process, on phase 4's cell (L=50) and phase 6's
+     (L=512); then the ranks run (b) 2 ranks, mesh 2x1 (data parallel),
+     (c) 2 ranks, mesh 1x2, row-sharded tables, the psum and the a2a
+     engine, (d) 4 ranks, mesh 2x2, the default engine (gspmd, which
+     runs psum), (e) 2 ranks, mesh 1x2, key-axis context parallelism on
+     phase 6's cell; each: one step's loss (f32 within 1e-5 relative,
+     bf16 2e-2) and every gradient leaf, gathered, against (a)'s from the
+     same parameters and global batch (f32 within TRAIN_TOL, bf16 as
+     phase 4 holds the card against the CPU; in (e) the scalar gates'
+     bf16 gradients reported, not held, as phase 7 reports them), one
+     sharded f32 step's launches on each rank exactly (the L=50 step: 1
+     gru_scan + 1 gru_scan_bwd + 4 dtable + 1 readout_chain + 1
+     readout_chain_bwd; the CP step: the GRU pair + 4 dtable, no readout
+     kernel), the sharded evaluation at B=2,048 equal to (a)'s (the CP
+     run within one row's share a metric), and 8 timed bf16 steps of the
+     Trainer's superstep after 2 warm-up: ms a step, each rank's busy ms
+     and idle share, the collectives' device ms from the profiler; a
+     2-rank Trainer fitted to step 6 against one fitted to 3, saved,
+     restored and fitted on to 6 (parameters and Adam moments
+     torch.equal).  `python3 chip_smoke.py --only 12` builds and runs
+     phase 12 alone.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
 at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
@@ -2561,34 +2584,22 @@ def timed_steps(torch, setup, failures, name, want, main_launches,
     return report
 
 
-# a kernel's earlier design, forced for comparison: the report key, the
-# module of ops/kernels and its launch function that takes ``_design``,
-# and the design
-EARLIER = {"gru_scan_bwd": ("steps_in_turns", "gru_kernel", "_launch_bwd",
-                            "four_product"),
-           "gru_scan": ("fwd_steps_in_turns", "gru_kernel", "_launch",
-                        "unit_column"),
-           "fused_readout_bwd": ("readout_bwd_steps_in_turns",
-                                 "readout_kernel", "_launch_bwd", "rows"),
-           "fused_readout": ("readout_fwd_steps_in_turns", "readout_kernel",
-                             "_launch", "rows"),
-           "fused_attention_blockwise": ("blockwise_steps_in_turns",
-                                         "attention_kernel",
+# a kernel's earlier design, forced for comparison: the module of
+# ops/kernels, its launch function that takes ``_design``, and the design
+EARLIER = {"gru_scan_bwd": ("gru_kernel", "_launch_bwd", "four_product"),
+           "gru_scan": ("gru_kernel", "_launch", "unit_column"),
+           "fused_readout_bwd": ("readout_kernel", "_launch_bwd", "rows"),
+           "fused_readout": ("readout_kernel", "_launch", "rows"),
+           "fused_attention_blockwise": ("attention_kernel",
                                          "_launch_blockwise", "simt"),
-           "scatter_add": ("seam_in_turns", "embedding_kernel",
-                           "scatter_add", "segments"),
-           "gather": ("seam_in_turns", "embedding_kernel", "gather_rows",
-                      "warp_row"),
-           "fused_attention_bwd": ("attention_bwd_steps_in_turns",
-                                   "attention_kernel", "_launch_bwd",
+           "scatter_add": ("embedding_kernel", "scatter_add", "segments"),
+           "gather": ("embedding_kernel", "gather_rows", "warp_row"),
+           "fused_attention_bwd": ("attention_kernel", "_launch_bwd",
                                    "rows"),
-           "fused_attention": ("attention_fwd_steps_in_turns",
-                               "attention_kernel", "_launch", "query"),
-           "readout_chain_bwd": ("readout_chain_bwd_steps_in_turns",
-                                 "readout_chain_kernel", "_launch_bwd",
+           "fused_attention": ("attention_kernel", "_launch", "query"),
+           "readout_chain_bwd": ("readout_chain_kernel", "_launch_bwd",
                                  "rows"),
-           "readout_chain": ("readout_chain_steps_in_turns",
-                             "readout_chain_kernel", "_launch", "rows")}
+           "readout_chain": ("readout_chain_kernel", "_launch", "rows")}
 
 
 @contextlib.contextmanager
@@ -2598,7 +2609,7 @@ def forced_design(kernel):
     import functools
     import importlib
 
-    _, module, attr, design = EARLIER[kernel]
+    module, attr, design = EARLIER[kernel]
     mod = importlib.import_module(
         f"mtamrecommender_tpu_torch.ops.kernels.{module}")
     launch = getattr(mod, attr)
@@ -2609,41 +2620,6 @@ def forced_design(kernel):
         setattr(mod, attr, launch)
 
 
-def steps_in_turns(torch, setup, failures, name, want, kernel="gru_scan_bwd",
-                   **kw):
-    """After the main path's timed steps (the default designs), the same
-    timed steps with ``kernel`` forced to its earlier design (EARLIER)
-    twice, then the default design once more, on the same data: turns of
-    default, earlier, earlier, default, so that the host's drift shows.
-    The forced design is this script's comparison; the main path never
-    forces it.  These runs' launches are not added to the main path's."""
-    key, _, _, design = EARLIER[kernel]
-    runs = {design: [], "default_again": []}
-    t0 = time.perf_counter()
-
-    def want_forced(steps, dname):
-        # a kernel with a count of its earlier design's launches forced:
-        # they take the earlier design (counted under
-        # "fused_attention_query", "fused_attention_bwd_rows",
-        # "readout_chain_bwd_rows", "readout_chain_rows")
-        counts = want(steps, dname)
-        earlier = f"{kernel}_{design}"
-        counts[earlier] = ({earlier: counts[kernel][kernel]}
-                           if kernel in UNMODED else dict(counts[kernel]))
-        return counts
-
-    for turn in (design, design, "default_again"):
-        print(f"train {name}: {kernel} {turn}", flush=True)
-        forced = turn == design
-        turn_want = want_forced if forced and kernel in (
-            "fused_attention", "fused_attention_bwd",
-            "readout_chain_bwd", "readout_chain") else want
-        with (forced_design(kernel) if forced
-              else contextlib.nullcontext()):
-            runs[turn].append(timed_steps(torch, setup, failures, name,
-                                          turn_want, {}, **kw))
-    runs["seconds"] = time.perf_counter() - t0
-    return {key: runs}
 
 
 UNMODED = ("dtable", "gather", "gather_warp_row", "scatter_add",
@@ -2660,143 +2636,14 @@ def _add_launches(main_launches, counts):
             per[mode] = per.get(mode, 0) + n
 
 
-def readout_alone(torch, setup, failures, iters=20):
-    """MTAM's training readout alone at the step's shape (B=256, L=50,
-    d=128, 3 hops; the step's key lengths and hour stamps, a random
-    memory, query and output cotangent), forward + backward through
-    torch.autograd.grad of the memory, the query and every hop
-    parameter, both ways: `single_query_readout` (plain PyTorch under
-    autograd) and `readout_chain_stack` (the chain kernel pair), each
-    timed by CUDA events and the host clock with the device's busy time
-    from the profiler.  In f32 the two ways' outputs and gradients must
-    agree within TRAIN_TOL of each one's largest |value|."""
-    from mtamrecommender_tpu_torch.ops import attention as att
-
-    b = setup.batch
-    gen = torch.Generator(device=DEVICE).manual_seed(8080)
-    report = {}
-    for dname in ("bfloat16", "float32"):
-        dtype = getattr(torch, dname)
-        blocks = copy.deepcopy(setup.model(torch, setup.cfg(dname), DEVICE
-                                           ).att).to(dtype)
-        enc = torch.randn((TRAIN_BATCH, 50, 128), generator=gen,
-                          device=DEVICE).to(dtype).requires_grad_(True)
-        dec = torch.randn((TRAIN_BATCH, 1, 128), generator=gen,
-                          device=DEVICE).to(dtype).requires_grad_(True)
-        g = torch.randn((TRAIN_BATCH, 128), generator=gen,
-                        device=DEVICE).to(dtype)
-        leaves = [enc, dec, *blocks.parameters()]
-        kw = dict(num_heads=1, t_queries=b.target_time[:, None].to(dtype),
-                  t_keys=b.times.to(dtype))
-        ones = torch.ones_like(b.seq_len)
-        rows, results = {}, {}
-        for name, stack in (("single_query_readout", att.single_query_readout),
-                            ("readout_chain_stack", att.readout_chain_stack)):
-            def run(stack=stack):
-                out = stack(blocks, enc, dec, b.seq_len, ones, **kw)
-                return out, torch.autograd.grad(out, leaves, g)
-
-            results[name] = run()
-            busy = _device_busy(torch, run)
-            ms = _event_ms(torch, run, iters)
-            rows[name] = {"event_ms": ms,
-                          "host_ms": _host_ms(torch, run, iters),
-                          "device_busy_ms": busy["device_busy_ms"],
-                          "idle_share": (None if busy["device_busy_ms"] is None
-                                         else 1 - busy["device_busy_ms"] / ms),
-                          "top_kernels": busy["top_kernels"][:5]}
-        (out_a, grads_a), (out_b, grads_b) = results.values()
-        rel = max(rel_err(x, y)[1] for x, y in zip((out_b, *grads_b),
-                                                   (out_a, *grads_a)))
-        ok = dname == "bfloat16" or rel <= TRAIN_TOL[dname]
-        report[dname] = {**rows, "max_rel_err_chain_vs_plain": rel, "ok": ok}
-        for name, r in rows.items():
-            print(f"readout alone fwd+bwd {name:21s} {dname:9s} B="
-                  f"{TRAIN_BATCH} L=50 event_ms={r['event_ms']:.3f} host_ms="
-                  f"{r['host_ms']:.3f} device_busy_ms={r['device_busy_ms']} "
-                  f"idle_share={r['idle_share']}", flush=True)
-        print(f"readout alone {dname:9s} chain vs plain max rel err {rel:.3e}"
-              f" {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            failures.append(f"readout alone {dname}: chain vs plain rel err "
-                            f"{rel:.3e}")
-    return report
 
 
-def step_both_ways(torch, setup, steps=8):
-    """The step before and after the chain route, in one run: the same
-    model and data, the readout through `single_query_readout` (the
-    route before the chain pair; `readout_chain_kernel.supported` made
-    to refuse) and through the chain pair, in turns (before, after,
-    after, before; ``steps`` make_superstep steps each, CUDA events),
-    then each way's device busy time over 2 steps from the profiler.
-    These launches lie outside the main path's counts."""
-    from mtamrecommender_tpu_torch.models.registry import get_model
-    from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
-    from mtamrecommender_tpu_torch.train.trainer import (make_optimizer,
-                                                         make_superstep)
-    supported = rc.supported
-    report = {}
-    for dname in ("bfloat16", "float32"):
-        cfg = setup.cfg(dname)
-        model = setup.model(torch, cfg, DEVICE)
-        opt = make_optimizer(cfg.train)
-        run = make_superstep(get_model("MTAM"), cfg, opt,
-                             setup.meta.item_vocab, setup.batch_size)
-        state, _ = run(model, opt.init(model), setup.data, setup.order, 0, 3)
-        start, ms = 3, {"single_query_readout": [], "readout_chain_stack": []}
-        busy = {}
-
-        def on(way, fn):
-            rc.supported = supported if way == "readout_chain_stack" \
-                else (lambda *_a: False)
-            try:
-                return fn()
-            finally:
-                rc.supported = supported
-
-        for way in ("single_query_readout", "readout_chain_stack",
-                    "readout_chain_stack", "single_query_readout"):
-            def timed(k=start):
-                torch.cuda.synchronize()
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                run(model, state, setup.data, setup.order, k, steps)
-                t1.record()
-                t1.synchronize()
-                return t0.elapsed_time(t1) / steps
-            ms[way].append(on(way, timed))
-            start += steps
-        for way in ms:
-            b = on(way, lambda k=start: _device_busy(torch, lambda: run(
-                model, state, setup.data, setup.order, k, 2)))
-            start += 4
-            busy[way] = (None if b["device_busy_ms"] is None
-                         else b["device_busy_ms"] / 2)
-        report[dname] = {
-            way: {"ms_per_step_runs": runs,
-                  "ms_per_step": sum(runs) / len(runs),
-                  "device_busy_ms_per_step": busy[way],
-                  "idle_share": (None if busy[way] is None else
-                                 1 - busy[way] / (sum(runs) / len(runs)))}
-            for way, runs in ms.items()}
-        for way, r in report[dname].items():
-            print(f"train MTAM step by way {way:21s} {dname:9s} B="
-                  f"{setup.batch_size} L=50 ms/step runs="
-                  f"{[round(x, 3) for x in r['ms_per_step_runs']]} "
-                  f"device busy ms/step={r['device_busy_ms_per_step']} "
-                  f"idle_share={r['idle_share']}", flush=True)
-    return report
 
 
 def run_training(torch, setup, failures):
     """Phase 4: MTAM's step (its readout through the chain pair), one
-    step and five f32 steps against the CPU, then timed in bf16 and f32,
-    then in turns with the chain backward forced to its rows design
-    (default, rows, rows, default; 20 steps a turn), then likewise with
-    the chain forward forced (10 steps a turn); the readout alone and the
-    step, each both ways."""
+    step and five f32 steps against the CPU, then timed in bf16 and f32.
+    (Phase 2f holds and times the chain pair's rows designs forced.)"""
     report = {"ids_in_range": setup.ids_in_range}
     if not all(report["ids_in_range"].values()):
         failures.append(f"training ids out of range: {report['ids_in_range']}")
@@ -2808,12 +2655,6 @@ def run_training(torch, setup, failures):
     main_launches = {}
     report.update(timed_steps(torch, setup, failures, "MTAM", want,
                               main_launches))
-    report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
-                                 kernel="readout_chain_bwd"))
-    report.update(steps_in_turns(torch, setup, failures, "MTAM", want,
-                                 kernel="readout_chain", steps=10))
-    report["readout_alone"] = readout_alone(torch, setup, failures)
-    report["step_both_ways"] = step_both_ways(torch, setup)
     return report, main_launches
 
 
@@ -4074,7 +3915,7 @@ def score_in_turns(torch, setup, name="MTAM", kernel="gru_scan",
     from mtamrecommender_tpu_torch.serve import Recommender
 
     meta = setup.meta
-    design = EARLIER[kernel][3]
+    design = EARLIER[kernel][2]
     hists, req = make_histories(np.random.RandomState(batch_size),
                                 batch_size, meta.item_count,
                                 meta.category_count, meta.max_seq_len)
@@ -4682,7 +4523,7 @@ ZOO_CHECK_BATCH = 64         # the one-step check against the CPU
 # MTAM_with_T_SeqRecb6_yoochoose's hops (mtamrecommender_tpu/config.py)
 ZOO_PRESET = ("MTAM_with_T_SeqRec", 6)
 ZOO_EVAL_ROWS = 2048         # one batch of train.test_batch_size
-ZOO_TIMED_STEPS = 8          # timed make_superstep steps a model and dtype
+ZOO_TIMED_STEPS = 4          # timed make_superstep steps a model, in bf16
 
 
 def _zoo_groups(spec):
@@ -4994,15 +4835,15 @@ def zoo_model(torch, setup, failures, name, spec):
     """One zoo model on the cell: one step's loss and every gradient leaf
     against the CPU (f32 and bf16, draws injected: `_zoo_sources`) with
     its launches, ZOO_TIMED_STEPS timed make_superstep steps at B=256 in
-    bf16 and f32,
-    and recommend at B=16 against the CPU and at B=256 timed.  Returns
+    bf16 after one warm-up step, and recommend at B=16 against the CPU and at B=256 timed.  Returns
     (report, the launches of the timed steps and the serving calls)."""
     train_want, serve_want = _zoo_want(spec)
     launches = {}
     rep = one_step_check(torch, setup, failures, name, train_want,
                          **_zoo_sources(torch, setup, name, spec))
     rep.update(timed_steps(torch, setup, failures, name, train_want,
-                           launches, steps=ZOO_TIMED_STEPS, warm=2))
+                           launches, steps=ZOO_TIMED_STEPS, warm=1,
+                           dtypes=("bfloat16",)))
     rep["serving"], got = serve_zoo(torch, setup, failures, name,
                                     serve_want)
     _add_launches(launches, got)
@@ -5013,7 +4854,7 @@ def run_zoo(torch, setup, failures):
     """Phase 9: the registry's models but MTAM and the self-attention
     models (ZOO_MODELS) on phase 4's cell at 3 hops (`zoo_model`);
     MTAM_with_T_SeqRec at its preset's 6 hops (one step against the CPU
-    at B=256, 5 timed steps, recommend at B=256 against the CPU and
+    at B=256, 4 timed bf16 steps, recommend at B=256 against the CPU and
     timed); bidirectional_gru_net as a module; MTAM_hybird from disk;
     FPMC.  Returns (report, the main paths' launches, the launches of
     each group of ZOO_GROUP_KERNELS)."""
@@ -5030,7 +4871,8 @@ def run_zoo(torch, setup, failures):
     train_want, serve_want = _zoo_want(ZOO_MODELS[name], hops)
     rep = one_step_check(torch, six, failures, name, train_want)
     rep.update(timed_steps(torch, six, failures, name, train_want, launches,
-                           steps=5, warm=2))
+                           steps=ZOO_TIMED_STEPS, warm=1,
+                           dtypes=("bfloat16",)))
     rep["serving"], got = serve_zoo(torch, six, failures, name, serve_want,
                                     check_batches=(TRAIN_BATCH,))
     _add_launches(launches, got)
@@ -5808,6 +5650,551 @@ def _run_heads_phase(torch, setup, long_setup, failures):
     return report, launches, long_launches
 
 
+# ------------------------------------------------------------ phase 12
+
+# the ranks' directory (their file store, results and runs): under the
+# checkout's ignored build/, emptied first and removed afterwards
+PHASE12_DIR = os.path.join(REPO_ROOT, "build", "phase12")
+P12_WORLD = 4                # ranks spawned; the 2-rank runs use 0 and 1
+P12_TIMED, P12_WARM = 8, 2   # timed bf16 steps a run, after warm-up steps
+P12_EVAL_ROWS = 2048         # the sharded evaluation's batch
+P12_EP = {"mesh.model_axis_size": 2, "mesh.shard_embeddings": True}
+# each run: (label, ranks, mesh overrides, cell); run (a), the reference,
+# is one rank with no overrides, in the parent
+P12_RUNS = (("b_2x1", 2, {}, "L50"),
+            ("c_1x2_psum", 2, {**P12_EP, "mesh.embedding_engine": "psum"},
+             "L50"),
+            ("c_1x2_a2a", 2, {**P12_EP, "mesh.embedding_engine": "a2a"},
+             "L50"),
+            ("d_2x2", 4, P12_EP, "L50"),
+            ("e_1x2_cp", 2, {**P12_EP, "mesh.context_parallel": True},
+             "L512"))
+P12_TRAINER = {"train.eval_freq": 3, "train.save_freq": 3}
+P12_TRAINER_ROWS = (1024, 256)    # train, test rows of the Trainer run
+P12_CLI_STEPS = 6
+
+
+def _p12_cfg(cell, dname, over):
+    base = train_cfg(dname) if cell == "L50" else long_cfg(dname)
+    return base.with_overrides(**over) if over else base
+
+
+def _p12_want(cell, mesh_over):
+    """A step's launches on a rank: the GRU pair, 4 dtable, and MTAM's
+    training readout, the chain pair at L=50 and the fused readout pair
+    at L=512; under CP (key-sharded hops in plain PyTorch) no readout
+    kernel."""
+    if cell == "L50":
+        return _want_counts(1, gru="tgru", chain=True)
+    return _want_counts(1, gru="tgru",
+                        readout="mesh.context_parallel" not in mesh_over)
+
+
+def _p12_eval_batch(torch, setup):
+    """The sharded evaluation's batch: the cell's first P12_EVAL_ROWS
+    rows."""
+    from mtamrecommender_tpu_torch.data.device_data import gather_batch
+    order = torch.arange(P12_EVAL_ROWS, dtype=torch.int32,
+                         device=setup.data.seq_len.device)
+    return gather_batch(setup.data, order, 0, P12_EVAL_ROWS)
+
+
+def _p12_placed(torch, setup, cfg, mesh):
+    from mtamrecommender_tpu_torch.parallel import sharding
+    return sharding.place_params(mesh, cfg.mesh,
+                                 setup.model(torch, cfg, DEVICE))
+
+
+def _p12_checks(torch, setup, cell, over, mesh, eval_batch):
+    """A run's checks on this rank's part: one step's loss and gradients
+    (summed over the data group, the table shards gathered; rank 0 keeps
+    them) in f32 and bf16; one sharded f32 step's launches counted from
+    0; the sharded evaluation of the stepped model at B=2,048."""
+    from mtamrecommender_tpu_torch.models.base import compute_loss
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.parallel import dist_trainer as dt
+    from mtamrecommender_tpu_torch.parallel import mesh as mesh_lib
+    from mtamrecommender_tpu_torch.parallel import sharding
+
+    mdef, vocab = get_model("MTAM"), setup.meta.item_vocab
+    data_group = mesh.group(mesh.data_axis_name)
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        cfg = _p12_cfg(cell, dname, over)
+        model = _p12_placed(torch, setup, cfg, mesh)
+        local = sharding.place_batch(mesh, cfg.mesh, setup.batch)
+        with dt._engine_scope(mesh, cfg):
+            m = compute_loss(mdef, model, cfg.model, local, vocab)
+        m["loss"].backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in model.named_parameters()}
+        dt._sum_over(grads, data_group)
+        grads = sharding.gather_tensors(mesh, cfg.mesh, grads)
+        loss = mesh_lib.all_reduce_(m["loss"].detach().clone(), data_group)
+        out[dname] = {"loss": loss.item(),
+                      "grads": ({n: g.float().cpu() for n, g in grads.items()}
+                                if mesh.rank == 0 else None)}
+    cfg = _p12_cfg(cell, "float32", over)
+    model = _p12_placed(torch, setup, cfg, mesh)
+    opt = dt.make_sharded_optimizer(cfg, mesh)
+    step = dt.make_sharded_train_step(mdef, cfg, opt, mesh, vocab)
+    state = opt.init(model)
+    torch.cuda.synchronize()
+    _reset_counts()
+    state, m = step(model, state, setup.batch)
+    torch.cuda.synchronize()
+    out["launches"] = _counts()
+    out["step_loss"] = m["loss"].item()
+    ev = dt.make_sharded_eval_step(mdef, cfg, mesh, valid_vocab=vocab)
+    out["eval"] = {k: v.item() for k, v in
+                   ev(ev.cast(model), eval_batch).items()}
+    return out
+
+
+def _p12_timed(torch, setup, cell, over, mesh):
+    """P12_TIMED bf16 steps of the sharded superstep (the Trainer's) after
+    P12_WARM (CUDA events), then 2 under the profiler: ms a step, this rank's
+    busy ms and idle share, and the device ms of the collectives'
+    kernels and copies (NCCL kernels; gloo moves CUDA tensors through
+    host memory by copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.parallel import dist_trainer as dt
+
+    cfg = _p12_cfg(cell, "bfloat16", over)
+    model = _p12_placed(torch, setup, cfg, mesh)
+    opt = dt.make_sharded_optimizer(cfg, mesh)
+    run = dt.make_sharded_superstep(get_model("MTAM"), cfg, opt, mesh,
+                                    setup.meta.item_vocab, setup.batch_size)
+    state, _ = run(model, opt.init(model), setup.data, setup.order, 0,
+                   P12_WARM)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, stacked = run(model, state, setup.data, setup.order, P12_WARM,
+                         P12_TIMED)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / P12_TIMED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(model, state, setup.data, setup.order, P12_WARM + P12_TIMED, 2)
+        torch.cuda.synchronize()
+    busy = coll = 0.0
+    for e in prof.key_averages():
+        on_dev = getattr(e, "self_device_time_total", 0) / 1e3
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy += on_dev
+            key = e.key.lower()
+            coll += on_dev if ("nccl" in key or "memcpy" in key) else 0.0
+    busy /= 2
+    return {"ms_per_step": ms, "device_busy_ms_per_step": busy or None,
+            "idle_share": 1 - busy / ms if busy else None,
+            "collective_device_ms_per_step": coll / 2,
+            "losses_finite": bool(torch.isfinite(stacked["loss"]).all())}
+
+
+def _p12_sub_mesh(cfg_mesh, n, rank):
+    """The mesh of ranks 0..n-1 of the world (None on the others).  Every
+    rank makes every group (``new_group`` is collective over the world)."""
+    import torch.distributed as dist
+
+    from mtamrecommender_tpu_torch.parallel import mesh as mesh_lib
+
+    ref = mesh_lib.build_mesh(cfg_mesh, n, 0)
+    mesh = mesh_lib.build_mesh(cfg_mesh, n, rank) if rank < n else None
+    for axis in (ref.model_axis_name, ref.data_axis_name):
+        if ref.axis_size(axis) <= 1:
+            continue
+        for ranks in mesh_lib.group_lists(ref, axis):
+            group = dist.new_group(ranks)
+            if mesh is not None and rank in ranks:
+                mesh.groups[axis] = group
+    return mesh
+
+
+def _p12_trainer(torch, setup, mesh, where):
+    """A 2-rank Trainer (mesh 1x2, row-sharded tables, f32) fitted to
+    step 6 unbroken, and fitted to step 3, saved, restored by a fresh
+    Trainer (apply_load_type "full" with the cursor) and fitted on to 6:
+    whether the two runs' gathered parameters and Adam moments are
+    equal."""
+    from mtamrecommender_tpu_torch.data.pipeline import PackedDataset
+    from mtamrecommender_tpu_torch.models.registry import get_model
+    from mtamrecommender_tpu_torch.parallel import sharding
+    from mtamrecommender_tpu_torch.train.checkpoint import (Checkpointer,
+                                                            apply_load_type)
+    from mtamrecommender_tpu_torch.train.trainer import Trainer
+
+    cfg = train_cfg("float32").with_overrides(**P12_EP, **P12_TRAINER)
+    train, test = (PackedDataset(**make_train_arrays(setup.meta, n, seed=s),
+                                 meta=setup.meta)
+                   for n, s in zip(P12_TRAINER_ROWS, (3, 4)))
+
+    def trainer(tag):
+        return Trainer(cfg=cfg, model=get_model("MTAM"), train_data=train,
+                       test_data=test, run_dir=os.path.join(where, tag),
+                       mesh=mesh)
+
+    def final(t, state):
+        return (sharding.gather_params(mesh, cfg.mesh, state.model),
+                sharding.gather_opt_state(t.placement, state.opt_state,
+                                          state.model))
+
+    t = trainer("unbroken")
+    state = t.fit(t.init_state(), max_steps=6, checkpointer=Checkpointer(
+        os.path.join(where, "ckpt_a"), placement=t.placement))
+    unbroken = final(t, state)
+    ckpt_dir = os.path.join(where, "ckpt_b")
+    t = trainer("broken")
+    t.fit(t.init_state(), max_steps=3, checkpointer=Checkpointer(
+        ckpt_dir, placement=t.placement))
+    t = trainer("resumed")
+    state, cursor = apply_load_type(
+        cfg.with_overrides(**{"train.load_type": "full"}).train,
+        t.init_state(), ckpt_dir, optimizer_init=t.optimizer.init,
+        with_cursor=True, placement=t.placement)
+    restored_step = state.step
+    start_epoch, skip = t.resume_from_cursor(cursor, state)
+    state = t.fit(state, max_steps=6, checkpointer=Checkpointer(
+        ckpt_dir, placement=t.placement), start_epoch=start_epoch,
+        skip_steps=skip)
+    resumed = final(t, state)
+    params_eq = all(torch.equal(unbroken[0][n], resumed[0][n])
+                    for n in unbroken[0])
+    opt_eq = all(torch.equal(a[n], b[n])
+                 for a, b in zip(unbroken[1][1:], resumed[1][1:])
+                 for n in a)
+    return {"restored_step": restored_step, "skip_steps": skip,
+            "final_step": state.step, "params_equal": params_eq,
+            "adam_equal": opt_eq}
+
+
+def _p12_warm(torch, setup):
+    """A rank's first-call costs (library loads, cuBLAS, the profiler)
+    off the clock: one bf16 forward and backward of the L=50 cell, under
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mtamrecommender_tpu_torch.models.base import compute_loss
+    from mtamrecommender_tpu_torch.models.registry import get_model
+
+    cfg = _p12_cfg("L50", "bfloat16", {})
+    model = setup.model(torch, cfg, DEVICE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        compute_loss(get_model("MTAM"), model, cfg.model, setup.batch,
+                     setup.meta.item_vocab)["loss"].backward()
+        torch.cuda.synchronize()
+
+
+def _p12_rank(rank, world, backend, where):
+    """One spawned rank of phase 12: its setup and a warm-up step (no
+    collective), then, once the parent's reference is done (the file
+    ``<where>/go``), every run of P12_RUNS it belongs to and the Trainer
+    run on ranks 0 and 1; results to ``<where>/out_<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from mtamrecommender_tpu_torch.parallel import dist_trainer as dt
+    from mtamrecommender_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    os.chdir(where)          # the Trainer's log files land here
+    dt.initialize_distributed(backend, f"file://{os.path.join(where, 'store')}",
+                              world, rank)
+    t0 = time.perf_counter()
+    setups = {"L50": TrainSetup(torch), "L512": LongSetup(torch)}
+    evals = {k: _p12_eval_batch(torch, s) for k, s in setups.items()}
+    _p12_warm(torch, setups["L50"])
+    results = {"setup_s": time.perf_counter() - t0}
+    while not os.path.exists(os.path.join(where, "go")):
+        time.sleep(0.05)
+    dist.barrier()
+
+    def done(what, seconds):
+        if rank == 0:
+            print(f"phase 12 rank 0: {what} in {seconds:.1f} s", flush=True)
+
+    done("setup and warm-up", results["setup_s"])
+    for label, n, over, cell in P12_RUNS:
+        t0 = time.perf_counter()
+        mesh = _p12_sub_mesh(_p12_cfg(cell, "float32", over).mesh, n, rank)
+        if mesh is not None:
+            before = dict(mesh_lib.collective_calls)
+            res = _p12_checks(torch, setups[cell], cell, over, mesh,
+                              evals[cell])
+            res["timed"] = _p12_timed(torch, setups[cell], cell, over, mesh)
+            res["collectives"] = {k: v - before[k] for k, v in
+                                  mesh_lib.collective_calls.items()}
+            res["seconds"] = time.perf_counter() - t0
+            results[label] = res
+            done(label, res["seconds"])
+        dist.barrier()
+    t0 = time.perf_counter()
+    mesh = _p12_sub_mesh(_p12_cfg("L50", "float32", P12_EP).mesh, 2, rank)
+    if mesh is not None:
+        results["trainer"] = _p12_trainer(torch, setups["L50"], mesh,
+                                          os.path.join(where, "trainer"))
+        results["trainer"]["seconds"] = time.perf_counter() - t0
+        done("trainer", results["trainer"]["seconds"])
+    dist.barrier()
+    torch.save(results, os.path.join(where, f"out_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _p12_leaves(got, ref, dname, hold_bf16_scalars):
+    """A run's gathered gradients against the reference's: f32 each
+    leaf's max |diff| over the reference's largest |value|, within
+    TRAIN_TOL; bf16 as phase 4 holds the card against the CPU: within
+    TRAIN_TOL of the reference's f32 scale plus the reference's own bf16
+    gap to its f32 leaf.  Without ``hold_bf16_scalars`` the bf16
+    gradients of scalar leaves (the scalar decay gates) are reported, not
+    held, as phase 7 reports them: each is a sum over the batch's keys
+    whose terms cancel, which the key-sharded hops take in bf16 and the
+    fused readout kernel in f32.  Returns (worst rel err, its leaf, ok,
+    the scalar leaves only reported)."""
+    worst, worst_leaf, ok, reported = 0.0, None, True, {}
+    for leaf, want in ref[dname]["grads"].items():
+        g = got[dname]["grads"][leaf]
+        scale = max(ref["float32"]["grads"][leaf].abs().max().item(), 1e-30)
+        diff = (g - want).abs().max().item()
+        allowed = TRAIN_TOL[dname] * scale
+        if dname == "bfloat16":
+            allowed += (want - ref["float32"]["grads"][leaf]).abs().max(
+            ).item()
+        finite = bool(g.isfinite().all())
+        if dname == "bfloat16" and g.dim() == 0 and not hold_bf16_scalars:
+            reported[leaf] = diff / scale
+            ok = ok and finite
+            continue
+        ok = ok and finite and diff <= allowed
+        if diff / scale > worst:
+            worst, worst_leaf = diff / scale, leaf
+    return worst, worst_leaf, ok, reported
+
+
+def _p12_check(label, n, over, cell, ref, outs, failures):
+    """A run's results on its ranks against the reference run's."""
+    row = {"ranks": n, "mesh_over": over, "cell": cell, "per_rank": []}
+    want = _p12_want(cell, over)
+    ok = True
+    chief = outs[0][label]
+    for dname in ("float32", "bfloat16"):
+        loss_rel = abs(chief[dname]["loss"] - ref[dname]["loss"]) / abs(
+            ref[dname]["loss"])
+        worst, leaf, good, reported = _p12_leaves(
+            chief, ref, dname, "mesh.context_parallel" not in over)
+        good = good and loss_rel <= (1e-5 if dname == "float32" else 2e-2)
+        row[dname] = {"loss": chief[dname]["loss"], "loss_rel_err": loss_rel,
+                      "worst_leaf_rel_err": worst, "worst_leaf": leaf,
+                      "reported_only": reported, "ok": good}
+        ok = ok and good
+    for out in outs[:n]:
+        got = out[label]
+        launches_ok = got["launches"] == want
+        # the CP run's scores come from the key-sharded hops in plain
+        # PyTorch, the reference's from the fused readout kernel: there a
+        # metric may move by one row's share
+        eval_ok = got["eval"] == ref["eval"] or (
+            "mesh.context_parallel" in over and all(
+                abs(v - ref["eval"][k]) <= 1 / P12_EVAL_ROWS
+                for k, v in got["eval"].items()))
+        row["per_rank"].append({
+            "launches": _nonzero(got["launches"]), "launches_ok": launches_ok,
+            "eval": got["eval"], "eval_equal": got["eval"] == ref["eval"],
+            "eval_ok": eval_ok, "step_loss": got["step_loss"],
+            "timed": got["timed"], "collectives": got["collectives"],
+            "seconds": got["seconds"]})
+        ok = ok and launches_ok and eval_ok and got["timed"]["losses_finite"]
+    row["ok"] = ok
+    t = [p["timed"] for p in row["per_rank"]]
+    print(f"phase 12 ({label}) {n} ranks {cell}: f32 loss rel err "
+          f"{row['float32']['loss_rel_err']:.2e} worst leaf "
+          f"{row['float32']['worst_leaf_rel_err']:.2e} "
+          f"({row['float32']['worst_leaf']}); bf16 loss rel err "
+          f"{row['bfloat16']['loss_rel_err']:.2e} worst leaf "
+          f"{row['bfloat16']['worst_leaf_rel_err']:.2e} "
+          f"({row['bfloat16']['worst_leaf']}; scalar gates reported, not "
+          f"held: {row['bfloat16']['reported_only'] or 'none'}); "
+          f"launches/step/rank "
+          f"{row['per_rank'][0]['launches']} exact "
+          f"{all(p['launches_ok'] for p in row['per_rank'])}; eval equal "
+          f"{[p['eval_equal'] for p in row['per_rank']]} (hr@10 "
+          f"{chief['eval']['hr@10']:.4f}); bf16 ms/step by rank "
+          f"{[round(x['ms_per_step'], 3) for x in t]}, busy ms "
+          f"{[x['device_busy_ms_per_step'] for x in t]}, idle "
+          f"{[x['idle_share'] for x in t]}, collectives device ms "
+          f"{[round(x['collective_device_ms_per_step'], 3) for x in t]}; "
+          f"{chief['collectives']} collectives a rank "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"phase 12 ({label}): "
+                        f"{json.dumps(row, default=str)[:3000]}")
+    return row
+
+
+def _p12_cli_start(backend):
+    """Start ``python -m torch.distributed.run --nproc_per_node 2 -m
+    mtamrecommender_tpu_torch --model_parallel 2`` on phase 10's log
+    (synthetic_timed at its default size), P12_CLI_STEPS steps."""
+    where = os.path.join(PHASE12_DIR, "cli")
+    os.makedirs(where)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "mtamrecommender_tpu_torch",
+           "--model_parallel", "2", "--dist_backend", backend, *LOG_ARGS,
+           "--version", "p12", "--max_steps", str(P12_CLI_STEPS)]
+    with open(os.path.join(where, "cli.log"), "w") as out:
+        proc = subprocess.Popen(cmd, cwd=where, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+    return proc, time.perf_counter(), backend, where
+
+
+def _p12_cli_finish(started, failures):
+    proc, t0, backend, where = started
+    proc.wait(timeout=300)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(where, "cli.log")) as f:
+        log = f.read()
+    ckpt = os.path.join(where, "data", "check_point",
+                        "synthetic_timed_MTAM_p12")
+    saved = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    ok = (proc.returncode == 0
+          and log.count("mesh: {'data': 1, 'model': 2}") == 1
+          and log.count(f"done at step {P12_CLI_STEPS}") == 1
+          and saved == [str(P12_CLI_STEPS)])
+    print(f"phase 12 cli: torch.distributed.run 2 ranks --model_parallel 2 "
+          f"--dist_backend {backend}: rc {proc.returncode} in {wall:.1f} s "
+          f"(beside the reference's checks), checkpoints {saved} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"phase 12 cli: rc {proc.returncode}: {log[-3000:]}")
+    return {"rc": proc.returncode, "wall_s": wall, "checkpoints": saved,
+            "ok": ok}
+
+
+def _p12_reference(torch, setups, failures, cli):
+    """Run (a): one rank on a 1-rank NCCL group, mesh 1x1, each cell:
+    the checks beside the command line's run, then, once it is done, the
+    timed steps."""
+    import torch.distributed as dist
+
+    from mtamrecommender_tpu_torch.config import MeshConfig
+    from mtamrecommender_tpu_torch.parallel import mesh as mesh_lib
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(PHASE12_DIR, 'ref')}",
+        world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.attach_groups(mesh_lib.build_mesh(MeshConfig()))
+        refs = {cell: _p12_checks(torch, s, cell, {}, mesh,
+                                  _p12_eval_batch(torch, s))
+                for cell, s in setups.items()}
+        cli_report = _p12_cli_finish(cli, failures)
+        for cell, s in setups.items():
+            refs[cell]["timed"] = _p12_timed(torch, s, cell, {}, mesh)
+    finally:
+        dist.destroy_process_group()
+    for cell, ref in refs.items():
+        want = _p12_want(cell, {})
+        ok = ref["launches"] == want
+        t = ref["timed"]
+        print(f"phase 12 (a) 1 rank nccl mesh 1x1 {cell}: loss f32 "
+              f"{ref['float32']['loss']:.6f} bf16 {ref['bfloat16']['loss']:.6f}"
+              f", launches/step {_nonzero(ref['launches'])} "
+              f"{'ok' if ok else 'FAIL'}; timed bf16 ms/step "
+              f"{t['ms_per_step']:.3f} busy ms/step "
+              f"{t['device_busy_ms_per_step']} idle_share {t['idle_share']}",
+              flush=True)
+        if not ok:
+            failures.append(f"phase 12 (a) {cell}: launches "
+                            f"{_nonzero(ref['launches'])}")
+    return refs, cli_report
+
+
+def run_phase12(torch, setup, long_setup, failures):
+    """Phase 12: parallel/ on torch.distributed.  P12_WORLD ranks are
+    spawned (NCCL where each has its own card, gloo where they share
+    one) and the command line's run under torch.distributed.run is
+    started; while both set up, run (a), the reference, runs its checks
+    in this process on a 1-rank NCCL group; once the command line is
+    done, (a)'s timed steps, then the ranks run (b)-(e) of P12_RUNS and
+    the Trainer's resume.  Returns (report, the launches of the L=50
+    runs' counted steps, (a)'s included, those of the L=512 runs')."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    os.makedirs(PHASE12_DIR)
+    report, l50, l512 = {}, {}, {}
+    ranks = None
+    try:
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= P12_WORLD else "gloo"
+        print(f"phase 12: world {P12_WORLD} on {cards} card(s), backend "
+              f"{backend}; runs (label, ranks, mesh overrides): "
+              + ", ".join(f"{label} {n} {over or 'data axis 2'}"
+                          for label, n, over, _ in P12_RUNS)
+              + f"; collectives staged through host memory: "
+              f"{'yes (gloo copies CUDA tensors to the host)' if backend == 'gloo' else 'no'}",
+              flush=True)
+        t0 = time.perf_counter()
+        cli = _p12_cli_start("nccl" if cards >= 2 else "gloo")
+        ranks = mp.spawn(_p12_rank, args=(P12_WORLD, backend, PHASE12_DIR),
+                         nprocs=P12_WORLD, join=False)
+        refs, report["cli"] = _p12_reference(
+            torch, {"L50": setup, "L512": long_setup}, failures, cli)
+        report["reference_s"] = time.perf_counter() - t0
+        with open(os.path.join(PHASE12_DIR, "go"), "w"):
+            pass
+        while not ranks.join():
+            pass
+        ranks = None
+        report["ranks_s"] = time.perf_counter() - t0 - report["reference_s"]
+        outs = [torch.load(os.path.join(PHASE12_DIR, f"out_{r}.pt"),
+                           weights_only=False) for r in range(P12_WORLD)]
+        report["rank_setup_s"] = [o["setup_s"] for o in outs]
+        for cell, ref in refs.items():
+            _add_launches(l50 if cell == "L50" else l512, ref["launches"])
+        for label, n, over, cell in P12_RUNS:
+            report[label] = _p12_check(label, n, over, cell, refs[cell],
+                                       outs, failures)
+            for out in outs[:n]:
+                _add_launches(l50 if cell == "L50" else l512,
+                              out[label]["launches"])
+        trainer = [o["trainer"] for o in outs[:2]]
+        ok = all(t["params_equal"] and t["adam_equal"]
+                 and t["restored_step"] == 3 and t["final_step"] == 6
+                 for t in trainer)
+        report["trainer"] = {"ranks": trainer, "ok": ok}
+        print(f"phase 12 trainer: 2 ranks mesh 1x2, fit to 6 against fit to "
+              f"3 + save + restore + fit to 6: parameters equal "
+              f"{[t['params_equal'] for t in trainer]}, Adam equal "
+              f"{[t['adam_equal'] for t in trainer]} "
+              f"({trainer[0]['seconds']:.1f} s) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"phase 12 trainer resume: {trainer}")
+        report["references"] = {
+            cell: {k: v for k, v in r.items() if k not in ("float32",
+                                                           "bfloat16")}
+            for cell, r in refs.items()}
+    except Exception as exc:             # a rank's error: fail, report
+        failures.append(f"phase 12: {type(exc).__name__}: {exc}")
+    finally:
+        if ranks is not None:            # a failure before the ranks ended
+            for p in ranks.processes:
+                p.kill()
+        shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    return report, l50, l512
+
+
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
@@ -5900,7 +6287,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
-    parser.add_argument("--only", choices=["10", "11"], default=None,
+    parser.add_argument("--only", choices=["10", "11", "12"], default=None,
                         help="build, then run only this phase, and write "
                              "its report to chiprun_out/chip_smoke_<n>.json "
                              "(no result line)")
@@ -6035,6 +6422,20 @@ def main(argv=None) -> int:
                            k: {str(m): n for m, n in v.items()}
                            for k, v in log_launches.items()},
                        "failures": failures}, f, indent=1, default=str)
+        print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
+        for msg in failures:
+            print(f"FAIL {msg}", file=sys.stderr)
+        return 1 if failures else 0
+    if args.only == "12":
+        dist_report, _, _ = run_phase12(torch, TrainSetup(torch),
+                                        LongSetup(torch), failures)
+        lap("12")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_12.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "phase_s": phase_s,
+                       "parallel": dist_report, "failures": failures}, f,
+                      indent=1, default=str)
         print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
         for msg in failures:
             print(f"FAIL {msg}", file=sys.stderr)
@@ -6210,6 +6611,22 @@ def main(argv=None) -> int:
     heads, heads_launches, heads_long = _run_heads_phase(
         torch, setup, long_setup, failures)
     lap("11")
+
+    # phase 12: parallel/ on torch.distributed
+    dist_report, dist_l50, dist_l512 = run_phase12(torch, setup, long_setup,
+                                                   failures)
+    for kname, mode, got in (("gru_scan", "tgru", dist_l50),
+                             ("gru_scan_bwd", "tgru", dist_l50),
+                             ("dtable", None, dist_l50),
+                             ("readout_chain", None, dist_l50),
+                             ("readout_chain_bwd", None, dist_l50),
+                             ("gru_scan", "tgru", dist_l512),
+                             ("gru_scan_bwd", "tgru", dist_l512),
+                             ("dtable", None, dist_l512)):
+        if got.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "sharded paths")
+    lap("12")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
     # launches on the main paths: MTAM's and the zoo models' at L=50
@@ -6225,12 +6642,15 @@ def main(argv=None) -> int:
     _add_launches(mtam_launches, zoo_launches)
     _add_launches(mtam_launches, log_launches)
     _add_launches(mtam_launches, heads_launches)
+    _add_launches(mtam_launches, dist_l50)
     l50_launches = copy.deepcopy(train_launches)
     _add_launches(l50_launches, disk_launches)
     _add_launches(l50_launches, zoo_launches)
     _add_launches(l50_launches, log_launches)
     _add_launches(l50_launches, heads_launches)
+    _add_launches(l50_launches, dist_l50)
     _add_launches(long_launches, heads_long)
+    _add_launches(long_launches, dist_l512)
     # the chain pair's @L50 rows are 3 hops; its one-hop launches (NARM+,
     # NARM++) go to the @L50h1 rows
     for kname in ("readout_chain", "readout_chain_bwd"):
@@ -6312,7 +6732,12 @@ def main(argv=None) -> int:
                        group: {k: {str(m): n for m, n in v.items()}
                                for k, v in by_kernel.items()}
                        for group, by_kernel in zoo_groups.items()},
-                   "heads": heads,
+                   "heads": heads, "parallel": dist_report,
+                   "launches_parallel": {
+                       cell: {k: {str(m): n for m, n in v.items()}
+                              for k, v in got.items()}
+                       for cell, got in (("L50", dist_l50),
+                                         ("L512", dist_l512))},
                    "launches_heads": {
                        k: {str(m): n for m, n in v.items()}
                        for k, v in heads_launches.items()},

@@ -7,6 +7,8 @@ Usage:
     python -m mtamrecommender_tpu_torch --type synthetic_timed \\
         --experiment_type MTAM --set train.max_epochs=3
     python -m mtamrecommender_tpu_torch --type synthetic --device cpu ...
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m mtamrecommender_tpu_torch --model_parallel 2 ...
 
 Presets come from config.get_preset (the reference's --experiment_name
 dispatch); every config leaf is overridable with --set
@@ -25,10 +27,20 @@ self-attention models), as the JAX package does on its jnp path: the
 attention and readout kernels take one head, so the attention takes
 the dense route (plain PyTorch) while the GRU and table kernels still
 run.
-``--model_parallel > 1`` and ``--embedding_engine`` raise
-NotImplementedError: ``parallel/`` is not ported (ROADMAP.md, Queue 1
-item 7).  ``--profile`` writes a torch.profiler trace of the fit under
-``<run_dir>/profile``.  The JAX package's persistent XLA compile cache
+
+Under ``python -m torch.distributed.run`` (its ``WORLD_SIZE``, ``RANK``
+and ``LOCAL_RANK``) the ranks form a mesh (`parallel.mesh.build_mesh`
+over ``mesh.*``: ``--model_parallel N`` sets ``mesh.model_axis_size=N``,
+``mesh.shard_embeddings=true`` and ``model.vocab_pad_multiple=max(128,
+N)``, as JAX's command line does; ``--embedding_engine`` sets
+``mesh.embedding_engine``) and train with the `Trainer`'s sharded steps.
+The process group's backend is ``--dist_backend``: by default NCCL on
+CUDA (one card a rank: rank r of a host takes ``cuda:<LOCAL_RANK>``) and
+gloo on the CPU; ranks that share a card ask for ``--dist_backend
+gloo``, since NCCL refuses two ranks on one device.  Only rank 0 logs,
+writes events and writes checkpoints (the single-device format).
+``--profile`` writes a torch.profiler trace of the fit under
+``<run_dir>/profile`` (rank 0's).  The JAX package's persistent XLA compile cache
 (`_enable_compile_cache`) has no counterpart: the port compiles its
 kernels once into ``build/`` and PyTorch's eager ops compile nothing.
 """
@@ -43,10 +55,6 @@ from typing import Any, List, Optional
 from mtamrecommender_tpu_torch.config import (ExperimentConfig, get_preset,
                                               preset_names)
 
-NOT_PORTED = ("is not ported: parallel/ on torch.distributed is ROADMAP.md "
-              "Queue 1 item 7")
-
-
 def _parse_value(raw: str) -> Any:
     try:
         return json.loads(raw)
@@ -55,11 +63,6 @@ def _parse_value(raw: str) -> Any:
 
 
 def build_config(args: argparse.Namespace) -> ExperimentConfig:
-    if args.model_parallel > 1:
-        raise NotImplementedError(f"--model_parallel {args.model_parallel} "
-                                  f"{NOT_PORTED}")
-    if args.embedding_engine:
-        raise NotImplementedError(f"--embedding_engine {NOT_PORTED}")
     cfg = get_preset(args.experiment_name) if args.experiment_name \
         else ExperimentConfig()
     over = {}
@@ -75,6 +78,12 @@ def build_config(args: argparse.Namespace) -> ExperimentConfig:
         over["train.load_type"] = args.load_type
     if args.use_pallas:
         over["model.use_pallas"] = True
+    if args.model_parallel > 1:
+        over["mesh.model_axis_size"] = args.model_parallel
+        over["mesh.shard_embeddings"] = True
+        over["model.vocab_pad_multiple"] = max(128, args.model_parallel)
+    if args.embedding_engine:
+        over["mesh.embedding_engine"] = args.embedding_engine
     for item in args.set or []:
         key, _, raw = item.partition("=")
         over[key] = _parse_value(raw)
@@ -102,10 +111,15 @@ def make_parser() -> argparse.ArgumentParser:
                    help="accepted and ignored: the port routes to its "
                         "kernels by shape")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="model-axis size; above 1 not ported (raises)")
+                   help="model-axis size: row-shard the tables over it")
     p.add_argument("--embedding_engine", default=None,
                    choices=["gspmd", "a2a", "psum"],
-                   help="sharded-lookup engine; not ported (raises)")
+                   help="sharded-lookup engine (gspmd runs psum: PyTorch "
+                        "has no partitioner)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend under "
+                        "torch.distributed.run (default nccl on cuda, gloo "
+                        "on cpu; gloo where ranks share a card)")
     p.add_argument("--data_root", default=None)
     p.add_argument("--run_root", default="data/runs")
     p.add_argument("--tensorboard", action="store_true")
@@ -125,23 +139,62 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _distributed(cfg: ExperimentConfig, args: argparse.Namespace):
+    """(mesh or None, device) from torch.distributed.run's environment:
+    the mesh validated before any process group is made, then the
+    group brought up with the caller's backend and the mesh's groups
+    attached."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    if world <= 1 and cfg.mesh.model_axis_size <= 1 \
+            and cfg.mesh.data_axis_size <= 1:
+        return None, args.device
+    from mtamrecommender_tpu_torch.parallel import dist_trainer
+    from mtamrecommender_tpu_torch.parallel.mesh import (attach_groups,
+                                                         build_mesh)
+    mesh = build_mesh(cfg.mesh, world, rank)
+    device = args.device
+    if world > 1:
+        import torch
+        if device == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            device = f"cuda:{local % max(torch.cuda.device_count(), 1)}"
+            torch.cuda.set_device(torch.device(device))
+        backend = args.dist_backend or ("gloo" if device == "cpu"
+                                        else "nccl")
+        dist_trainer.initialize_distributed(backend, None, world, rank)
+    return attach_groups(mesh), device
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = make_parser().parse_args(argv)
     cfg = build_config(args)
-    if cfg.mesh.model_axis_size > 1 or cfg.mesh.data_axis_size > 1:
-        raise NotImplementedError(f"a device mesh {NOT_PORTED}")
     if args.data_root:
         cfg = cfg.with_overrides(**{"data.data_root": args.data_root})
+    mesh, device = _distributed(cfg, args)
+    try:
+        return _run(cfg, args, mesh, device)
+    finally:
+        if mesh is not None and mesh.world_size > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(cfg: ExperimentConfig, args: argparse.Namespace, mesh,
+         device) -> int:
 
     from mtamrecommender_tpu_torch.data.ingest import (data_statistics,
                                                        load_origin_data)
     from mtamrecommender_tpu_torch.data.pipeline import pack_examples
     from mtamrecommender_tpu_torch.data.prepare import prepare_examples
-    from mtamrecommender_tpu_torch.utils.logging import create_log
+    from mtamrecommender_tpu_torch.utils.logging import create_log, quiet_log
 
+    chief = mesh is None or mesh.rank == 0
     logger = create_log(cfg.data.dataset, cfg.model.experiment_type,
-                        cfg.version)
+                        cfg.version) if chief else quiet_log()
     logger.info("resolved config: %s", json.dumps(cfg.to_dict()))
+    if mesh is not None:
+        logger.info("mesh: %s", mesh.shape)
 
     origin = load_origin_data(cfg.data)
     if args.statistics:
@@ -192,15 +245,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     run_dir = os.path.join(args.run_root, run_name)
     trainer = Trainer(cfg=cfg, model=get_model(cfg.model.experiment_type),
                       train_data=train, test_data=test, run_dir=run_dir,
-                      use_tensorboard=args.tensorboard, device=args.device)
+                      use_tensorboard=args.tensorboard, device=device,
+                      mesh=mesh)
 
     ckpt_dir = os.path.join("data", "check_point", run_name)
-    checkpointer = Checkpointer(ckpt_dir)
+    checkpointer = Checkpointer(ckpt_dir, placement=trainer.placement)
     state = trainer.init_state()
     try:
         state, cursor = apply_load_type(cfg.train, state, ckpt_dir,
                                         optimizer_init=trainer.optimizer.init,
-                                        with_cursor=True)
+                                        with_cursor=True,
+                                        placement=trainer.placement)
     except FileNotFoundError as exc:
         # load_type=full before the first save (e.g. a fleet retry of a
         # run that crashed pre-checkpoint): start from scratch instead of
@@ -215,7 +270,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     state.step, start_epoch, skip_steps)
 
     profiler = None
-    if args.profile:
+    if args.profile and chief:
         import torch
         activities = [torch.profiler.ProfilerActivity.CPU]
         if trainer.device.type == "cuda":

@@ -12,6 +12,14 @@ predicts [B, 2d], which `project_concat` maps through its ``output_w``
 [2d, d] before the item table (output_concat).  The "bpr" mode (BPRMF)
 trains on `bpr_loss`, a pairwise loss against one shared negative item
 a step, and scores as the plain mode does.
+
+Inside a `parallel.sharding.mesh_scope` (one rank's part of a sharded
+step) the losses count the valid rows of the global batch, and with the
+item table row-sharded over the model axis the logits are vocab-parallel:
+`item_logits` gives this shard's columns, padded columns masked by their
+global index; `softmax_ce_loss` assembles the log-sum-exp with a
+detached max and a sum over the model group and takes the target's logit
+from its owner; `scores_for_eval` returns this shard's columns.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ from mtamrecommender_tpu_torch.config import ModelConfig
 from mtamrecommender_tpu_torch.ops import embedding as emb_ops
 from mtamrecommender_tpu_torch.ops.kernels.embedding_kernel import take_dtable
 from mtamrecommender_tpu_torch.ops.layers import MaskSource
+from mtamrecommender_tpu_torch.parallel import embedding_shard
+from mtamrecommender_tpu_torch.parallel import mesh as mesh_lib
+from mtamrecommender_tpu_torch.parallel import sharding
 from mtamrecommender_tpu_torch.types import Batch
 
 NEG_FILL = -(2.0 ** 32) + 1.0  # the reference's mask fill
@@ -77,17 +88,68 @@ def _head(model_def: ModelDef, output_w: Optional[torch.Tensor],
     return predict_emb
 
 
+def vocab_shard():
+    """(model group, first global row of this rank's item rows) inside a
+    `mesh_scope` whose tables are row-sharded; None elsewhere."""
+    scope = sharding.active()
+    if scope is None or not scope.tables_sharded:
+        return None
+    mesh = scope.mesh
+    return mesh.group(mesh.model_axis_name), mesh.model_index
+
+
+def table_rows(table: torch.Tensor) -> int:
+    """The rows of the whole table of which ``table`` is this rank's
+    part (the table itself outside a sharded scope)."""
+    scope = sharding.active()
+    if scope is None or not scope.tables_sharded:
+        return table.shape[0]
+    return table.shape[0] * scope.mesh.model
+
+
 def item_logits(item_table: torch.Tensor, predict_emb: torch.Tensor,
                 valid_vocab: Optional[int] = None) -> torch.Tensor:
     """Full-catalog logits against the item table.  ``valid_vocab`` is the
     logical vocab (item_count+3); columns of a padded table past it are
-    masked so they can never win a rank."""
+    masked so they can never win a rank.  With the table row-sharded
+    (`vocab_shard`), this shard's columns: the prediction enters through
+    `copy_to_group`, so its gradient sums the shards' parts."""
+    shard = vocab_shard()
+    offset = 0
+    if shard is not None:
+        group, index = shard
+        predict_emb = mesh_lib.copy_to_group(predict_emb, group)
+        offset = index * item_table.shape[0]
     logits = torch.matmul(predict_emb, item_table.T)
-    if valid_vocab is not None and valid_vocab < item_table.shape[0]:
-        col = torch.arange(item_table.shape[0], device=logits.device)
+    if valid_vocab is not None and \
+            valid_vocab < offset + item_table.shape[0]:
+        col = offset + torch.arange(item_table.shape[0],
+                                    device=logits.device)
         logits = torch.where(col[None, :] < valid_vocab, logits,
                              torch.full_like(logits, NEG_FILL))
     return logits
+
+
+def _target_ce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """-log_softmax(logits)[target] a row; vocab-parallel where the
+    logits are a shard's columns: the log-sum-exp from a detached max
+    and a sum over the model group, the target's logit from its owner."""
+    target = target.long()
+    shard = vocab_shard()
+    if shard is None:
+        log_probs = torch.log_softmax(logits, dim=-1)
+        return -log_probs.gather(1, target[:, None])[:, 0]
+    group, index = shard
+    rows = logits.shape[1]
+    m = mesh_lib.all_reduce_max(logits.amax(dim=1), group)
+    sumexp = mesh_lib.reduce_from_group(
+        torch.exp(logits - m[:, None]).sum(dim=1), group)
+    local = target - index * rows
+    mine = (local >= 0) & (local < rows)
+    picked = logits.gather(1, local.clamp(0, rows - 1)[:, None])[:, 0]
+    target_logit = mesh_lib.reduce_from_group(
+        torch.where(mine, picked, torch.zeros_like(picked)), group)
+    return m + torch.log(sumexp) - target_logit
 
 
 def cast_floats(x: Any, dtype: torch.dtype) -> Any:
@@ -163,9 +225,8 @@ def softmax_ce_loss(item_table: torch.Tensor, predict_emb: torch.Tensor,
     """Full-softmax cross-entropy on the target item, averaged over the
     valid rows, plus the scaled L2 of the lookups."""
     logits = item_logits(item_table, predict_emb, valid_vocab)
-    log_probs = torch.log_softmax(logits, dim=-1)
-    ce = -log_probs.gather(1, batch.target_id.long()[:, None])[:, 0]
-    n_valid = batch.valid.sum().clamp(min=1.0)
+    ce = _target_ce(logits, batch.target_id)
+    n_valid = sharding.data_sum(batch.valid.sum()).clamp(min=1.0)
     ce_mean = (ce * batch.valid).sum() / n_valid
     l2 = l2_of_lookups(embedded, batch.valid)
     return {"loss": cfg.regulation_rate * l2 + ce_mean, "ce": ce_mean,
@@ -184,17 +245,26 @@ def bpr_loss(item_table: torch.Tensor, item_bias: torch.Tensor,
     is the JAX package's documented divergence from the reference's
     ``tf.log(tf.sigmoid(x))``, which underflows to -inf for x below
     about -88.  Under bf16 compute the bias difference is taken in
-    bf16 and the rest in f32, as in the JAX package."""
+    bf16 and the rest in f32, as in the JAX package.  Inside an
+    `embedding_shard.engine_scope` the rows and biases come through its
+    engine."""
     u = embedded.user_emb
     ids = torch.cat([batch.target_id, neg_id.to(batch.target_id.dtype)])
-    rows = take_dtable(item_table, ids)
+    gather = embedding_shard.active_gather()
+    if gather is None:
+        rows = take_dtable(item_table, ids)
+        bias = item_bias[ids.long(), 0]
+    else:
+        rows = gather(item_table, ids)
+        bias = gather(item_bias, ids)[:, 0]
     pos, neg = rows[:-1], rows[-1:]
-    bias = item_bias[ids.long(), 0]
     x = (bias[:-1] - bias[-1:]) + (u * (pos - neg)).sum(dim=1)
     valid = batch.valid
+    # the negative's L2 is counted once a step: on the first data rank
+    neg_l2 = neg.square().sum() * float(sharding.first_data_rank())
     l2 = 0.5 * ((u.square() * valid[:, None]).sum()
-                + (pos.square() * valid[:, None]).sum() + neg.square().sum())
-    n_valid = valid.sum().clamp(min=1.0)
+                + (pos.square() * valid[:, None]).sum() + neg_l2)
+    n_valid = sharding.data_sum(valid.sum()).clamp(min=1.0)
     rank_term = (torch.nn.functional.logsigmoid(x) * valid).sum() / n_valid
     return {"loss": BPR_L2_RATE * l2 - rank_term, "ce": -rank_term,
             "l2": l2}
@@ -217,7 +287,7 @@ def _loss(model_def: ModelDef, item_table, item_bias, output_w, predict,
           valid_vocab: Optional[int], gen, neg_id) -> Dict[str, torch.Tensor]:
     if model_def.output_mode == "bpr":
         if neg_id is None:
-            vocab = item_table.shape[0] if valid_vocab is None \
+            vocab = table_rows(item_table) if valid_vocab is None \
                 else valid_vocab
             neg_id = draw_negative(gen, vocab - 3, batch.target_id.device)
         return bpr_loss(item_table, item_bias, embedded, batch, neg_id)

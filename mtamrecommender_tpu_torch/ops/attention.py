@@ -65,6 +65,7 @@ from mtamrecommender_tpu_torch.ops import layers
 from mtamrecommender_tpu_torch.ops.kernels import (attention_kernel,
                                                    readout_chain_kernel,
                                                    readout_kernel)
+from mtamrecommender_tpu_torch.parallel import context_parallel as cp_lib
 
 Params = Dict[str, object]
 
@@ -275,7 +276,14 @@ def time_aware_multihead_attention(p: TimeAttentionBlock,
     to the kernel's [Tq, Tk] tiles, and autograd sums their gradients
     back (JAX keeps scalar gates on its jnp path, with the same math).
     With h > 1 heads the gate, its content term on the raw queries and
-    keys, is one per (row, query, key) and scales every head's scores."""
+    keys, is one per (row, query, key) and scales every head's scores.
+    Inside a `parallel.context_parallel.cp_scope` the key axis is split
+    over the mesh (`cp_time_attention`, plain PyTorch; the scalar gate
+    only), then the same tail."""
+    if cp_lib.active_cp() is not None:
+        out = cp_lib.cp_time_attention(p, queries, keys, key_len, t_queries,
+                                       t_keys, num_heads=num_heads)
+        return _tail(p, out.to(queries.dtype), queries, query_len)
     q, k, v = _project(p, queries, keys)
     tqw = torch.matmul(queries, p.time_input_w)
     t_q_len, t_k_len = queries.shape[1], keys.shape[1]
@@ -521,11 +529,14 @@ def vanilla_attention_stack(blocks, enc: torch.Tensor, dec: torch.Tensor,
     hop through the attention variants (at one head the fused attention
     kernel: its hop design at L=50, the blockwise kernel past 1024 keys;
     with more the dense route, one call a hop).  The time kind never
-    drops."""
+    drops.  Inside a `parallel.context_parallel.cp_scope` every case
+    runs hop by hop, where the key-sharded attention routes, as in the
+    JAX package."""
     if kind not in ("plain", "time"):
         raise ValueError(f"unknown attention kind {kind!r}; the readout "
                          "takes 'plain' or 'time'")
-    one_query = dec.shape[1] == 1 and len(blocks) > 0
+    one_query = (dec.shape[1] == 1 and len(blocks) > 0
+                 and cp_lib.active_cp() is None)
     if (kind == "time" and one_query and num_heads == 1
             and READOUT_KERNEL_MIN_KEYS <= enc.shape[1]
             <= readout_kernel.MAX_KEYS):

@@ -6,8 +6,10 @@ slack rows) and the fused behavior embedding
 every lookup is `take_dtable` (ops/kernels/embedding_kernel.py): a row
 gather whose table gradient is the `dtable` kernel; ``gather=`` swaps in
 another lookup, as in the JAX package: `embedding_kernel.gather` takes
-the gather kernel, with the scatter-add kernel as its backward.  The JAX
-package routes its
+the gather kernel, with the scatter-add kernel as its backward.  Inside a
+`parallel.embedding_shard.engine_scope` (a sharded step with row-sharded
+tables) the default lookup is the scope's engine (`active_gather`), as
+JAX's `gather_rows` routes.  The JAX package routes its
 table backwards by TPU thresholds (a one-hot matmul, XLA's scatter or
 its Pallas dtable kernel); all three compute the same sum, which the
 port always takes through its one kernel.
@@ -22,6 +24,7 @@ import torch
 from mtamrecommender_tpu_torch.ops import initializers as init
 from mtamrecommender_tpu_torch.ops.kernels.embedding_kernel import take_dtable
 from mtamrecommender_tpu_torch.ops.layers import ParamModule
+from mtamrecommender_tpu_torch.parallel import embedding_shard
 from mtamrecommender_tpu_torch.types import Batch, DatasetMeta
 
 
@@ -63,10 +66,11 @@ class BehaviorEmbedding(ParamModule):
 
 def behavior_embedding(p: BehaviorEmbedding, batch: Batch,
                        gather: Optional[Callable] = None) -> EmbeddedBatch:
-    """The four lookups through ``gather(table, ids)`` (`take_dtable` by
-    default) and the fused behavior embedding."""
+    """The four lookups through ``gather(table, ids)`` (by default the
+    active engine's inside an `embedding_shard.engine_scope`, else
+    `take_dtable`) and the fused behavior embedding."""
     if gather is None:
-        gather = take_dtable
+        gather = embedding_shard.active_gather() or take_dtable
     user_emb = gather(p.user_table, batch.user_id)
     item_emb = gather(p.item_table, batch.items)
     cat_emb = gather(p.cat_table, batch.cats)

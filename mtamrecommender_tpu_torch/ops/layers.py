@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from mtamrecommender_tpu_torch.ops import initializers as init
+from mtamrecommender_tpu_torch.parallel import sharding
 
 
 class ParamModule(nn.Module):
@@ -97,7 +98,10 @@ def draw_drop_mask(gen: MaskSource, b: int, tq: int, tk: int, rate: float,
     probability 1-rate.  ``gen`` is a generator on ``device`` to draw
     from, or an iterator whose next mask is returned: torch cannot draw
     JAX's threefry bits, so that is how a mask drawn elsewhere (by JAX, or
-    on another device) takes the place of a draw."""
+    on another device) takes the place of a draw.  Inside a data-parallel
+    `parallel.sharding.mesh_scope` a generator draws the global batch's
+    mask and this rank keeps its rows, so the ranks draw what one rank
+    draws for the whole batch."""
     shape = (b, tq, tk) if num_heads == 1 else (b, num_heads, tq, tk)
     if not isinstance(gen, torch.Generator):
         mask = next(gen)
@@ -106,7 +110,9 @@ def draw_drop_mask(gen: MaskSource, b: int, tq: int, tk: int, rate: float,
                              f"{mask.dtype} {tuple(mask.shape)}")
         return mask
     keep = 1.0 - rate
-    kept = torch.rand(shape, generator=gen, device=device) < keep
+    b_all, lo = sharding.data_rows(b)
+    draw = torch.rand((b_all,) + shape[1:], generator=gen, device=device)
+    kept = draw[lo:lo + b] < keep
     return kept.float() / keep
 
 

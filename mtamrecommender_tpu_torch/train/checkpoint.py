@@ -32,7 +32,14 @@ template's.  The cursor is a JSON-able dict stored beside the tensors
 and handed back unchanged; `Trainer._cursor_for_save` fills it with the
 epoch, the step at the epoch's start, the shuffle's numpy state, the
 step generator's state and the best metrics so far, and
-`Trainer.resume_from_cursor` reads it back for an exact resume.  The
+`Trainer.resume_from_cursor` reads it back for an exact resume.
+
+A sharded run (``placement``, a `parallel.sharding.Placement`) writes the
+same single-device format: every rank gathers the table shards and their
+optimizer moments over the model group, rank 0 writes, and a barrier
+follows.  A restore reads the whole state on every rank and keeps this
+rank's part, so a checkpoint from 2 ranks restores on 1 and the other
+way round.  The directory must be one that every rank reads.  The
 port cannot read an Orbax directory, nor the
 JAX package's pre-Composite "legacy" layout: a JAX checkpoint reaches the
 port by restoring it with JAX and converting the arrays with
@@ -51,6 +58,8 @@ import torch
 from torch import nn
 
 from mtamrecommender_tpu_torch.config import TrainConfig
+from mtamrecommender_tpu_torch.parallel import mesh as mesh_lib
+from mtamrecommender_tpu_torch.parallel import sharding
 from mtamrecommender_tpu_torch.train.trainer import (OPT_STATES, AdamState,
                                                      TrainState, moments)
 
@@ -65,13 +74,13 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _check_names(what: str, got: Dict[str, torch.Tensor],
-                 want: Dict[str, torch.Tensor]) -> None:
+                 want: Dict[str, torch.Tensor], shapes: bool = True) -> None:
     missing = sorted(set(want) - set(got))
     unexpected = sorted(set(got) - set(want))
     if missing or unexpected:
         raise KeyError(f"restore: {what} without a saved tensor {missing}; "
                        f"saved tensors without a {what} {unexpected}")
-    for name, t in got.items():
+    for name, t in (got.items() if shapes else ()):
         if tuple(t.shape) != tuple(want[name].shape):
             raise ValueError(f"restore: {what} {name} is {tuple(t.shape)} in "
                              f"the checkpoint but {tuple(want[name].shape)} "
@@ -79,10 +88,20 @@ def _check_names(what: str, got: Dict[str, torch.Tensor],
 
 
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: Optional[int] = 3):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 3,
+                 placement: Optional[sharding.Placement] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.placement = placement
+
+    @property
+    def _writer(self) -> bool:
+        return self.placement is None or self.placement.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.placement is not None:
+            mesh_lib.barrier(self.placement.mesh)
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -102,18 +121,34 @@ class Checkpointer:
         """Write ``state`` (and ``cursor``) as step ``state.step``.  As
         Orbax's manager does, a step no newer than the latest saved one
         is skipped (returns False).  The write is synchronous: ``wait``
-        is accepted for the JAX package's signature."""
+        is accepted for the JAX package's signature.  With a placement
+        every rank calls it (collective) and rank 0 writes."""
         del wait
         step = int(state.step)
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False
+        params = dict(state.model.named_parameters())
+        opt_state = state.opt_state
+        if self.placement is not None:
+            pl = self.placement
+            params = sharding.gather_tensors(pl.mesh, pl.cfg, params)
+            if opt_state is not None:
+                opt_state = sharding.gather_opt_state(pl, opt_state,
+                                                      state.model)
+        if self._writer:
+            self._write(step, params, opt_state, cursor)
+        self._barrier()
+        return True
+
+    def _write(self, step: int, params: Dict[str, torch.Tensor], opt_state,
+               cursor: Optional[Cursor]) -> None:
         payload = {
-            "params": _cpu(dict(state.model.named_parameters())),
-            "opt_state": (None if state.opt_state is None else {
-                "kind": state.opt_state.kind,
-                "count": int(state.opt_state.count),
-                **{k: _cpu(m) for k, m in moments(state.opt_state).items()}}),
+            "params": _cpu(params),
+            "opt_state": (None if opt_state is None else {
+                "kind": opt_state.kind,
+                "count": int(opt_state.count),
+                **{k: _cpu(m) for k, m in moments(opt_state).items()}}),
             "step": step}
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -130,7 +165,6 @@ class Checkpointer:
         if self.max_to_keep is not None:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
-        return True
 
     def restore(self, template: TrainState, step: Optional[int] = None,
                 with_cursor: bool = False):
@@ -139,9 +173,10 @@ class Checkpointer:
         saved optimizer state (of the template's kind and layout) on the
         devices of the template's, or None where
         ``template.opt_state`` is None.  Names and shapes must match the
-        template's; the template is left as it was.  With
-        ``with_cursor=True`` also the cursor (None where the step has
-        none), as a second return value."""
+        template's; the template is left as it was.  With a placement
+        the template is a placed state and each rank keeps its part of
+        the saved whole.  With ``with_cursor=True`` also the cursor (None
+        where the step has none), as a second return value."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
@@ -152,10 +187,15 @@ class Checkpointer:
         payload = torch.load(path, map_location="cpu", weights_only=True)
         model: nn.Module = copy.deepcopy(template.model)
         own = dict(model.named_parameters())
-        _check_names("parameter", payload["params"], own)
+        saved_params = payload["params"]
+        if self.placement is not None:
+            _check_names("parameter", saved_params, own, shapes=False)
+            saved_params = sharding.place_tensors(
+                self.placement.mesh, self.placement.cfg, saved_params)
+        _check_names("parameter", saved_params, own)
         with torch.no_grad():
             for name, p in own.items():
-                p.copy_(payload["params"][name])
+                p.copy_(saved_params[name])
         opt_state = None
         if template.opt_state is not None:
             saved = payload["opt_state"]
@@ -168,8 +208,13 @@ class Checkpointer:
             if OPT_STATES.get(kind) is not cls:
                 raise TypeError(f"restore: step {step} holds a {kind} "
                                 f"state, the template a {cls.kind} one")
+            fields = moments(template.opt_state)
+            if self.placement is not None:
+                whole = cls(int(saved["count"]), *(saved[k] for k in fields))
+                saved = {"count": saved["count"], **moments(
+                    sharding.place_opt_state(self.placement, whole, model))}
             restored = {}
-            for key, like in moments(template.opt_state).items():
+            for key, like in fields.items():
                 _check_names(f"{kind} {key}", saved[key], like)
                 restored[key] = {n: t.to(device=like[n].device,
                                          dtype=like[n].dtype)
@@ -193,16 +238,18 @@ class Checkpointer:
 def apply_load_type(cfg: TrainConfig, state: TrainState, run_ckpt_dir: str,
                     optimizer_init: Optional[Callable[[nn.Module],
                                                       Any]] = None,
-                    with_cursor: bool = False):
+                    with_cursor: bool = False,
+                    placement: Optional[sharding.Placement] = None):
     """Dispatch on ``cfg.load_type`` (base_model.init_variables:48-69).
 
     With ``with_cursor=True`` returns ``(state, cursor_or_None)`` so the
     caller can resume the data stream (load_type='full' only — fine_tune
-    starts a fresh run by definition)."""
+    starts a fresh run by definition).  ``placement``: ``state`` is a
+    sharded run's placed state (`Checkpointer`)."""
     if cfg.load_type == "from_scratch":
         return (state, None) if with_cursor else state
     if cfg.load_type == "full":
-        ckpt = Checkpointer(run_ckpt_dir)
+        ckpt = Checkpointer(run_ckpt_dir, placement=placement)
         try:
             return ckpt.restore(state, with_cursor=with_cursor)
         finally:
@@ -210,7 +257,7 @@ def apply_load_type(cfg: TrainConfig, state: TrainState, run_ckpt_dir: str,
     if cfg.load_type == "fine_tune":
         if not cfg.fine_tune_load_path:
             raise ValueError("fine_tune requires fine_tune_load_path")
-        ckpt = Checkpointer(cfg.fine_tune_load_path)
+        ckpt = Checkpointer(cfg.fine_tune_load_path, placement=placement)
         try:
             restored = ckpt.restore(TrainState(state.model, None, state.step))
         finally:

@@ -25,30 +25,43 @@ from mtamrecommender_tpu_torch.data.device_data import (DeviceDataset,
                                                          gather_batch)
 from mtamrecommender_tpu_torch.models import base
 from mtamrecommender_tpu_torch.models.base import ModelDef, scores_for_eval
+from mtamrecommender_tpu_torch.parallel import mesh as mesh_lib
 from mtamrecommender_tpu_torch.types import Batch
 
 TOPK: Tuple[int, ...] = (1, 5, 10, 30, 50)
 
 
-def ranks_from_scores(scores: torch.Tensor,
-                      targets: torch.Tensor) -> torch.Tensor:
+def ranks_from_scores(scores: torch.Tensor, targets: torch.Tensor,
+                      offset: int = 0, group=None) -> torch.Tensor:
     """0-based rank of the target under descending score, ties broken by
-    lower index first (tf.nn.top_k order)."""
+    lower index first (tf.nn.top_k order).  With ``group`` the scores are
+    vocab-parallel, this rank's columns from global index ``offset``: the
+    target's score comes from its owner, and each shard's ``greater``
+    and ``tie_before``, counted with global indices, are summed over the
+    group."""
     targets = targets.long()[:, None]
-    target_score = torch.gather(scores, 1, targets)
+    cols = scores.shape[1]
+    idx = offset + torch.arange(cols, device=scores.device)[None, :]
+    if group is None:
+        target_score = torch.gather(scores, 1, targets)
+    else:
+        local = targets - offset
+        mine = (local >= 0) & (local < cols)
+        picked = torch.gather(scores, 1, local.clamp(0, cols - 1))
+        target_score = mesh_lib.all_reduce_(
+            torch.where(mine, picked, torch.zeros_like(picked)), group)
     greater = (scores > target_score).sum(dim=1)
-    idx = torch.arange(scores.shape[1], device=scores.device)[None, :]
     tie_before = ((scores == target_score) & (idx < targets)).sum(dim=1)
-    return greater + tie_before
+    return mesh_lib.all_reduce_(greater + tie_before, group)
 
 
-def topk_metrics(scores: torch.Tensor, targets: torch.Tensor,
-                 valid: torch.Tensor, ks: Sequence[int] = TOPK
-                 ) -> Dict[str, torch.Tensor]:
-    rank = ranks_from_scores(scores, targets)
+def metrics_from_ranks(rank: torch.Tensor, valid: torch.Tensor,
+                       ks: Sequence[int] = TOPK) -> Dict[str, torch.Tensor]:
+    """HR@k and NDCG@k, means over the valid rows, from the targets'
+    0-based ranks."""
     valid = valid.float()
     n = torch.clamp(valid.sum(), min=1.0)
-    log2 = torch.log(torch.tensor(2.0, device=scores.device))
+    log2 = torch.log(torch.tensor(2.0, device=rank.device))
     rank_f = rank.float()
     out: Dict[str, torch.Tensor] = {}
     for k in ks:
@@ -58,6 +71,12 @@ def topk_metrics(scores: torch.Tensor, targets: torch.Tensor,
                            torch.zeros_like(rank_f)) * valid
         out[f"ndcg@{k}"] = ndcg.sum() / n
     return out
+
+
+def topk_metrics(scores: torch.Tensor, targets: torch.Tensor,
+                 valid: torch.Tensor, ks: Sequence[int] = TOPK
+                 ) -> Dict[str, torch.Tensor]:
+    return metrics_from_ranks(ranks_from_scores(scores, targets), valid, ks)
 
 
 def auc(scores: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,

@@ -54,7 +54,8 @@ from mtamrecommender_tpu_torch.data.pipeline import (PackedDataset,
 from mtamrecommender_tpu_torch.models.base import ModelDef, compute_loss
 from mtamrecommender_tpu_torch.train import evaluate as eval_lib
 from mtamrecommender_tpu_torch.types import Batch, resolve_device
-from mtamrecommender_tpu_torch.utils.logging import MetricsWriter, create_log
+from mtamrecommender_tpu_torch.utils.logging import (MetricsWriter, NullWriter,
+                                                     create_log, quiet_log)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 ADADELTA_RHO, ADADELTA_EPS = 0.95, 1e-8
@@ -320,12 +321,18 @@ def _sgd(g, state):
 _CORES = {"adam": _adam, "adadelta": _adadelta, "rmsprop": _rms, "sgd": _sgd}
 
 
-def make_optimizer(cfg: TrainConfig) -> Optimizer:
+def make_optimizer(cfg: TrainConfig,
+                   norm_fn: Optional[Callable[[Dict[str, torch.Tensor]],
+                                              torch.Tensor]] = None
+                   ) -> Optimizer:
     """Clip to the global norm ``max_gradient_norm``, the optimizer's
     scaling (``cfg.optimizer``: adam, adadelta, rmsprop or sgd), then
     ``-lr(count)``, where count is the number of updates before this one.
     The global norm is summed leaf by leaf in every layout, so the packed
-    and flat layouts apply the per-leaf layout's update bit for bit."""
+    and flat layouts apply the per-leaf layout's update bit for bit.
+    ``norm_fn`` (gradients by name -> the norm) replaces `global_norm`:
+    the sharded step's sums the table shards' squares over the model
+    group (`parallel.dist_trainer.sharded_global_norm`)."""
     if cfg.optimizer not in _CORES:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     schedule = make_lr_schedule(cfg)
@@ -353,7 +360,7 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
                             f"{state_cls.__name__}")
         params = dict(model.named_parameters())
         layout = layout_of(params)
-        norm = global_norm({n: grads[n] for n in params})
+        norm = (norm_fn or global_norm)({n: grads[n] for n in params})
         g = clip_by_global_norm(layout.pack(grads), cfg.max_gradient_norm,
                                 norm)
         lr = schedule(state.count)
@@ -426,12 +433,21 @@ def make_train_step(model_def: ModelDef, cfg: ExperimentConfig,
 def make_device_train_step(model_def: ModelDef, cfg: ExperimentConfig,
                            optimizer: Optimizer, valid_vocab: int,
                            batch_size: int, device=None,
-                           gen: Optional[torch.Generator] = None):
+                           gen: Optional[torch.Generator] = None,
+                           mesh=None):
     """``step(model, opt_state, data, order, step_index) -> (opt_state,
     metrics)``: the train step on the batch `gather_batch` assembles on
-    the device from a device-resident dataset, no host work a step."""
-    step = make_train_step(model_def, cfg, optimizer, valid_vocab, device,
-                           gen)
+    the device from a device-resident dataset, no host work a step.
+    With ``mesh`` (a `parallel.mesh.Mesh`) the step is
+    `parallel.dist_trainer.make_sharded_train_step`'s on the gathered
+    global batch."""
+    if mesh is None:
+        step = make_train_step(model_def, cfg, optimizer, valid_vocab,
+                               device, gen)
+    else:
+        from mtamrecommender_tpu_torch.parallel import dist_trainer
+        step = dist_trainer.make_sharded_train_step(
+            model_def, cfg, optimizer, mesh, valid_vocab, device, gen)
 
     def train_step(model: nn.Module, opt_state, data: DeviceDataset,
                    order: torch.Tensor, step_index: int):
@@ -446,14 +462,16 @@ METRICS = ("loss", "ce", "l2")
 
 def make_superstep(model_def: ModelDef, cfg: ExperimentConfig,
                    optimizer: Optimizer, valid_vocab: int, batch_size: int,
-                   device=None, gen: Optional[torch.Generator] = None):
+                   device=None, gen: Optional[torch.Generator] = None,
+                   mesh=None):
     """``run(model, opt_state, data, order, start_step, n_steps) ->
     (opt_state, stacked)``: ``n_steps`` train steps over the batches
     ``gather_batch(data, order, start_step + k, batch_size)``, with the
     metrics {loss, ce, l2} stacked to [n_steps].  The counterpart of the
-    JAX `make_superstep`, as a Python loop."""
+    JAX `make_superstep`, as a Python loop; with ``mesh``, of its
+    `make_sharded_superstep`."""
     step = make_device_train_step(model_def, cfg, optimizer, valid_vocab,
-                                  batch_size, device, gen)
+                                  batch_size, device, gen, mesh)
 
     def run(model: nn.Module, opt_state, data: DeviceDataset,
             order: torch.Tensor, start_step: int, n_steps: int):
@@ -472,7 +490,8 @@ def make_superstep(model_def: ModelDef, cfg: ExperimentConfig,
 def make_dynamic_superstep(model_def: ModelDef, cfg: ExperimentConfig,
                            optimizer: Optimizer, valid_vocab: int,
                            batch_size: int, max_sub: int, device=None,
-                           gen: Optional[torch.Generator] = None):
+                           gen: Optional[torch.Generator] = None,
+                           mesh=None):
     """``run(model, opt_state, data, order, start_step, n_sub) ->
     (opt_state, bufs)``: `make_superstep`'s ``n_sub`` steps, 1 <= n_sub <=
     max_sub, with each metric in a [max_sub] buffer of which [:n_sub] is
@@ -481,7 +500,7 @@ def make_dynamic_superstep(model_def: ModelDef, cfg: ExperimentConfig,
     chunk size; a Python loop has no compile to save, and this is kept so
     the `Trainer` reads as JAX's does."""
     run_fixed = make_superstep(model_def, cfg, optimizer, valid_vocab,
-                               batch_size, device, gen)
+                               batch_size, device, gen, mesh)
 
     def run(model: nn.Module, opt_state, data: DeviceDataset,
             order: torch.Tensor, start_step: int, n_sub: int):
@@ -510,7 +529,15 @@ class Trainer:
     batches come from `batch_iterator` through `prefetch_to_device`.
     Both draw each epoch's order from ``np_rng`` the same way, so both
     visit the same rows in the same order as the JAX package's `Trainer`
-    given the same seed."""
+    given the same seed.
+
+    ``mesh`` (a `parallel.mesh.Mesh` with its groups attached) runs the
+    sharded steps of `parallel.dist_trainer`: every rank holds the whole
+    dataset on its device, draws the same epoch order from the same seed,
+    gathers the global batch and takes its data rows; the tables are
+    row-sharded where ``cfg.mesh.shard_embeddings``.  Only rank 0 logs
+    and writes events; a checkpointer must carry the trainer's
+    `placement` (rank 0 writes the single-device format)."""
 
     cfg: ExperimentConfig
     model: ModelDef
@@ -521,34 +548,55 @@ class Trainer:
     device_resident: bool = True      # dataset on the device, gathered there
     best: Dict[str, float] = field(default_factory=dict)
     device: Any = None
+    mesh: Any = None                  # parallel.mesh.Mesh -> sharded steps
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.logger = create_log(self.cfg.data.dataset,
-                                 self.cfg.model.experiment_type,
-                                 self.cfg.version)
-        self.writer = MetricsWriter(self.run_dir, self.use_tensorboard)
-        self.optimizer = make_optimizer(self.cfg.train)
+        self.chief = self.mesh is None or self.mesh.rank == 0
+        if self.chief:
+            self.logger = create_log(self.cfg.data.dataset,
+                                     self.cfg.model.experiment_type,
+                                     self.cfg.version)
+            self.writer = MetricsWriter(self.run_dir, self.use_tensorboard)
+        else:
+            self.logger, self.writer = quiet_log(), NullWriter()
         self.valid_vocab = self.train_data.meta.item_vocab
         cfg_t = self.cfg.train
         # the step generator, shared by every step function below
         self.gen = torch.Generator(device=self.device).manual_seed(cfg_t.seed)
-        self.train_step = make_train_step(self.model, self.cfg,
-                                          self.optimizer, self.valid_vocab,
-                                          self.device, self.gen)
-        self.eval_step = eval_lib.make_eval_step(self.model, self.cfg.model,
-                                                 cfg_t.topk, self.valid_vocab)
+        self.placement = None
+        if self.mesh is None:
+            self.optimizer = make_optimizer(cfg_t)
+            self.train_step = make_train_step(self.model, self.cfg,
+                                              self.optimizer,
+                                              self.valid_vocab, self.device,
+                                              self.gen)
+            self.eval_step = eval_lib.make_eval_step(
+                self.model, self.cfg.model, cfg_t.topk, self.valid_vocab)
+        else:
+            from mtamrecommender_tpu_torch.parallel import dist_trainer
+            from mtamrecommender_tpu_torch.parallel.sharding import Placement
+            self.placement = Placement(self.mesh, self.cfg.mesh,
+                                       layout_kind(cfg_t))
+            self.optimizer = dist_trainer.make_sharded_optimizer(self.cfg,
+                                                                 self.mesh)
+            self.train_step = dist_trainer.make_sharded_train_step(
+                self.model, self.cfg, self.optimizer, self.mesh,
+                self.valid_vocab, self.device, self.gen)
+            self.eval_step = dist_trainer.make_sharded_eval_step(
+                self.model, self.cfg, self.mesh, cfg_t.topk,
+                self.valid_vocab)
         self.device_train_step = None
         self._dynamic_superstep = None
         if self.device_resident:
             self.device_train_step = make_device_train_step(
                 self.model, self.cfg, self.optimizer, self.valid_vocab,
-                cfg_t.train_batch_size, self.device, self.gen)
+                cfg_t.train_batch_size, self.device, self.gen, self.mesh)
             if cfg_t.steps_per_call > 1:
                 self._dynamic_superstep = make_dynamic_superstep(
                     self.model, self.cfg, self.optimizer, self.valid_vocab,
                     cfg_t.train_batch_size, cfg_t.steps_per_call,
-                    self.device, self.gen)
+                    self.device, self.gen, self.mesh)
         self._cursor = None
         self._device_data = None
         self._test_data = None
@@ -641,14 +689,23 @@ class Trainer:
         optimizer state, on the trainer's device.  ``state``, e.g. a model
         with parameters from `bridge.load_jax_params` and an optimizer
         state from `bridge.opt_state_from_jax`, is placed on the device
-        instead (its optimizer state initialized where it is None)."""
+        instead (its optimizer state initialized where it is None).  On a
+        mesh the state is the whole model's, and this rank keeps its
+        part (`parallel.sharding.place_params` / `place_opt_state`)."""
         if state is None:
             gen = torch.Generator().manual_seed(self.cfg.train.seed)
             state = TrainState(self.model.init(gen, self.cfg.model,
                                                self.train_data.meta), None, 0)
-        model = state.model.to(self.device)
-        opt_state = (self.optimizer.init(model) if state.opt_state is None
-                     else opt_state_to(state.opt_state, self.device))
+        model = state.model
+        given = state.opt_state
+        if self.placement is not None:
+            from mtamrecommender_tpu_torch.parallel import sharding
+            model = sharding.place_params(self.mesh, self.cfg.mesh, model)
+            if given is not None:
+                given = sharding.place_opt_state(self.placement, given, model)
+        model = model.to(self.device)
+        opt_state = (self.optimizer.init(model) if given is None
+                     else opt_state_to(given, self.device))
         return TrainState(model=model, opt_state=opt_state,
                           step=int(state.step))
 
@@ -689,6 +746,10 @@ class Trainer:
         first epoch's shuffle is re-drawn from the restored numpy rng and
         its first ``skip_steps`` already-trained steps are skipped."""
         cfg_t = self.cfg.train
+        if self.placement is not None and checkpointer is not None and \
+                getattr(checkpointer, "placement", None) is None:
+            raise ValueError("a sharded Trainer saves through a "
+                             "Checkpointer(..., placement=trainer.placement)")
         state = state or self.init_state()
         if max_steps is not None and state.step >= max_steps:
             # resumed at/past the step budget (e.g. a fleet retry of a job

@@ -90,3 +90,22 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def quiet_log() -> logging.Logger:
+    """A logger that drops every record: the non-chief ranks' of a
+    sharded run, where only rank 0 logs."""
+    logger = logging.getLogger("mtamrec_torch.quiet")
+    logger.propagate = False
+    logger.disabled = True
+    return logger
+
+
+class NullWriter:
+    """A `MetricsWriter` that writes nothing (the non-chief ranks')."""
+
+    def scalars(self, step: int, values: Dict[str, float]) -> None:
+        del step, values
+
+    def close(self) -> None:
+        pass

@@ -7,7 +7,9 @@ values the JAX package's CLI logs; a 12-step bpr run writes
 3-step experiment in a subprocess, and a subprocess with ``pandas``,
 ``jax`` and ``mtamrecommender_tpu`` made unimportable imports the port's
 data path, CLI, fleet, `Trainer` and ``chip_smoke.py`` and trains
-through the CLI with the native builder.
+through the CLI with the native builder.  The mesh options set JAX's
+overrides; a mesh that does not fit the world raises `build_mesh`'s
+ValueError (tests/test_torch_dist_smoke.py runs them on two ranks).
 """
 
 import json
@@ -108,15 +110,28 @@ def test_train_checkpoint_and_resume(tmp_path, monkeypatch):
             "train_data.txt").exists()
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.main(["--model_parallel", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cli.build_config(cli.make_parser().parse_args(
-            ["--embedding_engine", "a2a"]))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cli.main(SMALL + ["--set", "mesh.data_axis_size=2", "--device",
+def test_unported_options_raise(monkeypatch):
+    """The mesh options run since parallel/ is ported: they set JAX's
+    overrides, and a mesh that does not fit the world raises
+    build_mesh's ValueError before any process group is made."""
+    for flags in (["--model_parallel", "2"], ["--embedding_engine", "a2a"],
+                  ["--model_parallel", "4", "--embedding_engine", "psum"]):
+        got = cli.build_config(cli.make_parser().parse_args(flags))
+        want = jcli.build_config(jcli.make_parser().parse_args(flags))
+        assert got.to_dict() == want.to_dict()
+    cfg = cli.build_config(cli.make_parser().parse_args(
+        ["--model_parallel", "2", "--embedding_engine", "a2a"]))
+    assert (cfg.mesh.model_axis_size, cfg.mesh.shard_embeddings,
+            cfg.model.vocab_pad_multiple, cfg.mesh.embedding_engine) == \
+        (2, True, 128, "a2a")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="mesh 3x1 != device count 2"):
+        cli.main(SMALL + ["--set", "mesh.data_axis_size=3", "--device",
                           "cpu"])
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="does not divide device count 1"):
+        cli.main(["--model_parallel", "2", "--device", "cpu"])
     args = cli.make_parser().parse_args(
         ["--experiment_name", "MTAMb7_elec", "--set", "model.num_blocks=9",
          "--use_pallas", "--version", "x"])
