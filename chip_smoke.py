@@ -65,7 +65,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      backward's two designs in turns (tile, rows, rows, tile) with the
      profiler's split of each by launch and the tile design's host time
      a call (scaled_dot_product_attention forward + backward beside the
-     plain and tisas backward);
+     plain and tisas backward); then both kernels' "wide" designs (past
+     64 keys: a block 16 query rows of a batch row over an f32 score
+     strip; the backward a query pass, a key pass and in time mode the
+     gate sums) in all five modes and both dtypes at B = 1, 16, 64 x Tq =
+     Tk = 65, 256, 1024 (d=128; and B=16 at d=16), ragged key lengths
+     with a row of length 0 and a full row, a rate-0.5 mask in the drop
+     modes: each within 1e-5 / 2e-3 (f32 / bf16) of its design twin's
+     largest |out| and within KERNEL_TOL of its plain twin, the same bits
+     twice; timed at B=64, Tq = Tk = 256 in turns with the query and rows
+     designs forced (wide, old, old, wide: event ms, the profiler's device
+     ms, the host ms a call, the backward's split by launch) and at Tq =
+     Tk = 1024 each once by events, beside the plain twins, the bound and
+     scaled_dot_product_attention (forward; forward + backward) in the
+     plain and tisas modes;
   2d. the long-history kernels the same way: fused_readout and
      fused_readout_bwd at B = 1, 16, 64 x L = 256, 512, 1024 in f32 and
      bf16 (scalar and positional gate rows, ragged key lengths, one row
@@ -149,7 +162,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      to the rows design (default, rows, rows, default);
   2e. (run after 2d) past 1024 keys: gru_scan and gru_scan_bwd (tgru)
      at B=64, L=2048, every row full, as in phase 2d (each twin run once
-     to check and twice to time); fused_attention_blockwise in each
+     to check and once to time); fused_attention_blockwise in each
      mode against its twin in f32 and bf16 at Tq = 1 (B = 1, 16, 64 x
      Tk = 1025, 2048, 4096), Tq = Tk = 2048 (B = 1, 16, 64), ragged
      key lengths (a row with no live key, a full row, one ending inside
@@ -192,12 +205,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      scores against the CPU
      at B = 2 (the CPU's time at L=2048 sets that size); MTAM's scoring
      call at B = 64 timed in turns with gru_scan forced to the unit_column
-     design (default, unit_column, unit_column, default), and at B = 1,
-     16, 64 in turns with the blockwise kernel forced to the SIMT design
+     design (default, unit_column, unit_column, default), and at B = 1
+     and 64 in turns with the blockwise kernel forced to the SIMT design
      (default, simt, simt, default);
      Time_Aware_SA's and MTAM's step: one step against the CPU at B = 2
-     (in bf16 the scalar gates' gradients reported, not held), timed at
-     B = 64 in bf16 and f32 with its peak memory (Time_Aware_SA: 3
+     (in bf16 the scalar gates' gradients reported, not held), 3 steps
+     after 1 warm-up timed at B = 64 in bf16 and f32 with its peak
+     memory (Time_Aware_SA: 3
      blockwise[time] (mma in bf16, regtile in f32) + 3 dense_bwd[time] +
      4 dtable a step, no
      fused_attention_bwd; MTAM: 1 gru_scan + 1 gru_scan_bwd + 4 dtable,
@@ -340,9 +354,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      restored and fitted on to 6 (parameters and Adam moments
      torch.equal).  `python3 chip_smoke.py --only 12` builds and runs
      phase 12 alone.
+  13. the self-attention models at the JAX package's L=256 run
+     (benchmarks/long_history_bench.py --seq_len 256: phase 6's cell at
+     L=256, B=64, d=128, 3 blocks, 1 head, the scalar gate, 2,000 items,
+     2,048 rows of markov_long_arrays from seed 0): Time_Aware_SA, SASrec
+     and TiSAS (the last two at dropout 0.5) one step's loss and every
+     gradient leaf against the CPU in f32 and bf16 at B=16 (masks drawn on
+     the CPU and injected on both sides), the launches of a step exactly
+     (3 fused_attention + 3 fused_attention_bwd, all in the wide design,
+     + 4 dtable; no query, rows or dense launch), 10 steps timed at B=64
+     in bf16 and f32 with the device idle share, and
+     Recommender.recommend at B = 1, 16, 64 in bf16 and f32 against the
+     CPU at each B (3 wide forward launches of the base mode a call).
+     `python3 chip_smoke.py --only 13` builds and runs phase 13 alone.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
-and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1" and
-at Tq=Tk=50 as "@Tq50"; the chain readout's pair at MTAM's L=50 step
+and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1", at
+Tq=Tk=50 as "@Tq50" and, in their wide designs, at B=64, Tq=Tk=256 as
+"@L256" with the query or rows design's times on the same inputs in
+turns beside them; the chain readout's pair at MTAM's L=50 step
 as "@L50" and at one hop as "@L50h1"; the readout, GRU and dtable kernels at B=64,
 L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048, the GRU
 kernels at B=64, L=2048 and
@@ -457,7 +486,20 @@ FWD_TILE_SOURCE = "mtamrecommender_tpu_torch/csrc/fused_attention_tile.cu"
 # the single-tile forward's source by design (`attention_fwd_design`)
 FWD_SOURCES = {"tile": FWD_TILE_SOURCE,
                "hop": "mtamrecommender_tpu_torch/csrc/fused_attention_hop.cu",
+               "wide": "mtamrecommender_tpu_torch/csrc/fused_attention_wide.cu",
                "query": "mtamrecommender_tpu_torch/csrc/fused_attention.cu"}
+BWD_WIDE_SOURCE = "mtamrecommender_tpu_torch/csrc/fused_attention_bwd_wide.cu"
+# the wide designs' kernels by library: the forward's <type, mode, drop>,
+# the backward's query pass <type, mode, drop> and key pass <type>
+WIDE_KERNELS = {"fused_attention_wide": ("attn_fwd_wide_kernel",),
+                "fused_attention_bwd_wide": ("attn_bwd_wide_query_kernel",
+                                             "attn_bwd_wide_key_kernel")}
+# phase 2c's wide shapes, (B, Tq = Tk, d): every B at d=128, B=16 at d=16;
+# timed at B=64 and the lengths of WIDE_TIMED (L256 is phase 13's cell)
+WIDE_CASES = (tuple((bs, t, 128) for t in (65, 256, 1024)
+                    for bs in (1, 16, 64))
+              + tuple((16, t, 16) for t in (65, 256, 1024)))
+WIDE_TIMED = (256, 1024)
 # the forward hop design's kernel, its template arguments <type, mode, drop>
 FWD_HOP_KERNELS = ("attn_fwd_hop_kernel",)
 # the hop design's (Tk, d) in phase 2 (Tk=50, d=128: MTAM's serving hops,
@@ -1659,6 +1701,196 @@ def check_attention_training(torch, timer, iters, failures):
     return entries
 
 
+def check_wide_pair(torch, ak, mode, args, dm, g, dname, acc):
+    """Both wide kernels on one input (`attention_fwd_design` and
+    `attention_bwd_design` give "wide"): two launches of each, the same
+    bits; each within TILE_FWD_TOL of its design-shaped twin
+    (`_wide_fwd_design_plain`, `_wide_design_plain`) and within
+    KERNEL_TOL of its plain twin; finite.  Folds the worst into ``acc``
+    {"fwd": {...}, "bwd": {...}}."""
+    q, k = args[0], args[1]
+    shape = (q.dtype, q.shape[1], k.shape[1], q.shape[2])
+    picked = (ak.attention_fwd_design(*shape), ak.attention_bwd_design(*shape))
+    out = {kind: dict(acc[kind]) for kind in ("fwd", "bwd")}
+    got = ak.fused_attention(mode, *args, dm)
+    again = ak.fused_attention(mode, *args, dm)
+    grads = ak.fused_attention_bwd(mode, g, *args, dm)
+    grads2 = ak.fused_attention_bwd(mode, g, *args, dm)
+    n = 10 if mode == "time" else 3
+    runs = {"fwd": ([got], [again], [ak._wide_fwd_design_plain(mode, *args,
+                                                               dm)],
+                    [ak.fused_attention_plain(mode, *args, dm)]),
+            "bwd": (grads[:n], grads2[:n],
+                    ak._wide_design_plain(mode, g, *args, dm)[:n],
+                    ak.fused_attention_bwd_plain(mode, g, *args, dm)[:n])}
+    for kind, (first, second, twin, plain) in runs.items():
+        o = out[kind]
+        for a, b, t, p in zip(first, second, twin, plain):
+            err, rel = rel_err(a, t)
+            o["err"], o["rel"] = max(o["err"], err), max(o["rel"], rel)
+            o["plain_rel"] = max(o["plain_rel"], rel_err(a, p)[1])
+            o["same"] = o["same"] and bool(torch.equal(a, b))
+            o["finite"] = o["finite"] and bool(a.isfinite().all())
+        o["ok"] = (o["ok"] and o["same"] and o["finite"]
+                   and o["rel"] <= TILE_FWD_TOL[dname]
+                   and o["plain_rel"] <= KERNEL_TOL[dname]
+                   and picked == ("wide", "wide"))
+    return out
+
+
+def time_wide(torch, timer, ak, mode, args, dm, g, iters, full=True):
+    """The wide pair at one shape: each kernel and its earlier design
+    forced (the query forward, the rows backward: `forced_design`) through
+    the same entry point on the same inputs, by CUDA events, with the
+    plain twin's time, the bound and scaled_dot_product_attention
+    (forward; forward + backward) in the plain and tisas modes.  With
+    ``full`` (the main path's L=256) in turns (wide, old, old, wide), also
+    by the profiler's device time, with each one's host time a call and
+    the wide backward's split by launch; else (L=1024) each timed once.
+    Returns {"fwd": row, "bwd": row}."""
+    dname = str(args[0].dtype).replace("torch.", "")
+    rows = {}
+    for kind, kname, run, plain, bound, old in (
+            ("fwd", "fused_attention",
+             lambda: ak.fused_attention(mode, *args, dm),
+             lambda: ak.fused_attention_plain(mode, *args, dm),
+             att_bound(mode, args, dname, dm), "query"),
+            ("bwd", "fused_attention_bwd",
+             lambda: ak.fused_attention_bwd(mode, g, *args, dm),
+             lambda: ak.fused_attention_bwd_plain(mode, g, *args, dm),
+             att_bwd_bound(mode, args, dm, dname), "rows")):
+        def forced(measure, kname=kname, run=run):
+            with forced_design(kname):
+                return measure(run)
+        old_timed = lambda f: timer(f, max(iters // 5, 3))  # noqa: E731
+        row = {"design": "wide", "plain_ms": timer(plain, 3 if full else 1,
+                                                   warmup=1), **bound}
+        if full:
+            device = lambda f: timer.device(f, iters=5)  # noqa: E731
+            a, b1, b2, a2 = (timer(run, iters), forced(old_timed),
+                             forced(old_timed), timer(run, iters))
+            d, e1, e2, d2 = (device(run), forced(device), forced(device),
+                             device(run))
+            mean = lambda x, y: None if None in (x, y) else (x + y) / 2  # noqa: E731
+            row.update({"ms": (a + a2) / 2, "ms_repeats": [a, a2],
+                        f"{old}_ms": (b1 + b2) / 2,
+                        f"{old}_ms_repeats": [b1, b2],
+                        "device_ms": mean(d, d2), "device_ms_repeats": [d, d2],
+                        f"{old}_device_ms": mean(e1, e2),
+                        f"{old}_device_ms_repeats": [e1, e2],
+                        "host_ms": timer.host(run, iters=50),
+                        f"{old}_host_ms": forced(
+                            lambda f: timer.host(f, iters=10))})
+            if kind == "bwd":
+                row["passes_ms"] = timer.passes(run)
+        else:
+            row.update({"ms": timer(run, iters), f"{old}_ms": forced(old_timed),
+                        "device_ms": None, "host_ms": None})
+        library = att_library(torch, mode, args,
+                              g if kind == "bwd" else None)
+        if library is not None:
+            row["library_ms"] = timer(library, iters)
+            row["library_call"] = ("scaled_dot_product_attention"
+                                   + (" fwd+bwd" if kind == "bwd" else ""))
+        rows[kind] = row
+    return rows
+
+
+def wide_occupancy(ak, mode, dname, tk, d=128):
+    """The wide kernels' shared memory a block (bytes) at (Tk, d): the
+    forward's and its blocks an SM, the backward's query and key passes'."""
+    lib, blib = ak._wide_library(), ak._bwd_wide_library()
+    mode_id, is_bf16 = ak.MODES.index(mode), int(dname == "bfloat16")
+    return {"smem_bytes": lib.fused_attention_wide_smem_bytes(
+                mode_id, is_bf16, tk, d),
+            "blocks_per_sm": lib.fused_attention_wide_blocks_per_sm(
+                mode_id, is_bf16, tk, d, 0),
+            "bwd_query_smem_bytes": blib.fused_attention_bwd_wide_smem_bytes(
+                mode_id, is_bf16, tk, d, 0),
+            "bwd_key_smem_bytes": blib.fused_attention_bwd_wide_smem_bytes(
+                mode_id, is_bf16, tk, d, 1)}
+
+
+def check_attention_wide(torch, timer, iters, failures):
+    """The wide pair (the single-tile forward and backward past 64 keys)
+    against their twins at WIDE_CASES in every mode and both dtypes
+    (`check_wide_pair`; `att_inputs`' ragged key lengths with a row of
+    length 0 and a full row, a rate-0.5 mask in the drop modes), then
+    timed at B=64 and Tq = Tk of WIDE_TIMED with every key of `att_inputs`
+    (`time_wide`).  Returns (kernels-line entries at L=256, the timed rows
+    by length)."""
+    from mtamrecommender_tpu_torch.ops import layers
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1357)
+    entries, timed = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for mode in ak.MODES:
+            drop = mode.endswith("_drop")
+            start = {"err": 0.0, "rel": 0.0, "plain_rel": 0.0, "same": True,
+                     "finite": True, "ok": True}
+            acc = {"fwd": dict(start), "bwd": dict(start)}
+            for bs, t, d in WIDE_CASES:
+                args = att_inputs(torch, gen, dtype, B=bs, Tq=t, Tk=t, d=d)
+                dm = (layers.draw_drop_mask(gen, bs, t, t, 0.5, DEVICE)
+                      if drop else None)
+                g = torch.randn(args[0].shape, generator=gen, device=DEVICE)
+                acc = check_wide_pair(torch, ak, mode, args, dm, g, dname,
+                                      acc)
+                del args, dm, g
+            for kind in ("fwd", "bwd"):
+                a = acc[kind]
+                print(f"fused_attention{'_bwd' if kind == 'bwd' else ''} "
+                      f"{mode:10s} {dname:9s} wide Tq=Tk in (65, 256, 1024) "
+                      f"max_abs_err={a['err']:.3e} rel={a['rel']:.3e} "
+                      f"(tol {TILE_FWD_TOL[dname]}) plain_rel="
+                      f"{a['plain_rel']:.3e} same_bits={a['same']} "
+                      f"{'ok' if a['ok'] else 'FAIL'}", flush=True)
+                if not a["ok"]:
+                    failures.append(f"wide {kind} {mode} {dname}: {a}")
+            for t in WIDE_TIMED:
+                args = att_inputs(torch, gen, dtype, B=64, Tq=t, Tk=t)
+                dm = (layers.draw_drop_mask(gen, 64, t, t, 0.5, DEVICE)
+                      if drop else None)
+                g = torch.randn(args[0].shape, generator=gen, device=DEVICE)
+                rows = time_wide(torch, timer, ak, mode, args, dm, g,
+                                 iters if t == 256 else max(iters // 5, 3),
+                                 full=t == 256)
+                occupancy = wide_occupancy(ak, mode, dname, t)
+                for kind, row in rows.items():
+                    a = acc[kind]
+                    row.update(max_abs_err=a["err"], rel_err=a["rel"],
+                               plain_rel_err=a["plain_rel"],
+                               tol=TILE_FWD_TOL[dname], ok=a["ok"],
+                               same_bits_twice=a["same"],
+                               source=(FWD_SOURCES["wide"] if kind == "fwd"
+                                       else BWD_WIDE_SOURCE), **occupancy)
+                    old = "query" if kind == "fwd" else "rows"
+                    print(f"fused_attention{'_bwd' if kind == 'bwd' else ''} "
+                          f"{mode:10s} B=64 Tq=Tk={t} {dname:9s} wide ms="
+                          f"{row['ms']:.4f} device_ms={row['device_ms']} "
+                          f"{old}_ms={row[f'{old}_ms']:.4f} {old}_device_ms="
+                          f"{row.get(f'{old}_device_ms')} host_ms="
+                          f"{row['host_ms']} plain_ms="
+                          f"{row['plain_ms']:.4f} bound_ms="
+                          f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                          f"library_ms={row.get('library_ms')} smem="
+                          f"{occupancy}", flush=True)
+                    if "passes_ms" in row:
+                        print(f"    passes_ms: {json.dumps(row['passes_ms'])}",
+                              flush=True)
+                    kname = ("fused_attention" if kind == "fwd"
+                             else "fused_attention_bwd")
+                    timed.setdefault(f"L{t}", {}).setdefault(
+                        f"{kname}[{mode}]", {})[dname] = row
+                    if t == 256:
+                        entries.setdefault((kname, mode, "L256"),
+                                           {})[dname] = row
+                del args, dm, g
+    return entries, timed
+
+
 # ------------------------------------------------------------ phase 2d
 
 READOUT_BATCHES, READOUT_KEYS = (1, 16, 64), (256, 512, 1024)
@@ -2274,8 +2506,10 @@ def _counts():
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
             "fused_attention_hop": dict(ak.fwd_hop_launches),
+            "fused_attention_wide": dict(ak.fwd_wide_launches),
             "fused_attention_query": dict(ak.fwd_query_launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
+            "fused_attention_bwd_wide": dict(ak.bwd_wide_launches),
             "fused_attention_bwd_rows": dict(ak.bwd_rows_launches),
             "fused_attention_blockwise": dict(ak.blockwise_launches),
             "fused_attention_blockwise_mma": dict(ak.blockwise_mma_launches),
@@ -2301,9 +2535,9 @@ def _counts():
 def _reset_counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
-                   ak.fwd_hop_launches, ak.fwd_query_launches,
-                   ak.bwd_launches,
-                   ak.bwd_rows_launches,
+                   ak.fwd_hop_launches, ak.fwd_wide_launches,
+                   ak.fwd_query_launches, ak.bwd_launches,
+                   ak.bwd_wide_launches, ak.bwd_rows_launches,
                    ak.blockwise_launches,
                    ak.blockwise_mma_launches, ak.blockwise_regtile_launches,
                    ak.blockwise_split_launches, ak.dense_fwd, ak.dense_bwd,
@@ -2320,8 +2554,9 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     """Launches after ``steps`` training steps: 4 dtable a step; the GRU
     scan and its backward once a step in mode ``gru``; the attention
     forward and backward ``blocks`` times a step in mode ``attention``
-    (at Tq = Tk = 50: the forward's hop and query designs and the
-    backward's rows design never);
+    (at Tq = Tk = 50: the forward's hop, wide and query designs and the
+    backward's wide and rows designs never; callers past 64 keys add the
+    wide designs' launches);
     the fused readout and its backward once a step with ``readout``, the
     chain readout's pair with ``chain`` (the rows designs never: at L=50
     both take the staged design); the dense route's
@@ -2341,8 +2576,10 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             # <= 64 only (`attention_fwd_design`), which callers add, and
             # its query design only past 64 keys
             "fused_attention_hop": dict.fromkeys(ak.MODES, 0),
+            "fused_attention_wide": dict.fromkeys(ak.MODES, 0),
             "fused_attention_query": dict.fromkeys(ak.MODES, 0),
             "fused_attention_bwd": dict(att),
+            "fused_attention_bwd_wide": dict.fromkeys(ak.MODES, 0),
             # the main path never takes the backward's rows design at
             # Tq = Tk = 50 (`attention_bwd_design`: "tile")
             "fused_attention_bwd_rows": dict.fromkeys(ak.MODES, 0),
@@ -2377,10 +2614,16 @@ def _kernel_modules():
 
 def one_step_check(torch, setup, failures, name, want, drop_masks=None,
                    hold_bf16_scalars=True, neg_id=None,
-                   dtypes=("float32", "bfloat16")):
+                   dtypes=("float32", "bfloat16"), cpu_order=None):
     """One step's loss and every gradient leaf on the card against the
     CPU (the plain twins), in each of ``dtypes`` (f32 first: bf16 is held
     against it too), and the step's launches against ``want``.
+    ``cpu_order``, where given, is a context manager under which the CPU
+    sums in the kernels' order (their design twins): the f32 CPU step is
+    run again under it, and each f32 leaf is allowed, on top of the
+    tolerance, the CPU's own gap between the two orders (a scalar gate's
+    sum of B*L*L cancelling terms moves that much with the order alone;
+    the bf16 rule already allows the CPU's bf16-vs-f32 gap).
     ``drop_masks``: CPU masks, one per block (or
     readout hop), injected on both sides; ``neg_id``: the bpr loss's
     negative item, likewise.  Without ``hold_bf16_scalars`` the bf16 gradients of
@@ -2396,8 +2639,16 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
         m_cpu, g_cpu = _loss_grads(torch, cfg, setup.model(torch, cfg, "cpu"),
                                    setup.batch_cpu, vocab, drop_masks,
                                    neg_id)
+        order_gap = {}
         if dname == "float32":
             cpu32 = g_cpu
+            if cpu_order is not None:
+                with cpu_order():
+                    _, g_alt = _loss_grads(
+                        torch, cfg, setup.model(torch, cfg, "cpu"),
+                        setup.batch_cpu, vocab, drop_masks, neg_id)
+                order_gap = {leaf: (g_alt[leaf] - g).abs().max().item()
+                             for leaf, g in g_cpu.items()}
         _reset_counts()
         m_gpu, g_gpu = _loss_grads(torch, cfg, setup.model(torch, cfg, DEVICE),
                                    setup.batch, vocab, on_card,
@@ -2411,7 +2662,7 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
             scale = max(cpu32[leaf].abs().max().item(), 1e-30)
             diff = (g - g_cpu[leaf]).abs().max().item()
             by_leaf[leaf] = diff / scale
-            allowed = TRAIN_TOL[dname] * scale
+            allowed = TRAIN_TOL[dname] * scale + order_gap.get(leaf, 0.0)
             if dname == "bfloat16":
                 allowed += (g_cpu[leaf] - cpu32[leaf]).abs().max().item()
             finite = bool(torch.isfinite(g).all())
@@ -2434,6 +2685,9 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
                 {leaf: (g_cpu[leaf] - cpu32[leaf]).abs().max().item()
                  / max(cpu32[leaf].abs().max().item(), 1e-30)
                  for leaf in reported_only}),
+            "cpu_order_gap_by_leaf": {
+                leaf: gap / max(cpu32[leaf].abs().max().item(), 1e-30)
+                for leaf, gap in order_gap.items() if gap},
             "launches": counts, "ok": ok}
         print(f"train {name} L={setup.meta.max_seq_len} one step {dname:9s} "
               f"loss gpu="
@@ -3382,12 +3636,13 @@ def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
     pair at those ids and at phase 4's."""
     entries = check_blockwise(torch, timer, 10, failures)
     gen = torch.Generator(device=DEVICE).manual_seed(9753)
+    iters //= 2     # the lookups' timed calls (phase 2b's and 2d's half)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         # the T-GRU pair over MTAM's 2048 steps (phase 7's shape); each
         # twin checked once and timed twice more
         for kname, row in check_gru_long(torch, timer, gen, dtype, XL_L, 10,
-                                         2, failures).items():
+                                         1, failures).items():
             entries.setdefault((kname, "tgru", "L2048"), {})[dname] = row
         entries.setdefault(("dtable", None, "L2048"), {})[dname] = \
             check_dtable(torch, timer, iters, failures, gen, dtype,
@@ -3815,52 +4070,59 @@ class XLSetup:
                                       XL_SMALL)
 
 
-def serve_xl(torch, failures, setup, name, want, main_launches):
-    """Recommender.recommend for ``name`` at L=2048 for B = 1, 16, 64 in
-    bf16 and f32: the launches of one call, counted from 0, against
-    ``want(dtype name)`` (added to ``main_launches``), and the time per
-    request
-    batch; the scores against the same Recommender on the CPU at B =
-    XL_SMALL (the CPU's time at this length sets that size)."""
+def serve_xl(torch, failures, setup, name, want, main_launches,
+             held_at_each=False):
+    """Recommender.recommend for ``name`` at the setup's L (phase 7's
+    2048; phase 13's 256) for B = 1, 16, 64 in bf16 and f32: the launches
+    of one call, counted from 0, against ``want(dtype name)`` (added to
+    ``main_launches``), and the time per request batch; the scores
+    against the same Recommender on the CPU at B = XL_SMALL (the CPU's
+    time at L=2048 sets that size), or with ``held_at_each`` at each B."""
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
     from mtamrecommender_tpu_torch.serve import Recommender
 
     meta, vocab, rows = setup.meta, setup.meta.item_vocab, []
-    hists2, req2 = make_histories(np.random.RandomState(XL_SMALL), XL_SMALL,
-                                  meta.item_count, meta.category_count,
-                                  meta.max_seq_len)
-    for dname in ("bfloat16", "float32"):
-        cfg = setup.cfg(dname, name)
-        model = setup.model(torch, cfg, "cpu")
-        rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
-        rec = Recommender(cfg, meta, model, device=DEVICE)
+    L = meta.max_seq_len
+
+    def against_cpu(rec, rec_cpu, cfg, dname, hists, req):
+        """(max |diff|, rel, top-k ok, all ok) of the scores."""
         with torch.no_grad():
             s_gpu = scores_for_eval(rec.model_def, rec._model_c, cfg.model,
-                                    rec.batch_from_histories(hists2, req2),
+                                    rec.batch_from_histories(hists, req),
                                     vocab).cpu()
             s_cpu = scores_for_eval(rec_cpu.model_def, rec_cpu._model_c,
                                     cfg.model,
-                                    rec_cpu.batch_from_histories(hists2,
-                                                                 req2),
+                                    rec_cpu.batch_from_histories(hists, req),
                                     vocab)
         err, rel = rel_err(s_gpu[:, :vocab], s_cpu[:, :vocab])
         tol_abs = SLICE_TOL[dname] * s_cpu[:, :vocab].abs().max().item()
         picked = torch.gather(s_cpu, 1, torch.topk(s_gpu, 50, dim=1).indices)
         topk_ok = bool((picked >= torch.topk(s_cpu, 50, dim=1).values[:, -1:]
                         - tol_abs).all())
-        scores_ok = (bool(torch.isfinite(s_gpu).all()) and topk_ok
-                     and rel <= SLICE_TOL[dname])
-        print(f"serve {name} L={XL_L} {dname:9s} B={XL_SMALL} against the "
-              f"CPU: max_abs_score_err={err:.3e} rel={rel:.3e} "
-              f"topk_ok={topk_ok} {'ok' if scores_ok else 'FAIL'}",
-              flush=True)
-        if not scores_ok:
-            failures.append(f"serve {name} L={XL_L} {dname}: rel score err "
-                            f"{rel:.3e}, top-k {topk_ok}")
+        return err, rel, topk_ok, (bool(torch.isfinite(s_gpu).all())
+                                   and topk_ok and rel <= SLICE_TOL[dname])
+
+    hists2, req2 = make_histories(np.random.RandomState(XL_SMALL), XL_SMALL,
+                                  meta.item_count, meta.category_count, L)
+    for dname in ("bfloat16", "float32"):
+        cfg = setup.cfg(dname, name)
+        model = setup.model(torch, cfg, "cpu")
+        rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
+        rec = Recommender(cfg, meta, model, device=DEVICE)
+        if not held_at_each:
+            err, rel, topk_ok, scores_ok = against_cpu(rec, rec_cpu, cfg,
+                                                       dname, hists2, req2)
+            print(f"serve {name} L={L} {dname:9s} B={XL_SMALL} against the "
+                  f"CPU: max_abs_score_err={err:.3e} rel={rel:.3e} "
+                  f"topk_ok={topk_ok} {'ok' if scores_ok else 'FAIL'}",
+                  flush=True)
+            if not scores_ok:
+                failures.append(f"serve {name} L={L} {dname}: rel score "
+                                f"err {rel:.3e}, top-k {topk_ok}")
         for bs in (1, 16, XL_BATCH):
             hists, req = make_histories(np.random.RandomState(bs), bs,
                                         meta.item_count, meta.category_count,
-                                        meta.max_seq_len)
+                                        L)
             if bs > 1:
                 hists[1] = []                  # an empty history
             _reset_counts()
@@ -3871,18 +4133,25 @@ def serve_xl(torch, failures, setup, name, want, main_launches):
             ok = (got == want(dname) and len(recs) == bs
                   and all(len(r) == 50 for r in recs)
                   and all(math.isfinite(s) for r in recs for _, s in r))
+            if held_at_each:
+                err, rel, topk_ok, scores_ok = against_cpu(
+                    rec, rec_cpu, cfg, dname, hists, req)
+                held = {"max_abs_score_err": err, "rel_score_err": rel,
+                        "topk_ok": topk_ok}
+            else:
+                held = {"max_abs_score_err_b2": err, "rel_score_err_b2": rel,
+                        "topk_ok_b2": topk_ok}
             batch = rec.batch_from_histories(hists, req)
-            fetch = min(50 + meta.max_seq_len, vocab)
+            fetch = min(50 + L, vocab)
             recommend_ms = _host_ms(torch, lambda: rec.recommend(
                 hists, req, k=50), 3)
             score_ms = _event_ms(torch, lambda: rec._score_impl(batch, fetch),
                                  3)
             busy = _device_busy(torch, lambda: rec._score_impl(batch, fetch))
             row = {"model": name, "compute_dtype": dname, "batch": bs,
-                   "k": 50, "seq_len": XL_L, "launches_per_call": got,
-                   "launches_ok": got == want(dname),
-                   "max_abs_score_err_b2": err, "rel_score_err_b2": rel,
-                   "tol": SLICE_TOL[dname], "topk_ok_b2": topk_ok,
+                   "k": 50, "seq_len": L, "launches_per_call": got,
+                   "launches_ok": got == want(dname), **held,
+                   "tol": SLICE_TOL[dname],
                    "recommend_ms": recommend_ms, "score_topk_ms": score_ms,
                    **busy, "idle_share": (None if busy["device_busy_ms"] is None
                                           else 1 - busy["device_busy_ms"]
@@ -3891,16 +4160,18 @@ def serve_xl(torch, failures, setup, name, want, main_launches):
             rows.append(row)
             fired = {k: {m: n for m, n in v.items() if n}
                      for k, v in got.items()}
-            print(f"serve {name} L={XL_L} {dname:9s} B={bs:<3d} launches="
+            print(f"serve {name} L={L} {dname:9s} B={bs:<3d} launches="
                   f"{ {k: v for k, v in fired.items() if v} } recommend_ms="
                   f"{recommend_ms:.3f} score_topk_ms={score_ms:.3f} "
-                  f"device_busy_ms={busy['device_busy_ms']} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+                  f"device_busy_ms={busy['device_busy_ms']}"
+                  + (f" max_abs_score_err={err:.3e} rel={rel:.3e} topk_ok="
+                     f"{topk_ok}" if held_at_each else "")
+                  + f" {'ok' if row['ok'] else 'FAIL'}", flush=True)
             for kname, kms in busy["top_kernels"][:4]:
                 print(f"    {kms:9.4f} ms  {kname[:90]}", flush=True)
-            if not ok:
-                failures.append(f"serve {name} L={XL_L} {dname} B={bs}: "
-                                f"launches {got}")
+            if not row["ok"]:
+                failures.append(f"serve {name} L={L} {dname} B={bs}: "
+                                f"launches {got}, scores {held}")
     return rows
 
 
@@ -4064,7 +4335,7 @@ def run_xl_history(torch, setup, failures):
     # the hops' split design against the SIMT design, forced
     report["mtam_serving_blockwise_in_turns"] = {
         bs: score_in_turns(torch, setup, kernel="fused_attention_blockwise",
-                           batch_size=bs) for bs in (1, 16, XL_BATCH)}
+                           batch_size=bs) for bs in (1, XL_BATCH)}
     name = "Time_Aware_Self_Attention_Model"
 
     def want(steps, dname):
@@ -4075,7 +4346,7 @@ def run_xl_history(torch, setup, failures):
     rep = one_step_check(torch, setup, failures, name, want,
                          hold_bf16_scalars=False)
     rep.update(timed_steps(torch, setup, failures, name, want, blocks,
-                           steps=5, warm=2))
+                           steps=3, warm=1))
     report["training"][name] = rep
     # MTAM: the readout in plain PyTorch (single_query_readout), the GRU
     # scan and its backward over 2048 steps
@@ -4083,7 +4354,7 @@ def run_xl_history(torch, setup, failures):
     rep = one_step_check(torch, setup, failures, "MTAM", want,
                          hold_bf16_scalars=False)
     rep.update(timed_steps(torch, setup, failures, "MTAM", want, hops,
-                           steps=5, warm=2))
+                           steps=3, warm=1))
     report["training"]["MTAM"] = rep
     for name, mode in (("SASrec", "plain_drop"),
                        ("Ti_Self_Attention_Model", "tisas_drop")):
@@ -4094,7 +4365,7 @@ def run_xl_history(torch, setup, failures):
                                        "cpu") for _ in range(3)]
         rep = one_step_check(torch, setup, failures, name, want, masks)
         rep.update(timed_steps(torch, setup, failures, name, want, blocks,
-                               steps=5, warm=2, dtypes=("bfloat16",)))
+                               steps=3, warm=1, dtypes=("bfloat16",)))
         report["training"][name] = rep
     report["gather_seam"] = check_gather_seam(torch, setup, failures, blocks)
     return report, {"L2048Tq1": hops, "L2048": blocks}
@@ -6195,6 +6466,114 @@ def run_phase12(torch, setup, long_setup, failures):
     return report, l50, l512
 
 
+# ------------------------------------------------------------ phase 13
+
+L256, L256_SMALL = 256, 16
+L256_META = (100, 2000, 18, L256)            # users, items, categories, L
+# the self-attention models and each one's mode (the drop modes at the
+# cell's dropout 0.5; serving takes the base mode)
+L256_MODELS = {"Time_Aware_Self_Attention_Model": "time",
+               "SASrec": "plain_drop", "Ti_Self_Attention_Model": "tisas_drop"}
+
+
+class L256Setup:
+    """The self-attention models at the JAX package's L=256 run
+    (benchmarks/long_history_bench.py --seq_len 256, the record
+    benchmarks/results/long_history_r5sasdrop256.json: phase 6's cell at
+    L=256, B=64, d=128, 3 blocks, 1 head, the scalar gate, dropout 0.5):
+    2048 rows of markov_long_arrays (seed 0) on the card and on the CPU,
+    three epoch orders.  ``batch`` and ``batch_cpu`` are the first
+    L256_SMALL rows, the size the CPU's one-step comparisons afford."""
+
+    batch_size = LONG_BATCH
+    model = TrainSetup.model
+
+    @staticmethod
+    def cfg(dname, name="MTAM"):
+        return long_cfg(dname, name, L=L256)
+
+    def __init__(self, torch):
+        from mtamrecommender_tpu_torch.data.device_data import (epoch_order,
+                                                                 gather_batch,
+                                                                 to_device)
+        from mtamrecommender_tpu_torch.types import DatasetMeta
+
+        self.meta = DatasetMeta(*L256_META)
+        arrays = markov_long_arrays(LONG_ROWS, L256, self.meta.item_count,
+                                    self.meta.category_count, seed=0)
+        self.data = to_device(arrays)               # CUDA: the default
+        self.data_cpu = to_device(arrays, device="cpu")
+        epochs = [epoch_order(LONG_ROWS, LONG_BATCH,
+                              np.random.RandomState(e))[0] for e in range(3)]
+        order = np.concatenate(epochs)
+        self.order = torch.tensor(order, device=DEVICE)
+        self.order_cpu = torch.tensor(order)
+        self.batch = gather_batch(self.data, self.order, 0, L256_SMALL)
+        self.batch_cpu = gather_batch(self.data_cpu, self.order_cpu, 0,
+                                      L256_SMALL)
+
+
+@contextlib.contextmanager
+def wide_twins():
+    """Within the block the attention pair's CPU twins are the wide
+    designs' (`_wide_fwd_design_plain`, `_wide_design_plain`): the CPU
+    sums in the kernels' blocking and order."""
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    fwd, bwd = ak.fused_attention_plain, ak.fused_attention_bwd_plain
+    ak.fused_attention_plain = ak._wide_fwd_design_plain
+    ak.fused_attention_bwd_plain = ak._wide_design_plain
+    try:
+        yield
+    finally:
+        ak.fused_attention_plain, ak.fused_attention_bwd_plain = fwd, bwd
+
+
+def run_l256(torch, failures):
+    """Phase 13: Time_Aware_SA, SASrec and TiSAS at L=256 (`L256Setup`):
+    one step's loss and every gradient leaf against the CPU in f32 and
+    bf16 at B = L256_SMALL (SASrec's and TiSAS's masks drawn on the CPU
+    and injected on both sides; each f32 leaf allowed the CPU's own gap
+    between the plain twins' order and the wide designs', `wide_twins`),
+    the launches of the step exactly (3
+    fused_attention + 3 fused_attention_bwd, all in the wide design, + 4
+    dtable; no query, rows or dense launch), the step timed at B=64 in
+    bf16 and f32 with its device idle share (the drop modes' masks from
+    the card's generator), and Recommender.recommend at B = 1, 16, 64 in
+    bf16 and f32 against the CPU at each B (3 wide forward launches of
+    the base mode a call).  Returns (report, launches)."""
+    from mtamrecommender_tpu_torch.ops import layers
+
+    setup = L256Setup(torch)
+    report, launches = {}, {}
+    for name, mode in L256_MODELS.items():
+        def want(steps, dname, mode=mode):
+            counts = _want_counts(steps, attention=mode)
+            counts["fused_attention_wide"][mode] = 3 * steps
+            counts["fused_attention_bwd_wide"][mode] = 3 * steps
+            return counts
+        masks = None
+        if mode.endswith("_drop"):
+            cpu_gen = torch.Generator().manual_seed(99)
+            masks = [layers.draw_drop_mask(cpu_gen, L256_SMALL, L256, L256,
+                                           0.5, "cpu") for _ in range(3)]
+        rep = one_step_check(torch, setup, failures, name, want, masks,
+                             cpu_order=wide_twins)
+        rep.update(timed_steps(torch, setup, failures, name, want, launches,
+                               steps=10, warm=2))
+        report[name] = rep
+
+        def want_call(dname, base=mode.replace("_drop", "")):
+            counts = _want_counts(0)
+            counts["fused_attention"][base] = 3
+            counts["fused_attention_wide"][base] = 3
+            return counts
+        report[f"{name}_serving"] = serve_xl(torch, failures, setup, name,
+                                             want_call, launches,
+                                             held_at_each=True)
+    return report, launches
+
+
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
@@ -6287,7 +6666,8 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
-    parser.add_argument("--only", choices=["10", "11", "12"], default=None,
+    parser.add_argument("--only", choices=["10", "11", "12", "13"],
+                        default=None,
                         help="build, then run only this phase, and write "
                              "its report to chiprun_out/chip_smoke_<n>.json "
                              "(no result line)")
@@ -6410,7 +6790,36 @@ def main(argv=None) -> int:
         for inst, regs, spill_st, spill_ld in chain_ptxas[lib_name]:
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
+    # the wide designs of the single-tile pair: the forward's <type, mode,
+    # drop>, the backward's query pass <type, mode, drop> and key pass
+    # <type>; phase 2c reports their shared memory a block
+    wide_ptxas = {}
+    for lib_name, knames in WIDE_KERNELS.items():
+        log = built[lib_name]["log"]
+        if log == "already built":
+            log = build.library_path(lib_name).with_suffix(".log").read_text()
+        wide_ptxas[lib_name] = [row for kname in knames
+                                for row in ptxas_counts(log, kname)]
+        print(f"ptxas {lib_name}:", flush=True)
+        for inst, regs, spill_st, spill_ld in wide_ptxas[lib_name]:
+            print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+                  f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
+    if args.only == "13":
+        l256, l256_launches = run_l256(torch, failures)
+        lap("13")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_13.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "phase_s": phase_s,
+                       "wide_ptxas": wide_ptxas, "l256": l256,
+                       "launches": {k: {str(m): n for m, n in v.items()}
+                                    for k, v in l256_launches.items()},
+                       "failures": failures}, f, indent=1, default=str)
+        print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
+        for msg in failures:
+            print(f"FAIL {msg}", file=sys.stderr)
+        return 1 if failures else 0
     if args.only == "10":
         from_log, log_launches = _run_from_log_phase(torch, failures)
         lap("10")
@@ -6475,6 +6884,10 @@ def main(argv=None) -> int:
     for key, by_dtype in check_attention_training(torch, timer, 100,
                                                   failures).items():
         entries.setdefault(key, {}).update(by_dtype)
+    # and the pair's wide designs past 64 keys
+    wide_entries, wide_timed = check_attention_wide(torch, timer, 50,
+                                                    failures)
+    entries.update(wide_entries)
     lap("2c")
 
     # phase 2d: the long-history kernels, dtable at the long cell's ids
@@ -6627,6 +7040,21 @@ def main(argv=None) -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "sharded paths")
     lap("12")
+
+    # phase 13: the self-attention models at L=256, the wide designs
+    l256, l256_launches = run_l256(torch, failures)
+    for kname, mode in (("fused_attention_wide", "time"),
+                        ("fused_attention_bwd_wide", "time"),
+                        ("fused_attention_wide", "plain_drop"),
+                        ("fused_attention_bwd_wide", "plain_drop"),
+                        ("fused_attention_wide", "tisas_drop"),
+                        ("fused_attention_bwd_wide", "tisas_drop"),
+                        ("fused_attention_wide", "plain"),
+                        ("fused_attention_wide", "tisas"), ("dtable", None)):
+        if l256_launches.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "L=256 self-attention paths")
+    lap("13")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
     # launches on the main paths: MTAM's and the zoo models' at L=50
@@ -6682,7 +7110,7 @@ def main(argv=None) -> int:
                                     "L50": l50_launches,
                                     "L50h1": zoo_groups["one_hop"],
                                     "L512": long_launches, **xl_launches,
-                                    "L2048": l2048})
+                                    "L2048": l2048, "L256": l256_launches})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s,
@@ -6695,6 +7123,7 @@ def main(argv=None) -> int:
                    "gather_widths": gather_widths,
                    "fused_attention_tile_ptxas": fwd_tile_ptxas,
                    "fused_attention_hop_ptxas": fwd_hop_ptxas,
+                   "wide_ptxas": wide_ptxas, "wide_timed": wide_timed,
                    "readout_chain_staged_ptxas": chain_ptxas["readout_chain"],
                    "readout_chain_bwd_staged_ptxas":
                        chain_ptxas["readout_chain_bwd"],
@@ -6733,6 +7162,10 @@ def main(argv=None) -> int:
                                for k, v in by_kernel.items()}
                        for group, by_kernel in zoo_groups.items()},
                    "heads": heads, "parallel": dist_report,
+                   "l256": l256,
+                   "launches_l256": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in l256_launches.items()},
                    "launches_parallel": {
                        cell: {k: {str(m): n for m, n in v.items()}
                               for k, v in got.items()}

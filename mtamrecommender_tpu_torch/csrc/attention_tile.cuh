@@ -47,18 +47,22 @@ __host__ __device__ constexpr int bf_stride(int D) { return D + 8; }
 
 // ---------------------------------------------------------- bf16 (mma.sync)
 
-// C (16 rows x two 8-column n-tiles) = A B over `ksteps` k-steps of 16.
+// C (16 rows x two 8-column n-tiles) = A B over `ksteps` k-steps of 16
+// (with `zero` false, C += A B: the sum carried on from C's values).
 // A_T: A stored [k][m] (else [m][k]); B_T: B stored [k][n] (else [n][k]);
 // sa, sb the row strides in elements; (m0, n0) the tile's origin.
 // Fragment layouts: tile_gemm.cuh's frag_a / frag_b, at these strides.
 template <bool A_T, bool B_T>
 __device__ __forceinline__ void mma_tile(float (&c)[2][4], const bf16* A,
                                          int sa, const bf16* B, int sb,
-                                         int m0, int n0, int ksteps) {
+                                         int m0, int n0, int ksteps,
+                                         bool zero = true) {
   const int lane = threadIdx.x & 31;
+  if (zero) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+    for (int j = 0; j < 2; ++j)
+      c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  }
   for (int kk = 0; kk < 16 * ksteps; kk += 16) {
     unsigned a[4], bb[4];
     if constexpr (A_T)
@@ -156,18 +160,19 @@ __device__ void stage_slice(float* dst, int stride, int width,
   }
 }
 
-// The ring: `stage(s)` copies step s's slices into buffer s % kStages and
-// commits one cp.async group (an empty one past the last step, which
-// keeps the count of groups); `step(s)` sums them.  Step s's copies are
-// issued kStages - 1 steps ahead; a barrier after each step frees its
-// buffer.
-template <class Stage, class Step>
+// The ring of STAGES buffers: `stage(s)` copies step s's slices into
+// buffer s % STAGES and commits one cp.async group (an empty one past the
+// last step, which keeps the count of groups); `step(s)` sums them.  Step
+// s's copies are issued STAGES - 1 steps ahead; a barrier after each step
+// frees its buffer.  Groups committed before the ring have landed by
+// step 0.
+template <int STAGES = kStages, class Stage, class Step>
 __device__ __forceinline__ void slice_ring(int n_steps, Stage stage,
                                            Step step) {
-  for (int s = 0; s < kStages - 1; ++s) stage(s);
+  for (int s = 0; s < STAGES - 1; ++s) stage(s);
   for (int s = 0; s < n_steps; ++s) {
-    stage(s + kStages - 1);
-    tile::cp_async_wait<kStages - 1>();   // step s's slices have landed
+    stage(s + STAGES - 1);
+    tile::cp_async_wait<STAGES - 1>();   // step s's slices have landed
     __syncthreads();
     step(s);
     __syncthreads();   // this buffer free again
@@ -286,6 +291,64 @@ __device__ __forceinline__ void fma_store_out(float* out, int R, int D, int c0,
       *reinterpret_cast<float4*>(out + (size_t)row * D + col) =
           make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
+}
+
+// ----------------------------------------------------------- gate sums
+
+// The backward's gate gradients (time mode), shared by its tile and wide
+// designs: each of a chunk's batch rows writes its five [Tq, Tk] gate
+// terms to a workspace [5][n_rows][Tq][Tk]; this launch sums them over the
+// chunk's rows.
+constexpr int kGateRows = 32;             // batch rows a part of the gate sums
+constexpr int kMaxParts = 128;            // parts a gate launch sums
+constexpr int kGateThreads = 256;
+
+struct GateOut {
+  float* out[5];  // dw1, db1, dwo1, dwo2, dbo, each [Tq, Tk]
+};
+
+// Gate gradient elements (sel, e .. e + 31) of a chunk: warp w sums parts
+// w, w + 8, ... (kGateRows batch rows each, in order), then warp 0 adds
+// the parts in order to 0 (or, with `accumulate`, to the sums of the
+// earlier chunks).  Grid: 5 * ceil(TqTk / 32) blocks of kGateThreads.
+__global__ void __launch_bounds__(kGateThreads) attn_bwd_tile_gates_kernel(
+    const float* __restrict__ ws, GateOut gates, int n_rows, int TqTk,
+    int accumulate) {
+  constexpr int kWarps = kGateThreads / 32;
+  __shared__ float s_part[kMaxParts][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (TqTk + 31) / 32;
+  const int sel = blockIdx.x / groups;
+  const int e = (blockIdx.x % groups) * 32 + lane;
+  const int parts = (n_rows + kGateRows - 1) / kGateRows;
+  const float* src = ws + (size_t)sel * n_rows * TqTk + e;
+  if (e < TqTk) {
+    for (int p = warp; p < parts; p += kWarps) {
+      const int r1 = min(n_rows, (p + 1) * kGateRows);
+      float acc = 0.f;
+#pragma unroll 8
+      for (int r = p * kGateRows; r < r1; ++r) acc += src[(size_t)r * TqTk];
+      s_part[p][lane] = acc;
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && e < TqTk) {
+    float* dst = gates.out[sel] + e;
+    float acc = accumulate ? *dst : 0.f;
+    for (int p = 0; p < parts; ++p) acc += s_part[p][lane];
+    *dst = acc;
+  }
+}
+
+// Launch the gate sums of a chunk of n_rows rows starting at batch row b0
+// on `stream`; returns cudaGetLastError().
+inline cudaError_t launch_gate_sums(const float* ws, const GateOut& gates,
+                                    int n_rows, int TqTk, int b0,
+                                    cudaStream_t stream) {
+  const int groups = (TqTk + 31) / 32;
+  attn_bwd_tile_gates_kernel<<<5 * groups, kGateThreads, 0, stream>>>(
+      ws, gates, n_rows, TqTk, b0 > 0);
+  return cudaGetLastError();
 }
 
 }  // namespace attn_tile

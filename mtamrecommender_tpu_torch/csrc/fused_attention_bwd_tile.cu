@@ -43,9 +43,9 @@
 // at 105 KB two blocks share an SM.  The staging, the products and the
 // slice ring are attention_tile.cuh's, which the forward's tile design
 // (fused_attention_tile.cu) shares.
-// The gate gradients: a second launch sums the workspace over the batch,
-// each part of kGateRows rows in order by one warp, then the parts in
-// order.  A batch runs in chunks of whole parts (the wrapper's
+// The gate gradients: a second launch (attention_tile.cuh's gate sums)
+// sums the workspace over the batch, each part of kGateRows rows in order
+// by one warp, then the parts in order.  A batch runs in chunks of whole parts (the wrapper's
 // `gate_chunk_rows`: as many as its workspace cap holds), each adding its
 // parts to the sums so far, so the order never depends on the chunking.  No float atomics: the same inputs
 // give the same bits.
@@ -58,13 +58,6 @@ using namespace attn_tile;
 
 constexpr int kThreads = kFmaThreads;      // the f32 kernel's
 constexpr int kMmaThreads = 512;           // the bf16 kernel's
-constexpr int kWarps = kThreads / 32;
-constexpr int kGateRows = 32;             // batch rows a part of the gate sums
-constexpr int kMaxParts = 128;            // parts a gate launch sums
-
-struct GateOut {
-  float* out[5];  // dw1, db1, dwo1, dwo2, dbo, each [Tq, Tk]
-};
 
 struct TileArgs {
   const float* g;
@@ -381,40 +374,6 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_tile_fma_kernel(
   });
 }
 
-// ----------------------------------------------------------- gate sums
-
-// Gate gradient elements (sel, e .. e + 31) of a chunk: warp w sums parts
-// w, w + 8, ... (kGateRows batch rows each, in order), then warp 0 adds
-// the parts in order to 0 (or, with `accumulate`, to the sums of the
-// earlier chunks).
-__global__ void __launch_bounds__(kThreads) attn_bwd_tile_gates_kernel(
-    const float* __restrict__ ws, GateOut gates, int n_rows, int TqTk,
-    int accumulate) {
-  __shared__ float s_part[kMaxParts][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = (TqTk + 31) / 32;
-  const int sel = blockIdx.x / groups;
-  const int e = (blockIdx.x % groups) * 32 + lane;
-  const int parts = (n_rows + kGateRows - 1) / kGateRows;
-  const float* src = ws + (size_t)sel * n_rows * TqTk + e;
-  if (e < TqTk) {
-    for (int p = warp; p < parts; p += kWarps) {
-      const int r1 = min(n_rows, (p + 1) * kGateRows);
-      float acc = 0.f;
-#pragma unroll 8
-      for (int r = p * kGateRows; r < r1; ++r) acc += src[(size_t)r * TqTk];
-      s_part[p][lane] = acc;
-    }
-  }
-  __syncthreads();
-  if (warp == 0 && e < TqTk) {
-    float* dst = gates.out[sel] + e;
-    float acc = accumulate ? *dst : 0.f;
-    for (int p = 0; p < parts; ++p) acc += s_part[p][lane];
-    *dst = acc;
-  }
-}
-
 template <typename K>
 cudaError_t launch_tile(K kernel, int threads, const TileArgs& a, size_t smem,
                         cudaStream_t stream) {
@@ -501,12 +460,9 @@ extern "C" int fused_attention_bwd_tile_launch(
       default: err = launch_mode<ATT_TISAS>(is_bf16, a, smem, s); break;
     }
     if (err != cudaSuccess) return err;
-    if (time) {
-      const int groups = (int)((gate_n + 31) / 32);
-      attn_bwd_tile_gates_kernel<<<5 * groups, kThreads, 0, s>>>(
-          a.ws, gates, a.n_rows, (int)gate_n, b0 > 0);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
+    if (time && (err = launch_gate_sums(a.ws, gates, a.n_rows, (int)gate_n,
+                                        b0, s)) != cudaSuccess)
+      return err;
   }
   return cudaSuccess;
 }

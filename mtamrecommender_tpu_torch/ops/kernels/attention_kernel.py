@@ -8,7 +8,9 @@ does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel (the
 Pallas `_attn_kernel`) in the design `attention_fwd_design` picks (with 2
 to TILE_KEYS queries and up to TILE_KEYS keys csrc/fused_attention_tile.cu,
 a block a batch row; with one query and up to HOP_KEYS keys
-csrc/fused_attention_hop.cu, a block a batch row; else
+csrc/fused_attention_hop.cu, a block a batch row; with 2 or more queries
+past TILE_KEYS keys or queries csrc/fused_attention_wide.cu, a block 16
+query rows of a batch row over a score strip; else
 csrc/fused_attention.cu, a block a query row), above that, up to
 MAX_KEYS and without a dropout mask, the blockwise kernel
 (csrc/fused_attention_blockwise.cu, the Pallas `_attn_kernel_blockwise`:
@@ -17,8 +19,11 @@ in bf16 and register-tiled FMA in f32, at Tq = 1 each row's keys split
 across blocks and merged, by `blockwise_design`).  The backward is the
 single-tile kernel (the Pallas `_attn_bwd_kernel`) up to SINGLE_TILE_KEYS
 keys, in the design `attention_bwd_design` picks (up to TILE_KEYS queries
-and keys csrc/fused_attention_bwd_tile.cu, a block a batch row; else
-csrc/fused_attention_bwd.cu, a block a query row) and, above, autograd of
+and keys csrc/fused_attention_bwd_tile.cu, a block a batch row; with 2 or
+more queries past TILE_KEYS keys or queries
+csrc/fused_attention_bwd_wide.cu, a query pass of 16-row blocks over
+score strips and a key pass; else csrc/fused_attention_bwd.cu, a block a
+query row) and, above, autograd of
 `reference_middle`, as `_fa_bwd` recomputes through `jax.vjp`.  The
 kernels take one head, as the Pallas kernels do (`supported`): more heads
 take the dense route, `dense_attention`, at every length.  Per batch
@@ -69,8 +74,10 @@ SPLIT_MAX_KEYS = 1024     # the longest split its kernel takes
 BWD_SMEM_BYTES = 48 * 1024   # the rows design's per-(row, query) scratch
 # the backward's designs (`attention_bwd_design`): "tile", a block a batch
 # row with its whole Tq x Tk problem in shared memory, padded to TILE_KEYS;
-# "rows", the earlier, a block a (batch row, query row)
-BWD_DESIGNS = ("tile", "rows")
+# "wide", past TILE_KEYS keys or queries, a query pass of 16-row blocks
+# over f32 score strips, then a key pass; "rows", the earlier, a
+# block a (batch row, query row)
+BWD_DESIGNS = ("tile", "wide", "rows")
 TILE_KEYS = 64            # the tile design's largest Tq and Tk
 TILE_WIDTHS = (16, 32, 64, 128)   # its d: the powers of two to TILED_MAX_D
 GATE_ROWS = 32            # batch rows a part of the tile design's gate sums
@@ -79,19 +86,28 @@ GATE_WORKSPACE_CAP = 1 << 25   # f32 gate terms a chunk of rows may hold
 # the single-tile forward's designs (`attention_fwd_design`): "tile", a
 # block a batch row with its whole Tq x Tk problem in shared memory (the
 # backward's layout); "hop", a block a batch row of one query (MTAM's
-# readout hops) with its rows in shared memory; "query", the earlier, a
-# block a (batch row, query row)
-FWD_DESIGNS = ("tile", "hop", "query")
+# readout hops) with its rows in shared memory; "wide", past TILE_KEYS
+# keys or queries, a block 16 query rows of a batch row with their f32
+# score strip in shared memory; "query", the earlier, a block a (batch
+# row, query row)
+FWD_DESIGNS = ("tile", "hop", "wide", "query")
 HOP_KEYS = 64             # the hop design's largest Tk
+WIDE_KEY_PAD = 32         # their strips' (and planes') Tk padded to this
+# their keys a step, by input type (the products' blocking)
+WIDE_KEY_BLOCK = {torch.bfloat16: 32, torch.float32: 16}
+WIDE_QUERY_STEP = 32      # the wide backward's key pass: queries a step
 # the operands each design's launch copies 16 bytes at a time, by index in
 # the forward's arguments: always, and in time mode also
-FWD_ALIGNED = {"tile": ((0, 1, 2), (5, 6)), "hop": ((1, 2), (6,))}
+FWD_ALIGNED = {"tile": ((0, 1, 2), (5, 6)), "hop": ((1, 2), (6,)),
+               "wide": ((0, 1, 2), (5, 6))}
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}            # either forward design
 fwd_hop_launches = {mode: 0 for mode in MODES}    # the hop design alone
+fwd_wide_launches = {mode: 0 for mode in MODES}   # the wide design alone
 fwd_query_launches = {mode: 0 for mode in MODES}  # the query design alone
-bwd_launches = {mode: 0 for mode in MODES}     # either design
+bwd_launches = {mode: 0 for mode in MODES}     # any design
+bwd_wide_launches = {mode: 0 for mode in MODES}   # the wide design alone
 bwd_rows_launches = {mode: 0 for mode in MODES}   # the rows design alone
 # the blockwise kernel's four designs: SIMT (forced, or Tq > 1 at a d the
 # tiles do not take), tensor cores (bf16, Tq > 1), register tiles (f32, Tq
@@ -226,10 +242,15 @@ def attention_fwd_design(dtype: torch.dtype, tq: int, tk: int,
     Tq = Tk = 50).  "hop" where Tq = 1, 1 <= Tk <= HOP_KEYS and d is a
     multiple of 16 up to TILED_MAX_D, in both dtypes: one block a batch
     row stages its rows in shared memory by bulk copies (MTAM's readout
-    hops at L=50).  "query" elsewhere (Tq = 1 past HOP_KEYS keys, up to
-    SINGLE_TILE_KEYS, other widths).  The tile launch also wants q, k, v
-    (and in time mode tqw and rawk), the hop launch k and v (and rawk),
-    16-byte aligned (FWD_ALIGNED), and refuses them otherwise."""
+    hops at L=50).  "wide" where 2 <= Tq <= SINGLE_TILE_KEYS, 1 <= Tk <=
+    SINGLE_TILE_KEYS, Tq or Tk past TILE_KEYS and d is one of TILE_WIDTHS,
+    in both dtypes: one block 16 query rows of a batch row keeps
+    their f32 score strip in shared memory and streams the keys through
+    it (the self-attention blocks at 64 < L <= 1024).  "query" elsewhere
+    (Tq = 1 past HOP_KEYS keys, up to SINGLE_TILE_KEYS, other widths).
+    The tile and wide launches also want q, k, v (and in time mode tqw
+    and rawk), the hop launch k and v (and rawk), 16-byte aligned
+    (FWD_ALIGNED), and refuse them otherwise."""
     if dtype not in DTYPES:
         raise TypeError(f"fused_attention: no design for {dtype}")
     if 2 <= tq <= TILE_KEYS and 1 <= tk <= TILE_KEYS and d in TILE_WIDTHS:
@@ -237,16 +258,26 @@ def attention_fwd_design(dtype: torch.dtype, tq: int, tk: int,
     if tq == 1 and 1 <= tk <= HOP_KEYS and d % 16 == 0 \
             and 16 <= d <= TILED_MAX_D:
         return "hop"
+    if _wide_takes(tq, tk, d):
+        return "wide"
     return "query"
+
+
+def _wide_takes(tq: int, tk: int, d: int) -> bool:
+    """The shapes of both wide designs: 2 <= Tq <= SINGLE_TILE_KEYS, 1 <=
+    Tk <= SINGLE_TILE_KEYS, past the tile designs' TILE_KEYS in Tq or Tk,
+    d one of TILE_WIDTHS."""
+    return (2 <= tq <= SINGLE_TILE_KEYS and 1 <= tk <= SINGLE_TILE_KEYS
+            and max(tq, tk) > TILE_KEYS and d in TILE_WIDTHS)
 
 
 def _launch(mode, *args, _design=None) -> torch.Tensor:
     """Launch the single-tile forward in the design `attention_fwd_design`
     picks.  ``_design="query"`` forces the earlier design (chip_smoke.py
-    holds and times it beside the tile and hop designs); "tile" and "hop"
-    only where they are picked.  The main path passes nothing.  A design
-    that fails to build or launch, or an operand its copies cannot take
-    (FWD_ALIGNED), raises: there is no fallback."""
+    holds and times it beside the tile, hop and wide designs); "tile",
+    "hop" and "wide" only where they are picked.  The main path passes
+    nothing.  A design that fails to build or launch, or an operand its
+    copies cannot take (FWD_ALIGNED), raises: there is no fallback."""
     q, k, dm = args[0], args[1], args[-1]
     b, tq, d = q.shape
     tk = k.shape[1]
@@ -282,6 +313,11 @@ def _launch(mode, *args, _design=None) -> torch.Tensor:
         status = lib.fused_attention_hop_launch(mode_id, is_bf16, *ptrs)
         build.check(lib, status, "fused_attention (hop)")
         fwd_hop_launches[mode] += 1
+    elif design == "wide":
+        lib = _wide_library()
+        status = lib.fused_attention_wide_launch(mode_id, is_bf16, *ptrs)
+        build.check(lib, status, "fused_attention (wide)")
+        fwd_wide_launches[mode] += 1
     else:
         lib = _library()
         status = lib.fused_attention_launch(mode_id, is_bf16, *ptrs)
@@ -328,6 +364,21 @@ def _hop_library() -> ctypes.CDLL:
         lib.fused_attention_hop_smem_bytes.restype = ctypes.c_longlong
         lib.fused_attention_hop_blocks_per_sm.argtypes = [ci] * 5
         lib.fused_attention_hop_blocks_per_sm.restype = ci
+        lib._port_typed = True
+    return lib
+
+
+def _wide_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_wide")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_wide_launch.argtypes = (
+            [ci, ci] + [vp] * 15 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.fused_attention_wide_launch.restype = ci
+        lib.fused_attention_wide_smem_bytes.argtypes = [ci] * 4
+        lib.fused_attention_wide_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_attention_wide_blocks_per_sm.argtypes = [ci] * 5
+        lib.fused_attention_wide_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -480,6 +531,81 @@ def _hop_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
     w = w.to(v.dtype).float()
     return chain._key_slices(chain._pad_keys(w),
                              chain._staged(v, reached_rows))[:, None, :]
+
+
+def _wide_scores(mode, q, k, t_q, t_k, tqw, rawk, w1, b1, wo1, wo2, bo,
+                 key_len):
+    """The wide designs' scores in plain PyTorch: k and rawk zero past
+    each row's live keys; S0 = q k^T and TQK = tqw rawk^T as f32 products;
+    each live key's score from its own values (the gate, the scale), -2^32
+    + 1 at a masked key.  Returns (the scores [B, Tq, Tk], the live-key
+    mask [B, 1, Tk], and the intermediates s0, ldt, dec, tqk and sig, each
+    0 at a masked key)."""
+    base = base_mode(mode)
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / d ** 0.5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    zero = torch.zeros((), **f32)
+    lv = torch.arange(tk, device=q.device)[None, None, :] \
+        < key_len.long().clamp(0, tk)[:, None, None]
+    live_rows = lv.transpose(1, 2)                       # [B, Tk, 1]
+    nt = lambda x, y: torch.einsum("bqd,bkd->bqk", x, y)  # noqa: E731
+    live_only = lambda x: torch.where(lv, x, zero)  # noqa: E731
+    s0 = live_only(nt(q.float(), torch.where(live_rows, k.float(), zero)))
+    parts = {"s0": s0}
+    if base in ("time", "tisas"):
+        parts["ldt"] = live_only(torch.log1p(torch.abs(
+            t_q.float()[:, :, None] - t_k.float()[:, None, :])))
+    if base == "time":
+        tqk = live_only(torch.tanh(nt(tqw.float(), torch.where(
+            live_rows, rawk.float(), zero))))
+        dec = live_only(torch.tanh(parts["ldt"] * w1.float() + b1.float()))
+        sig = live_only(torch.sigmoid(wo1.float() * dec + wo2.float() * tqk
+                                      + bo.float()))
+        parts.update(tqk=tqk, dec=dec, sig=sig)
+        sc = s0 * sig * scale
+    elif base == "tisas":
+        sc = (s0 + parts["ldt"]) * scale
+    else:
+        sc = s0 * scale
+    return torch.where(lv, sc, torch.full_like(sc, NEG_FILL)), lv, parts
+
+
+def _key_blocks(tk, step):
+    return [slice(c0, min(c0 + step, tk)) for c0 in range(0, tk, step)]
+
+
+def _wide_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
+                           wo1, wo2, bo, key_len, dm=None) -> torch.Tensor:
+    """The forward wide design's arithmetic in plain PyTorch (the
+    arguments and result of `fused_attention`, at the shapes
+    `attention_fwd_design` gives "wide"): the scores of `_wide_scores`
+    (the kernel's strip), the softmax over the Tk keys, then dm; the
+    weights rounded to v's type; v zero past the keys the weights reach
+    (all Tk in a row with none live); the output summed over the key
+    blocks (WIDE_KEY_BLOCK keys) in order, each block's product in f32."""
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    if attention_fwd_design(q.dtype, tq, tk, d) != "wide":
+        raise ValueError(f"_wide_fwd_design_plain: the wide design does not "
+                         f"take Tq={tq}, Tk={tk}, d={d}")
+    s, _, _ = _wide_scores(mode, q, k, t_q, t_k, tqw, rawk, w1, b1, wo1,
+                           wo2, bo, key_len)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    if dm is not None:
+        w = w * dm
+    w = w.to(v.dtype).float()
+    live = key_len.long().clamp(0, tk)
+    span = torch.where(live > 0, live, torch.full_like(live, tk))
+    vr = torch.where(torch.arange(tk, device=q.device)[None, :, None]
+                     < span[:, None, None], v.float(),
+                     torch.zeros((), dtype=torch.float32, device=q.device))
+    out = torch.zeros((b, tq, d), dtype=torch.float32, device=q.device)
+    for blk in _key_blocks(tk, WIDE_KEY_BLOCK[q.dtype]):
+        out = out + torch.einsum("bqk,bkd->bqd", w[:, :, blk], vr[:, blk])
+    return out
 
 
 # ------------------------------------------------------------ blockwise
@@ -776,13 +902,21 @@ def attention_bwd_design(dtype: torch.dtype, tq: int, tk: int, d: int) -> str:
     products on the tensor cores, f32 on the FMA units): one block a
     batch row holds its whole problem in shared memory, padded to
     TILE_KEYS x TILE_KEYS (the self-attention steps' Tq = Tk = 50).
-    "rows" elsewhere (MTAM's Tq = 1 over up to 1024 keys, other widths).
-    The tile launch also wants g, q, k, v (and in time mode tqw and rawk)
-    16-byte aligned, and refuses them otherwise."""
+    "wide" at the forward's wide shapes (`_wide_takes`: 2 <= Tq, Tk <=
+    SINGLE_TILE_KEYS, one past TILE_KEYS, d one of TILE_WIDTHS), in both
+    dtypes: a query pass, a block 16 query rows of a batch row
+    over f32 score strips, writes the rounded ds0, weights and dpre_tqk
+    planes; a key pass sums dk, dv and drawk over them (the self-attention
+    steps at 64 < L <= 1024).  "rows" elsewhere (MTAM's Tq = 1 over up to
+    1024 keys, other widths).  The tile and wide launches also want g, q,
+    k, v (and in time mode tqw and rawk) 16-byte aligned, and refuse them
+    otherwise."""
     if dtype not in DTYPES:
         raise TypeError(f"fused_attention_bwd: no design for {dtype}")
     if 1 <= tq <= TILE_KEYS and 1 <= tk <= TILE_KEYS and d in TILE_WIDTHS:
         return "tile"
+    if _wide_takes(tq, tk, d):
+        return "wide"
     return "rows"
 
 
@@ -805,12 +939,41 @@ def gate_chunk_rows(b: int, tq: int, tk: int, forced=None) -> int:
     return min(rows, b)
 
 
+def wide_chunk_rows(b: int, tq: int, tk: int, time_mode: bool,
+                    forced=None) -> int:
+    """The batch rows a wide backward pass takes: its workspaces hold a
+    chunk's rounded planes (ds0, the dropped weights and, in time mode,
+    dpre_tqk: each [rows, Tq, Tk padded to WIDE_KEY_PAD]) and, in time
+    mode, its five [rows, Tq, Tk] f32 gate terms.  As many rows as
+    GATE_WORKSPACE_CAP floats hold (a plane element counted as a float):
+    in time mode whole GATE_ROWS-row parts, at least one and at most
+    GATE_MAX_ROWS, as `gate_chunk_rows`; else at least one; never more
+    than ``b``.  ``forced`` sets it (in time mode as `gate_chunk_rows`
+    takes it, else any positive count)."""
+    tkp = -(-tk // WIDE_KEY_PAD) * WIDE_KEY_PAD
+    if time_mode:
+        if forced is not None:
+            return gate_chunk_rows(b, tq, tk, forced)
+        rows = GATE_WORKSPACE_CAP // (5 * tq * tk + 3 * tq * tkp)
+        rows = min(max(rows // GATE_ROWS * GATE_ROWS, GATE_ROWS),
+                   GATE_MAX_ROWS)
+    elif forced is not None:
+        if forced <= 0:
+            raise ValueError(f"fused_attention_bwd: a chunk takes a positive "
+                             f"count of rows, got {forced}")
+        rows = forced
+    else:
+        rows = max(GATE_WORKSPACE_CAP // (2 * tq * tkp), 1)
+    return min(rows, b)
+
+
 def _launch_bwd(mode, g, *args, _design=None, _chunk_rows=None):
     """Launch the backward in the design `attention_bwd_design` picks.
     ``_design="rows"`` forces the earlier design (chip_smoke.py holds and
-    times it beside the tile design); "tile" only where it is picked.
-    ``_chunk_rows`` sets the rows a tile launch takes in time mode
-    (`gate_chunk_rows`; chip_smoke.py's check that the chunking moves no
+    times it beside the tile and wide designs); "tile" and "wide" only
+    where they are picked.  ``_chunk_rows`` sets the rows a tile launch
+    takes in time mode (`gate_chunk_rows`), or a wide pass in any mode
+    (`wide_chunk_rows`; chip_smoke.py's check that the chunking moves no
     bit).  The main path passes neither.  A design that fails to build or
     launch raises: there is no fallback."""
     q, k, dm = args[0], args[1], args[-1]
@@ -823,16 +986,20 @@ def _launch_bwd(mode, g, *args, _design=None, _chunk_rows=None):
             f"fused_attention_bwd: design {design!r} does not take Tq={tq}, "
             f"Tk={tk}, d={d} (attention_bwd_design: {picked!r})")
     time_mode = base_mode(mode) == "time"
-    if design == "tile":
+    if design in ("tile", "wide"):
         # the batch rows a launch takes: in time mode as many as the gate
-        # terms' workspace holds
-        rows = gate_chunk_rows(b, tq, tk, _chunk_rows) if time_mode else b
+        # terms' workspace holds (the wide design's planes too)
+        if design == "wide":
+            rows = wide_chunk_rows(b, tq, tk, time_mode, _chunk_rows)
+        else:
+            rows = gate_chunk_rows(b, tq, tk, _chunk_rows) if time_mode \
+                else b
         read = (g, q, k, args[2]) + ((args[5], args[6]) if time_mode
                                      else ())
         if any(t.data_ptr() % 16 for t in read):
-            raise ValueError("fused_attention_bwd: the tile design takes g, "
-                             "q, k, v (and tqw, rawk in time mode) 16-byte "
-                             "aligned")
+            raise ValueError(f"fused_attention_bwd: the {design} design "
+                             "takes g, q, k, v (and tqw, rawk in time mode) "
+                             "16-byte aligned")
     tensors = (g,) + (args[:-1] if dm is None else args)
     device, stream = build.launch_context(tensors, "fused_attention_bwd")
     _single_tile("fused_attention_bwd", tk)
@@ -860,6 +1027,18 @@ def _launch_bwd(mode, g, *args, _design=None, _chunk_rows=None):
             mode_id, is_bf16, *ptrs, None if ws is None else ws.data_ptr(),
             b, tq, tk, d, 1.0 / d ** 0.5, rows, device, stream)
         build.check(lib, status, "fused_attention_bwd (tile)")
+    elif design == "wide":
+        lib = _bwd_wide_library()
+        tkp = -(-tk // WIDE_KEY_PAD) * WIDE_KEY_PAD
+        planes = torch.empty(((3 if time_mode else 2) * rows * tq * tkp,),
+                             dtype=q.dtype, device=q.device)
+        ws = torch.empty((5 * rows * tq * tk,), **f32) if time_mode else None
+        status = lib.fused_attention_bwd_wide_launch(
+            mode_id, is_bf16, *ptrs, planes.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, tq, tk, d,
+            1.0 / d ** 0.5, rows, device, stream)
+        build.check(lib, status, "fused_attention_bwd (wide)")
+        bwd_wide_launches[mode] += 1
     else:
         lib = _bwd_library()
         if lib.fused_attention_bwd_smem_bytes(tk, d) > BWD_SMEM_BYTES:
@@ -901,6 +1080,20 @@ def _bwd_tile_library() -> ctypes.CDLL:
             [ci, ci] + [vp] * 26
             + [ci, ci, ci, ci, ctypes.c_float, ci, ci, vp])
         lib.fused_attention_bwd_tile_launch.restype = ci
+        lib._port_typed = True
+    return lib
+
+
+def _bwd_wide_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_bwd_wide")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_bwd_wide_launch.argtypes = (
+            [ci, ci] + [vp] * 27
+            + [ci, ci, ci, ci, ctypes.c_float, ci, ci, vp])
+        lib.fused_attention_bwd_wide_launch.restype = ci
+        lib.fused_attention_bwd_wide_smem_bytes.argtypes = [ci] * 5
+        lib.fused_attention_bwd_wide_smem_bytes.restype = ctypes.c_longlong
         lib._port_typed = True
     return lib
 
@@ -1055,6 +1248,80 @@ def _tile_design_plain(mode: str, g, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
     if base == "time":
         dtqw = nn(planes["t"], rawkp)[:, :tq]
         drawk = tn(planes["t"], tqwp)[:, :tk]
+    else:
+        dtqw = drawk = None
+    return (dq, dk, dv, dtqw, drawk, *gate_grads)
+
+
+def _wide_design_plain(mode: str, g, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
+                       wo1, wo2, bo, key_len, dm=None, chunk_rows=None):
+    """The backward wide design's arithmetic in plain PyTorch (the
+    arguments and results of `fused_attention_bwd`, at the shapes
+    `attention_bwd_design` gives "wide"): the query pass's scores
+    (`_wide_scores`), DW = g v^T with g rounded and v zero past the live
+    keys, read at live keys only, times dm; the softmax over the Tk keys,
+    D_i over the live ones, ds, ds0, dgate, dpre_dec and dpre_tqk; ds0,
+    dpre_tqk and the dropped weights rounded to the input type (the
+    planes); dq and dtqw summed over the key blocks (WIDE_KEY_BLOCK keys)
+    in order, dk, dv and drawk (the key pass) over WIDE_QUERY_STEP-query
+    steps in order, each block's product in f32; the gate terms summed by
+    `_gate_sum` in chunks of `wide_chunk_rows` rows (``chunk_rows`` forced
+    as the launch's ``_chunk_rows``)."""
+    dt = q.dtype
+    op = lambda x: x.to(dt).float()  # noqa: E731  (a product operand)
+    base = base_mode(mode)
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    if attention_bwd_design(dt, tq, tk, d) != "wide":
+        raise ValueError(f"_wide_design_plain: the wide design does not "
+                         f"take Tq={tq}, Tk={tk}, d={d}")
+    scale = 1.0 / d ** 0.5
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    s, lv, parts = _wide_scores(mode, q, k, t_q, t_k, tqw, rawk, w1, b1,
+                                wo1, wo2, bo, key_len)
+    live_rows = lv.transpose(1, 2)
+    keys = lambda x: torch.where(live_rows, x.float(), zero)  # noqa: E731
+    gr = op(g)
+    dw = torch.where(lv, torch.einsum("bqd,bkd->bqk", gr, keys(v)), zero)
+    if dm is not None:
+        dw = dw * dm
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    dsum = (dw * w).sum(dim=-1, keepdim=True)
+    ds = torch.where(lv, w * (dw - dsum), zero)
+    planes = {"w": op(w if dm is None else w * dm)}
+    if base == "time":
+        sig, dec, tqk = parts["sig"], parts["dec"], parts["tqk"]
+        dgate = ds * parts["s0"] * scale * sig * (1.0 - sig)
+        dpre_dec = dgate * wo1.float() * (1.0 - dec * dec)
+        planes["s"] = op(ds * sig * scale)
+        planes["t"] = op(dgate * wo2.float() * (1.0 - tqk * tqk))
+        rows = wide_chunk_rows(b, tq, tk, True, chunk_rows)
+        gate_grads = [_gate_sum(x, rows) for x in (
+            dpre_dec * parts["ldt"], dpre_dec, dgate * dec, dgate * tqk,
+            dgate)]
+    else:
+        planes["s"] = op(ds * scale)
+        gate_grads = [None] * 5
+
+    def by_keys(p, x):        # the query pass: sum over key blocks
+        out = torch.zeros((b, tq, d), dtype=torch.float32, device=q.device)
+        for blk in _key_blocks(tk, WIDE_KEY_BLOCK[dt]):
+            out = out + torch.einsum("bqk,bkd->bqd", p[:, :, blk], x[:, blk])
+        return out
+
+    def by_queries(p, x):     # the key pass: sum over query steps
+        out = torch.zeros((b, tk, d), dtype=torch.float32, device=q.device)
+        for blk in _key_blocks(tq, WIDE_QUERY_STEP):
+            out = out + torch.einsum("bqk,bqd->bkd", p[:, blk], x[:, blk])
+        return out
+
+    dq = by_keys(planes["s"], keys(k))
+    dk = by_queries(planes["s"], q.float())
+    dv = by_queries(planes["w"], gr)
+    if base == "time":
+        dtqw = by_keys(planes["t"], keys(rawk))
+        drawk = by_queries(planes["t"], tqw.float())
     else:
         dtqw = drawk = None
     return (dq, dk, dv, dtqw, drawk, *gate_grads)

@@ -36,7 +36,9 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # (the readouts' four include readout_hop.cuh; fused_readout.cu and
 # fused_readout_bwd.cu also readout_gemm.cuh, which includes tile_gemm.cuh;
 # fused_attention_tile.cu and fused_attention_bwd_tile.cu include
-# attention_tile.cuh, which includes tile_gemm.cuh; readout_chain.cu,
+# attention_tile.cuh, which includes tile_gemm.cuh; fused_attention_wide.cu
+# and fused_attention_bwd_wide.cu include attention_wide.cuh, which
+# includes attention_tile.cuh; readout_chain.cu,
 # readout_chain_bwd.cu and fused_attention_hop.cu include chain_staged.cuh,
 # which includes readout_hop.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
@@ -45,6 +47,8 @@ SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention_hop": "fused_attention_hop.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
            "fused_attention_bwd_tile": "fused_attention_bwd_tile.cu",
+           "fused_attention_wide": "fused_attention_wide.cu",
+           "fused_attention_bwd_wide": "fused_attention_bwd_wide.cu",
            "fused_attention_blockwise": "fused_attention_blockwise.cu",
            "embedding_dtable": "embedding_dtable.cu",
            "embedding_gather": "embedding_gather.cu",
@@ -53,7 +57,8 @@ SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "readout_chain": "readout_chain.cu",
            "readout_chain_bwd": "readout_chain_bwd.cu"}
 _HEADERS = ("common.cuh", "readout_hop.cuh", "readout_gemm.cuh",
-            "tile_gemm.cuh", "attention_tile.cuh", "chain_staged.cuh")
+            "tile_gemm.cuh", "attention_tile.cuh", "attention_wide.cuh",
+            "chain_staged.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -120,11 +120,11 @@ def no_build(monkeypatch):
 @pytest.mark.parametrize("tq,tk,d,design", [
     (50, 50, 128, "tile"), (64, 64, 16, "tile"), (1, 50, 32, "tile"),
     (17, 17, 64, "tile"), (1, 1024, 128, "rows"), (50, 50, 96, "rows"),
-    (50, 50, 256, "rows"), (65, 65, 128, "rows"), (50, 65, 128, "rows"),
+    (50, 50, 256, "rows"), (65, 65, 128, "wide"), (50, 65, 128, "wide"),
     (50, 50, 8, "rows")])
 def test_attention_bwd_design_routes(dtype, tq, tk, d, design):
     assert tak.attention_bwd_design(dtype, tq, tk, d) == design
-    assert tak.BWD_DESIGNS == ("tile", "rows")
+    assert tak.BWD_DESIGNS == ("tile", "wide", "rows")
 
 
 @pytest.mark.parametrize("tq,tk,d,design,chunk", [
