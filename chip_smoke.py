@@ -12,7 +12,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      instantiations (those at u=128 printed), the two kernels of
      fused_readout's "gemm" design, the four of fused_readout_bwd's,
      scatter_add's columns_sum, the attention forward's tile and hop
-     designs and the chain readout pair's staged designs;
+     designs and the chain readout pair's staged and blocked designs;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
@@ -100,17 +100,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      and fused_readout_bwd (gemm designs, the live width beside the
      padded one) at d = 16, 48, 96;
   2f. the chain readout's kernels the same way: readout_chain and
-     readout_chain_bwd at B = 1, 16, 256 x L = 50, 255 (d=128, 3 hops)
-     and at B=16, L=50 with d = 16 and 64, in f32 and bf16 (positional
-     and scalar wo2 rows, ragged key lengths, one row with no live key
-     and no score gradient, one masked query), each in the design the
-     wrapper picks ("staged" at L=50, "rows" at L=255), two launches of
-     each bit-equal, at L=50 also the "rows" design forced beside the
-     staged one, held and bit-equal the same way; both timed at phase 4's
-     shape (B=256, L=50, every key live), each design pair in turns
-     (staged, rows, rows, staged) by events, by the profiler's device
+     readout_chain_bwd at B = 1, 16, 256 x L = 50 and B = 1, 16, 64 x L
+     = 150, 255 (d=128, 3 hops) and at B=16, L=50 with d = 16 and 64, in
+     f32 and bf16 (positional and scalar wo2 rows, ragged key lengths,
+     one row with no live key and no score gradient, one masked query),
+     each in the design the wrapper must pick ("staged" at L=50,
+     "blocked" at L = 150 and 255), two launches of each bit-equal, and
+     the "rows" design forced beside it, held and bit-equal the same way;
+     both timed at phase 4's shape (B=256, L=50, every key live) and at
+     phase 14's (B=64, L=150, every key live), each design pair in turns
+     (picked, rows, rows, picked) by events, by the profiler's device
      time and its split by launch, and by the host time a call, with the
-     staged kernels' shared memory a block and blocks an SM; then the
+     per-row kernels' shared memory a block and blocks an SM; then the
      same at ONE hop (NARM+'s and NARM++'s readout: B = 1, 16 at d=128
      and B=16 at d=16, ragged; phase 4's shape timed, "@L50h1");
   3. the serving slice: Recommender.recommend at full width (MTAM d=128,
@@ -367,12 +368,30 @@ Phases, in order; any failure exits non-zero and prints no result:
      Recommender.recommend at B = 1, 16, 64 in bf16 and f32 against the
      CPU at each B (3 wide forward launches of the base mode a call).
      `python3 chip_smoke.py --only 13` builds and runs phase 13 alone.
+  14. MTAM at the reference's attention cap, L=150
+     (benchmarks/long_history_bench.py --seq_len 150: phase 6's cell at
+     L=150, B=64, d=128, 3 hops, 1 head, the scalar gate, 2,000 items,
+     2,048 rows of markov_long_arrays from seed 0): one step's loss and
+     every gradient leaf against the CPU in f32 and bf16 at B=16, the
+     launches of a step exactly (1 gru_scan + 1 gru_scan_bwd, 1
+     readout_chain + 1 readout_chain_bwd both in the blocked design, 4
+     dtable; no rows-design, fused_readout or fused_attention launch),
+     10 steps timed at B=64 in bf16 and f32 with the device idle share;
+     fused_attention at Tq=1, Tk=150 (the serving hops: time mode, and
+     the plain mode with scaled_dot_product_attention beside it) against
+     its twin at B = 1, 16, 64 in the query design, timed at B=64 (event,
+     device, host ms); Recommender.recommend at B = 1, 16, 64 in bf16
+     and f32 against the CPU at each B (1 gru_scan + 3
+     fused_attention[time] in the query design a call).
+     `python3 chip_smoke.py --only 14` builds and runs phase 14 alone.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1", at
 Tq=Tk=50 as "@Tq50" and, in their wide designs, at B=64, Tq=Tk=256 as
 "@L256" with the query or rows design's times on the same inputs in
-turns beside them; the chain readout's pair at MTAM's L=50 step
-as "@L50" and at one hop as "@L50h1"; the readout, GRU and dtable kernels at B=64,
+turns beside them, and the query forward at Tq=1, Tk=150 as "@L150Tq1";
+the chain readout's pair at MTAM's L=50 step
+as "@L50", at one hop as "@L50h1" and at MTAM's L=150 step (B=64) as
+"@L150"; the readout, GRU and dtable kernels at B=64,
 L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048, the GRU
 kernels at B=64, L=2048 and
 dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
@@ -2526,8 +2545,12 @@ def _counts():
             "fused_readout": {"fused_readout": rk.launches},
             "fused_readout_bwd": {"fused_readout_bwd": rk.bwd_launches},
             "readout_chain": {"readout_chain": rc.launches},
+            "readout_chain_blocked": {
+                "readout_chain_blocked": rc.blocked_launches},
             "readout_chain_rows": {"readout_chain_rows": rc.rows_launches},
             "readout_chain_bwd": {"readout_chain_bwd": rc.bwd_launches},
+            "readout_chain_bwd_blocked": {
+                "readout_chain_bwd_blocked": rc.bwd_blocked_launches},
             "readout_chain_bwd_rows": {
                 "readout_chain_bwd_rows": rc.bwd_rows_launches}}
 
@@ -2545,8 +2568,8 @@ def _reset_counts():
         for m in counts:
             counts[m] = 0
     rk.launches = rk.bwd_launches = 0
-    rc.launches = rc.rows_launches = 0
-    rc.bwd_launches = rc.bwd_rows_launches = 0
+    rc.launches = rc.blocked_launches = rc.rows_launches = 0
+    rc.bwd_launches = rc.bwd_blocked_launches = rc.bwd_rows_launches = 0
 
 
 def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
@@ -2558,8 +2581,9 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     backward's wide and rows designs never; callers past 64 keys add the
     wide designs' launches);
     the fused readout and its backward once a step with ``readout``, the
-    chain readout's pair with ``chain`` (the rows designs never: at L=50
-    both take the staged design); the dense route's
+    chain readout's pair with ``chain`` (the blocked and rows designs
+    never: at L=50 both take the staged design; phase 14's L=150 adds
+    the blocked design's); the dense route's
     forward and
     backward ``blocks`` times a step in the modes given; no blockwise
     launch (the callers that expect one add it)."""
@@ -2598,8 +2622,10 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
             "fused_readout": {"fused_readout": steps * int(readout)},
             "fused_readout_bwd": {"fused_readout_bwd": steps * int(readout)},
             "readout_chain": {"readout_chain": steps * int(chain)},
+            "readout_chain_blocked": {"readout_chain_blocked": 0},
             "readout_chain_rows": {"readout_chain_rows": 0},
             "readout_chain_bwd": {"readout_chain_bwd": steps * int(chain)},
+            "readout_chain_bwd_blocked": {"readout_chain_bwd_blocked": 0},
             "readout_chain_bwd_rows": {"readout_chain_bwd_rows": 0}}
 
 
@@ -2877,9 +2903,10 @@ def forced_design(kernel):
 
 
 UNMODED = ("dtable", "gather", "gather_warp_row", "scatter_add",
-           "fused_readout",
-           "fused_readout_bwd", "readout_chain", "readout_chain_rows",
-           "readout_chain_bwd", "readout_chain_bwd_rows")
+           "fused_readout", "fused_readout_bwd", "readout_chain",
+           "readout_chain_blocked", "readout_chain_rows",
+           "readout_chain_bwd", "readout_chain_bwd_blocked",
+           "readout_chain_bwd_rows")
 
 
 def _add_launches(main_launches, counts):
@@ -3662,16 +3689,22 @@ def check_xl_kernels(torch, timer, iters, failures, xl_tables, l50_tables):
 
 # ------------------------------------------------------------ phase 2f
 
-CHAIN_CASES = ([(bs, L, 128) for L in (50, 255) for bs in (1, 16, 256)]
-               + [(16, 50, 16), (16, 50, 64)])
+# (B, L, d): the staged design's L=50 (with the narrow widths) and the
+# blocked design's L=150 (phase 14's cell) and L=255
+CHAIN_CASES = ([(bs, 50, 128) for bs in (1, 16, 256)]
+               + [(16, 50, 16), (16, 50, 64)]
+               + [(bs, L, 128) for L in (150, 255) for bs in (1, 16, 64)])
 # one hop (NARM+'s and NARM++'s training readout): (B, L, d, every key
 # live); phase 4's shape is added
 CHAIN_ONE_HOP_CASES = ((1, 50, 128, False), (16, 50, 128, False),
                        (16, 50, 16, False))
-# the staged designs' templated kernels (phase 1's ptxas lines)
-CHAIN_FWD_STAGED_KERNELS = ("chain_fwd_staged_kernel",)
+# the staged and blocked designs' templated kernels (phase 1's ptxas
+# lines)
+CHAIN_FWD_STAGED_KERNELS = ("chain_fwd_staged_kernel",
+                            "chain_fwd_blocked_kernel")
 CHAIN_BWD_STAGED_KERNELS = ("chain_bwd_query_kernel",
-                            "chain_bwd_staged_kernel")
+                            "chain_bwd_staged_kernel",
+                            "chain_bwd_blocked_kernel")
 
 
 def chain_inputs(torch, gen, dtype, B, L, d=128, n=3, gate="positional",
@@ -3749,13 +3782,21 @@ def chain_bwd_bound(args, dtype_name):
     return _bound(nbytes, flops, dtype_name)
 
 
+def _chain_want_design(L, d):
+    """The design the wrapper must pick at (L, d): "staged" up to 64
+    keys, "blocked" past, at d a multiple of 16; "rows" else."""
+    if d % 16:
+        return "rows"
+    return "staged" if L <= 64 else "blocked"
+
+
 def check_chain_fwd(torch, rc, args, dname):
     """readout_chain on the card against its twin: the design the wrapper
-    picks, two launches the same bits (out and curs); at L=50 (where the
-    staged design is picked) also the rows design forced on the same
-    inputs, held the same way, and the two designs against each other.
-    Returns (design, curs, {err, rel, ok, same, rows_rel,
-    staged_vs_rows_rel, rows_same})."""
+    picks (it must be `_chain_want_design`'s), two launches the same bits
+    (out and curs); where that is the staged or blocked design, also the
+    rows design forced on the same inputs, held the same way, and the two
+    designs against each other.  Returns (design, curs, {err, rel, ok,
+    same, rows_rel, vs_rows_rel, rows_same})."""
     k = args[3]
     design = rc.chain_fwd_design(k.dtype, k.shape[2], k.shape[3])
     want = rc.readout_chain_plain(*args)
@@ -3771,13 +3812,14 @@ def check_chain_fwd(torch, rc, args, dname):
     got = rc.readout_chain(*args)
     again = rc.readout_chain(*args)
     err, rel, ok = hold(got, want)
-    out = {"err": err, "rel": rel, "ok": ok,
+    out = {"err": err, "rel": rel,
+           "ok": ok and design == _chain_want_design(*k.shape[2:]),
            "same": all(torch.equal(a, b) for a, b in zip(got, again))}
-    if design == "staged" and k.shape[2] == 50:
+    if design != "rows":
         rows = rc._launch(args, _design="rows")
         rows_again = rc._launch(args, _design="rows")
         _, out["rows_rel"], rows_ok = hold(rows, want)
-        _, out["staged_vs_rows_rel"], both_ok = hold(got, rows)
+        _, out["vs_rows_rel"], both_ok = hold(got, rows)
         out["rows_same"] = all(torch.equal(a, b)
                                for a, b in zip(rows, rows_again))
         out["ok"] = out["ok"] and rows_ok and both_ok and out["rows_same"]
@@ -3785,10 +3827,11 @@ def check_chain_fwd(torch, rc, args, dname):
 
 
 def time_chain_fwd(timer, rc, args, iters):
-    """The forward's time at phase 4's shape: the staged design (picked)
-    and the rows design forced on the same inputs in turns (staged, rows,
-    rows, staged), both through `_launch` (`_in_turns`), and the host
-    time of a public call (`readout_chain`, its operand checks too)."""
+    """The forward's time at a timed shape (phase 4's, phase 14's): the
+    design the wrapper picks (staged, blocked) and the rows design forced
+    on the same inputs in turns (picked, rows, rows, picked), both
+    through `_launch` (`_in_turns`), and the host time of a public call
+    (`readout_chain`, its operand checks too)."""
     run = lambda: rc._launch(args)  # noqa: E731
     rows = lambda: rc._launch(args, _design="rows")  # noqa: E731
     return {**_in_turns(timer, run, rows, iters),
@@ -3816,12 +3859,12 @@ def _in_turns(timer, run, rows, iters):
 
 def check_chain_bwd(torch, rc, g, args, curs, dname):
     """readout_chain_bwd on the card against its twin: the design the
-    wrapper picks, two launches the same bits, every score-side cotangent
-    (dk, dt, dgp) of a row with no live key exactly 0; at L=50 (where the
-    staged design is picked) also the rows design forced on the same
-    inputs, held the same way, and the two designs against each other.
-    Returns (design, {err, rel, ok, same, rows_rel, staged_vs_rows_rel,
-    rows_same})."""
+    wrapper picks (it must be `_chain_want_design`'s), two launches the
+    same bits, every score-side cotangent (dk, dt, dgp) of a row with no
+    live key exactly 0; where that is the staged or blocked design, also
+    the rows design forced on the same inputs, held the same way, and the
+    two designs against each other.  Returns (design, {err, rel, ok,
+    same, rows_rel, vs_rows_rel, rows_same})."""
     k = args[3]
     design = rc.chain_bwd_design(k.dtype, k.shape[2], k.shape[3])
     want = rc.readout_chain_bwd_plain(g, *args[1:], curs)
@@ -3841,13 +3884,14 @@ def check_chain_bwd(torch, rc, g, args, curs, dname):
     got = rc.readout_chain_bwd(g, *args[1:], curs)
     again = rc.readout_chain_bwd(g, *args[1:], curs)
     err, rel, ok = hold(got, want)
-    out = {"err": err, "rel": rel, "ok": ok,
+    out = {"err": err, "rel": rel,
+           "ok": ok and design == _chain_want_design(*k.shape[2:]),
            "same": all(torch.equal(a, b) for a, b in zip(got, again))}
-    if design == "staged" and k.shape[2] == 50:
+    if design != "rows":
         rows = rc._launch_bwd(g, args[1:], curs, _design="rows")
         rows_again = rc._launch_bwd(g, args[1:], curs, _design="rows")
         _, out["rows_rel"], rows_ok = hold(rows, want)
-        _, out["staged_vs_rows_rel"], both_ok = hold(got, rows)
+        _, out["vs_rows_rel"], both_ok = hold(got, rows)
         out["rows_same"] = all(torch.equal(a, b)
                                for a, b in zip(rows, rows_again))
         out["ok"] = out["ok"] and rows_ok and both_ok and out["rows_same"]
@@ -3855,12 +3899,13 @@ def check_chain_bwd(torch, rc, g, args, curs, dname):
 
 
 def time_chain_bwd(timer, rc, g, args, curs, iters):
-    """The backward's time at phase 4's shape: the staged design (picked)
-    and the rows design forced on the same inputs in turns (staged, rows,
-    rows, staged), both through `_launch_bwd` (`_in_turns`; each one's
-    split by kernel, staged: the query pass, the staged kernel, the batch
-    sums, dwq; rows: the rows kernel, the batch sums), and the host time
-    of a public call (`readout_chain_bwd`, its operand checks too)."""
+    """The backward's time at a timed shape: the design the wrapper picks
+    and the rows design forced on the same inputs in turns (picked, rows,
+    rows, picked), both through `_launch_bwd` (`_in_turns`; each one's
+    split by kernel, staged and blocked: the query pass, the per-row
+    kernel, the batch sums, dwq; rows: the rows kernel, the batch sums),
+    and the host time of a public call (`readout_chain_bwd`, its operand
+    checks too)."""
     run = lambda: rc._launch_bwd(g, args[1:], curs)  # noqa: E731
     rows = lambda: rc._launch_bwd(  # noqa: E731
         g, args[1:], curs, _design="rows")
@@ -3870,52 +3915,55 @@ def time_chain_bwd(timer, rc, g, args, curs, iters):
 
 
 def chain_occupancy(rc, dname, bwd, L=50, d=128):
-    """The chain forward's (``bwd`` False) or backward's staged kernel's
+    """The chain forward's (``bwd`` False) or backward's per-row kernel's
     shared memory a block (bytes, static and dynamic) and blocks an SM
-    (the occupancy calculator's) at (L, d) in dtype ``dname``."""
+    (the occupancy calculator's) at (L, d) in dtype ``dname``, in the
+    design picked there (staged or blocked)."""
     is_bf16 = int(dname == "bfloat16")
-    if bwd:
-        lib = rc._bwd_library()
-        return {"smem_bytes": lib.readout_chain_bwd_staged_smem_bytes(
-                    is_bf16, L, d),
-                "blocks_per_sm": lib.readout_chain_bwd_staged_blocks_per_sm(
-                    is_bf16, L, d, 0)}
-    lib = rc._library()
-    return {"smem_bytes": lib.readout_chain_staged_smem_bytes(is_bf16, L, d),
-            "blocks_per_sm": lib.readout_chain_staged_blocks_per_sm(
+    design = _chain_want_design(L, d)
+    lib = rc._bwd_library() if bwd else rc._library()
+    prefix = f"readout_chain{'_bwd' if bwd else ''}_{design}"
+    return {"smem_bytes": getattr(lib, f"{prefix}_smem_bytes")(is_bf16, L, d),
+            "blocks_per_sm": getattr(lib, f"{prefix}_blocks_per_sm")(
                 is_bf16, L, d, 0)}
 
 
 def check_chain_kernels(torch, timer, iters, failures):
     """Phase 2f: readout_chain and readout_chain_bwd against their plain
     twins at CHAIN_CASES in f32 and bf16 (3 hops; positional wo2 rows at
-    L=50, scalar at L=255 and the narrow widths; ragged keys, one row
-    with no live key, one masked query), then at ONE hop at
+    L=50, d=128, scalar elsewhere; ragged keys, one row with no live key
+    from B=16 on, one masked query), then at ONE hop at
     CHAIN_ONE_HOP_CASES (NARM+'s and NARM++'s readout), each in the
-    design the wrapper picks ("staged" at L=50, "rows" at L=255), two
-    launches of each bit-equal, at L=50 the rows design forced beside
-    the staged one: the forward's output and hop-input chain
-    (`check_chain_fwd`), the backward's ten cotangents from the kernel's
-    chain, every score-side cotangent of a row with no live key exactly
-    0 (`check_chain_bwd`); timed at phase 4's shape (B=256, L=50, d=128,
-    every key live; 3 hops: ``@L50``, 1 hop: ``@L50h1``) with the twins
-    beside them, each kernel's two designs in turns with the profiler's
-    split by kernel (`time_chain_fwd`, `time_chain_bwd`) and its staged
-    kernel's shared memory and blocks an SM."""
+    design the wrapper must pick ("staged" at L=50, "blocked" at L=150
+    and 255), two launches of each bit-equal, and the rows design forced
+    beside it, held and bit-equal the same way: the forward's output and
+    hop-input chain (`check_chain_fwd`), the backward's ten cotangents
+    from the kernel's chain, every score-side cotangent of a row with no
+    live key exactly 0 (`check_chain_bwd`); timed, with the twins beside
+    them, at phase 4's shape (B=256, L=50, d=128, every key live; 3 hops:
+    ``@L50``, 1 hop: ``@L50h1``) and at phase 14's (B=64, L=150, every key
+    live: ``@L150``), each kernel's picked and rows designs in turns with
+    the profiler's split by kernel (`time_chain_fwd`, `time_chain_bwd`)
+    and its per-row kernel's shared memory and blocks an SM."""
     from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
 
     gen = torch.Generator(device=DEVICE).manual_seed(97531)
     entries = {}
+    timed = {"L50": (TRAIN_BATCH, 50), "L50h1": (TRAIN_BATCH, 50),
+             "L150": (L150_BATCH, L150)}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for hops, cases, shape in (
-                (3, [(bs, L, d, False) for bs, L, d in CHAIN_CASES], "L50"),
-                (1, list(CHAIN_ONE_HOP_CASES), "L50h1")):
+                (3, [(bs, L, d, False) for bs, L, d in CHAIN_CASES
+                     if L <= 64], "L50"),
+                (1, list(CHAIN_ONE_HOP_CASES), "L50h1"),
+                (3, [(bs, L, d, False) for bs, L, d in CHAIN_CASES
+                     if L > 64], "L150")):
             fwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
-                   "rows_rel": 0.0, "staged_vs_rows_rel": 0.0,
-                   "rows_same": True}
+                   "rows_rel": 0.0, "vs_rows_rel": 0.0, "rows_same": True}
             bwd = dict(fwd)
-            for bs, L, d, full in cases + [(TRAIN_BATCH, 50, 128, True)]:
+            t_batch, t_len = timed[shape]
+            for bs, L, d, full in cases + [(t_batch, t_len, 128, True)]:
                 gate = "positional" if L == 50 and d == 128 else "scalar"
                 args = chain_inputs(torch, gen, dtype, bs, L, d, n=hops,
                                     gate=gate, full=full)
@@ -3930,16 +3978,15 @@ def check_chain_kernels(torch, timer, iters, failures):
                 for what, x, dz in (("fwd", fgot, fwd_design),
                                     ("bwd", got, design)):
                     rows_part = (f" rows rel={x['rows_rel']:.3e} "
-                                 f"staged-rows rel="
-                                 f"{x['staged_vs_rows_rel']:.3e} "
+                                 f"{dz}-rows rel={x['vs_rows_rel']:.3e} "
                                  f"rows_same_bits={x['rows_same']}"
                                  if "rows_rel" in x else "")
                     print(f"readout_chain {what} n={hops} B={bs:<3d} "
                           f"L={L:<3d} d={d:<3d} {gate:10s} {dname:9s} "
-                          f"design={dz:6s} rel={x['rel']:.3e} "
+                          f"design={dz:7s} rel={x['rel']:.3e} "
                           f"same_bits={x['same']}{rows_part} "
                           f"{'ok' if x['ok'] else 'FAIL'}", flush=True)
-            # args, g and curs are phase 4's shape now, every key live
+            # args, g and curs are the timed shape now, every key live
             rows = _chain_rows(torch, timer, rc, dtype, dname, args, g,
                                curs, fwd, bwd, iters)
             for kname, row in rows.items():
@@ -3951,48 +3998,51 @@ def check_chain_kernels(torch, timer, iters, failures):
                         "rows_ms", "rows_device_ms",
                         "rows_host_ms", "passes_ms", "rows_passes_ms",
                         "smem_bytes", "blocks_per_sm") if k in row)
-                print(f"{kname} n={hops} B={TRAIN_BATCH} L=50 {dname:9s} "
+                print(f"{kname} n={hops} B={t_batch} L={t_len} {dname:9s} "
                       f"max_abs_err={row['max_abs_err']:.3e} rel="
                       f"{row['rel_err']:.3e} ms={row['ms']:.4f} plain_ms="
                       f"{row['plain_ms']:.4f} bound_ms="
                       f"{row['bound_ms']:.4f} ({row['bound_by']}){extra} "
                       f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
                 if not row["ok"]:
-                    failures.append(f"{kname} {hops} hops {dname}: rel err "
-                                    f"{row['rel_err']:.3e}, same bits "
-                                    f"{row['same_bits_twice']}")
+                    failures.append(f"{kname} {hops} hops {shape} {dname}: "
+                                    f"rel err {row['rel_err']:.3e}, same "
+                                    f"bits {row['same_bits_twice']}, rows "
+                                    f"design {row['rows_rel_err']:.3e} "
+                                    f"{row['rows_same_bits_twice']}")
     return entries
 
 
 def _chain_rows(torch, timer, rc, dtype, dname, args, g, curs, fwd, bwd,
                 iters):
-    """The kernels line's rows of the chain pair at phase 4's shape
-    (``args``, ``g``, ``curs``), with the worst figures of the checks
-    before (``fwd``, ``bwd``)."""
+    """The kernels line's rows of the chain pair at a timed shape
+    (``args``, ``g``, ``curs``: phase 4's or phase 14's), with the worst
+    figures of the checks before (``fwd``, ``bwd``)."""
+    L = args[3].shape[2]
     return {
         "readout_chain": {
-            "design": rc.chain_fwd_design(dtype, 50, 128),
+            "design": rc.chain_fwd_design(dtype, L, 128),
             "max_abs_err": fwd["err"], "rel_err": fwd["rel"],
             "tol": KERNEL_TOL[dname], "ok": fwd["ok"] and fwd["same"],
             "same_bits_twice": fwd["same"],
             "rows_rel_err": fwd["rows_rel"],
-            "staged_vs_rows_rel_err": fwd["staged_vs_rows_rel"],
+            "vs_rows_rel_err": fwd["vs_rows_rel"],
             "rows_same_bits_twice": fwd["rows_same"],
             **time_chain_fwd(timer, rc, args, iters),
-            **chain_occupancy(rc, dname, bwd=False),
+            **chain_occupancy(rc, dname, bwd=False, L=L),
             "plain_ms": timer(lambda: rc.readout_chain_plain(*args),
                               max(iters // 10, 3)),
             **chain_bound(args, dname)},
         "readout_chain_bwd": {
-            "design": rc.chain_bwd_design(dtype, 50, 128),
+            "design": rc.chain_bwd_design(dtype, L, 128),
             "max_abs_err": bwd["err"], "rel_err": bwd["rel"],
             "tol": KERNEL_TOL[dname], "ok": bwd["ok"] and bwd["same"],
             "same_bits_twice": bwd["same"],
             "rows_rel_err": bwd["rows_rel"],
-            "staged_vs_rows_rel_err": bwd["staged_vs_rows_rel"],
+            "vs_rows_rel_err": bwd["vs_rows_rel"],
             "rows_same_bits_twice": bwd["rows_same"],
             **time_chain_bwd(timer, rc, g, args, curs, iters),
-            **chain_occupancy(rc, dname, bwd=True),
+            **chain_occupancy(rc, dname, bwd=True, L=L),
             "plain_ms": timer(lambda: rc.readout_chain_bwd_plain(
                 g, *args[1:], curs), max(iters // 10, 3)),
             **chain_bwd_bound(args, dname)}}
@@ -4006,8 +4056,8 @@ def _merge_chain(acc, got):
             "ok": acc["ok"] and got["ok"],
             "same": acc["same"] and got["same"],
             "rows_rel": max(acc["rows_rel"], got.get("rows_rel", 0.0)),
-            "staged_vs_rows_rel": max(acc["staged_vs_rows_rel"],
-                                      got.get("staged_vs_rows_rel", 0.0)),
+            "vs_rows_rel": max(acc["vs_rows_rel"],
+                               got.get("vs_rows_rel", 0.0)),
             "rows_same": acc["rows_same"] and got.get("rows_same", True)}
 
 
@@ -6469,7 +6519,6 @@ def run_phase12(torch, setup, long_setup, failures):
 # ------------------------------------------------------------ phase 13
 
 L256, L256_SMALL = 256, 16
-L256_META = (100, 2000, 18, L256)            # users, items, categories, L
 # the self-attention models and each one's mode (the drop modes at the
 # cell's dropout 0.5; serving takes the base mode)
 L256_MODELS = {"Time_Aware_Self_Attention_Model": "time",
@@ -6485,12 +6534,13 @@ class L256Setup:
     three epoch orders.  ``batch`` and ``batch_cpu`` are the first
     L256_SMALL rows, the size the CPU's one-step comparisons afford."""
 
+    L = L256
     batch_size = LONG_BATCH
     model = TrainSetup.model
 
-    @staticmethod
-    def cfg(dname, name="MTAM"):
-        return long_cfg(dname, name, L=L256)
+    @classmethod
+    def cfg(cls, dname, name="MTAM"):
+        return long_cfg(dname, name, L=cls.L)
 
     def __init__(self, torch):
         from mtamrecommender_tpu_torch.data.device_data import (epoch_order,
@@ -6498,8 +6548,8 @@ class L256Setup:
                                                                  to_device)
         from mtamrecommender_tpu_torch.types import DatasetMeta
 
-        self.meta = DatasetMeta(*L256_META)
-        arrays = markov_long_arrays(LONG_ROWS, L256, self.meta.item_count,
+        self.meta = DatasetMeta(*LONG_META[:3], self.L)
+        arrays = markov_long_arrays(LONG_ROWS, self.L, self.meta.item_count,
                                     self.meta.category_count, seed=0)
         self.data = to_device(arrays)               # CUDA: the default
         self.data_cpu = to_device(arrays, device="cpu")
@@ -6574,12 +6624,119 @@ def run_l256(torch, failures):
     return report, launches
 
 
+# ------------------------------------------------------------ phase 14
+
+L150, L150_BATCH = 150, LONG_BATCH
+
+
+class L150Setup(L256Setup):
+    """MTAM at the reference's attention cap (max_len 150, SURVEY.md §7;
+    benchmarks/long_history_bench.py --seq_len 150): phase 6's cell at
+    L=150, B=64, d=128, 3 hops, 1 head, the scalar gate, 2,000 items,
+    2048 rows of markov_long_arrays (seed 0), three epoch orders;
+    ``batch`` and ``batch_cpu`` its first L256_SMALL rows."""
+
+    L = L150
+
+
+def check_l150_query(torch, timer, iters, failures):
+    """Phase 14's serving hops' kernel: fused_attention at Tq = 1, Tk=150,
+    d=128 in the time mode (MTAM's hops, 3 a call) and the plain mode
+    (the plain-kind readout's), in f32 and bf16, against the twin at B =
+    1, 16, 64 (`check_attention_fwd`; ragged keys, a row with no live
+    key) in the design it must pick there ("query": the hop design stops
+    at 64 keys), timed at B=64: event, device and host ms, the twin, the
+    bound and, for the plain mode, scaled_dot_product_attention.  Returns
+    the kernels line's entries (``@L150Tq1``)."""
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    gen = torch.Generator(device=DEVICE).manual_seed(150150)
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for mode in ("time", "plain"):
+            acc = {"err": 0.0, "rel": 0.0, "ok": True}
+            for bs in (1, 16, L150_BATCH):
+                args = att_inputs(torch, gen, dtype, B=bs, Tk=L150)
+                acc = check_attention_fwd(torch, ak, mode, args, None, dname,
+                                          acc)
+            design = ak.attention_fwd_design(dtype, 1, L150, 128)
+            run = lambda: ak.fused_attention(mode, *args, None)  # noqa: E731
+            row = {"design": design, "source": FWD_SOURCES[design],
+                   "max_abs_err": acc["err"], "rel_err": acc["rel"],
+                   "tol": KERNEL_TOL[dname],
+                   "ok": acc["ok"] and design == "query", "Tk": L150,
+                   "B": L150_BATCH, "ms": timer(run, iters),
+                   "device_ms": timer.device(run), "host_ms": timer.host(run),
+                   "plain_ms": timer(lambda: ak.fused_attention_plain(
+                       mode, *args, None), max(iters // 10, 3)),
+                   **att_bound(mode, args, dname)}
+            library = att_library(torch, mode, args)
+            if library is not None:
+                row["library_ms"] = timer(library, iters)
+                row["library_call"] = "scaled_dot_product_attention"
+            entries.setdefault(("fused_attention", mode, "L150Tq1"),
+                               {})[dname] = row
+            print(f"fused_attention {mode:6s} Tq=1 Tk={L150} B={L150_BATCH} "
+                  f"{dname:9s} design={design} max_abs_err="
+                  f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
+                  f"{row['ms']:.4f} device_ms={row['device_ms']} host_ms="
+                  f"{row['host_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                  f"library_ms={row.get('library_ms')} "
+                  f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
+            if not row["ok"]:
+                failures.append(f"fused_attention {mode} Tq=1 Tk={L150} "
+                                f"{dname}: {row}")
+    return entries
+
+
+def run_l150(torch, timer, failures):
+    """Phase 14: MTAM at L=150 (`L150Setup`): one step's loss and every
+    gradient leaf against the CPU in f32 and bf16 at B = L256_SMALL, the
+    launches of the step exactly (1 gru_scan + 1 gru_scan_bwd, 1
+    readout_chain + 1 readout_chain_bwd both in the blocked design, 4
+    dtable; no rows-design, fused_readout or fused_attention launch), 10
+    steps timed at B=64 in bf16 and f32 with the device idle share, the
+    serving hops' kernel at Tq=1, Tk=150 (`check_l150_query`), and
+    Recommender.recommend at B = 1, 16, 64 in bf16 and f32 against the
+    CPU at each B (1 gru_scan + 3 fused_attention[time] in the query
+    design a call).  Returns (report, the kernels line's entries, the
+    steps' launches, the calls' launches)."""
+    setup = L150Setup(torch)
+
+    def want(steps, dname):
+        counts = _want_counts(steps, gru="tgru", chain=True)
+        counts["readout_chain_blocked"]["readout_chain_blocked"] = steps
+        counts["readout_chain_bwd_blocked"][
+            "readout_chain_bwd_blocked"] = steps
+        return counts
+
+    def want_call(dname):
+        counts = _want_counts(0)
+        counts["gru_scan"]["tgru"] = 1
+        counts["fused_attention"]["time"] = 3
+        counts["fused_attention_query"]["time"] = 3
+        return counts
+
+    launches, serve_launches = {}, {}
+    report = one_step_check(torch, setup, failures, "MTAM", want)
+    report.update(timed_steps(torch, setup, failures, "MTAM", want, launches,
+                              steps=10, warm=2))
+    entries = check_l150_query(torch, timer, 50, failures)
+    report["serving"] = serve_xl(torch, failures, setup, "MTAM", want_call,
+                                 serve_launches, held_at_each=True)
+    return report, entries, launches, serve_launches
+
+
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
-    Tq=Tk=50 (the self-attention blocks, ``@Tq50``), the chain readout's
-    pair at MTAM's L=50 step (B=256, ``@L50``) and at one hop (NARM+'s
-    and NARM++'s, ``@L50h1``), the readout, GRU
+    Tq=Tk=50 (the self-attention blocks, ``@Tq50``) and at Tq=1, Tk=150
+    (MTAM's serving hops at L=150, ``@L150Tq1``), the chain readout's
+    pair at MTAM's L=50 step (B=256, ``@L50``), at one hop (NARM+'s and
+    NARM++'s, ``@L50h1``) and at MTAM's L=150 step (B=64, ``@L150``), the
+    readout, GRU
     and dtable kernels at MTAM's long-history shape (B=64, L=512,
     ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``:
     the SIMT design, forced, and the tiled designs as
@@ -6666,7 +6823,7 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
-    parser.add_argument("--only", choices=["10", "11", "12", "13"],
+    parser.add_argument("--only", choices=["10", "11", "12", "13", "14"],
                         default=None,
                         help="build, then run only this phase, and write "
                              "its report to chiprun_out/chip_smoke_<n>.json "
@@ -6774,10 +6931,10 @@ def main(argv=None) -> int:
     for inst, regs, spill_st, spill_ld in fwd_hop_ptxas:
         print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
-    # the chain pair's staged designs: the forward's kernel's, the
-    # backward's query pass's and staged kernel's instantiations <type>;
-    # phase 2f reports the staged kernels' shared memory a block and
-    # blocks an SM
+    # the chain pair's staged and blocked designs: the forward's kernels',
+    # the backward's query pass's and per-row kernels' instantiations
+    # <type>; phase 2f reports the per-row kernels' shared memory a block
+    # and blocks an SM
     chain_ptxas = {}
     for lib_name, knames in (("readout_chain", CHAIN_FWD_STAGED_KERNELS),
                              ("readout_chain_bwd", CHAIN_BWD_STAGED_KERNELS)):
@@ -6786,7 +6943,7 @@ def main(argv=None) -> int:
             log = build.library_path(lib_name).with_suffix(".log").read_text()
         chain_ptxas[lib_name] = [row for kname in knames
                                  for row in ptxas_counts(log, kname)]
-        print(f"ptxas {lib_name}, staged design:", flush=True)
+        print(f"ptxas {lib_name}, staged and blocked designs:", flush=True)
         for inst, regs, spill_st, spill_ld in chain_ptxas[lib_name]:
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
@@ -6805,6 +6962,27 @@ def main(argv=None) -> int:
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
+    if args.only == "14":
+        l150, l150_entries, l150_launches, l150_serve = run_l150(
+            torch, Timer(torch), failures)
+        lap("14")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_14.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "phase_s": phase_s,
+                       "chain_ptxas": chain_ptxas, "l150": l150,
+                       "l150_query": {str(k): v
+                                      for k, v in l150_entries.items()},
+                       "launches": {k: {str(m): n for m, n in v.items()}
+                                    for k, v in l150_launches.items()},
+                       "launches_serving": {
+                           k: {str(m): n for m, n in v.items()}
+                           for k, v in l150_serve.items()},
+                       "failures": failures}, f, indent=1, default=str)
+        print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
+        for msg in failures:
+            print(f"FAIL {msg}", file=sys.stderr)
+        return 1 if failures else 0
     if args.only == "13":
         l256, l256_launches = run_l256(torch, failures)
         lap("13")
@@ -6907,6 +7085,7 @@ def main(argv=None) -> int:
     lap("2e")
 
     # phase 2f: the chain readout's pair, MTAM's training readout at L=50
+    # (staged) and L=150 (blocked)
     entries.update(check_chain_kernels(torch, timer, 100, failures))
     lap("2f")
 
@@ -7055,6 +7234,23 @@ def main(argv=None) -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "L=256 self-attention paths")
     lap("13")
+
+    # phase 14: MTAM at L=150, the chain pair's blocked design
+    l150, l150_entries, l150_launches, l150_serve = run_l150(torch, timer,
+                                                             failures)
+    entries.update(l150_entries)
+    for got, kname, mode in (
+            (l150_launches, "gru_scan", "tgru"),
+            (l150_launches, "gru_scan_bwd", "tgru"),
+            (l150_launches, "dtable", None),
+            (l150_launches, "readout_chain_blocked", None),
+            (l150_launches, "readout_chain_bwd_blocked", None),
+            (l150_serve, "gru_scan", "tgru"),
+            (l150_serve, "fused_attention_query", "time")):
+        if got.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "L=150 paths")
+    lap("14")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
     # launches on the main paths: MTAM's and the zoo models' at L=50
@@ -7110,7 +7306,9 @@ def main(argv=None) -> int:
                                     "L50": l50_launches,
                                     "L50h1": zoo_groups["one_hop"],
                                     "L512": long_launches, **xl_launches,
-                                    "L2048": l2048, "L256": l256_launches})
+                                    "L2048": l2048, "L256": l256_launches,
+                                    "L150": l150_launches,
+                                    "L150Tq1": l150_serve})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s,
@@ -7162,7 +7360,12 @@ def main(argv=None) -> int:
                                for k, v in by_kernel.items()}
                        for group, by_kernel in zoo_groups.items()},
                    "heads": heads, "parallel": dist_report,
-                   "l256": l256,
+                   "l256": l256, "l150": l150,
+                   "launches_l150": {k: {str(m): n for m, n in v.items()}
+                                     for k, v in l150_launches.items()},
+                   "launches_l150_serving": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in l150_serve.items()},
                    "launches_l256": {
                        k: {str(m): n for m, n in v.items()}
                        for k, v in l256_launches.items()},

@@ -1,12 +1,15 @@
-// Shared pieces of the chain readout's "staged" designs, the forward
-// (readout_chain.cu) and the backward (readout_chain_bwd.cu), and of the
-// attention forward's "hop" design (fused_attention_hop.cu).  Each takes
-// one block of 256 threads a batch row, at 1 <= L <= kStagedKeys keys
-// with D a multiple of 16 up to 128, and stages a hop's K (and tprec or
-// rawk) rows of the live keys and V rows of the reached keys in shared
-// memory once (the chain backward by 16-byte cp.async, `stage_rows`; the
-// two forwards by bulk copies, `bulk_copy`).  One thread mapping: lane c
-// of half-warp h (16 a block) owns 8 columns (`col`), so
+// Shared pieces of the chain readout's "staged" and "blocked" designs, the
+// forward (readout_chain.cu) and the backward (readout_chain_bwd.cu), and
+// of the attention forward's "hop" design (fused_attention_hop.cu).  Each
+// takes one block of 256 threads a batch row, with D a multiple of 16 up
+// to 128.  At 1 <= L <= kStagedKeys keys ("staged", "hop") a hop's K (and
+// tprec or rawk) rows of the live keys and V rows of the reached keys
+// come into shared memory once (the chain backward by 16-byte cp.async,
+// `stage_rows`; the two forwards by bulk copies, `bulk_copy`); at
+// kStagedKeys < L <= kBlockedMaxKeys ("blocked") they stream through a
+// ring of shared-memory slots, kBlockKeys keys a slot (`KeyRing`), and
+// each key's f32 score sits in a strip of L floats.  One thread mapping:
+// lane c of half-warp h (16 a block) owns 8 columns (`col`), so
 //  - a dot product against every key (`key_dots`) takes a half-warp a key,
 //    keys l = h, h+16, ..., the keys' loads in flight together and their
 //    lane sums in one butterfly (`half_sums`);
@@ -40,6 +43,24 @@ constexpr unsigned kFull = 0xffffffffu;
 
 inline bool staged_takes(int L, int D) {
   return L >= 1 && L <= kStagedKeys && D >= 16 && D <= kMaxD && D % 16 == 0;
+}
+
+// The blocked designs: keys a ring slot holds (a slot of K and tprec rows
+// is one key_dots / key_sum span: kKeySlots keys a half-warp), and the
+// longest L (the score strips' length: one key a thread)
+constexpr int kBlockKeys = kStagedKeys;
+constexpr int kBlockedMaxKeys = kThreads;
+// the ring's slots, each [2, kBlockKeys, D] (K then tprec rows, or V rows
+// in the first half): 3 in either type (see readout_chain.cu's note)
+constexpr int kRingSlots = 3;
+
+inline bool blocked_takes(int L, int D) {
+  return L > kStagedKeys && L <= kBlockedMaxKeys && D >= 16 && D <= kMaxD &&
+         D % 16 == 0;
+}
+
+inline size_t ring_dynamic_bytes(bool bf16, int D) {
+  return (size_t)kRingSlots * 2 * kBlockKeys * D * (bf16 ? 2 : 4);
 }
 
 // hops of K, V and tprec rows in shared memory at once: bf16
@@ -116,6 +137,67 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
       : "memory");
 }
+// The same without an L2 hint (the rows stay in L2 as any load leaves
+// them: for a second read).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One load of a KeyRing: `rows` rows of D elements of `a` into its slot's
+// first half and, where `b` is given, of `b` into the second half.
+// `again`: the rows are read again later in the launch (no L2 hint), else
+// this is their last read (evict first).
+template <typename T>
+struct RingLoad {
+  const T* a;
+  const T* b;
+  int rows;
+  bool again;
+};
+
+// The blocked designs' ring: kRingSlots slots of [2, kBlockKeys, D] in
+// dynamic shared memory, an mbarrier a slot.  Loads are numbered in the
+// order the block consumes them; load j goes to slot j % kRingSlots, and
+// its barrier completes the phase of parity (j / kRingSlots) & 1.  One
+// thread issues load j + kRingSlots once every thread has read load j
+// (behind a __syncthreads), so kRingSlots - 1 loads stay in flight while
+// one is read, and no load waits on the hop chain.
+template <typename T>
+struct KeyRing {
+  T* base;
+  unsigned long long* bar;
+  int D;
+
+  __device__ __forceinline__ T* slot(int j) const {
+    return base + (size_t)(j % kRingSlots) * 2 * kBlockKeys * D;
+  }
+  __device__ __forceinline__ void wait(int j) const {
+    mbar_wait(&bar[j % kRingSlots], (unsigned)(j / kRingSlots) & 1u);
+  }
+  // by one thread, with load j's slot free
+  __device__ __forceinline__ void issue(int j, const RingLoad<T>& ld) const {
+    T* dst = slot(j);
+    unsigned long long* b = &bar[j % kRingSlots];
+    const unsigned bytes = (unsigned)((size_t)ld.rows * D * sizeof(T));
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect(b, ld.b ? 2 * bytes : bytes);
+    T* dst_b = dst + (size_t)kBlockKeys * D;
+    if (ld.again) {
+      bulk_copy(dst, ld.a, bytes, b);
+      if (ld.b) bulk_copy(dst_b, ld.b, bytes, b);
+    } else {
+      const unsigned long long policy = evict_first();
+      bulk_copy(dst, ld.a, bytes, b, policy);
+      if (ld.b) bulk_copy(dst_b, ld.b, bytes, b, policy);
+    }
+  }
+};
 
 // The 8 columns lane c of a half-warp owns, so that each 16-byte access
 // of a quarter-warp covers 128 contiguous bytes (no bank conflict, full
@@ -215,25 +297,60 @@ __device__ __forceinline__ void key_dots(const float (&a)[8], const T* X,
   }
 }
 
-// acc = sum over keys l = h, h+16, ... < n of coef[l] X[l] over the lane's
-// columns, in key order
+// acc += sum over keys l = h, h+16, ... < n of (coef[l] / denom) X[l] over
+// the lane's columns, in key order (the blocked designs: a slot's keys,
+// coef and X at the slot's first key, acc carried across the slots)
 template <typename T>
-__device__ __forceinline__ void key_sum(const float* coef, const T* X, int n,
-                                        int D, int h, int c, bool on,
-                                        float (&acc)[8]) {
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+__device__ __forceinline__ void key_sum_acc(const float* coef, float denom,
+                                            const T* X, int n, int D, int h,
+                                            int c, bool on, float (&acc)[8]) {
 #pragma unroll
   for (int s = 0; s < kKeySlots; ++s) {
     const int l = h + kHalves * s;
     if (on && l < n) {
       float x[8];
       load8(X + (size_t)l * D, c, D, x);
-      const float k = coef[l];
+      const float k = coef[l] / denom;
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) acc[j] = fmaf(k, x[j], acc[j]);
     }
   }
+}
+
+// acc = sum over keys l = h, h+16, ... < n of coef[l] X[l] over the lane's
+// columns, in key order (x / 1 is x: the same bits)
+template <typename T>
+__device__ __forceinline__ void key_sum(const float* coef, const T* X, int n,
+                                        int D, int h, int c, bool on,
+                                        float (&acc)[8]) {
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+  key_sum_acc(coef, 1.f, X, n, D, h, c, on, acc);
+}
+
+// The largest of v[0, n) (n <= kBlockedMaxKeys), in every lane of the
+// calling warp; every warp that calls gets the same value.
+__device__ __forceinline__ float strip_max(const float* v, int n, int lane) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kBlockedMaxKeys / 32; ++j) {
+    const int l = lane + 32 * j;
+    if (l < n) m = fmaxf(m, v[l]);
+  }
+  return port::warp_max(m);
+}
+// The sum of v[l] (w[l] / denom, where w is given) over l < n, a lane its
+// keys lane, lane + 32, ... in order, then a butterfly: the same bits in
+// every lane of every warp that calls.
+__device__ __forceinline__ float strip_sum(const float* v, const float* w,
+                                           float denom, int n, int lane) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBlockedMaxKeys / 32; ++j) {
+    const int l = lane + 32 * j;
+    if (l < n) s += w ? v[l] * (w[l] / denom) : v[l];
+  }
+  return port::warp_sum(s);
 }
 
 // a warp's two half-warp partials added (lane + lane ^ 16) and stored to

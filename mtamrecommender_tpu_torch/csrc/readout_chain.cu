@@ -16,12 +16,13 @@
 //
 // What bounds it: bytes, then latency.  Per row and hop it reads L rows
 // of K, V and tprec and does ~6 L D FLOPs on them, plus 2 D^2 for q: at
-// B=256, L=50, D=128, 3 hops, 29.5 MB (bf16) for ~55 MFLOP.  Each hop
+// B=256, L=50, D=128, 3 hops, 29.5 MB (bf16) for ~55 MFLOP; at B=64,
+// L=150, 22.4 MB (bf16) for ~28 MFLOP.  Each hop
 // waits for the last, so a block's serial chain of dependent steps sets
 // its time unless the rows' loads hide behind it; the first hop's rows
 // are behind nothing.
 //
-// Both designs take one block of 256 threads per batch row, since each
+// Every design takes one block of 256 threads per batch row, since each
 // hop needs the whole row's softmax before the next hop's query exists;
 // the hop loop runs inside the block.  No atomics: the same inputs give
 // the same bits.
@@ -49,7 +50,42 @@
 //    a half-warp (the q sum's order), the residual and layer norm in warp
 //    0 (a lane 4 columns).  A hop's gate and layer-norm operands and bq
 //    come into registers at its start.
-// 2. "rows" (every L up to 256, D up to 128; the first design): cur and
+// 2. "blocked" (65 <= L <= 256, D a multiple of 16 up to 128: MTAM's
+//    training readout at the reference's L=150).  Staging a whole hop
+//    stops at 64 keys: 3 L D es bytes (twice that for staged's two bf16
+//    buffers) is 391,680 B at L=255, D=128 in either type, past the
+//    232,448 a block may have.  So each hop's rows stream in blocks of
+//    kBlockKeys = 64 keys through a ring of kRingSlots = 3 slots of [2,
+//    64, D] (K then tprec rows, or V rows in the first half: 32 KB in
+//    bf16, 64 KB in f32 at D=128), one bulk copy (TMA, evict first) a
+//    block of rows and an mbarrier a slot (`KeyRing`, chain_staged.cuh).
+//    The loads are numbered in the order they are read: a hop's K and
+//    tprec blocks of the live keys, then its V blocks of the reached
+//    ones, hop after hop; one thread issues load j + 3 as soon as every
+//    thread has read load j, so two loads are in flight while one is
+//    read, and since no load depends on the chain, the next hop's K and
+//    tprec blocks come in while this hop's V blocks are read.  Per hop: q
+//    as in the staged design (while the first blocks come in); the dots
+//    q . K_l and cur . tprec_l a key block at a time, a half-warp a key,
+//    into f32 strips of all L <= 256 keys; the gate and the score of key
+//    l by thread l; the softmax over the whole strip (as the Pallas
+//    kernel takes it), each warp taking the strip's max and sum itself,
+//    the same bits in every warp, so the weights w_l = e_l / sum need no
+//    third barrier; o = sum_l w_l V_l a V block at a time, keys l = h,
+//    h+16, ... a half-warp taken in key order across the blocks (the
+//    staged design's order at the same L); the residual and layer norm
+//    in warp 0.  Shared memory a block: the ring's 98,304 B (bf16) or
+//    196,608 B (f32) at D=128 and 7,808 B of vectors and strips: two
+//    blocks an SM in bf16, one in f32.  Three slots is the most f32 fits
+//    at 64 keys a slot, and in bf16 keeps two blocks an SM for B past
+//    the 132 SMs; 64 keys a slot is staged's key_dots / key_sum span (4
+//    keys a half-warp), each block one barrier wait and one
+//    __syncthreads.  MTAM's B=64 fills 64 of the 132 SMs; a 2-CTA cluster
+//    a row (half the key blocks each, max, sum and o merged over
+//    distributed shared memory) would use the rest, at the cost of three
+//    cluster barriers a hop on a chain that is already barrier-bound; it
+//    is not built, and B past 132 rows fills the card without it.
+// 3. "rows" (every L up to 256, D up to 128; the first design): cur and
 //    the hop's [L] vectors in shared memory, K, V and tprec read from
 //    global memory key by key.  q: one thread per column, Wq read
 //    coalesced from global memory.  Scores: one warp per live key, both
@@ -462,6 +498,218 @@ __global__ void __launch_bounds__(kThreads, 2) chain_fwd_staged_kernel(Args a) {
   for (int e = tid; e < D; e += kThreads) out[e] = from_float<T>(v.cur[e]);
 }
 
+// ------------------------------------------------------------ blocked
+
+// The block's f32 vectors and the ring's barriers (static shared memory):
+// the strips hold a value a key, L <= kBlockedMaxKeys.
+struct BlockedVecs {
+  float cur[kMaxD];
+  float s0[kBlockedMaxKeys];   // q . K_l, then the score s_l
+  float tp[kBlockedMaxKeys];   // cur . tprec_l
+  float e[kBlockedMaxKeys];    // exp(s_l - max)
+  float part[kWarps][kMaxD];   // per-warp partials of q's and o's sums
+  alignas(8) unsigned long long bar[kRingSlots];
+};
+
+// Load j of row b's ring: hop j / per_hop, and in it first the K and
+// tprec rows of the live keys, kBlockKeys keys a load, then the V rows of
+// the reached ones.  Each is read once (evict first).
+template <typename T>
+__device__ __forceinline__ RingLoad<T> fwd_load(const Args& a, int b, int live,
+                                                int span, int nkt, int per_hop,
+                                                int j) {
+  const int i = j / per_hop, r = j - i * per_hop;
+  const size_t hb = (size_t)i * a.B + b, LD = (size_t)a.L * a.D;
+  const bool kt = r < nkt;
+  const int k0 = (kt ? r : r - nkt) * kBlockKeys;
+  const size_t off = hb * LD + (size_t)k0 * a.D;
+  return {at<T>(kt ? a.k : a.v, off), kt ? at<T>(a.t, off) : nullptr,
+          min(kBlockKeys, (kt ? live : span) - k0), false};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) chain_fwd_blocked_kernel(Args a) {
+  constexpr int kIssuer = 32;                   // lane 0 of warp 1
+  extern __shared__ __align__(128) unsigned char ring_raw[];
+  __shared__ __align__(16) BlockedVecs v;
+  const int D = a.D, L = a.L, B = a.B, b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = tid >> 4, c = tid & 15;
+  const bool on = kGroup * c < D;               // the lane owns columns
+  const int live = max(0, min(a.klen[b], L));
+  const int span = live > 0 ? live : L;
+  const float qz = a.qz[b];
+  const int nkt = (live + kBlockKeys - 1) / kBlockKeys;
+  const int nv = (span + kBlockKeys - 1) / kBlockKeys;
+  const int per_hop = nkt + nv, total = a.n * per_hop;
+  const KeyRing<T> ring{reinterpret_cast<T*>(ring_raw), v.bar, D};
+  if (tid == kIssuer) {
+    for (int k = 0; k < kRingSlots; ++k) mbar_init(&v.bar[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  WqRows<T> wq_rows;                            // bf16: hop i's rows of Wq
+  fetch_wq_rows<T>(wq_rows, at<T>(a.wq, 0), h, c, D, on);
+  if (tid < D) v.cur[tid] = port::to_float(at<T>(a.dec, (size_t)b * D)[tid]);
+  __syncthreads();                              // the barriers and cur
+  if (tid == kIssuer)
+    for (int k = 0; k < min(kRingSlots, total); ++k)
+      ring.issue(k, fwd_load<T>(a, b, live, span, nkt, per_hop, k));
+  // after every thread has read load j: its slot takes load j + kRingSlots
+  auto release = [&](int j) {
+    __syncthreads();
+    if (tid == kIssuer && j + kRingSlots < total)
+      ring.issue(j + kRingSlots, fwd_load<T>(a, b, live, span, nkt, per_hop,
+                                             j + kRingSlots));
+  };
+  int j = 0;                                    // the next load to read
+  for (int i = 0; i < a.n; ++i) {
+    const size_t hb = (size_t)i * B + b;
+    const T* WQ = at<T>(a.wq, (size_t)i * D * D);
+    // in flight through the hop's first phases: bq at the lane's columns,
+    // key tid's gate operands, warp 0's layer-norm operands (a lane 4
+    // columns)
+    float bq[8];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k)
+      bq[k] = on ? port::to_float(at<T>(a.bq, (size_t)i * D)[col<T>(c, k, D)])
+                 : 0.f;
+    float gp = 0.f, wo2 = 0.f;
+    if (tid < L) {
+      gp = port::to_float(at<T>(a.gp, hb * L)[tid]);
+      wo2 = port::to_float(at<T>(a.wo2, (size_t)i * L)[tid]);
+    }
+    float lng[4] = {0.f, 0.f, 0.f, 0.f}, lnb[4] = {0.f, 0.f, 0.f, 0.f};
+    if (warp == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = lane + 32 * k;
+        if (e < D) {
+          lng[k] = port::to_float(at<T>(a.lng, (size_t)i * D)[e]);
+          lnb[k] = port::to_float(at<T>(a.lnb, (size_t)i * D)[e]);
+        }
+      }
+    }
+    if (tid < D) a.curs[hb * D + tid] = v.cur[tid];
+    // ---- q's partial sums (the staged design's): half-warp h takes k =
+    // h, h+16, ...
+    {
+      float acc[8];
+      q_partial<T>(wq_rows, WQ, v.cur, h, c, D, on, acc);
+      warp_partial<T>(acc, v.part[warp], lane, c, D, on);
+    }
+    if (i + 1 < a.n) {
+      if constexpr (sizeof(T) == 2)
+        fetch_wq_rows<T>(wq_rows, WQ + (size_t)D * D, h, c, D, on);
+      else
+        prefetch_l2(WQ + (size_t)D * D, (size_t)D * D * sizeof(T));
+    }
+    __syncthreads();                            // q's partials
+    // ---- q at the lane's columns: the warps' partials in order from
+    // warp 0, + bq, relu; cur at the lane's columns
+    float qv[8], cv[8];
+    lane8<T>(v.cur, c, D, on, cv);
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) qv[k] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      float p[8];
+      vec8<T>(v.part[w], c, D, p);
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) qv[k] += p[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) qv[k] = on ? fmaxf(qv[k] + bq[k], 0.f) : 0.f;
+    // ---- the dots q . K_l and cur . tprec_l, a key block at a time, a
+    // half-warp a key; both dots' lane sums in one butterfly
+    for (int kb = 0; kb < nkt; ++kb, ++j) {
+      ring.wait(j);
+      const T* Ks = ring.slot(j);
+      const T* Ts = Ks + (size_t)kBlockKeys * D;
+      const int k0 = kb * kBlockKeys, nk = min(kBlockKeys, live - k0);
+      float s0[kKeySlots], tp[kKeySlots], x[2 * kKeySlots];
+      key_dots(qv, Ks, nk, D, h, c, on, s0);
+      key_dots(cv, Ts, nk, D, h, c, on, tp);
+#pragma unroll
+      for (int s = 0; s < kKeySlots; ++s) {
+        x[s] = s0[s];
+        x[kKeySlots + s] = tp[s];
+      }
+      // lane c ends with value half_sums_index(c): s0 of slot k, or tp of
+      // slot k - kKeySlots
+      const float r = half_sums(x, lane);
+      const int k = half_sums_index<2 * kKeySlots>(lane);
+      const int l = h + kHalves * (k % kKeySlots);
+      if ((c & 1) == 0 && l < nk) (k < kKeySlots ? v.s0 : v.tp)[k0 + l] = r;
+      release(j);
+    }
+    // ---- the gate and the score of key tid, the softmax over the strip:
+    // each warp takes the strip's max and sum itself (the same bits in
+    // every warp), so the weights w_l = e_l / sum need no third barrier
+    float sl = readout::kNegFill;
+    if (tid < live) {
+      const float tqk = tanhf(v.tp[tid]);
+      const float sig = port::sigmoid(gp + wo2 * tqk);
+      sl = v.s0[tid] * sig * a.scale;
+    }
+    if (tid < L) v.s0[tid] = sl;
+    __syncthreads();                            // the scores
+    const float m = strip_max(v.s0, L, lane);
+    if (tid < L) v.e[tid] = expf(sl - m);
+    __syncthreads();                            // the exponentials
+    const float sum = strip_sum(v.e, nullptr, 1.f, L, lane);
+    // ---- o = sum_l w_l V_l over the reached keys, a key block at a time
+    float acc[8];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) acc[k] = 0.f;
+    for (int kb = 0; kb < nv; ++kb, ++j) {
+      ring.wait(j);
+      const int k0 = kb * kBlockKeys;
+      key_sum_acc(v.e + k0, sum, ring.slot(j), min(kBlockKeys, span - k0), D,
+                  h, c, on, acc);
+      release(j);
+    }
+    warp_partial<T>(acc, v.part[warp], lane, c, D, on);
+    __syncthreads();
+    // ---- residual and layer norm in warp 0 (a lane 4 columns)
+    if (warp == 0) {
+      float x[4], sx = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = lane + 32 * k;
+        x[k] = e < D ? warps_sum(v.part, e) * qz + v.cur[e] : 0.f;
+        sx += x[k];
+      }
+      const float mean = port::warp_sum(sx) / D;
+      float sv = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        x[k] = lane + 32 * k < D ? x[k] - mean : 0.f;
+        sv += x[k] * x[k];
+      }
+      const float inv = 1.f / sqrtf(port::warp_sum(sv) / D + readout::kLnEps);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = lane + 32 * k;
+        if (e < D) v.cur[e] = x[k] * inv * lng[k] + lnb[k];
+      }
+    }
+    __syncthreads();
+  }
+  T* out = static_cast<T*>(a.out) + (size_t)b * D;
+  for (int e = tid; e < D; e += kThreads) out[e] = from_float<T>(v.cur[e]);
+}
+
+template <typename T>
+cudaError_t launch_blocked(const Args& a, cudaStream_t s) {
+  const size_t smem = ring_dynamic_bytes(sizeof(T) == 2, a.D);
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_fwd_blocked_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  chain_fwd_blocked_kernel<T><<<a.B, kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_staged(const Args& a, cudaStream_t s) {
   const size_t smem = staged_dynamic_bytes(sizeof(T) == 2, a.L, a.D);
@@ -473,10 +721,12 @@ cudaError_t launch_staged(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-enum { kStaged = 0, kRows = 1 };   // the designs, as FWD_DESIGNS orders them
+// the designs, as FWD_DESIGNS orders them
+enum { kStaged = 0, kBlocked = 1, kRows = 2 };
 
 bool takes(int design, int L, int D) {
   if (design == kStaged) return staged_takes(L, D);
+  if (design == kBlocked) return blocked_takes(L, D);
   return design == kRows && L >= 1 && L <= kMaxL && D >= 1 && D <= kMaxD;
 }
 
@@ -512,8 +762,38 @@ extern "C" int readout_chain_staged_blocks_per_sm(int is_bf16, int L, int D,
   return err != cudaSuccess ? -(int)err : blocks;
 }
 
-// design: 0 "staged" (1 <= L <= 64, D a multiple of 16 up to 128; k, v,
-// t and wq 16-byte aligned), 1 "rows" (L <= 256, D <= 128).  All pointers
+// The blocked design's shared memory a block at (L, D), static and
+// dynamic, in bytes (0 for a shape it does not take).
+extern "C" long long readout_chain_blocked_smem_bytes(int is_bf16, int L,
+                                                      int D) {
+  if (!blocked_takes(L, D)) return 0;
+  return (long long)(ring_dynamic_bytes(is_bf16 != 0, D) +
+                     sizeof(BlockedVecs));
+}
+
+// The blocked design's blocks that fit on one SM at (L, D), or the
+// negated cudaError_t.
+extern "C" int readout_chain_blocked_blocks_per_sm(int is_bf16, int L, int D,
+                                                   int device) {
+  if (!blocked_takes(L, D)) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t smem = ring_dynamic_bytes(is_bf16 != 0, D);
+  const void* kernel =
+      is_bf16 ? (const void*)chain_fwd_blocked_kernel<__nv_bfloat16>
+              : (const void*)chain_fwd_blocked_kernel<float>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, smem);
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
+// design: 0 "staged" (1 <= L <= 64, D a multiple of 16 up to 128), 1
+// "blocked" (64 < L <= 256, the same D; both with k, v, t and wq 16-byte
+// aligned), 2 "rows" (L <= 256, D <= 128).  All pointers
 // are device pointers to contiguous arrays: dec [B,1,D], k, v, t
 // [n,B,L,D], gp [n,B,L], wo2 [n,L], wq [n,D,D], bq/lng/lnb [n,D] and out
 // [B,D], all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); klen [B] int32;
@@ -526,7 +806,7 @@ extern "C" int readout_chain_launch(
     const void* lng, const void* lnb, void* out, void* curs, int B, int L,
     int D, int n, float scale, int device, void* stream) {
   if (B < 0 || !takes(design, L, D) || n <= 0) return cudaErrorInvalidValue;
-  if (design == kStaged) {
+  if (design != kRows) {
     for (const void* p : {k, v, t, wq})
       if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
   }
@@ -546,6 +826,9 @@ extern "C" int readout_chain_launch(
   if (design == kStaged)
     return is_bf16 ? launch_staged<__nv_bfloat16>(a, s)
                    : launch_staged<float>(a, s);
+  if (design == kBlocked)
+    return is_bf16 ? launch_blocked<__nv_bfloat16>(a, s)
+                   : launch_blocked<float>(a, s);
   if (is_bf16)
     chain_fwd_rows_kernel<__nv_bfloat16><<<B, kThreads, 0, s>>>(a);
   else

@@ -22,8 +22,9 @@
 //
 // What bounds it: bytes.  It reads K, V and tprec again and writes as
 // many elements of their cotangents: at B=256, L=50, D=128, 3 hops about
-// 59 MB in bf16, for a few times the forward's ~55 MFLOP.  Both designs
-// spend no float atomics, so the same inputs give the same bits.
+// 59 MB in bf16, for a few times the forward's ~55 MFLOP (B=64, L=150:
+// 44.8 MB).  No design spends float atomics, so the same inputs give the
+// same bits.
 //
 // 1. "staged" (1 <= L <= 64, D a multiple of 16 up to 128: MTAM's
 //    training readout at L=50, d=128, and the narrow d=16), four launches:
@@ -60,20 +61,50 @@
 //       lane mapping and the sums' helpers are chain_staged.cuh's, which
 //       the forward's staged design shares.
 //    c. the batch sums dwo2, dbq, dlng, dlnb as the rows design sums them
-//       (3 below), and
+//       (4 below), and
 //    d. dwq, the one batch sum that is a product, in a kernel of its own:
 //       a 16 x 16 tile a block, 2 x 2 outputs a thread, the rows in order
 //       (the reduce pass's order: the same bits).
-// 2. "rows" (every L up to 256, D up to 128; the first design), two
+// 2. "blocked" (65 <= L <= 256, D a multiple of 16 up to 128: MTAM's
+//    training readout at the reference's L=150), four launches as the
+//    staged design's: its query pass, batch sums and dwq product (none
+//    depends on L), and in place of its staged kernel one block of 256
+//    threads a batch row streaming each hop's rows through the forward's
+//    ring (`KeyRing`, chain_staged.cuh: 3 slots of 64 keys, 32 KB in bf16
+//    and 64 KB in f32 at D=128; the reasons are readout_chain.cu's).  Per
+//    hop, in reverse: s0 and tqk from the K and tprec blocks into f32
+//    strips of all L keys; the softmax over the strip (key l by thread l,
+//    which keeps its s0, tqk, sig and e in registers for the transpose;
+//    each warp takes the strip's max and sum itself); o from the V blocks
+//    of the reached keys; the layer norm and its backward in warp 0; dv
+//    = w do over all L keys in 16-byte streaming stores while the V
+//    blocks come in again for dw = do . V_l (a half-warp a key); the
+//    softmax transpose of key l by thread l; dk and dt over all L keys,
+//    zero past the live ones, in 16-byte streaming stores; then a second
+//    pass of the K and tprec blocks for dcur += sum_l dpre_l tprec_l and
+//    dq = sum_l ds0_l K_l; dq_pre Wq^T as the staged design takes it.
+//    Why the rows are streamed twice and not kept: K and tprec of a row
+//    take 512 B a key in bf16 and 1,024 B in f32 at D=128, 76,800 /
+//    153,600 B at L=150 and 130,560 / 261,120 B at L=255; with V's ring
+//    beside them f32 would not fit past L=150 (232,448 B a block) and
+//    bf16 would drop to one block an SM.  The second read finds the rows
+//    in L2: the first read leaves them there (no L2 hint) and one hop of
+//    B=64 rows is at most 16.7 MB of the 50 MB; the second read evicts
+//    first.  The loads run in the order they are read, the next hop's K
+//    and tprec blocks behind this hop's last K and tprec pass.  Shared
+//    memory a block: the ring and 15,488 B of vectors and strips (four
+//    strips, each reused once its last reader is behind a barrier): two
+//    blocks an SM in bf16, one in f32.
+// 3. "rows" (every L up to 256, D up to 128; the first design), two
 //    launches: one block of 256 threads per batch row, every [L] and [D]
 //    vector of the hop in shared memory, K, V and tprec read from global
 //    memory key by key.  The scores and dw take a warp per live key; the
 //    [L,D] cotangents are written by all threads, element by element,
 //    coalesced; dcur's and dq's sums over keys take a thread per column;
 //    dq_pre Wq^T a warp per row of Wq; then
-// 3. reduce: each batch sum over the rows in order, one thread per
+// 4. reduce: each batch sum over the rows in order, one thread per
 //    output element; dwq[i][k][e] = sum_b cur_c[i,b,k] dq_pre[i,b,e].
-// Either writes the per-row terms of the batch sums (cur_c, the rounded
+// Every design writes the per-row terms of the batch sums (cur_c, the rounded
 // dq_pre, g xh, g and dgate tqk) to an f32 workspace.
 
 #include <cstdint>
@@ -693,6 +724,355 @@ __global__ void __launch_bounds__(kThreads, 2) chain_bwd_staged_kernel(Args a) {
   for (int e = tid; e < D; e += kThreads) ddec[e] = from_float<T>(v.dcur[e]);
 }
 
+// ------------------------------------------------------------ blocked
+
+// The block's f32 vectors and the ring's barriers (static shared memory):
+// the strips hold a value a key (L <= kBlockedMaxKeys), each reused once
+// its last reader is behind a barrier.
+struct BlockedVecs {
+  float cur[kMaxD], q[kMaxD], lng[kMaxD], dcur[kMaxD], dov[kMaxD],
+      dqp[kMaxD];
+  float sa[kBlockedMaxKeys];   // q . K_l, then dw_l = do . V_l
+  float sb[kBlockedMaxKeys];   // cur . tprec_l, then e_l = exp(s_l - max)
+  float sc[kBlockedMaxKeys];   // the score s_l, then ds0_l
+  float sd[kBlockedMaxKeys];   // dpre_l
+  float part[2][kWarps][kMaxD];   // per-warp partials of a sum over keys
+  alignas(8) unsigned long long bar[kRingSlots];
+};
+
+// Load j of row b's ring, hops from the last: in each, the K and tprec
+// rows of the live keys (the scores), the V rows of the reached keys (o),
+// the V rows of the live keys again (dw), the K and tprec rows again (dq
+// and dcur's sum), kBlockKeys keys a load.  A first read leaves the rows
+// in L2 for the second (one hop of B=64 rows is at most 16.7 MB of the
+// 50 MB); a second read, and V past the live keys, evict first.
+template <typename T>
+__device__ __forceinline__ RingLoad<T> bwd_load(const Args& a, int b, int live,
+                                                int span, int nkt, int nv,
+                                                int per_hop, int j) {
+  const int hop = j / per_hop, r = j - hop * per_hop;
+  const size_t hb = (size_t)(a.n - 1 - hop) * a.B + b;
+  const size_t LD = (size_t)a.L * a.D;
+  // the pass: 0 K and tprec, 1 V (reached), 2 V (live), 3 K and tprec
+  const int pass = r < nkt ? 0 : r < nkt + nv ? 1 : r < 2 * nkt + nv ? 2 : 3;
+  const int first = pass == 0 ? 0 : pass == 1 ? nkt : pass == 2 ? nkt + nv
+                                                              : 2 * nkt + nv;
+  const int k0 = (r - first) * kBlockKeys;
+  const size_t off = hb * LD + (size_t)k0 * a.D;
+  const bool kt = pass == 0 || pass == 3;
+  return {at<T>(kt ? a.k : a.v, off), kt ? at<T>(a.t, off) : nullptr,
+          min(kBlockKeys, (pass == 1 ? span : live) - k0),
+          pass == 0 || (pass == 1 && live > 0)};
+}
+
+// A hop's short vectors in registers, loaded a hop ahead: threads e < D
+// hold cur[e] (f32), q[e] (from the query pass) and lng[e]; thread l < L
+// holds gate_part[l] and wo2[l] (kept there: the same thread takes key l
+// in the softmax and its transpose).
+template <typename T>
+__device__ __forceinline__ HopVecs load_blocked_vecs(const Args& a, int i,
+                                                     int b) {
+  const int tid = threadIdx.x, D = a.D, L = a.L;
+  const size_t hb = (size_t)i * a.B + b, nBD = (size_t)a.n * a.B * D;
+  HopVecs x{0.f, 0.f, 0.f, 0.f, 0.f};
+  if (tid < D) {
+    x.cur = a.curs[hb * D + tid];
+    x.q = a.vec[V_Q * nBD + hb * D + tid];
+    x.lng = port::to_float(at<T>(a.lng, (size_t)i * D)[tid]);
+  }
+  if (tid < L) {
+    x.gp = port::to_float(at<T>(a.gp, hb * L)[tid]);
+    x.wo2 = port::to_float(at<T>(a.wo2, (size_t)i * L)[tid]);
+  }
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) chain_bwd_blocked_kernel(Args a) {
+  constexpr int kIssuer = 32;                   // lane 0 of warp 1
+  extern __shared__ __align__(128) unsigned char ring_raw[];
+  __shared__ __align__(16) BlockedVecs v;
+  const int D = a.D, L = a.L, B = a.B, b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = tid >> 4, c = tid & 15;
+  const bool on = kGroup * c < D;               // the lane owns columns
+  const int live = max(0, min(a.klen[b], L));
+  const int span = live > 0 ? live : L;
+  const float qz = a.qz[b];
+  const size_t nBD = (size_t)a.n * B * D, LD = (size_t)L * D;
+  const int nkt = (live + kBlockKeys - 1) / kBlockKeys;
+  const int nv = (span + kBlockKeys - 1) / kBlockKeys;
+  const int per_hop = 3 * nkt + nv, total = a.n * per_hop;
+  const KeyRing<T> ring{reinterpret_cast<T*>(ring_raw), v.bar, D};
+  if (tid == kIssuer) {
+    for (int k = 0; k < kRingSlots; ++k) mbar_init(&v.bar[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = tid; e < D; e += kThreads)
+    v.dcur[e] = port::to_float(at<T>(a.g, (size_t)b * D)[e]);
+  HopVecs hv = load_blocked_vecs<T>(a, a.n - 1, b);
+  if (tid < D) {
+    v.cur[tid] = hv.cur;
+    v.q[tid] = hv.q;
+    v.lng[tid] = hv.lng;
+  }
+  __syncthreads();                              // the barriers and vectors
+  if (tid == kIssuer)
+    for (int k = 0; k < min(kRingSlots, total); ++k)
+      ring.issue(k, bwd_load<T>(a, b, live, span, nkt, nv, per_hop, k));
+  // after every thread has read load j: its slot takes load j + kRingSlots
+  auto release = [&](int j) {
+    __syncthreads();
+    if (tid == kIssuer && j + kRingSlots < total)
+      ring.issue(j + kRingSlots, bwd_load<T>(a, b, live, span, nkt, nv,
+                                             per_hop, j + kRingSlots));
+  };
+  int j = 0;                                    // the next load to read
+  for (int i = a.n - 1; i >= 0; --i) {
+    const size_t hb = (size_t)i * B + b;
+    const T* WQ = at<T>(a.wq, (size_t)i * D * D);
+    // in flight through the hop: the next hop's short vectors and (bf16)
+    // this hop's rows of Wq for dq_pre Wq^T
+    const HopVecs next = i > 0 ? load_blocked_vecs<T>(a, i - 1, b) : HopVecs{};
+    WqRows<T> wq_rows;
+    fetch_wq_rows<T>(wq_rows, WQ, h, c, D, on);
+
+    // ---- the dots q . K_l and cur . tprec_l, a key block at a time, a
+    // half-warp a key
+    {
+      float qv[8], cv[8];
+      lane8<T>(v.q, c, D, on, qv);
+      lane8<T>(v.cur, c, D, on, cv);
+      for (int kb = 0; kb < nkt; ++kb, ++j) {
+        ring.wait(j);
+        const T* Ks = ring.slot(j);
+        const T* Ts = Ks + (size_t)kBlockKeys * D;
+        const int k0 = kb * kBlockKeys, nk = min(kBlockKeys, live - k0);
+        float s0[kKeySlots], tp[kKeySlots], x[2 * kKeySlots];
+        key_dots(qv, Ks, nk, D, h, c, on, s0);
+        key_dots(cv, Ts, nk, D, h, c, on, tp);
+#pragma unroll
+        for (int s = 0; s < kKeySlots; ++s) {
+          x[s] = s0[s];
+          x[kKeySlots + s] = tp[s];
+        }
+        const float r = half_sums(x, lane);
+        const int k = half_sums_index<2 * kKeySlots>(lane);
+        const int l = h + kHalves * (k % kKeySlots);
+        if ((c & 1) == 0 && l < nk) (k < kKeySlots ? v.sa : v.sb)[k0 + l] = r;
+        release(j);
+      }
+    }
+    // ---- the gate and the score of key tid, the softmax over the strip
+    // (each warp takes its max and sum itself: the same bits in every
+    // warp); key tid's s0, tqk, sig and e stay in its registers
+    float s0l = 0.f, tqk = 0.f, sig = 0.f, sl = readout::kNegFill;
+    if (tid < live) {
+      s0l = v.sa[tid];
+      tqk = tanhf(v.sb[tid]);
+      sig = port::sigmoid(hv.gp + hv.wo2 * tqk);
+      sl = s0l * sig * a.scale;
+    }
+    if (tid < L) v.sc[tid] = sl;
+    __syncthreads();                            // the scores
+    const float m = strip_max(v.sc, L, lane);
+    const float el = tid < L ? expf(sl - m) : 0.f;
+    if (tid < L) v.sb[tid] = el;
+    __syncthreads();                            // the exponentials
+    const float sum = strip_sum(v.sb, nullptr, 1.f, L, lane);
+    // ---- o = sum_l w_l V_l over the reached keys, a key block at a time
+    {
+      float acc[8];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) acc[k] = 0.f;
+      for (int kb = 0; kb < nv; ++kb, ++j) {
+        ring.wait(j);
+        const int k0 = kb * kBlockKeys;
+        key_sum_acc(v.sb + k0, sum, ring.slot(j), min(kBlockKeys, span - k0),
+                    D, h, c, on, acc);
+        release(j);
+      }
+      warp_partial<T>(acc, v.part[0][warp], lane, c, D, on);
+    }
+    __syncthreads();
+    // ---- residual, layer norm and its backward in warp 0 (a lane 4
+    // columns)
+    if (warp == 0) {
+      float x[4], sx = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = lane + 32 * k;
+        x[k] = e < D ? warps_sum(v.part[0], e) * qz + v.cur[e] : 0.f;
+        sx += x[k];
+      }
+      const float mean = port::warp_sum(sx) / D;
+      float sv = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        x[k] = lane + 32 * k < D ? x[k] - mean : 0.f;
+        sv += x[k] * x[k];
+      }
+      const float inv = 1.f / sqrtf(port::warp_sum(sv) / D + readout::kLnEps);
+      float xh[4], dxh[4], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = lane + 32 * k;
+        xh[k] = x[k] * inv;
+        dxh[k] = 0.f;
+        if (e < D) {
+          const float g = v.dcur[e];
+          dxh[k] = g * v.lng[e];
+          a.vec[V_GXH * nBD + hb * D + e] = g * xh[k];
+          a.vec[V_G * nBD + hb * D + e] = g;
+        }
+        s1 += dxh[k];
+        s2 += dxh[k] * xh[k];
+      }
+      const float m1 = port::warp_sum(s1) / D;
+      const float m2 = port::warp_sum(s2) / D;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = lane + 32 * k;
+        if (e < D) {
+          const float dx = (dxh[k] - m1 - xh[k] * m2) * inv;
+          v.dov[e] = dx * qz;
+          v.dcur[e] = dx;                     // the residual branch
+        }
+      }
+    }
+    __syncthreads();
+    float dv8[8];
+    lane8<T>(v.dov, c, D, on, dv8);
+    // ---- dv_l = w_l do over all L keys (zero past the reached ones), a
+    // half-warp a key, 16-byte streaming stores, while the V rows come in
+    {
+      T* DV = out_at<T>(a.dv, hb * LD);
+      if (on)
+        for (int l = h; l < L; l += kHalves) {
+          const float wl = l < span ? v.sb[l] / sum : 0.f;
+          float x[8];
+#pragma unroll
+          for (int k = 0; k < kGroup; ++k) x[k] = wl * dv8[k];
+          store8(DV + (size_t)l * D, c, D, x);
+        }
+    }
+    // ---- dw_l = do . V_l over the live keys, a key block at a time, a
+    // half-warp a key
+    for (int kb = 0; kb < nkt; ++kb, ++j) {
+      ring.wait(j);
+      const int k0 = kb * kBlockKeys, nk = min(kBlockKeys, live - k0);
+      float dw[kKeySlots];
+      key_dots(dv8, ring.slot(j), nk, D, h, c, on, dw);
+      const float r = half_sums(dw, lane);
+      const int l = h + kHalves * half_sums_index<kKeySlots>(lane);
+      if ((c & 3) == 0 && l < nk) v.sa[k0 + l] = r;
+      release(j);
+    }
+    // ---- the softmax transpose and the gate's cotangents of key tid
+    {
+      const float sdw = strip_sum(v.sa, v.sb, sum, live, lane);
+      float dgate = 0.f, ds0 = 0.f, dpre = 0.f, dgt = 0.f;
+      if (tid < live) {                         // no score gradient else
+        const float ds = (el / sum) * (v.sa[tid] - sdw);
+        dgate = ds * s0l * a.scale * sig * (1.f - sig);
+        ds0 = ds * sig * a.scale;
+        dpre = dgate * hv.wo2 * (1.f - tqk * tqk);
+        dgt = dgate * tqk;
+      }
+      if (tid < L) {
+        v.sc[tid] = ds0;
+        v.sd[tid] = dpre;
+        out_at<T>(a.dgp, hb * L)[tid] = from_float<T>(dgate);
+        a.dgt[hb * L + tid] = dgt;
+      }
+    }
+    __syncthreads();
+    // ---- dk, dt over all L keys (zero past the live ones): a half-warp a
+    // key, 16-byte streaming stores, while the K and tprec rows come in
+    {
+      T* DK = out_at<T>(a.dk, hb * LD);
+      T* DT = out_at<T>(a.dt, hb * LD);
+      float cv[8], qv[8];
+      lane8<T>(v.cur, c, D, on, cv);
+      lane8<T>(v.q, c, D, on, qv);
+      if (on)
+        for (int l = h; l < L; l += kHalves) {
+          const float pl = l < live ? v.sd[l] : 0.f;
+          const float kl = l < live ? v.sc[l] : 0.f;
+          float xt[8], xk[8];
+#pragma unroll
+          for (int k = 0; k < kGroup; ++k) {
+            xt[k] = pl * cv[k];
+            xk[k] = kl * qv[k];
+          }
+          store8(DT + (size_t)l * D, c, D, xt);
+          store8(DK + (size_t)l * D, c, D, xk);
+        }
+    }
+    // ---- sum_l dpre_l tprec_l and dq = sum_l ds0_l K_l over the live
+    // keys, a key block at a time
+    {
+      float acc_t[8], acc_q[8];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) acc_t[k] = acc_q[k] = 0.f;
+      for (int kb = 0; kb < nkt; ++kb, ++j) {
+        ring.wait(j);
+        const T* Ks = ring.slot(j);
+        const int k0 = kb * kBlockKeys, nk = min(kBlockKeys, live - k0);
+        key_sum_acc(v.sd + k0, 1.f, Ks + (size_t)kBlockKeys * D, nk, D, h, c,
+                    on, acc_t);
+        key_sum_acc(v.sc + k0, 1.f, Ks, nk, D, h, c, on, acc_q);
+        release(j);
+      }
+      warp_partial<T>(acc_t, v.part[0][warp], lane, c, D, on);
+      warp_partial<T>(acc_q, v.part[1][warp], lane, c, D, on);
+    }
+    __syncthreads();
+    if (tid < D) {
+      v.dcur[tid] += warps_sum(v.part[0], tid);
+    } else if (tid < 2 * D) {
+      const int e = tid - D;
+      const float dq = warps_sum(v.part[1], e);
+      const float dq_pre = port::round_to<T>(v.q[e] > 0.f ? dq : 0.f);
+      v.dqp[e] = dq_pre;
+      a.vec[V_DQ * nBD + hb * D + e] = dq_pre;
+    }
+    __syncthreads();
+    // the hop's short vectors are read no more: the next hop's take
+    // their place
+    if (i > 0 && tid < D) {
+      v.cur[tid] = next.cur;
+      v.q[tid] = next.q;
+      v.lng[tid] = next.lng;
+    }
+    hv = next;
+    // ---- dcur += dq_pre Wq^T: half-warp h takes rows e = h, h+16, ...
+    {
+      float dq8[8], acc[kSlots];
+      lane8<T>(v.dqp, c, D, on, dq8);
+      const unsigned long long policy = evict_last();
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        acc[s] = 0.f;
+        const int e = h + kHalves * s;
+        if (on && e < D) {
+          float wv[8];
+          wq_row<T>(wq_rows, WQ, s, e, c, D, policy, wv);
+#pragma unroll
+          for (int k = 0; k < kGroup; ++k) acc[s] = fmaf(dq8[k], wv[k], acc[s]);
+        }
+      }
+      // lane c ends with row h + 16 half_sums_index(c)'s sum
+      const float r = half_sums(acc, lane);
+      const int e = h + kHalves * half_sums_index<kSlots>(lane);
+      if ((c & 1) == 0 && e < D) v.dcur[e] += r;
+    }
+    __syncthreads();
+  }
+  T* ddec = out_at<T>(a.ddec, (size_t)b * D);
+  for (int e = tid; e < D; e += kThreads) ddec[e] = from_float<T>(v.dcur[e]);
+}
+
 // The query pass, before the staged kernel: for every hop i and row b,
 // cur_c = curs[i,b] rounded to T and q = relu(cur_c Wq_i + bq_i) (f32) to
 // the workspace.  A block of 256 threads takes kQueryRows rows of one
@@ -824,8 +1204,10 @@ __global__ void __launch_bounds__(kDwqThreads) chain_bwd_dwq_kernel(
   *reinterpret_cast<float2*>(out + D) = make_float2(acc[1][0], acc[1][1]);
 }
 
+// The staged or (``blocked``) the blocked design's launches before the
+// batch sums: the query pass, then the per-row kernel.
 template <typename T>
-cudaError_t launch_staged(const Args& a, cudaStream_t s) {
+cudaError_t launch_staged(const Args& a, cudaStream_t s, bool blocked) {
   const size_t qsmem = query_dynamic_bytes(sizeof(T) == 2, a.D);
   cudaError_t err = cudaFuncSetAttribute(
       chain_bwd_query_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -834,6 +1216,15 @@ cudaError_t launch_staged(const Args& a, cudaStream_t s) {
   chain_bwd_query_kernel<T><<<dim3((a.B + kQueryRows - 1) / kQueryRows, a.n),
                               kThreads, qsmem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (blocked) {
+    const size_t smem = ring_dynamic_bytes(sizeof(T) == 2, a.D);
+    err = cudaFuncSetAttribute(chain_bwd_blocked_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    chain_bwd_blocked_kernel<T><<<a.B, kThreads, smem, s>>>(a);
+    return cudaGetLastError();
+  }
   const size_t smem = staged_dynamic_bytes(sizeof(T) == 2, a.L, a.D);
   err = cudaFuncSetAttribute(chain_bwd_staged_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -849,16 +1240,18 @@ size_t vec_floats(int B, int D, int n) {
   return (size_t)kVecs * n * B * D;
 }
 
-enum { kStaged = 0, kRows = 1 };   // the designs, as BWD_DESIGNS orders them
+// the designs, as BWD_DESIGNS orders them
+enum { kStaged = 0, kBlocked = 1, kRows = 2 };
 
 bool takes(int design, int L, int D) {
   if (design == kStaged) return staged_takes(L, D);
+  if (design == kBlocked) return blocked_takes(L, D);
   return design == kRows && L >= 1 && L <= kMaxL && D >= 1 && D <= kMaxD;
 }
 
 }  // namespace
 
-// Workspace bytes the launch needs (the same for both designs, the rows
+// Workspace bytes the launch needs (the same for every design, the rows
 // design leaving V_Q unused; 0 for a shape the design does not take).
 extern "C" long long readout_chain_bwd_workspace_bytes(int design, int B,
                                                        int L, int D, int n) {
@@ -897,8 +1290,38 @@ extern "C" int readout_chain_bwd_staged_blocks_per_sm(int is_bf16, int L,
   return err != cudaSuccess ? -(int)err : blocks;
 }
 
-// design: 0 "staged" (1 <= L <= 64, D a multiple of 16 up to 128; k, v,
-// t, wq, dk, dv and dt 16-byte aligned), 1 "rows" (L <= 256, D <= 128).
+// The blocked design's per-row kernel's shared memory a block at (L, D),
+// static and dynamic, in bytes (0 for a shape it does not take).
+extern "C" long long readout_chain_bwd_blocked_smem_bytes(int is_bf16, int L,
+                                                          int D) {
+  if (!blocked_takes(L, D)) return 0;
+  return (long long)(ring_dynamic_bytes(is_bf16 != 0, D) +
+                     sizeof(BlockedVecs));
+}
+
+// The blocked design's per-row kernel's blocks that fit on one SM at (L,
+// D), or the negated cudaError_t.
+extern "C" int readout_chain_bwd_blocked_blocks_per_sm(int is_bf16, int L,
+                                                       int D, int device) {
+  if (!blocked_takes(L, D)) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t smem = ring_dynamic_bytes(is_bf16 != 0, D);
+  const void* kernel =
+      is_bf16 ? (const void*)chain_bwd_blocked_kernel<__nv_bfloat16>
+              : (const void*)chain_bwd_blocked_kernel<float>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, smem);
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
+// design: 0 "staged" (1 <= L <= 64, D a multiple of 16 up to 128), 1
+// "blocked" (64 < L <= 256, the same D; both with k, v, t, wq, dk, dv and
+// dt 16-byte aligned), 2 "rows" (L <= 256, D <= 128).
 // All pointers are device pointers to contiguous arrays.  g [B,D]; the
 // forward's inputs after dec as in readout_chain_launch; curs [n,B,D] f32;
 // the outputs ddec [B,D], dk/dv/dt [n,B,L,D], dgp [n,B,L] in the inputs'
@@ -915,7 +1338,7 @@ extern "C" int readout_chain_bwd_launch(
     void* dlnb, void* ws, int B, int L, int D, int n, float scale,
     int device, void* stream) {
   if (B < 0 || !takes(design, L, D) || n <= 0) return cudaErrorInvalidValue;
-  if (design == kStaged) {
+  if (design != kRows) {
     for (const void* p : {k, v, t, wq, (const void*)dk, (const void*)dv,
                           (const void*)dt})
       if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
@@ -935,9 +1358,9 @@ extern "C" int readout_chain_bwd_launch(
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B > 0) {
-    if (design == kStaged)
-      err = is_bf16 ? launch_staged<__nv_bfloat16>(a, s)
-                    : launch_staged<float>(a, s);
+    if (design != kRows)
+      err = is_bf16 ? launch_staged<__nv_bfloat16>(a, s, design == kBlocked)
+                    : launch_staged<float>(a, s, design == kBlocked);
     else if (is_bf16)
       chain_bwd_rows_kernel<__nv_bfloat16><<<B, kThreads, 0, s>>>(a);
     else
@@ -959,7 +1382,7 @@ extern "C" int readout_chain_bwd_launch(
   jobs.job[4] = {vec + V_CURR * nBD, vec + V_DQ * nBD,
                  static_cast<float*>(dwq), BD, D, n, B, D * D, D};
   if (design == kRows) return readout::batch_sums(jobs, kJobs, s);
-  // the staged design: dwq, the one sum that is a product, by its own
+  // the staged and blocked designs: dwq, the one sum that is a product, by its own
   // kernel (a tile a block; D is a multiple of 16), the other four as the
   // rows design sums them
   if ((err = readout::batch_sums(jobs, kJobs - 1, s)) != cudaSuccess)

@@ -17,11 +17,14 @@ The forward `readout_chain` (csrc/readout_chain.cu, the Pallas
 hop-input chain ``curs`` [n, B, d] f32, which its backward
 `readout_chain_bwd` (csrc/readout_chain_bwd.cu, `_chain_bwd_kernel`)
 replays hop by hop in reverse.  Each takes the design that
-`chain_fwd_design` and `chain_bwd_design` pick by one predicate:
-"staged" at L <= 64 with d a multiple of 16 up to 128 (each hop's K, V
-and tprec rows staged once in shared memory; MTAM's training readout at
-L=50; the helpers both share are csrc/chain_staged.cuh), "rows"
-elsewhere.  The cotangents of k_all, v_all, tprec and
+`chain_fwd_design` and `chain_bwd_design` pick by one predicate, with d
+a multiple of 16 up to 128: "staged" at L <= 64 (each hop's K, V and
+tprec rows staged once in shared memory; MTAM's training readout at
+L=50), "blocked" at 65 <= L <= 256 (each hop's rows streamed in blocks
+of 64 keys through a ring of shared-memory slots, the f32 scores of all
+L keys in a strip; MTAM's training readout at the reference's L=150);
+"rows" at every other d.  The helpers the designs share are
+csrc/chain_staged.cuh.  The cotangents of k_all, v_all, tprec and
 gate_part leave as plain outputs, so autograd carries them through the
 hop-batched einsums, as XLA's AD does in the JAX package.
 `readout_chain_vjp` joins the two as JAX's custom_vjp does.
@@ -47,12 +50,16 @@ LN_EPS = 1e-8
 MAX_KEYS = 256    # the short-memory regime, as in the JAX package
 MAX_D = 128       # the kernels' widest d (every d up to it)
 # the designs of the forward (`chain_fwd_design`) and the backward
-# (`chain_bwd_design`), picked alike: "staged", a block a batch row with
-# each hop's K, V and tprec rows in shared memory, at L up to STAGED_KEYS
-# and d a multiple of 16 up to MAX_D; "rows" (the first designs, the rows
-# read from global memory key by key) at every other shape
-FWD_DESIGNS = BWD_DESIGNS = ("staged", "rows")
+# (`chain_bwd_design`), picked alike, with d a multiple of 16 up to MAX_D:
+# "staged", a block a batch row with each hop's K, V and tprec rows in
+# shared memory, at L up to STAGED_KEYS; "blocked", a block a batch row
+# with each hop's rows streamed BLOCK_KEYS keys at a time through a ring
+# of shared-memory slots, past STAGED_KEYS up to MAX_KEYS; "rows" (the
+# first designs, the rows read from global memory key by key) at every
+# other shape
+FWD_DESIGNS = BWD_DESIGNS = ("staged", "blocked", "rows")
 STAGED_KEYS = 64
+BLOCK_KEYS = 64
 # the staged design's thread mapping: 16 half-warps (the slices of its
 # sums over k and over keys) of 16 lanes (a lane 8 columns), 8 warps
 HALVES, GROUP, WARPS = 16, 8, 8
@@ -64,10 +71,12 @@ _GRADS = ("ddec", "dk", "dv", "dt", "dgp", "dwo2", "dwq", "dbq", "dlng",
           "dlnb")
 
 # kernel launches (the plain twins are not counted)
-launches = 0            # either forward design
-rows_launches = 0        # the forward's rows design alone
-bwd_launches = 0         # either backward design
-bwd_rows_launches = 0    # the rows design alone
+launches = 0               # every forward design
+blocked_launches = 0       # the forward's blocked design alone
+rows_launches = 0          # the forward's rows design alone
+bwd_launches = 0           # every backward design
+bwd_blocked_launches = 0   # the backward's blocked design alone
+bwd_rows_launches = 0      # the backward's rows design alone
 
 
 def supported(tk_len: int, d: int, num_heads: int) -> bool:
@@ -139,18 +148,23 @@ def _pick_design(what: str, dtype: torch.dtype, tk: int, d: int) -> str:
     """The one predicate of `chain_fwd_design` and `chain_bwd_design`."""
     if dtype not in DTYPES:
         raise TypeError(f"{what}: no design for {dtype}")
-    if 1 <= tk <= STAGED_KEYS and d % 16 == 0 and 16 <= d <= MAX_D:
-        return "staged"
+    if d % 16 == 0 and 16 <= d <= MAX_D:
+        if 1 <= tk <= STAGED_KEYS:
+            return "staged"
+        if STAGED_KEYS < tk <= MAX_KEYS:
+            return "blocked"
     return "rows"
 
 
 def chain_fwd_design(dtype: torch.dtype, tk: int, d: int) -> str:
     """The forward's design for a shape, the backward's too
-    (`chain_bwd_design`).  "staged" at 1 <= L <= STAGED_KEYS keys with d
-    a multiple of 16 up to MAX_D, in f32 and bf16 (MTAM's training
-    readout at L=50, d=128, and the narrow d=16): a block a batch row
-    stages each hop's K, V and tprec rows in shared memory once.  "rows"
-    elsewhere (L = 65-256, other d).  The staged launch also wants
+    (`chain_bwd_design`), in f32 and bf16, with d a multiple of 16 up to
+    MAX_D: "staged" at 1 <= L <= STAGED_KEYS keys (MTAM's training
+    readout at L=50, d=128, and the narrow d=16), a block a batch row
+    staging each hop's K, V and tprec rows in shared memory once;
+    "blocked" at STAGED_KEYS < L <= MAX_KEYS (MTAM's at L=150), a block a
+    batch row streaming each hop's rows BLOCK_KEYS keys at a time.
+    "rows" at other d.  The staged and blocked launches also want
     k_all, v_all, tprec and wq 16-byte aligned; a launch given others
     takes "rows"."""
     return _pick_design("readout_chain", dtype, tk, d)
@@ -160,8 +174,9 @@ def _launch_design(what: str, args4, forced) -> str:
     """The design a launch takes, from k_all, v_all, tprec and wq
     (``args4``), by one rule for the pair: the picked design, or the
     forced one if it is the picked one or "rows" (else a ValueError);
-    where "staged" is picked but one of the four is not 16-byte aligned,
-    "rows" (forced "staged": a ValueError).  Raises before any build."""
+    where "staged" or "blocked" is picked but one of the four is not
+    16-byte aligned, "rows" (forced "staged" or "blocked": a
+    ValueError).  Raises before any build."""
     k_all = args4[0]
     _, _, tk, d = k_all.shape
     picked = _pick_design(what, k_all.dtype, tk, d)
@@ -170,9 +185,9 @@ def _launch_design(what: str, args4, forced) -> str:
         raise ValueError(
             f"{what}: design {design!r} does not take L={tk}, d={d} "
             f"(picked: {picked!r})")
-    if design == "staged" and any(t.data_ptr() % 16 for t in args4):
+    if design != "rows" and any(t.data_ptr() % 16 for t in args4):
         if forced is not None:
-            raise ValueError(f"{what}: the staged design takes k_all, "
+            raise ValueError(f"{what}: the {design} design takes k_all, "
                              "v_all, tprec and wq 16-byte aligned")
         design = "rows"
     return design
@@ -180,14 +195,14 @@ def _launch_design(what: str, args4, forced) -> str:
 
 def _launch(args, _design=None):
     """Launch the forward in the design `chain_fwd_design` picks (the
-    rows design where the staged one is picked but an operand it reads
-    16 bytes at a time, k_all, v_all, tprec or wq, is not 16-byte
-    aligned).  ``_design="rows"`` forces the earlier design
-    (chip_smoke.py holds and times it beside the staged design);
-    "staged" only where it is picked and aligned.  The main path passes
-    nothing.  A design that fails to build or launch raises: there is no
-    fallback."""
-    global launches, rows_launches
+    rows design where the staged or blocked one is picked but an operand
+    it reads 16 bytes at a time, k_all, v_all, tprec or wq, is not
+    16-byte aligned).  ``_design="rows"`` forces the earlier design
+    (chip_smoke.py holds and times it beside the staged and blocked
+    designs); "staged" or "blocked" only where it is picked and aligned.
+    The main path passes nothing.  A design that fails to build or
+    launch raises: there is no fallback."""
+    global launches, blocked_launches, rows_launches
     k_all = args[3]
     design = _launch_design("readout_chain",
                             (k_all, args[4], args[5], args[8]), _design)
@@ -203,8 +218,8 @@ def _launch(args, _design=None):
         tk, d, n, 1.0 / d ** 0.5, device, stream)
     build.check(lib, status, f"readout_chain ({design})")
     launches += 1
-    if design == "rows":
-        rows_launches += 1
+    blocked_launches += design == "blocked"
+    rows_launches += design == "rows"
     return out, curs
 
 
@@ -219,6 +234,10 @@ def _library() -> ctypes.CDLL:
         lib.readout_chain_staged_smem_bytes.restype = ctypes.c_longlong
         lib.readout_chain_staged_blocks_per_sm.argtypes = [ci] * 4
         lib.readout_chain_staged_blocks_per_sm.restype = ci
+        lib.readout_chain_blocked_smem_bytes.argtypes = [ci] * 3
+        lib.readout_chain_blocked_smem_bytes.restype = ctypes.c_longlong
+        lib.readout_chain_blocked_blocks_per_sm.argtypes = [ci] * 4
+        lib.readout_chain_blocked_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -303,14 +322,15 @@ def chain_bwd_design(dtype: torch.dtype, tk: int, d: int) -> str:
 
 def _launch_bwd(g, args, curs, _design=None):
     """Launch the backward in the design `chain_bwd_design` picks (the
-    rows design where the staged one is picked but an operand it reads
-    16 bytes at a time, k_all, v_all, tprec or wq, is not 16-byte
-    aligned: the forward's rule, `_launch_design`).  ``_design="rows"``
-    forces the earlier design (chip_smoke.py holds and times it beside
-    the staged design); "staged" only where it is picked and aligned.
-    The main path passes nothing.  A design that fails to build or
-    launch raises: there is no fallback."""
-    global bwd_launches, bwd_rows_launches
+    rows design where the staged or blocked one is picked but an operand
+    it reads 16 bytes at a time, k_all, v_all, tprec or wq, is not
+    16-byte aligned: the forward's rule, `_launch_design`).
+    ``_design="rows"`` forces the earlier design (chip_smoke.py holds and
+    times it beside the staged and blocked designs); "staged" or
+    "blocked" only where it is picked and aligned.  The main path passes
+    nothing.  A design that fails to build or launch raises: there is no
+    fallback."""
+    global bwd_launches, bwd_blocked_launches, bwd_rows_launches
     k_all = args[2]
     n, b, tk, d = k_all.shape
     design = _launch_design("readout_chain_bwd",
@@ -336,8 +356,8 @@ def _launch_bwd(g, args, curs, _design=None):
         1.0 / d ** 0.5, device, stream)
     build.check(lib, status, f"readout_chain_bwd ({design})")
     bwd_launches += 1
-    if design == "rows":
-        bwd_rows_launches += 1
+    bwd_blocked_launches += design == "blocked"
+    bwd_rows_launches += design == "rows"
     return grads
 
 
@@ -354,6 +374,10 @@ def _bwd_library() -> ctypes.CDLL:
         lib.readout_chain_bwd_staged_smem_bytes.restype = ctypes.c_longlong
         lib.readout_chain_bwd_staged_blocks_per_sm.argtypes = [ci] * 4
         lib.readout_chain_bwd_staged_blocks_per_sm.restype = ci
+        lib.readout_chain_bwd_blocked_smem_bytes.argtypes = [ci] * 3
+        lib.readout_chain_bwd_blocked_smem_bytes.restype = ctypes.c_longlong
+        lib.readout_chain_bwd_blocked_blocks_per_sm.argtypes = [ci] * 4
+        lib.readout_chain_bwd_blocked_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -458,70 +482,107 @@ def _lanes_dot(a, x, cols):
 
 
 def _key_slices(coef, x):
-    """sum_l coef[:, l] x[:, l] over the STAGED_KEYS padded keys the
-    staged design's way: half-warp h takes keys h, h+16, ..., then
+    """sum_l coef[:, l] x[:, l] over the padded keys the staged and
+    blocked designs' way: half-warp h takes keys h, h+16, ... in key
+    order (across the blocked design's key blocks too), then
     `_warps_in_order` -> [B,d]."""
     return _warps_in_order(torch.stack([
         torch.einsum("bl,bld->bd", coef[:, h::HALVES], x[:, h::HALVES])
         for h in range(HALVES)]))
 
 
-def _staged_masks(klen, tk):
-    """[B, STAGED_KEYS, 1] f32: the rows the staged designs stage, K and
-    tprec at the live keys, V at the reached ones (all L keys in a row
-    with none live)."""
+def _padded_keys(design: str, tk: int) -> int:
+    """The keys the design's model pads a row to: STAGED_KEYS for
+    "staged", whole key blocks of BLOCK_KEYS for "blocked"."""
+    if design == "staged":
+        return STAGED_KEYS
+    return -(-tk // BLOCK_KEYS) * BLOCK_KEYS
+
+
+def _staged_masks(klen, tk, keys=STAGED_KEYS):
+    """[B, keys, 1] f32: the rows the designs read, K and tprec at the
+    live keys, V at the reached ones (all L keys in a row with none
+    live); ``keys`` the padded rows (the staged and hop designs'
+    STAGED_KEYS, `_padded_keys`)."""
     n_live = klen.clamp(0, tk)
     reached = torch.where(n_live > 0, n_live, torch.full_like(n_live, tk))
-    keys = torch.arange(STAGED_KEYS, device=klen.device)[None, :]
-    return ((keys < n_live[:, None]).float()[:, :, None],
-            (keys < reached[:, None]).float()[:, :, None])
+    idx = torch.arange(keys, device=klen.device)[None, :]
+    return ((idx < n_live[:, None]).float()[:, :, None],
+            (idx < reached[:, None]).float()[:, :, None])
 
 
 def _staged(x, rows):
-    """x [B, L, d] as staged: f32, zero-padded to STAGED_KEYS rows, zero
-    past the rows ``rows`` (`_staged_masks`) keeps."""
+    """x [B, L, d] as the designs read it: f32, zero-padded to the rows
+    of ``rows`` (`_staged_masks`), zero past the rows it keeps."""
     b, tk, d = x.shape
-    out = torch.zeros((b, STAGED_KEYS, d), dtype=torch.float32,
+    out = torch.zeros((b, rows.shape[1], d), dtype=torch.float32,
                       device=x.device)
     out[:, :tk] = x.float()
     return out * rows
 
 
-def _pad_keys(x):
-    """[B, L] -> [B, STAGED_KEYS] f32, zero past L."""
-    out = torch.zeros((x.shape[0], STAGED_KEYS), dtype=torch.float32,
+def _pad_keys(x, keys=STAGED_KEYS):
+    """[B, L] -> [B, keys] f32, zero past L."""
+    out = torch.zeros((x.shape[0], keys), dtype=torch.float32,
                       device=x.device)
     out[:, :x.shape[1]] = x
     return out
 
 
 def _staged_query(cur_c, wq, bq):
-    """q = relu(cur_c Wq + bq) the staged designs' way: the sum over k in
-    the 16 slices k = h, h+16, ... combined by `_warps_in_order`.  cur_c
-    [..., d] and wq [..., d, d] f32 (leading axes batched), bq
-    broadcasting."""
+    """q = relu(cur_c Wq + bq) the staged and blocked designs' way: the
+    sum over k in the 16 slices k = h, h+16, ... combined by
+    `_warps_in_order`.  cur_c [..., d] and wq [..., d, d] f32 (leading
+    axes batched), bq broadcasting."""
     return torch.relu(_warps_in_order(torch.stack([
         cur_c[..., h::HALVES] @ wq[..., h::HALVES, :]
         for h in range(HALVES)])) + bq)
 
 
 def _staged_hop(cur, q, ks, vs, ts, gp, wo2, live, qzf, scale, cols):
-    """One hop's forward the staged designs' way, from its input cur and
-    query q [B, d] and its staged rows ks, vs, ts (`_staged`): the score
-    dots q.K_l and cur.tprec_l by `_lanes_dot` over the lane columns
-    ``cols``, the gate and the softmax, o = sum_l w_l V_l by `_key_slices`,
-    the residual and normalize().  Returns (s0, tqk, sig, w, xh, inv)."""
+    """One hop's forward the staged and blocked designs' way, from its
+    input cur and query q [B, d] and its rows ks, vs, ts (`_staged`): the
+    score dots q.K_l and cur.tprec_l by `_lanes_dot` over the lane
+    columns ``cols``, the gate and the softmax, o = sum_l w_l V_l by
+    `_key_slices`, the residual and normalize().  Returns (s0, tqk, sig,
+    w, xh, inv)."""
     tk = gp.shape[-1]
     s0 = _lanes_dot(q[:, None, :], ks, cols)[:, :tk]
     tqk = torch.tanh(_lanes_dot(cur[:, None, :], ts, cols)[:, :tk])
     sig = torch.sigmoid(gp.float() + wo2.float() * tqk)
     w = torch.softmax(torch.where(live, s0 * sig * scale,
                                   torch.full_like(s0, NEG_FILL)), dim=-1)
-    x = _key_slices(_pad_keys(w), vs) * qzf + cur
+    x = _key_slices(_pad_keys(w, ks.shape[1]), vs) * qzf + cur
     mu = x.mean(dim=-1, keepdim=True)
     inv = 1.0 / torch.sqrt(torch.square(x - mu).mean(dim=-1, keepdim=True)
                            + LN_EPS)
     return s0, tqk, sig, w, (x - mu) * inv, inv
+
+
+def _design_fwd_plain(design, args):
+    """The forward's staged or blocked design in plain PyTorch (see
+    `_staged_fwd_design_plain`); ``args`` are `readout_chain`'s."""
+    dec, klen, qz, k_all, v_all, tprec, gate_part, wo2, wq, bq, lng, lnb = args
+    live, qzf, scale = _row_terms(klen, qz, k_all)
+    n, _, tk, d = k_all.shape
+    if chain_fwd_design(k_all.dtype, tk, d) != design:
+        raise ValueError(f"_{design}_fwd_design_plain: the {design} design "
+                         f"does not take L={tk}, d={d}")
+    cols = _lane_columns(d, k_all.dtype)
+    live_rows, reached_rows = _staged_masks(klen, tk, _padded_keys(design,
+                                                                   tk))
+    cur = dec[:, 0, :].float()
+    curs = []
+    for i in range(n):
+        curs.append(cur)
+        q = _staged_query(cur.to(k_all.dtype).float(), wq[i].float(),
+                          bq[i].float())
+        *_, xh, _ = _staged_hop(
+            cur, q, _staged(k_all[i], live_rows),
+            _staged(v_all[i], reached_rows), _staged(tprec[i], live_rows),
+            gate_part[i], wo2[i], live, qzf, scale, cols)
+        cur = xh * lng[i].float() + lnb[i].float()
+    return cur.to(dec.dtype), torch.stack(curs)
 
 
 def _staged_fwd_design_plain(dec, klen, qz, k_all, v_all, tprec, gate_part,
@@ -535,50 +596,40 @@ def _staged_fwd_design_plain(dec, klen, qz, k_all, v_all, tprec, gate_part,
     (`_staged_hop`); cur = normalize(o qz + cur) lng + lnb.  Takes d a
     multiple of 16 up to MAX_D and L up to STAGED_KEYS (the design's
     range; chain_fwd_design)."""
-    live, qzf, scale = _row_terms(klen, qz, k_all)
-    n, _, tk, d = k_all.shape
-    if chain_fwd_design(k_all.dtype, tk, d) != "staged":
-        raise ValueError(f"_staged_fwd_design_plain: the staged design does "
-                         f"not take L={tk}, d={d}")
-    cols = _lane_columns(d, k_all.dtype)
-    live64, reached64 = _staged_masks(klen, tk)
-    cur = dec[:, 0, :].float()
-    curs = []
-    for i in range(n):
-        curs.append(cur)
-        q = _staged_query(cur.to(k_all.dtype).float(), wq[i].float(),
-                          bq[i].float())
-        *_, xh, _ = _staged_hop(
-            cur, q, _staged(k_all[i], live64), _staged(v_all[i], reached64),
-            _staged(tprec[i], live64), gate_part[i], wo2[i], live, qzf, scale,
-            cols)
-        cur = xh * lng[i].float() + lnb[i].float()
-    return cur.to(dec.dtype), torch.stack(curs)
+    return _design_fwd_plain("staged", (dec, klen, qz, k_all, v_all, tprec,
+                                        gate_part, wo2, wq, bq, lng, lnb))
 
 
-def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
-                             wo2, wq, bq, lng, lnb, curs):
-    """The staged design's steps in plain PyTorch, the same outputs as
-    `readout_chain_bwd_plain` (its rounding points too): the query pass
-    (q = relu(cur_c Wq + bq) for every hop and row, by the 16 k-slices k =
-    h, h+16, ... combined by `_warps_in_order`); per hop, the row's K
-    and tprec staged zero past the live keys and V past the reached
-    ones, all zero-padded to STAGED_KEYS rows; the score dots q.K_l,
-    cur.tprec_l and do.V_l by `_lanes_dot` over the lane columns of
-    `_lane_columns`; the weighted sum o, sum dpre_l tprec_l and dq = sum
-    ds0_l K_l over the padded keys by `_key_slices`; dk, dt zero past the
-    live keys and dv past the reached ones; dq_pre Wq^T a row of Wq at a
-    time by `_lanes_dot` over the lane columns of k.  Takes d a multiple
-    of 16 up to MAX_D and L up to STAGED_KEYS (the design's range;
-    chain_bwd_design)."""
+def _blocked_fwd_design_plain(dec, klen, qz, k_all, v_all, tprec,
+                              gate_part, wo2, wq, bq, lng, lnb):
+    """The forward's blocked design in plain PyTorch, the same outputs as
+    `readout_chain_plain` (its rounding points too): the staged design's
+    arithmetic (`_staged_fwd_design_plain`) over whole key blocks: each
+    hop's K and tprec rows of the live keys and V rows of the reached
+    ones zero-padded to a multiple of BLOCK_KEYS rows, the score dots a
+    half-warp a key block by block into the f32 strip of all L keys, the
+    softmax over the strip, and o by the 16 key slices h, h+16, ... taken
+    in key order across the blocks.  Takes d a multiple of 16 up to MAX_D
+    and STAGED_KEYS < L <= MAX_KEYS (the design's range;
+    chain_fwd_design)."""
+    return _design_fwd_plain("blocked", (dec, klen, qz, k_all, v_all, tprec,
+                                         gate_part, wo2, wq, bq, lng, lnb))
+
+
+def _design_bwd_plain(design, g, args, curs):
+    """The backward's staged or blocked design in plain PyTorch (see
+    `_staged_bwd_design_plain`); ``args`` are `readout_chain_bwd`'s after
+    g and before curs."""
+    klen, qz, k_all, v_all, tprec, gate_part, wo2, wq, bq, lng, lnb = args
     live, qzf, scale = _row_terms(klen, qz, k_all)
     n, b, tk, d = k_all.shape
-    if chain_bwd_design(k_all.dtype, tk, d) != "staged":
-        raise ValueError(f"_staged_bwd_design_plain: the staged design does "
-                         f"not take L={tk}, d={d}")
+    if chain_bwd_design(k_all.dtype, tk, d) != design:
+        raise ValueError(f"_{design}_bwd_design_plain: the {design} design "
+                         f"does not take L={tk}, d={d}")
     dt_ = k_all.dtype
     cols = _lane_columns(d, dt_)
-    live64, reached64 = _staged_masks(klen, tk)
+    keys = _padded_keys(design, tk)
+    live_rows, reached_rows = _staged_masks(klen, tk, keys)
     # the query pass: cur_c and q of every hop and row
     cur_cs = curs.to(dt_).float()
     qs = _staged_query(cur_cs, wq.float(), bq.float()[:, None, :])
@@ -590,8 +641,9 @@ def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
     dbq, dlng, dlnb = (torch.zeros(bq.shape, **f32) for _ in range(3))
     dcur = g.float()
     for i in range(n - 1, -1, -1):
-        ks, vs, ts = (_staged(k_all[i], live64), _staged(v_all[i], reached64),
-                      _staged(tprec[i], live64))
+        ks, vs, ts = (_staged(k_all[i], live_rows),
+                      _staged(v_all[i], reached_rows),
+                      _staged(tprec[i], live_rows))
         cur, cur_c, q = curs[i], cur_cs[i], qs[i]
         s0, tqk, sig, w, xh, inv = _staged_hop(
             cur, q, ks, vs, ts, gate_part[i], wo2[i], live, qzf, scale, cols)
@@ -613,12 +665,12 @@ def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
         dgp[i] = dgate.to(dt_)
         dwo2[i] = (dgate * tqk).sum(0)
         # the [L, D] cotangents over all L keys
-        dv[i] = ((w * reached64[:, :tk, 0])[:, :, None]
+        dv[i] = ((w * reached_rows[:, :tk, 0])[:, :, None]
                  * do[:, None, :]).to(dt_)
         dt[i] = (dpre[:, :, None] * cur[:, None, :]).to(dt_)
         dk[i] = (ds0[:, :, None] * q[:, None, :]).to(dt_)
-        dcur = dcur + _key_slices(_pad_keys(dpre), ts)
-        dq = _key_slices(_pad_keys(ds0), ks)
+        dcur = dcur + _key_slices(_pad_keys(dpre, keys), ts)
+        dq = _key_slices(_pad_keys(ds0, keys), ks)
         dq_pre = torch.where(q > 0, dq, torch.zeros_like(dq)).to(dt_).float()
         # dq_pre Wq^T: row e of Wq, lane c its k columns
         dcur = dcur + _lanes_dot(dq_pre[:, None, :], wq[i].float()[None],
@@ -626,6 +678,47 @@ def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
         dwq[i] = cur_c.T @ dq_pre
         dbq[i] = dq_pre.sum(0)
     return (dcur.to(g.dtype), dk, dv, dt, dgp, dwo2, dwq, dbq, dlng, dlnb)
+
+
+def _staged_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
+                             wo2, wq, bq, lng, lnb, curs):
+    """The staged design's steps in plain PyTorch, the same outputs as
+    `readout_chain_bwd_plain` (its rounding points too): the query pass
+    (q = relu(cur_c Wq + bq) for every hop and row, by the 16 k-slices k =
+    h, h+16, ... combined by `_warps_in_order`); per hop, the row's K
+    and tprec staged zero past the live keys and V past the reached
+    ones, all zero-padded to STAGED_KEYS rows; the score dots q.K_l,
+    cur.tprec_l and do.V_l by `_lanes_dot` over the lane columns of
+    `_lane_columns`; the weighted sum o, sum dpre_l tprec_l and dq = sum
+    ds0_l K_l over the padded keys by `_key_slices`; dk, dt zero past the
+    live keys and dv past the reached ones; dq_pre Wq^T a row of Wq at a
+    time by `_lanes_dot` over the lane columns of k.  Takes d a multiple
+    of 16 up to MAX_D and L up to STAGED_KEYS (the design's range;
+    chain_bwd_design)."""
+    return _design_bwd_plain("staged", g, (klen, qz, k_all, v_all, tprec,
+                                           gate_part, wo2, wq, bq, lng, lnb),
+                             curs)
+
+
+def _blocked_bwd_design_plain(g, klen, qz, k_all, v_all, tprec, gate_part,
+                              wo2, wq, bq, lng, lnb, curs):
+    """The blocked design's steps in plain PyTorch, the same outputs as
+    `readout_chain_bwd_plain` (its rounding points too): the staged
+    design's query pass and per-hop arithmetic
+    (`_staged_bwd_design_plain`) over whole key blocks: per hop, the K and
+    tprec rows of the live keys and V rows of the reached ones
+    zero-padded to a multiple of BLOCK_KEYS rows; s0 and tqk block by
+    block into the f32 strip of all L keys, the softmax over it; o from
+    the V blocks and dw = do.V_l from a second pass of them; the softmax
+    transpose on the strip; dk, dt zero past the live keys and dv past
+    the reached ones over all L keys; sum dpre_l tprec_l and dq = sum
+    ds0_l K_l from a second pass of the K and tprec blocks, by the 16 key
+    slices in key order across the blocks.  Takes d a multiple of 16 up
+    to MAX_D and STAGED_KEYS < L <= MAX_KEYS (the design's range;
+    chain_bwd_design)."""
+    return _design_bwd_plain("blocked", g, (klen, qz, k_all, v_all, tprec,
+                                            gate_part, wo2, wq, bq, lng, lnb),
+                             curs)
 
 
 class ReadoutChainFunction(torch.autograd.Function):

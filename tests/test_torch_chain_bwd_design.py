@@ -109,10 +109,10 @@ def _hold(got, want, dname, what):
 @pytest.mark.parametrize("tk", [1, 50, 64, 65, 255])
 @pytest.mark.parametrize("d", [16, 48, 96, 128, 8, 40, 100])
 def test_chain_bwd_design_routes(dtype, tk, d):
-    staged = tk <= trc.STAGED_KEYS and d % 16 == 0
-    assert trc.chain_bwd_design(dtype, tk, d) == ("staged" if staged
-                                                  else "rows")
-    assert trc.BWD_DESIGNS == ("staged", "rows")
+    want = ("rows" if d % 16 else "staged" if tk <= trc.STAGED_KEYS
+            else "blocked")
+    assert trc.chain_bwd_design(dtype, tk, d) == want
+    assert trc.BWD_DESIGNS == ("staged", "blocked", "rows")
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
@@ -180,7 +180,7 @@ class _FakeLib:
 @pytest.mark.parametrize("tk,d,forced,misaligned,design", [
     (50, 128, None, False, "staged"), (50, 16, None, False, "staged"),
     (64, 64, None, False, "staged"), (50, 128, "rows", False, "rows"),
-    (50, 128, None, True, "rows"), (255, 128, None, False, "rows"),
+    (50, 128, None, True, "rows"), (255, 128, None, False, "blocked"),
     (50, 40, None, False, "rows")])
 def test_launch_takes_the_design_it_should(monkeypatch, tk, d, forced,
                                            misaligned, design):

@@ -106,12 +106,13 @@ def _hold(got, want, dname, what):
 @pytest.mark.parametrize("tk", [1, 50, 64, 65, 255])
 @pytest.mark.parametrize("d", [16, 48, 96, 128, 8, 40, 100])
 def test_chain_fwd_design_routes_as_the_backward(dtype, tk, d):
-    staged = tk <= trc.STAGED_KEYS and d % 16 == 0
-    assert trc.chain_fwd_design(dtype, tk, d) == ("staged" if staged
-                                                  else "rows")
+    want = ("rows" if d % 16 else "staged" if tk <= trc.STAGED_KEYS
+            else "blocked")
+    assert trc.chain_fwd_design(dtype, tk, d) == want
     assert trc.chain_fwd_design(dtype, tk, d) == trc.chain_bwd_design(
         dtype, tk, d)
-    assert trc.FWD_DESIGNS == ("staged", "rows") == trc.BWD_DESIGNS
+    assert trc.FWD_DESIGNS == ("staged", "blocked", "rows") == \
+        trc.BWD_DESIGNS
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
@@ -181,7 +182,7 @@ class _FakeLib:
     (64, 64, None, None, "staged"), (1, 32, None, None, "staged"),
     (50, 128, "rows", None, "rows"), (50, 128, None, "k_all", "rows"),
     (50, 128, None, "wq", "rows"), (50, 128, None, "bq", "staged"),
-    (255, 128, None, None, "rows"), (50, 40, None, None, "rows")])
+    (255, 128, None, None, "blocked"), (50, 40, None, None, "rows")])
 def test_launch_takes_the_design_it_should(monkeypatch, tk, d, forced,
                                            misaligned, design):
     """The launch asks the library for the design `chain_fwd_design`
