@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      registers and spill bytes ptxas gives gru_scan_kernel's
      instantiations (those at u=128 printed), the two kernels of
      fused_readout's "gemm" design, the four of fused_readout_bwd's,
-     scatter_add's columns_sum, the attention forward's tile and hop
-     designs and the chain readout pair's staged and blocked designs;
+     scatter_add's columns_sum, the attention forward's tile, hop and
+     blocked designs and the chain readout pair's staged and blocked
+     designs;
   2. kernels against their plain PyTorch twins on the card, at the
      shapes the serving path gives them (B = 1, 16, 256, L=50,
      u=d=128; attention Tk=50 and Tk=1024), in f32 and bf16, with, at
@@ -27,8 +28,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      "query" design forced (a block a query row), at Tk=50, d=128 both
      timed in turns (hop, query, query, hop: event ms, the profiler's
      device ms, the host ms a call) with the hop design's shared memory
-     a block and blocks an SM; at Tk = 1024 (plain, time, tisas) the
-     query design; gru_scan in each mode in its default
+     a block and blocks an SM; past 64 keys its "blocked" design (a block
+     a batch row, the rows in 64-key blocks through a ring of
+     shared-memory slots by bulk copies, the f32 scores in a strip) at
+     Tk = 65, 150, 255, 256, 257, 1024 x d = 16, 128 x B = 1, 16, 64
+     (B = 1, 16, 256 at Tk = 1024), ragged key lengths with a row of
+     length 0, held the same way, timed in turns with the query design
+     at Tk=150, B=64 and Tk=1024, B=256 (d=128) in the plain, time and
+     tisas modes beside the twin, the bound and, in plain and tisas,
+     scaled_dot_product_attention; gru_scan in each mode in its default
      "sliced" design, the same bits twice, with the earlier "unit_column"
      design forced and held beside it and timed on the same inputs in
      turns (default, unit_column, unit_column, default);
@@ -52,10 +60,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      Tq = Tk = 50 and with Tq = 1, Tk = 1024, and the forward's plain,
      time and tisas modes at Tq = Tk = 50; two backward launches on the
      same inputs must give the same bits; at Tq = Tk = 50 the forward
-     takes its "tile" design (a block a batch row): two launches the
-     same bits, and within 1e-5 / 2e-3 (f32 / bf16) of the largest
-     |out| from the twin and from its "query" design forced (a block a
-     query row), both timed in turns at B = 256 (tile, query, query,
+     takes its "tile" design (a block a batch row; at Tq = 1, Tk = 1024
+     the drop modes' "blocked" design, held and timed the same way): two
+     launches the same bits, and within 1e-5 / 2e-3 (f32 / bf16) of the
+     largest |out| from the twin and from its "query" design forced (a
+     block a query row), both timed in turns at B = 256 (tile, query, query,
      tile: event ms, the profiler's device ms) with the tile design's
      host time a call; the backward
      takes its "tile" design (a block a batch row), held also against
@@ -379,16 +388,22 @@ Phases, in order; any failure exits non-zero and prints no result:
      10 steps timed at B=64 in bf16 and f32 with the device idle share;
      fused_attention at Tq=1, Tk=150 (the serving hops: time mode, and
      the plain mode with scaled_dot_product_attention beside it) against
-     its twin at B = 1, 16, 64 in the query design, timed at B=64 (event,
-     device, host ms); Recommender.recommend at B = 1, 16, 64 in bf16
-     and f32 against the CPU at each B (1 gru_scan + 3
-     fused_attention[time] in the query design a call).
+     its twin at B = 1, 16, 64 in the blocked design (the same bits twice,
+     the query design forced beside it), timed at B=64 in turns with the
+     query design (event, device, host ms of both) with its shared
+     memory a block and blocks an SM; Recommender.recommend at B = 1,
+     16, 64 in bf16 and f32 against the CPU at each B for MTAM (1
+     gru_scan + 3 fused_attention[time] in the blocked design a call,
+     none in the query design) and for MTAM_no_time_aware_att, the
+     plain-kind readout (1 gru_scan + 3 fused_attention[plain] in the
+     blocked design a call).
      `python3 chip_smoke.py --only 14` builds and runs phase 14 alone.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1", at
 Tq=Tk=50 as "@Tq50" and, in their wide designs, at B=64, Tq=Tk=256 as
 "@L256" with the query or rows design's times on the same inputs in
-turns beside them, and the query forward at Tq=1, Tk=150 as "@L150Tq1";
+turns beside them, and the blocked forward at Tq=1, Tk=150 as
+"@L150Tq1" with the query design's times beside it;
 the chain readout's pair at MTAM's L=50 step
 as "@L50", at one hop as "@L50h1" and at MTAM's L=150 step (B=64) as
 "@L150"; the readout, GRU and dtable kernels at B=64,
@@ -505,6 +520,8 @@ FWD_TILE_SOURCE = "mtamrecommender_tpu_torch/csrc/fused_attention_tile.cu"
 # the single-tile forward's source by design (`attention_fwd_design`)
 FWD_SOURCES = {"tile": FWD_TILE_SOURCE,
                "hop": "mtamrecommender_tpu_torch/csrc/fused_attention_hop.cu",
+               "blocked":
+                   "mtamrecommender_tpu_torch/csrc/fused_attention_blocked.cu",
                "wide": "mtamrecommender_tpu_torch/csrc/fused_attention_wide.cu",
                "query": "mtamrecommender_tpu_torch/csrc/fused_attention.cu"}
 BWD_WIDE_SOURCE = "mtamrecommender_tpu_torch/csrc/fused_attention_bwd_wide.cu"
@@ -524,6 +541,17 @@ FWD_HOP_KERNELS = ("attn_fwd_hop_kernel",)
 # the hop design's (Tk, d) in phase 2 (Tk=50, d=128: MTAM's serving hops,
 # timed; d=16: the narrow width phase 3 also serves)
 HOP_SHAPES = tuple((tk, d) for tk in (1, 17, 50, 64) for d in (16, 128))
+# the forward blocked design's kernel, its template arguments <type, mode,
+# drop>
+FWD_BLOCKED_KERNELS = ("attn_fwd_blocked_kernel",)
+# the blocked design's (Tk, d) in phase 2: each side of a 64-key block,
+# of 256 keys (the chain pair's cap) and 1024 (the design's), at d = 16
+# and 128; at B = 1, 16, 64 (B = 256 at Tk=1024), timed at Tk=150, B=64
+# (MTAM's serving hops at L=150) and at Tk=1024, B=256 (the plain-kind
+# readout's longest) in the serving modes
+BLOCKED_SHAPES = tuple((tk, d) for tk in (65, 150, 255, 256, 257, 1024)
+                       for d in (16, 128))
+BLOCKED_TIMED = {150: 64, 1024: 256}      # Tk -> the timed B (d=128)
 # the forward tile design's kernels (bf16, f32), their template arguments
 # <mode, drop>
 FWD_TILE_KERNELS = ("attn_fwd_tile_mma_kernel", "attn_fwd_tile_fma_kernel")
@@ -887,20 +915,24 @@ def check_tq1_attention(torch, ak, timer, iters, failures, gen, mode,
                         dtype):
     """fused_attention at Tq = 1 in one mode and dtype
     (`check_attention_fwd`) at B = 1, 16, 256 for each (Tk, d) of
-    HOP_SHAPES, the hop design's, and in the plain, time and tisas modes
-    at Tk = 1024, d=128, the query design's; at B = 256 timed at Tk=50,
-    d=128 (MTAM's serving hops; the hop design and the query design
-    forced in turns, `time_attention_fwd`) and at Tk = 1024.  Returns
-    {row key: row}: the row at Tk=50, d=128 under the dtype's name, the
-    others under the dtype's name and their shape."""
+    HOP_SHAPES, the hop design's, and at B = 1, 16, 64 (1, 16, 256 at Tk
+    = 1024) for each of BLOCKED_SHAPES, the blocked design's; timed at B
+    = 256, Tk=50, d=128 (MTAM's serving hops at L=50) and, in the plain,
+    time and tisas modes, at BLOCKED_TIMED's shapes (d=128; MTAM's serving
+    hops at L=150 and the plain-kind readout's longest), each design and
+    the query design forced in turns (`time_attention_fwd`).  Returns
+    {row key: row}: the row at Tk=50, d=128 under the dtype's name, at
+    Tk=1024, d=128 under "<dtype>_tk1024", the others under
+    "<dtype>_tk<Tk>_d<d>"."""
     from mtamrecommender_tpu_torch.ops import layers
 
     dname = str(dtype).replace("torch.", "")
-    shapes = HOP_SHAPES + (((1024, 128),) if mode in SERVING_MODES else ())
     rows = {}
-    for tk, d in shapes:
+    for tk, d in HOP_SHAPES + BLOCKED_SHAPES:
+        batches = (1, 16, 256) if tk <= ak.HOP_KEYS or tk == 1024 \
+            else (1, 16, 64)
         fwd = {"err": 0.0, "rel": 0.0, "ok": True}
-        for bs in (1, 16, 256):
+        for bs in batches:
             args = att_inputs(torch, gen, dtype, B=bs, Tk=tk, d=d)
             dm = (layers.draw_drop_mask(gen, bs, 1, tk, 0.5, DEVICE)
                   if mode.endswith("_drop") else None)
@@ -909,12 +941,17 @@ def check_tq1_attention(torch, ak, timer, iters, failures, gen, mode,
         row = {"max_abs_err": fwd["err"], "rel_err": fwd["rel"],
                "tol": KERNEL_TOL[dname], "ok": fwd["ok"], "design": design,
                "source": FWD_SOURCES[design], "Tk": tk, "d": d,
+               "batches": list(batches),
                **{k: v for k, v in fwd.items()
                   if k not in ("err", "rel", "ok")}}
-        timed = (tk, d) in ((50, 128), (1024, 128))
+        # the last batch is the timed one (B=256 at Tk = 50 and 1024, 64
+        # at Tk=150)
+        timed = (tk, d) == (50, 128) or (
+            d == 128 and tk in BLOCKED_TIMED and mode in SERVING_MODES)
         if timed:
             row.update(**time_attention_fwd(timer, ak, mode, args, dm,
                                             iters),
+                       B=batches[-1],
                        plain_ms=timer(lambda: ak.fused_attention_plain(
                            mode, *args, dm), max(iters // 10, 3)),
                        **att_bound(mode, args, dname, dm))
@@ -926,16 +963,20 @@ def check_tq1_attention(torch, ak, timer, iters, failures, gen, mode,
             if design == "hop":
                 row.update(hop_tol=TILE_FWD_TOL[dname],
                            **fwd_hop_occupancy(ak, mode, dname, tk, d))
+            elif design == "blocked":
+                row.update(blocked_tol=TILE_FWD_TOL[dname],
+                           **fwd_blocked_occupancy(ak, mode, dname, tk, d))
         key = (dname if (tk, d) == (50, 128) else
-               f"{dname}_tk{tk}" if tk == 1024 else f"{dname}_tk{tk}_d{d}")
+               f"{dname}_tk{tk}" if (tk, d) == (1024, 128)
+               else f"{dname}_tk{tk}_d{d}")
         rows[key] = row
         if timed or not fwd["ok"]:
             print(f"fused_attention {mode:10s} Tq=1 Tk={tk:<5d}d={d:<4d}"
                   f"{dname:9s} {design} max_abs_err={fwd['err']:.3e} "
                   f"rel={fwd['rel']:.3e} vs_query_rel="
-                  f"{row.get('hop_vs_query_rel_err')} same_bits="
-                  f"{row.get('same_bits_twice')} ms={row.get('ms')} "
-                  f"device_ms={row.get('device_ms')} host_ms="
+                  f"{row.get(f'{design}_vs_query_rel_err')} same_bits="
+                  f"{row.get('same_bits_twice')} B={row.get('B')} ms="
+                  f"{row.get('ms')} device_ms={row.get('device_ms')} host_ms="
                   f"{row.get('host_ms')} query_ms={row.get('query_ms')} "
                   f"query_device_ms={row.get('query_device_ms')} "
                   f"query_host_ms={row.get('query_host_ms')} plain_ms="
@@ -947,12 +988,14 @@ def check_tq1_attention(torch, ak, timer, iters, failures, gen, mode,
         if not fwd["ok"]:
             failures.append(f"fused_attention {mode} Tq=1 Tk={tk} d={d} "
                             f"{dname}: {row}")
-    hop = [r for r in rows.values() if r["design"] == "hop"]
-    print(f"fused_attention {mode:10s} Tq=1 {dname:9s} hop design over "
-          f"{len(hop)} shapes x B = 1, 16, 256: worst rel "
-          f"{max(r['rel_err'] for r in hop):.3e}, vs query "
-          f"{max(r['hop_vs_query_rel_err'] for r in hop):.3e}, same bits "
-          f"{all(r['same_bits_twice'] for r in hop)}", flush=True)
+    for design in ("hop", "blocked"):
+        took = [r for r in rows.values() if r["design"] == design]
+        print(f"fused_attention {mode:10s} Tq=1 {dname:9s} {design} design "
+              f"over {len(took)} shapes: worst rel "
+              f"{max(r['rel_err'] for r in took):.3e}, vs query "
+              f"{max(r[f'{design}_vs_query_rel_err'] for r in took):.3e}, "
+              f"same bits {all(r['same_bits_twice'] for r in took)}",
+              flush=True)
     return rows
 
 
@@ -1515,10 +1558,10 @@ def time_attention_bwd(timer, ak, mode, g, args, dm, iters):
 
 def check_attention_fwd(torch, ak, mode, args, dm, dname, acc):
     """fused_attention on the card against its twin, within KERNEL_TOL, in
-    the design the wrapper picks; where that is the tile or the hop
-    design, also two launches the same bits, and within TILE_FWD_TOL of
-    the query design forced (itself within KERNEL_TOL of the twin), the
-    tile design also within TILE_FWD_TOL of the twin.  Folds the worst of
+    the design the wrapper picks; where that is not the query design,
+    also two launches the same bits, and within TILE_FWD_TOL of the query
+    design forced (itself within KERNEL_TOL of the twin), the tile design
+    also within TILE_FWD_TOL of the twin.  Folds the worst of
     them into ``acc`` (keys "<design>_rel_err", "<design>_vs_query_rel_err",
     "query_rel_err", "same_bits_twice")."""
     got = ak.fused_attention(mode, *args, dm)
@@ -1550,11 +1593,11 @@ def check_attention_fwd(torch, ak, mode, args, dm, dname, acc):
 
 
 def time_attention_fwd(timer, ak, mode, args, dm, iters):
-    """The forward's time: where the wrapper picks the tile or the hop
-    design, it and the query design (forced, `forced_design`) through the
-    same entry point on the same inputs in turns (picked, query, query,
-    picked), by CUDA events and by the profiler's device time, with each
-    one's host time a call."""
+    """The forward's time: where the wrapper picks the tile, hop, blocked
+    or wide design, it and the query design (forced, `forced_design`)
+    through the same entry point on the same inputs in turns (picked,
+    query, query, picked), by CUDA events and by the profiler's device
+    time, with each one's host time a call."""
     run = lambda: ak.fused_attention(mode, *args, dm)  # noqa: E731
     q, k = args[0], args[1]
     if ak.attention_fwd_design(q.dtype, q.shape[1], k.shape[1],
@@ -1597,6 +1640,18 @@ def fwd_hop_occupancy(ak, mode, dtype, tk=50, d=128):
     return {"smem_bytes": lib.fused_attention_hop_smem_bytes(
                 mode_id, is_bf16, tk, d),
             "blocks_per_sm": lib.fused_attention_hop_blocks_per_sm(
+                mode_id, is_bf16, tk, d, 0)}
+
+
+def fwd_blocked_occupancy(ak, mode, dtype, tk=150, d=128):
+    """The forward blocked design's shared memory a block (bytes) and
+    blocks an SM (the occupancy calculator's) for a mode and dtype at (Tk,
+    d)."""
+    lib = ak._blocked_library()
+    mode_id, is_bf16 = ak.MODES.index(mode), int(dtype == "bfloat16")
+    return {"smem_bytes": lib.fused_attention_blocked_smem_bytes(
+                mode_id, is_bf16, tk, d),
+            "blocks_per_sm": lib.fused_attention_blocked_blocks_per_sm(
                 mode_id, is_bf16, tk, d, 0)}
 
 
@@ -1654,6 +1709,11 @@ def check_attention_training(torch, timer, iters, failures):
                         row.update(source=FWD_TILE_SOURCE,
                                    tile_tol=TILE_FWD_TOL[dname],
                                    **fwd_tile_occupancy(ak, mode, dname))
+                    elif design == "blocked":
+                        row.update(source=FWD_SOURCES[design],
+                                   blocked_tol=TILE_FWD_TOL[dname],
+                                   **fwd_blocked_occupancy(ak, mode, dname,
+                                                           tk))
                     library = att_library(torch, mode, args)
                     if library is not None:
                         row["library_ms"] = timer(library, iters)
@@ -2525,6 +2585,7 @@ def _counts():
     return {"gru_scan": dict(gk.launches), "gru_scan_bwd": dict(gk.bwd_launches),
             "fused_attention": dict(ak.launches),
             "fused_attention_hop": dict(ak.fwd_hop_launches),
+            "fused_attention_blocked": dict(ak.fwd_blocked_launches),
             "fused_attention_wide": dict(ak.fwd_wide_launches),
             "fused_attention_query": dict(ak.fwd_query_launches),
             "fused_attention_bwd": dict(ak.bwd_launches),
@@ -2558,7 +2619,8 @@ def _counts():
 def _reset_counts():
     gk, ak, ek, rk, rc = _kernel_modules()
     for counts in (gk.launches, gk.bwd_launches, ak.launches,
-                   ak.fwd_hop_launches, ak.fwd_wide_launches,
+                   ak.fwd_hop_launches, ak.fwd_blocked_launches,
+                   ak.fwd_wide_launches,
                    ak.fwd_query_launches, ak.bwd_launches,
                    ak.bwd_wide_launches, ak.bwd_rows_launches,
                    ak.blockwise_launches,
@@ -2597,9 +2659,11 @@ def _want_counts(steps, gru=None, attention=None, blocks=3, readout=False,
     return {"gru_scan": gru_counts, "gru_scan_bwd": dict(gru_counts),
             "fused_attention": att,
             # the main path takes the forward's hop design at Tq = 1, Tk
-            # <= 64 only (`attention_fwd_design`), which callers add, and
-            # its query design only past 64 keys
+            # <= 64 and its blocked design at Tq = 1, 64 < Tk <= 1024
+            # only (`attention_fwd_design`), which callers add, and its
+            # query design never
             "fused_attention_hop": dict.fromkeys(ak.MODES, 0),
+            "fused_attention_blocked": dict.fromkeys(ak.MODES, 0),
             "fused_attention_wide": dict.fromkeys(ak.MODES, 0),
             "fused_attention_query": dict.fromkeys(ak.MODES, 0),
             "fused_attention_bwd": dict(att),
@@ -6642,12 +6706,15 @@ class L150Setup(L256Setup):
 def check_l150_query(torch, timer, iters, failures):
     """Phase 14's serving hops' kernel: fused_attention at Tq = 1, Tk=150,
     d=128 in the time mode (MTAM's hops, 3 a call) and the plain mode
-    (the plain-kind readout's), in f32 and bf16, against the twin at B =
-    1, 16, 64 (`check_attention_fwd`; ragged keys, a row with no live
-    key) in the design it must pick there ("query": the hop design stops
-    at 64 keys), timed at B=64: event, device and host ms, the twin, the
-    bound and, for the plain mode, scaled_dot_product_attention.  Returns
-    the kernels line's entries (``@L150Tq1``)."""
+    (the plain-kind readout's, MTAM_no_time_aware_att's 3 a call), in f32
+    and bf16, against the twin at B = 1, 16, 64 (`check_attention_fwd`;
+    ragged keys, a row with no live key; the same bits twice, within
+    TILE_FWD_TOL of the query design forced) in the design it must pick
+    there ("blocked"), timed at B=64 in turns with the query design
+    forced (`time_attention_fwd`: event, device and host ms of both), the
+    twin, the bound, the design's shared memory a block and blocks an SM
+    and, for the plain mode, scaled_dot_product_attention.  Returns the
+    kernels line's entries (``@L150Tq1``)."""
     from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
 
     gen = torch.Generator(device=DEVICE).manual_seed(150150)
@@ -6661,16 +6728,19 @@ def check_l150_query(torch, timer, iters, failures):
                 acc = check_attention_fwd(torch, ak, mode, args, None, dname,
                                           acc)
             design = ak.attention_fwd_design(dtype, 1, L150, 128)
-            run = lambda: ak.fused_attention(mode, *args, None)  # noqa: E731
             row = {"design": design, "source": FWD_SOURCES[design],
+                   "earlier_design": "query",
                    "max_abs_err": acc["err"], "rel_err": acc["rel"],
                    "tol": KERNEL_TOL[dname],
-                   "ok": acc["ok"] and design == "query", "Tk": L150,
-                   "B": L150_BATCH, "ms": timer(run, iters),
-                   "device_ms": timer.device(run), "host_ms": timer.host(run),
+                   **{k: v for k, v in acc.items()
+                      if k not in ("err", "rel", "ok")},
+                   "ok": acc["ok"] and design == "blocked", "Tk": L150,
+                   "B": L150_BATCH,
+                   **time_attention_fwd(timer, ak, mode, args, None, iters),
                    "plain_ms": timer(lambda: ak.fused_attention_plain(
                        mode, *args, None), max(iters // 10, 3)),
-                   **att_bound(mode, args, dname)}
+                   **att_bound(mode, args, dname),
+                   **fwd_blocked_occupancy(ak, mode, dname, L150)}
             library = att_library(torch, mode, args)
             if library is not None:
                 row["library_ms"] = timer(library, iters)
@@ -6679,11 +6749,17 @@ def check_l150_query(torch, timer, iters, failures):
                                {})[dname] = row
             print(f"fused_attention {mode:6s} Tq=1 Tk={L150} B={L150_BATCH} "
                   f"{dname:9s} design={design} max_abs_err="
-                  f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} ms="
+                  f"{row['max_abs_err']:.3e} rel={row['rel_err']:.3e} "
+                  f"vs_query_rel={row.get('blocked_vs_query_rel_err')} "
+                  f"same_bits={row.get('same_bits_twice')} ms="
                   f"{row['ms']:.4f} device_ms={row['device_ms']} host_ms="
-                  f"{row['host_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                  f"library_ms={row.get('library_ms')} "
+                  f"{row['host_ms']:.4f} query_ms={row.get('query_ms')} "
+                  f"query_device_ms={row.get('query_device_ms')} "
+                  f"query_host_ms={row.get('query_host_ms')} plain_ms="
+                  f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']}) library_ms={row.get('library_ms')} "
+                  f"smem_bytes={row['smem_bytes']} blocks_per_sm="
+                  f"{row['blocks_per_sm']} "
                   f"{'ok' if row['ok'] else 'FAIL'}", flush=True)
             if not row["ok"]:
                 failures.append(f"fused_attention {mode} Tq=1 Tk={L150} "
@@ -6700,9 +6776,12 @@ def run_l150(torch, timer, failures):
     steps timed at B=64 in bf16 and f32 with the device idle share, the
     serving hops' kernel at Tq=1, Tk=150 (`check_l150_query`), and
     Recommender.recommend at B = 1, 16, 64 in bf16 and f32 against the
-    CPU at each B (1 gru_scan + 3 fused_attention[time] in the query
-    design a call).  Returns (report, the kernels line's entries, the
-    steps' launches, the calls' launches)."""
+    CPU at each B for MTAM (1 gru_scan + 3 fused_attention[time] in the
+    blocked design a call, none in the query design) and for
+    MTAM_no_time_aware_att, the plain-kind readout (1 gru_scan + 3
+    fused_attention[plain] in the blocked design a call).  Returns
+    (report, the kernels line's entries, the steps' launches, the calls'
+    launches)."""
     setup = L150Setup(torch)
 
     def want(steps, dname):
@@ -6712,20 +6791,26 @@ def run_l150(torch, timer, failures):
             "readout_chain_bwd_blocked"] = steps
         return counts
 
-    def want_call(dname):
-        counts = _want_counts(0)
-        counts["gru_scan"]["tgru"] = 1
-        counts["fused_attention"]["time"] = 3
-        counts["fused_attention_query"]["time"] = 3
-        return counts
+    def want_call(mode):
+        def counts_of(dname):
+            counts = _want_counts(0)
+            counts["gru_scan"]["tgru"] = 1
+            counts["fused_attention"][mode] = 3
+            counts["fused_attention_blocked"][mode] = 3
+            return counts
+        return counts_of
 
     launches, serve_launches = {}, {}
     report = one_step_check(torch, setup, failures, "MTAM", want)
     report.update(timed_steps(torch, setup, failures, "MTAM", want, launches,
                               steps=10, warm=2))
     entries = check_l150_query(torch, timer, 50, failures)
-    report["serving"] = serve_xl(torch, failures, setup, "MTAM", want_call,
-                                 serve_launches, held_at_each=True)
+    report["serving"] = serve_xl(torch, failures, setup, "MTAM",
+                                 want_call("time"), serve_launches,
+                                 held_at_each=True)
+    report["serving_no_time_aware_att"] = serve_xl(
+        torch, failures, setup, "MTAM_no_time_aware_att", want_call("plain"),
+        serve_launches, held_at_each=True)
     return report, entries, launches, serve_launches
 
 
@@ -6799,11 +6884,14 @@ def kernels_line(entries, launches_by_shape):
             # launch function (the JSON: each one's host time, and the
             # public call's, `call_host_ms`); fused_attention's at Tq=1,
             # Tk=50: its design (hop), device time, and the query
-            # design's time and device time in the same turns; gather's:
+            # design's time and device time in the same turns; and at
+            # Tq=1, Tk=150: its design (blocked), the earlier design
+            # (query) and both times so; gather's:
             # its design (vector), device time, and the warp_row design's
             # time and device time in the same turns (the JSON: both
             # designs' host time)
-            **{k: head[k] for k in ("design", "simt_ms", "device_ms",
+            **{k: head[k] for k in ("design", "earlier_design", "simt_ms",
+                                    "device_ms",
                                     "library_device_ms", "four_product_ms",
                                     "passes_ms", "unit_column_ms", "rows_ms",
                                     "rows_device_ms", "rows_passes_ms",
@@ -6931,6 +7019,18 @@ def main(argv=None) -> int:
     for inst, regs, spill_st, spill_ld in fwd_hop_ptxas:
         print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
+    # the attention forward's blocked design: <type, mode, drop>; phases 2
+    # and 14 report its shared memory a block and blocks an SM
+    log = built["fused_attention_blocked"]["log"]
+    if log == "already built":
+        log = build.library_path("fused_attention_blocked").with_suffix(
+            ".log").read_text()
+    fwd_blocked_ptxas = [row for kname in FWD_BLOCKED_KERNELS
+                         for row in ptxas_counts(log, kname)]
+    print("ptxas fused_attention_blocked:", flush=True)
+    for inst, regs, spill_st, spill_ld in fwd_blocked_ptxas:
+        print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
     # the chain pair's staged and blocked designs: the forward's kernels',
     # the backward's query pass's and per-row kernels' instantiations
     # <type>; phase 2f reports the per-row kernels' shared memory a block
@@ -6970,7 +7070,9 @@ def main(argv=None) -> int:
         with open(os.path.join("chiprun_out", "chip_smoke_14.json"),
                   "w") as f:
             json.dump({"nvidia_smi": smi, "phase_s": phase_s,
-                       "chain_ptxas": chain_ptxas, "l150": l150,
+                       "chain_ptxas": chain_ptxas,
+                       "fused_attention_blocked_ptxas": fwd_blocked_ptxas,
+                       "l150": l150,
                        "l150_query": {str(k): v
                                       for k, v in l150_entries.items()},
                        "launches": {k: {str(m): n for m, n in v.items()}
@@ -7246,7 +7348,8 @@ def main(argv=None) -> int:
             (l150_launches, "readout_chain_blocked", None),
             (l150_launches, "readout_chain_bwd_blocked", None),
             (l150_serve, "gru_scan", "tgru"),
-            (l150_serve, "fused_attention_query", "time")):
+            (l150_serve, "fused_attention_blocked", "time"),
+            (l150_serve, "fused_attention_blocked", "plain")):
         if got.get(kname, {}).get(mode, 0) == 0:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "L=150 paths")
@@ -7321,6 +7424,7 @@ def main(argv=None) -> int:
                    "gather_widths": gather_widths,
                    "fused_attention_tile_ptxas": fwd_tile_ptxas,
                    "fused_attention_hop_ptxas": fwd_hop_ptxas,
+                   "fused_attention_blocked_ptxas": fwd_blocked_ptxas,
                    "wide_ptxas": wide_ptxas, "wide_timed": wide_timed,
                    "readout_chain_staged_ptxas": chain_ptxas["readout_chain"],
                    "readout_chain_bwd_staged_ptxas":

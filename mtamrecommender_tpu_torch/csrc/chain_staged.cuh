@@ -1,6 +1,7 @@
 // Shared pieces of the chain readout's "staged" and "blocked" designs, the
 // forward (readout_chain.cu) and the backward (readout_chain_bwd.cu), and
-// of the attention forward's "hop" design (fused_attention_hop.cu).  Each
+// of the attention forward's "hop" and "blocked" designs
+// (fused_attention_hop.cu, fused_attention_blocked.cu).  Each
 // takes one block of 256 threads a batch row, with D a multiple of 16 up
 // to 128.  At 1 <= L <= kStagedKeys keys ("staged", "hop") a hop's K (and
 // tprec or rawk) rows of the live keys and V rows of the reached keys
@@ -161,29 +162,32 @@ struct RingLoad {
   bool again;
 };
 
-// The blocked designs' ring: kRingSlots slots of [2, kBlockKeys, D] in
-// dynamic shared memory, an mbarrier a slot.  Loads are numbered in the
-// order the block consumes them; load j goes to slot j % kRingSlots, and
-// its barrier completes the phase of parity (j / kRingSlots) & 1.  One
-// thread issues load j + kRingSlots once every thread has read load j
-// (behind a __syncthreads), so kRingSlots - 1 loads stay in flight while
-// one is read, and no load waits on the hop chain.
-template <typename T>
+// The blocked designs' ring: NSLOTS slots of [PLANES, kBlockKeys, D] in
+// dynamic shared memory (the chain pair's kRingSlots slots of two planes;
+// fused_attention_blocked.cu's plain and tisas modes twice as many of
+// one, in the same bytes), an mbarrier a slot.  Loads are numbered in the
+// order the block consumes them; load j goes to slot j % NSLOTS, and its
+// barrier completes the phase of parity (j / NSLOTS) & 1.  One thread
+// issues load j + NSLOTS once every thread has read load j (behind a
+// __syncthreads), so NSLOTS - 1 loads stay in flight while one is read,
+// and no load waits on the hop chain.  A load's `b` rows go to the
+// second plane (PLANES = 2 only).
+template <typename T, int PLANES = 2, int NSLOTS = kRingSlots>
 struct KeyRing {
   T* base;
   unsigned long long* bar;
   int D;
 
   __device__ __forceinline__ T* slot(int j) const {
-    return base + (size_t)(j % kRingSlots) * 2 * kBlockKeys * D;
+    return base + (size_t)(j % NSLOTS) * PLANES * kBlockKeys * D;
   }
   __device__ __forceinline__ void wait(int j) const {
-    mbar_wait(&bar[j % kRingSlots], (unsigned)(j / kRingSlots) & 1u);
+    mbar_wait(&bar[j % NSLOTS], (unsigned)(j / NSLOTS) & 1u);
   }
   // by one thread, with load j's slot free
   __device__ __forceinline__ void issue(int j, const RingLoad<T>& ld) const {
     T* dst = slot(j);
-    unsigned long long* b = &bar[j % kRingSlots];
+    unsigned long long* b = &bar[j % NSLOTS];
     const unsigned bytes = (unsigned)((size_t)ld.rows * D * sizeof(T));
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_expect(b, ld.b ? 2 * bytes : bytes);
@@ -328,25 +332,28 @@ __device__ __forceinline__ void key_sum(const float* coef, const T* X, int n,
   key_sum_acc(coef, 1.f, X, n, D, h, c, on, acc);
 }
 
-// The largest of v[0, n) (n <= kBlockedMaxKeys), in every lane of the
-// calling warp; every warp that calls gets the same value.
+// The largest of v[0, n) (n <= MAXN: the chain pair's kBlockedMaxKeys,
+// the attention's 1024), in every lane of the calling warp; every warp
+// that calls gets the same value.
+template <int MAXN = kBlockedMaxKeys>
 __device__ __forceinline__ float strip_max(const float* v, int n, int lane) {
   float m = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < kBlockedMaxKeys / 32; ++j) {
+  for (int j = 0; j < MAXN / 32; ++j) {
     const int l = lane + 32 * j;
     if (l < n) m = fmaxf(m, v[l]);
   }
   return port::warp_max(m);
 }
-// The sum of v[l] (w[l] / denom, where w is given) over l < n, a lane its
-// keys lane, lane + 32, ... in order, then a butterfly: the same bits in
-// every lane of every warp that calls.
+// The sum of v[l] (w[l] / denom, where w is given) over l < n (n <=
+// MAXN), a lane its keys lane, lane + 32, ... in order, then a butterfly:
+// the same bits in every lane of every warp that calls.
+template <int MAXN = kBlockedMaxKeys>
 __device__ __forceinline__ float strip_sum(const float* v, const float* w,
                                            float denom, int n, int lane) {
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < kBlockedMaxKeys / 32; ++j) {
+  for (int j = 0; j < MAXN / 32; ++j) {
     const int l = lane + 32 * j;
     if (l < n) s += w ? v[l] * (w[l] / denom) : v[l];
   }

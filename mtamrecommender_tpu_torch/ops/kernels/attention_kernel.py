@@ -8,7 +8,9 @@ does (`route`): up to SINGLE_TILE_KEYS keys the single-tile kernel (the
 Pallas `_attn_kernel`) in the design `attention_fwd_design` picks (with 2
 to TILE_KEYS queries and up to TILE_KEYS keys csrc/fused_attention_tile.cu,
 a block a batch row; with one query and up to HOP_KEYS keys
-csrc/fused_attention_hop.cu, a block a batch row; with 2 or more queries
+csrc/fused_attention_hop.cu, a block a batch row; with one query past
+HOP_KEYS keys csrc/fused_attention_blocked.cu, a block a batch row with
+its rows streamed through a ring; with 2 or more queries
 past TILE_KEYS keys or queries csrc/fused_attention_wide.cu, a block 16
 query rows of a batch row over a score strip; else
 csrc/fused_attention.cu, a block a query row), above that, up to
@@ -86,11 +88,13 @@ GATE_WORKSPACE_CAP = 1 << 25   # f32 gate terms a chunk of rows may hold
 # the single-tile forward's designs (`attention_fwd_design`): "tile", a
 # block a batch row with its whole Tq x Tk problem in shared memory (the
 # backward's layout); "hop", a block a batch row of one query (MTAM's
-# readout hops) with its rows in shared memory; "wide", past TILE_KEYS
-# keys or queries, a block 16 query rows of a batch row with their f32
-# score strip in shared memory; "query", the earlier, a block a (batch
-# row, query row)
-FWD_DESIGNS = ("tile", "hop", "wide", "query")
+# readout hops) with its rows in shared memory; "blocked", a block a
+# batch row of one query past HOP_KEYS keys, its rows streamed in 64-key
+# blocks (the chain readout's BLOCK_KEYS) through a ring of shared-memory
+# slots and its f32 scores in a strip; "wide", past TILE_KEYS keys or
+# queries, a block 16 query rows of a batch row with their f32 score strip
+# in shared memory; "query", the earlier, a block a (batch row, query row)
+FWD_DESIGNS = ("tile", "hop", "blocked", "wide", "query")
 HOP_KEYS = 64             # the hop design's largest Tk
 WIDE_KEY_PAD = 32         # their strips' (and planes') Tk padded to this
 # their keys a step, by input type (the products' blocking)
@@ -99,11 +103,12 @@ WIDE_QUERY_STEP = 32      # the wide backward's key pass: queries a step
 # the operands each design's launch copies 16 bytes at a time, by index in
 # the forward's arguments: always, and in time mode also
 FWD_ALIGNED = {"tile": ((0, 1, 2), (5, 6)), "hop": ((1, 2), (6,)),
-               "wide": ((0, 1, 2), (5, 6))}
+               "blocked": ((1, 2), (6,)), "wide": ((0, 1, 2), (5, 6))}
 
 # kernel launches per mode (the plain twins are not counted)
 launches = {mode: 0 for mode in MODES}            # either forward design
 fwd_hop_launches = {mode: 0 for mode in MODES}    # the hop design alone
+fwd_blocked_launches = {mode: 0 for mode in MODES}   # the blocked design
 fwd_wide_launches = {mode: 0 for mode in MODES}   # the wide design alone
 fwd_query_launches = {mode: 0 for mode in MODES}  # the query design alone
 bwd_launches = {mode: 0 for mode in MODES}     # any design
@@ -242,22 +247,30 @@ def attention_fwd_design(dtype: torch.dtype, tq: int, tk: int,
     Tq = Tk = 50).  "hop" where Tq = 1, 1 <= Tk <= HOP_KEYS and d is a
     multiple of 16 up to TILED_MAX_D, in both dtypes: one block a batch
     row stages its rows in shared memory by bulk copies (MTAM's readout
-    hops at L=50).  "wide" where 2 <= Tq <= SINGLE_TILE_KEYS, 1 <= Tk <=
-    SINGLE_TILE_KEYS, Tq or Tk past TILE_KEYS and d is one of TILE_WIDTHS,
-    in both dtypes: one block 16 query rows of a batch row keeps
-    their f32 score strip in shared memory and streams the keys through
-    it (the self-attention blocks at 64 < L <= 1024).  "query" elsewhere
-    (Tq = 1 past HOP_KEYS keys, up to SINGLE_TILE_KEYS, other widths).
-    The tile and wide launches also want q, k, v (and in time mode tqw
-    and rawk), the hop launch k and v (and rawk), 16-byte aligned
-    (FWD_ALIGNED), and refuse them otherwise."""
+    hops at L=50).  "blocked" where Tq = 1, HOP_KEYS < Tk <=
+    SINGLE_TILE_KEYS and d is a multiple of 16 up to TILED_MAX_D, in both
+    dtypes: one block a batch row streams its rows through a ring of
+    64-key shared-memory slots by bulk copies and keeps its f32 scores in
+    a strip (MTAM's serving hops at 65 <= L <= 255, the plain-kind
+    readout's up to SINGLE_TILE_KEYS).  "wide" where 2 <= Tq
+    <= SINGLE_TILE_KEYS, 1 <= Tk <= SINGLE_TILE_KEYS, Tq or Tk past
+    TILE_KEYS and d is one of TILE_WIDTHS, in both dtypes: one block 16
+    query rows of a batch row keeps their f32 score strip in shared
+    memory and streams the keys through it (the self-attention blocks at
+    64 < L <= 1024).  "query" elsewhere (other widths, up to
+    SINGLE_TILE_KEYS).  The tile and wide launches also want q, k, v
+    (and in time mode tqw and rawk), the hop and blocked launches k and v
+    (and rawk), 16-byte aligned (FWD_ALIGNED), and refuse them
+    otherwise."""
     if dtype not in DTYPES:
         raise TypeError(f"fused_attention: no design for {dtype}")
     if 2 <= tq <= TILE_KEYS and 1 <= tk <= TILE_KEYS and d in TILE_WIDTHS:
         return "tile"
-    if tq == 1 and 1 <= tk <= HOP_KEYS and d % 16 == 0 \
-            and 16 <= d <= TILED_MAX_D:
-        return "hop"
+    if tq == 1 and d % 16 == 0 and 16 <= d <= TILED_MAX_D:
+        if 1 <= tk <= HOP_KEYS:
+            return "hop"
+        if HOP_KEYS < tk <= SINGLE_TILE_KEYS:
+            return "blocked"
     if _wide_takes(tq, tk, d):
         return "wide"
     return "query"
@@ -274,10 +287,11 @@ def _wide_takes(tq: int, tk: int, d: int) -> bool:
 def _launch(mode, *args, _design=None) -> torch.Tensor:
     """Launch the single-tile forward in the design `attention_fwd_design`
     picks.  ``_design="query"`` forces the earlier design (chip_smoke.py
-    holds and times it beside the tile, hop and wide designs); "tile",
-    "hop" and "wide" only where they are picked.  The main path passes
-    nothing.  A design that fails to build or launch, or an operand its
-    copies cannot take (FWD_ALIGNED), raises: there is no fallback."""
+    holds and times it beside the tile, hop, blocked and wide designs);
+    "tile", "hop", "blocked" and "wide" only where they are picked.  The
+    main path passes nothing.  A design that fails to build or launch, or
+    an operand its copies cannot take (FWD_ALIGNED), raises: there is no
+    fallback."""
     q, k, dm = args[0], args[1], args[-1]
     b, tq, d = q.shape
     tk = k.shape[1]
@@ -313,6 +327,11 @@ def _launch(mode, *args, _design=None) -> torch.Tensor:
         status = lib.fused_attention_hop_launch(mode_id, is_bf16, *ptrs)
         build.check(lib, status, "fused_attention (hop)")
         fwd_hop_launches[mode] += 1
+    elif design == "blocked":
+        lib = _blocked_library()
+        status = lib.fused_attention_blocked_launch(mode_id, is_bf16, *ptrs)
+        build.check(lib, status, "fused_attention (blocked)")
+        fwd_blocked_launches[mode] += 1
     elif design == "wide":
         lib = _wide_library()
         status = lib.fused_attention_wide_launch(mode_id, is_bf16, *ptrs)
@@ -364,6 +383,21 @@ def _hop_library() -> ctypes.CDLL:
         lib.fused_attention_hop_smem_bytes.restype = ctypes.c_longlong
         lib.fused_attention_hop_blocks_per_sm.argtypes = [ci] * 5
         lib.fused_attention_hop_blocks_per_sm.restype = ci
+        lib._port_typed = True
+    return lib
+
+
+def _blocked_library() -> ctypes.CDLL:
+    lib = build.library("fused_attention_blocked")
+    if not getattr(lib, "_port_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_attention_blocked_launch.argtypes = (
+            [ci, ci] + [vp] * 15 + [ci, ci, ci, ci, ctypes.c_float, ci, vp])
+        lib.fused_attention_blocked_launch.restype = ci
+        lib.fused_attention_blocked_smem_bytes.argtypes = [ci] * 4
+        lib.fused_attention_blocked_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_attention_blocked_blocks_per_sm.argtypes = [ci] * 5
+        lib.fused_attention_blocked_blocks_per_sm.restype = ci
         lib._port_typed = True
     return lib
 
@@ -492,20 +526,64 @@ def _hop_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
     `attention_fwd_design` gives "hop"), on the chain readout's staged
     layout: k and rawk staged zero past each row's live keys and v past
     the keys its weights reach (all Tk in a row with none live), zero-
-    padded to HOP_KEYS rows; the score dots q . k_c and tqw . rawk_c by
-    the lane columns and a half-warp's butterfly; the gate, the scale,
-    -2^32 + 1 at masked keys and the softmax over the Tk keys, then dm;
-    the weights rounded to v's type; out = sum_c w_c v_c by 16 key slices
-    in order (the kernel's half-warps), then the warps in order."""
+    padded to HOP_KEYS rows; the rest as `_one_query_design_plain`."""
+    return _one_query_design_plain("hop", mode, q, k, v, t_q, t_k, tqw, rawk,
+                                   w1, b1, wo1, wo2, bo, key_len, dm)
+
+
+def _blocked_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1,
+                              b1, wo1, wo2, bo, key_len, dm=None
+                              ) -> torch.Tensor:
+    """The forward blocked design's arithmetic in plain PyTorch (the
+    arguments and result of `fused_attention`, at Tq = 1 and the shapes
+    `attention_fwd_design` gives "blocked"): the hop design's over whole
+    key blocks, k and rawk zero past each row's live keys and v past the
+    keys its weights reach, zero-padded to a multiple of the chain
+    readout's BLOCK_KEYS rows (the ring's slots), the score dots a block
+    at a time into the f32 strip of all Tk keys, and o by the 16 key
+    slices h, h+16, ... taken in key order across the blocks
+    (`_one_query_design_plain`)."""
+    return _one_query_design_plain("blocked", mode, q, k, v, t_q, t_k, tqw,
+                                   rawk, w1, b1, wo1, wo2, bo, key_len, dm)
+
+
+def _strip_sum(x) -> torch.Tensor:
+    """[B, n] -> [B]: the sum over a row as a warp takes a strip's sum
+    (chain_staged.cuh `strip_sum`): lane j its keys j, j + 32, ... in
+    order, then the 32 lanes by xor shuffles (offsets 16, 8, 4, 2, 1)."""
+    b, n = x.shape
+    padded = torch.nn.functional.pad(x, (0, -n % 32))
+    lanes = torch.zeros((b, 32), dtype=x.dtype, device=x.device)
+    for j0 in range(0, padded.shape[1], 32):
+        lanes = lanes + padded[:, j0:j0 + 32]
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ off]
+    return lanes[:, 0]
+
+
+def _one_query_design_plain(design: str, mode: str, q, k, v, t_q, t_k, tqw,
+                            rawk, w1, b1, wo1, wo2, bo, key_len, dm=None
+                            ) -> torch.Tensor:
+    """The hop and blocked designs' arithmetic (Tq = 1, a block a batch
+    row on the chain readout's thread mapping): the rows as the design
+    stages them (`chain._staged`, zero-padded as the chain readout's
+    staged and blocked designs pad, `chain._padded_keys`); the score dots
+    q . k_c and tqw . rawk_c by the lane columns and a half-warp's
+    butterfly; the gate, the scale, -2^32 + 1 at masked keys; the softmax
+    over the Tk keys with the strip's sum (`_strip_sum`), then dm; the
+    weights rounded to v's type; out = sum_c w_c v_c by 16 key slices in
+    order (the kernel's half-warps), then the warps in order."""
     base = base_mode(mode)
     b, tq, d = q.shape
     tk = k.shape[1]
-    if attention_fwd_design(q.dtype, tq, tk, d) != "hop":
-        raise ValueError(f"_hop_fwd_design_plain: the hop design does not "
-                         f"take Tq={tq}, Tk={tk}, d={d}")
+    if attention_fwd_design(q.dtype, tq, tk, d) != design:
+        raise ValueError(f"_{design}_fwd_design_plain: the {design} design "
+                         f"does not take Tq={tq}, Tk={tk}, d={d}")
+    keys = chain._padded_keys("staged" if design == "hop" else "blocked", tk)
     scale = 1.0 / d ** 0.5
     cols = chain._lane_columns(d, q.dtype)
-    live_rows, reached_rows = chain._staged_masks(key_len, tk)
+    live_rows, reached_rows = chain._staged_masks(key_len, tk, keys)
     s0 = chain._lanes_dot(q.float(), chain._staged(k, live_rows),
                           cols)[:, :tk]
     if base in ("time", "tisas"):
@@ -525,11 +603,11 @@ def _hop_fwd_design_plain(mode: str, q, k, v, t_q, t_k, tqw, rawk, w1, b1,
         < key_len.long()[:, None]
     s = torch.where(lv, sc, torch.full_like(sc, NEG_FILL))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    w = e / e.sum(dim=-1, keepdim=True)
+    w = e / _strip_sum(e)[:, None]
     if dm is not None:
         w = w * dm[:, 0]
     w = w.to(v.dtype).float()
-    return chain._key_slices(chain._pad_keys(w),
+    return chain._key_slices(chain._pad_keys(w, keys),
                              chain._staged(v, reached_rows))[:, None, :]
 
 

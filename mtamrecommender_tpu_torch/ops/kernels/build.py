@@ -38,13 +38,14 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # fused_attention_tile.cu and fused_attention_bwd_tile.cu include
 # attention_tile.cuh, which includes tile_gemm.cuh; fused_attention_wide.cu
 # and fused_attention_bwd_wide.cu include attention_wide.cuh, which
-# includes attention_tile.cuh; readout_chain.cu,
-# readout_chain_bwd.cu and fused_attention_hop.cu include chain_staged.cuh,
-# which includes readout_hop.cuh)
+# includes attention_tile.cuh; readout_chain.cu, readout_chain_bwd.cu,
+# fused_attention_hop.cu and fused_attention_blocked.cu include
+# chain_staged.cuh, which includes readout_hop.cuh)
 SOURCES = {"gru_scan": "gru_scan.cu", "gru_scan_bwd": "gru_scan_bwd.cu",
            "fused_attention": "fused_attention.cu",
            "fused_attention_tile": "fused_attention_tile.cu",
            "fused_attention_hop": "fused_attention_hop.cu",
+           "fused_attention_blocked": "fused_attention_blocked.cu",
            "fused_attention_bwd": "fused_attention_bwd.cu",
            "fused_attention_bwd_tile": "fused_attention_bwd_tile.cu",
            "fused_attention_wide": "fused_attention_wide.cu",

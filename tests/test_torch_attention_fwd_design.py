@@ -11,9 +11,11 @@ planes S0 and TQK as products, the elementwise middle a warp a query row
 type and zero past Tq and Tk, then out = W v.  chip_smoke.py's phase 2c
 holds the kernel against the plain twin there, and against the earlier
 "query" design forced.  (One query row with up to 64 keys takes the "hop"
-design, tests/test_torch_attention_hop_design.py, and more than 64 keys
-or queries the "wide" design, tests/test_torch_attention_wide_design.py;
-the routes of all four are held here.)  Here `_tile_fwd_design_plain`, those steps in
+design, tests/test_torch_attention_hop_design.py, one query row past 64
+keys the "blocked" design, tests/test_torch_attention_blocked_design.py,
+and more than 64 keys or queries the "wide" design,
+tests/test_torch_attention_wide_design.py; the routes of all five are
+held here.)  Here `_tile_fwd_design_plain`, those steps in
 plain PyTorch, is held against the twin `fused_attention_plain` and
 against JAX's `_fused_attention_fwd` (the Pallas `_attn_kernel` in
 interpret mode, as tests/test_torch_kernels.py runs it) on the same numpy
@@ -104,14 +106,14 @@ def no_build(monkeypatch):
 @pytest.mark.parametrize("tq,tk,d,design", [
     (50, 50, 128, "tile"), (64, 64, 16, "tile"), (2, 1, 32, "tile"),
     (17, 17, 64, "tile"), (64, 1, 128, "tile"), (1, 50, 128, "hop"),
-    (1, 1, 16, "hop"), (1, 1024, 128, "query"), (65, 65, 128, "wide"),
+    (1, 1, 16, "hop"), (1, 1024, 128, "blocked"), (65, 65, 128, "wide"),
     (50, 65, 128, "wide"), (65, 50, 128, "wide"), (50, 50, 48, "query"),
     (50, 50, 96, "query"), (50, 50, 256, "query"), (50, 50, 8, "query"),
-    (1, 64, 128, "hop"), (1, 50, 48, "hop"), (1, 65, 128, "query"),
+    (1, 64, 128, "hop"), (1, 50, 48, "hop"), (1, 65, 128, "blocked"),
     (1, 50, 8, "query"), (1, 50, 256, "query")])
 def test_attention_fwd_design_routes(dtype, tq, tk, d, design):
     assert tak.attention_fwd_design(dtype, tq, tk, d) == design
-    assert tak.FWD_DESIGNS == ("tile", "hop", "wide", "query")
+    assert tak.FWD_DESIGNS == ("tile", "hop", "blocked", "wide", "query")
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

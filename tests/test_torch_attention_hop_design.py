@@ -130,11 +130,14 @@ def test_hop_takes_one_query_up_to_64_keys(no_build, dtype, tk, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tk,d", [(65, 128), (1024, 128), (50, 8),
-                                  (50, 40), (50, 144), (50, 256)])
+@pytest.mark.parametrize("tk,d,design", [
+    (65, 128, "blocked"), (1024, 128, "blocked"), (50, 8, "query"),
+    (50, 40, "query"), (50, 144, "query"), (50, 256, "query")])
 def test_query_design_keeps_the_other_single_queries(no_build, dtype, tk,
-                                                     d):
-    assert tak.attention_fwd_design(dtype, 1, tk, d) == "query"
+                                                     d, design):
+    """Past 64 keys one query takes the blocked design at the hop
+    design's widths; the query design keeps the other widths."""
+    assert tak.attention_fwd_design(dtype, 1, tk, d) == design
 
 
 @pytest.mark.parametrize("tq,tk,d", [(1, 65, 128), (1, 50, 8), (1, 50, 40),
@@ -175,7 +178,7 @@ class _FakeLib:
     ("time", 1, 50, 16, None, None, "hop"),
     ("tisas_drop", 1, 1, 64, None, None, "hop"),
     ("time", 1, 50, 128, "query", None, "query"),
-    ("time", 1, 1024, 128, None, None, "query"),
+    ("time", 1, 1024, 128, None, None, "blocked"),
     ("time", 1, 50, 40, None, None, "query"),
     ("plain", 1, 50, 128, None, "q", "hop"),
     ("plain", 1, 50, 128, None, "rawk", "hop"),
@@ -185,10 +188,11 @@ def test_launch_takes_the_design_it_should(monkeypatch, mode, tq, tk, d,
     """The launch calls the library of the design `attention_fwd_design`
     picks, or the query design forced; the hop design's copies read k and
     v (and rawk in time mode) only, so q and an unread rawk may sit
-    anywhere; `launches` counts every launch, `fwd_hop_launches` and
-    `fwd_query_launches` their designs'."""
+    anywhere; `launches` counts every launch, `fwd_hop_launches`,
+    `fwd_blocked_launches` and `fwd_query_launches` their designs'."""
     lib = _FakeLib()
-    for attr in ("_library", "_tile_library", "_hop_library"):
+    for attr in ("_library", "_tile_library", "_hop_library",
+                 "_blocked_library"):
         monkeypatch.setattr(tak, attr, lambda: lib)
     monkeypatch.setattr(build, "launch_context", lambda *_a: (0, 0))
     args = _operands(tq, tk, d)
@@ -197,13 +201,16 @@ def test_launch_takes_the_design_it_should(monkeypatch, mode, tq, tk, d,
         args[i] = _shifted(args[i])
     dm = torch.zeros(2, tq, tk) if mode.endswith("_drop") else None
     before = (tak.launches[mode], tak.fwd_hop_launches[mode],
-              tak.fwd_query_launches[mode])
+              tak.fwd_query_launches[mode], tak.fwd_blocked_launches[mode])
     out = tak._launch(mode, *args, dm, _design=forced)
-    suffix = {"tile": "_tile", "hop": "_hop", "query": ""}[design]
+    suffix = {"tile": "_tile", "hop": "_hop", "blocked": "_blocked",
+              "query": ""}[design]
     assert lib.called == [f"fused_attention{suffix}_launch"]
     assert tak.launches[mode] == before[0] + 1
     assert tak.fwd_hop_launches[mode] == before[1] + int(design == "hop")
     assert tak.fwd_query_launches[mode] == before[2] + int(design == "query")
+    assert tak.fwd_blocked_launches[mode] == \
+        before[3] + int(design == "blocked")
     assert tuple(out.shape) == (2, tq, d) and out.dtype == torch.float32
 
 

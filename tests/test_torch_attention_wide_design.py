@@ -149,7 +149,7 @@ def no_build(monkeypatch):
     (1025, 1025, 128, "query", "rows"), (2, 1025, 128, "query", "rows"),
     (1025, 64, 128, "query", "rows"), (65, 65, 48, "query", "rows"),
     (65, 65, 256, "query", "rows"), (65, 65, 8, "query", "rows"),
-    (1, 65, 128, "query", "rows"), (1, 1024, 128, "query", "rows"),
+    (1, 65, 128, "blocked", "rows"), (1, 1024, 128, "blocked", "rows"),
     (1, 64, 128, "hop", "tile")])
 def test_wide_design_routes_by_shape(no_build, dtype, tq, tk, d, fwd, bwd):
     assert tak.attention_fwd_design(dtype, tq, tk, d) == fwd
