@@ -122,7 +122,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      time and its split by launch, and by the host time a call, with the
      per-row kernels' shared memory a block and blocks an SM; then the
      same at ONE hop (NARM+'s and NARM++'s readout: B = 1, 16 at d=128
-     and B=16 at d=16, ragged; phase 4's shape timed, "@L50h1");
+     and B=16 at d=16, ragged; phase 4's shape timed, "@L50h1"); then
+     phase 15's readouts at L=150 with positional wo2 rows, B = 1, 16,
+     64 (d=128, ragged) at 3, 1 and 6 hops (MTAM_with_T_SeqRec's
+     preset), phase 14's shape timed ("@L150pos", "@L150h1",
+     "@L150h6");
   3. the serving slice: Recommender.recommend at full width (MTAM d=128,
      3 hops, L=50, the ml-1m catalog, k=50) for B = 1, 16, 256 in bf16
      and f32 compute, with launch counts per scoring call, scores held
@@ -272,7 +276,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      the model's mode, dtable once a table the loss reaches, 1
      readout_chain + 1 readout_chain_bwd where the model reads out in
      the time kind, 3 fused_attention[time] + 3 fused_attention_bwd[time]
-     where it self-attends), 4 timed make_superstep steps after 1
+     where it self-attends), 3 timed make_superstep steps after 1
      warm-up at B=256 in bf16 (ms a step, examples/s, idle
      share), recommend k=50 at B=16 against the CPU (SLICE_TOL) and at
      B=256 timed (1 gru_scan, the readout's hops in the hop design of
@@ -282,7 +286,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      user's row, PISTRec's self-attention pair);
      MTAM_with_T_SeqRec at its preset's 6 hops
      (MTAM_with_T_SeqRecb6_yoochoose): one step against the CPU at
-     B=256, 4 timed bf16 steps, recommend at B=256 against the CPU and timed
+     B=256, 3 timed bf16 steps, recommend at B=256 against the CPU and timed
      (6 hops a call); bidirectional_gru_net at B=16, L=50, u=128
      against the CPU, the output and every gradient (2 gru_scan[plain]
      + 2 gru_scan_bwd[plain]); MTAM_hybird (the concat head) from disk:
@@ -372,7 +376,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      gradient leaf against the CPU in f32 and bf16 at B=16 (masks drawn on
      the CPU and injected on both sides), the launches of a step exactly
      (3 fused_attention + 3 fused_attention_bwd, all in the wide design,
-     + 4 dtable; no query, rows or dense launch), 10 steps timed at B=64
+     + 4 dtable; no query, rows or dense launch), each f32 leaf allowed
+     the CPU's own gap between the plain twins' summation order and the
+     wide twins' and its distance from a float64 CPU step printed for the
+     card and both orders, for Time_Aware_SA the wide backward's gate
+     terms on the card's own inputs held to float64 and its gate sums to
+     the exact sum of its terms (`gate_terms_check`), 10 steps timed at B=64
      in bf16 and f32 with the device idle share, and
      Recommender.recommend at B = 1, 16, 64 in bf16 and f32 against the
      CPU at each B (3 wide forward launches of the base mode a call).
@@ -385,7 +394,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      launches of a step exactly (1 gru_scan + 1 gru_scan_bwd, 1
      readout_chain + 1 readout_chain_bwd both in the blocked design, 4
      dtable; no rows-design, fused_readout or fused_attention launch),
-     10 steps timed at B=64 in bf16 and f32 with the device idle share;
+     5 steps timed at B=64 in bf16 and f32 with the device idle share;
      fused_attention at Tq=1, Tk=150 (the serving hops: time mode, and
      the plain mode with scaled_dot_product_attention beside it) against
      its twin at B = 1, 16, 64 in the blocked design (the same bits twice,
@@ -398,6 +407,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      plain-kind readout (1 gru_scan + 3 fused_attention[plain] in the
      blocked design a call).
      `python3 chip_smoke.py --only 14` builds and runs phase 14 alone.
+  15. the registry at the reference's cap: phase 14's data at the JAX
+     package's default (positional) decay gate, d=128, 3 hops or blocks
+     (MTAM_with_T_SeqRec 6, the NARM family 1), for every registry
+     model whose kernels take another design at L=150 than at L=50
+     (`models_at_cap`, printed: MTAM and its five ablations, the NARM
+     family, pistrec and the three self-attention models): one step's
+     loss and every gradient leaf against the CPU in f32 and bf16 at
+     B=16 (phase 14's tolerances; dropout masks drawn on the CPU and
+     injected on both sides; the CPU's ReLUs, the chain twins' query
+     ReLU too, on the card's side where an input is within RELU_KINK_EPS
+     eps of 0 relative to its tensor: `relu_sides`), the
+     launches of a step exactly (the chain pair blocked, the
+     self-attention pair wide; no rows, query or dense launch), 3 steps
+     timed at B=64 in bf16 with the device idle share, and
+     Recommender.recommend at B = 1, 16, 64 in bf16 and f32 against the
+     CPU at each B (the Tq = 1 hops in the blocked design, 1, 3 or 6 a
+     call); then PISTRec's other pistrec_types one f32 step and
+     recommend at B=16 each.  `python3 chip_smoke.py --only 15` builds
+     and runs phase 15 alone.
 The line before the last is {"kernels": [...]}, one entry per kernel, mode
 and main-path shape (the attention kernels at Tq=1, Tk=50 as "@Tq1", at
 Tq=Tk=50 as "@Tq50" and, in their wide designs, at B=64, Tq=Tk=256 as
@@ -406,7 +434,9 @@ turns beside them, and the blocked forward at Tq=1, Tk=150 as
 "@L150Tq1" with the query design's times beside it;
 the chain readout's pair at MTAM's L=50 step
 as "@L50", at one hop as "@L50h1" and at MTAM's L=150 step (B=64) as
-"@L150"; the readout, GRU and dtable kernels at B=64,
+"@L150", with positional wo2 rows as "@L150pos" and at 1 and 6 hops as
+"@L150h1" and "@L150h6" (phase 15's launches); the readout, GRU and
+dtable kernels at B=64,
 L=512 as "@L512"; the blockwise kernel at B=64, Tq=Tk=2048, the GRU
 kernels at B=64, L=2048 and
 dtable and the gather / scatter-add pair at L=2048 as "@L2048" (dtable's
@@ -2569,9 +2599,11 @@ def _loss_grads(torch, cfg, model, batch, vocab, drop_masks=None,
                            neg_id=neg_id)
     metrics["loss"].backward()
     # a parameter the loss does not reach (Vallina_Gru4Rec's behavior
-    # projection) has no grad: zeros, as the train step takes it
+    # projection) has no grad: zeros, as the train step takes it; f64
+    # gradients (`float64_twins`) stay f64, the others come back in f32
     return ({k: v.item() for k, v in metrics.items()},
-            {n: (p.grad.detach().float().cpu() if p.grad is not None
+            {n: (p.grad.detach().cpu().to(torch.promote_types(
+                p.grad.dtype, torch.float32)) if p.grad is not None
                  else torch.zeros(p.shape))
              for n, p in model.named_parameters()})
 
@@ -2704,7 +2736,8 @@ def _kernel_modules():
 
 def one_step_check(torch, setup, failures, name, want, drop_masks=None,
                    hold_bf16_scalars=True, neg_id=None,
-                   dtypes=("float32", "bfloat16"), cpu_order=None):
+                   dtypes=("float32", "bfloat16"), cpu_order=None,
+                   relu_kinks=False):
     """One step's loss and every gradient leaf on the card against the
     CPU (the plain twins), in each of ``dtypes`` (f32 first: bf16 is held
     against it too), and the step's launches against ``want``.
@@ -2713,7 +2746,16 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
     run again under it, and each f32 leaf is allowed, on top of the
     tolerance, the CPU's own gap between the two orders (a scalar gate's
     sum of B*L*L cancelling terms moves that much with the order alone;
-    the bf16 rule already allows the CPU's bf16-vs-f32 gap).
+    the bf16 rule already allows the CPU's bf16-vs-f32 gap).  The f32
+    step is then also computed in float64 (`float64_step`), and each f32
+    leaf's distance from it, relative to its largest |value|, is printed
+    and reported for the card and for both CPU orders; that is not held.
+    With ``relu_kinks`` the card's step runs first and the CPU's step
+    takes a ReLU on the card's side of its kink (`relu_sides`): an
+    element whose sign differs from the card's by no more than the
+    step type's rounding gets the card's subgradient.  A step fails
+    where a sign differs farther from 0 than that, or where more than
+    ceil(elements * eps) elements were moved.
     ``drop_masks``: CPU masks, one per block (or
     readout hop), injected on both sides; ``neg_id``: the bpr loss's
     negative item, likewise.  Without ``hold_bf16_scalars`` the bf16 gradients of
@@ -2726,10 +2768,20 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
     report, cpu32 = {}, None
     for dname in dtypes:
         cfg = setup.cfg(dname, name)
-        m_cpu, g_cpu = _loss_grads(torch, cfg, setup.model(torch, cfg, "cpu"),
-                                   setup.batch_cpu, vocab, drop_masks,
-                                   neg_id)
-        order_gap = {}
+        dtype = getattr(torch, dname)
+        sides = {"ops": [], "chain": []} if relu_kinks else None
+        _reset_counts()
+        with relu_sides(sides, dtype, record=True):
+            m_gpu, g_gpu = _loss_grads(
+                torch, cfg, setup.model(torch, cfg, DEVICE), setup.batch,
+                vocab, on_card, None if neg_id is None else neg_id.to(DEVICE))
+        torch.cuda.synchronize()
+        counts = _counts()
+        with relu_sides(sides, dtype) as kinks:
+            m_cpu, g_cpu = _loss_grads(
+                torch, cfg, setup.model(torch, cfg, "cpu"), setup.batch_cpu,
+                vocab, drop_masks, neg_id)
+        order_gap, from_f64 = {}, {}
         if dname == "float32":
             cpu32 = g_cpu
             if cpu_order is not None:
@@ -2739,13 +2791,16 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
                         setup.batch_cpu, vocab, drop_masks, neg_id)
                 order_gap = {leaf: (g_alt[leaf] - g).abs().max().item()
                              for leaf, g in g_cpu.items()}
-        _reset_counts()
-        m_gpu, g_gpu = _loss_grads(torch, cfg, setup.model(torch, cfg, DEVICE),
-                                   setup.batch, vocab, on_card,
-                                   None if neg_id is None
-                                   else neg_id.to(DEVICE))
-        torch.cuda.synchronize()
-        counts = _counts()
+                g64 = float64_step(torch, setup, cfg, drop_masks, neg_id)
+                for leaf, g in g_gpu.items():
+                    scale = max(g_cpu[leaf].abs().max().item(), 1e-30)
+                    far = {k: (x.double().cpu() - g64[leaf]).abs().max().item()
+                           / scale for k, x in (("card", g),
+                                                ("plain", g_cpu[leaf]),
+                                                ("wide", g_alt[leaf]))}
+                    far["no_farther"] = far["card"] <= max(far["plain"],
+                                                           far["wide"])
+                    from_f64[leaf] = far
         worst, worst_leaf, ok = 0.0, None, True
         by_leaf, reported_only = {}, []
         for leaf, g in g_gpu.items():
@@ -2779,6 +2834,32 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
                 leaf: gap / max(cpu32[leaf].abs().max().item(), 1e-30)
                 for leaf, gap in order_gap.items() if gap},
             "launches": counts, "ok": ok}
+        if relu_kinks:
+            cap = math.ceil(kinks["elements"] * torch.finfo(dtype).eps)
+            kinks_ok = kinks["far"] == 0 and kinks["flipped"] <= cap
+            ok = ok and kinks_ok
+            report[f"one_step_{dname}"].update(
+                ok=ok, relu_elements=kinks["elements"],
+                relu_kinks_taken_from_the_card=kinks["flipped"],
+                relu_kinks_cap=cap,
+                relu_farthest_kink_in_eps=kinks["farthest"],
+                relu_signs_differing_past_the_kink=kinks["far"])
+            print(f"    relu {name} {dname}: {kinks['flipped']} of "
+                  f"{kinks['elements']} elements took the card's side "
+                  f"(cap {cap}, farthest {kinks['farthest']:.2f} eps of "
+                  f"the tensor's max), {kinks['far']} differ past the kink "
+                  f"{'ok' if kinks_ok else 'FAIL'}", flush=True)
+        if from_f64:
+            report[f"one_step_{dname}"].update(
+                f64_distance_by_leaf=from_f64,
+                card_no_farther_from_f64_on_every_leaf=all(
+                    far["no_farther"] for far in from_f64.values()))
+            for leaf, far in from_f64.items():
+                print(f"    f64 {name} {leaf:32s} card={far['card']:.3e} "
+                      f"plain={far['plain']:.3e} wide={far['wide']:.3e} "
+                      f"cpu_err={by_leaf[leaf]:.3e}"
+                      f"{'' if far['no_farther'] else ' card farther'}",
+                      flush=True)
         print(f"train {name} L={setup.meta.max_seq_len} one step {dname:9s} "
               f"loss gpu="
               f"{m_gpu['loss']:.6f} cpu={m_cpu['loss']:.6f} worst grad rel "
@@ -2788,6 +2869,175 @@ def one_step_check(torch, setup, failures, name, want, drop_masks=None,
             failures.append(f"training {name} one step {dname}: "
                             f"{report[f'one_step_{dname}']}")
     return report
+
+
+# the modules whose ReLUs run outside the kernels (plain PyTorch)
+RELU_MODULES = ("ops.attention", "ops.embedding", "ops.time_gru",
+                "models.hybrid")
+# a ReLU input within this many eps of the step's type, times its
+# tensor's largest |value|, is at the kink: the devices' roundings can
+# put it on either side
+RELU_KINK_EPS = 8
+
+
+@contextlib.contextmanager
+def relu_sides(sides, dtype, record=False):
+    """Within the block each ReLU keeps the sign pattern of its input on
+    the recording device, at its kink only.  With ``record`` (the card's
+    step), ``sides`` {"ops": [], "chain": []} gets, in call order, the
+    pattern of each ReLU of RELU_MODULES (``torch.relu`` there) and, per
+    readout_chain call, each hop's pattern of the query projection the
+    kernel applies its ReLU to, relu(cur_c Wq + bq), from the hop inputs
+    it returns.  Else (the CPU's step) those ReLUs meet the recorded
+    patterns in the same order, the chain twins' query ReLU
+    (``torch.relu`` in readout_chain_kernel: each hop in the forward,
+    then again from the last hop in the backward) too.  An element whose
+    sign differs from the card's takes the card's side where its |value|
+    is within RELU_KINK_EPS eps of ``dtype`` times the tensor's largest
+    |value|, and keeps its own elsewhere.  The block yields {"elements",
+    "flipped", "far", "farthest"}: the ReLU elements seen, those moved,
+    those whose sign differs past the kink, and the largest |value| a
+    moved element had in those units.  A call whose shape differs from
+    the recorded one, or a count of calls other than the recorded ones
+    (for the chain one a hop in the forward and again in each backward
+    the card launched), raises ValueError.  With ``sides`` None
+    nothing changes."""
+    import importlib
+
+    import torch
+
+    from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
+
+    seen = {"elements": 0, "flipped": 0, "far": 0, "farthest": 0.0}
+    if sides is None:
+        yield seen
+        return
+    ops_calls, chain_calls = iter(sides["ops"]), []
+    eps = torch.finfo(dtype).eps
+
+    def taken(x, side):
+        """The sign each element of x takes (True: positive)."""
+        if side.shape != x.shape:
+            raise ValueError(f"relu_sides: the devices' ReLUs differ: "
+                             f"{tuple(side.shape)} vs {tuple(x.shape)}")
+        pos = x > 0
+        differ = pos != side
+        unit = eps * x.detach().abs().max().float().clamp_min(1e-30)
+        dist = x.detach().abs().float() / unit
+        near = differ & (dist <= RELU_KINK_EPS)
+        seen["elements"] += x.numel()
+        seen["flipped"] += int(near.sum())
+        seen["far"] += int((differ & ~near).sum())
+        if near.any():
+            seen["farthest"] = max(seen["farthest"], dist[near].max().item())
+        return torch.where(near, side, pos)
+
+    def relu(x):
+        if record:
+            sides["ops"].append((x > 0).to("cpu"))
+            return torch.relu(x)
+        return x * taken(x, next(ops_calls)).to(x.dtype)
+
+    def chain_relu(x):
+        # the forward twin's hops 0 .. n-1, then the backward's n-1 .. 0;
+        # q > 0 exactly where the side taken is positive (the backward's
+        # mask)
+        hops = sides["chain"][0]
+        k = len(chain_calls)
+        chain_calls.append(k)
+        if k >= len(hops) * (1 + sides["chain_bwd"]):
+            raise ValueError(f"relu_sides: more query ReLUs in the chain "
+                             f"twins than {len(hops)} a pass of the card's")
+        side = hops[k if k < len(hops) else 2 * len(hops) - 1 - k]
+        return torch.where(taken(x, side),
+                           x.abs().clamp_min(torch.finfo(x.dtype).tiny),
+                           torch.zeros_like(x))
+
+    def chain_bwd(*args):
+        sides["chain_bwd"] += 1
+        return launch_bwd(*args)
+
+    def chain(*args):
+        out, curs = launch(*args)
+        wq, bq, dt = args[8], args[9], args[3].dtype
+        sides["chain"].append([
+            (curs[i].to(dt).float().cpu() @ wq[i].float().cpu()
+             + bq[i].float().cpu()) > 0 for i in range(curs.shape[0])])
+        return out, curs
+
+    class Torch:
+        """torch, but its relu."""
+
+        def __init__(self, fn):
+            self.relu = fn
+
+        def __getattr__(self, attr):
+            return getattr(torch, attr)
+
+    mods = [importlib.import_module(f"mtamrecommender_tpu_torch.{m}")
+            for m in RELU_MODULES]
+    launch, launch_bwd = rc.readout_chain, rc.readout_chain_bwd
+    for m in mods:
+        m.torch = Torch(relu)
+    if record:
+        sides["chain_bwd"] = 0
+        rc.readout_chain, rc.readout_chain_bwd = chain, chain_bwd
+    elif sides["chain"]:
+        if len(sides["chain"]) != 1:
+            raise ValueError("relu_sides: one readout_chain call a step")
+        rc.torch = Torch(chain_relu)
+    try:
+        yield seen
+    finally:
+        for m in mods + [rc]:
+            m.torch = torch
+        rc.readout_chain, rc.readout_chain_bwd = launch, launch_bwd
+    if not record:
+        left = sum(1 for _ in ops_calls)
+        hops = len(sides["chain"][0]) if sides["chain"] else 0
+        if left or len(chain_calls) != hops * (1 + sides["chain_bwd"]):
+            raise ValueError(f"relu_sides: the CPU's step left {left} of the "
+                             f"card's ReLUs and made {len(chain_calls)} "
+                             f"query ReLUs in the chain twins for {hops} "
+                             f"hops")
+
+
+@contextlib.contextmanager
+def float64_twins():
+    """Within the block the CPU path runs in float64 where its twins fix
+    f32 inside themselves: the attention middle is `reference_middle`
+    under autograd in f64 (for `fused_attention_vjp`) and the table
+    lookups plain indexing (for `take_dtable`, whose `dtable` twin sums
+    in f32).  The main path is untouched outside the block."""
+    import torch
+
+    from mtamrecommender_tpu_torch.ops import embedding
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    vjp, take = ak.fused_attention_vjp, embedding.take_dtable
+
+    def middle(mode, *args):
+        return ak.reference_middle(mode, *args, dtype=torch.float64)
+
+    ak.fused_attention_vjp = middle
+    embedding.take_dtable = lambda table, ids: table[ids.long()]
+    try:
+        yield
+    finally:
+        ak.fused_attention_vjp, embedding.take_dtable = vjp, take
+
+
+def float64_step(torch, setup, cfg, drop_masks=None, neg_id=None):
+    """The f32 step's gradients computed in float64 on the CPU: the
+    setup's model and first batch cast to f64, under `float64_twins`."""
+    from mtamrecommender_tpu_torch.models.base import cast_floats
+
+    model = setup.model(torch, cfg, "cpu").double()
+    with float64_twins():
+        _, grads = _loss_grads(torch, cfg, model,
+                               cast_floats(setup.batch_cpu, torch.float64),
+                               setup.meta.item_vocab, drop_masks, neg_id)
+    return grads
 
 
 def five_steps_check(torch, setup, failures, name):
@@ -3762,6 +4012,24 @@ CHAIN_CASES = ([(bs, 50, 128) for bs in (1, 16, 256)]
 # live); phase 4's shape is added
 CHAIN_ONE_HOP_CASES = ((1, 50, 128, False), (16, 50, 128, False),
                        (16, 50, 16, False))
+# phase 15's readouts at the reference's cap, L=150 with positional wo2
+# rows: (B, L, d, every key live); phase 14's shape is added
+CHAIN_CAP_CASES = tuple((bs, 150, 128, False) for bs in (1, 16, 64))
+# the groups phase 2f holds: (hops, cases, the kernels line's shape, the
+# timed (B, L), the wo2 rows: "positional", "scalar", or None for
+# positional at L=50, d=128 and scalar elsewhere)
+CHAIN_GROUPS = (
+    (3, tuple((bs, L, d, False) for bs, L, d in CHAIN_CASES if L <= 64),
+     "L50", (TRAIN_BATCH, 50), None),
+    (1, CHAIN_ONE_HOP_CASES, "L50h1", (TRAIN_BATCH, 50), None),
+    (3, tuple((bs, L, d, False) for bs, L, d in CHAIN_CASES if L > 64),
+     "L150", (64, 150), "scalar"),
+    # the positional gate at L=150 (MTAM and the time-readout models of
+    # phase 15), then NARM+'s / NARM++'s one hop and
+    # MTAM_with_T_SeqRec's six hops there
+    (3, CHAIN_CAP_CASES, "L150pos", (64, 150), "positional"),
+    (1, CHAIN_CAP_CASES, "L150h1", (64, 150), "positional"),
+    (6, CHAIN_CAP_CASES, "L150h6", (64, 150), "positional"))
 # the staged and blocked designs' templated kernels (phase 1's ptxas
 # lines)
 CHAIN_FWD_STAGED_KERNELS = ("chain_fwd_staged_kernel",
@@ -3994,41 +4262,37 @@ def chain_occupancy(rc, dname, bwd, L=50, d=128):
 
 def check_chain_kernels(torch, timer, iters, failures):
     """Phase 2f: readout_chain and readout_chain_bwd against their plain
-    twins at CHAIN_CASES in f32 and bf16 (3 hops; positional wo2 rows at
-    L=50, d=128, scalar elsewhere; ragged keys, one row with no live key
-    from B=16 on, one masked query), then at ONE hop at
-    CHAIN_ONE_HOP_CASES (NARM+'s and NARM++'s readout), each in the
-    design the wrapper must pick ("staged" at L=50, "blocked" at L=150
-    and 255), two launches of each bit-equal, and the rows design forced
-    beside it, held and bit-equal the same way: the forward's output and
-    hop-input chain (`check_chain_fwd`), the backward's ten cotangents
-    from the kernel's chain, every score-side cotangent of a row with no
-    live key exactly 0 (`check_chain_bwd`); timed, with the twins beside
-    them, at phase 4's shape (B=256, L=50, d=128, every key live; 3 hops:
+    twins in f32 and bf16 at each of CHAIN_GROUPS: CHAIN_CASES at 3 hops
+    (positional wo2 rows at L=50, d=128, scalar elsewhere), ONE hop at
+    CHAIN_ONE_HOP_CASES (NARM+'s and NARM++'s readout at L=50), and
+    CHAIN_CAP_CASES (L=150, positional wo2 rows: phase 15's readouts) at
+    3, 1 and 6 hops (MTAM_with_T_SeqRec's preset); ragged keys, one row
+    with no live key from B=16 on, one masked query; each in the design
+    the wrapper must pick ("staged" at L=50, "blocked" at L=150 and 255),
+    two launches of each bit-equal, and the rows design forced beside it,
+    held and bit-equal the same way: the forward's output and hop-input
+    chain (`check_chain_fwd`), the backward's ten cotangents from the
+    kernel's chain, every score-side cotangent of a row with no live key
+    exactly 0 (`check_chain_bwd`); timed, with the twins beside them, at
+    phase 4's shape (B=256, L=50, d=128, every key live; 3 hops:
     ``@L50``, 1 hop: ``@L50h1``) and at phase 14's (B=64, L=150, every key
-    live: ``@L150``), each kernel's picked and rows designs in turns with
+    live: ``@L150`` scalar, ``@L150pos`` positional, ``@L150h1`` and
+    ``@L150h6``), each kernel's picked and rows designs in turns with
     the profiler's split by kernel (`time_chain_fwd`, `time_chain_bwd`)
     and its per-row kernel's shared memory and blocks an SM."""
     from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
 
     gen = torch.Generator(device=DEVICE).manual_seed(97531)
     entries = {}
-    timed = {"L50": (TRAIN_BATCH, 50), "L50h1": (TRAIN_BATCH, 50),
-             "L150": (L150_BATCH, L150)}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for hops, cases, shape in (
-                (3, [(bs, L, d, False) for bs, L, d in CHAIN_CASES
-                     if L <= 64], "L50"),
-                (1, list(CHAIN_ONE_HOP_CASES), "L50h1"),
-                (3, [(bs, L, d, False) for bs, L, d in CHAIN_CASES
-                     if L > 64], "L150")):
+        for hops, cases, shape, (t_batch, t_len), wo2 in CHAIN_GROUPS:
             fwd = {"err": 0.0, "rel": 0.0, "ok": True, "same": True,
                    "rows_rel": 0.0, "vs_rows_rel": 0.0, "rows_same": True}
             bwd = dict(fwd)
-            t_batch, t_len = timed[shape]
-            for bs, L, d, full in cases + [(t_batch, t_len, 128, True)]:
-                gate = "positional" if L == 50 and d == 128 else "scalar"
+            for bs, L, d, full in cases + ((t_batch, t_len, 128, True),):
+                gate = wo2 or ("positional" if L == 50 and d == 128
+                               else "scalar")
                 args = chain_inputs(torch, gen, dtype, bs, L, d, n=hops,
                                     gate=gate, full=full)
                 fwd_design, curs, fgot = check_chain_fwd(torch, rc, args,
@@ -4185,13 +4449,15 @@ class XLSetup:
 
 
 def serve_xl(torch, failures, setup, name, want, main_launches,
-             held_at_each=False):
+             held_at_each=False, batches=(1, 16, XL_BATCH),
+             dtypes=("bfloat16", "float32")):
     """Recommender.recommend for ``name`` at the setup's L (phase 7's
-    2048; phase 13's 256) for B = 1, 16, 64 in bf16 and f32: the launches
-    of one call, counted from 0, against ``want(dtype name)`` (added to
-    ``main_launches``), and the time per request batch; the scores
-    against the same Recommender on the CPU at B = XL_SMALL (the CPU's
-    time at L=2048 sets that size), or with ``held_at_each`` at each B."""
+    2048; phase 13's 256; phases 14-15's 150) for B in ``batches`` in
+    each of ``dtypes``: the launches of one call, counted from 0, against
+    ``want(dtype name)`` (added to ``main_launches``), and the time per
+    request batch; the scores against the same Recommender on the CPU at
+    B = XL_SMALL (the CPU's time at L=2048 sets that size), or with
+    ``held_at_each`` at each B."""
     from mtamrecommender_tpu_torch.models.base import scores_for_eval
     from mtamrecommender_tpu_torch.serve import Recommender
 
@@ -4218,7 +4484,7 @@ def serve_xl(torch, failures, setup, name, want, main_launches,
 
     hists2, req2 = make_histories(np.random.RandomState(XL_SMALL), XL_SMALL,
                                   meta.item_count, meta.category_count, L)
-    for dname in ("bfloat16", "float32"):
+    for dname in dtypes:
         cfg = setup.cfg(dname, name)
         model = setup.model(torch, cfg, "cpu")
         rec_cpu = Recommender(cfg, meta, copy.deepcopy(model), device="cpu")
@@ -4233,7 +4499,7 @@ def serve_xl(torch, failures, setup, name, want, main_launches,
             if not scores_ok:
                 failures.append(f"serve {name} L={L} {dname}: rel score "
                                 f"err {rel:.3e}, top-k {topk_ok}")
-        for bs in (1, 16, XL_BATCH):
+        for bs in batches:
             hists, req = make_histories(np.random.RandomState(bs), bs,
                                         meta.item_count, meta.category_count,
                                         L)
@@ -4862,14 +5128,14 @@ def run_from_disk(torch, setup, failures):
 class ZooModel(NamedTuple):
     """A zoo model's paths on phase 4's cell: the GRU pair's mode (None:
     no GRU), the Tq=1 readout's attention kind (None: no readout) and
-    hops (None: the cell's), whether it self-attends (time blocks at Tq
-    = Tk = 50, the cell's count), whether its GRU starts from the user's
-    embedding, and the tables its loss reaches (dtable launches a
-    step)."""
+    hops (None: the cell's), the mode of its self-attention blocks in
+    training (at Tq = Tk = L, the cell's count; None: it does not
+    self-attend), whether its GRU starts from the user's embedding, and
+    the tables its loss reaches (dtable launches a step)."""
     gru: Optional[str]
     att: Optional[str] = None
     hops: Optional[int] = None
-    self_att: bool = False
+    self_att: Optional[str] = None
     h0: bool = False
     tables: int = 4
 
@@ -4891,7 +5157,7 @@ ZOO_MODELS = {"Gru4Rec": ZooModel("plain"),
               "LSTUR": ZooModel("plain", h0=True),
               "LSTUR_time_rnn": ZooModel("tseqrec", h0=True),
               "STAMP": ZooModel(None),
-              "pistrec": ZooModel("tseqrec", "time", self_att=True),
+              "pistrec": ZooModel("tseqrec", "time", self_att="time"),
               "bpr": ZooModel(None, tables=2)}
 # the paths phase 9 must show launches on, each a group of zoo models:
 # (group, kernel, mode)
@@ -4908,7 +5174,7 @@ ZOO_CHECK_BATCH = 64         # the one-step check against the CPU
 # MTAM_with_T_SeqRecb6_yoochoose's hops (mtamrecommender_tpu/config.py)
 ZOO_PRESET = ("MTAM_with_T_SeqRec", 6)
 ZOO_EVAL_ROWS = 2048         # one batch of train.test_batch_size
-ZOO_TIMED_STEPS = 4          # timed make_superstep steps a model, in bf16
+ZOO_TIMED_STEPS = 3          # timed make_superstep steps a model, in bf16
 
 
 def _zoo_groups(spec):
@@ -4952,8 +5218,7 @@ def _zoo_want(spec, hops=3):
     n = spec.hops or hops
 
     def train(steps, dname=None):
-        want = _want_counts(steps, gru=spec.gru,
-                            attention="time" if spec.self_att else None,
+        want = _want_counts(steps, gru=spec.gru, attention=spec.self_att,
                             blocks=hops, chain=spec.att == "time")
         want["dtable"]["dtable"] = spec.tables * steps
         return want
@@ -4965,23 +5230,28 @@ def _zoo_want(spec, hops=3):
         serve["fused_attention"][spec.att] += n
         serve["fused_attention_hop"][spec.att] += n
     if spec.self_att:
-        serve["fused_attention"]["time"] += hops
+        serve["fused_attention"][spec.self_att.replace("_drop", "")] += hops
     return train, serve
 
 
 def _zoo_sources(torch, setup, name, spec):
     """The one-step check's injected draws: CPU masks f32 [B, 1, L], one a
-    plain readout hop at the cell's dropout; bpr's negative item."""
+    plain readout hop at the cell's dropout, or [B, L, L], one a
+    self-attention block that drops; bpr's negative item."""
     from mtamrecommender_tpu_torch.models.registry import get_model
     from mtamrecommender_tpu_torch.ops.layers import draw_drop_mask
 
     kw = {}
+    b, L = setup.batch_cpu.items.shape
+    rate = setup.cfg("float32", name).model.dropout
     if spec.att == "plain":
         gen = torch.Generator().manual_seed(26)
-        b, L = setup.batch_cpu.items.shape
-        rate = setup.cfg("float32", name).model.dropout
         kw["drop_masks"] = [draw_drop_mask(gen, b, 1, L, rate, "cpu")
                             for _ in range(spec.hops or setup.hops)]
+    if spec.self_att and spec.self_att.endswith("_drop"):
+        gen = torch.Generator().manual_seed(99)
+        kw["drop_masks"] = [draw_drop_mask(gen, b, L, L, rate, "cpu")
+                            for _ in range(setup.hops)]
     if get_model(name).output_mode == "bpr":
         kw["neg_id"] = torch.tensor([BPR_NEGATIVE], dtype=torch.int32)
     return kw
@@ -5239,7 +5509,7 @@ def run_zoo(torch, setup, failures):
     """Phase 9: the registry's models but MTAM and the self-attention
     models (ZOO_MODELS) on phase 4's cell at 3 hops (`zoo_model`);
     MTAM_with_T_SeqRec at its preset's 6 hops (one step against the CPU
-    at B=256, 4 timed bf16 steps, recommend at B=256 against the CPU and
+    at B=256, 3 timed bf16 steps, recommend at B=256 against the CPU and
     timed); bidirectional_gru_net as a module; MTAM_hybird from disk;
     FPMC.  Returns (report, the main paths' launches, the launches of
     each group of ZOO_GROUP_KERNELS)."""
@@ -6643,13 +6913,145 @@ def wide_twins():
         ak.fused_attention_plain, ak.fused_attention_bwd_plain = fwd, bwd
 
 
+def exact_gate_terms(torch, mode, g, args):
+    """Every gate term of one fused_attention_bwd call (its arguments
+    ``g`` and ``args`` on the CPU; gate params [Tq, Tk] tiles or scalars)
+    in float64:
+    `reference_middle` under autograd in f64, each gate param spread over
+    [B, Tq, Tk], the cotangent g; terms at keys past a row's key_len are
+    0, as the kernel's.  Returns the five [B, Tq, Tk] planes in the
+    order of the backward's gate outputs."""
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    b, tq = g.shape[:2]
+    tk = args[1].shape[1]
+    x = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+         for a in args]
+    gates = [x[i].expand(b, tq, tk).clone().requires_grad_()
+             for i in range(7, 12)]
+    x[7:12] = gates
+    out = ak.reference_middle(mode, *x, dtype=torch.float64)
+    terms = torch.autograd.grad((out * g.double()).sum(), gates)
+    live = torch.arange(tk)[None, None, :] < args[12][:, None, None]
+    return [torch.where(live, t, torch.zeros_like(t)) for t in terms]
+
+
+def gate_terms_check(torch, setup, name, failures):
+    """The wide backward's gate cotangents on the card's own inputs
+    against float64 (phase 13, f32, the time mode).  One step of ``name``
+    on the card keeps each fused_attention_bwd call's arguments and
+    results.  On the same arguments, copied to the CPU, the wide twin
+    (`_wide_design_plain`) gives its f32 terms (those `_gate_sum` adds)
+    and sums, and `exact_gate_terms` every term in f64.  The card's
+    terms are its call again a batch row at a time (the gate launch then
+    sums one row, so its planes are that row's terms).  Per gate leaf (a
+    block's scalar gate: the sum of its [Tq, Tk] plane) two things are
+    held within TRAIN_TOL["float32"]: every card term's distance from the
+    f64 term, relative to the largest |f64 term|, and the card's sum's
+    from the exact sum of its own terms (the gate sums' order), relative
+    to the leaf's |value|.  Reported: the largest distance between a
+    card term and the twin's, and each side's from f64, in f32 eps of
+    that largest term; the card's and the twin's sums from f64, relative
+    to the leaf's |value| and in units of u R, where u is f32's unit
+    roundoff and R = sqrt(sum over the call's batch rows and queries of
+    (sum |t| over the keys)^2), the spread that a relative rounding
+    shared by one query's terms (its softmax weights' sum, its D_i)
+    gives the sum; the cancellation, sum |t| / |sum t|.  Returns
+    {leaf: {...}}."""
+    from mtamrecommender_tpu_torch.ops.attention import GATE_PARAMS
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+
+    cfg = setup.cfg("float32", name)
+    bwd, calls = ak.fused_attention_bwd, []
+
+    def kept(mode, g, *args):
+        out = bwd(mode, g, *args)
+        calls.append((mode, g.detach(), [None if a is None else a.detach()
+                                         for a in args], out))
+        return out
+
+    ak.fused_attention_bwd = kept
+    try:
+        _loss_grads(torch, cfg, setup.model(torch, cfg, DEVICE), setup.batch,
+                    setup.meta.item_vocab)
+    finally:
+        ak.fused_attention_bwd = bwd
+    gate_sum, twin_terms = ak._gate_sum, []
+
+    def terms_kept(terms, rows):
+        twin_terms.append(terms)
+        return gate_sum(terms, rows)
+
+    batch_args = (0, 1, 2, 3, 4, 5, 6, 12, 13)   # q .. rawk, key_len, dm
+    eps, tol = torch.finfo(torch.float32).eps, TRAIN_TOL["float32"]
+    report = {}
+    for j, (mode, g, args, out) in enumerate(calls):
+        block = len(calls) - 1 - j                 # the backward's order
+        cpu = [None if a is None else a.cpu() for a in args]
+        twin_terms.clear()
+        ak._gate_sum = terms_kept
+        try:
+            twin = ak._wide_design_plain(mode, g.cpu(), *cpu)
+        finally:
+            ak._gate_sum = gate_sum
+        exact = exact_gate_terms(torch, mode, g.cpu(), cpu)
+        with torch.no_grad():
+            rows = [bwd(mode, g[r:r + 1].contiguous(), *(
+                a[r:r + 1].contiguous() if i in batch_args and a is not None
+                else a for i, a in enumerate(args)))
+                for r in range(g.shape[0])]
+        for k, gate in enumerate(GATE_PARAMS):
+            leaf = f"att.{block}.{gate}"
+            card_t = torch.stack([row[5 + k] for row in rows]).cpu().double()
+            twin_t, t64 = twin_terms[k].double(), exact[k]
+            s64 = t64.sum().item()
+            scale, unit = max(abs(s64), 1e-30), max(
+                t64.abs().max().item(), 1e-30)
+            card, wide = out[5 + k].sum().item(), twin[5 + k].sum().item()
+            spread = eps / 2 * t64.abs().sum(-1).square().sum().sqrt().item()
+            r = report[leaf] = {
+                "f64": s64,
+                "cancellation": t64.abs().sum().item() / scale,
+                "card_sum_from_f64": abs(card - s64) / scale,
+                "twin_sum_from_f64": abs(wide - s64) / scale,
+                "card_sum_from_f64_uR": abs(card - s64) / spread,
+                "twin_sum_from_f64_uR": abs(wide - s64) / spread,
+                "card_sum_from_its_terms": abs(
+                    card - card_t.sum().item()) / scale,
+                "card_terms_from_f64_eps": (card_t - t64).abs().max().item()
+                / (eps * unit),
+                "twin_terms_from_f64_eps": (twin_t - t64).abs().max().item()
+                / (eps * unit),
+                "card_terms_from_twin_eps": (card_t - twin_t).abs().max()
+                .item() / (eps * unit)}
+            r["ok"] = (math.isfinite(card)
+                       and r["card_sum_from_its_terms"] <= tol
+                       and r["card_terms_from_f64_eps"] * eps <= tol)
+            print(f"    gate terms {name} {leaf:24s} cancellation="
+                  f"{r['cancellation']:.1e}; sum from f64: card "
+                  f"{r['card_sum_from_f64']:.2e} = "
+                  f"{r['card_sum_from_f64_uR']:.2f} uR (its sums "
+                  f"{r['card_sum_from_its_terms']:.2e}), twin "
+                  f"{r['twin_sum_from_f64']:.2e} = "
+                  f"{r['twin_sum_from_f64_uR']:.2f} uR; terms in eps of the "
+                  f"largest: card-f64 {r['card_terms_from_f64_eps']:.1f}, "
+                  f"twin-f64 {r['twin_terms_from_f64_eps']:.1f}, card-twin "
+                  f"{r['card_terms_from_twin_eps']:.1f} "
+                  f"{'ok' if r['ok'] else 'FAIL'}", flush=True)
+            if not r["ok"]:
+                failures.append(f"gate terms {name} {leaf}: {r}")
+    return report
+
+
 def run_l256(torch, failures):
     """Phase 13: Time_Aware_SA, SASrec and TiSAS at L=256 (`L256Setup`):
     one step's loss and every gradient leaf against the CPU in f32 and
     bf16 at B = L256_SMALL (SASrec's and TiSAS's masks drawn on the CPU
-    and injected on both sides; each f32 leaf allowed the CPU's own gap
-    between the plain twins' order and the wide designs', `wide_twins`),
-    the launches of the step exactly (3
+    and injected on both sides; each f32 leaf allowed the CPU's gap
+    between the plain twins' order and the wide designs' (`wide_twins`),
+    and its distance from an f64 CPU step printed for the card and both
+    orders), Time_Aware_SA's gate cotangents on the card's own inputs
+    against f64 (`gate_terms_check`), the launches of the step exactly (3
     fused_attention + 3 fused_attention_bwd, all in the wide design, + 4
     dtable; no query, rows or dense launch), the step timed at B=64 in
     bf16 and f32 with its device idle share (the drop modes' masks from
@@ -6673,6 +7075,9 @@ def run_l256(torch, failures):
                                            0.5, "cpu") for _ in range(3)]
         rep = one_step_check(torch, setup, failures, name, want, masks,
                              cpu_order=wide_twins)
+        if mode == "time":
+            rep["gate_terms_against_f64"] = gate_terms_check(
+                torch, setup, name, failures)
         rep.update(timed_steps(torch, setup, failures, name, want, launches,
                                steps=10, warm=2))
         report[name] = rep
@@ -6691,6 +7096,7 @@ def run_l256(torch, failures):
 # ------------------------------------------------------------ phase 14
 
 L150, L150_BATCH = 150, LONG_BATCH
+L150_TIMED_STEPS = 5         # phase 14's timed steps a dtype
 
 
 class L150Setup(L256Setup):
@@ -6772,8 +7178,9 @@ def run_l150(torch, timer, failures):
     gradient leaf against the CPU in f32 and bf16 at B = L256_SMALL, the
     launches of the step exactly (1 gru_scan + 1 gru_scan_bwd, 1
     readout_chain + 1 readout_chain_bwd both in the blocked design, 4
-    dtable; no rows-design, fused_readout or fused_attention launch), 10
-    steps timed at B=64 in bf16 and f32 with the device idle share, the
+    dtable; no rows-design, fused_readout or fused_attention launch),
+    L150_TIMED_STEPS steps timed at B=64 in bf16 and f32 with the device
+    idle share, the
     serving hops' kernel at Tq=1, Tk=150 (`check_l150_query`), and
     Recommender.recommend at B = 1, 16, 64 in bf16 and f32 against the
     CPU at each B for MTAM (1 gru_scan + 3 fused_attention[time] in the
@@ -6803,7 +7210,7 @@ def run_l150(torch, timer, failures):
     launches, serve_launches = {}, {}
     report = one_step_check(torch, setup, failures, "MTAM", want)
     report.update(timed_steps(torch, setup, failures, "MTAM", want, launches,
-                              steps=10, warm=2))
+                              steps=L150_TIMED_STEPS, warm=2))
     entries = check_l150_query(torch, timer, 50, failures)
     report["serving"] = serve_xl(torch, failures, setup, "MTAM",
                                  want_call("time"), serve_launches,
@@ -6814,14 +7221,208 @@ def run_l150(torch, timer, failures):
     return report, entries, launches, serve_launches
 
 
+# ------------------------------------------------------------ phase 15
+
+# every registry model's paths (ZooModel); phase 15 runs those whose
+# kernels' designs read the sequence length and change past 64 keys
+REGISTRY_PATHS = {
+    "MTAM": ZooModel("tgru", "time"), **ZOO_MODELS,
+    "Time_Aware_Self_Attention_Model": ZooModel(None, self_att="time"),
+    "SASrec": ZooModel(None, self_att="plain_drop"),
+    "Ti_Self_Attention_Model": ZooModel(None, self_att="tisas_drop")}
+CAP_TIMED_STEPS = 3          # timed make_superstep steps a model, in bf16
+CAP_PRESET_HOPS = {ZOO_PRESET[0]: ZOO_PRESET[1]}
+
+
+def length_designs(spec, L, d=128, dtype_name="bfloat16"):
+    """The designs of the kernels a step and a call of a model with paths
+    ``spec`` launch whose design reads the sequence length L: the chain
+    pair (`readout_chain_kernel._pick_design`, both halves) where it
+    reads out in the time kind, the attention forward at Tq = 1 where it
+    reads out, the attention pair at Tq = Tk = L where it self-attends
+    (`attention_kernel.attention_fwd_design` / `attention_bwd_design`).
+    The GRU pair and dtable read no length in their design."""
+    import torch
+
+    from mtamrecommender_tpu_torch.ops.kernels import attention_kernel as ak
+    from mtamrecommender_tpu_torch.ops.kernels import readout_chain_kernel as rc
+
+    dt = getattr(torch, dtype_name)
+    out = {}
+    if spec.att == "time":
+        out["readout_chain"] = rc.chain_fwd_design(dt, L, d)
+        out["readout_chain_bwd"] = rc.chain_bwd_design(dt, L, d)
+    if spec.att:
+        out[f"fused_attention[{spec.att}]@Tq1"] = ak.attention_fwd_design(
+            dt, 1, L, d)
+    if spec.self_att:
+        out[f"fused_attention[{spec.self_att}]"] = ak.attention_fwd_design(
+            dt, L, L, d)
+        out[f"fused_attention_bwd[{spec.self_att}]"] = \
+            ak.attention_bwd_design(dt, L, L, d)
+    return out
+
+
+def models_at_cap(L=L150):
+    """The registry models (REGISTRY_PATHS, which must name every entry
+    of models/registry.py) whose kernels take another design at L keys
+    than at phase 4's L=50: name -> (paths, hops, the designs at L)."""
+    from mtamrecommender_tpu_torch.models.registry import MODEL_REGISTRY
+
+    if set(REGISTRY_PATHS) != set(MODEL_REGISTRY):
+        odd = sorted(set(REGISTRY_PATHS) ^ set(MODEL_REGISTRY))
+        raise ValueError(f"REGISTRY_PATHS must name every registry model: "
+                         f"{odd}")
+    out = {}
+    for name, spec in REGISTRY_PATHS.items():
+        at = length_designs(spec, L)
+        if at != length_designs(spec, 50):
+            out[name] = (spec, spec.hops or CAP_PRESET_HOPS.get(name, 3), at)
+    return out
+
+
+class CapSetup:
+    """Phase 14's data (``base``, an `L150Setup`) at the JAX package's
+    default decay gate (positional: LONG_OVERRIDES' scalar gate dropped)
+    with ``hops`` readout hops or blocks and the config ``over`` (a
+    pistrec_type) on top; ``batch`` and ``batch_cpu`` are phase 14's
+    first L256_SMALL rows."""
+
+    model = TrainSetup.model
+    batch_size = L150_BATCH
+
+    def __init__(self, base, hops=3, over=None):
+        for k in ("meta", "data", "data_cpu", "order", "order_cpu",
+                  "batch", "batch_cpu"):
+            setattr(self, k, getattr(base, k))
+        self.hops, self.over = hops, dict(over or {})
+
+    def cfg(self, dname, name="MTAM"):
+        from mtamrecommender_tpu_torch.config import ModelConfig
+        return L150Setup.cfg(dname, name).with_overrides(**{
+            "model.time_gate_mode": ModelConfig().time_gate_mode,
+            "model.num_blocks": self.hops, **self.over})
+
+
+def _cap_want(spec, hops):
+    """`_zoo_want`'s launches at L=150: the chain pair in its blocked
+    design, the Tq = 1 forward's hops in the blocked design (none in the
+    hop design), the self-attention pair in the wide designs."""
+    train50, serve = _zoo_want(spec, hops)
+    n = spec.hops or hops
+
+    def train(steps, dname=None):
+        want = train50(steps)
+        if spec.att == "time":
+            want["readout_chain_blocked"]["readout_chain_blocked"] = steps
+            want["readout_chain_bwd_blocked"][
+                "readout_chain_bwd_blocked"] = steps
+        if spec.self_att:
+            want["fused_attention_wide"][spec.self_att] = hops * steps
+            want["fused_attention_bwd_wide"][spec.self_att] = hops * steps
+        return want
+
+    if spec.att:
+        serve["fused_attention_hop"][spec.att] = 0
+        serve["fused_attention_blocked"][spec.att] = n
+    if spec.self_att:
+        serve["fused_attention_wide"][spec.self_att.replace("_drop", "")] \
+            = hops
+    return train, lambda dname: serve
+
+
+def _cap_model(torch, base, failures, name, spec, hops, steps, calls):
+    """One model at the cap (`CapSetup`): one step against the CPU in f32
+    and bf16 at B = L256_SMALL with its launches (draws injected:
+    `_zoo_sources`), CAP_TIMED_STEPS steps timed at B=64 in bf16 after
+    one warm-up (added to ``steps``), and recommend at B = 1, 16, 64 in
+    bf16 and f32 against the CPU at each B (added to ``calls``)."""
+    setup = CapSetup(base, hops)
+    train_want, serve_want = _cap_want(spec, hops)
+    rep = one_step_check(torch, setup, failures, name, train_want,
+                         relu_kinks=True,
+                         **_zoo_sources(torch, setup, name, spec))
+    rep.update(timed_steps(torch, setup, failures, name, train_want, steps,
+                           steps=CAP_TIMED_STEPS, warm=1,
+                           dtypes=("bfloat16",)))
+    rep["serving"] = serve_xl(torch, failures, setup, name, serve_want,
+                              calls, held_at_each=True)
+    return rep
+
+
+def _pistrec_want(train_all, kind):
+    """A PISTRec step's launches in ``kind`` (PISTREC_TYPES): every
+    forward, and the backward of the branches the prediction reads (the
+    "hard" switch indexes all three; "hybird" reads the cross attention
+    over the self-attended history from the T-SeqRec intent): the GRU's
+    where it reads the short-term or hybrid branch, the self-attention
+    blocks' where it reads the long-term or hybrid one, the chain's
+    where it reads the hybrid one."""
+    reads = {"soft": "lsh", "hard": "lsh", "short": "s", "long": "l",
+             "hybird": "h"}[kind]
+
+    def train(steps, dname=None):
+        want = train_all(steps, dname)
+        if not set(reads) & set("sh"):
+            want["gru_scan_bwd"]["tseqrec"] = 0
+        if not set(reads) & set("lh"):
+            want["fused_attention_bwd"]["time"] = 0
+            want["fused_attention_bwd_wide"]["time"] = 0
+        if "h" not in reads:
+            want["readout_chain_bwd"]["readout_chain_bwd"] = 0
+            want["readout_chain_bwd_blocked"]["readout_chain_bwd_blocked"] = 0
+        return want
+    return train
+
+
+def run_cap(torch, failures):
+    """Phase 15: the registry at the reference's cap.  On phase 14's data
+    at the default (positional) gate, every model `models_at_cap` lists
+    (printed with its designs at L=150) through `_cap_model`; then
+    PISTRec's other pistrec_types (PISTREC_TYPES), one f32 step and
+    recommend at B=16 in f32 against the CPU each.  Returns (report, the
+    steps' launches by readout hops, the calls' launches)."""
+    from mtamrecommender_tpu_torch.models.pistrec import PISTREC_TYPES
+
+    base = L150Setup(torch)
+    listed = models_at_cap()
+    print(f"phase 15 at L={L150}: {len(listed)} models whose kernels change "
+          "design past 64 keys:", flush=True)
+    for name, (spec, hops, designs) in listed.items():
+        print(f"    {name} hops={hops} {designs}", flush=True)
+    report = {"models": {n: {"hops": h, "designs": d}
+                         for n, (_, h, d) in listed.items()}}
+    by_hops, calls = {}, {}
+    for name, (spec, hops, _) in listed.items():
+        steps = by_hops.setdefault(spec.hops or hops, {})
+        report[name] = _cap_model(torch, base, failures, name, spec, hops,
+                                  steps, calls)
+    spec, kinds = REGISTRY_PATHS["pistrec"], {}
+    train_all, serve_want = _cap_want(spec, 3)
+    for kind in PISTREC_TYPES:
+        if kind == CapSetup(base).cfg("float32", "pistrec").model.pistrec_type:
+            continue                      # the default, run above
+        setup = CapSetup(base, 3, {"model.pistrec_type": kind})
+        rep = one_step_check(torch, setup, failures, "pistrec",
+                             _pistrec_want(train_all, kind),
+                             dtypes=("float32",), relu_kinks=True)
+        rep["serving"] = serve_xl(torch, failures, setup, "pistrec",
+                                  serve_want, calls, held_at_each=True,
+                                  batches=(16,), dtypes=("float32",))
+        kinds[kind] = rep
+    report["pistrec_types"] = kinds
+    return report, by_hops, calls
+
+
 def kernels_line(entries, launches_by_shape):
     """One entry per kernel, mode and main-path shape: the attention
     kernels at Tq=1, Tk=50 (MTAM's readout hops, ``@Tq1``) and at
     Tq=Tk=50 (the self-attention blocks, ``@Tq50``) and at Tq=1, Tk=150
     (MTAM's serving hops at L=150, ``@L150Tq1``), the chain readout's
     pair at MTAM's L=50 step (B=256, ``@L50``), at one hop (NARM+'s and
-    NARM++'s, ``@L50h1``) and at MTAM's L=150 step (B=64, ``@L150``), the
-    readout, GRU
+    NARM++'s, ``@L50h1``) and at MTAM's L=150 step (B=64, ``@L150``; with
+    positional wo2 rows ``@L150pos``, at 1 and 6 hops ``@L150h1`` and
+    ``@L150h6``, phase 15's launches), the readout, GRU
     and dtable kernels at MTAM's long-history shape (B=64, L=512,
     ``@L512``), the blockwise attention at B=64, Tq=Tk=2048 (``@L2048``:
     the SIMT design, forced, and the tiled designs as
@@ -6911,7 +7512,8 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(prog="chip_smoke.py")
-    parser.add_argument("--only", choices=["10", "11", "12", "13", "14"],
+    parser.add_argument("--only",
+                        choices=["10", "11", "12", "13", "14", "15"],
                         default=None,
                         help="build, then run only this phase, and write "
                              "its report to chiprun_out/chip_smoke_<n>.json "
@@ -7062,6 +7664,24 @@ def main(argv=None) -> int:
             print(f"  {inst}: {regs} registers, {spill_st} bytes spill "
                   f"stores, {spill_ld} bytes spill loads", flush=True)
     lap("1")
+    if args.only == "15":
+        cap, cap_steps, cap_calls = run_cap(torch, failures)
+        lap("15")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_15.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "phase_s": phase_s, "cap": cap,
+                       "launches_by_hops": {
+                           h: {k: {str(m): n for m, n in v.items()}
+                               for k, v in got.items()}
+                           for h, got in cap_steps.items()},
+                       "launches_serving": {
+                           k: {str(m): n for m, n in v.items()}
+                           for k, v in cap_calls.items()},
+                       "failures": failures}, f, indent=1, default=str)
+        for msg in failures:
+            print(f"FAIL {msg}", file=sys.stderr)
+        return 1 if failures else 0
     if args.only == "14":
         l150, l150_entries, l150_launches, l150_serve = run_l150(
             torch, Timer(torch), failures)
@@ -7354,6 +7974,29 @@ def main(argv=None) -> int:
             failures.append(f"{kname}[{mode}] was never launched on the "
                             "L=150 paths")
     lap("14")
+
+    # phase 15: the registry at the reference's cap (L=150, positional)
+    cap, cap_steps, cap_calls = run_cap(torch, failures)
+    for got, kname, mode in (
+            (cap_steps.get(1, {}), "readout_chain_blocked", None),
+            (cap_steps.get(1, {}), "readout_chain_bwd_blocked", None),
+            (cap_steps.get(3, {}), "readout_chain_blocked", None),
+            (cap_steps.get(3, {}), "readout_chain_bwd_blocked", None),
+            (cap_steps.get(6, {}), "readout_chain_blocked", None),
+            (cap_steps.get(6, {}), "readout_chain_bwd_blocked", None),
+            (cap_steps.get(3, {}), "fused_attention_wide", "time"),
+            (cap_steps.get(3, {}), "fused_attention_bwd_wide", "time"),
+            (cap_steps.get(3, {}), "fused_attention_wide", "plain_drop"),
+            (cap_steps.get(3, {}), "fused_attention_wide", "tisas_drop"),
+            (cap_calls, "fused_attention_blocked", "time"),
+            (cap_calls, "fused_attention_blocked", "plain"),
+            (cap_calls, "fused_attention_wide", "time"),
+            (cap_calls, "gru_scan", "plain"), (cap_calls, "gru_scan", "tgru"),
+            (cap_calls, "gru_scan", "tseqrec")):
+        if got.get(kname, {}).get(mode, 0) == 0:
+            failures.append(f"{kname}[{mode}] was never launched on the "
+                            "registry's L=150 paths")
+    lap("15")
     print(f"phase seconds: {json.dumps(phase_s)}", flush=True)
 
     # launches on the main paths: MTAM's and the zoo models' at L=50
@@ -7403,6 +8046,11 @@ def main(argv=None) -> int:
     l2048 = {**xl_launches["L2048"],
              **{k: xl_launches["L2048Tq1"].get(k, {})
                 for k in ("gru_scan", "gru_scan_bwd")}}
+    # the blocked forward at Tq=1, Tk=150: phase 14's calls (every
+    # fused_attention launch a blocked hop) and phase 15's blocked hops
+    l150tq1 = copy.deepcopy(l150_serve)
+    _add_launches(l150tq1, {"fused_attention": cap_calls.get(
+        "fused_attention_blocked", {})})
     report = kernels_line(entries, {None: main_launches,
                                     "Tq1": mtam_launches,
                                     "Tq50": tq50_launches,
@@ -7411,7 +8059,10 @@ def main(argv=None) -> int:
                                     "L512": long_launches, **xl_launches,
                                     "L2048": l2048, "L256": l256_launches,
                                     "L150": l150_launches,
-                                    "L150Tq1": l150_serve})
+                                    "L150pos": cap_steps.get(3, {}),
+                                    "L150h1": cap_steps.get(1, {}),
+                                    "L150h6": cap_steps.get(6, {}),
+                                    "L150Tq1": l150tq1})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build_s": build_s,
@@ -7464,7 +8115,14 @@ def main(argv=None) -> int:
                                for k, v in by_kernel.items()}
                        for group, by_kernel in zoo_groups.items()},
                    "heads": heads, "parallel": dist_report,
-                   "l256": l256, "l150": l150,
+                   "l256": l256, "l150": l150, "cap": cap,
+                   "launches_cap_by_hops": {
+                       h: {k: {str(m): n for m, n in v.items()}
+                           for k, v in got.items()}
+                       for h, got in cap_steps.items()},
+                   "launches_cap_serving": {
+                       k: {str(m): n for m, n in v.items()}
+                       for k, v in cap_calls.items()},
                    "launches_l150": {k: {str(m): n for m, n in v.items()}
                                      for k, v in l150_launches.items()},
                    "launches_l150_serving": {

@@ -17,7 +17,9 @@ against the twins and against JAX's `_chain_fwd` / `_chain_bwd_impl`
 (the Pallas kernels in interpret mode) on the same numpy inputs: f32 and
 bf16, (L, d) = (65, 16), (150, 128), (255, 64), positional and scalar
 (constant) wo2 rows, ragged key lengths with a full row and a
-query-masked row; a row with no live key against the twins (and the
+query-masked row, and at 1, 3 and 6 hops (NARM+'s, MTAM's and
+MTAM_with_T_SeqRec's readouts) at (L, d) = (65, 16) (bf16 against the
+Pallas pair at 3 hops only); a row with no live key against the twins (and the
 Pallas forward; the Pallas backward gives that row a score gradient
 where the jnp reference gives none, tests/test_torch_chain_bwd_design.py).
 The routing, the refusals before any build and the launch counters
@@ -191,6 +193,55 @@ def test_blocked_design_matches_twins_and_pallas(tk, d, dname, gate_mode):
     bwd_design._hold(grads, [np.asarray(x, np.float32)
                              for x in _pallas_bwd(g, ins, dname, jcurs)],
                      dname, "pallas")
+    per_row = dict(zip(trc._GRADS, grads))
+    assert not per_row["dk"][:, 3].float().any()
+    assert not per_row["dgp"][:, 3].float().any()
+
+
+# the readouts' hop counts: NARM+ / NARM++ 1, MTAM 3, MTAM_with_T_SeqRec's
+# preset 6, at one blocked shape (two key blocks; SHAPES' first, whose
+# Pallas pair at 3 hops is traced above)
+HOP_COUNTS, HOPS_SHAPE = (1, 3, 6), (65, 16)
+
+
+@pytest.mark.parametrize("gate_mode", ["positional", "scalar"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", HOP_COUNTS)
+def test_blocked_design_over_hops_matches_twins_and_pallas(n, dname,
+                                                           gate_mode):
+    """The compositions at n hops (L=65, d=16) against the twins, f32 and
+    bf16, positional and scalar wo2 rows, and against JAX's Pallas pair
+    in interpret mode on the same inputs in f32 (in bf16 at 3 hops, as
+    the test above): each hop's input in the chain (curs [n, B, d]) and
+    every hop's cotangents [n, ...]; the masked query's row gets no
+    score gradient in any hop.  (Each Pallas trace in interpret mode
+    costs seconds: bf16 at 1 and 6 hops is held against the twins.)"""
+    tk, d = HOPS_SHAPE
+    ins = _inputs(tk, d, gate_mode, seed=7 * n + len(gate_mode), n=n)
+    args = _as_torch(ins, dname)
+    got = trc._blocked_fwd_design_plain(*args)
+    assert tuple(got[1].shape) == (n, len(ins["klen"]), d)
+    fwd_design._hold(got, trc.readout_chain_plain(*args), dname, "twin")
+    pallas = dname == "float32" or n == fwd_design.N_HOPS
+    b = len(ins["klen"])
+    g = np.random.RandomState(n + d).randn(b, d).astype(np.float32)
+    tg = torch.tensor(g).to(getattr(torch, dname))
+    if pallas:
+        jout, jcurs = jrc._chain_fwd(*_as_jax(ins, dname))
+        fwd_design._hold(got, [np.asarray(jout, np.float32),
+                               np.asarray(jcurs, np.float32)], dname,
+                         "pallas")
+        curs = torch.tensor(np.asarray(jcurs))
+    else:
+        curs = got[1]
+    grads = trc._blocked_bwd_design_plain(tg, *args[1:], curs)
+    assert tuple(grads[1].shape) == (n, b, tk, d)
+    bwd_design._hold(grads, trc.readout_chain_bwd_plain(tg, *args[1:], curs),
+                     dname, "twin")
+    if pallas:
+        bwd_design._hold(grads, [np.asarray(x, np.float32)
+                                 for x in _pallas_bwd(g, ins, dname, jcurs)],
+                         dname, "pallas")
     per_row = dict(zip(trc._GRADS, grads))
     assert not per_row["dk"][:, 3].float().any()
     assert not per_row["dgp"][:, 3].float().any()

@@ -51,23 +51,23 @@ def _key_len(L, with_empty):
                     np.int32)
 
 
-def _inputs(L, d, gate_mode, seed, with_empty=False):
+def _inputs(L, d, gate_mode, seed, with_empty=False, n=N_HOPS):
     r = np.random.RandomState(seed)
     f = lambda *s, scale=1.0: (r.randn(*s) * scale).astype(np.float32)  # noqa: E731
     key_len = _key_len(L, with_empty)
     b = len(key_len)
-    wo2 = (np.repeat(f(N_HOPS, 1, scale=0.5), L, axis=1)
-           if gate_mode == "scalar" else f(N_HOPS, L, scale=0.5))
+    wo2 = (np.repeat(f(n, 1, scale=0.5), L, axis=1)
+           if gate_mode == "scalar" else f(n, L, scale=0.5))
     qz = np.ones((b,), np.float32)
     qz[3] = 0.0                                     # a masked query
     return {
         "dec": f(b, 1, d), "klen": key_len, "qz": qz,
-        "k_all": np.maximum(f(N_HOPS, b, L, d), 0.0),
-        "v_all": np.maximum(f(N_HOPS, b, L, d), 0.0),
-        "tprec": f(N_HOPS, b, L, d, scale=0.5),
-        "gate_part": f(N_HOPS, b, L, scale=0.5), "wo2": wo2,
-        "wq": f(N_HOPS, d, d, scale=d ** -0.5), "bq": f(N_HOPS, d, scale=0.1),
-        "lng": 1.0 + f(N_HOPS, d, scale=0.1), "lnb": f(N_HOPS, d, scale=0.1)}
+        "k_all": np.maximum(f(n, b, L, d), 0.0),
+        "v_all": np.maximum(f(n, b, L, d), 0.0),
+        "tprec": f(n, b, L, d, scale=0.5),
+        "gate_part": f(n, b, L, scale=0.5), "wo2": wo2,
+        "wq": f(n, d, d, scale=d ** -0.5), "bq": f(n, d, scale=0.1),
+        "lng": 1.0 + f(n, d, scale=0.1), "lnb": f(n, d, scale=0.1)}
 
 
 def _as_jax(ins, dtype):
